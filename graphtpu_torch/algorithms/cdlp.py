@@ -1,0 +1,127 @@
+"""Community detection by label propagation (counterpart of
+graphtpu/algorithms/cdlp.py), with LAGraph_cdlp.c's semantics:
+synchronous updates; each vertex adopts the smallest among the most
+frequent labels of its neighbours (LAGraph_cdlp.c:40-45); on directed
+graphs in- and out-neighbours both count, so a bidirectional neighbour
+counts twice (:47-50, 276-284); vertices without neighbours keep their
+label; the loop stops early at a fixed point (:328-332). Labels are dense
+ids during compute and original ids at output.
+
+``cdlp_impl``: "slab" is the degree-bucketed path on kernel K2
+(ops/minmode.py); "auto" resolves to "slab" until the adaptive path is
+ported; "sort" is the torch-op oracle, the reference's global sort and
+run-length scan (LAGraph_cdlp.c:286-323).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from graphtpu_torch.algorithms.common import AlgorithmResult, register
+from graphtpu_torch.core.graph import Graph
+from graphtpu_torch.core.types import INT32_INF
+from graphtpu_torch.utils.config import AlgorithmParams, PlatformConfig
+from graphtpu_torch.utils.logging import get_logger
+
+log = get_logger("cdlp")
+
+_M31 = (1 << 31) - 1
+
+
+def build_incidence(graph: Graph):
+    """(centers, neighbours) sorted by center; directed graphs count both
+    directions (in + out multiset union). Memoized on the Graph."""
+    cached = graph.memo.get("incidence")
+    if cached is not None:
+        return cached
+    if graph.directed:
+        centers = np.concatenate([graph.dst, graph.src])
+        neigh = np.concatenate([graph.src, graph.dst])
+        perm = np.argsort(centers, kind="stable")
+        centers, neigh = centers[perm], neigh[perm]
+    else:
+        s, d, _ = graph.pull_arrays()
+        centers, neigh = d, s
+    out = (centers.astype(np.int32), neigh.astype(np.int32))
+    graph.memo["incidence"] = out
+    return out
+
+
+def _cdlp_sort_kernel(centers, neigh, deg, n, itermax):
+    """The oracle: per iteration, sort (center, label) pairs, take run
+    lengths, then per center the max count and the smallest label with
+    it. Torch ops only, independent of the slab path and its kernels."""
+    device = centers.device
+    labels = torch.arange(n, dtype=torch.int32, device=device)
+    has_neighbors = deg > 0
+    c64 = centers.to(torch.int64)
+    neigh64 = neigh.to(torch.int64)
+    m = centers.shape[0]
+    idx = torch.arange(m, device=device)
+    it, changed = 0, True
+    while changed and it < itermax:
+        key = torch.sort((c64 << 31) | labels[neigh64].to(torch.int64)).values
+        c_s, l_s = key >> 31, key & _M31
+        is_start = torch.ones(m, dtype=torch.bool, device=device)
+        is_start[1:] = key[1:] != key[:-1]
+        is_end = torch.ones_like(is_start)
+        is_end[:-1] = is_start[1:]
+        run_start = torch.cummax(torch.where(is_start, idx, -1), 0).values
+        run_end = torch.flip(
+            torch.cummin(torch.flip(torch.where(is_end, idx, m), [0]), 0).values, [0]
+        )
+        counts = run_end - run_start + 1
+        max_count = torch.zeros(n, dtype=torch.int64, device=device).scatter_reduce(
+            0, c_s, counts, "amax"
+        )
+        best = torch.full((n,), INT32_INF, dtype=torch.int64, device=device).scatter_reduce(
+            0, c_s, torch.where(counts == max_count[c_s], l_s, INT32_INF), "amin"
+        )
+        new = torch.where(has_neighbors, best.to(torch.int32), labels)
+        changed = bool((new != labels).any())
+        labels, it = new, it + 1
+    return labels, it
+
+
+def _resolve_impl(impl: str) -> str:
+    if impl == "auto":
+        log.info("cdlp-impl auto resolves to slab: the adaptive path "
+                 "(graphtpu/ops/active.py) is not ported yet (ROADMAP Queue 1)")
+        return "slab"
+    if impl in ("adaptive", "adaptive-host"):
+        raise NotImplementedError(
+            f"cdlp-impl {impl} (graphtpu/ops/active.py, ops/frontier.py) is not ported "
+            f"yet: ROADMAP Queue 1, adaptive CDLP"
+        )
+    if impl not in ("slab", "sort"):
+        raise ValueError(f"unknown cdlp-impl {impl!r}; expected auto|slab|sort")
+    return impl
+
+
+@register("cdlp")
+def cdlp(graph: Graph, params: AlgorithmParams, cfg: PlatformConfig) -> AlgorithmResult:
+    if params.max_iterations is None:
+        raise ValueError("cdlp requires max-iterations")
+    impl = _resolve_impl(cfg.cdlp_impl)
+    centers, neigh = build_incidence(graph)
+    deg = graph.memo.get("incidence_deg")
+    if deg is None:  # one host pass over every incidence entry: once per graph
+        deg = np.bincount(centers, minlength=graph.n).astype(np.int32)
+        graph.memo["incidence_deg"] = deg
+    if centers.shape[0] == 0:
+        # edgeless graph: every vertex keeps its own label
+        return AlgorithmResult("cdlp", graph.mapping.copy(), iterations=0)
+    itermax = int(params.max_iterations)
+    if impl == "slab":
+        from graphtpu_torch.ops.minmode import cdlp_slab_run
+
+        labels, it = cdlp_slab_run(graph, centers, neigh, deg, itermax, cfg)
+    else:
+        device = torch.device(cfg.device)
+        labels, it = _cdlp_sort_kernel(
+            *(torch.from_numpy(a).to(device) for a in (centers, neigh, deg)),
+            graph.n, itermax,
+        )
+    communities = graph.mapping[labels.cpu().numpy()]
+    return AlgorithmResult("cdlp", communities, iterations=int(it))

@@ -1,0 +1,154 @@
+"""Build, load and launch the hand-written CUDA kernels of graphtpu_torch.
+
+The sources under ``graphtpu_torch/csrc/`` are compiled at first use by
+``nvcc`` into one shared library with a plain C interface, loaded with
+ctypes, under ``build/graphtpu_torch/`` at the root of the checkout. The
+library's file name carries a hash of the sources and flags, so an edited
+source never loads a stale build. Parallel first use is safe: the build
+runs under an exclusive file lock and the library appears by an atomic
+rename, so no process can load a half-written file.
+
+Each kernel has a wrapper beside its plain PyTorch version:
+``ops/gather.py:gather_rows`` (K1), ``ops/minmode.py:slab_minmode`` (K2)
+and ``ops/spmv.py:slab_spmv_sum`` (K3). A wrapper dispatches on the device
+of its tensors: a CPU tensor takes the plain version, a CUDA tensor
+launches the kernel or raises. Inside ``plain_torch()`` CUDA tensors take
+the plain version too, so the whole path can run as its own reference on
+the card. A wrapper adds one to ``launch_counts[name]`` for each launch.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "graphtpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+KERNELS = ("gather_rows", "slab_minmode", "slab_spmv_sum")
+
+_P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_SIGNATURES = {
+    # table, idx, out, n, rows, row_bytes, stream
+    "gt_gather_rows": (_P, _P, _P, _I64, _I64, _I64, _P),
+    # slab, labels, out, w, R, bound, mode, stream
+    "gt_slab_minmode": (_P, _P, _P, _I32, _I64, _I64, _I32, _P),
+    # slab, x, y, w, R, n, is_f64, stream
+    "gt_slab_spmv_sum": (_P, _P, _P, _I32, _I64, _I64, _I32, _P),
+}
+
+launch_counts = dict.fromkeys(KERNELS, 0)
+build_seconds = None  # seconds the last nvcc build took; None = not built here
+_lib = None
+_plain = False
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+@contextlib.contextmanager
+def plain_torch():
+    """Run every wrapper's plain PyTorch version, on any device."""
+    global _plain
+    prev, _plain = _plain, True
+    try:
+        yield
+    finally:
+        _plain = prev
+
+
+def use_kernel(t) -> bool:
+    """True when a wrapper must launch its kernel for tensor ``t``."""
+    return t.is_cuda and not _plain
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): cannot build the CUDA kernels")
+
+
+def _sources():
+    return sorted(CSRC_DIR.glob("*.cu")), sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    cu, cuh = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in cu + cuh:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libgraphtpu_torch_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless a build of these exact sources exists."""
+    global build_seconds
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():  # another process built it while we waited
+            return out
+        cu, _ = _sources()
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+            )
+        os.replace(tmp, out)
+        build_seconds = time.perf_counter() - t0
+    return out
+
+
+def library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.gt_error_string.argtypes = (ctypes.c_int,)
+        lib.gt_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def launch(name: str, device, *args) -> None:
+    """Launch kernel ``name`` on ``device``'s current stream; raise if the
+    launch was refused, count it otherwise. ``args`` are the C arguments
+    before the stream (pointers and sizes as Python ints)."""
+    import torch
+
+    lib = library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, "gt_" + name)(*args, stream)
+    if rc != 0:
+        msg = lib.gt_error_string(rc).decode()
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: error {rc} ({msg})")
+    launch_counts[name] += 1

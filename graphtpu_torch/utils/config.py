@@ -1,0 +1,158 @@
+"""Typed configuration and Java-properties parsing (counterpart of
+graphtpu/utils/config.py).
+
+The dataset descriptors (``graph.<name>.*``) parse exactly as in the JAX
+package. ``PlatformConfig`` carries the platform keys the port implements,
+under the same ``platform.graphtpu.*`` names, plus ``device``: the torch
+device every tensor of a run lives on.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import re
+from pathlib import Path
+from typing import Dict, List, Optional
+
+
+def parse_properties(path: str | os.PathLike) -> Dict[str, str]:
+    """Parse a Java .properties file (key = value, # comments)."""
+    props: Dict[str, str] = {}
+    for raw in Path(path).read_text().splitlines():
+        line = raw.strip()
+        if not line or line.startswith("#") or line.startswith("!"):
+            continue
+        m = re.match(r"([^=:]+)[=:](.*)", line)
+        if not m:
+            continue
+        props[m.group(1).strip()] = m.group(2).strip()
+    return props
+
+
+@dataclasses.dataclass
+class AlgorithmParams:
+    """Per-algorithm parameters, keys matching the dataset descriptors
+    (e.g. graph.<name>.bfs.source-vertex)."""
+
+    source_vertex: Optional[int] = None        # bfs., sssp.
+    max_iterations: Optional[int] = None       # cdlp.
+    damping_factor: Optional[float] = None     # pr.
+    num_iterations: Optional[int] = None       # pr.
+    weight_property: Optional[str] = None      # sssp. (must name "weight")
+
+
+@dataclasses.dataclass
+class GraphSpec:
+    """One dataset descriptor (graph.<name>.* keys)."""
+
+    name: str
+    vertex_path: str
+    edge_path: str
+    directed: bool
+    weighted: bool
+    num_vertices: Optional[int] = None
+    num_edges: Optional[int] = None
+    algorithms: List[str] = dataclasses.field(default_factory=list)
+    params: Dict[str, AlgorithmParams] = dataclasses.field(default_factory=dict)
+
+    @classmethod
+    def from_properties(cls, path: str | os.PathLike) -> "GraphSpec":
+        path = Path(path)
+        props = parse_properties(path)
+        names = {k.split(".")[1] for k in props if k.startswith("graph.")}
+        if len(names) != 1:
+            raise ValueError(f"{path}: expected exactly one graph, found {names}")
+        name = names.pop()
+        p = f"graph.{name}."
+
+        def get(key, default=None):
+            return props.get(p + key, default)
+
+        edge_prop_names = [
+            s.strip() for s in get("edge-properties.names", "").split(",") if s.strip()
+        ]
+        weighted = "weight" in edge_prop_names
+        algos = [a.strip().lower() for a in get("algorithms", "").split(",") if a.strip()]
+
+        params: Dict[str, AlgorithmParams] = {}
+        for algo in algos:
+            ap = AlgorithmParams()
+            if get(f"{algo}.source-vertex") is not None:
+                ap.source_vertex = int(get(f"{algo}.source-vertex"))
+            if get(f"{algo}.max-iterations") is not None:
+                ap.max_iterations = int(get(f"{algo}.max-iterations"))
+            if get(f"{algo}.damping-factor") is not None:
+                ap.damping_factor = float(get(f"{algo}.damping-factor"))
+            if get(f"{algo}.num-iterations") is not None:
+                ap.num_iterations = int(get(f"{algo}.num-iterations"))
+            if get(f"{algo}.weight-property") is not None:
+                ap.weight_property = get(f"{algo}.weight-property")
+            params[algo] = ap
+
+        base = path.parent
+        vertex_file = get("vertex-file", f"{name}.v")
+        edge_file = get("edge-file", f"{name}.e")
+        if edge_file == vertex_file:
+            # tolerate descriptor typos (the reference's
+            # test-sssp-undirected.properties points edge-file at the .v file)
+            edge_file = f"{name}.e"
+        return cls(
+            name=name,
+            vertex_path=str(base / vertex_file),
+            edge_path=str(base / edge_file),
+            directed=get("directed", "false").lower() == "true",
+            weighted=weighted,
+            num_vertices=int(get("meta.vertices")) if get("meta.vertices") else None,
+            num_edges=int(get("meta.edges")) if get("meta.edges") else None,
+            algorithms=algos,
+            params=params,
+        )
+
+
+@dataclasses.dataclass
+class PlatformConfig:
+    """Platform tier: the keys of platform.properties the port implements."""
+
+    intermediate_dir: str = "./intermediate"
+    # torch device of every tensor of a run ("cuda", "cuda:0", or "cpu")
+    device: str = "cuda"
+    # compute precision for float-valued algorithms ("float32"|"float64")
+    precision: str = "float32"
+    # PageRank pull sum: "auto"/"slab" = padded-ELL row sums on kernel K3;
+    # "scan" (the segment-reduce arm) is not ported yet
+    pr_impl: str = "auto"
+    # auto|slab|sort: auto resolves to slab until the adaptive path
+    # (graphtpu/ops/active.py) is ported; sort is the oracle;
+    # adaptive|adaptive-host raise NotImplementedError
+    cdlp_impl: str = "auto"
+    # slab degree-bucket upper bounds; None = per-graph DP-optimal bounds
+    slab_buckets: Optional[tuple] = None
+    # print "[CUDA][TIMER] cdlp iteration k took Xms" per CDLP iteration
+    iteration_timing: bool = False
+
+    @classmethod
+    def from_properties(cls, path: str | os.PathLike) -> "PlatformConfig":
+        props = parse_properties(path)
+        cfg = cls()
+        for key, (attr, cast) in _PLATFORM_PROPS.items():
+            if key in props:
+                setattr(cfg, attr, cast(props[key]))
+        return cfg
+
+
+_PLATFORM_PROPS = {
+    "platform.graphtpu.intermediate-dir": ("intermediate_dir", str),
+    "platform.graphtpu.device": ("device", str),
+    "platform.graphtpu.precision": ("precision", str),
+    "platform.graphtpu.pr-impl": ("pr_impl", str),
+    "platform.graphtpu.cdlp-impl": ("cdlp_impl", str),
+    "platform.graphtpu.slab-buckets": (
+        "slab_buckets",
+        lambda v: tuple(int(x) for x in str(v).split(",") if x.strip()),
+    ),
+    "platform.graphtpu.iteration-timing": (
+        "iteration_timing",
+        lambda v: str(v).strip().lower() in ("1", "true", "yes"),
+    ),
+}

@@ -1,0 +1,245 @@
+"""graphtpu_torch's kernel modules against the JAX package's functions, on
+the CPU (where each wrapper runs its kernel's plain PyTorch version).
+
+Inputs come from numpy with a seed and go to both packages. Integer
+results must be bit-identical; float sums are held to rtol 1e-5 in
+float32, because the two packages add in different orders.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from graphtpu.core import semiring as jsr
+from graphtpu.ops import gather as jgather
+from graphtpu.ops import minmode as jmm
+from graphtpu.ops import scan_reduce as jscan
+from graphtpu.ops import spmv as jspmv
+from graphtpu.ops.slab import build_slab_plan as j_build_slab_plan
+from graphtpu.utils.synth import rmat_graph as j_rmat_graph
+
+from graphtpu_torch.core import semiring as tsr
+from graphtpu_torch.core.graph import Graph
+from graphtpu_torch.core.types import INT32_INF
+from graphtpu_torch.ops import gather as tgather
+from graphtpu_torch.ops import kernels
+from graphtpu_torch.ops import minmode as tmm
+from graphtpu_torch.ops import scan_reduce as tscan
+from graphtpu_torch.ops import spmv as tspmv
+from graphtpu_torch.ops.pallas_gather import dma_row_gather
+from graphtpu_torch.ops.slab import SlabPlan
+
+CPU = torch.device("cpu")
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _port_plan(jplan) -> SlabPlan:
+    """The port's plan from np.asarray of a JAX plan's arrays."""
+    opt = lambda a: None if a is None else np.asarray(a)  # noqa: E731
+    return SlabPlan.from_numpy(
+        [(np.asarray(b.rows), np.asarray(b.slab), opt(b.values)) for b in jplan.slabs],
+        *(opt(getattr(jplan, f)) for f in (
+            "heavy_rows", "heavy_centers", "heavy_neigh", "heavy_values",
+            "heavy_indptr", "rest_rows")),
+        np.asarray(jplan.inv_perm), device=CPU,
+    )
+
+
+def _padded_slab(rng, w, r, n):
+    slab = rng.integers(0, n, size=(w, r)).astype(np.int32)
+    deg = rng.integers(0, w + 1, size=r)
+    slab[np.arange(w)[:, None] >= deg[None, :]] = -1
+    return slab
+
+
+# ---------------------------------------------------------------- K1
+
+
+@pytest.mark.parametrize("idx_shape", [(777,), (33, 21)])
+@pytest.mark.parametrize("dtype", [np.int32, np.float32, np.float64, np.int64])
+def test_table_gather_matches_jax(dtype, idx_shape):
+    rng = np.random.default_rng(1)
+    x = (rng.random(1000) * 1e6).astype(dtype)
+    if np.dtype(dtype).kind == "i":
+        x = rng.integers(-(1 << 40), 1 << 40, size=1000).astype(dtype)
+    idx = rng.integers(0, 1000, size=idx_shape).astype(np.int32)
+    want = np.asarray(jgather.table_gather(jnp.asarray(x), jnp.asarray(idx)))
+    got = tgather.table_gather(_t(x), _t(idx))
+    assert got.dtype == torch.from_numpy(x).dtype
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_dma_row_gather_matches_jax_interpret():
+    from jax.experimental.pallas import tpu as pltpu
+    from graphtpu.ops.pallas_gather import dma_row_gather as j_dma_row_gather
+
+    rng = np.random.default_rng(2)
+    table = rng.integers(0, 1 << 30, size=(64, 128)).astype(np.int32)
+    idx = rng.integers(0, 64, size=512).astype(np.int32)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(j_dma_row_gather(jnp.asarray(table), jnp.asarray(idx)))
+    np.testing.assert_array_equal(dma_row_gather(_t(table), _t(idx)).numpy(), want)
+
+
+def test_gather_rows_checks_its_arguments():
+    x = torch.arange(10, dtype=torch.int32)
+    with pytest.raises(TypeError, match="int32"):
+        tgather.gather_rows(x, torch.arange(3, dtype=torch.int64))
+    with pytest.raises(TypeError, match="4- or 8-byte"):
+        tgather.gather_rows(x.to(torch.int16), torch.arange(3, dtype=torch.int32))
+    with pytest.raises(ValueError, match="contiguous"):
+        tgather.gather_rows(torch.zeros(10, 4)[:, 1:], torch.arange(3, dtype=torch.int32))
+    with pytest.raises(TypeError, match="128"):
+        dma_row_gather(torch.zeros(10, 64), torch.arange(3, dtype=torch.int32))
+
+
+def test_plain_torch_scope_restores_kernel_dispatch():
+    t = torch.zeros(1)
+    assert not kernels.use_kernel(t)  # a CPU tensor never launches
+    with kernels.plain_torch():
+        assert kernels._plain
+    assert not kernels._plain
+
+
+def test_kernel_library_name_tracks_sources():
+    """An edited source or flag gives another library file, so a stale
+    build is never loaded."""
+    p = kernels.library_path()
+    assert p.parent == kernels.BUILD_DIR
+    assert p.name.startswith("libgraphtpu_torch_") and p.suffix == ".so"
+    assert p == kernels.library_path()
+
+
+# ---------------------------------------------------------------- K2
+
+
+@pytest.mark.parametrize("w", [1, 7, 32, 33, 257])
+def test_minmode_kernels_match_jax(w):
+    rng = np.random.default_rng(w)
+    n = 300
+    slab = _padded_slab(rng, w, 500, n)
+    labels = rng.integers(0, 25, size=n).astype(np.int32)
+    jl, js = jnp.asarray(labels), jnp.asarray(slab)
+
+    np.testing.assert_array_equal(
+        tmm._slab_minmode(_t(labels), _t(slab)).numpy(),
+        np.asarray(jmm._slab_minmode(jl, js)),
+    )
+    lab = np.where(slab >= 0, labels[np.maximum(slab, 0)], INT32_INF).astype(np.int32)
+    np.testing.assert_array_equal(
+        tmm._rowwise_minmode(_t(lab)).numpy(),
+        np.asarray(jmm._rowwise_minmode(jnp.asarray(lab))),
+    )
+
+
+@pytest.mark.parametrize("directed", [True, False])
+def test_iter0_kernels_match_jax(directed):
+    """_iter0_mode / _iter0_minmode on one plan with buckets of widths 1,
+    7, 32, 48 and 257 and a heavy tail beyond them."""
+    from graphtpu.algorithms.cdlp import build_incidence
+
+    g = j_rmat_graph(10, 16, directed=directed, seed=11)
+    centers, neigh = build_incidence(g)
+    deg = np.bincount(centers, minlength=g.n).astype(np.int64)
+    jplan = j_build_slab_plan(centers, neigh, deg, g.n, (1, 7, 32, 48, 257))
+    plan = _port_plan(jplan)
+    assert [b.slab.shape[0] for b in plan.slabs] == [1, 7, 32, 48, 257]
+    assert plan.heavy_rows is not None
+    labels0 = np.arange(g.n, dtype=np.int32)
+    for jfn, tfn in ((jmm._iter0_mode, tmm._iter0_mode),
+                     (jmm._iter0_minmode, tmm._iter0_minmode)):
+        np.testing.assert_array_equal(
+            tfn(plan, _t(labels0)).numpy(), np.asarray(jfn(jplan, jnp.asarray(labels0)))
+        )
+
+
+def test_slab_minmode_tie_break():
+    """Smallest label among the most frequent (LAGraph_cdlp.c:40-45)."""
+    labels = torch.arange(10, dtype=torch.int32)
+    slab = torch.tensor(
+        [[3, 3, 5, 5, 1, -1], [7, -1, -1, -1, -1, -1], [-1, -1, -1, -1, -1, -1]],
+        dtype=torch.int32,
+    ).T.contiguous()
+    out = tmm._slab_minmode(labels, slab)
+    assert out.tolist() == [3, 7, INT32_INF]
+
+
+def test_slab_minmode_checks_width_and_mode():
+    with pytest.raises(ValueError, match="width"):
+        tmm.slab_minmode(torch.full((4097, 2), -1, dtype=torch.int32), "min", 10)
+    with pytest.raises(ValueError, match="mode"):
+        tmm.slab_minmode(torch.full((4, 2), -1, dtype=torch.int32), "max", 10)
+
+
+@pytest.mark.parametrize("identity", [False, True])
+def test_stream_minmode_matches_jax(identity):
+    rng = np.random.default_rng(5)
+    h, n = 40, 200
+    seg_len = rng.integers(1, 60, size=h)
+    indptr = np.concatenate([[0], np.cumsum(seg_len)]).astype(np.int32)
+    centers = np.repeat(np.arange(h, dtype=np.int32), seg_len)
+    neigh = rng.integers(0, n // 4, size=centers.shape[0]).astype(np.int32)
+    labels = rng.integers(0, 15, size=n).astype(np.int32)
+    want = jmm.stream_minmode(
+        None if identity else jnp.asarray(labels), jnp.asarray(centers),
+        jnp.asarray(neigh), jnp.asarray(indptr), n, identity=identity,
+    )
+    got = tmm.stream_minmode(
+        None if identity else _t(labels), _t(centers), _t(neigh), _t(indptr),
+        identity=identity,
+    )
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# ---------------------------------------------------------------- scans
+
+
+def test_seg_scans_match_jax():
+    rng = np.random.default_rng(6)
+    seg_len = rng.integers(0, 9, size=50)  # includes empty segments
+    indptr = np.concatenate([[0], np.cumsum(seg_len)]).astype(np.int32)
+    seg = np.repeat(np.arange(50, dtype=np.int32), seg_len)
+    vf = (rng.random(seg.shape[0]) - 0.5).astype(np.float32)
+    vi = rng.integers(-1000, 1000, size=seg.shape[0]).astype(np.int32)
+    j = lambda a: jnp.asarray(a)  # noqa: E731
+    np.testing.assert_allclose(
+        tscan.seg_sum_scan(_t(vf), _t(indptr)).numpy(),
+        np.asarray(jscan.seg_sum_scan(j(vf), j(indptr))), rtol=1e-5, atol=1e-7,
+    )
+    for tf, jf, ident in ((tscan.seg_min_scan, jscan.seg_min_scan, INT32_INF),
+                          (tscan.seg_max_scan, jscan.seg_max_scan, -INT32_INF)):
+        np.testing.assert_array_equal(
+            tf(_t(vi), _t(seg), _t(indptr), ident).numpy(),
+            np.asarray(jf(j(vi), j(seg), j(indptr), jnp.int32(ident))),
+        )
+        np.testing.assert_array_equal(
+            tf(_t(vf), _t(seg), _t(indptr), 0.0).numpy(),
+            np.asarray(jf(j(vf), j(seg), j(indptr), jnp.float32(0.0))),
+        )
+
+
+# ---------------------------------------------------------------- K3
+
+
+@pytest.mark.parametrize("buckets", [None, (2, 4)])
+@pytest.mark.parametrize("sr", ["plus.second", "min.second"])
+def test_slab_spmv_matches_jax(sr, buckets):
+    """slab_spmv on a build_pull_plan plan; buckets=(2, 4) forces a heavy
+    tail. plus sums differ in order: rtol 1e-5 at float32."""
+    jg = j_rmat_graph(10, 8, directed=True, seed=3)
+    tg = Graph.from_arrays(jg.n, jg.src, jg.dst, None, jg.mapping, True, False)
+    jplan = jspmv.build_pull_plan(jg, buckets=buckets, with_values=False)
+    plan = tspmv.build_pull_plan(tg, device=CPU, buckets=buckets, with_values=False)
+    if buckets is not None:
+        assert plan.heavy_rows is not None
+    x = np.random.default_rng(4).random(jg.n).astype(np.float32)
+    want = np.asarray(jspmv.slab_spmv(jsr.BY_NAME[sr], jplan, jnp.asarray(x), jg.n))
+    got = tspmv.slab_spmv(tsr.BY_NAME[sr], plan, _t(x), jg.n).numpy()
+    if sr == "plus.second":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
+    else:
+        np.testing.assert_array_equal(got, want)
