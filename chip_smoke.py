@@ -6,17 +6,26 @@ Run from the root of a checkout:  python3 chip_smoke.py
 1. Device and build: needs a CUDA card (exits non-zero without one),
    prints the card's name and power limit, builds the hand-written kernels
    from the checkout's sources.
-2. Goldens: PageRank and CDLP on example-directed and example-undirected
-   through the platform lifecycle on cuda:0, validated against the
-   golden outputs.
+2. Goldens: PageRank, CDLP under the default cdlp-impl (auto, the
+   adaptive path) and CDLP under slab, on example-directed and
+   example-undirected, through the platform lifecycle on cuda:0, validated
+   against the golden outputs.
 3. Real size: the benchmark graph (RMAT scale 20, edge factor 32,
-   undirected, seed 42; cached under intermediate/). CDLP (itermax 10) and
-   PageRank (20 iterations, d = 0.85) through run_algorithm, on the
-   kernels and then as plain PyTorch on the card: CDLP labels and
-   iteration counts must be identical, PageRank within 1e-4 relative.
-4. Launch counts: every kernel must have launched during phases 2 and 3.
+   undirected, seed 42; cached under intermediate/). Three paths through
+   run_algorithm: CDLP under auto (the adaptive path: full slab steps, then
+   frontier-tier active steps), CDLP under slab (itermax 10 both) and
+   PageRank (20 iterations, d = 0.85), each on the kernels and then as
+   plain PyTorch on the card. Adaptive labels must equal the slab labels
+   and the plain run's, with equal iteration counts; PageRank within 1e-4
+   relative. Each kernel-path run is profiled (top device ops, idle share).
+4. Launch counts: each path runs with the counts set to 0 just before it
+   and read just after; every kernel of a path must have launched in it
+   (frontier_expand on the auto CDLP path). vreg_shuffle has no path in
+   the system: its own phase drives it, and its count is that phase's.
 5. Each kernel against its plain PyTorch version at the path's shapes,
-   with both device times (profiler) and stream spans (CUDA events).
+   with both device times (profiler) and stream spans (CUDA events); K4 on
+   random [8, 128] int32 and float32 inputs, K5 at the bench graph's full-
+   step and tier-step frontiers and on small hand-made cases.
 
 Exits non-zero if any phase fails. The last lines of stdout are the
 card's name and power limit, one JSON line of per-kernel results, and
@@ -72,18 +81,26 @@ def cuda_ms(fn, reps=10):
     return device_us / 1e3 / reps, stream_ms
 
 
+def _on_device(e) -> bool:
+    return getattr(e.device_type, "name", str(e.device_type)).endswith("CUDA")
+
+
 def _device_events(prof):
     """The profiler's device-side rows (kernels, copies, memsets); the
-    rows of torch ops repeat their kernels' time and are left out."""
+    rows of torch ops repeat their kernels' time and are left out, and so
+    are the device spans of the named ranges (``cdlp.*``), which cover
+    their kernels and the gaps between them."""
     return [
         e for e in prof.key_averages()
-        if getattr(e.device_type, "name", str(e.device_type)).endswith("CUDA")
-        and e.self_device_time_total > 0
+        if _on_device(e) and e.self_device_time_total > 0 and not e.key.startswith("cdlp.")
     ]
 
 
 def profile_run(fn):
-    """(wall seconds, device ms, top kernels) of one profiled call of fn()."""
+    """(wall seconds, device ms, top kernels, named ranges) of one profiled
+    call of fn(). A named range (``cdlp.*`` in ops/active.py) gives its
+    count, its host wall ms (the waits for the device included) and its
+    device span ms (first to last kernel, gaps included)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -96,7 +113,16 @@ def profile_run(fn):
     events = sorted(_device_events(prof), key=lambda e: -e.self_device_time_total)
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
     top = [(e.key[:48], e.self_device_time_total / 1e3) for e in events[:6]]
-    return wall, device_ms, top
+    ranges = {}
+    for e in prof.key_averages():
+        if e.key.startswith("cdlp."):
+            count, host, span = ranges.get(e.key, (0, 0.0, 0.0))
+            if _on_device(e):
+                span += e.device_time_total / 1e3
+            else:
+                count, host = e.count, host + e.cpu_time_total / 1e3
+            ranges[e.key] = (count, host, span)
+    return wall, device_ms, top, ranges
 
 
 def max_abs_err(a, b):
@@ -110,10 +136,10 @@ def phase_goldens(device):
 
     for name in ("example-directed", "example-undirected"):
         spec = GraphSpec.from_properties(FIXTURES / f"{name}.properties")
-        for algo in ("pr", "cdlp"):
-            plat = GraphTorchPlatform(
-                PlatformConfig(device=str(device), intermediate_dir=str(INTERMEDIATE))
-            )
+        for algo, impl in (("pr", "auto"), ("cdlp", "auto"), ("cdlp", "slab")):
+            plat = GraphTorchPlatform(PlatformConfig(
+                device=str(device), intermediate_dir=str(INTERMEDIATE), cdlp_impl=impl,
+            ))
             plat.verify_setup()
             plat.load_graph(spec)
             plat.startup()
@@ -123,9 +149,9 @@ def phase_goldens(device):
             ok, msg = validate_result(
                 res, plat.graphs[spec.name], str(FIXTURES / f"{name}-{algo.upper()}")
             )
-            print(f"golden {name} {algo}: {'PASS' if ok else 'FAIL'} ({msg}), "
+            print(f"golden {name} {algo} ({impl}): {'PASS' if ok else 'FAIL'} ({msg}), "
                   f"processing {metrics.processing_time_seconds}s", flush=True)
-            check(ok, f"golden {name} {algo} failed: {msg}")
+            check(ok, f"golden {name} {algo} ({impl}) failed: {msg}")
 
 
 def load_bench_graph():
@@ -139,20 +165,34 @@ def load_bench_graph():
     return g, "generated"
 
 
-def timed_run(algo, g, params, cfg):
+def timed_run(algo, g, params, cfg, reps=3):
+    """(result, seconds of each of ``reps`` warm runs) after one warm-up
+    run that puts the plan on the device."""
     import torch
 
     from graphtpu_torch.algorithms.common import run_algorithm
 
-    run_algorithm(algo, g, params, cfg)  # warm-up: plan on the device, allocator
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = run_algorithm(algo, g, params, cfg)  # values come back to the host
-    return res, time.perf_counter() - t0
+    run_algorithm(algo, g, params, cfg)
+    secs = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_algorithm(algo, g, params, cfg)  # values come back to the host
+        secs.append(time.perf_counter() - t0)
+    return res, secs
+
+
+# the main paths at real size: name -> (algorithm, cdlp-impl, kernels it must launch)
+PATHS = {
+    "cdlp-auto": ("cdlp", "auto", ("gather_rows", "slab_minmode", "frontier_expand")),
+    "cdlp-slab": ("cdlp", "slab", ("gather_rows", "slab_minmode")),
+    "pr": ("pr", "auto", ("gather_rows", "slab_spmv_sum")),
+}
 
 
 def phase_real_size(device):
-    """Returns the graph, its plans and the kernel-path results."""
+    """Returns the graph, its plans, the adaptive prep and the main paths'
+    launch counts."""
     import numpy as np
     import torch
 
@@ -160,7 +200,7 @@ def phase_real_size(device):
     from graphtpu_torch.algorithms.common import run_algorithm
     from graphtpu_torch.algorithms.pr import _pull_plan_cached
     from graphtpu_torch.ops import kernels
-    from graphtpu_torch.ops.minmode import memoized_cdlp_plan
+    from graphtpu_torch.ops.active import cdlp_adaptive_device_run, prepare_cdlp_adaptive
     from graphtpu_torch.utils.config import AlgorithmParams, PlatformConfig
 
     t0 = time.perf_counter()
@@ -169,61 +209,109 @@ def phase_real_size(device):
     t0 = time.perf_counter()
     centers, neigh = build_incidence(g)
     deg = np.bincount(centers, minlength=g.n).astype(np.int32)
-    cdlp_plan = memoized_cdlp_plan(g, centers, neigh, deg, None, device)
+    prep = prepare_cdlp_adaptive(g, centers, neigh, deg, PlatformConfig(device=str(device)))
+    cdlp_plan = prep.plan
     pr_plan = _pull_plan_cached(g, torch.float32, device)
     torch.cuda.synchronize()
     plan_s = time.perf_counter() - t0
     heavy = 0 if cdlp_plan.heavy_rows is None else int(cdlp_plan.heavy_rows.shape[0])
     widths = [int(b.slab.shape[0]) for b in cdlp_plan.slabs]
     print(f"graph {BENCH_GRAPH}: n={g.n} stored edges={g.nnz} ({source} in {gen_s:.3f}s)")
-    print(f"host prep: graph {gen_s:.3f}s, incidence + CDLP and PR plans built and "
-          f"copied to {device} in {plan_s:.3f}s; CDLP buckets {widths}, "
+    print(f"host prep: graph {gen_s:.3f}s, incidence + CDLP (slab and adaptive) and PR plans "
+          f"built and copied to {device} in {plan_s:.3f}s; CDLP buckets {widths}, "
           f"heavy rows {heavy} ({int(cdlp_plan.heavy_neigh.shape[0]) if heavy else 0} edges)",
           flush=True)
 
-    cfg = PlatformConfig(device=str(device), cdlp_impl="slab")
-    cdlp_params = AlgorithmParams(max_iterations=CDLP_ITERS)
-    pr_params = AlgorithmParams(damping_factor=DAMPING, num_iterations=PR_ITERS)
+    params = {"cdlp": AlgorithmParams(max_iterations=CDLP_ITERS),
+              "pr": AlgorithmParams(damping_factor=DAMPING, num_iterations=PR_ITERS)}
+    cfgs = {name: PlatformConfig(device=str(device), cdlp_impl=impl)
+            for name, (_, impl, _) in PATHS.items()}
     inc_nnz = int(centers.shape[0])
 
-    out = {}
+    out, launches = {}, {}
+    for label, scope in (("kernel", None), ("plain", kernels.plain_torch)):
+        for name, (algo, _, _) in PATHS.items():
+            kernels.reset_launch_counts()
+            with scope() if scope else contextlib.nullcontext():
+                res, secs = timed_run(algo, g, params[algo], cfgs[name])
+            if label == "kernel":
+                launches[name] = dict(kernels.launch_counts)
+            out[label, name] = res
+            med = sorted(secs)[len(secs) // 2]
+            work = inc_nnz * max(res.iterations, 1) if algo == "cdlp" else g.nnz * PR_ITERS
+            print(f"{label} {name}: {res.iterations} iterations, runs "
+                  + ", ".join(f"{t:.6f}" for t in secs)
+                  + f" s; median {med:.6f} s = {work / med:.6e} "
+                  + ("edges/s" if algo == "cdlp" else "nnz/s"), flush=True)
+        if label == "kernel":
+            # what follows compares and profiles: it does not count
+            for name, (algo, _, _) in PATHS.items():
+                wall, dev_ms, top, ranges = profile_run(
+                    lambda: run_algorithm(algo, g, params[algo], cfgs[name]))
+                print(f"profile {name} (kernel path): wall {wall:.6f}s, device busy "
+                      f"{dev_ms:.3f} ms, idle share {1 - dev_ms / 1e3 / wall:.3f}; top: "
+                      + "; ".join(f"{k} {ms:.3f} ms" for k, ms in top)
+                      + "".join(f"; range {k} x{c}: host {h:.3f} ms, device span {d:.3f} ms"
+                                for k, (c, h, d) in ranges.items()),
+                      flush=True)
     for label, scope in (("kernel", None), ("plain", kernels.plain_torch)):
         with scope() if scope else contextlib.nullcontext():
-            cd, cd_s = timed_run("cdlp", g, cdlp_params, cfg)
-            pr, pr_s = timed_run("pr", g, pr_params, cfg)
-        out[label] = (cd, pr)
-        print(f"{label}: cdlp {cd_s:.6f}s for {cd.iterations} iterations "
-              f"({inc_nnz * max(cd.iterations, 1) / cd_s:.6e} edges/s); "
-              f"pr {pr_s:.6f}s for {PR_ITERS} iterations "
-              f"({g.nnz * PR_ITERS / pr_s:.6e} nnz/s)", flush=True)
-        if label == "kernel":
-            # the main path ends here: what follows compares, it does not count
-            launches = dict(kernels.launch_counts)
-            for algo, params in (("cdlp", cdlp_params), ("pr", pr_params)):
-                wall, dev_ms, top = profile_run(lambda: run_algorithm(algo, g, params, cfg))
-                print(f"profile {algo} (kernel path): wall {wall:.6f}s, device busy "
-                      f"{dev_ms:.3f} ms, idle share {1 - dev_ms / 1e3 / wall:.3f}; top: "
-                      + "; ".join(f"{k} {ms:.3f} ms" for k, ms in top), flush=True)
+            _, it, stats = cdlp_adaptive_device_run(
+                g, centers, neigh, deg, CDLP_ITERS, cfgs["cdlp-auto"], prep=prep,
+                with_stats=True)
+        print(f"adaptive steps ({label}): {it} iterations, full_steps {stats['full_steps']}, "
+              f"active_steps {stats['active_steps']} (tier {stats['k_cap']} rows, "
+              f"{stats['e_cap']} edges)", flush=True)
 
-    (kcd, kpr), (pcd, ppr) = out["kernel"], out["plain"]
-    check(kcd.values.shape == (g.n,), "cdlp output shape")
-    check(bool(((kcd.values >= 0) & (kcd.values < g.n)).all()), "cdlp labels out of range")
-    check(np.array_equal(kcd.values, pcd.values), "cdlp labels differ, kernel vs plain")
-    check(kcd.iterations == pcd.iterations, "cdlp iteration counts differ")
+    auto, slab, pcd = out["kernel", "cdlp-auto"], out["kernel", "cdlp-slab"], out["plain", "cdlp-auto"]
+    kpr, ppr = out["kernel", "pr"], out["plain", "pr"]
+    check(auto.values.shape == (g.n,), "cdlp output shape")
+    check(bool(((auto.values >= 0) & (auto.values < g.n)).all()), "cdlp labels out of range")
+    check(np.array_equal(auto.values, slab.values), "cdlp labels differ, adaptive vs slab")
+    check(np.array_equal(auto.values, pcd.values), "cdlp labels differ, kernel vs plain")
+    check(np.array_equal(slab.values, out["plain", "cdlp-slab"].values),
+          "cdlp slab labels differ, kernel vs plain")
+    check(len({auto.iterations, slab.iterations, pcd.iterations,
+               out["plain", "cdlp-slab"].iterations}) == 1, "cdlp iteration counts differ")
     check(kpr.values.shape == (g.n,) and bool(np.isfinite(kpr.values).all()), "pr output")
     mass = float(kpr.values.astype(np.float64).sum())
     check(abs(mass - 1.0) < 1e-3, f"pr rank mass {mass} is not 1")
     rel = float(np.max(np.abs(kpr.values.astype(np.float64) - ppr.values) / np.abs(ppr.values)))
     check(rel <= PR_RTOL, f"pr kernel vs plain max relative error {rel} > {PR_RTOL}")
-    print(f"real size: cdlp labels identical ({kcd.iterations} iterations, "
-          f"{len(np.unique(kcd.values))} communities); pr max relative error {rel:.3e}, "
-          f"rank mass {mass:.9f}", flush=True)
-    return g, cdlp_plan, pr_plan, launches
+    print(f"real size: cdlp labels identical, adaptive vs slab vs plain ({auto.iterations} "
+          f"iterations, {len(np.unique(auto.values))} communities); pr max relative error "
+          f"{rel:.3e}, rank mass {mass:.9f}", flush=True)
+    return g, prep, pr_plan, launches
 
 
-def phase_kernels(g, cdlp_plan, pr_plan, device):
+def phase_vreg_shuffle(device):
+    """K4's own drive: it has no path in the system. Returns its launches."""
+    import torch
+
+    from graphtpu_torch.ops import kernels
+    from graphtpu_torch.ops.pallas_gather import vreg_shuffle
+
+    gen = torch.Generator(device=device).manual_seed(1)
+    tbl8 = torch.randn(8, 128, generator=gen, device=device)
+    ind = torch.randint(0, 8, (8, 128), generator=gen, device=device, dtype=torch.int32)
+    kernels.reset_launch_counts()
+    out = vreg_shuffle(tbl8, ind)
+    count = kernels.launch_counts["vreg_shuffle"]
+    check(count == 1, f"vreg_shuffle launched {count} times, expected 1")
+    check(torch.equal(out, tbl8.gather(0, ind.long())), "vreg_shuffle result")
+    return count
+
+
+def phase_kernels(g, prep, pr_plan, device):
     """Each kernel against its plain version at the path's shapes."""
     import torch
+
+    from graphtpu_torch.ops.frontier import (
+        compact, compact_stream, expand, frontier_deg_sum, frontier_expand,
+        frontier_expand_plain, mask_status,
+    )
+    from graphtpu_torch.ops.pallas_gather import vreg_shuffle, vreg_shuffle_plain
+    from graphtpu_torch.utils.config import PlatformConfig
 
     from graphtpu_torch.ops.gather import gather_rows, gather_rows_plain
     from graphtpu_torch.ops.minmode import (
@@ -233,6 +321,7 @@ def phase_kernels(g, cdlp_plan, pr_plan, device):
 
     gen = torch.Generator(device=device).manual_seed(0)
     n = g.n
+    cdlp_plan = prep.plan
     res = {}
 
     # K1: C = 1 at the assembly gather (n labels by inv_perm), every dtype;
@@ -302,6 +391,83 @@ def phase_kernels(g, cdlp_plan, pr_plan, device):
                cuda_ms(lambda: [slab_spmv_sum_plain(b.slab, x) for b in pr_plan.slabs])),
         shape="float32, all PR buckets (one full step's bucket work)",
     )
+
+    # K4: random [8, 128] tables and indices
+    for dtype in (torch.int32, torch.float32):
+        tbl8 = torch.randint(-(1 << 30), 1 << 30, (8, 128), generator=gen,
+                             device=device).to(dtype)
+        ind = torch.randint(0, 8, (8, 128), generator=gen, device=device, dtype=torch.int32)
+        check(torch.equal(vreg_shuffle(tbl8, ind), vreg_shuffle_plain(tbl8, ind)),
+              f"vreg_shuffle {dtype} differs")
+    res["vreg_shuffle"] = dict(
+        max_abs_err=0.0,
+        times=(cuda_ms(lambda: vreg_shuffle(tbl8, ind), reps=100),
+               cuda_ms(lambda: vreg_shuffle_plain(tbl8, ind), reps=100)),
+        shape="[8, 128] float32",
+    )
+
+    # K5 at the path's shapes: the changed mask after the first full step,
+    # compacted at k_max and expanded at e_max (truncated: far more edges
+    # than slots), then the active set a tier step expands once the mask fits
+    from graphtpu_torch.ops.active import cdlp_tiers
+    from graphtpu_torch.ops.minmode import cdlp_step
+
+    cfg = PlatformConfig(device=str(device))
+    m = int(prep.neigh.shape[0])
+    k_max, e_max = cdlp_tiers(cfg.cdlp_frontier_rows, cfg.cdlp_frontier_edges, m, cfg)[-1]
+    deg_n = prep.deg_pad[:-1]
+
+    def k5_inputs(ids):
+        lens = prep.deg_pad[ids.long()]
+        starts = torch.cat([lens.new_zeros(1), torch.cumsum(lens, 0, dtype=torch.int32)])
+        return ids, starts, prep.indptr_pad, prep.neigh
+
+    def k5_check(args, e_cap, what):
+        for with_row_ids in (True, False):
+            got = frontier_expand(*args, e_cap, with_row_ids)
+            want = frontier_expand_plain(*args, e_cap, with_row_ids)
+            for fname, a, b in zip(("rows_local", "row_ids", "gpos", "neigh", "valid"),
+                                   got, want):
+                check((a is None and b is None) or torch.equal(a, b),
+                      f"frontier_expand {what} {fname} differs")
+
+    prev, cur = lab1, cdlp_step(lab1, cdlp_plan)  # labels after iterations 0 and 1
+    full_ids, full_cnt = compact(cur != prev, k_max)
+    full_args = k5_inputs(full_ids)
+    k5_check(full_args, e_max, "full-step mask")
+    steps = 2
+    while True:
+        cnt, ce = mask_status(cur != prev, deg_n).tolist()
+        if cnt <= k_max and ce <= e_max:
+            break
+        check(steps < CDLP_ITERS, "the changed mask never fits the tier")
+        prev, cur = cur, cdlp_step(cur, cdlp_plan)
+        steps += 1
+    ids, _ = compact(cur != prev, k_max)
+    exp = expand(ids, prep.deg_pad, prep.indptr_pad, prep.neigh, e_max)
+    tier_ids, tier_cnt = compact_stream(exp.neigh, exp.valid, k_max, n)
+    tier_args = k5_inputs(tier_ids)
+    k5_check(tier_args, e_max, "tier-step frontier")
+    tier_edges = int(frontier_deg_sum(tier_ids, prep.deg_pad))
+    # hand-made: empty rows around real ones, an empty frontier, truncation
+    deg_pad = torch.tensor([0, 2, 0, 0, 3, 0, 1, 0], dtype=torch.int32, device=device)
+    indptr = torch.cat([deg_pad.new_zeros(1), torch.cumsum(deg_pad[:-1], 0, dtype=torch.int32)])
+    small_neigh = torch.arange(10, 16, dtype=torch.int32, device=device)
+    for ids_list, e_cap in (([0, 1, 2, 3, 4, 5, 6, 7], 8), ([0, 2, 3, 7, 7], 4),
+                            ([7, 7, 7], 5), ([1, 4, 6, 7], 3), ([4, 6, 7], 1)):
+        ids_s = torch.tensor(ids_list, dtype=torch.int32, device=device)
+        lens = deg_pad[ids_s.long()]
+        starts = torch.cat([lens.new_zeros(1), torch.cumsum(lens, 0, dtype=torch.int32)])
+        k5_check((ids_s, starts, indptr, small_neigh), e_cap, f"hand case {ids_list}/{e_cap}")
+    res["frontier_expand"] = dict(
+        max_abs_err=0.0,
+        times=(cuda_ms(lambda: frontier_expand(*tier_args, e_max, False)),
+               cuda_ms(lambda: frontier_expand_plain(*tier_args, e_max, False))),
+        shape=(f"tier step: {k_max} ids ({int(tier_cnt)} real, {tier_edges} edges, after "
+               f"{steps} steps) into {e_max} slots; full-step mask: {int(full_cnt)} changed, "
+               f"{k_max} kept"),
+    )
+
     for name, r in res.items():
         (k_dev, k_stream), (p_dev, p_stream) = r["times"]
         r["ms"], r["plain_ms"] = k_dev, p_dev
@@ -315,6 +481,8 @@ SOURCES = {
     "gather_rows": ("graphtpu_torch/csrc/gather_rows.cu", "graphtpu/ops/pallas_gather.py:95"),
     "slab_minmode": ("graphtpu_torch/csrc/slab_minmode.cu", "graphtpu/ops/minmode.py:55"),
     "slab_spmv_sum": ("graphtpu_torch/csrc/slab_spmv.cu", "graphtpu/ops/spmv.py:82"),
+    "vreg_shuffle": ("graphtpu_torch/csrc/vreg_shuffle.cu", "graphtpu/ops/pallas_gather.py:69"),
+    "frontier_expand": ("graphtpu_torch/csrc/frontier_expand.cu", "graphtpu/ops/frontier.py:103"),
 }
 
 
@@ -339,15 +507,19 @@ def main() -> int:
              else "already built")
     print(f"kernels: {lib.name} {built} ({time.perf_counter() - t0:.3f}s to load)", flush=True)
 
-    kernels.reset_launch_counts()
     phase_goldens(device)
-    g, cdlp_plan, pr_plan, launches = phase_real_size(device)
-    print(f"launches on the main path: {launches}; peak device memory allocated "
-          f"{torch.cuda.max_memory_allocated(device) / 2**30:.3f} GiB", flush=True)
-    for name in kernels.KERNELS:
-        check(launches[name] > 0, f"kernel {name} was not launched on the main path")
+    g, prep, pr_plan, path_launches = phase_real_size(device)
+    for path, (_, _, needed) in PATHS.items():
+        print(f"launches on path {path}: {path_launches[path]}", flush=True)
+        for name in needed:
+            check(path_launches[path][name] > 0,
+                  f"kernel {name} was not launched on the {path} path")
+    launches = {name: sum(c[name] for c in path_launches.values()) for name in kernels.KERNELS}
+    launches["vreg_shuffle"] = phase_vreg_shuffle(device)
+    print(f"peak device memory allocated {torch.cuda.max_memory_allocated(device) / 2**30:.3f} "
+          f"GiB", flush=True)
 
-    res = phase_kernels(g, cdlp_plan, pr_plan, device)
+    res = phase_kernels(g, prep, pr_plan, device)
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": launches[name],

@@ -7,10 +7,12 @@ counts twice (:47-50, 276-284); vertices without neighbours keep their
 label; the loop stops early at a fixed point (:328-332). Labels are dense
 ids during compute and original ids at output.
 
-``cdlp_impl``: "slab" is the degree-bucketed path on kernel K2
-(ops/minmode.py); "auto" resolves to "slab" until the adaptive path is
-ported; "sort" is the torch-op oracle, the reference's global sort and
-run-length scan (LAGraph_cdlp.c:286-323).
+``cdlp_impl``: "auto" and "adaptive" run full slab steps while many
+labels change, then active-set steps on the frontier engine
+(ops/active.py, kernels K2 and K5); under ``iteration_timing`` they run
+host-stepped, as "adaptive-host". "slab" is the degree-bucketed path on
+kernel K2 alone (ops/minmode.py); "sort" is the torch-op oracle, the
+reference's global sort and run-length scan (LAGraph_cdlp.c:286-323).
 """
 
 from __future__ import annotations
@@ -22,10 +24,8 @@ from graphtpu_torch.algorithms.common import AlgorithmResult, register
 from graphtpu_torch.core.graph import Graph
 from graphtpu_torch.core.types import INT32_INF
 from graphtpu_torch.utils.config import AlgorithmParams, PlatformConfig
-from graphtpu_torch.utils.logging import get_logger
 
-log = get_logger("cdlp")
-
+IMPLS = ("auto", "adaptive", "adaptive-host", "slab", "sort")
 _M31 = (1 << 31) - 1
 
 
@@ -84,18 +84,13 @@ def _cdlp_sort_kernel(centers, neigh, deg, n, itermax):
     return labels, it
 
 
-def _resolve_impl(impl: str) -> str:
-    if impl == "auto":
-        log.info("cdlp-impl auto resolves to slab: the adaptive path "
-                 "(graphtpu/ops/active.py) is not ported yet (ROADMAP Queue 1)")
-        return "slab"
-    if impl in ("adaptive", "adaptive-host"):
-        raise NotImplementedError(
-            f"cdlp-impl {impl} (graphtpu/ops/active.py, ops/frontier.py) is not ported "
-            f"yet: ROADMAP Queue 1, adaptive CDLP"
-        )
-    if impl not in ("slab", "sort"):
-        raise ValueError(f"unknown cdlp-impl {impl!r}; expected auto|slab|sort")
+def _resolve_impl(cfg: PlatformConfig) -> str:
+    impl = cfg.cdlp_impl
+    if impl not in IMPLS:
+        raise ValueError(f"unknown cdlp-impl {impl!r}; expected {'|'.join(IMPLS)}")
+    if impl in ("auto", "adaptive"):
+        # per-iteration timing needs a host-stepped loop
+        return "adaptive-host" if cfg.iteration_timing else "adaptive"
     return impl
 
 
@@ -103,7 +98,7 @@ def _resolve_impl(impl: str) -> str:
 def cdlp(graph: Graph, params: AlgorithmParams, cfg: PlatformConfig) -> AlgorithmResult:
     if params.max_iterations is None:
         raise ValueError("cdlp requires max-iterations")
-    impl = _resolve_impl(cfg.cdlp_impl)
+    impl = _resolve_impl(cfg)
     centers, neigh = build_incidence(graph)
     deg = graph.memo.get("incidence_deg")
     if deg is None:  # one host pass over every incidence entry: once per graph
@@ -113,7 +108,15 @@ def cdlp(graph: Graph, params: AlgorithmParams, cfg: PlatformConfig) -> Algorith
         # edgeless graph: every vertex keeps its own label
         return AlgorithmResult("cdlp", graph.mapping.copy(), iterations=0)
     itermax = int(params.max_iterations)
-    if impl == "slab":
+    if impl == "adaptive":
+        from graphtpu_torch.ops.active import cdlp_adaptive_device_run
+
+        labels, it = cdlp_adaptive_device_run(graph, centers, neigh, deg, itermax, cfg)
+    elif impl == "adaptive-host":
+        from graphtpu_torch.ops.active import cdlp_adaptive_run
+
+        labels, it = cdlp_adaptive_run(graph, centers, neigh, deg, itermax, cfg)
+    elif impl == "slab":
         from graphtpu_torch.ops.minmode import cdlp_slab_run
 
         labels, it = cdlp_slab_run(graph, centers, neigh, deg, itermax, cfg)

@@ -1,20 +1,23 @@
 """Build, load and launch the hand-written CUDA kernels of graphtpu_torch.
 
 The sources under ``graphtpu_torch/csrc/`` are compiled at first use by
-``nvcc`` into one shared library with a plain C interface, loaded with
-ctypes, under ``build/graphtpu_torch/`` at the root of the checkout. The
-library's file name carries a hash of the sources and flags, so an edited
-source never loads a stale build. Parallel first use is safe: the build
-runs under an exclusive file lock and the library appears by an atomic
-rename, so no process can load a half-written file.
+``nvcc``, one process per source, all started together, and linked into
+one shared library with a plain C interface, loaded with ctypes, under
+``build/graphtpu_torch/`` at the root of the checkout. The library's file
+name carries a hash of the sources and flags, so an edited source never
+loads a stale build. Parallel first use is safe: the build runs under an
+exclusive file lock and the library appears by an atomic rename, so no
+process can load a half-written file.
 
 Each kernel has a wrapper beside its plain PyTorch version:
-``ops/gather.py:gather_rows`` (K1), ``ops/minmode.py:slab_minmode`` (K2)
-and ``ops/spmv.py:slab_spmv_sum`` (K3). A wrapper dispatches on the device
-of its tensors: a CPU tensor takes the plain version, a CUDA tensor
-launches the kernel or raises. Inside ``plain_torch()`` CUDA tensors take
-the plain version too, so the whole path can run as its own reference on
-the card. A wrapper adds one to ``launch_counts[name]`` for each launch.
+``ops/gather.py:gather_rows`` (K1), ``ops/minmode.py:slab_minmode`` (K2),
+``ops/spmv.py:slab_spmv_sum`` (K3), ``ops/pallas_gather.py:vreg_shuffle``
+(K4) and ``ops/frontier.py:frontier_expand`` (K5). A wrapper dispatches on
+the device of its tensors: a CPU tensor takes the plain version, a CUDA
+tensor launches the kernel or raises. Inside ``plain_torch()`` CUDA
+tensors take the plain version too, so the whole path can run as its own
+reference on the card. A wrapper adds one to ``launch_counts[name]`` for
+each launch.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -33,10 +37,10 @@ CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "graphtpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
-KERNELS = ("gather_rows", "slab_minmode", "slab_spmv_sum")
+KERNELS = ("gather_rows", "slab_minmode", "slab_spmv_sum", "vreg_shuffle", "frontier_expand")
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _SIGNATURES = {
@@ -46,6 +50,11 @@ _SIGNATURES = {
     "gt_slab_minmode": (_P, _P, _P, _I32, _I64, _I64, _I32, _P),
     # slab, x, y, w, R, n, is_f64, stream
     "gt_slab_spmv_sum": (_P, _P, _P, _I32, _I64, _I64, _I32, _P),
+    # tbl8, ind, out, cols, stream
+    "gt_vreg_shuffle": (_P, _P, _P, _I32, _P),
+    # ids, starts, k, indptr_pad, neigh, rows_local, row_ids, gpos, neigh_out,
+    # valid, e_cap, stream
+    "gt_frontier_expand": (_P, _P, _I32, _P, _P, _P, _P, _P, _P, _P, _I32, _P),
 }
 
 launch_counts = dict.fromkeys(KERNELS, 0)
@@ -110,18 +119,34 @@ def build() -> Path:
         if out.exists():  # another process built it while we waited
             return out
         cu, _ = _sources()
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-            )
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+            objs = [Path(objdir) / f"{src.stem}.o" for src in cu]
+            _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                      for src, o in zip(cu, objs)])
+            tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+            try:
+                _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
+            except RuntimeError:
+                tmp.unlink(missing_ok=True)
+                raise
         os.replace(tmp, out)
         build_seconds = time.perf_counter() - t0
     return out
+
+
+def _run_all(cmds) -> None:
+    """Run the commands concurrently; raise with every failure's output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    errors = []
+    for cmd, proc in zip(cmds, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+    if errors:
+        raise RuntimeError("\n".join(errors))
 
 
 def library() -> ctypes.CDLL:

@@ -122,10 +122,20 @@ class PlatformConfig:
     # PageRank pull sum: "auto"/"slab" = padded-ELL row sums on kernel K3;
     # "scan" (the segment-reduce arm) is not ported yet
     pr_impl: str = "auto"
-    # auto|slab|sort: auto resolves to slab until the adaptive path
-    # (graphtpu/ops/active.py) is ported; sort is the oracle;
-    # adaptive|adaptive-host raise NotImplementedError
+    # auto|adaptive|adaptive-host|slab|sort: auto/adaptive = full slab steps,
+    # then active-set steps on the frontier engine (ops/active.py), run
+    # host-stepped (adaptive-host) under iteration_timing; sort is the oracle
     cdlp_impl: str = "auto"
+    # adaptive-host: switch to active-set steps once the rows next to a
+    # changed vertex cover less than this fraction of the incidence
+    cdlp_active_threshold: float = 0.10
+    # auto/adaptive: frontier capacities; an active-set step runs only
+    # while the next active set fits these rows and edges, else a full step
+    cdlp_frontier_rows: int = 1 << 16
+    cdlp_frontier_edges: int = 1 << 18
+    # explicit ascending active-tier edge budgets (comma list); empty = the
+    # single cdlp-frontier tier (ops/active.py cdlp_tiers)
+    cdlp_tiers: str = ""
     # slab degree-bucket upper bounds; None = per-graph DP-optimal bounds
     slab_buckets: Optional[tuple] = None
     # print "[CUDA][TIMER] cdlp iteration k took Xms" per CDLP iteration
@@ -147,6 +157,10 @@ _PLATFORM_PROPS = {
     "platform.graphtpu.precision": ("precision", str),
     "platform.graphtpu.pr-impl": ("pr_impl", str),
     "platform.graphtpu.cdlp-impl": ("cdlp_impl", str),
+    "platform.graphtpu.cdlp-active-threshold": ("cdlp_active_threshold", float),
+    "platform.graphtpu.cdlp-frontier-rows": ("cdlp_frontier_rows", int),
+    "platform.graphtpu.cdlp-frontier-edges": ("cdlp_frontier_edges", int),
+    "platform.graphtpu.cdlp-tiers": ("cdlp_tiers", str),
     "platform.graphtpu.slab-buckets": (
         "slab_buckets",
         lambda v: tuple(int(x) for x in str(v).split(",") if x.strip()),

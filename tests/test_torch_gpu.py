@@ -12,8 +12,10 @@ import pytest
 import torch
 
 from graphtpu_torch.ops import kernels
+from graphtpu_torch.ops.frontier import frontier_expand, frontier_expand_plain
 from graphtpu_torch.ops.gather import gather_rows, gather_rows_plain
 from graphtpu_torch.ops.minmode import slab_minmode, slab_minmode_plain
+from graphtpu_torch.ops.pallas_gather import vreg_shuffle, vreg_shuffle_plain
 from graphtpu_torch.ops.spmv import slab_spmv_sum, slab_spmv_sum_plain
 
 pytestmark = pytest.mark.gpu
@@ -83,3 +85,68 @@ def test_slab_spmv_sum_matches_plain(cuda, dtype, w):
     # the kernel sums each row in slab order, torch in its own order
     rtol = 1e-5 if dtype == torch.float32 else 1e-12
     torch.testing.assert_close(got, slab_spmv_sum_plain(slab, x), rtol=rtol, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_vreg_shuffle_matches_plain(cuda, dtype):
+    rng = np.random.default_rng(7)
+    tbl8 = torch.from_numpy(rng.integers(-(1 << 30), 1 << 30, size=(8, 128))).to(dtype)
+    ind = torch.from_numpy(rng.integers(0, 8, size=(8, 128)).astype(np.int32))
+    before = kernels.launch_counts["vreg_shuffle"]
+    got = vreg_shuffle(tbl8.to(cuda), ind.to(cuda)).cpu()
+    assert kernels.launch_counts["vreg_shuffle"] == before + 1
+    assert torch.equal(got, vreg_shuffle_plain(tbl8, ind))
+
+
+def test_vreg_shuffle_out_of_range_gives_zero(cuda):
+    tbl8 = torch.arange(1, 8 * 128 + 1, dtype=torch.int32).reshape(8, 128)
+    ind = torch.zeros(8, 128, dtype=torch.int32)
+    ind[0, :3] = torch.tensor([-1, 8, 1 << 30], dtype=torch.int32)
+    got = vreg_shuffle(tbl8.to(cuda), ind.to(cuda)).cpu()
+    assert got[0, :3].tolist() == [0, 0, 0]
+    assert torch.equal(got[1:], tbl8[0].expand(7, 128))
+
+
+def _frontier(rng, n, k, count, max_deg):
+    """(ids [k] ascending, padded with n; starts [k+1]; indptr_pad; neigh)
+    of a random CSR whose degrees 0..max_deg leave empty rows."""
+    deg = rng.integers(0, max_deg + 1, size=n)
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(deg, out=indptr[1:])
+    neigh = rng.integers(0, n, size=int(indptr[-1])).astype(np.int32)
+    ids = np.full(k, n, dtype=np.int32)
+    ids[:count] = np.sort(rng.choice(n, size=count, replace=False))
+    lens = np.concatenate([deg, [0]])[ids]
+    starts = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    return [torch.from_numpy(a) for a in (ids, starts, indptr.astype(np.int32), neigh)]
+
+
+@pytest.mark.parametrize("with_row_ids", [True, False])
+@pytest.mark.parametrize("case", ["fits", "truncated", "empty_frontier", "all_rows_empty",
+                                  "single_slot", "zero_slots", "large"])
+def test_frontier_expand_matches_plain(cuda, case, with_row_ids):
+    """Empty rows at the start, between and at the end, an empty frontier,
+    a frontier of empty rows only, truncation, and a 2^16-row, 2^18-slot
+    frontier (the adaptive CDLP tier's shape)."""
+    rng = np.random.default_rng(len(case))
+    n, k, count, max_deg = 500, 128, 100, 6
+    if case == "empty_frontier":
+        count = 0
+    if case == "large":
+        n, k, count, max_deg = 1 << 18, 1 << 16, 40000, 8
+    ids, starts, indptr, neigh = _frontier(rng, n, k, count, max_deg)
+    if case == "all_rows_empty":
+        starts = torch.zeros_like(starts)
+    total = int(starts[-1])
+    e_cap = {"truncated": max(total // 3, 1), "single_slot": 1, "zero_slots": 0,
+             "large": 1 << 18}.get(case, total + 37)
+    before = kernels.launch_counts["frontier_expand"]
+    got = frontier_expand(*(t.to(cuda) for t in (ids, starts, indptr, neigh)), e_cap,
+                          with_row_ids)
+    assert kernels.launch_counts["frontier_expand"] == before + (1 if e_cap else 0)
+    want = frontier_expand_plain(ids, starts, indptr, neigh, e_cap, with_row_ids)
+    for name, g, w in zip(("rows_local", "row_ids", "gpos", "neigh", "valid"), got, want):
+        if w is None:
+            assert g is None, name
+        else:
+            assert torch.equal(g.cpu(), w), name

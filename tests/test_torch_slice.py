@@ -6,7 +6,6 @@ CDLP labels and iteration counts must be bit-identical. PageRank is held
 to rtol 1e-5 / atol 1e-9 at float32: the slab sums add in other orders.
 """
 
-import logging
 import subprocess
 import sys
 from pathlib import Path
@@ -87,22 +86,23 @@ def test_sort_oracle_equals_slab_path(directed):
     np.testing.assert_array_equal(sort.values, slab.values)
 
 
-def test_cdlp_auto_resolves_to_slab_and_adaptive_is_refused(caplog):
+def test_cdlp_auto_resolves_to_slab_and_adaptive_is_refused():
+    """(Named for the first slice's behaviour.) auto and adaptive now run
+    the adaptive device path, which agrees with slab; an unknown impl,
+    pr-impl=scan and an unknown algorithm are refused."""
     _, tg = _twins(False, 0, scale=8, ef=4)
     params = AlgorithmParams(max_iterations=5)
-    port_log = logging.getLogger("graphtpu_torch")  # does not propagate to root
-    port_log.addHandler(caplog.handler)
-    try:
-        auto = run_algorithm("cdlp", tg, params, PlatformConfig(device="cpu"))
-    finally:
-        port_log.removeHandler(caplog.handler)
-    assert "resolves to slab" in caplog.text
+    auto = run_algorithm("cdlp", tg, params, PlatformConfig(device="cpu"))
+    assert any(k[0] == "cdlp_adaptive_prep" for k in tg.memo if isinstance(k, tuple))
     slab = run_algorithm("cdlp", tg, params, PlatformConfig(device="cpu", cdlp_impl="slab"))
     np.testing.assert_array_equal(auto.values, slab.values)
     assert auto.iterations == slab.iterations
     for impl in ("adaptive", "adaptive-host"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            run_algorithm("cdlp", tg, params, PlatformConfig(device="cpu", cdlp_impl=impl))
+        res = run_algorithm("cdlp", tg, params, PlatformConfig(device="cpu", cdlp_impl=impl))
+        np.testing.assert_array_equal(res.values, auto.values)
+        assert res.iterations == auto.iterations
+    with pytest.raises(ValueError, match="unknown cdlp-impl"):
+        run_algorithm("cdlp", tg, params, PlatformConfig(device="cpu", cdlp_impl="hash"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_algorithm("pr", tg, AlgorithmParams(damping_factor=0.85, num_iterations=2),
                       PlatformConfig(device="cpu", pr_impl="scan"))
