@@ -6,26 +6,32 @@ Run from the root of a checkout:  python3 chip_smoke.py
 1. Device and build: needs a CUDA card (exits non-zero without one),
    prints the card's name and power limit, builds the hand-written kernels
    from the checkout's sources.
-2. Goldens: PageRank, CDLP under the default cdlp-impl (auto, the
-   adaptive path) and CDLP under slab, on example-directed and
-   example-undirected, through the platform lifecycle on cuda:0, validated
-   against the golden outputs.
+2. Goldens, through the platform lifecycle on cuda:0, validated against the
+   golden outputs: PageRank, CDLP (auto, the adaptive path, and slab), BFS,
+   WCC and SSSP (default impls and device) on example-directed and
+   example-undirected, and BFS, WCC and SSSP on test-{bfs,wcc,sssp}-
+   {directed,undirected}.
 3. Real size: the benchmark graph (RMAT scale 20, edge factor 32,
-   undirected, seed 42; cached under intermediate/). Three paths through
-   run_algorithm: CDLP under auto (the adaptive path: full slab steps, then
-   frontier-tier active steps), CDLP under slab (itermax 10 both) and
-   PageRank (20 iterations, d = 0.85), each on the kernels and then as
-   plain PyTorch on the card. Adaptive labels must equal the slab labels
-   and the plain run's, with equal iteration counts; PageRank within 1e-4
-   relative. Each kernel-path run is profiled (top device ops, idle share).
+   undirected, seed 42) and the SSSP benchmark graph (RMAT scale 20, edge
+   factor 16, weighted, undirected, seed 42), both cached under
+   intermediate/. Each path runs through run_algorithm on the kernels, then
+   as plain PyTorch on the card: CDLP under auto and slab (itermax 10),
+   PageRank (20 iterations, d = 0.85), BFS from vertex 0 under auto and
+   device, WCC under auto, adaptive and device, SSSP from vertex 0 under
+   auto and device. Kernel and plain results must be identical (PageRank
+   within 1e-4 relative), every impl of an algorithm must give the same
+   result, and iteration and phase counts must agree between kernel and
+   plain runs; the phase counts print beside the JAX package's for the same
+   graphs. Results are also checked edge by edge: BFS levels, WCC labels
+   and SSSP distances are fixed points of their relaxations. Each
+   kernel-path run is profiled (top device ops, idle share, named ranges).
 4. Launch counts: each path runs with the counts set to 0 just before it
-   and read just after; every kernel of a path must have launched in it
-   (frontier_expand on the auto CDLP path). vreg_shuffle has no path in
-   the system: its own phase drives it, and its count is that phase's.
-5. Each kernel against its plain PyTorch version at the path's shapes,
-   with both device times (profiler) and stream spans (CUDA events); K4 on
-   random [8, 128] int32 and float32 inputs, K5 at the bench graph's full-
-   step and tier-step frontiers and on small hand-made cases.
+   and read just after; every kernel of a path must have launched in it.
+   vreg_shuffle has no path in the system: its own phase drives it, and its
+   count is that phase's.
+5. Each kernel against its plain PyTorch version at the path's shapes and
+   on small hand-made cases, with both device times (profiler) and stream
+   spans (CUDA events).
 
 Exits non-zero if any phase fails. The last lines of stdout are the
 card's name and power limit, one JSON line of per-kernel results, and
@@ -45,7 +51,18 @@ ROOT = Path(__file__).resolve().parent
 FIXTURES = ROOT / "tests" / "fixtures" / "graphs"
 INTERMEDIATE = ROOT / "intermediate"
 BENCH_GRAPH = "bench-rmat-s20-ef32"
+SSSP_GRAPH = "bench-rmat-s20-ef16-w"
 CDLP_ITERS, PR_ITERS, DAMPING = 10, 20, 0.85
+# the JAX package's step counts on the same graphs from vertex 0, default
+# configuration (BENCH_r05.json:26-54): BFS levels and its tier (by edge
+# budget) / bottom-up / dense steps; WCC and SSSP iterations, full and
+# active steps
+JAX_STEPS = {
+    "bfs": (5, {65536: 2, 262144: 1, 1048576: 0, 4194304: 0}, 2, 0),
+    "wcc": (4, 3, 1),
+    "sssp": (9, 5, 4),
+}
+RANGES = ("cdlp.", "bfs.", "wcc.", "sssp.")  # the named profiler ranges of the loops
 PR_RTOL = 1e-4        # the validator's EPSILON (graphtpu/harness/validator.py:40)
 F32_SUM_RTOL = 1e-5   # float32 sums in another order than torch's
 
@@ -88,19 +105,21 @@ def _on_device(e) -> bool:
 def _device_events(prof):
     """The profiler's device-side rows (kernels, copies, memsets); the
     rows of torch ops repeat their kernels' time and are left out, and so
-    are the device spans of the named ranges (``cdlp.*``), which cover
-    their kernels and the gaps between them."""
+    are the device spans of the named ranges (``cdlp.*``, ``bfs.*``,
+    ``wcc.*``, ``sssp.*``), which cover their kernels and the gaps between
+    them."""
     return [
         e for e in prof.key_averages()
-        if _on_device(e) and e.self_device_time_total > 0 and not e.key.startswith("cdlp.")
+        if _on_device(e) and e.self_device_time_total > 0 and not e.key.startswith(RANGES)
     ]
 
 
 def profile_run(fn):
     """(wall seconds, device ms, top kernels, named ranges) of one profiled
-    call of fn(). A named range (``cdlp.*`` in ops/active.py) gives its
-    count, its host wall ms (the waits for the device included) and its
-    device span ms (first to last kernel, gaps included)."""
+    call of fn(). A named range (one per step kind of the adaptive loops:
+    ``cdlp.*``, ``bfs.*``, ``wcc.*``, ``sssp.*``) gives its count, its host
+    wall ms (the waits for the device included) and its device span ms
+    (first to last kernel, gaps included)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -115,7 +134,7 @@ def profile_run(fn):
     top = [(e.key[:48], e.self_device_time_total / 1e3) for e in events[:6]]
     ranges = {}
     for e in prof.key_averages():
-        if e.key.startswith("cdlp."):
+        if e.key.startswith(RANGES):
             count, host, span = ranges.get(e.key, (0, 0.0, 0.0))
             if _on_device(e):
                 span += e.device_time_total / 1e3
@@ -134,34 +153,44 @@ def phase_goldens(device):
     from graphtpu_torch.harness.validator import validate_result
     from graphtpu_torch.utils.config import GraphSpec, PlatformConfig
 
+    runs = []
     for name in ("example-directed", "example-undirected"):
+        runs += [(name, "pr", {}), (name, "cdlp", {"cdlp_impl": "auto"}),
+                 (name, "cdlp", {"cdlp_impl": "slab"})]
+        for algo in ("bfs", "wcc", "sssp"):
+            runs += [(name, algo, {}), (name, algo, {f"{algo}_impl": "device"})]
+    for algo in ("bfs", "wcc", "sssp"):
+        runs += [(f"test-{algo}-{kind}", algo, {}) for kind in ("directed", "undirected")]
+    for name, algo, impl in runs:
         spec = GraphSpec.from_properties(FIXTURES / f"{name}.properties")
-        for algo, impl in (("pr", "auto"), ("cdlp", "auto"), ("cdlp", "slab")):
-            plat = GraphTorchPlatform(PlatformConfig(
-                device=str(device), intermediate_dir=str(INTERMEDIATE), cdlp_impl=impl,
-            ))
-            plat.verify_setup()
-            plat.load_graph(spec)
-            plat.startup()
-            plat.prepare(spec, algo)
-            res = plat.run(spec, algo)
-            metrics = plat.finalize()
-            ok, msg = validate_result(
-                res, plat.graphs[spec.name], str(FIXTURES / f"{name}-{algo.upper()}")
-            )
-            print(f"golden {name} {algo} ({impl}): {'PASS' if ok else 'FAIL'} ({msg}), "
-                  f"processing {metrics.processing_time_seconds}s", flush=True)
-            check(ok, f"golden {name} {algo} ({impl}) failed: {msg}")
+        plat = GraphTorchPlatform(PlatformConfig(
+            device=str(device), intermediate_dir=str(INTERMEDIATE), **impl,
+        ))
+        plat.verify_setup()
+        plat.load_graph(spec)
+        plat.startup()
+        plat.prepare(spec, algo)
+        res = plat.run(spec, algo)
+        metrics = plat.finalize()
+        ok, msg = validate_result(
+            res, plat.graphs[spec.name], str(FIXTURES / f"{name}-{algo.upper()}")
+        )
+        what = f"{name} {algo} ({', '.join(f'{k}={v}' for k, v in impl.items()) or 'default'})"
+        print(f"golden {what}: {'PASS' if ok else 'FAIL'} ({msg}), "
+              f"processing {metrics.processing_time_seconds}s", flush=True)
+        check(ok, f"golden {what} failed: {msg}")
 
 
-def load_bench_graph():
+def load_graph(name, scale, edge_factor, weighted):
+    """An undirected RMAT graph (seed 42) from intermediate/, generated and
+    cached on the first call."""
     from graphtpu_torch.ingest import cache as cache_mod
     from graphtpu_torch.utils.synth import rmat_graph
 
-    if cache_mod.exists(INTERMEDIATE, BENCH_GRAPH):
-        return cache_mod.load(INTERMEDIATE, BENCH_GRAPH), "cache"
-    g = rmat_graph(20, 32, directed=False, seed=42)
-    cache_mod.save(g, INTERMEDIATE, BENCH_GRAPH)
+    if cache_mod.exists(INTERMEDIATE, name):
+        return cache_mod.load(INTERMEDIATE, name), "cache"
+    g = rmat_graph(scale, edge_factor, directed=False, weighted=weighted, seed=42)
+    cache_mod.save(g, INTERMEDIATE, name)
     return g, "generated"
 
 
@@ -182,30 +211,86 @@ def timed_run(algo, g, params, cfg, reps=3):
     return res, secs
 
 
-# the main paths at real size: name -> (algorithm, cdlp-impl, kernels it must launch)
+# the main paths at real size: name -> (algorithm, config, kernels it must launch)
 PATHS = {
-    "cdlp-auto": ("cdlp", "auto", ("gather_rows", "slab_minmode", "frontier_expand")),
-    "cdlp-slab": ("cdlp", "slab", ("gather_rows", "slab_minmode")),
-    "pr": ("pr", "auto", ("gather_rows", "slab_spmv_sum")),
+    "cdlp-auto": ("cdlp", {"cdlp_impl": "auto"},
+                  ("gather_rows", "slab_minmode", "frontier_expand")),
+    "cdlp-slab": ("cdlp", {"cdlp_impl": "slab"}, ("gather_rows", "slab_minmode")),
+    "pr": ("pr", {}, ("gather_rows", "slab_spmv_sum")),
+    "bfs-auto": ("bfs", {"bfs_impl": "auto"}, ("gather_rows", "frontier_expand")),
+    "bfs-device": ("bfs", {"bfs_impl": "device"}, ("csr_pull_reduce",)),
+    "wcc-auto": ("wcc", {"wcc_impl": "auto"}, ("slab_spmv_min", "frontier_expand")),
+    "wcc-adaptive": ("wcc", {"wcc_impl": "adaptive"}, ("csr_pull_reduce", "frontier_expand")),
+    "wcc-device": ("wcc", {"wcc_impl": "device"}, ("csr_pull_reduce",)),
+    "sssp-auto": ("sssp", {"sssp_impl": "auto"},
+                  ("csr_pull_reduce", "frontier_expand", "push_relax_min")),
+    "sssp-device": ("sssp", {"sssp_impl": "device"}, ("csr_pull_reduce",)),
 }
 
 
+def _rate(algo, res, secs, g, gw, inc_nnz):
+    """The path's end-to-end metric for the median of ``secs``."""
+    med = sorted(secs)[len(secs) // 2]
+    if algo == "cdlp":
+        return f"{inc_nnz * max(res.iterations, 1) / med:.6e} edges/s"
+    if algo == "pr":
+        return f"{g.nnz * PR_ITERS / med:.6e} nnz/s"
+    if algo == "bfs":
+        return f"bfs_gteps {g.nnz / med / 1e9:.6f} ({g.nnz} stored edges)"
+    return f"{algo}_s {med:.6f} ({(gw if algo == 'sssp' else g).nnz} stored edges)"
+
+
+def check_fixed_points(g, gw, out):
+    """BFS levels, WCC labels and SSSP distances are fixed points of their
+    relaxations over every stored edge (host numpy)."""
+    import numpy as np
+
+    from graphtpu_torch.core.types import UNREACHABLE
+
+    s, d = g.src.astype(np.int64), g.dst.astype(np.int64)
+    lev = out["kernel", "bfs-auto"].values
+    reached = lev != UNREACHABLE
+    check(lev[0] == 0 and int(reached.sum()) > 1, "bfs: source level or reach")
+    check(bool((~reached[s] | (lev[d] <= lev[s] + 1)).all()), "bfs: an edge skips a level")
+    parent = np.zeros(g.n, dtype=bool)
+    parent[d[reached[s] & (lev[s] == lev[d] - 1)]] = True
+    parent[0] = True
+    check(bool((parent | ~reached).all()), "bfs: a reached vertex has no parent a level up")
+    lab = out["kernel", "wcc-auto"].values  # original ids, which are the dense ids here
+    check(bool((lab[s] == lab[d]).all()), "wcc: an edge joins two components")
+    check(bool((lab[lab] == lab).all() and (lab <= np.arange(g.n)).all()),
+          "wcc: a label is not its component's smallest id")
+    dist = out["kernel", "sssp-auto"].values.astype(np.float32)  # computed in float32
+    ws, wd = gw.src.astype(np.int64), gw.dst.astype(np.int64)
+    w32 = gw.w.astype(np.float32)
+    check(dist[0] == 0 and bool((dist[wd] <= dist[ws] + w32).all()),
+          "sssp: an edge still relaxes a distance")
+    return int(reached.sum()), len(np.unique(lab)), int(np.isfinite(dist).sum())
+
+
 def phase_real_size(device):
-    """Returns the graph, its plans, the adaptive prep and the main paths'
-    launch counts."""
+    """Returns the graphs, the CDLP adaptive prep, the PR plan and the main
+    paths' launch counts."""
     import numpy as np
     import torch
 
+    from graphtpu_torch.algorithms.bfs import _bfs_kernel, bfs_adaptive_run
     from graphtpu_torch.algorithms.cdlp import build_incidence
     from graphtpu_torch.algorithms.common import run_algorithm
     from graphtpu_torch.algorithms.pr import _pull_plan_cached
+    from graphtpu_torch.algorithms.sssp import _sssp_kernel, sssp_adaptive_run, sssp_prep
+    from graphtpu_torch.algorithms.wcc import _wcc_kernel, wcc_adaptive_run
     from graphtpu_torch.ops import kernels
     from graphtpu_torch.ops.active import cdlp_adaptive_device_run, prepare_cdlp_adaptive
+    from graphtpu_torch.ops.spmv import pull_csr
     from graphtpu_torch.utils.config import AlgorithmParams, PlatformConfig
 
     t0 = time.perf_counter()
-    g, source = load_bench_graph()
+    g, source = load_graph(BENCH_GRAPH, 20, 32, weighted=False)
     gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gw, wsource = load_graph(SSSP_GRAPH, 20, 16, weighted=True)
+    wgen_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     centers, neigh = build_incidence(g)
     deg = np.bincount(centers, minlength=g.n).astype(np.int32)
@@ -217,51 +302,111 @@ def phase_real_size(device):
     heavy = 0 if cdlp_plan.heavy_rows is None else int(cdlp_plan.heavy_rows.shape[0])
     widths = [int(b.slab.shape[0]) for b in cdlp_plan.slabs]
     print(f"graph {BENCH_GRAPH}: n={g.n} stored edges={g.nnz} ({source} in {gen_s:.3f}s)")
+    print(f"graph {SSSP_GRAPH}: n={gw.n} stored edges={gw.nnz} ({wsource} in {wgen_s:.3f}s)")
     print(f"host prep: graph {gen_s:.3f}s, incidence + CDLP (slab and adaptive) and PR plans "
           f"built and copied to {device} in {plan_s:.3f}s; CDLP buckets {widths}, "
           f"heavy rows {heavy} ({int(cdlp_plan.heavy_neigh.shape[0]) if heavy else 0} edges)",
           flush=True)
 
     params = {"cdlp": AlgorithmParams(max_iterations=CDLP_ITERS),
-              "pr": AlgorithmParams(damping_factor=DAMPING, num_iterations=PR_ITERS)}
-    cfgs = {name: PlatformConfig(device=str(device), cdlp_impl=impl)
-            for name, (_, impl, _) in PATHS.items()}
+              "pr": AlgorithmParams(damping_factor=DAMPING, num_iterations=PR_ITERS),
+              "bfs": AlgorithmParams(source_vertex=0), "wcc": AlgorithmParams(),
+              "sssp": AlgorithmParams(source_vertex=0)}
+    cfgs = {name: PlatformConfig(device=str(device), **over)
+            for name, (_, over, _) in PATHS.items()}
+    graph_of = {algo: (gw if algo == "sssp" else g) for algo in params}
     inc_nnz = int(centers.shape[0])
 
-    out, launches = {}, {}
+    out, launches, medians = {}, {}, {}
     for label, scope in (("kernel", None), ("plain", kernels.plain_torch)):
         for name, (algo, _, _) in PATHS.items():
             kernels.reset_launch_counts()
             with scope() if scope else contextlib.nullcontext():
-                res, secs = timed_run(algo, g, params[algo], cfgs[name])
+                t0 = time.perf_counter()
+                res, secs = timed_run(algo, graph_of[algo], params[algo], cfgs[name])
             if label == "kernel":
                 launches[name] = dict(kernels.launch_counts)
             out[label, name] = res
-            med = sorted(secs)[len(secs) // 2]
-            work = inc_nnz * max(res.iterations, 1) if algo == "cdlp" else g.nnz * PR_ITERS
+            medians[label, name] = sorted(secs)[len(secs) // 2]
             print(f"{label} {name}: {res.iterations} iterations, runs "
-                  + ", ".join(f"{t:.6f}" for t in secs)
-                  + f" s; median {med:.6f} s = {work / med:.6e} "
-                  + ("edges/s" if algo == "cdlp" else "nnz/s"), flush=True)
+                  + ", ".join(f"{t:.6f}" for t in secs) + f" s (warm-up and prep "
+                  f"{time.perf_counter() - t0 - sum(secs):.3f} s); median "
+                  f"{sorted(secs)[len(secs) // 2]:.6f} s = "
+                  + _rate(algo, res, secs, g, gw, inc_nnz), flush=True)
         if label == "kernel":
             # what follows compares and profiles: it does not count
             for name, (algo, _, _) in PATHS.items():
                 wall, dev_ms, top, ranges = profile_run(
-                    lambda: run_algorithm(algo, g, params[algo], cfgs[name]))
+                    lambda: run_algorithm(algo, graph_of[algo], params[algo], cfgs[name]))
                 print(f"profile {name} (kernel path): wall {wall:.6f}s, device busy "
                       f"{dev_ms:.3f} ms, idle share {1 - dev_ms / 1e3 / wall:.3f}; top: "
                       + "; ".join(f"{k} {ms:.3f} ms" for k, ms in top)
                       + "".join(f"; range {k} x{c}: host {h:.3f} ms, device span {d:.3f} ms"
                                 for k, (c, h, d) in ranges.items()),
                       flush=True)
+    # the traversal loops alone, without what run_algorithm adds around them
+    # (the source lookup, the result's copy to the host and its conversion)
+    f32 = torch.float32
+    loops = {
+        "bfs-auto": lambda: bfs_adaptive_run(g, 0, cfgs["bfs-auto"]),
+        "bfs-device": lambda: _bfs_kernel(pull_csr(g, device), 0, g.n),
+        "wcc-auto": lambda: wcc_adaptive_run(g, cfgs["wcc-auto"]),
+        "wcc-adaptive": lambda: wcc_adaptive_run(g, cfgs["wcc-adaptive"]),
+        "wcc-device": lambda: _wcc_kernel(pull_csr(g, device), g.n),
+        "sssp-auto": lambda: sssp_adaptive_run(gw, 0, cfgs["sssp-auto"], f32),
+        "sssp-device": lambda: _sssp_kernel(sssp_prep(gw, f32, device), 0, gw.n, f32),
+    }
+    for name, loop in loops.items():
+        secs = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loop()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        med = sorted(secs[1:])[1]
+        print(f"loop {name} (kernel path): median {med:.6f} s of the loop alone; run_algorithm "
+              f"adds {medians['kernel', name] - med:.6f} s", flush=True)
+    steps = {}
     for label, scope in (("kernel", None), ("plain", kernels.plain_torch)):
         with scope() if scope else contextlib.nullcontext():
             _, it, stats = cdlp_adaptive_device_run(
                 g, centers, neigh, deg, CDLP_ITERS, cfgs["cdlp-auto"], prep=prep,
                 with_stats=True)
+            _, bn, bst = bfs_adaptive_run(g, 0, cfgs["bfs-auto"], with_stats=True)
+            wcc = {name: wcc_adaptive_run(g, cfgs[name], with_stats=True)[1:]
+                   for name in ("wcc-auto", "wcc-adaptive")}
+            _, sn, sst = sssp_adaptive_run(gw, 0, cfgs["sssp-auto"], torch.float32,
+                                           with_stats=True)
         print(f"adaptive steps ({label}): {it} iterations, full_steps {stats['full_steps']}, "
               f"active_steps {stats['active_steps']} (tier {stats['k_cap']} rows, "
               f"{stats['e_cap']} edges)", flush=True)
+        steps[label] = (
+            (it, stats["full_steps"]),
+            (bn, bst["tier_steps"], bst["bu_steps"], bst["dense_steps"]),
+            {name: (wn, wst["full_steps"], wst["active_steps"]) for name, (wn, wst) in wcc.items()},
+            (sn, sst["full_steps"], sst["active_steps"]),
+        )
+        _, bfs_steps, wcc_steps, sssp_steps = steps[label]
+        print(f"bfs-auto steps ({label}): {bfs_steps[0]} levels; tier steps by edge budget "
+              f"{bfs_steps[1]}, bottom-up {bfs_steps[2]}, dense {bfs_steps[3]} (JAX package, "
+              f"same graph: {JAX_STEPS['bfs'][0]} levels; {JAX_STEPS['bfs'][1]}, bottom-up "
+              f"{JAX_STEPS['bfs'][2]}, dense {JAX_STEPS['bfs'][3]}: "
+              f"{'equal' if bfs_steps == JAX_STEPS['bfs'] else 'DIFFERENT'})", flush=True)
+        for name, (wn, wf, wa) in wcc_steps.items():
+            print(f"{name} steps ({label}): {wn} iterations, full {wf}, active {wa} (JAX "
+                  f"package auto: {JAX_STEPS['wcc']}: "
+                  f"{'equal' if (wn, wf, wa) == JAX_STEPS['wcc'] else 'DIFFERENT'})", flush=True)
+        print(f"sssp-auto steps ({label}): {sssp_steps[0]} rounds, full {sssp_steps[1]}, active "
+              f"{sssp_steps[2]}, tiers {sst['tiers']} by tier {sst['tier_steps']} (JAX package: "
+              f"{JAX_STEPS['sssp']}: "
+              f"{'equal' if sssp_steps == JAX_STEPS['sssp'] else 'DIFFERENT'})",
+              flush=True)
+        check(bfs_steps == JAX_STEPS["bfs"], f"bfs-auto steps ({label}) differ from JAX's")
+        for name, counts in wcc_steps.items():
+            check(counts == JAX_STEPS["wcc"], f"{name} steps ({label}) differ from JAX's")
+        check(sssp_steps == JAX_STEPS["sssp"], f"sssp-auto steps ({label}) differ from JAX's")
+    check(steps["kernel"] == steps["plain"], "phase counts differ, kernel vs plain")
 
     auto, slab, pcd = out["kernel", "cdlp-auto"], out["kernel", "cdlp-slab"], out["plain", "cdlp-auto"]
     kpr, ppr = out["kernel", "pr"], out["plain", "pr"]
@@ -281,7 +426,22 @@ def phase_real_size(device):
     print(f"real size: cdlp labels identical, adaptive vs slab vs plain ({auto.iterations} "
           f"iterations, {len(np.unique(auto.values))} communities); pr max relative error "
           f"{rel:.3e}, rank mass {mass:.9f}", flush=True)
-    return g, prep, pr_plan, launches
+    for algo in ("bfs", "wcc", "sssp"):
+        names = [name for name, (a, _, _) in PATHS.items() if a == algo]
+        first = out["kernel", names[0]].values
+        check(first.shape == (graph_of[algo].n,), f"{algo} output shape")
+        for name in names:
+            for label in ("kernel", "plain"):
+                check(np.array_equal(out[label, name].values, first),
+                      f"{algo} results differ: {label} {name} vs kernel {names[0]}")
+            check(out["kernel", name].iterations == out["plain", name].iterations,
+                  f"{name} iteration counts differ, kernel vs plain")
+    reached, components, finite = check_fixed_points(g, gw, out)
+    print(f"real size: bfs levels identical, auto vs device, kernel vs plain ({reached} "
+          f"reached); wcc labels identical, auto vs adaptive vs device ({components} "
+          f"components); sssp distances identical, auto vs device ({finite} finite); all "
+          f"fixed points over every edge", flush=True)
+    return g, gw, prep, pr_plan, launches
 
 
 def phase_vreg_shuffle(device):
@@ -468,12 +628,131 @@ def phase_kernels(g, prep, pr_plan, device):
                f"{k_max} kept"),
     )
 
-    for name, r in res.items():
-        (k_dev, k_stream), (p_dev, p_stream) = r["times"]
-        r["ms"], r["plain_ms"] = k_dev, p_dev
-        print(f"kernel {name} ({r['shape']}): device {k_dev:.6f} ms vs plain {p_dev:.6f} ms; "
-              f"stream span {k_stream:.6f} ms vs plain {p_stream:.6f} ms; "
-              f"max abs err {r['max_abs_err']:.3e}", flush=True)
+    return res
+
+
+def phase_traversal_kernels(g, gw, device):
+    """K6, K7 and K8 against their plain versions at the traversal paths'
+    shapes and on small hand-made cases."""
+    import torch
+
+    from graphtpu_torch.algorithms.sssp import _initial, _sssp_dense_step, sssp_prep, sssp_tiers
+    from graphtpu_torch.algorithms.wcc import _wcc_slab_steps, wcc_slab_plan
+    from graphtpu_torch.core.types import INT32_INF
+    from graphtpu_torch.ops.frontier import compact, expand, mask_status, relax_min, relax_min_plain
+    from graphtpu_torch.ops.spmv import (
+        csr_pull_reduce, csr_pull_reduce_plain, pull_csr, slab_spmv_min, slab_spmv_min_plain,
+    )
+    from graphtpu_torch.utils.config import PlatformConfig
+
+    n, res = g.n, {}
+
+    # K6: every bucket of the WCC plan in both modes, with the labels after
+    # iteration 0; then hand-made slabs (a column of pad only, ids past n)
+    plan = wcc_slab_plan(g, device)
+    lab1, _ = _wcc_slab_steps(plan, n)[1]()
+    for b in plan.slabs:
+        for x in (lab1, None):
+            check(torch.equal(slab_spmv_min(b.slab, x, n), slab_spmv_min_plain(b.slab, x, n)),
+                  f"slab_spmv_min {'identity' if x is None else 'gather'} "
+                  f"W={b.slab.shape[0]} differs")
+    hand = torch.tensor([[-1, 5, 2, 7], [-1, 9, -1, 0], [-1, 1, 3, 6]], dtype=torch.int32,
+                        device=device)
+    small_x = torch.tensor([4, -3, 8, 8, 0, 2, 1 << 30, 5], dtype=torch.int32, device=device)
+    for x in (small_x, None):
+        got = slab_spmv_min(hand, x, 8)
+        check(torch.equal(got, slab_spmv_min_plain(hand, x, 8)) and int(got[0]) == INT32_INF,
+              "slab_spmv_min hand case differs")
+    res["slab_spmv_min"] = dict(
+        max_abs_err=0.0,
+        times=(cuda_ms(lambda: [slab_spmv_min(b.slab, lab1, n) for b in plan.slabs]),
+               cuda_ms(lambda: [slab_spmv_min_plain(b.slab, lab1, n) for b in plan.slabs])),
+        shape=f"gather mode, all {len(plan.slabs)} WCC buckets (one full step's bucket work)",
+    )
+
+    # K7: the three modes on the full pull CSRs (BFS's frontier at level 1,
+    # WCC's labels after iteration 0 and the stored ids, SSSP's distances
+    # after two rounds in float32 and float64); then empty rows by hand
+    pull = pull_csr(g, device)
+    bfs_mask = torch.zeros(n, dtype=torch.int32, device=device)
+    bfs_mask[pull.src[pull.indptr[0]:pull.indptr[1]].long()] = 1
+    sp32, sp64 = sssp_prep(gw, torch.float32, device), sssp_prep(gw, torch.float64, device)
+    dists = {}
+    for sp, dtype in ((sp32, torch.float32), (sp64, torch.float64)):
+        d = _initial(gw.n, 0, dtype, device)
+        for _ in range(2):
+            d, _ = _sssp_dense_step(d, sp.pull, sp.pull_w)
+        dists[dtype] = d
+    cases = [("max_i32", bfs_mask, pull, None), ("min_i32", lab1, pull, None),
+             ("min_i32", None, pull, None),
+             ("min_plus", dists[torch.float32], sp32.pull, sp32.pull_w),
+             ("min_plus", dists[torch.float64], sp64.pull, sp64.pull_w)]
+    for mode, x, csr, w in cases:
+        got = csr_pull_reduce(mode, x, csr.src, csr.indptr, w)
+        want = csr_pull_reduce_plain(mode, x, csr.src, csr.indptr, w)
+        check(torch.equal(got, want), f"csr_pull_reduce {mode} {None if x is None else x.dtype} "
+                                      f"differs")
+    indptr = torch.tensor([0, 0, 3, 3, 4, 4], dtype=torch.int32, device=device)
+    src = torch.tensor([4, 0, 2, 1], dtype=torch.int32, device=device)
+    xf = torch.tensor([0.5, float("inf"), 2.0, 1.0, 0.25], device=device)
+    wf = torch.tensor([1.0, 0.75, 2.0, 3.0], device=device)
+    for mode, x, w in (("max_i32", small_x[:5], None), ("min_i32", small_x[:5], None),
+                       ("min_i32", None, None), ("min_plus", xf, wf)):
+        check(torch.equal(csr_pull_reduce(mode, x, src, indptr, w),
+                          csr_pull_reduce_plain(mode, x, src, indptr, w)),
+              f"csr_pull_reduce hand case {mode} differs")
+    d32 = dists[torch.float32]
+    times = {}
+    for label, (mode, x, csr, w) in (("bfs frontier, max_i32", cases[0]),
+                                    ("sssp float32, min_plus", cases[3])):
+        times[label] = (
+            cuda_ms(lambda: csr_pull_reduce(mode, x, csr.src, csr.indptr, w)),
+            cuda_ms(lambda: csr_pull_reduce_plain(mode, x, csr.src, csr.indptr, w)))
+        print(f"kernel csr_pull_reduce ({label}, {csr.src.shape[0]} edges): device "
+              f"{times[label][0][0]:.6f} ms vs plain {times[label][1][0]:.6f} ms", flush=True)
+    res["csr_pull_reduce"] = dict(
+        max_abs_err=0.0, times=times["sssp float32, min_plus"],
+        shape=f"min_plus float32 over the SSSP graph's {gw.nnz} in-edges (one full round)",
+    )
+
+    # K8: the first tier step of SSSP from vertex 0, in float32 and float64
+    cfg = PlatformConfig(device=str(device))
+    tiers = sssp_tiers(cfg.sssp_frontier_rows, cfg.sssp_frontier_edges, cfg)
+    k_max = tiers[-1][0]
+    mask = torch.zeros(gw.n, dtype=torch.bool, device=device)
+    mask[0] = True
+    d = _initial(gw.n, 0, torch.float32, device)
+    for _ in range(gw.n):
+        acnt, ae = mask_status(mask, sp32.deg_pad[:-1]).tolist()
+        check(acnt > 0, "sssp converged before any tier step")
+        tier = next((i for i, (k, e) in enumerate(tiers) if acnt <= k and ae <= e), None)
+        if tier is not None:
+            break
+        d, mask = _sssp_dense_step(d, sp32.pull, sp32.pull_w)
+    k_i, e_i = tiers[tier]
+    ids, _ = compact(mask, k_max)
+    exp = expand(ids[:k_i], sp32.deg_pad, sp32.push_indptr, sp32.push_dst, e_i)
+    slots = (exp.row_ids, exp.neigh, exp.gpos, exp.valid)
+    for dd, ww in ((d, sp32.push_w), (d.double(), sp64.push_w)):
+        got, want = relax_min(dd, *slots, ww), relax_min_plain(dd, *slots, ww)
+        check(torch.equal(got, want), f"push_relax_min {dd.dtype} tier step differs")
+    dist3 = torch.tensor([0.0, float("inf"), float("inf")], device=device)
+    two = torch.tensor([0, 0], dtype=torch.int32, device=device)
+    w2 = torch.tensor([1.0, 1.0], device=device)
+    target = torch.tensor([2, 2], dtype=torch.int32, device=device)
+    gp = torch.tensor([0, 1], dtype=torch.int32, device=device)
+    for valid in (torch.tensor([True, True], device=device),
+                  torch.tensor([False, False], device=device)):
+        got = relax_min(dist3, two, target, gp, valid, w2)
+        check(torch.equal(got, relax_min_plain(dist3, two, target, gp, valid, w2)),
+              "push_relax_min hand case differs")
+    res["push_relax_min"] = dict(
+        max_abs_err=0.0,
+        times=(cuda_ms(lambda: relax_min(d, *slots, sp32.push_w)),
+               cuda_ms(lambda: relax_min_plain(d, *slots, sp32.push_w))),
+        shape=(f"float32, the first tier step from vertex 0: {k_i} rows / {e_i} slots, "
+               f"{acnt} changed vertices with {ae} out-edges"),
+    )
     return res
 
 
@@ -483,6 +762,9 @@ SOURCES = {
     "slab_spmv_sum": ("graphtpu_torch/csrc/slab_spmv.cu", "graphtpu/ops/spmv.py:82"),
     "vreg_shuffle": ("graphtpu_torch/csrc/vreg_shuffle.cu", "graphtpu/ops/pallas_gather.py:69"),
     "frontier_expand": ("graphtpu_torch/csrc/frontier_expand.cu", "graphtpu/ops/frontier.py:103"),
+    "slab_spmv_min": ("graphtpu_torch/csrc/slab_spmv.cu", "graphtpu/ops/spmv.py:82"),
+    "csr_pull_reduce": ("graphtpu_torch/csrc/csr_pull_reduce.cu", "graphtpu/algorithms/sssp.py:72"),
+    "push_relax_min": ("graphtpu_torch/csrc/push_relax.cu", "graphtpu/algorithms/sssp.py:140"),
 }
 
 
@@ -508,7 +790,7 @@ def main() -> int:
     print(f"kernels: {lib.name} {built} ({time.perf_counter() - t0:.3f}s to load)", flush=True)
 
     phase_goldens(device)
-    g, prep, pr_plan, path_launches = phase_real_size(device)
+    g, gw, prep, pr_plan, path_launches = phase_real_size(device)
     for path, (_, _, needed) in PATHS.items():
         print(f"launches on path {path}: {path_launches[path]}", flush=True)
         for name in needed:
@@ -520,6 +802,13 @@ def main() -> int:
           f"GiB", flush=True)
 
     res = phase_kernels(g, prep, pr_plan, device)
+    res.update(phase_traversal_kernels(g, gw, device))
+    for name, r in res.items():
+        (k_dev, k_stream), (p_dev, p_stream) = r["times"]
+        r["ms"], r["plain_ms"] = k_dev, p_dev
+        print(f"kernel {name} ({r['shape']}): device {k_dev:.6f} ms vs plain {p_dev:.6f} ms; "
+              f"stream span {k_stream:.6f} ms vs plain {p_stream:.6f} ms; "
+              f"max abs err {r['max_abs_err']:.3e}", flush=True)
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": launches[name],

@@ -82,14 +82,17 @@ def run_algorithm(
 ) -> AlgorithmResult:
     """Run one algorithm (no processing markers: the harness owns the
     processing-time window, bfs.cpp:105-107)."""
+    import graphtpu_torch.algorithms.bfs  # noqa: F401  (registers)
     import graphtpu_torch.algorithms.cdlp  # noqa: F401  (registers)
     import graphtpu_torch.algorithms.pr  # noqa: F401  (registers)
+    import graphtpu_torch.algorithms.sssp  # noqa: F401  (registers)
+    import graphtpu_torch.algorithms.wcc  # noqa: F401  (registers)
 
     name = name.lower()
     if name not in ALGORITHMS:
         raise ValueError(
             f"unknown algorithm {name!r}; graphtpu_torch has {sorted(ALGORITHMS)} "
-            f"(the rest are still to port, ROADMAP Queue 1)"
+            f"(lcc is still to port, ROADMAP Queue 1)"
         )
     params = params or AlgorithmParams()
     cfg = cfg or PlatformConfig()

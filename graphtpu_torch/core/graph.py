@@ -217,6 +217,19 @@ class Graph:
         s, d, w = self._pull_cache
         return s, d, (self.w if w is None else w)
 
+    def symmetrized(self) -> "Graph":
+        """Structure of A | A^T with unit weights (wcc.cpp:53-55), memoized;
+        an undirected graph is its own."""
+        if not self.directed:
+            return self
+        sym = self.memo.get("symmetrized")
+        if sym is None:
+            sym = Graph(self.n, np.concatenate([self.src, self.dst]),
+                        np.concatenate([self.dst, self.src]), None, self.mapping,
+                        directed=False, weighted=False)
+            self.memo["symmetrized"] = sym
+        return sym
+
     # ----------------------------------------------------------- device views
 
     def _device_view(self, kind: str, device, wdtype) -> COO:
@@ -241,6 +254,13 @@ class Graph:
         return self._device_view("pull", device, wdtype)
 
     # ------------------------------------------------------------------ misc
+
+    def dense_source(self, original_source: int) -> int:
+        """The dense id of an original source-vertex id (bfs.cpp:94-103)."""
+        hits = np.nonzero(self.mapping == original_source)[0]
+        if hits.size != 1:
+            raise ValueError(f"source vertex {original_source} not in graph")
+        return int(hits[0])
 
     def __repr__(self) -> str:
         kind = "directed" if self.directed else "undirected"

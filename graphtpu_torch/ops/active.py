@@ -48,6 +48,7 @@ from graphtpu_torch.ops.minmode import (
     stream_minmode,
 )
 from graphtpu_torch.ops.slab import SlabPlan
+from graphtpu_torch.ops.spmv import int32_tensor
 
 # the routing's active-count sentinels, as in the JAX kernel
 STAY_FULL = INT32_INF  # the changed mask exceeds the largest tier
@@ -104,10 +105,10 @@ def prepare_cdlp_adaptive(graph, centers, neigh, deg, cfg) -> AdaptivePrep:
         deg = np.asarray(deg, dtype=np.int64)
         indptr = np.zeros(graph.n + 1, dtype=np.int64)
         np.cumsum(deg, out=indptr[1:])
-        to = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)  # noqa: E731
         prep = AdaptivePrep(
             memoized_cdlp_plan(graph, centers, neigh, deg, buckets, device),
-            to(np.concatenate([deg, [0]])), to(indptr), to(neigh),
+            int32_tensor(np.concatenate([deg, [0]]), device), int32_tensor(indptr, device),
+            int32_tensor(neigh, device),
         )
         graph.memo[key] = prep
     return prep
@@ -248,7 +249,7 @@ def cdlp_adaptive_run(graph, centers, neigh, deg, itermax, cfg):
     plan = memoized_cdlp_plan(graph, centers, neigh, deg, buckets, device)
     thresh_edges = cfg.cdlp_active_threshold * max(int(np.asarray(centers).shape[0]), 1)
     timer = IterationTimer() if cfg.iteration_timing else None
-    to = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)  # noqa: E731
+    to = lambda a: int32_tensor(a, device)  # noqa: E731
 
     labels = torch.arange(n, dtype=torch.int32, device=device)
     prev = np.arange(n, dtype=np.int32)

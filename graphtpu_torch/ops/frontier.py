@@ -5,10 +5,12 @@ A frontier is a fixed-capacity id buffer ``ids [K]`` (ascending, padded
 with n) plus its true count. ``compact`` turns a dense mask into one,
 ``expand`` lays the frontier's adjacency slices out in ``e_cap`` edge
 slots on kernel K5 (``frontier_expand``), ``compact_stream`` dedupes a
-stream of vertex ids back into a frontier, and ``mask_status`` gives a
+stream of vertex ids back into a frontier, ``mask_status`` gives a
 mask's (count, edge-sum), the numbers a caller needs to decide whether a
-frontier fits its capacities. Every function returns the JAX function's
-values, pad slots included, and never reads a value back to the host.
+frontier fits its capacities, and ``relax_min`` is SSSP's push relaxation
+over an expansion on kernel K8 (``push_relax_min``). Every function
+returns the JAX function's values, pad slots included, and never reads a
+value back to the host.
 """
 
 from __future__ import annotations
@@ -73,7 +75,8 @@ def frontier_expand_plain(ids, starts, indptr_pad, neigh, e_cap: int, with_row_i
     row_ids = ids[rows_local.long()] if with_row_ids else None
     delta = indptr_pad[ids.long()] - starts[:-1]
     gpos = torch.where(valid, delta[rows_local.long()] + slot, 0)
-    nb = torch.where(valid, neigh[gpos.long()], 0)
+    # an edgeless graph has no neighbour to read, and no valid slot
+    nb = torch.where(valid, neigh[gpos.long()], 0) if neigh.numel() else torch.zeros_like(gpos)
     return rows_local, row_ids, gpos, nb, valid
 
 
@@ -139,6 +142,51 @@ def frontier_deg_sum(ids: torch.Tensor, deg_pad: torch.Tensor) -> torch.Tensor:
     """Sum of degrees over a compacted frontier (pad ids read 0). A lower
     bound when the frontier was cut (count > K): callers check the count."""
     return table_gather(deg_pad, ids).sum(dtype=torch.int32)
+
+
+def relax_min_plain(dist, row_ids, neigh, gpos, valid, w) -> torch.Tensor:
+    """K8's plain PyTorch version, the JAX function's formulation: gathers
+    of dist at the owners and of w at the positions, then a scatter-min
+    into a copy of dist whose extra slot n takes the invalid slots."""
+    if not w.numel():  # an edgeless graph: no valid slot
+        return dist.clone()
+    n = dist.shape[0]
+    inf = torch.tensor(float("inf"), dtype=dist.dtype, device=dist.device)
+    cand = table_gather(dist, torch.where(valid, row_ids, 0)) + table_gather(w, gpos)
+    out = torch.cat([dist, inf.reshape(1)])
+    out.scatter_reduce_(0, torch.where(valid, neigh, n).long(), torch.where(valid, cand, inf),
+                        "amin")
+    return out[:n]
+
+
+def relax_min(dist: torch.Tensor, row_ids: torch.Tensor, neigh: torch.Tensor,
+              gpos: torch.Tensor, valid: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """K8 wrapper: a copy of ``dist`` with, for each valid slot e of an
+    expansion, dist[neigh[e]] lowered to dist[row_ids[e]] + w[gpos[e]] where
+    that is smaller. ``dist`` and ``w`` float32 or float64 of one dtype;
+    ``row_ids``, ``neigh``, ``gpos`` int32 and ``valid`` bool, all [E]."""
+    if dist.dtype not in (torch.float32, torch.float64) or w.dtype != dist.dtype:
+        raise TypeError(f"relax_min: dist and w must share a float dtype, got {dist.dtype}, "
+                        f"{w.dtype}")
+    slots = (row_ids, neigh, gpos)
+    if any(t.dtype != torch.int32 for t in slots) or valid.dtype != torch.bool:
+        raise TypeError("relax_min: row_ids, neigh and gpos must be int32, valid bool")
+    ts = (dist, w, valid) + slots
+    if any(t.dim() != 1 for t in ts) or any(t.shape != valid.shape for t in slots):
+        raise ValueError("relax_min: 1-D inputs, the four slot tensors of one length")
+    if any(t.device != dist.device for t in ts) or not all(t.is_contiguous() for t in ts):
+        raise ValueError("relax_min: inputs must be contiguous, on one device")
+    if not kernels.use_kernel(dist):
+        return relax_min_plain(dist, row_ids, neigh, gpos, valid, w)
+    out = dist.clone()
+    e_cap = valid.shape[0]
+    if e_cap:
+        kernels.launch(
+            "push_relax_min", dist.device, dist.data_ptr(), row_ids.data_ptr(),
+            neigh.data_ptr(), gpos.data_ptr(), valid.data_ptr(), w.data_ptr(), out.data_ptr(),
+            e_cap, int(dist.dtype == torch.float64),
+        )
+    return out
 
 
 def scatter_frontier(mask_cap: int, neigh: torch.Tensor, active: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,9 @@ process can load a half-written file.
 Each kernel has a wrapper beside its plain PyTorch version:
 ``ops/gather.py:gather_rows`` (K1), ``ops/minmode.py:slab_minmode`` (K2),
 ``ops/spmv.py:slab_spmv_sum`` (K3), ``ops/pallas_gather.py:vreg_shuffle``
-(K4) and ``ops/frontier.py:frontier_expand`` (K5). A wrapper dispatches on
+(K4), ``ops/frontier.py:frontier_expand`` (K5), ``ops/spmv.py:slab_spmv_min``
+(K6), ``ops/spmv.py:csr_pull_reduce`` (K7) and ``ops/frontier.py:relax_min``
+(K8, kernel ``push_relax_min``). A wrapper dispatches on
 the device of its tensors: a CPU tensor takes the plain version, a CUDA
 tensor launches the kernel or raises. Inside ``plain_torch()`` CUDA
 tensors take the plain version too, so the whole path can run as its own
@@ -40,7 +42,10 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC",
 )
 
-KERNELS = ("gather_rows", "slab_minmode", "slab_spmv_sum", "vreg_shuffle", "frontier_expand")
+KERNELS = (
+    "gather_rows", "slab_minmode", "slab_spmv_sum", "vreg_shuffle", "frontier_expand",
+    "slab_spmv_min", "csr_pull_reduce", "push_relax_min",
+)
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _SIGNATURES = {
@@ -55,6 +60,12 @@ _SIGNATURES = {
     # ids, starts, k, indptr_pad, neigh, rows_local, row_ids, gpos, neigh_out,
     # valid, e_cap, stream
     "gt_frontier_expand": (_P, _P, _I32, _P, _P, _P, _P, _P, _P, _P, _I32, _P),
+    # slab, x (null = identity mode), y, w, R, n, stream
+    "gt_slab_spmv_min": (_P, _P, _P, _I32, _I64, _I64, _P),
+    # indptr, src, x (null = the stored ids), w (null unless min_plus), y, n, mode, stream
+    "gt_csr_pull_reduce": (_P, _P, _P, _P, _P, _I64, _I32, _P),
+    # dist, row_ids, neigh, gpos, valid, w, out, e_cap, is_f64, stream
+    "gt_push_relax_min": (_P, _P, _P, _P, _P, _P, _P, _I32, _I32, _P),
 }
 
 launch_counts = dict.fromkeys(KERNELS, 0)

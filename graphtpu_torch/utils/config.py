@@ -136,6 +136,41 @@ class PlatformConfig:
     # explicit ascending active-tier edge budgets (comma list); empty = the
     # single cdlp-frontier tier (ops/active.py cdlp_tiers)
     cdlp_tiers: str = ""
+    # auto|adaptive|device (hybrid is not ported yet): auto/adaptive = the
+    # push tier ladder, truncated bottom-up and the dense pull fallback
+    # (algorithms/bfs.py); device = dense pull steps only
+    bfs_impl: str = "auto"
+    # row budget of every push tier; 0 = 2^18 (each tier takes min(rows,
+    # its edges, n))
+    bfs_frontier_rows: int = 0
+    # top push tier's edge budget; 0 = 2^22
+    bfs_frontier_edges: int = 0
+    # explicit ascending push-tier edge budgets (comma list); empty = 2^16,
+    # 2^18, 2^20 below bfs-frontier-edges, then bfs-frontier-edges
+    bfs_push_tiers: str = ""
+    # in-neighbours the truncated bottom-up probes per row; 0 = BFS_TRUNC (2)
+    bfs_trunc: int = 0
+    # bottom-up residual budgets (rows, edges) before the level goes dense;
+    # 0 = 2^15 rows, 2^18 edges
+    bfs_bu_rows: int = 0
+    bfs_bu_edges: int = 0
+    # ""/phases run; "switch" (a TPU compile-time experiment) is not ported
+    bfs_step_mode: str = ""
+    # auto|slab|adaptive|device: auto/slab = full steps on the slab plan
+    # (kernel K6), adaptive = full steps on the edge stream (K7), both with
+    # active-set steps on the frontier engine; device = dense steps only
+    wcc_impl: str = "auto"
+    wcc_frontier_rows: int = 1 << 16
+    wcc_frontier_edges: int = 1 << 18
+    # auto|adaptive|device (hybrid and delta are not ported yet):
+    # auto/adaptive = changed-set Bellman-Ford on a frontier tier ladder
+    # (kernels K5, K8) with dense sweeps (K7); device = dense sweeps only
+    sssp_impl: str = "auto"
+    sssp_frontier_rows: int = 1 << 16
+    sssp_frontier_edges: int = 1 << 18
+    # explicit frontier-tier edge budgets (comma list); empty = the (e/8, e)
+    # ladder (algorithms/sssp.py sssp_tiers)
+    sssp_tiers: str = ""
     # slab degree-bucket upper bounds; None = per-graph DP-optimal bounds
     slab_buckets: Optional[tuple] = None
     # print "[CUDA][TIMER] cdlp iteration k took Xms" per CDLP iteration
@@ -161,6 +196,21 @@ _PLATFORM_PROPS = {
     "platform.graphtpu.cdlp-frontier-rows": ("cdlp_frontier_rows", int),
     "platform.graphtpu.cdlp-frontier-edges": ("cdlp_frontier_edges", int),
     "platform.graphtpu.cdlp-tiers": ("cdlp_tiers", str),
+    "platform.graphtpu.bfs-impl": ("bfs_impl", str),
+    "platform.graphtpu.bfs-frontier-rows": ("bfs_frontier_rows", int),
+    "platform.graphtpu.bfs-frontier-edges": ("bfs_frontier_edges", int),
+    "platform.graphtpu.bfs-push-tiers": ("bfs_push_tiers", str),
+    "platform.graphtpu.bfs-trunc": ("bfs_trunc", int),
+    "platform.graphtpu.bfs-bu-rows": ("bfs_bu_rows", int),
+    "platform.graphtpu.bfs-bu-edges": ("bfs_bu_edges", int),
+    "platform.graphtpu.bfs-step-mode": ("bfs_step_mode", str),
+    "platform.graphtpu.wcc-impl": ("wcc_impl", str),
+    "platform.graphtpu.wcc-frontier-rows": ("wcc_frontier_rows", int),
+    "platform.graphtpu.wcc-frontier-edges": ("wcc_frontier_edges", int),
+    "platform.graphtpu.sssp-impl": ("sssp_impl", str),
+    "platform.graphtpu.sssp-frontier-rows": ("sssp_frontier_rows", int),
+    "platform.graphtpu.sssp-frontier-edges": ("sssp_frontier_edges", int),
+    "platform.graphtpu.sssp-tiers": ("sssp_tiers", str),
     "platform.graphtpu.slab-buckets": (
         "slab_buckets",
         lambda v: tuple(int(x) for x in str(v).split(",") if x.strip()),

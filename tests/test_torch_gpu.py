@@ -12,11 +12,16 @@ import pytest
 import torch
 
 from graphtpu_torch.ops import kernels
-from graphtpu_torch.ops.frontier import frontier_expand, frontier_expand_plain
+from graphtpu_torch.ops.frontier import (
+    frontier_expand, frontier_expand_plain, relax_min, relax_min_plain,
+)
 from graphtpu_torch.ops.gather import gather_rows, gather_rows_plain
 from graphtpu_torch.ops.minmode import slab_minmode, slab_minmode_plain
 from graphtpu_torch.ops.pallas_gather import vreg_shuffle, vreg_shuffle_plain
-from graphtpu_torch.ops.spmv import slab_spmv_sum, slab_spmv_sum_plain
+from graphtpu_torch.ops.spmv import (
+    csr_pull_reduce, csr_pull_reduce_plain, slab_spmv_min, slab_spmv_min_plain, slab_spmv_sum,
+    slab_spmv_sum_plain,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -150,3 +155,92 @@ def test_frontier_expand_matches_plain(cuda, case, with_row_ids):
             assert g is None, name
         else:
             assert torch.equal(g.cpu(), w), name
+
+
+@pytest.mark.parametrize("mode", ["gather", "identity"])
+@pytest.mark.parametrize("w", [1, 2, 7, 32, 100, 1000])
+def test_slab_spmv_min_matches_plain(cuda, mode, w):
+    """Columns without entries, and ids past n that count as pad."""
+    rng = np.random.default_rng(w)
+    n = 3000
+    slab = _padded_slab(rng, w, 2000, n + 50)  # ids in [n, n + 50) are pad too
+    x = torch.from_numpy(rng.integers(-(1 << 30), 1 << 30, size=n).astype(np.int32))
+    xm = x if mode == "gather" else None
+    before = kernels.launch_counts["slab_spmv_min"]
+    got = slab_spmv_min(torch.from_numpy(slab).to(cuda), None if xm is None else xm.to(cuda), n)
+    assert kernels.launch_counts["slab_spmv_min"] == before + 1
+    assert torch.equal(got.cpu(), slab_spmv_min_plain(torch.from_numpy(slab), xm, n))
+
+
+def _pull_csr(rng, n, hub_deg):
+    """(src, indptr) of a random pull CSR with empty rows and one hub
+    row of ``hub_deg`` in-edges."""
+    deg = rng.integers(0, 6, size=n)
+    deg[rng.choice(n, size=n // 4, replace=False)] = 0
+    deg[n // 2] = hub_deg
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(deg, out=indptr[1:])
+    src = rng.integers(0, n, size=int(indptr[-1])).astype(np.int32)
+    return [torch.from_numpy(a) for a in (src, indptr.astype(np.int32))]
+
+
+@pytest.mark.parametrize("case", ["max_i32", "max_i32_negative", "min_i32", "min_i32_ids",
+                                  "min_plus_f32", "min_plus_f64", "min_plus_negative"])
+def test_csr_pull_reduce_matches_plain(cuda, case):
+    """0/1 frontiers, labels, the stored ids, distances in both dtypes, and
+    negative values, whose max stays negative: the identity fills rows
+    without in-edges only."""
+    rng = np.random.default_rng(len(case))
+    n = 20000
+    src, indptr = _pull_csr(rng, n, 100000)
+    mode = case[:8] if case.startswith("min_plus") else case[:7]
+    x = w = None
+    if case == "max_i32":
+        x = torch.from_numpy(rng.integers(0, 2, size=n).astype(np.int32))
+    elif case == "max_i32_negative":
+        x = torch.from_numpy(rng.integers(-1000, -1, size=n).astype(np.int32))
+    elif case == "min_i32":
+        x = torch.from_numpy(rng.integers(0, n, size=n).astype(np.int32))
+    elif mode == "min_plus":
+        dt = np.float64 if case.endswith("f64") else np.float32
+        x = np.where(rng.random(n) < 0.3, np.inf, rng.random(n) * 3).astype(dt)
+        w = (rng.random(src.shape[0]) + 0.01).astype(dt)
+        if case.endswith("negative"):
+            x, w = x - 1.5, w - 0.5
+        x, w = torch.from_numpy(x), torch.from_numpy(w)
+    before = kernels.launch_counts["csr_pull_reduce"]
+    on = lambda t: None if t is None else t.to(cuda)  # noqa: E731
+    got = csr_pull_reduce(mode, on(x), src.to(cuda), indptr.to(cuda), on(w))
+    assert kernels.launch_counts["csr_pull_reduce"] == before + 1
+    assert torch.equal(got.cpu(), csr_pull_reduce_plain(mode, x, src, indptr, w))
+
+
+@pytest.mark.parametrize("case", ["random", "all_pad", "equal_candidates", "negative"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_push_relax_min_matches_plain(cuda, dtype, case):
+    """Random slots whose targets repeat (contended atomics), a frontier of
+    pad slots only, many slots with one equal candidate, and negative
+    values (the sign-aware atomic)."""
+    rng = np.random.default_rng(len(case))
+    n, e_cap, m = 5000, 1 << 16, 40000
+    dist = torch.from_numpy(np.where(rng.random(n) < 0.4, np.inf, rng.random(n) * 5)).to(dtype)
+    w = torch.from_numpy(rng.random(m) + 0.01).to(dtype)
+    row_ids = torch.from_numpy(rng.integers(0, n, size=e_cap).astype(np.int32))
+    neigh = torch.from_numpy(rng.integers(0, 300, size=e_cap).astype(np.int32))
+    gpos = torch.from_numpy(rng.integers(0, m, size=e_cap).astype(np.int32))
+    valid = torch.from_numpy(rng.random(e_cap) < 0.7)
+    if case == "all_pad":
+        valid[:] = False
+    if case == "equal_candidates":
+        row_ids[:] = 7
+        dist[7] = 1.0
+        gpos[:] = 3
+    if case == "negative":
+        dist, w = dist - 2.5, w - 0.6
+    args = (dist, row_ids, neigh, gpos, valid, w)
+    before = kernels.launch_counts["push_relax_min"]
+    got = relax_min(*(t.to(cuda) for t in args))
+    assert kernels.launch_counts["push_relax_min"] == before + 1
+    want = relax_min_plain(*args)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got.cpu(), dist) == (case == "all_pad")

@@ -107,7 +107,7 @@ def test_cdlp_auto_resolves_to_slab_and_adaptive_is_refused():
         run_algorithm("pr", tg, AlgorithmParams(damping_factor=0.85, num_iterations=2),
                       PlatformConfig(device="cpu", pr_impl="scan"))
     with pytest.raises(ValueError, match="unknown algorithm"):
-        run_algorithm("bfs", tg, AlgorithmParams(source_vertex=0), PlatformConfig(device="cpu"))
+        run_algorithm("lcc", tg, AlgorithmParams(), PlatformConfig(device="cpu"))
 
 
 def test_cdlp_iteration_timing_and_edgeless_graph(capsys):
