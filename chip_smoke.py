@@ -31,7 +31,13 @@ Run from the root of a checkout:  python3 chip_smoke.py
    count is that phase's.
 5. Each kernel against its plain PyTorch version at the path's shapes and
    on small hand-made cases, with both device times (profiler) and stream
-   spans (CUDA events).
+   spans (CUDA events). Beside each time stands the kernel's bound: the
+   bytes the function must move at these inputs (each input read once, each
+   output written once; stored slots that are pad are not counted) over the
+   card's published memory rate, or its operations over the float32 peak,
+   whichever is larger; and, where one PyTorch call computes the same
+   function (index_select, a CSR product, gather), that call's time. The
+   library calls are yardsticks: the port never calls them.
 
 Exits non-zero if any phase fails. The last lines of stdout are the
 card's name and power limit, one JSON line of per-kernel results, and
@@ -65,6 +71,8 @@ JAX_STEPS = {
 RANGES = ("cdlp.", "bfs.", "wcc.", "sssp.")  # the named profiler ranges of the loops
 PR_RTOL = 1e-4        # the validator's EPSILON (graphtpu/harness/validator.py:40)
 F32_SUM_RTOL = 1e-5   # float32 sums in another order than torch's
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
+F32_OPS_PER_S = 67e12      # H100 SXM, published, outside the tensor cores
 
 
 def check(cond, msg):
@@ -76,7 +84,10 @@ def cuda_ms(fn, reps=10):
     """(device ms, stream ms) per call of fn(), over reps calls after a
     warm-up. Device ms is the device time the profiler attributes to the
     calls' kernels and copies; stream ms is the CUDA-event span per call,
-    which also holds the time the device waits for the host to launch."""
+    which also holds the time the device waits for the host to launch. A
+    profiler trace now and then comes back without any device record:
+    it is taken again, and after three empty traces the stream span
+    stands in for the device time, with a line that says so."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -89,13 +100,17 @@ def cuda_ms(fn, reps=10):
     end.record()
     torch.cuda.synchronize()
     stream_ms = start.elapsed_time(end) / reps
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    device_us = sum(e.self_device_time_total for e in _device_events(prof))
-    check(device_us > 0, "the profiler recorded no device time")
-    return device_us / 1e3 / reps, stream_ms
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        device_us = sum(e.self_device_time_total for e in _device_events(prof))
+        if device_us > 0:
+            return device_us / 1e3 / reps, stream_ms
+    print(f"cuda_ms: three profiler traces recorded no device time; the CUDA-event span "
+          f"{stream_ms:.6f} ms stands in", flush=True)
+    return stream_ms, stream_ms
 
 
 def _on_device(e) -> bool:
@@ -142,6 +157,35 @@ def profile_run(fn):
                 count, host = e.count, host + e.cpu_time_total / 1e3
             ranges[e.key] = (count, host, span)
     return wall, device_ms, top, ranges
+
+
+def bound_ms(nbytes, ops):
+    """(ms, "bytes" or "operations"): the least time the card could take."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def plan_counts(plan):
+    """(stored slots that are not pad, padded slots, bucket rows) of a plan."""
+    real = sum(int((b.slab >= 0).sum()) for b in plan.slabs)
+    return real, sum(b.slab.numel() for b in plan.slabs), plan.table.total
+
+
+def plan_csr(plan, n, dtype):
+    """The buckets of a plan as one CSR matrix of ones [bucket rows, n]:
+    rows in plan order, each row's ids in slab order, pads left out."""
+    import torch
+
+    cols, counts = [], []
+    for b in plan.slabs:
+        valid = b.slab >= 0
+        cols.append(b.slab.t()[valid.t()])
+        counts.append(valid.sum(0, dtype=torch.int32))
+    col, counts = torch.cat(cols), torch.cat(counts)
+    crow = torch.cat([counts.new_zeros(1), counts.cumsum(0, dtype=torch.int32)])
+    return torch.sparse_csr_tensor(crow, col, torch.ones(col.shape[0], dtype=dtype,
+                                                         device=col.device),
+                                   size=(plan.table.total, n))
 
 
 def max_abs_err(a, b):
@@ -194,7 +238,10 @@ def load_graph(name, scale, edge_factor, weighted):
     return g, "generated"
 
 
-def timed_run(algo, g, params, cfg, reps=3):
+RUNS_PER_PATH = 4  # timed_run's warm-up and its three timed runs
+
+
+def timed_run(algo, g, params, cfg, reps=RUNS_PER_PATH - 1):
     """(result, seconds of each of ``reps`` warm runs) after one warm-up
     run that puts the plan on the device."""
     import torch
@@ -475,9 +522,12 @@ def phase_kernels(g, prep, pr_plan, device):
 
     from graphtpu_torch.ops.gather import gather_rows, gather_rows_plain
     from graphtpu_torch.ops.minmode import (
-        _iter0_minmode, slab_minmode, slab_minmode_plain,
+        _iter0_minmode, slab_minmode, slab_minmode_buckets, slab_minmode_plain,
     )
-    from graphtpu_torch.ops.spmv import slab_spmv_sum, slab_spmv_sum_plain
+    from graphtpu_torch.ops.slab import result_buffer
+    from graphtpu_torch.ops.spmv import (
+        slab_spmv_sum, slab_spmv_sum_buckets, slab_spmv_sum_plain,
+    )
 
     gen = torch.Generator(device=device).manual_seed(0)
     n = g.n
@@ -505,6 +555,8 @@ def phase_kernels(g, prep, pr_plan, device):
         times=(cuda_ms(lambda: gather_rows(labels, idx1)),
                cuda_ms(lambda: gather_rows_plain(labels, idx1))),
         shape=f"C=1 int32, table {n}, {idx1.shape[0]} indices",
+        bytes=4 * (n + 2 * idx1.shape[0]), ops=0,  # the table, the indices, the output
+        library=("torch.index_select", lambda: torch.index_select(labels, 0, idx1)),
     )
 
     # K2: every bucket of the CDLP plan in all three modes, with the labels
@@ -526,13 +578,25 @@ def phase_kernels(g, prep, pr_plan, device):
             check(torch.equal(slab_minmode(slab, mode, 4000, lm),
                               slab_minmode_plain(slab, mode, 4000, lm)),
                   f"slab_minmode {mode} W={w} (random) differs")
+    # all buckets of the plan at once (the path's two launches a step)
+    total = cdlp_plan.table.total
+    for mode in ("gather", "identity", "min"):
+        lab = lab1 if mode == "gather" else None
+        buf = result_buffer(cdlp_plan, torch.int32)
+        slab_minmode_buckets(cdlp_plan, mode, n, lab, buf)
+        want = torch.cat([slab_minmode_plain(b.slab, mode, n, lab) for b in cdlp_plan.slabs])
+        check(torch.equal(buf[:total], want), f"slab_minmode_buckets {mode} differs")
+    real, padded, rows = plan_counts(cdlp_plan)
+    buf = result_buffer(cdlp_plan, torch.int32)
     res["slab_minmode"] = dict(
         max_abs_err=0.0,
-        times=(cuda_ms(lambda: [slab_minmode(b.slab, "gather", n, lab1)
-                                for b in cdlp_plan.slabs]),
+        times=(cuda_ms(lambda: slab_minmode_buckets(cdlp_plan, "gather", n, lab1, buf)),
                cuda_ms(lambda: [slab_minmode_plain(b.slab, "gather", n, lab1)
                                 for b in cdlp_plan.slabs])),
-        shape="gather mode, all CDLP buckets (one full step's bucket work)",
+        shape=(f"gather mode, all {len(cdlp_plan.slabs)} CDLP buckets (one full step's bucket "
+               f"work): {real} stored slots ({padded} with pad), {rows} rows"),
+        bytes=4 * (real + n + rows), ops=real,  # slab ids, labels, results; a count per slot
+        library=None,  # no single call: a gather, a sort and a run-length pass
     )
 
     # K3: every bucket of the PR plan, float32 and float64
@@ -545,11 +609,31 @@ def phase_kernels(g, prep, pr_plan, device):
             check(not bool(bad.any()), f"slab_spmv_sum {xd.dtype} W={b.slab.shape[0]} differs")
             if xd.dtype == torch.float32:
                 err = max(err, max_abs_err(got, want))
+    total = pr_plan.table.total
+    for xd, rtol in ((x, F32_SUM_RTOL), (x.double(), 1e-12)):
+        got, again = result_buffer(pr_plan, xd.dtype), result_buffer(pr_plan, xd.dtype)
+        slab_spmv_sum_buckets(pr_plan, xd, got)
+        slab_spmv_sum_buckets(pr_plan, xd, again)
+        check(torch.equal(got[:total], again[:total]),
+              f"slab_spmv_sum_buckets {xd.dtype}: two runs differ")
+        want = torch.cat([slab_spmv_sum_plain(b.slab, xd) for b in pr_plan.slabs]).double()
+        bad = (got[:total].double() - want).abs() > rtol * want.abs()
+        check(not bool(bad.any()), f"slab_spmv_sum_buckets {xd.dtype} differs")
+    real, padded, rows = plan_counts(pr_plan)
+    csr = plan_csr(pr_plan, n, torch.float32)
+    y_lib = torch.mv(csr, x)  # cuSPARSE's SpMV
+    got = result_buffer(pr_plan, torch.float32)
+    slab_spmv_sum_buckets(pr_plan, x, got)
+    check(torch.allclose(y_lib, got[:total], rtol=F32_SUM_RTOL, atol=0),
+          "the CSR product differs from slab_spmv_sum")
     res["slab_spmv_sum"] = dict(
         max_abs_err=err,
-        times=(cuda_ms(lambda: [slab_spmv_sum(b.slab, x) for b in pr_plan.slabs]),
+        times=(cuda_ms(lambda: slab_spmv_sum_buckets(pr_plan, x, got)),
                cuda_ms(lambda: [slab_spmv_sum_plain(b.slab, x) for b in pr_plan.slabs])),
-        shape="float32, all PR buckets (one full step's bucket work)",
+        shape=(f"float32, all {len(pr_plan.slabs)} PR buckets (one full step's bucket work): "
+               f"{real} stored slots ({padded} with pad), {rows} rows"),
+        bytes=4 * (real + n + rows), ops=real,  # slab ids, x, y; an add per slot
+        library=("torch.mv of a sparse CSR matrix of ones", lambda: torch.mv(csr, x)),
     )
 
     # K4: random [8, 128] tables and indices
@@ -564,6 +648,8 @@ def phase_kernels(g, prep, pr_plan, device):
         times=(cuda_ms(lambda: vreg_shuffle(tbl8, ind), reps=100),
                cuda_ms(lambda: vreg_shuffle_plain(tbl8, ind), reps=100)),
         shape="[8, 128] float32",
+        bytes=3 * 8 * 128 * 4, ops=0,  # the table, the indices, the output
+        library=("torch.gather", lambda ind64=ind.long(): torch.gather(tbl8, 0, ind64)),
     )
 
     # K5 at the path's shapes: the changed mask after the first full step,
@@ -626,6 +712,12 @@ def phase_kernels(g, prep, pr_plan, device):
         shape=(f"tier step: {k_max} ids ({int(tier_cnt)} real, {tier_edges} edges, after "
                f"{steps} steps) into {e_max} slots; full-step mask: {int(full_cnt)} changed, "
                f"{k_max} kept"),
+        # ids and starts, an indptr entry per real id, a neighbour per valid
+        # slot; rows_local, gpos, neigh (int32) and valid (bool) per slot
+        bytes=(4 * (2 * k_max + 1) + 4 * int(tier_cnt) + 4 * min(tier_edges, e_max)
+               + 13 * e_max),
+        ops=e_max * 16,  # a binary search of the row starts per slot
+        library=None,  # no single call: a scatter, a cummax and three gathers
     )
 
     return res
@@ -640,8 +732,10 @@ def phase_traversal_kernels(g, gw, device):
     from graphtpu_torch.algorithms.wcc import _wcc_slab_steps, wcc_slab_plan
     from graphtpu_torch.core.types import INT32_INF
     from graphtpu_torch.ops.frontier import compact, expand, mask_status, relax_min, relax_min_plain
+    from graphtpu_torch.ops.slab import result_buffer
     from graphtpu_torch.ops.spmv import (
-        csr_pull_reduce, csr_pull_reduce_plain, pull_csr, slab_spmv_min, slab_spmv_min_plain,
+        csr_pull_reduce, csr_pull_reduce_plain, pull_csr, slab_spmv_min, slab_spmv_min_buckets,
+        slab_spmv_min_plain,
     )
     from graphtpu_torch.utils.config import PlatformConfig
 
@@ -663,11 +757,22 @@ def phase_traversal_kernels(g, gw, device):
         got = slab_spmv_min(hand, x, 8)
         check(torch.equal(got, slab_spmv_min_plain(hand, x, 8)) and int(got[0]) == INT32_INF,
               "slab_spmv_min hand case differs")
+    total = plan.table.total
+    for x in (lab1, None):
+        buf = result_buffer(plan, torch.int32)
+        slab_spmv_min_buckets(plan, x, n, buf)
+        want = torch.cat([slab_spmv_min_plain(b.slab, x, n) for b in plan.slabs])
+        check(torch.equal(buf[:total], want),
+              f"slab_spmv_min_buckets {'identity' if x is None else 'gather'} differs")
+    real, padded, rows = plan_counts(plan)
     res["slab_spmv_min"] = dict(
         max_abs_err=0.0,
-        times=(cuda_ms(lambda: [slab_spmv_min(b.slab, lab1, n) for b in plan.slabs]),
+        times=(cuda_ms(lambda: slab_spmv_min_buckets(plan, lab1, n, buf)),
                cuda_ms(lambda: [slab_spmv_min_plain(b.slab, lab1, n) for b in plan.slabs])),
-        shape=f"gather mode, all {len(plan.slabs)} WCC buckets (one full step's bucket work)",
+        shape=(f"gather mode, all {len(plan.slabs)} WCC buckets (one full step's bucket work): "
+               f"{real} stored slots ({padded} with pad), {rows} rows"),
+        bytes=4 * (real + n + rows), ops=real,  # slab ids, x, y; a min per slot
+        library=None,  # no single call: a gather, a where and a row min
     )
 
     # K7: the three modes on the full pull CSRs (BFS's frontier at level 1,
@@ -710,10 +815,18 @@ def phase_traversal_kernels(g, gw, device):
             cuda_ms(lambda: csr_pull_reduce_plain(mode, x, csr.src, csr.indptr, w)))
         print(f"kernel csr_pull_reduce ({label}, {csr.src.shape[0]} edges): device "
               f"{times[label][0][0]:.6f} ms vs plain {times[label][1][0]:.6f} ms", flush=True)
+    m7 = int(sp32.pull.src.shape[0])
     res["csr_pull_reduce"] = dict(
         max_abs_err=0.0, times=times["sssp float32, min_plus"],
         shape=f"min_plus float32 over the SSSP graph's {gw.nnz} in-edges (one full round)",
+        # indptr, src and w per edge, x, y; an add and a min per edge
+        bytes=4 * (gw.n + 1) + 8 * m7 + 8 * gw.n, ops=2 * m7,
+        library=None,  # no single call: a gather, an add and a segment reduction
     )
+    m7b = int(pull.src.shape[0])
+    b_ms, b_by = bound_ms(4 * (n + 1) + 4 * m7b + 8 * n, m7b)
+    print(f"kernel csr_pull_reduce (bfs frontier, max_i32): bound {b_ms:.6f} ms by {b_by} "
+          f"({4 * (n + 1) + 4 * m7b + 8 * n} bytes)", flush=True)
 
     # K8: the first tier step of SSSP from vertex 0, in float32 and float64
     cfg = PlatformConfig(device=str(device))
@@ -752,6 +865,10 @@ def phase_traversal_kernels(g, gw, device):
                cuda_ms(lambda: relax_min_plain(d, *slots, sp32.push_w))),
         shape=(f"float32, the first tier step from vertex 0: {k_i} rows / {e_i} slots, "
                f"{acnt} changed vertices with {ae} out-edges"),
+        # dist read and its lowered copy written; row_ids, neigh, gpos (int32)
+        # and valid (bool) per slot; a weight per valid slot
+        bytes=8 * gw.n + 13 * e_i + 4 * int(exp.valid.sum()), ops=2 * int(exp.valid.sum()),
+        library=None,  # no single call: two gathers, an add and a scatter-min
     )
     return res
 
@@ -792,7 +909,9 @@ def main() -> int:
     phase_goldens(device)
     g, gw, prep, pr_plan, path_launches = phase_real_size(device)
     for path, (_, _, needed) in PATHS.items():
-        print(f"launches on path {path}: {path_launches[path]}", flush=True)
+        per_run = {k: v / RUNS_PER_PATH for k, v in path_launches[path].items() if v}
+        print(f"launches on path {path} ({RUNS_PER_PATH} runs): {path_launches[path]}; per run: "
+              f"{per_run}", flush=True)
         for name in needed:
             check(path_launches[path][name] > 0,
                   f"kernel {name} was not launched on the {path} path")
@@ -806,14 +925,25 @@ def main() -> int:
     for name, r in res.items():
         (k_dev, k_stream), (p_dev, p_stream) = r["times"]
         r["ms"], r["plain_ms"] = k_dev, p_dev
+        r["bound_ms"], r["bound_by"] = bound_ms(r["bytes"], r["ops"])
+        r["library_ms"], lib = None, "library call: none"
+        if r["library"] is not None:
+            lib_name, lib_fn = r["library"]
+            r["library_ms"] = cuda_ms(lib_fn, reps=100 if name == "vreg_shuffle" else 10)[0]
+            lib = f"library call ({lib_name}) {r['library_ms']:.6f} ms"
         print(f"kernel {name} ({r['shape']}): device {k_dev:.6f} ms vs plain {p_dev:.6f} ms; "
               f"stream span {k_stream:.6f} ms vs plain {p_stream:.6f} ms; "
-              f"max abs err {r['max_abs_err']:.3e}", flush=True)
+              f"max abs err {r['max_abs_err']:.3e}; bound {r['bound_ms']:.6f} ms by "
+              f"{r['bound_by']} ({r['bytes']} bytes at {HBM_BYTES_PER_S / 1e12} TB/s, "
+              f"{r['ops']} operations at {F32_OPS_PER_S / 1e12} Tops/s, both published): "
+              f"{100 * r['bound_ms'] / k_dev:.1f} % of it; {lib}", flush=True)
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": launches[name],
          "max_abs_err": res[name]["max_abs_err"], "ms": res[name]["ms"],
-         "plain_ms": res[name]["plain_ms"]}
+         "plain_ms": res[name]["plain_ms"], "bound_ms": res[name]["bound_ms"],
+         "bound_by": res[name]["bound_by"], "bytes": res[name]["bytes"],
+         "library_ms": res[name]["library_ms"]}
         for name in kernels.KERNELS
     ]}
     print(smi)

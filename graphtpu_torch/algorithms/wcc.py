@@ -43,9 +43,10 @@ from graphtpu_torch.ops.frontier import (
 )
 from graphtpu_torch.ops.gather import table_gather
 from graphtpu_torch.ops.scan_reduce import seg_min_scan
-from graphtpu_torch.ops.slab import SlabPlan, assemble
+from graphtpu_torch.ops.slab import SlabPlan, assemble, result_buffer
 from graphtpu_torch.ops.spmv import (
-    PullCSR, build_pull_plan, csr_pull_reduce, int32_tensor, pull_csr, slab_spmv, slab_spmv_min,
+    PullCSR, build_pull_plan, csr_pull_reduce, int32_tensor, pull_csr, slab_spmv,
+    slab_spmv_min_buckets,
 )
 from graphtpu_torch.utils.config import AlgorithmParams, PlatformConfig
 
@@ -171,7 +172,8 @@ def _wcc_slab_steps(plan: SlabPlan, n: int):
 
     def iter0_step():
         labels0 = torch.arange(n, dtype=torch.int32, device=plan.inv_perm.device)
-        parts = [slab_spmv_min(b.slab, None, n) for b in plan.slabs]
+        buf = result_buffer(plan, torch.int32)
+        slab_spmv_min_buckets(plan, None, n, buf)
         heavy = None
         if plan.heavy_rows is not None:
             heavy = csr_pull_reduce("min_i32", None, plan.heavy_neigh, plan.heavy_indptr)
@@ -179,7 +181,7 @@ def _wcc_slab_steps(plan: SlabPlan, n: int):
         if plan.rest_rows is not None:
             rest = torch.full((plan.rest_rows.shape[0],), INT32_INF, dtype=torch.int32,
                               device=labels0.device)
-        return _finish(labels0, assemble(plan, parts, heavy, rest))
+        return _finish(labels0, assemble(plan, buf, heavy, rest))
 
     return full_step, iter0_step
 

@@ -16,7 +16,10 @@ Each kernel has a wrapper beside its plain PyTorch version:
 (K6), ``ops/spmv.py:csr_pull_reduce`` (K7) and ``ops/frontier.py:relax_min``
 (K8, kernel ``push_relax_min``). A wrapper dispatches on
 the device of its tensors: a CPU tensor takes the plain version, a CUDA
-tensor launches the kernel or raises. Inside ``plain_torch()`` CUDA
+tensor launches the kernel or raises. K2, K3 and K6 also take every bucket
+of a slab plan in one launch (``slab_minmode_buckets``,
+``slab_spmv_sum_buckets``, ``slab_spmv_min_buckets``), which is what the
+algorithms call. Inside ``plain_torch()`` CUDA
 tensors take the plain version too, so the whole path can run as its own
 reference on the card. A wrapper adds one to ``launch_counts[name]`` for
 each launch.
@@ -51,17 +54,17 @@ _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _SIGNATURES = {
     # table, idx, out, n, rows, row_bytes, stream
     "gt_gather_rows": (_P, _P, _P, _I64, _I64, _I64, _P),
-    # slab, labels, out, w, R, bound, mode, stream
-    "gt_slab_minmode": (_P, _P, _P, _I32, _I64, _I64, _I32, _P),
-    # slab, x, y, w, R, n, is_f64, stream
-    "gt_slab_spmv_sum": (_P, _P, _P, _I32, _I64, _I64, _I32, _P),
+    # buckets (ops/slab.py BucketDescriptor array), count, labels, out, bound, mode, stream
+    "gt_slab_minmode": (_P, _I32, _P, _P, _I64, _I32, _P),
+    # buckets, count, x, y, n, is_f64, stream
+    "gt_slab_spmv_sum": (_P, _I32, _P, _P, _I64, _I32, _P),
     # tbl8, ind, out, cols, stream
     "gt_vreg_shuffle": (_P, _P, _P, _I32, _P),
     # ids, starts, k, indptr_pad, neigh, rows_local, row_ids, gpos, neigh_out,
     # valid, e_cap, stream
     "gt_frontier_expand": (_P, _P, _I32, _P, _P, _P, _P, _P, _P, _P, _I32, _P),
-    # slab, x (null = identity mode), y, w, R, n, stream
-    "gt_slab_spmv_min": (_P, _P, _P, _I32, _I64, _I64, _P),
+    # buckets, count, x (null = identity mode), y, n, stream
+    "gt_slab_spmv_min": (_P, _I32, _P, _P, _I64, _P),
     # indptr, src, x (null = the stored ids), w (null unless min_plus), y, n, mode, stream
     "gt_csr_pull_reduce": (_P, _P, _P, _P, _P, _I64, _I32, _P),
     # dist, row_ids, neigh, gpos, valid, w, out, e_cap, is_f64, stream

@@ -1,12 +1,16 @@
 """Degree-bucketed min-mode label selection, the CDLP hot path
 (counterpart of graphtpu/ops/minmode.py).
 
-Per slab bucket, kernel K2 (``slab_minmode``) picks each row's smallest
-label among its most frequent neighbour labels (LAGraph_cdlp.c:40-45),
-gathering the labels itself. Rows heavier than the largest bucket go
-through ``stream_minmode``: a pair sort, a run-length pass and a
-per-segment max, in torch ops. One K1 gather by the inverse permutation
-assembles the result.
+Kernel K2 (``slab_minmode``) picks each slab row's smallest label among
+its most frequent neighbour labels (LAGraph_cdlp.c:40-45), gathering the
+labels itself. It takes all buckets of a plan at once
+(``slab_minmode_buckets``): one launch for the buckets up to SMALL_WIDTH
+wide (a sort in registers) and one for the wider ones (counting in
+shared-memory hash tables), writing straight into the step's result
+buffer. Rows heavier than the largest bucket go through
+``stream_minmode``: a pair sort, a run-length pass and a per-segment max,
+in torch ops. One K1 gather by the inverse permutation assembles the
+result.
 
 Iteration 0 needs no label gather, since labels are the vertex ids: on
 duplicate-free incidence (undirected graphs) the mode is the minimum
@@ -24,11 +28,15 @@ from graphtpu_torch.core.types import INT32_INF
 from graphtpu_torch.ops import kernels
 from graphtpu_torch.ops.gather import table_gather
 from graphtpu_torch.ops.scan_reduce import seg_min_scan
-from graphtpu_torch.ops.slab import SlabPlan, assemble, build_slab_plan
+from graphtpu_torch.ops.slab import (
+    BucketTable, SlabPlan, assemble, build_slab_plan, check_result_buffer, fill_buckets,
+    result_buffer,
+)
 
 _M31 = (1 << 31) - 1
 MODES = {"gather": 0, "identity": 1, "min": 2}
-MAX_SLAB_WIDTH = 4096  # K2 sorts a row in 16 KB of shared memory
+MAX_SLAB_WIDTH = 4096  # K2's widest row: a 6144-entry table in 48 KB of shared memory
+SMALL_WIDTH = 32       # GT_SMALL_W of csrc/slab_minmode.cu: up to here K2 sorts in registers
 
 
 def _rowwise_minmode_plain(lab: torch.Tensor) -> torch.Tensor:
@@ -61,6 +69,38 @@ def slab_minmode_plain(slab: torch.Tensor, mode: str, bound: int,
     return _rowwise_minmode_plain(lab)
 
 
+def _check_minmode(mode: str, bound: int, labels, device) -> None:
+    if mode not in MODES:
+        raise ValueError(f"slab_minmode: unknown mode {mode!r}")
+    if mode == "gather":
+        if labels is None or labels.dtype != torch.int32 or labels.dim() != 1:
+            raise TypeError("slab_minmode: gather mode needs 1-D int32 labels")
+        if labels.device != device or not labels.is_contiguous():
+            raise ValueError("slab_minmode: labels must be contiguous, on the slab's device")
+        if bound != labels.shape[0]:
+            raise ValueError("slab_minmode: gather mode needs bound == len(labels)")
+
+
+def _check_slab(slab: torch.Tensor) -> None:
+    if slab.dtype != torch.int32 or slab.dim() != 2 or not slab.is_contiguous():
+        raise TypeError("slab_minmode: slab must be a contiguous 2-D int32 tensor")
+    if not 1 <= slab.shape[0] <= MAX_SLAB_WIDTH:
+        raise ValueError(
+            f"slab_minmode: width {slab.shape[0]} outside [1, {MAX_SLAB_WIDTH}]"
+        )
+
+
+def _launch_minmode(table: BucketTable, mode: str, bound: int, labels, out) -> None:
+    """K2 over a table's buckets into ``out``: the narrow buckets in one
+    launch, the wide ones, from their row-major copies, in another (each
+    at most MAX_TABLE_BUCKETS)."""
+    lab_ptr = labels.data_ptr() if mode == "gather" else None
+    for lo, hi, row_major in ((1, SMALL_WIDTH, False), (SMALL_WIDTH + 1, None, True)):
+        for desc, count in table.launches(lo, hi, row_major):
+            kernels.launch("slab_minmode", out.device, desc, count, lab_ptr,
+                           out.data_ptr(), bound, MODES[mode])
+
+
 def slab_minmode(slab: torch.Tensor, mode: str, bound: int,
                  labels: torch.Tensor | None = None) -> torch.Tensor:
     """K2 wrapper: per column of an int32 [W, R] slab (-1 = pad, ids
@@ -68,32 +108,29 @@ def slab_minmode(slab: torch.Tensor, mode: str, bound: int,
     of ``labels[slab]`` ("gather", bound = len(labels)), of the ids
     themselves ("identity"), or just the minimum id ("min"). INT32_INF
     for a column without entries. W must lie in [1, 4096]."""
-    if mode not in MODES:
-        raise ValueError(f"slab_minmode: unknown mode {mode!r}")
-    if slab.dtype != torch.int32 or slab.dim() != 2 or not slab.is_contiguous():
-        raise TypeError("slab_minmode: slab must be a contiguous 2-D int32 tensor")
-    if not 1 <= slab.shape[0] <= MAX_SLAB_WIDTH:
-        raise ValueError(
-            f"slab_minmode: width {slab.shape[0]} outside [1, {MAX_SLAB_WIDTH}]"
-        )
-    if mode == "gather":
-        if labels is None or labels.dtype != torch.int32 or labels.dim() != 1:
-            raise TypeError("slab_minmode: gather mode needs 1-D int32 labels")
-        if labels.device != slab.device or not labels.is_contiguous():
-            raise ValueError("slab_minmode: labels must be contiguous, on the slab's device")
-        if bound != labels.shape[0]:
-            raise ValueError("slab_minmode: gather mode needs bound == len(labels)")
+    _check_minmode(mode, bound, labels, slab.device)
+    _check_slab(slab)
     if not kernels.use_kernel(slab):
         return slab_minmode_plain(slab, mode, bound, labels)
-    w, r = slab.shape
-    out = torch.empty(r, dtype=torch.int32, device=slab.device)
-    if r:
-        kernels.launch(
-            "slab_minmode", slab.device, slab.data_ptr(),
-            labels.data_ptr() if mode == "gather" else None, out.data_ptr(),
-            w, r, bound, MODES[mode],
-        )
+    out = torch.empty(slab.shape[1], dtype=torch.int32, device=slab.device)
+    _launch_minmode(BucketTable([slab]), mode, bound, labels, out)
     return out
+
+
+def slab_minmode_buckets(plan: SlabPlan, mode: str, bound: int,
+                         labels: torch.Tensor | None, out: torch.Tensor) -> None:
+    """K2 over every bucket of ``plan``: bucket k's results go to
+    ``out[offsets[k] : offsets[k] + R_k]`` (``plan.table``), at most two
+    launches in all. ``out`` is a contiguous int32 result buffer on the
+    plan's device."""
+    _check_minmode(mode, bound, labels, out.device)
+    check_result_buffer("slab_minmode_buckets", out, torch.int32, plan)
+    for bucket in plan.slabs:
+        _check_slab(bucket.slab)
+    if not kernels.use_kernel(out):
+        fill_buckets(plan, out, lambda b: slab_minmode_plain(b.slab, mode, bound, labels))
+        return
+    _launch_minmode(plan.table, mode, bound, labels, out)
 
 
 def _rowwise_minmode(lab: torch.Tensor) -> torch.Tensor:
@@ -143,33 +180,34 @@ def _rest(plan: SlabPlan, labels):
 def _iter0_minmode(plan: SlabPlan, labels0: torch.Tensor) -> torch.Tensor:
     """Iteration 0 on duplicate-free incidence: every neighbour label is
     distinct, so the min-mode is the minimum neighbour id."""
-    n = labels0.shape[0]
-    parts = [slab_minmode(b.slab, "min", n) for b in plan.slabs]
+    buf = result_buffer(plan, torch.int32)
+    slab_minmode_buckets(plan, "min", labels0.shape[0], None, buf)
     heavy = None
     if plan.heavy_rows is not None:
         heavy = seg_min_scan(plan.heavy_neigh, plan.heavy_centers, plan.heavy_indptr, INT32_INF)
-    return assemble(plan, parts, heavy, _rest(plan, labels0))
+    return assemble(plan, buf, heavy, _rest(plan, labels0))
 
 
 def _iter0_mode(plan: SlabPlan, labels0: torch.Tensor) -> torch.Tensor:
     """Iteration 0 on incidence with duplicates (directed graphs count a
     bidirectional neighbour twice, LAGraph_cdlp.c:47-50): labels are the
     ids, so the full min-mode runs on the stored ids, without a gather."""
-    n = labels0.shape[0]
-    parts = [slab_minmode(b.slab, "identity", n) for b in plan.slabs]
+    buf = result_buffer(plan, torch.int32)
+    slab_minmode_buckets(plan, "identity", labels0.shape[0], None, buf)
     heavy = None
     if plan.heavy_rows is not None:
         heavy = stream_minmode(
             None, plan.heavy_centers, plan.heavy_neigh, plan.heavy_indptr, identity=True
         )
-    return assemble(plan, parts, heavy, _rest(plan, labels0))
+    return assemble(plan, buf, heavy, _rest(plan, labels0))
 
 
 def cdlp_step(labels: torch.Tensor, plan: SlabPlan) -> torch.Tensor:
     """One synchronous CDLP iteration: new labels for every vertex."""
-    parts = [_slab_minmode(labels, b.slab) for b in plan.slabs]
+    buf = result_buffer(plan, torch.int32)
+    slab_minmode_buckets(plan, "gather", labels.shape[0], labels, buf)
     heavy = _heavy_minmode(labels, plan) if plan.heavy_rows is not None else None
-    return assemble(plan, parts, heavy, _rest(plan, labels))
+    return assemble(plan, buf, heavy, _rest(plan, labels))
 
 
 def memoized_cdlp_plan(graph, centers, neigh, deg, buckets, device) -> SlabPlan:

@@ -5,13 +5,21 @@ heavier than the largest bucket form a sorted "heavy" edge stream. The
 plan is built on the host with numpy, exactly as the JAX package builds
 it, and its arrays then move to the plan's device as torch tensors.
 
-Slabs stay TRANSPOSED, [W, R]: with one GPU thread per row, neighbouring
-threads read neighbouring ``r`` at each ``w``, which is the coalesced
-layout (the TPU kept it for its lane axis).
+Slabs stay TRANSPOSED, [W, R]: neighbouring GPU threads read neighbouring
+``r`` at each ``w``, which is the coalesced layout (the TPU kept it for its
+lane axis).
+
+The slab kernels (K2, K3, K6) take all buckets of a plan in one launch:
+``BucketTable`` holds, per bucket, the descriptor the kernels read (slab
+pointer, R, output offset, W), built once with the plan. Bucket k's results
+go to ``[offsets[k], offsets[k] + R_k)`` of one result buffer of n entries,
+in plan order, followed by the heavy rows' and the zero-degree rows'
+results; ``assemble`` gathers that buffer by the inverse permutation.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -92,6 +100,67 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+MAX_TABLE_BUCKETS = 16  # GT_MAX_BUCKETS of csrc/common.cuh: buckets per launch
+
+
+class BucketDescriptor(ctypes.Structure):
+    """GtBucket of csrc/common.cuh."""
+
+    _fields_ = [
+        ("slab", ctypes.c_void_p), ("rows", ctypes.c_longlong),
+        ("out_off", ctypes.c_longlong), ("width", ctypes.c_int),
+        ("row_major", ctypes.c_int),
+    ]
+
+
+class BucketTable:
+    """The [W, R] slabs of a plan as the table kernels take them.
+
+    ``widths``, ``rows`` and ``offsets`` hold W, R and the first result
+    index of each bucket; ``total`` is the number of bucket rows. The
+    slabs are kept, so the pointers in the descriptors stay valid. A kernel
+    that reads rows whole (K2 above SMALL_WIDTH) asks for row-major
+    copies [R, W] of its buckets; they are made at its first launch and
+    kept with the table: 4 B more per slot of those buckets."""
+
+    def __init__(self, slabs: Sequence[torch.Tensor]):
+        self.slabs = tuple(slabs)
+        self.widths = tuple(int(s.shape[0]) for s in self.slabs)
+        self.rows = tuple(int(s.shape[1]) for s in self.slabs)
+        ends = np.cumsum(self.rows, dtype=np.int64)
+        self.total = int(ends[-1]) if self.slabs else 0
+        self.offsets = tuple(int(e) - r for e, r in zip(ends, self.rows))
+        self._launches = {}
+        self._row_major = {}
+
+    def launches(self, lo: int = 1, hi: Optional[int] = None, row_major: bool = False) -> list:
+        """The non-empty buckets of width in [lo, hi] (no upper end if
+        ``hi`` is None) as (descriptor array, count) pairs of at most
+        MAX_TABLE_BUCKETS buckets, one pair per kernel launch; memoized.
+        With ``row_major`` the descriptors point to [R, W] copies of the
+        slabs. The widest buckets come first: their blocks run longest, so
+        they start first and the narrow buckets' many short blocks fill the
+        tail."""
+        key = (lo, hi, row_major)
+        got = self._launches.get(key)
+        if got is None:
+            desc = []
+            for k, (s, w, r, off) in enumerate(
+                    zip(self.slabs, self.widths, self.rows, self.offsets)):
+                if not r or w < lo or (hi is not None and w > hi):
+                    continue
+                if row_major:
+                    s = self._row_major[k] = s.t().contiguous()
+                desc.append(BucketDescriptor(s.data_ptr(), r, off, w, int(row_major)))
+            desc.sort(key=lambda d: -d.width)
+            got = []
+            for i in range(0, len(desc), MAX_TABLE_BUCKETS):
+                chunk = desc[i:i + MAX_TABLE_BUCKETS]
+                got.append(((BucketDescriptor * len(chunk))(*chunk), len(chunk)))
+            self._launches[key] = got
+        return got
+
+
 class SlabBucket(NamedTuple):
     rows: torch.Tensor              # [R] int32 — vertex ids of the bucket's rows
     slab: torch.Tensor              # [W, R] int32 — neighbour ids, -1 = pad
@@ -112,6 +181,7 @@ class SlabPlan(NamedTuple):
     heavy_indptr: Optional[torch.Tensor]   # [H+1] int32 segment starts
     rest_rows: Optional[torch.Tensor]      # [Z] int32 zero-degree rows (or None)
     inv_perm: torch.Tensor                 # [n] int32 assembly permutation
+    table: Optional[BucketTable] = None    # the buckets as the table kernels take them
 
     @classmethod
     def from_numpy(
@@ -146,7 +216,8 @@ class SlabPlan(NamedTuple):
             for a in (heavy_rows, heavy_centers, heavy_neigh, heavy_values,
                       heavy_indptr, rest_rows)
         ]
-        return cls(tuple(buckets), *opt, _tensor(inv_perm, device))
+        return cls(tuple(buckets), *opt, _tensor(inv_perm, device),
+                   BucketTable([b.slab for b in buckets]))
 
 
 def build_slab_plan(
@@ -223,14 +294,37 @@ def build_slab_plan(
     )
 
 
-def assemble(plan: SlabPlan, bucket_results, heavy_result, rest_values) -> torch.Tensor:
-    """Concatenate per-bucket results in plan order and apply the inverse
-    permutation: one K1 gather instead of per-bucket scatters."""
+def result_buffer(plan: SlabPlan, dtype) -> torch.Tensor:
+    """An uninitialized [n] buffer for a step's results in plan order."""
+    return torch.empty(plan.inv_perm.shape[0], dtype=dtype, device=plan.inv_perm.device)
+
+
+def check_result_buffer(name: str, out: torch.Tensor, dtype, plan: SlabPlan) -> None:
+    """Raise unless ``out`` can take the bucket results of ``plan``."""
+    if out.dtype != dtype or out.dim() != 1 or not out.is_contiguous():
+        raise TypeError(f"{name}: out must be a contiguous 1-D {dtype} tensor")
+    if out.shape[0] < plan.table.total or out.device != plan.inv_perm.device:
+        raise ValueError(f"{name}: out too short, or not on the plan's device")
+
+
+def fill_buckets(plan: SlabPlan, buf: torch.Tensor, bucket_fn) -> None:
+    """Write ``bucket_fn(bucket)`` ([R] results) at each bucket's place in
+    ``buf``: the route of the bucket bodies that are not table kernels."""
+    for bucket, off, r in zip(plan.slabs, plan.table.offsets, plan.table.rows):
+        buf[off:off + r] = bucket_fn(bucket)
+
+
+def assemble(plan: SlabPlan, buf: torch.Tensor, heavy_result, rest_values) -> torch.Tensor:
+    """``buf`` holds the bucket results at ``plan.table.offsets``; place the
+    heavy rows' and the zero-degree rows' results after them and apply the
+    inverse permutation: one K1 gather instead of per-bucket scatters."""
     from graphtpu_torch.ops.gather import table_gather
 
-    parts = list(bucket_results)
-    if heavy_result is not None:
-        parts.append(heavy_result)
-    if rest_values is not None:
-        parts.append(rest_values)
-    return table_gather(torch.cat(parts), plan.inv_perm)
+    off = plan.table.total
+    for part in (heavy_result, rest_values):
+        if part is not None:
+            buf[off:off + part.shape[0]] = part
+            off += part.shape[0]
+    if off != buf.shape[0]:
+        raise ValueError(f"assemble: {off} results for {buf.shape[0]} rows")
+    return table_gather(buf, plan.inv_perm)

@@ -5,7 +5,9 @@ reduce their edge stream by segment scans; one inverse-permutation gather
 assembles the result. Without edge values, the plus bucket body over floats
 is kernel K3 (``slab_spmv_sum``, PageRank's slab step) and the min bucket
 body over int32 is kernel K6 (``slab_spmv_min``, WCC's full step), whose
-heavy rows reduce on kernel K7. Other semirings run as torch ops.
+heavy rows reduce on kernel K7. Both take all buckets of a plan in one
+launch (``slab_spmv_sum_buckets``, ``slab_spmv_min_buckets``) and write
+straight into the step's result buffer. Other semirings run as torch ops.
 
 K7 (``csr_pull_reduce``) is also the dense steps' edge-stream reduction:
 per row of a pull CSR, the max or min of x over its in-edges, or the min of
@@ -24,7 +26,10 @@ from graphtpu_torch.core.semiring import Semiring
 from graphtpu_torch.core.types import INT32_INF
 from graphtpu_torch.ops import kernels
 from graphtpu_torch.ops.gather import table_gather
-from graphtpu_torch.ops.slab import SlabPlan, assemble, build_slab_plan
+from graphtpu_torch.ops.slab import (
+    BucketTable, SlabPlan, assemble, build_slab_plan, check_result_buffer, fill_buckets,
+    result_buffer,
+)
 
 
 def slab_spmv_sum_plain(slab: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -36,27 +41,48 @@ def slab_spmv_sum_plain(slab: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     )
 
 
+def _check_sum(slabs, x: torch.Tensor) -> None:
+    if x.dim() != 1 or x.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"slab_spmv_sum: x must be 1-D float32/float64, got {x.dim()}-D {x.dtype}")
+    for slab in slabs:
+        if slab.dtype != torch.int32 or slab.dim() != 2 or slab.shape[0] < 1:
+            raise TypeError(f"slab_spmv_sum: slab must be 2-D int32 with W >= 1, got "
+                            f"{tuple(slab.shape)} {slab.dtype}")
+        if slab.device != x.device:
+            raise ValueError(f"slab_spmv_sum: slab on {slab.device}, x on {x.device}")
+        if not slab.is_contiguous():
+            raise ValueError("slab_spmv_sum: slab and x must be contiguous")
+    if not x.is_contiguous():
+        raise ValueError("slab_spmv_sum: slab and x must be contiguous")
+
+
+def _launch_sum(table: BucketTable, x: torch.Tensor, y: torch.Tensor) -> None:
+    for desc, count in table.launches():
+        kernels.launch("slab_spmv_sum", y.device, desc, count, x.data_ptr(), y.data_ptr(),
+                       x.shape[0], int(x.dtype == torch.float64))
+
+
 def slab_spmv_sum(slab: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """K3 wrapper: y[r] = sum over w of x[slab[w, r]] for an int32 [W, R]
     slab (-1 = pad) and a float32/float64 table x."""
-    if slab.dtype != torch.int32 or slab.dim() != 2:
-        raise TypeError(f"slab_spmv_sum: slab must be 2-D int32, got {slab.dim()}-D {slab.dtype}")
-    if x.dim() != 1 or x.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"slab_spmv_sum: x must be 1-D float32/float64, got {x.dim()}-D {x.dtype}")
-    if slab.device != x.device:
-        raise ValueError(f"slab_spmv_sum: slab on {slab.device}, x on {x.device}")
-    if not (slab.is_contiguous() and x.is_contiguous()):
-        raise ValueError("slab_spmv_sum: slab and x must be contiguous")
+    _check_sum([slab], x)
     if not kernels.use_kernel(slab):
         return slab_spmv_sum_plain(slab, x)
-    w, r = slab.shape
-    y = torch.empty(r, dtype=x.dtype, device=x.device)
-    if r:
-        kernels.launch(
-            "slab_spmv_sum", slab.device, slab.data_ptr(), x.data_ptr(), y.data_ptr(),
-            w, r, x.shape[0], int(x.dtype == torch.float64),
-        )
+    y = torch.empty(slab.shape[1], dtype=x.dtype, device=x.device)
+    _launch_sum(BucketTable([slab]), x, y)
     return y
+
+
+def slab_spmv_sum_buckets(plan: SlabPlan, x: torch.Tensor, out: torch.Tensor) -> None:
+    """K3 over every bucket of ``plan`` in one launch: bucket k's sums go
+    to ``out[offsets[k] : offsets[k] + R_k]`` (``plan.table``). ``out`` is a
+    contiguous result buffer of x's dtype on the plan's device."""
+    _check_sum([b.slab for b in plan.slabs], x)
+    check_result_buffer("slab_spmv_sum_buckets", out, x.dtype, plan)
+    if not kernels.use_kernel(out):
+        fill_buckets(plan, out, lambda b: slab_spmv_sum_plain(b.slab, x))
+        return
+    _launch_sum(plan.table, x, out)
 
 
 def slab_spmv_min_plain(slab: torch.Tensor, x: torch.Tensor | None, n: int) -> torch.Tensor:
@@ -67,31 +93,52 @@ def slab_spmv_min_plain(slab: torch.Tensor, x: torch.Tensor | None, n: int) -> t
     return torch.where(valid, vals, INT32_INF).min(0).values
 
 
+def _check_min(slabs, x: torch.Tensor | None, n: int) -> None:
+    for slab in slabs:
+        if slab.dtype != torch.int32 or slab.dim() != 2 or slab.shape[0] < 1:
+            raise TypeError(f"slab_spmv_min: slab must be 2-D int32 with W >= 1, got "
+                            f"{tuple(slab.shape)} {slab.dtype}")
+        if not slab.is_contiguous():
+            raise ValueError("slab_spmv_min: slab must be contiguous")
+        if x is not None and x.device != slab.device:
+            raise ValueError("slab_spmv_min: x must be contiguous, on the slab's device")
+    if x is not None:
+        if x.dtype != torch.int32 or x.dim() != 1 or x.shape[0] != n:
+            raise TypeError(f"slab_spmv_min: x must be 1-D int32 of {n} entries")
+        if not x.is_contiguous():
+            raise ValueError("slab_spmv_min: x must be contiguous, on the slab's device")
+
+
+def _launch_min(table: BucketTable, x: torch.Tensor | None, y: torch.Tensor, n: int) -> None:
+    for desc, count in table.launches():
+        kernels.launch("slab_spmv_min", y.device, desc, count,
+                       None if x is None else x.data_ptr(), y.data_ptr(), n)
+
+
 def slab_spmv_min(slab: torch.Tensor, x: torch.Tensor | None, n: int) -> torch.Tensor:
     """K6 wrapper: y[r] = min over w of x[slab[w, r]] for an int32 [W, R]
     slab (-1 = pad, ids outside [0, n) count as pad) and an int32 table x
     of n entries; with x None, the min of the stored ids (identity mode).
     INT32_INF for a row without entries."""
-    if slab.dtype != torch.int32 or slab.dim() != 2 or slab.shape[0] < 1:
-        raise TypeError(f"slab_spmv_min: slab must be 2-D int32 with W >= 1, got "
-                        f"{tuple(slab.shape)} {slab.dtype}")
-    if x is not None:
-        if x.dtype != torch.int32 or x.dim() != 1 or x.shape[0] != n:
-            raise TypeError(f"slab_spmv_min: x must be 1-D int32 of {n} entries")
-        if x.device != slab.device or not x.is_contiguous():
-            raise ValueError("slab_spmv_min: x must be contiguous, on the slab's device")
-    if not slab.is_contiguous():
-        raise ValueError("slab_spmv_min: slab must be contiguous")
+    _check_min([slab], x, n)
     if not kernels.use_kernel(slab):
         return slab_spmv_min_plain(slab, x, n)
-    w, r = slab.shape
-    y = torch.empty(r, dtype=torch.int32, device=slab.device)
-    if r:
-        kernels.launch(
-            "slab_spmv_min", slab.device, slab.data_ptr(),
-            None if x is None else x.data_ptr(), y.data_ptr(), w, r, n,
-        )
+    y = torch.empty(slab.shape[1], dtype=torch.int32, device=slab.device)
+    _launch_min(BucketTable([slab]), x, y, n)
     return y
+
+
+def slab_spmv_min_buckets(plan: SlabPlan, x: torch.Tensor | None, n: int,
+                          out: torch.Tensor) -> None:
+    """K6 over every bucket of ``plan`` in one launch: bucket k's minima go
+    to ``out[offsets[k] : offsets[k] + R_k]`` (``plan.table``). ``out`` is a
+    contiguous int32 result buffer on the plan's device."""
+    _check_min([b.slab for b in plan.slabs], x, n)
+    check_result_buffer("slab_spmv_min_buckets", out, torch.int32, plan)
+    if not kernels.use_kernel(out):
+        fill_buckets(plan, out, lambda b: slab_spmv_min_plain(b.slab, x, n))
+        return
+    _launch_min(plan.table, x, out, n)
 
 
 def int32_tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -220,19 +267,22 @@ def slab_spmv(semiring: Semiring, plan: SlabPlan, x: torch.Tensor, n: int) -> to
     edges get the monoid identity."""
     ident = semiring.add.identity(x.dtype)
     min_kernels = _slab_min_kernels(semiring, plan, x)
-    parts = []
-    for bucket in plan.slabs:
-        if min_kernels:
-            parts.append(slab_spmv_min(bucket.slab, x, n))
-            continue
-        if semiring.add.name == "plus" and bucket.values is None and x.dtype in _K3_DTYPES:
-            parts.append(slab_spmv_sum(bucket.slab, x))
-            continue
-        valid = bucket.slab >= 0
-        xv = table_gather(x, torch.where(valid, bucket.slab, 0))
-        terms = semiring.mul(bucket.values, xv) if bucket.values is not None else xv
-        terms = torch.where(valid, terms, torch.tensor(ident, dtype=terms.dtype, device=x.device))
-        parts.append(_REDUCE[semiring.add.name](terms))
+    buf = result_buffer(plan, x.dtype)
+    if min_kernels:
+        slab_spmv_min_buckets(plan, x, n, buf)
+    elif (semiring.add.name == "plus" and x.dtype in _K3_DTYPES
+          and all(b.values is None for b in plan.slabs)):
+        slab_spmv_sum_buckets(plan, x, buf)
+    else:
+        def bucket_body(bucket):
+            valid = bucket.slab >= 0
+            xv = table_gather(x, torch.where(valid, bucket.slab, 0))
+            terms = semiring.mul(bucket.values, xv) if bucket.values is not None else xv
+            terms = torch.where(valid, terms,
+                                torch.tensor(ident, dtype=terms.dtype, device=x.device))
+            return _REDUCE[semiring.add.name](terms)
+
+        fill_buckets(plan, buf, bucket_body)
     heavy = None
     if plan.heavy_rows is not None and min_kernels:
         heavy = csr_pull_reduce("min_i32", x, plan.heavy_neigh, plan.heavy_indptr)
@@ -245,4 +295,4 @@ def slab_spmv(semiring: Semiring, plan: SlabPlan, x: torch.Tensor, n: int) -> to
     rest = None
     if plan.rest_rows is not None:
         rest = torch.full((plan.rest_rows.shape[0],), ident, dtype=x.dtype, device=x.device)
-    return assemble(plan, parts, heavy, rest)
+    return assemble(plan, buf, heavy, rest)

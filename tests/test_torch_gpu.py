@@ -16,11 +16,15 @@ from graphtpu_torch.ops.frontier import (
     frontier_expand, frontier_expand_plain, relax_min, relax_min_plain,
 )
 from graphtpu_torch.ops.gather import gather_rows, gather_rows_plain
-from graphtpu_torch.ops.minmode import slab_minmode, slab_minmode_plain
+from graphtpu_torch.core.types import INT32_INF
+from graphtpu_torch.ops.minmode import (
+    slab_minmode, slab_minmode_buckets, slab_minmode_plain,
+)
 from graphtpu_torch.ops.pallas_gather import vreg_shuffle, vreg_shuffle_plain
+from graphtpu_torch.ops.slab import build_slab_plan, result_buffer
 from graphtpu_torch.ops.spmv import (
-    csr_pull_reduce, csr_pull_reduce_plain, slab_spmv_min, slab_spmv_min_plain, slab_spmv_sum,
-    slab_spmv_sum_plain,
+    csr_pull_reduce, csr_pull_reduce_plain, slab_spmv_min, slab_spmv_min_buckets,
+    slab_spmv_min_plain, slab_spmv_sum, slab_spmv_sum_buckets, slab_spmv_sum_plain,
 )
 
 pytestmark = pytest.mark.gpu
@@ -71,6 +75,112 @@ def test_slab_minmode_matches_plain(cuda, mode, w):
     assert torch.equal(got, slab_minmode_plain(slab, mode, n, lab))
 
 
+@pytest.mark.parametrize("mode", ["gather", "identity", "min"])
+@pytest.mark.parametrize("r", [1, 3, 31, 33, 2049])
+@pytest.mark.parametrize("w", [33, 38, 65, 1000, 2668, 4095, 4096])
+def test_slab_minmode_odd_widths_and_rows(cuda, w, r, mode):
+    """Widths next to a power of two or a tiling boundary, and row counts
+    that are no multiple of 4 or of a tile."""
+    rng = np.random.default_rng(w * 10007 + r)
+    n = 5000
+    slab = torch.from_numpy(_padded_slab(rng, w, r, n))
+    labels = torch.from_numpy(rng.integers(0, 40, size=n).astype(np.int32))
+    lab = labels if mode == "gather" else None
+    got = slab_minmode(slab.to(cuda), mode, n, None if lab is None else lab.to(cuda)).cpu()
+    assert torch.equal(got, slab_minmode_plain(slab, mode, n, lab))
+
+
+@pytest.mark.parametrize("case", ["all_pad", "all_equal", "all_distinct", "tie", "largest_label"])
+@pytest.mark.parametrize("w", [5, 32, 38, 300, 2668, 4096])
+def test_slab_minmode_hand_cases(cuda, w, case):
+    """Rows of pad only give INT32_INF; rows of one label give it; rows of
+    distinct labels give the smallest; of two labels tied at the top count
+    the smaller wins wherever they stand; INT32_INF - 1 is a label."""
+    rng = np.random.default_rng(w)
+    r, n = 37, 3 * w + 10
+    labels = rng.permutation(n).astype(np.int32)  # distinct labels
+    slab = np.stack([rng.permutation(n)[:w] for _ in range(r)], axis=1).astype(np.int32)
+    want = None
+    if case == "all_pad":
+        slab[:, ::2] = -1
+        slab[:, 1::2] = np.where(np.arange(w)[:, None] >= np.arange(r)[None, 1::2] % w, -1,
+                                 slab[:, 1::2])
+    elif case == "all_equal":
+        labels[:] = 77
+        want = np.full(r, 77, dtype=np.int32)
+    elif case == "all_distinct":
+        want = labels[slab].min(axis=0)
+    elif case == "tie" and w >= 5:
+        # labels a < b, each twice (b first and last), every other label once
+        a, b = 3, 9
+        labels = (np.arange(n) + 10).astype(np.int32)
+        slab = np.stack([rng.permutation(n - 4)[:w] + 4 for _ in range(r)], axis=1).astype(np.int32)
+        labels[[0, 1]], labels[[2, 3]] = a, b
+        slab[0], slab[w // 2], slab[w // 2 + 1], slab[w - 1] = 2, 0, 1, 3
+        want = np.full(r, a, dtype=np.int32)
+    elif case == "largest_label":
+        labels[:] = INT32_INF - 1
+        labels[0] = 5
+        slab[0] = 0  # one small label against w - 1 of INT32_INF - 1
+        want = np.full(r, INT32_INF - 1 if w > 2 else 5, dtype=np.int32)
+    slab_t, labels_t = torch.from_numpy(slab), torch.from_numpy(labels)
+    got = slab_minmode(slab_t.to(cuda), "gather", n, labels_t.to(cuda)).cpu()
+    assert torch.equal(got, slab_minmode_plain(slab_t, "gather", n, labels_t))
+    if want is not None:
+        assert np.array_equal(got.numpy(), want)
+    if case == "all_pad":
+        assert (got[::2] == INT32_INF).all()
+
+
+def _random_plan(rng, n, buckets, device):
+    """A slab plan of a random stream whose degrees spread over (and past)
+    ``buckets``, with zero-degree rows."""
+    deg = rng.integers(0, buckets[-1] + 40, size=n).astype(np.int64)
+    deg[rng.choice(n, size=n // 5, replace=False)] = 0
+    centers = np.repeat(np.arange(n, dtype=np.int64), deg)
+    neigh = rng.integers(0, n, size=centers.shape[0]).astype(np.int32)
+    return build_slab_plan(centers, neigh, deg, n, buckets, device=device)
+
+
+@pytest.mark.parametrize("buckets", [(3, 20, 32, 33, 100, 700), tuple(range(2, 120, 4))])
+def test_bucket_table_launches_match_plain(cuda, buckets):
+    """K2, K3 and K6 over all buckets of a plan at once (six buckets on
+    both sides of the narrow/wide boundary; thirty, 8 narrow and 22 wide,
+    more than one launch holds) against the plain versions bucket by
+    bucket."""
+    rng = np.random.default_rng(len(buckets))
+    n = 3000
+    plan = _random_plan(rng, n, buckets, cuda)
+    assert len(plan.slabs) == len(buckets) and plan.heavy_rows is not None
+    labels = torch.from_numpy(rng.integers(0, 30, size=n).astype(np.int32)).to(cuda)
+    x = torch.from_numpy(rng.random(n)).to(cuda)
+    total = plan.table.total
+    narrow = sum(w <= 32 for w in buckets)
+    k2_launches = -(-narrow // 16) + -(-(len(buckets) - narrow) // 16)
+
+    def plain(fn):
+        return torch.cat([fn(b.slab) for b in plan.slabs])
+
+    for mode in ("gather", "identity", "min"):
+        lab = labels if mode == "gather" else None
+        buf = result_buffer(plan, torch.int32)
+        before = kernels.launch_counts["slab_minmode"]
+        slab_minmode_buckets(plan, mode, n, lab, buf)
+        assert kernels.launch_counts["slab_minmode"] - before == k2_launches
+        assert torch.equal(buf[:total], plain(lambda s: slab_minmode_plain(s, mode, n, lab)))
+    for xd, rtol in ((x.float(), 1e-5), (x, 1e-12)):
+        buf = result_buffer(plan, xd.dtype)
+        before = kernels.launch_counts["slab_spmv_sum"]
+        slab_spmv_sum_buckets(plan, xd, buf)
+        assert kernels.launch_counts["slab_spmv_sum"] - before == -(-len(buckets) // 16)
+        torch.testing.assert_close(buf[:total], plain(lambda s: slab_spmv_sum_plain(s, xd)),
+                                   rtol=rtol, atol=0)
+    for xm in (labels, None):
+        buf = result_buffer(plan, torch.int32)
+        slab_spmv_min_buckets(plan, xm, n, buf)
+        assert torch.equal(buf[:total], plain(lambda s: slab_spmv_min_plain(s, xm, n)))
+
+
 def test_slab_minmode_refuses_unsupported_width(cuda):
     slab = torch.full((4097, 4), -1, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="width"):
@@ -90,6 +200,23 @@ def test_slab_spmv_sum_matches_plain(cuda, dtype, w):
     # the kernel sums each row in slab order, torch in its own order
     rtol = 1e-5 if dtype == torch.float32 else 1e-12
     torch.testing.assert_close(got, slab_spmv_sum_plain(slab, x), rtol=rtol, atol=0)
+
+
+@pytest.mark.parametrize("shape", [(2048, 5), (6, 100003), (908, 1021), (16, 33)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_slab_spmv_sum_wide_and_narrow(cuda, dtype, shape):
+    """A wide bucket of few rows (each row split over many threads), a
+    narrow one of many rows, and two between; two runs give the same bits
+    (the partial sums are added in a fixed order, without atomics)."""
+    rng = np.random.default_rng(shape[0])
+    n = 50000
+    slab = torch.from_numpy(_padded_slab(rng, *shape, n))
+    x = torch.from_numpy(rng.random(n)).to(dtype)
+    got = slab_spmv_sum(slab.to(cuda), x.to(cuda))
+    again = slab_spmv_sum(slab.to(cuda), x.to(cuda))
+    assert torch.equal(got, again)
+    rtol = 1e-5 if dtype == torch.float32 else 1e-12
+    torch.testing.assert_close(got.cpu(), slab_spmv_sum_plain(slab, x), rtol=rtol, atol=0)
 
 
 @pytest.mark.parametrize("dtype", [torch.int32, torch.float32])

@@ -28,6 +28,7 @@ from graphtpu_torch.ops import minmode as tmm
 from graphtpu_torch.ops import scan_reduce as tscan
 from graphtpu_torch.ops import spmv as tspmv
 from graphtpu_torch.ops.pallas_gather import dma_row_gather
+from graphtpu_torch.ops import slab as tslab
 from graphtpu_torch.ops.slab import SlabPlan
 
 CPU = torch.device("cpu")
@@ -243,3 +244,134 @@ def test_slab_spmv_matches_jax(sr, buckets):
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
     else:
         np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------- bucket tables
+
+
+def _cdlp_like_plan(buckets, seed=21):
+    """A CPU plan of a seeded RMAT incidence with a heavy tail and
+    zero-degree rows, and the numpy arrays it was built from."""
+    from graphtpu.algorithms.cdlp import build_incidence
+
+    g = j_rmat_graph(9, 8, directed=False, seed=seed)
+    centers, neigh = build_incidence(g)
+    deg = np.bincount(centers, minlength=g.n).astype(np.int64)
+    plan = tslab.build_slab_plan(centers, neigh, deg, g.n, buckets, device=CPU)
+    return plan, g.n, deg
+
+
+@pytest.mark.parametrize("buckets", [(2, 5, 32, 33, 60), tuple(range(1, 41, 2))])
+def test_bucket_table_describes_the_plan(buckets):
+    """Widths, rows and result offsets follow the plan's buckets; bucket
+    rows, heavy rows and zero-degree rows fill the n results in order."""
+    plan, n, deg = _cdlp_like_plan(buckets)
+    table = plan.table
+    assert table.widths == tuple(b.slab.shape[0] for b in plan.slabs)
+    assert table.rows == tuple(b.slab.shape[1] for b in plan.slabs)
+    assert table.rows == tuple(b.rows.shape[0] for b in plan.slabs)
+    assert table.offsets == tuple(np.concatenate([[0], np.cumsum(table.rows)])[:-1].tolist())
+    assert table.total == sum(table.rows) == int(((deg > 0) & (deg <= buckets[-1])).sum())
+    heavy = 0 if plan.heavy_rows is None else plan.heavy_rows.shape[0]
+    rest = 0 if plan.rest_rows is None else plan.rest_rows.shape[0]
+    assert heavy > 0 and rest > 0 and table.total + heavy + rest == n
+    # the result buffer in plan order, gathered by inv_perm, is vertex order
+    order = torch.cat([b.rows for b in plan.slabs] + [plan.heavy_rows, plan.rest_rows])
+    buf = tslab.result_buffer(plan, torch.int32)
+    assert buf.shape == (n,) and buf.dtype == torch.int32
+    buf[:table.total] = order[:table.total]
+    got = tslab.assemble(plan, buf, plan.heavy_rows, plan.rest_rows)
+    np.testing.assert_array_equal(got.numpy(), np.arange(n))
+
+
+@pytest.mark.parametrize("row_major", [False, True])
+def test_bucket_table_launches(row_major):
+    """Descriptors: widest bucket first, at most 16 a launch, filtered by
+    width, memoized; pointers are the slabs' own, or those of row-major
+    copies kept with the table."""
+    plan, _, _ = _cdlp_like_plan(tuple(range(1, 41)))
+    table = plan.table
+    nb = len(plan.slabs)
+    assert 16 < nb <= 32
+    launches = table.launches(row_major=row_major)
+    assert [count for _, count in launches] == [16, nb - 16]
+    assert table.launches(row_major=row_major) is launches
+    desc = [d for arr, count in launches for d in arr[:count]]
+    assert [d.width for d in desc] == sorted(table.widths, reverse=True)
+    by_width = {w: k for k, w in enumerate(table.widths)}
+    for d in desc:
+        k = by_width[d.width]
+        assert (d.rows, d.out_off, d.row_major) == (table.rows[k], table.offsets[k],
+                                                    int(row_major))
+        slab = plan.slabs[k].slab
+        if row_major:
+            copy = table._row_major[k]
+            assert d.slab == copy.data_ptr()
+            # a copy of its own, unless both layouts hold the same bytes
+            assert (copy.data_ptr() != slab.data_ptr()) == (min(slab.shape) > 1)
+            assert copy.is_contiguous() and torch.equal(copy, slab.t())
+        else:
+            assert d.slab == slab.data_ptr()
+    narrow = table.launches(3, 7)
+    assert len(narrow) == 1
+    assert [d.width for d in narrow[0][0]] == sorted((w for w in table.widths if 3 <= w <= 7),
+                                                     reverse=True)
+    assert table.launches(1001) == []
+
+
+def test_bucket_table_skips_empty_buckets():
+    slabs = [torch.zeros((3, 5), dtype=torch.int32), torch.zeros((40, 0), dtype=torch.int32),
+             torch.zeros((40, 7), dtype=torch.int32)]
+    table = tslab.BucketTable(slabs)
+    assert (table.widths, table.rows, table.offsets, table.total) == (
+        (3, 40, 40), (5, 0, 7), (0, 5, 5), 12)
+    (arr, count), = table.launches()
+    assert count == 2 and [(d.width, d.rows, d.out_off) for d in arr] == [(40, 7, 5), (3, 5, 0)]
+    assert tslab.BucketTable([]).launches() == [] and tslab.BucketTable([]).total == 0
+
+
+@pytest.mark.parametrize("mode", ["gather", "identity", "min"])
+def test_slab_minmode_buckets_matches_per_slab(mode):
+    plan, n, _ = _cdlp_like_plan((2, 5, 32, 33, 60))
+    labels = torch.from_numpy(np.random.default_rng(8).integers(0, 12, size=n).astype(np.int32))
+    lab = labels if mode == "gather" else None
+    buf = tslab.result_buffer(plan, torch.int32)
+    buf.fill_(-7)
+    tmm.slab_minmode_buckets(plan, mode, n, lab, buf)
+    want = torch.cat([tmm.slab_minmode(b.slab, mode, n, lab) for b in plan.slabs])
+    assert torch.equal(buf[:plan.table.total], want)
+    assert (buf[plan.table.total:] == -7).all()  # heavy and rest places untouched
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.int32])
+def test_slab_spmv_buckets_match_per_slab(dtype):
+    plan, n, _ = _cdlp_like_plan((2, 5, 32, 33, 60))
+    rng = np.random.default_rng(9)
+    buf = tslab.result_buffer(plan, dtype)
+    if dtype == torch.int32:
+        x = torch.from_numpy(rng.integers(0, 1000, size=n).astype(np.int32))
+        for xm in (x, None):
+            tspmv.slab_spmv_min_buckets(plan, xm, n, buf)
+            want = torch.cat([tspmv.slab_spmv_min(b.slab, xm, n) for b in plan.slabs])
+            assert torch.equal(buf[:plan.table.total], want)
+    else:
+        x = torch.from_numpy(rng.random(n)).to(dtype)
+        tspmv.slab_spmv_sum_buckets(plan, x, buf)
+        want = torch.cat([tspmv.slab_spmv_sum(b.slab, x) for b in plan.slabs])
+        assert torch.equal(buf[:plan.table.total], want)
+
+
+def test_bucket_wrappers_check_the_result_buffer():
+    plan, n, _ = _cdlp_like_plan((2, 5, 32, 33, 60))
+    x = torch.zeros(n)
+    with pytest.raises(TypeError, match="out"):
+        tmm.slab_minmode_buckets(plan, "min", n, None, torch.zeros(n))
+    with pytest.raises(ValueError, match="too short"):
+        tmm.slab_minmode_buckets(plan, "min", n, None,
+                                 torch.zeros(plan.table.total - 1, dtype=torch.int32))
+    with pytest.raises(TypeError, match="out"):
+        tspmv.slab_spmv_sum_buckets(plan, x, torch.zeros(n, dtype=torch.float64))
+    with pytest.raises(ValueError, match="too short"):
+        tspmv.slab_spmv_min_buckets(plan, None, n, torch.zeros(3, dtype=torch.int32))
+    with pytest.raises(ValueError, match="results for"):
+        tslab.assemble(plan, tslab.result_buffer(plan, torch.int32), None, None)
