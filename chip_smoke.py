@@ -37,7 +37,12 @@ Run from the root of a checkout:  python3 chip_smoke.py
    card's published memory rate, or its operations over the float32 peak,
    whichever is larger; and, where one PyTorch call computes the same
    function (index_select, a CSR product, gather), that call's time. The
-   library calls are yardsticks: the port never calls them.
+   library calls are yardsticks: the port never calls them. K7 is held and
+   timed on the full pull CSRs (max_i32, min_plus float32) and on the WCC
+   slab plan's heavy rows, K5 at the CDLP tier and at BFS's top tier with a
+   frontier that fills it; both run twice on the same inputs and must give
+   the same bits. A kernel that returns at once gives the floor under the
+   launch-sized rows.
 
 Exits non-zero if any phase fails. The last lines of stdout are the
 card's name and power limit, one JSON line of per-kernel results, and
@@ -449,6 +454,9 @@ def phase_real_size(device):
               f"{JAX_STEPS['sssp']}: "
               f"{'equal' if sssp_steps == JAX_STEPS['sssp'] else 'DIFFERENT'})",
               flush=True)
+        print(f"bfs-auto tier steps ({label}), in order of (rows, edge slots) tier: "
+              + ", ".join(f"({k}, {e}) x{bst['tier_steps'][e]}" for k, e in bst["tiers"]),
+              flush=True)
         check(bfs_steps == JAX_STEPS["bfs"], f"bfs-auto steps ({label}) differ from JAX's")
         for name, counts in wcc_steps.items():
             check(counts == JAX_STEPS["wcc"], f"{name} steps ({label}) differ from JAX's")
@@ -663,19 +671,22 @@ def phase_kernels(g, prep, pr_plan, device):
     k_max, e_max = cdlp_tiers(cfg.cdlp_frontier_rows, cfg.cdlp_frontier_edges, m, cfg)[-1]
     deg_n = prep.deg_pad[:-1]
 
-    def k5_inputs(ids):
-        lens = prep.deg_pad[ids.long()]
+    def k5_inputs(ids, deg_pad=prep.deg_pad, indptr_pad=prep.indptr_pad, neigh=prep.neigh):
+        lens = deg_pad[ids.long()]
         starts = torch.cat([lens.new_zeros(1), torch.cumsum(lens, 0, dtype=torch.int32)])
-        return ids, starts, prep.indptr_pad, prep.neigh
+        return ids, starts, indptr_pad, neigh
 
     def k5_check(args, e_cap, what):
         for with_row_ids in (True, False):
             got = frontier_expand(*args, e_cap, with_row_ids)
+            again = frontier_expand(*args, e_cap, with_row_ids)
             want = frontier_expand_plain(*args, e_cap, with_row_ids)
-            for fname, a, b in zip(("rows_local", "row_ids", "gpos", "neigh", "valid"),
-                                   got, want):
+            for fname, a, a2, b in zip(("rows_local", "row_ids", "gpos", "neigh", "valid"),
+                                       got, again, want):
                 check((a is None and b is None) or torch.equal(a, b),
                       f"frontier_expand {what} {fname} differs")
+                check(a is None or torch.equal(a, a2),
+                      f"frontier_expand {what} {fname}: two runs differ")
 
     prev, cur = lab1, cdlp_step(lab1, cdlp_plan)  # labels after iterations 0 and 1
     full_ids, full_cnt = compact(cur != prev, k_max)
@@ -705,10 +716,34 @@ def phase_kernels(g, prep, pr_plan, device):
         lens = deg_pad[ids_s.long()]
         starts = torch.cat([lens.new_zeros(1), torch.cumsum(lens, 0, dtype=torch.int32)])
         k5_check((ids_s, starts, indptr, small_neigh), e_cap, f"hand case {ids_list}/{e_cap}")
+    # BFS's top push tier with a frontier that fills it: the rows of a random
+    # sample, cut where their out-edges pass the tier's slots; and k = 1
+    from graphtpu_torch.algorithms.bfs import BFS_TRUNC, bfs_adaptive_prep
+
+    bprep = bfs_adaptive_prep(g, BFS_TRUNC, device)
+    e_top = int(cfg.bfs_frontier_edges or 1 << 22)
+    k_top = min(int(cfg.bfs_frontier_rows or 1 << 18), e_top, n)
+    order = torch.randperm(n, generator=gen, device=device)[:k_top]
+    filled = torch.cumsum(bprep.deg_pad[order].long(), 0) >= e_top
+    top_cnt = int(filled.long().argmax()) + 1 if bool(filled.any()) else k_top
+    top_ids = torch.full((k_top,), n, dtype=torch.int32, device=device)
+    top_ids[:top_cnt] = order[:top_cnt].sort().values.to(torch.int32)
+    top_args = k5_inputs(top_ids, bprep.deg_pad, bprep.push_indptr, bprep.push_dst)
+    top_edges = int(top_args[1][-1])
+    k5_check(top_args, e_top, "BFS top tier")
+    k5_check(k5_inputs(top_ids[:1], bprep.deg_pad, bprep.push_indptr, bprep.push_dst), e_top,
+             "BFS top tier, k = 1")
+    top_times = (cuda_ms(lambda: frontier_expand(*top_args, e_top, False)),
+                 cuda_ms(lambda: frontier_expand_plain(*top_args, e_top, False)))
+    top_bytes = (4 * (2 * k_top + 1) + 4 * top_cnt + 4 * min(top_edges, e_top) + 13 * e_top)
     res["frontier_expand"] = dict(
         max_abs_err=0.0,
         times=(cuda_ms(lambda: frontier_expand(*tier_args, e_max, False)),
                cuda_ms(lambda: frontier_expand_plain(*tier_args, e_max, False))),
+        other_shapes=[dict(
+            shape=(f"BFS top tier: {k_top} ids ({top_cnt} real, {top_edges} edges) into "
+                   f"{e_top} slots"),
+            times=top_times, bytes=top_bytes, ops=e_top * 4)],
         shape=(f"tier step: {k_max} ids ({int(tier_cnt)} real, {tier_edges} edges, after "
                f"{steps} steps) into {e_max} slots; full-step mask: {int(full_cnt)} changed, "
                f"{k_max} kept"),
@@ -734,8 +769,8 @@ def phase_traversal_kernels(g, gw, device):
     from graphtpu_torch.ops.frontier import compact, expand, mask_status, relax_min, relax_min_plain
     from graphtpu_torch.ops.slab import result_buffer
     from graphtpu_torch.ops.spmv import (
-        csr_pull_reduce, csr_pull_reduce_plain, pull_csr, slab_spmv_min, slab_spmv_min_buckets,
-        slab_spmv_min_plain,
+        CSR_ITEMS, PullCSR, csr_pull_reduce, csr_pull_reduce_plain, pull_csr, slab_spmv_min,
+        slab_spmv_min_buckets, slab_spmv_min_plain,
     )
     from graphtpu_torch.utils.config import PlatformConfig
 
@@ -792,11 +827,56 @@ def phase_traversal_kernels(g, gw, device):
              ("min_i32", None, pull, None),
              ("min_plus", dists[torch.float32], sp32.pull, sp32.pull_w),
              ("min_plus", dists[torch.float64], sp64.pull, sp64.pull_w)]
+    # the heavy rows of the WCC slab plan alone: what WCC under auto launches
+    heavy = PullCSR(plan.heavy_neigh, plan.heavy_indptr)
+    cases += [("min_i32", lab1, heavy, None), ("min_i32", None, heavy, None)]
     for mode, x, csr, w in cases:
         got = csr_pull_reduce(mode, x, csr.src, csr.indptr, w)
         want = csr_pull_reduce_plain(mode, x, csr.src, csr.indptr, w)
-        check(torch.equal(got, want), f"csr_pull_reduce {mode} {None if x is None else x.dtype} "
-                                      f"differs")
+        what = (f"csr_pull_reduce {mode} {None if x is None else x.dtype} "
+                f"({csr.indptr.shape[0] - 1} rows)")
+        check(torch.equal(got, want), f"{what} differs")
+        check(torch.equal(got, csr_pull_reduce(mode, x, csr.src, csr.indptr, w)),
+              f"{what}: two runs differ")
+    # by hand, per value size (a block takes CSR_ITEMS items of the merged
+    # list of row ends and edges): rows ending exactly on a block's border,
+    # runs of empty rows longer than a block, one row of 10^6 edges, hub rows
+    # only, a single empty row
+    hand_gen = torch.Generator(device=device).manual_seed(7)
+    for mode, dtype, with_x in (("max_i32", torch.int32, True), ("min_i32", torch.int32, True),
+                                ("min_i32", torch.int32, False),
+                                ("min_plus", torch.float32, True),
+                                ("min_plus", torch.float64, True)):
+        ipb = CSR_ITEMS[torch.empty(0, dtype=dtype).element_size()]
+        runs = [ipb + 3, 1, 1, 2 * ipb - 5, 1]  # empty rows around rows of 7, 3 ipb, 1 edges
+        shapes = {
+            "border": [ipb - 1, 0, ipb - 2, 5, 0, 2 * ipb - 8, 3],
+            "empty runs": sum(([0] * r + [d] for r, d in zip(runs, (7, 3 * ipb, 1, 0, 0))), []),
+            "one row": [1_000_000],
+            "hubs only": torch.randint(4097, 12000, (1351,), generator=hand_gen,
+                                       device=device).tolist(),
+            "single empty row": [0],
+        }
+        for name, deg in shapes.items():
+            deg_t = torch.tensor(deg, dtype=torch.int32, device=device)
+            ip = torch.cat([deg_t.new_zeros(1), torch.cumsum(deg_t, 0, dtype=torch.int32)])
+            m_h = int(ip[-1])
+            src_h = torch.randint(0, n, (m_h,), generator=hand_gen, device=device,
+                                  dtype=torch.int32)
+            x_h = w_h = None
+            if mode == "min_plus":
+                x_h = torch.rand(n, generator=hand_gen, device=device, dtype=dtype) * 9
+                x_h[torch.rand(n, generator=hand_gen, device=device) < 0.3] = float("inf")
+                w_h = torch.rand(m_h, generator=hand_gen, device=device, dtype=dtype) + 0.01
+            elif with_x:  # negative under max: the identity 0 is for empty rows only
+                x_h = torch.randint(-1000, -1, (n,), generator=hand_gen, device=device,
+                                    dtype=torch.int32)
+            got = csr_pull_reduce(mode, x_h, src_h, ip, w_h)
+            what = f"csr_pull_reduce hand case {name} {mode} {dtype} x={'yes' if with_x else 'no'}"
+            check(torch.equal(got, csr_pull_reduce_plain(mode, x_h, src_h, ip, w_h)),
+                  f"{what} differs")
+            check(torch.equal(got, csr_pull_reduce(mode, x_h, src_h, ip, w_h)),
+                  f"{what}: two runs differ")
     indptr = torch.tensor([0, 0, 3, 3, 4, 4], dtype=torch.int32, device=device)
     src = torch.tensor([4, 0, 2, 1], dtype=torch.int32, device=device)
     xf = torch.tensor([0.5, float("inf"), 2.0, 1.0, 0.25], device=device)
@@ -806,27 +886,29 @@ def phase_traversal_kernels(g, gw, device):
         check(torch.equal(csr_pull_reduce(mode, x, src, indptr, w),
                           csr_pull_reduce_plain(mode, x, src, indptr, w)),
               f"csr_pull_reduce hand case {mode} differs")
-    d32 = dists[torch.float32]
-    times = {}
-    for label, (mode, x, csr, w) in (("bfs frontier, max_i32", cases[0]),
-                                    ("sssp float32, min_plus", cases[3])):
-        times[label] = (
-            cuda_ms(lambda: csr_pull_reduce(mode, x, csr.src, csr.indptr, w)),
-            cuda_ms(lambda: csr_pull_reduce_plain(mode, x, csr.src, csr.indptr, w)))
-        print(f"kernel csr_pull_reduce ({label}, {csr.src.shape[0]} edges): device "
-              f"{times[label][0][0]:.6f} ms vs plain {times[label][1][0]:.6f} ms", flush=True)
-    m7 = int(sp32.pull.src.shape[0])
+    def k7_times(case):
+        mode, x, csr, w = case
+        return (cuda_ms(lambda: csr_pull_reduce(mode, x, csr.src, csr.indptr, w)),
+                cuda_ms(lambda: csr_pull_reduce_plain(mode, x, csr.src, csr.indptr, w)))
+
+    m7, m7b, m7h = int(sp32.pull.src.shape[0]), int(pull.src.shape[0]), int(heavy.src.shape[0])
+    rows_h = heavy.indptr.shape[0] - 1
     res["csr_pull_reduce"] = dict(
-        max_abs_err=0.0, times=times["sssp float32, min_plus"],
+        max_abs_err=0.0, times=k7_times(cases[3]),
         shape=f"min_plus float32 over the SSSP graph's {gw.nnz} in-edges (one full round)",
         # indptr, src and w per edge, x, y; an add and a min per edge
         bytes=4 * (gw.n + 1) + 8 * m7 + 8 * gw.n, ops=2 * m7,
         library=None,  # no single call: a gather, an add and a segment reduction
+        other_shapes=[
+            dict(shape=f"max_i32 over the benchmark graph's {m7b} in-edges (one BFS sweep)",
+                 times=k7_times(cases[0]), bytes=4 * (n + 1) + 4 * m7b + 8 * n, ops=m7b),
+            # x counts once whole: 12.8M edges reach every label
+            dict(shape=(f"min_i32 over the WCC slab plan's {rows_h} heavy rows, {m7h} edges "
+                        f"(one full step of WCC auto)"),
+                 times=k7_times(cases[5]), bytes=4 * (rows_h + 1) + 4 * m7h + 4 * n + 4 * rows_h,
+                 ops=m7h),
+        ],
     )
-    m7b = int(pull.src.shape[0])
-    b_ms, b_by = bound_ms(4 * (n + 1) + 4 * m7b + 8 * n, m7b)
-    print(f"kernel csr_pull_reduce (bfs frontier, max_i32): bound {b_ms:.6f} ms by {b_by} "
-          f"({4 * (n + 1) + 4 * m7b + 8 * n} bytes)", flush=True)
 
     # K8: the first tier step of SSSP from vertex 0, in float32 and float64
     cfg = PlatformConfig(device=str(device))
@@ -922,7 +1004,17 @@ def main() -> int:
 
     res = phase_kernels(g, prep, pr_plan, device)
     res.update(phase_traversal_kernels(g, gw, device))
+    empty_ms = cuda_ms(lambda: kernels.launch_empty(device), reps=100)[0]
+    print(f"kernel that returns at once (one block of one thread): device {empty_ms:.6f} ms, "
+          f"the floor under the launch-sized rows", flush=True)
     for name, r in res.items():
+        for o in r.get("other_shapes", ()):
+            (o["ms"], _), (o["plain_ms"], _) = o.pop("times")
+            o["bound_ms"], o["bound_by"] = bound_ms(o["bytes"], o.pop("ops"))
+            print(f"kernel {name} ({o['shape']}): device {o['ms']:.6f} ms vs plain "
+                  f"{o['plain_ms']:.6f} ms; bound {o['bound_ms']:.6f} ms by {o['bound_by']} "
+                  f"({o['bytes']} bytes): {100 * o['bound_ms'] / o['ms']:.1f} % of it",
+                  flush=True)
         (k_dev, k_stream), (p_dev, p_stream) = r["times"]
         r["ms"], r["plain_ms"] = k_dev, p_dev
         r["bound_ms"], r["bound_by"] = bound_ms(r["bytes"], r["ops"])
@@ -943,9 +1035,10 @@ def main() -> int:
          "max_abs_err": res[name]["max_abs_err"], "ms": res[name]["ms"],
          "plain_ms": res[name]["plain_ms"], "bound_ms": res[name]["bound_ms"],
          "bound_by": res[name]["bound_by"], "bytes": res[name]["bytes"],
-         "library_ms": res[name]["library_ms"]}
+         "library_ms": res[name]["library_ms"],
+         "other_shapes": res[name].get("other_shapes", [])}
         for name in kernels.KERNELS
-    ]}
+    ], "empty_kernel_ms": empty_ms}
     print(smi)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

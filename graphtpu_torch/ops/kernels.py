@@ -65,10 +65,13 @@ _SIGNATURES = {
     "gt_frontier_expand": (_P, _P, _I32, _P, _P, _P, _P, _P, _P, _P, _I32, _P),
     # buckets, count, x (null = identity mode), y, n, stream
     "gt_slab_spmv_min": (_P, _I32, _P, _P, _I64, _P),
-    # indptr, src, x (null = the stored ids), w (null unless min_plus), y, n, mode, stream
-    "gt_csr_pull_reduce": (_P, _P, _P, _P, _P, _I64, _I32, _P),
+    # indptr, src, x (null = the stored ids), w (null unless min_plus), y, n, m, mode,
+    # items per block, scratch, scratch bytes, stream
+    "gt_csr_pull_reduce": (_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _P, _I64, _P),
     # dist, row_ids, neigh, gpos, valid, w, out, e_cap, is_f64, stream
     "gt_push_relax_min": (_P, _P, _P, _P, _P, _P, _P, _I32, _I32, _P),
+    # stream: a kernel that returns at once (csrc/empty_kernel.cu)
+    "gt_empty_kernel": (_P,),
 }
 
 launch_counts = dict.fromkeys(KERNELS, 0)
@@ -177,10 +180,7 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def launch(name: str, device, *args) -> None:
-    """Launch kernel ``name`` on ``device``'s current stream; raise if the
-    launch was refused, count it otherwise. ``args`` are the C arguments
-    before the stream (pointers and sizes as Python ints)."""
+def _call(name: str, device, *args) -> None:
     import torch
 
     lib = library()
@@ -190,4 +190,17 @@ def launch(name: str, device, *args) -> None:
     if rc != 0:
         msg = lib.gt_error_string(rc).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {rc} ({msg})")
+
+
+def launch(name: str, device, *args) -> None:
+    """Launch kernel ``name`` on ``device``'s current stream; raise if the
+    launch was refused, count it otherwise. ``args`` are the C arguments
+    before the stream (pointers and sizes as Python ints)."""
+    _call(name, device, *args)
     launch_counts[name] += 1
+
+
+def launch_empty(device) -> None:
+    """Launch the kernel that does nothing: what a launch alone costs on
+    the device. A yardstick for the measuring scripts; not counted."""
+    _call("empty_kernel", device)

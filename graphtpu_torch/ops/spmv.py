@@ -163,6 +163,41 @@ def pull_csr(graph: Graph, device) -> PullCSR:
     return csr
 
 
+# K7: items of the merged list (row ends + edges) a block takes, by the
+# size of a value (csrc/csr_pull_reduce.cu: K7_THREADS * K7Items)
+CSR_ITEMS = {4: 256 * 9, 8: 256 * 5}
+
+
+def csr_scratch_layout(n: int, m: int, itemsize: int):
+    """K7's scratch for n rows and m edges of ``itemsize``-byte values:
+    (blocks, byte offset of the carry values, bytes). The kernel keeps
+    there the row each block starts in [blocks + 1] and each block's carry
+    row [blocks], both int32, then from the next multiple of 8 bytes each
+    block's carry value [blocks]."""
+    ipb = CSR_ITEMS[itemsize]
+    nb = (n + m + ipb - 1) // ipb
+    val_off = (4 * (2 * nb + 1) + 7) // 8 * 8
+    return nb, val_off, val_off + itemsize * nb
+
+
+def merge_path_starts(indptr: torch.Tensor, items_per_block: int) -> torch.Tensor:
+    """The plain version of K7's partition: for block b of the merged list
+    of row ends and edges (n + m items, ``items_per_block`` a block), the
+    number of row ends before diagonal d = min(b * items_per_block, n + m),
+    as int32 [blocks + 1]: the first row r whose end lies past edge
+    d - r - 1. Block b owns rows [starts[b], starts[b + 1]) to their ends
+    and edges [d_b - starts[b], d_{b+1} - starts[b + 1])."""
+    n, m = indptr.shape[0] - 1, int(indptr[-1])
+    nb = (n + m + items_per_block - 1) // items_per_block
+    d = torch.arange(nb + 1, dtype=torch.int64, device=indptr.device) * items_per_block
+    d.clamp_(max=n + m)
+    # row end r precedes edge e in the merged list iff indptr[r + 1] <= e:
+    # r + indptr[r + 1] ascends strictly, and rows with r + indptr[r + 1] < d
+    # are the ones a diagonal d has behind it
+    key = torch.arange(n, dtype=torch.int64, device=indptr.device) + indptr[1:].long()
+    return torch.searchsorted(key, d, right=False).to(torch.int32)
+
+
 # K7 modes: (C mode by dtype, reduction, identity)
 CSR_MODES = {
     "max_i32": ({torch.int32: 0}, "max", 0),
@@ -209,15 +244,23 @@ def csr_pull_reduce(mode: str, x: torch.Tensor | None, src: torch.Tensor,
         raise ValueError("csr_pull_reduce: inputs must be contiguous, on one device")
     if not kernels.use_kernel(src):
         return csr_pull_reduce_plain(mode, x, src, indptr, w)
-    n = indptr.shape[0] - 1
+    return _csr_pull_reduce_launch(codes[dtype], dtype, x, src, indptr, w)[0]
+
+
+def _csr_pull_reduce_launch(code: int, dtype, x, src, indptr, w):
+    """(y, scratch) of one K7 launch: the scratch holds the partition and
+    the carries afterwards (``csr_scratch_layout``)."""
+    n, m = indptr.shape[0] - 1, src.shape[0]
     y = torch.empty(n, dtype=dtype, device=src.device)
+    _, _, nbytes = csr_scratch_layout(n, m, y.element_size())
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=src.device)
     if n:
         kernels.launch(
             "csr_pull_reduce", src.device, indptr.data_ptr(), src.data_ptr(),
             None if x is None else x.data_ptr(), None if w is None else w.data_ptr(),
-            y.data_ptr(), n, codes[dtype],
+            y.data_ptr(), n, m, code, CSR_ITEMS[y.element_size()], scratch.data_ptr(), nbytes,
         )
-    return y
+    return y, scratch
 
 
 def pull_reduce(kind: str, terms: torch.Tensor, seg_ids: torch.Tensor,

@@ -197,3 +197,49 @@ def test_vreg_shuffle_checks_its_arguments():
         vreg_shuffle(torch.zeros(16, 128, dtype=torch.int32), ind)
     with pytest.raises(TypeError, match="ind"):
         vreg_shuffle(torch.zeros(8, 128, dtype=torch.int32), ind.long())
+
+
+# ---------------------------------------------------------------- K5's rule
+
+
+@pytest.mark.parametrize("with_row_ids", [True, False])
+@pytest.mark.parametrize("e_cap", [1, 3, 1023, 1025])
+@pytest.mark.parametrize("frontier", ["mixed", "one_row", "all_empty", "empty_run"])
+def test_expand_owner_is_the_last_row_starting_at_or_before_the_slot(frontier, e_cap,
+                                                                     with_row_ids):
+    """The rule kernel K5 finds owners by, in numpy: slot s belongs to the
+    LARGEST r with starts[r] <= min(s, edges - 1) (row 0 without edges), so
+    empty rows own nothing and every pad slot has the last edge's owner.
+    Against the JAX function on every slot, at slot counts around 1,024,
+    k = 1, a frontier without edges, and a run of empty rows."""
+    rng = np.random.default_rng(e_cap + len(frontier))
+    n = 3000
+    deg = rng.integers(0, 4, size=n)
+    if frontier == "mixed":
+        ids = np.concatenate([np.sort(rng.choice(n, size=700, replace=False)), np.full(68, n)])
+    elif frontier == "one_row":
+        deg[7] = 1500
+        ids = np.array([7])
+    elif frontier == "all_empty":
+        deg[:500] = 0
+        ids = np.concatenate([np.arange(500), np.full(12, n)])
+    else:
+        deg[100:1400] = 0
+        deg[99], deg[1400] = 600, 700
+        ids = np.concatenate([np.arange(99, 1401), np.full(5, n)])
+    ids = ids.astype(np.int32)
+    deg_pad, indptr, neigh = _csr(deg, rng, n)
+    got = _both_expand(ids, deg_pad, indptr, neigh, e_cap, with_row_ids)
+    starts = np.concatenate([[0], np.cumsum(deg_pad[ids])])
+    total = int(starts[-1])
+    slot = np.arange(e_cap)
+    owner = np.zeros(e_cap, dtype=np.int64)
+    if total:
+        owner = np.searchsorted(starts[:-1], np.minimum(slot, total - 1), side="right") - 1
+    np.testing.assert_array_equal(got.rows_local.numpy(), owner)
+    valid = slot < total
+    gpos = np.where(valid, indptr[ids[owner]] + slot - starts[owner], 0)
+    np.testing.assert_array_equal(got.gpos.numpy(), gpos)
+    np.testing.assert_array_equal(got.valid.numpy(), valid)
+    if neigh.size:
+        np.testing.assert_array_equal(got.neigh.numpy(), np.where(valid, neigh[gpos], 0))

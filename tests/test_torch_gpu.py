@@ -23,7 +23,8 @@ from graphtpu_torch.ops.minmode import (
 from graphtpu_torch.ops.pallas_gather import vreg_shuffle, vreg_shuffle_plain
 from graphtpu_torch.ops.slab import build_slab_plan, result_buffer
 from graphtpu_torch.ops.spmv import (
-    csr_pull_reduce, csr_pull_reduce_plain, slab_spmv_min, slab_spmv_min_buckets,
+    CSR_ITEMS, CSR_MODES, _csr_pull_reduce_launch, csr_pull_reduce, csr_pull_reduce_plain,
+    csr_scratch_layout, merge_path_starts, slab_spmv_min, slab_spmv_min_buckets,
     slab_spmv_min_plain, slab_spmv_sum, slab_spmv_sum_buckets, slab_spmv_sum_plain,
 )
 
@@ -340,6 +341,187 @@ def test_csr_pull_reduce_matches_plain(cuda, case):
     got = csr_pull_reduce(mode, on(x), src.to(cuda), indptr.to(cuda), on(w))
     assert kernels.launch_counts["csr_pull_reduce"] == before + 1
     assert torch.equal(got.cpu(), csr_pull_reduce_plain(mode, x, src, indptr, w))
+
+
+K7_COMBOS = {  # name -> (mode, dtype, x is null)
+    "max_i32": ("max_i32", torch.int32, False), "min_i32": ("min_i32", torch.int32, False),
+    "min_i32_ids": ("min_i32", torch.int32, True),
+    "min_plus_f32": ("min_plus", torch.float32, False),
+    "min_plus_f64": ("min_plus", torch.float64, False),
+}
+
+
+def _k7_degrees(case, ipb, rng):
+    """In-degrees per row of the hand cases, for blocks of ``ipb`` items of
+    the merged list of row ends and edges."""
+    if case == "row_ends_on_border":
+        # row 0's end is block 0's last item; row 2's last edge is block 1's
+        # last item, so its end opens block 2
+        return np.array([ipb - 1, 0, ipb - 2, 5, 0, 2 * ipb - 8, 3])
+    if case == "empty_run":  # runs of empty rows longer than a block, at both ends and between
+        deg = np.zeros(4 * ipb + 11, dtype=np.int64)
+        deg[ipb + 3] = 7
+        deg[ipb + 4] = 3 * ipb
+        deg[3 * ipb] = 1
+        return deg
+    if case == "one_row":
+        return np.array([1_000_000])
+    if case == "hubs_only":
+        return rng.integers(4097, 12000, size=1351)
+    if case == "single_empty_row":
+        return np.array([0])
+    if case == "edgeless":
+        return np.zeros(2 * ipb + 5, dtype=np.int64)
+    raise ValueError(case)
+
+
+def _k7_inputs(case, combo, rng, device):
+    mode, dtype, x_null = K7_COMBOS[combo]
+    deg = _k7_degrees(case, CSR_ITEMS[torch.empty(0, dtype=dtype).element_size()], rng)
+    indptr = np.zeros(deg.shape[0] + 1, dtype=np.int64)
+    np.cumsum(deg, out=indptr[1:])
+    m, n_x = int(indptr[-1]), 50_000
+    src = torch.from_numpy(rng.integers(0, n_x, size=m).astype(np.int32))
+    x = w = None
+    if mode == "max_i32":  # negative values: a max over them stays negative
+        x = torch.from_numpy(rng.integers(-1000, -1, size=n_x).astype(np.int32))
+    elif mode == "min_i32" and not x_null:
+        x = torch.from_numpy(rng.integers(0, 1 << 30, size=n_x).astype(np.int32))
+    elif mode == "min_plus":  # +inf distances among the finite ones
+        x = torch.from_numpy(np.where(rng.random(n_x) < 0.3, np.inf, rng.random(n_x) * 9)).to(dtype)
+        w = torch.from_numpy(rng.random(m) + 0.01).to(dtype)
+    on = lambda t: None if t is None else t.to(device)  # noqa: E731
+    return mode, on(x), src.to(device), torch.from_numpy(indptr.astype(np.int32)).to(device), on(w)
+
+
+@pytest.mark.parametrize("combo", list(K7_COMBOS))
+@pytest.mark.parametrize("case", ["row_ends_on_border", "empty_run", "one_row", "hubs_only",
+                                  "single_empty_row", "edgeless"])
+def test_csr_pull_reduce_hand_cases(cuda, case, combo):
+    """K7 in its five (mode, dtype, x) combinations on: rows that end
+    exactly on a block's border; runs of empty rows longer than a block; one
+    row of 10^6 edges; 1,351 rows of more than 4,096 edges each and none
+    else; n = 1 with m = 0; no edge at all. Against the plain version on the
+    card, bit for bit, and twice with the same bits."""
+    rng = np.random.default_rng(len(case) * 31 + len(combo))
+    mode, x, src, indptr, w = _k7_inputs(case, combo, rng, cuda)
+    before = kernels.launch_counts["csr_pull_reduce"]
+    got = csr_pull_reduce(mode, x, src, indptr, w)
+    again = csr_pull_reduce(mode, x, src, indptr, w)
+    assert kernels.launch_counts["csr_pull_reduce"] == before + 2
+    with kernels.plain_torch():
+        want = csr_pull_reduce(mode, x, src, indptr, w)
+    assert torch.equal(got, want)
+    assert torch.equal(got, again)
+    empty = (indptr.diff() == 0).cpu()
+    identity = CSR_MODES[mode][2]
+    assert bool((got.cpu()[empty] == identity).all())
+    if mode == "max_i32" and not bool(empty.all()):
+        assert int(got.cpu()[~empty].max()) < 0
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float64])
+@pytest.mark.parametrize("case", ["row_ends_on_border", "empty_run", "hubs_only", "edgeless"])
+def test_csr_pull_reduce_partition_matches_plain(cuda, case, dtype):
+    """The row each block starts in, as the kernel's search leaves it in the
+    scratch, against the plain partition; and each block's carry row is the
+    row the next block starts in."""
+    rng = np.random.default_rng(len(case))
+    combo = "min_i32" if dtype == torch.int32 else "min_plus_f64"
+    mode, x, src, indptr, w = _k7_inputs(case, combo, rng, cuda)
+    _, scratch = _csr_pull_reduce_launch(CSR_MODES[mode][0][dtype], dtype, x, src, indptr, w)
+    size = torch.empty(0, dtype=dtype).element_size()
+    nb, _, nbytes = csr_scratch_layout(indptr.shape[0] - 1, src.shape[0], size)
+    assert scratch.shape[0] == nbytes
+    ints = scratch[: 4 * (2 * nb + 1)].view(torch.int32)
+    want = merge_path_starts(indptr, CSR_ITEMS[size])
+    assert torch.equal(ints[: nb + 1], want)
+    assert torch.equal(ints[nb + 1:], want[1:])
+
+
+def test_csr_pull_reduce_refuses_a_wrong_block_size(cuda):
+    """The library checks the items per block its caller sized the scratch by."""
+    indptr = torch.tensor([0, 2], dtype=torch.int32, device=cuda)
+    src = torch.tensor([0, 0], dtype=torch.int32, device=cuda)
+    y = torch.empty(1, dtype=torch.int32, device=cuda)
+    scratch = torch.empty(1024, dtype=torch.uint8, device=cuda)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        kernels.launch("csr_pull_reduce", cuda, indptr.data_ptr(), src.data_ptr(), None, None,
+                       y.data_ptr(), 1, 2, 1, CSR_ITEMS[4] + 1, scratch.data_ptr(), 1024)
+
+
+def _k5_frontier(deg, ids, device):
+    """(ids, starts, indptr_pad, neigh) on ``device`` for rows of degrees
+    ``deg`` and a frontier ``ids`` (n = pad)."""
+    n = deg.shape[0]
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(deg, out=indptr[1:])
+    neigh = np.arange(int(indptr[-1]), dtype=np.int32)[::-1].copy()
+    lens = np.concatenate([deg, [0]])[ids]
+    starts = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for a in (ids.astype(np.int32), starts, indptr.astype(np.int32), neigh)]
+
+
+def _k5_assert_matches_plain(args, e_cap, with_row_ids):
+    got = frontier_expand(*args, e_cap, with_row_ids)
+    again = frontier_expand(*args, e_cap, with_row_ids)
+    with kernels.plain_torch():
+        want = frontier_expand(*args, e_cap, with_row_ids)
+    for name, g, a, w in zip(("rows_local", "row_ids", "gpos", "neigh", "valid"), got, again,
+                             want):
+        if w is None:
+            assert g is None, name
+        else:
+            assert torch.equal(g, w), name
+            assert torch.equal(g, a), name
+
+
+@pytest.mark.parametrize("with_row_ids", [True, False])
+@pytest.mark.parametrize("e_cap", [1, 3, 1023, 1025, 1 << 22])
+@pytest.mark.parametrize("frontier", ["mixed", "one_row", "all_empty", "empty_run"])
+def test_frontier_expand_slot_counts_and_frontiers(cuda, frontier, e_cap, with_row_ids):
+    """Slot counts around a block's 1,024 slots and BFS's top tier, for: a
+    frontier of rows of degree 0..40 (cut in the middle of a row wherever
+    e_cap is smaller than its edges); k = 1; a frontier without any edge;
+    and two rows of edges around 3,000 empty rows, more than a block keeps
+    in shared memory."""
+    rng = np.random.default_rng(e_cap % 1000 + len(frontier))
+    n = 200_000
+    deg = rng.integers(0, 41, size=n)
+    if frontier == "mixed":
+        ids = np.sort(rng.choice(n, size=150_000, replace=False))
+        ids = np.concatenate([ids, np.full(1 << 18, n)[: (1 << 18) - ids.shape[0]]])
+    elif frontier == "one_row":
+        deg[7] = 5000
+        ids = np.array([7])
+    elif frontier == "all_empty":
+        deg[:5000] = 0
+        ids = np.concatenate([np.arange(5000), np.full(100, n)])
+    else:
+        deg[1000:4000] = 0
+        deg[999], deg[4000] = 600, 700
+        ids = np.concatenate([np.arange(999, 4001), np.full(50, n)])
+    _k5_assert_matches_plain(_k5_frontier(deg, ids, cuda), e_cap, with_row_ids)
+
+
+def test_frontier_expand_unaligned_outputs_take_the_scalar_stores(cuda):
+    """Outputs that do not start on 16 bytes (views into larger buffers):
+    the library launches the variant with scalar stores."""
+    rng = np.random.default_rng(3)
+    deg = rng.integers(0, 9, size=5000)
+    ids = np.sort(rng.choice(5000, size=700, replace=False))
+    args = _k5_frontier(deg, ids, cuda)
+    e_cap = 2001
+    with kernels.plain_torch():
+        want = frontier_expand(*args, e_cap, True)
+    bufs = [torch.empty(e_cap + 1, dtype=torch.int32, device=cuda)[1:] for _ in range(4)]
+    valid = torch.empty(e_cap + 1, dtype=torch.bool, device=cuda)[1:]
+    kernels.launch("frontier_expand", cuda, *(t.data_ptr() for t in args[:2]), args[0].shape[0],
+                   args[2].data_ptr(), args[3].data_ptr(), *(b.data_ptr() for b in bufs),
+                   valid.data_ptr(), e_cap)
+    for g, w in zip(bufs + [valid], want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("case", ["random", "all_pad", "equal_candidates", "negative"])

@@ -375,3 +375,115 @@ def test_bucket_wrappers_check_the_result_buffer():
         tspmv.slab_spmv_min_buckets(plan, None, n, torch.zeros(3, dtype=torch.int32))
     with pytest.raises(ValueError, match="results for"):
         tslab.assemble(plan, tslab.result_buffer(plan, torch.int32), None, None)
+
+
+# ------------------------------------------------ K7's partition and scratch
+
+
+def _k7_case(case, rng):
+    """In-degrees of small graphs around the partition's corners."""
+    if case == "empty_rows_at_both_ends":
+        return np.array([0, 0, 0, 3, 1, 0, 4, 0, 0])
+    if case == "one_row_holds_all_edges":
+        return np.array([0, 0, 57, 0])
+    if case == "single_row":
+        return np.array([23])
+    if case == "edgeless":
+        return np.zeros(19, dtype=np.int64)
+    if case == "long_empty_run":
+        deg = np.zeros(40, dtype=np.int64)
+        deg[[2, 33]] = 5, 9
+        return deg
+    deg = rng.integers(0, 7, size=60)
+    deg[rng.random(60) < 0.4] = 0
+    deg[17] = 40
+    return deg
+
+
+def _merged_list(indptr):
+    """The merged list of row ends and edges, item by item: ('r', row) where
+    a row ends, ('e', edge) for an edge; a row's end follows its last edge."""
+    items = []
+    for r in range(len(indptr) - 1):
+        items += [("e", e) for e in range(indptr[r], indptr[r + 1])]
+        items.append(("r", r))
+    return items
+
+
+@pytest.mark.parametrize("ipb", [1, 4, 7, 15, 1000])
+@pytest.mark.parametrize("case", ["empty_rows_at_both_ends", "one_row_holds_all_edges",
+                                  "single_row", "edgeless", "long_empty_run", "random"])
+def test_merge_path_starts_matches_the_merged_list(case, ipb):
+    """K7's partition (its plain version) against the merged list written
+    out item by item: before diagonal d lie exactly starts[b] row ends and
+    d - starts[b] edges, for blocks of 1 item up to more than the list."""
+    rng = np.random.default_rng(ipb)
+    deg = _k7_case(case, rng)
+    indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    n, m = len(deg), int(indptr[-1])
+    items = _merged_list(indptr)
+    assert len(items) == n + m
+    starts = tspmv.merge_path_starts(_t(indptr), ipb)
+    nb = -(-(n + m) // ipb)
+    assert starts.dtype == torch.int32 and starts.shape == (nb + 1,)
+    for b, got in enumerate(starts.tolist()):
+        d = min(b * ipb, n + m)
+        assert got == sum(kind == "r" for kind, _ in items[:d])
+        assert d - got == sum(kind == "e" for kind, _ in items[:d])
+    assert starts[0] == 0 and starts[-1] == n
+
+
+@pytest.mark.parametrize("ipb", [3, 8, 15])
+@pytest.mark.parametrize("case", ["empty_rows_at_both_ends", "one_row_holds_all_edges",
+                                  "long_empty_run", "random"])
+def test_merge_path_blocks_reduce_to_the_plain_result(case, ipb):
+    """What K7 does with the partition, in numpy: each block reduces its
+    edges by row, stores the rows that end in it and carries the row that
+    runs past its end; carries folded into y give the plain version's
+    result, identities of empty rows included."""
+    rng = np.random.default_rng(ipb + len(case))
+    deg = _k7_case(case, rng)
+    indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    n, m = len(deg), int(indptr[-1])
+    src = rng.integers(0, n, size=m).astype(np.int32)
+    x = rng.integers(-90, -1, size=n).astype(np.int32)
+    starts = tspmv.merge_path_starts(_t(indptr), ipb).numpy()
+    lowest = np.iinfo(np.int32).min
+    y = np.full(n, 12345, dtype=np.int64)
+    carries = []
+    for b in range(len(starts) - 1):
+        i0, i1 = int(starts[b]), int(starts[b + 1])
+        j0, j1 = min(b * ipb, n + m) - i0, min((b + 1) * ipb, n + m) - i1
+        assert 0 <= j0 <= j1 <= m and i0 <= i1 <= n
+        acc, row = lowest, i0
+        for e in range(j0, j1):
+            while row < i1 and indptr[row + 1] <= e:  # rows that end before edge e
+                y[row], acc, row = (0 if deg[row] == 0 else acc), lowest, row + 1
+            assert indptr[row] <= e < indptr[row + 1]
+            acc = max(acc, int(x[src[e]]))
+        while row < i1:
+            y[row], acc, row = (0 if deg[row] == 0 else acc), lowest, row + 1
+        carries.append((i1, acc))
+    for row, acc in carries:
+        if row < n:
+            y[row] = max(y[row], acc)
+    want = tspmv.csr_pull_reduce_plain("max_i32", _t(x), _t(src), _t(indptr))
+    np.testing.assert_array_equal(y, want.numpy())
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("n,m", [(1, 0), (1, 10**6), (5000, 0), (1 << 20, 60_685_550)])
+def test_csr_scratch_layout(n, m, itemsize):
+    """Block starts, carry rows and carry values do not overlap, the values
+    start on 8 bytes, and the items per block are the CUDA source's."""
+    import re
+
+    nb, val_off, nbytes = tspmv.csr_scratch_layout(n, m, itemsize)
+    ipb = tspmv.CSR_ITEMS[itemsize]
+    assert (nb - 1) * ipb < n + m <= nb * ipb
+    assert val_off % 8 == 0 and val_off >= 4 * (nb + 1) + 4 * nb
+    assert nbytes == val_off + itemsize * nb
+    source = (kernels.CSRC_DIR / "csr_pull_reduce.cu").read_text()
+    threads = int(re.search(r"#define K7_THREADS (\d+)", source).group(1))
+    wide, narrow = re.search(r"sizeof\(T\) == 8 \? (\d+) : (\d+)", source).groups()
+    assert tspmv.CSR_ITEMS == {4: threads * int(narrow), 8: threads * int(wide)}
