@@ -9,8 +9,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
 2. Goldens, through the platform lifecycle on cuda:0, validated against the
    golden outputs: PageRank, CDLP (auto, the adaptive path, and slab), BFS,
    WCC and SSSP (default impls and device) on example-directed and
-   example-undirected, and BFS, WCC and SSSP on test-{bfs,wcc,sssp}-
-   {directed,undirected}.
+   example-undirected, BFS, WCC and SSSP on test-{bfs,wcc,sssp}-
+   {directed,undirected}, LCC under auto and sweep on its four goldens, and
+   SSSP under delta on its four.
 3. Real size: the benchmark graph (RMAT scale 20, edge factor 32,
    undirected, seed 42) and the SSSP benchmark graph (RMAT scale 20, edge
    factor 16, weighted, undirected, seed 42), both cached under
@@ -18,7 +19,12 @@ Run from the root of a checkout:  python3 chip_smoke.py
    as plain PyTorch on the card: CDLP under auto and slab (itermax 10),
    PageRank (20 iterations, d = 0.85), BFS from vertex 0 under auto and
    device, WCC under auto, adaptive and device, SSSP from vertex 0 under
-   auto and device. Kernel and plain results must be identical (PageRank
+   auto, device and delta. LCC runs under auto on the benchmark graph: the
+   wedge plan's prep is timed cold and from the oriented cache, its counts
+   print, and the plain path is one pass of K10's plain version over every
+   bucket (phase 5), whose numerators must equal the kernel path's; on two
+   RMAT scale-14 graphs (directed, undirected) oriented must equal sweep.
+   Kernel and plain results must be identical (PageRank
    within 1e-4 relative), every impl of an algorithm must give the same
    result, and iteration and phase counts must agree between kernel and
    plain runs; the phase counts print beside the JAX package's for the same
@@ -27,8 +33,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
    kernel-path run is profiled (top device ops, idle share, named ranges).
 4. Launch counts: each path runs with the counts set to 0 just before it
    and read just after; every kernel of a path must have launched in it.
-   vreg_shuffle has no path in the system: its own phase drives it, and its
-   count is that phase's.
+   vreg_shuffle has no path in the system, and no LCC path launches
+   edgehash_probe (K10 holds the probe inside): each has its own phase, and
+   its count is that phase's. Every profiler trace's count of each hand
+   kernel is held against the wrappers' launch counts, and a trace that
+   lost records is taken again.
 5. Each kernel against its plain PyTorch version at the path's shapes and
    on small hand-made cases, with both device times (profiler) and stream
    spans (CUDA events). Beside each time stands the kernel's bound: the
@@ -41,8 +50,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
    timed on the full pull CSRs (max_i32, min_plus float32) and on the WCC
    slab plan's heavy rows, K5 at the CDLP tier and at BFS's top tier with a
    frontier that fills it; both run twice on the same inputs and must give
-   the same bits. A kernel that returns at once gives the floor under the
-   launch-sized rows.
+   the same bits. K9 runs at 2^22 probes drawn from the benchmark graph's
+   wedge plan (half present pairs, half random ones), K10 per bucket and
+   over all buckets of that plan, both twice for the same bits. A kernel
+   that returns at once gives the floor under the launch-sized rows.
 
 Exits non-zero if any phase fails. The last lines of stdout are the
 card's name and power limit, one JSON line of per-kernel results, and
@@ -74,6 +85,20 @@ JAX_STEPS = {
     "sssp": (9, 5, 4),
 }
 RANGES = ("cdlp.", "bfs.", "wcc.", "sssp.")  # the named profiler ranges of the loops
+# device kernel names (substrings of the profiler's keys) -> the wrappers whose
+# every launch runs exactly one such kernel
+TRACE_KERNELS = {
+    ("gather_scalar_kernel", "gather_row_kernel"): ("gather_rows",),
+    ("minmode_small_kernel", "minmode_wide_kernel"): ("slab_minmode",),
+    ("slab_spmv_kernel",): ("slab_spmv_sum", "slab_spmv_min"),
+    ("vreg_shuffle_kernel",): ("vreg_shuffle",),
+    ("frontier_expand_kernel",): ("frontier_expand",),
+    ("k7_reduce",): ("csr_pull_reduce",),
+    ("push_relax_min_kernel",): ("push_relax_min",),
+    ("edgehash_probe_kernel",): ("edgehash_probe",),
+    ("wedge_rowblock_kernel",): ("wedge_rowblock",),
+}
+TRACE_TRIES = 5  # traces taken before a kernel count that stays wrong fails the run
 PR_RTOL = 1e-4        # the validator's EPSILON (graphtpu/harness/validator.py:40)
 F32_SUM_RTOL = 1e-5   # float32 sums in another order than torch's
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
@@ -85,16 +110,20 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def cuda_ms(fn, reps=10):
+def cuda_ms(fn, reps=10, empty_kernel=False):
     """(device ms, stream ms) per call of fn(), over reps calls after a
     warm-up. Device ms is the device time the profiler attributes to the
     calls' kernels and copies; stream ms is the CUDA-event span per call,
     which also holds the time the device waits for the host to launch. A
-    profiler trace now and then comes back without any device record:
-    it is taken again, and after three empty traces the stream span
-    stands in for the device time, with a line that says so."""
+    profiler trace now and then loses device records (none at all, or
+    fewer hand-kernel records than the wrappers launched): it is taken
+    again, and after three such traces the stream span stands in for the
+    device time, with a line that says so. ``empty_kernel`` says that fn
+    is the kernel that returns at once, which otherwise is left out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from graphtpu_torch.ops import kernels
 
     fn()
     torch.cuda.synchronize()
@@ -105,32 +134,55 @@ def cuda_ms(fn, reps=10):
     end.record()
     torch.cuda.synchronize()
     stream_ms = start.elapsed_time(end) / reps
+    lost = []
     for _ in range(3):
+        kernels.reset_launch_counts()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            kernels.launch_empty(torch.device("cuda:0"))  # see _device_events
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        device_us = sum(e.self_device_time_total for e in _device_events(prof))
-        if device_us > 0:
-            return device_us / 1e3 / reps, stream_ms
-    print(f"cuda_ms: three profiler traces recorded no device time; the CUDA-event span "
-          f"{stream_ms:.6f} ms stands in", flush=True)
+        device_us = sum(e.self_device_time_total for e in _device_events(prof, empty_kernel))
+        lost = trace_mismatch(prof) if device_us > 0 else ["no device time at all"]
+        if not lost:  # with empty_kernel the trace's leading one is a call like the others
+            return device_us / 1e3 / (reps + empty_kernel), stream_ms
+    print(f"cuda_ms: three profiler traces lost device records ({'; '.join(lost)}); the "
+          f"CUDA-event span {stream_ms:.6f} ms stands in", flush=True)
     return stream_ms, stream_ms
+
+
+def trace_mismatch(prof):
+    """What a trace lost: for each hand kernel, the device records the
+    trace holds against the launches the wrappers counted since the counts
+    were last set to 0. Empty when they agree."""
+    from graphtpu_torch.ops import kernels
+
+    events = [e for e in prof.key_averages() if _on_device(e)]
+    lost = []
+    for patterns, names in TRACE_KERNELS.items():
+        traced = sum(e.count for e in events if any(p in e.key for p in patterns))
+        launched = sum(kernels.launch_counts[n] for n in names)
+        if traced != launched:
+            lost.append(f"{'/'.join(names)}: {traced} traced, {launched} launched")
+    return lost
 
 
 def _on_device(e) -> bool:
     return getattr(e.device_type, "name", str(e.device_type)).endswith("CUDA")
 
 
-def _device_events(prof):
+def _device_events(prof, empty_kernel=False):
     """The profiler's device-side rows (kernels, copies, memsets); the
     rows of torch ops repeat their kernels' time and are left out, and so
     are the device spans of the named ranges (``cdlp.*``, ``bfs.*``,
     ``wcc.*``, ``sssp.*``), which cover their kernels and the gaps between
-    them."""
+    them. So is the kernel that returns at once: every trace starts with
+    one, because a trace now and then loses its first device record, and
+    that record should not be one that is measured."""
     return [
         e for e in prof.key_averages()
         if _on_device(e) and e.self_device_time_total > 0 and not e.key.startswith(RANGES)
+        and (empty_kernel or "empty_kernel" not in e.key)
     ]
 
 
@@ -139,16 +191,30 @@ def profile_run(fn):
     call of fn(). A named range (one per step kind of the adaptive loops:
     ``cdlp.*``, ``bfs.*``, ``wcc.*``, ``sssp.*``) gives its count, its host
     wall ms (the waits for the device included) and its device span ms
-    (first to last kernel, gaps included)."""
+    (first to last kernel, gaps included). The trace's count of each hand
+    kernel must equal the wrappers' launch counts: a trace that lost records
+    is taken again, and the run fails after TRACE_TRIES such traces."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    from graphtpu_torch.ops import kernels
+
+    for attempt in range(1, TRACE_TRIES + 1):
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        kernels.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            kernels.launch_empty(torch.device("cuda:0"))  # see _device_events
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        lost = trace_mismatch(prof)
+        if not lost:
+            break
+        print(f"profile_run: trace {attempt} lost device records ({'; '.join(lost)})",
+              flush=True)
+        check(attempt < TRACE_TRIES, f"{TRACE_TRIES} traces in a row lost device records")
     events = sorted(_device_events(prof), key=lambda e: -e.self_device_time_total)
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
     top = [(e.key[:48], e.self_device_time_total / 1e3) for e in events[:6]]
@@ -210,6 +276,12 @@ def phase_goldens(device):
             runs += [(name, algo, {}), (name, algo, {f"{algo}_impl": "device"})]
     for algo in ("bfs", "wcc", "sssp"):
         runs += [(f"test-{algo}-{kind}", algo, {}) for kind in ("directed", "undirected")]
+    for name in ("example-directed", "example-undirected", "test-lcc-directed",
+                 "test-lcc-undirected"):
+        runs += [(name, "lcc", {"lcc_impl": impl}) for impl in ("auto", "sweep")]
+    for name in ("example-directed", "example-undirected", "test-sssp-directed",
+                 "test-sssp-undirected"):
+        runs.append((name, "sssp", {"sssp_impl": "delta"}))
     for name, algo, impl in runs:
         spec = GraphSpec.from_properties(FIXTURES / f"{name}.properties")
         plat = GraphTorchPlatform(PlatformConfig(
@@ -240,6 +312,7 @@ def load_graph(name, scale, edge_factor, weighted):
         return cache_mod.load(INTERMEDIATE, name), "cache"
     g = rmat_graph(scale, edge_factor, directed=False, weighted=weighted, seed=42)
     cache_mod.save(g, INTERMEDIATE, name)
+    g.name = name  # as a graph loaded from the cache has it
     return g, "generated"
 
 
@@ -277,7 +350,13 @@ PATHS = {
     "sssp-auto": ("sssp", {"sssp_impl": "auto"},
                   ("csr_pull_reduce", "frontier_expand", "push_relax_min")),
     "sssp-device": ("sssp", {"sssp_impl": "device"}, ("csr_pull_reduce",)),
+    "sssp-delta": ("sssp", {"sssp_impl": "delta"},
+                   ("csr_pull_reduce", "frontier_expand", "push_relax_min")),
+    "lcc": ("lcc", {"lcc_impl": "auto"}, ("gather_rows", "wedge_rowblock")),
 }
+# the plain path of LCC is one pass of K10's plain version over every bucket,
+# made once, in phase_lcc_kernels
+NO_PLAIN_RUN = ("lcc",)
 
 
 def _rate(algo, res, secs, g, gw, inc_nnz):
@@ -290,6 +369,43 @@ def _rate(algo, res, secs, g, gw, inc_nnz):
     if algo == "bfs":
         return f"bfs_gteps {g.nnz / med / 1e9:.6f} ({g.nnz} stored edges)"
     return f"{algo}_s {med:.6f} ({(gw if algo == 'sssp' else g).nnz} stored edges)"
+
+
+def prepare_lcc_plan(g, device):
+    """The benchmark graph's wedge plan, prepared cold and then from the
+    oriented cache, both timed; the second plan is left memoized on the
+    graph for the lcc path. Prints the plan's counts."""
+    import numpy as np
+    import torch
+
+    from graphtpu_torch.ops.triangles import prepare_wedge_plan, wedge_plan
+
+    cache = INTERMEDIATE / g.name / "wedge-v2.npz"
+    cache.unlink(missing_ok=True)
+    secs = []
+    for _ in ("cold", "from the oriented cache"):
+        plan = None  # the first plan's tensors go before the second is built
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plan = prepare_wedge_plan(g, cache_dir=INTERMEDIATE, device=device)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        check(cache.exists(), "the oriented cache was not written")
+    g.memo["wedge_plan", str(device)] = plan
+    check(wedge_plan(g, INTERMEDIATE, device=device) is plan, "the wedge plan is not memoized")
+    d_plus = np.bincount(plan.ex, minlength=plan.n).astype(np.int64)
+    real = int((d_plus * (d_plus - 1) // 2).sum())
+    padded = sum(b.slab.shape[0] * (b.slab.shape[0] - 1) // 2 * b.slab.shape[1]
+                 for b in plan.buckets)
+    table = plan.ehash.table
+    print(f"lcc prep: {secs[0]:.3f} s cold, {secs[1]:.3f} s from the oriented cache "
+          f"({cache.stat().st_size} bytes); {plan.ex.shape[0]} oriented edges, max d+ "
+          f"{int(d_plus.max())}, {real} real wedges, {padded} padded probes of the plain "
+          f"version; table {plan.ehash.rows} rows, {table.numel() * 4} bytes; "
+          f"{int(plan.spilled.sum())} spilled keys; buckets (W, R_pad, rows): "
+          + ", ".join(f"({b.slab.shape[0]}, {b.slab.shape[1]}, {b.r_real})"
+                      for b in plan.buckets), flush=True)
+    return plan, real
 
 
 def check_fixed_points(g, gw, out):
@@ -321,7 +437,8 @@ def check_fixed_points(g, gw, out):
 
 
 def phase_real_size(device):
-    """Returns the graphs, the CDLP adaptive prep, the PR plan and the main
+    """Returns the graphs, the CDLP adaptive prep, the PR plan, the wedge
+    plan with its count of real wedges and the LCC result, and the main
     paths' launch counts."""
     import numpy as np
     import torch
@@ -330,12 +447,15 @@ def phase_real_size(device):
     from graphtpu_torch.algorithms.cdlp import build_incidence
     from graphtpu_torch.algorithms.common import run_algorithm
     from graphtpu_torch.algorithms.pr import _pull_plan_cached
-    from graphtpu_torch.algorithms.sssp import _sssp_kernel, sssp_adaptive_run, sssp_prep
+    from graphtpu_torch.algorithms.sssp import (
+        _sssp_kernel, sssp_adaptive_run, sssp_delta_run, sssp_prep,
+    )
     from graphtpu_torch.algorithms.wcc import _wcc_kernel, wcc_adaptive_run
     from graphtpu_torch.ops import kernels
     from graphtpu_torch.ops.active import cdlp_adaptive_device_run, prepare_cdlp_adaptive
     from graphtpu_torch.ops.spmv import pull_csr
     from graphtpu_torch.utils.config import AlgorithmParams, PlatformConfig
+    from graphtpu_torch.utils.synth import rmat_graph
 
     t0 = time.perf_counter()
     g, source = load_graph(BENCH_GRAPH, 20, 32, weighted=False)
@@ -359,12 +479,13 @@ def phase_real_size(device):
           f"built and copied to {device} in {plan_s:.3f}s; CDLP buckets {widths}, "
           f"heavy rows {heavy} ({int(cdlp_plan.heavy_neigh.shape[0]) if heavy else 0} edges)",
           flush=True)
+    wplan, real_wedges = prepare_lcc_plan(g, device)
 
     params = {"cdlp": AlgorithmParams(max_iterations=CDLP_ITERS),
               "pr": AlgorithmParams(damping_factor=DAMPING, num_iterations=PR_ITERS),
               "bfs": AlgorithmParams(source_vertex=0), "wcc": AlgorithmParams(),
-              "sssp": AlgorithmParams(source_vertex=0)}
-    cfgs = {name: PlatformConfig(device=str(device), **over)
+              "sssp": AlgorithmParams(source_vertex=0), "lcc": AlgorithmParams()}
+    cfgs = {name: PlatformConfig(device=str(device), intermediate_dir=str(INTERMEDIATE), **over)
             for name, (_, over, _) in PATHS.items()}
     graph_of = {algo: (gw if algo == "sssp" else g) for algo in params}
     inc_nnz = int(centers.shape[0])
@@ -372,6 +493,8 @@ def phase_real_size(device):
     out, launches, medians = {}, {}, {}
     for label, scope in (("kernel", None), ("plain", kernels.plain_torch)):
         for name, (algo, _, _) in PATHS.items():
+            if label == "plain" and name in NO_PLAIN_RUN:
+                continue
             kernels.reset_launch_counts()
             with scope() if scope else contextlib.nullcontext():
                 t0 = time.perf_counter()
@@ -430,6 +553,8 @@ def phase_real_size(device):
                    for name in ("wcc-auto", "wcc-adaptive")}
             _, sn, sst = sssp_adaptive_run(gw, 0, cfgs["sssp-auto"], torch.float32,
                                            with_stats=True)
+            _, dn, dst = sssp_delta_run(gw, 0, cfgs["sssp-delta"], torch.float32,
+                                        with_stats=True)
         print(f"adaptive steps ({label}): {it} iterations, full_steps {stats['full_steps']}, "
               f"active_steps {stats['active_steps']} (tier {stats['k_cap']} rows, "
               f"{stats['e_cap']} edges)", flush=True)
@@ -438,8 +563,14 @@ def phase_real_size(device):
             (bn, bst["tier_steps"], bst["bu_steps"], bst["dense_steps"]),
             {name: (wn, wst["full_steps"], wst["active_steps"]) for name, (wn, wst) in wcc.items()},
             (sn, sst["full_steps"], sst["active_steps"]),
+            (dn, dst),
         )
-        _, bfs_steps, wcc_steps, sssp_steps = steps[label]
+        _, bfs_steps, wcc_steps, sssp_steps, _ = steps[label]
+        print(f"sssp-delta steps ({label}): {dn} relaxation steps at delta {dst['delta']}: "
+              f"{dst['buckets']} buckets, light frontier {dst['light_active']}, light dense "
+              f"{dst['light_dense']}, heavy frontier {dst['heavy_active']}, heavy dense "
+              f"{dst['heavy_dense']} (capacities {dst['k_cap']} rows, {dst['e_cap']} edges)",
+              flush=True)
         print(f"bfs-auto steps ({label}): {bfs_steps[0]} levels; tier steps by edge budget "
               f"{bfs_steps[1]}, bottom-up {bfs_steps[2]}, dense {bfs_steps[3]} (JAX package, "
               f"same graph: {JAX_STEPS['bfs'][0]} levels; {JAX_STEPS['bfs'][1]}, bottom-up "
@@ -496,7 +627,23 @@ def phase_real_size(device):
           f"reached); wcc labels identical, auto vs adaptive vs device ({components} "
           f"components); sssp distances identical, auto vs device ({finite} finite); all "
           f"fixed points over every edge", flush=True)
-    return g, gw, prep, pr_plan, launches
+
+    lcc = out["kernel", "lcc"].values
+    check(lcc.shape == (g.n,) and lcc.dtype == np.float64, "lcc output shape or dtype")
+    check(bool(((lcc >= 0) & (lcc <= 1)).all()) and float(lcc.max()) > 0, "lcc outside [0, 1]")
+    # oriented (K10) against the sweep oracle (K1 gathers) on graphs small
+    # enough for the sweep, with multiplicities 1 and 2
+    for directed in (True, False):
+        small = rmat_graph(14, 16, directed=directed, seed=7)
+        by_impl = {impl: run_algorithm("lcc", small, params["lcc"], PlatformConfig(
+            device=str(device), intermediate_dir=str(INTERMEDIATE), lcc_impl=impl)).values
+            for impl in ("oriented", "sweep")}
+        check(np.array_equal(by_impl["oriented"], by_impl["sweep"]),
+              f"lcc oriented differs from sweep (RMAT s14/ef16, directed={directed})")
+        print(f"lcc oriented = sweep on RMAT s14/ef16 {'directed' if directed else 'undirected'} "
+              f"({small.nnz} stored edges; mean coefficient {by_impl['sweep'].mean():.6f})",
+              flush=True)
+    return g, gw, prep, pr_plan, (wplan, real_wedges, lcc), launches
 
 
 def phase_vreg_shuffle(device):
@@ -955,6 +1102,145 @@ def phase_traversal_kernels(g, gw, device):
     return res
 
 
+def phase_lcc_kernels(g, wplan, real_wedges, lcc_values, device):
+    """K9 and K10 against their plain versions on the benchmark graph's
+    wedge plan. Returns their results and K9's launches in its own drive."""
+    import numpy as np
+    import torch
+
+    from graphtpu_torch.ops import kernels
+    from graphtpu_torch.ops.edgehash import (
+        _U32, _hash_rows, _probe_lanes, edgehash_probe, pair_key_halves, probe_edge_hash_xy,
+    )
+    from graphtpu_torch.ops.triangles import (
+        coefficients, lcc_oriented_numerator, numerator_from_credits, wedge_rowblock,
+    )
+
+    res = {}
+    eh, id_bits = wplan.ehash, wplan.id_bits
+    gen = torch.Generator(device=device).manual_seed(9)
+
+    # K9 at 2^22 probes: half oriented edges of the plan (present), half
+    # random pairs (all but a few absent), shuffled
+    p = 1 << 22
+    m = wplan.ex.shape[0]
+    pick = torch.randint(0, m, (p // 2,), generator=gen, device=device)
+    ex = torch.from_numpy(wplan.ex.astype(np.int32)).to(device)
+    ey = torch.from_numpy(wplan.ey.astype(np.int32)).to(device)
+    rand = torch.randint(0, g.n, (2, p // 2), generator=gen, device=device, dtype=torch.int32)
+    order = torch.randperm(p, generator=gen, device=device)
+    x = torch.cat([ex[pick], rand[0]])[order].contiguous()
+    y = torch.cat([ey[pick], rand[1]])[order].contiguous()
+    present = (order < p // 2)
+    kernels.reset_launch_counts()
+    found, pay = probe_edge_hash_xy(eh, x, y, id_bits)  # K9's own drive: no LCC path calls it
+    k9_launches = kernels.launch_counts["edgehash_probe"]
+    check(k9_launches == 1, f"edgehash_probe launched {k9_launches} times, expected 1")
+    klo, khi = pair_key_halves(x, y, id_bits)
+    want_found, want_pay = _probe_lanes(eh, klo, khi)
+    again = edgehash_probe(eh, klo, khi)
+    check(torch.equal(found, want_found) and torch.equal(pay, want_pay),
+          "edgehash_probe differs from its plain version")
+    check(torch.equal(found, again[0]) and torch.equal(pay, again[1]),
+          "edgehash_probe: two runs differ")
+    check(bool(found[present].all()) and bool((pay[present] >= 1).all()),
+          "edgehash_probe missed an edge of the plan")
+    check(not bool(pay[~found].any()), "edgehash_probe gave a payload for an absent key")
+    del want_found, want_pay, again
+    h = _hash_rows(klo.long() & _U32, khi.long() & _U32, eh.rows)
+    distinct = int(torch.unique(h).shape[0])
+    res["edgehash_probe"] = dict(
+        max_abs_err=0.0,
+        times=(cuda_ms(lambda: edgehash_probe(eh, klo, khi)),
+               cuda_ms(lambda: _probe_lanes(eh, klo, khi), reps=3)),
+        shape=(f"{p} probes of the benchmark graph's edge hash ({eh.rows} rows, "
+               f"{eh.table.numel() * 4} bytes): {int(found.sum())} found, "
+               f"{distinct} distinct rows"),
+        # the table is an input read once: each distinct row probed, 512 B;
+        # per probe the two key halves, found (1 B) and payload (4 B)
+        bytes=distinct * 512 + p * (8 + 5), ops=p * 64 * 3,
+        # what a row fetched per probe moves: this design's traffic, no bound
+        traffic_bytes=p * (512 + 8 + 5),
+        library=("torch.index_select of the rows alone",
+                 lambda h=h: torch.index_select(eh.table, 0, h)),
+    )
+
+    # K10, bucket by bucket: kernel against plain, bit for bit, twice; the
+    # plain pass is made once, timed with CUDA events, and its credits give
+    # the plain path's numerators
+    buckets = []
+    kernel_credits, plain_credits = [], []
+    real_entries = 0
+    for b in wplan.buckets:
+        args = (b.slab, b.mslab, eh, id_bits, b.chunk_cols)
+        got = wedge_rowblock(*args)
+        again = wedge_rowblock(*args)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with kernels.plain_torch():
+            start.record()
+            want = wedge_rowblock(*args)
+            end.record()
+        torch.cuda.synchronize()
+        w, r_pad = b.slab.shape
+        what = f"wedge_rowblock bucket W={w} R_pad={r_pad}"
+        for name, a, a2, c in zip(("u_cred", "edge_cred"), got, again, want):
+            check(torch.equal(a, c), f"{what} {name} differs from its plain version")
+            check(torch.equal(a, a2), f"{what} {name}: two runs differ")
+        check(not bool(got[0][b.r_real:].any()), f"{what}: credits in pad rows")
+        kernel_credits.append(got)
+        plain_credits.append(want)
+        deg = (b.slab >= 0).sum(0, dtype=torch.int64)
+        wedges = int((deg * (deg - 1) // 2).sum())
+        real_entries += int(deg.sum())
+        k_ms = cuda_ms(lambda: wedge_rowblock(*args), reps=2)[0]
+        buckets.append(dict(W=w, R_pad=r_pad, rows=b.r_real, real_wedges=wedges,
+                            padded_probes=w * (w - 1) // 2 * r_pad, ms=k_ms,
+                            plain_ms=start.elapsed_time(end)))
+        print(f"kernel wedge_rowblock bucket W={w} R_pad={r_pad} ({b.r_real} rows, {wedges} "
+              f"real wedges): device {k_ms:.6f} ms ({wedges / k_ms / 1e6:.3f} G probes/s, "
+              f"{wedges * 512 / k_ms / 1e9:.3f} TB/s of rows fetched, from the L2 or device "
+              f"memory) vs plain "
+              f"{buckets[-1]['plain_ms']:.3f} ms", flush=True)
+    check(sum(bk["real_wedges"] for bk in buckets) == real_wedges, "real wedges by bucket")
+    kernel_num = numerator_from_credits(wplan, kernel_credits)
+    plain_num = numerator_from_credits(wplan, plain_credits)
+    check(np.array_equal(kernel_num, plain_num), "lcc numerators differ, kernel vs plain path")
+    check(np.array_equal(coefficients(kernel_num, wplan.deg_s), lcc_values),
+          "the lcc path's coefficients are not those of these numerators")
+    check(np.array_equal(lcc_oriented_numerator(wplan), kernel_num),
+          "lcc numerators: two runs differ")
+    triangles = int(kernel_num.sum())
+    print(f"real size: lcc numerators identical, kernel path vs plain path (sum {triangles}, "
+          f"{int((kernel_num > 0).sum())} vertices in a triangle; mean coefficient "
+          f"{lcc_values.mean():.6f})", flush=True)
+    del kernel_credits, plain_credits
+
+    def all_buckets():
+        for b in wplan.buckets:
+            wedge_rowblock(b.slab, b.mslab, eh, id_bits, b.chunk_cols)
+
+    plain_ms = sum(bk["plain_ms"] for bk in buckets)
+    # the table read once whole (4.2G probes of 2M rows leave none out); the
+    # real slab and mslab entries read once; u_cred per row and edge_cred per
+    # real entry written once
+    rows = sum(b.r_real for b in wplan.buckets)
+    small = real_entries * 8 + rows * 4 + real_entries * 4
+    nbytes = eh.table.numel() * 4 + small
+    res["wedge_rowblock"] = dict(
+        max_abs_err=0.0,
+        times=(cuda_ms(all_buckets, reps=2), (plain_ms, plain_ms)),
+        shape=(f"all {len(wplan.buckets)} buckets of the benchmark graph's wedge plan (one LCC "
+               f"run's wedge work): {real_wedges} real wedges, {real_entries} slab entries, "
+               f"{rows} rows; plain version: one pass, CUDA events"),
+        bytes=nbytes, ops=real_wedges * 64 * 3,
+        library=None,  # no single call: pair enumeration, a hash probe, three scatter-adds
+        buckets=buckets,
+        # what a row fetched per real wedge moves: this design's traffic, no bound
+        traffic_bytes=real_wedges * 512 + small,
+    )
+    return res, k9_launches
+
+
 SOURCES = {
     "gather_rows": ("graphtpu_torch/csrc/gather_rows.cu", "graphtpu/ops/pallas_gather.py:95"),
     "slab_minmode": ("graphtpu_torch/csrc/slab_minmode.cu", "graphtpu/ops/minmode.py:55"),
@@ -964,6 +1250,8 @@ SOURCES = {
     "slab_spmv_min": ("graphtpu_torch/csrc/slab_spmv.cu", "graphtpu/ops/spmv.py:82"),
     "csr_pull_reduce": ("graphtpu_torch/csrc/csr_pull_reduce.cu", "graphtpu/algorithms/sssp.py:72"),
     "push_relax_min": ("graphtpu_torch/csrc/push_relax.cu", "graphtpu/algorithms/sssp.py:140"),
+    "edgehash_probe": ("graphtpu_torch/csrc/edgehash_probe.cu", "graphtpu/ops/edgehash.py:159"),
+    "wedge_rowblock": ("graphtpu_torch/csrc/wedge_rowblock.cu", "graphtpu/ops/triangles.py:555"),
 }
 
 
@@ -989,7 +1277,8 @@ def main() -> int:
     print(f"kernels: {lib.name} {built} ({time.perf_counter() - t0:.3f}s to load)", flush=True)
 
     phase_goldens(device)
-    g, gw, prep, pr_plan, path_launches = phase_real_size(device)
+    g, gw, prep, pr_plan, (wplan, real_wedges, lcc_values), path_launches = \
+        phase_real_size(device)
     for path, (_, _, needed) in PATHS.items():
         per_run = {k: v / RUNS_PER_PATH for k, v in path_launches[path].items() if v}
         print(f"launches on path {path} ({RUNS_PER_PATH} runs): {path_launches[path]}; per run: "
@@ -1004,7 +1293,10 @@ def main() -> int:
 
     res = phase_kernels(g, prep, pr_plan, device)
     res.update(phase_traversal_kernels(g, gw, device))
-    empty_ms = cuda_ms(lambda: kernels.launch_empty(device), reps=100)[0]
+    lcc_res, launches["edgehash_probe"] = phase_lcc_kernels(g, wplan, real_wedges, lcc_values,
+                                                            device)
+    res.update(lcc_res)
+    empty_ms = cuda_ms(lambda: kernels.launch_empty(device), reps=100, empty_kernel=True)[0]
     print(f"kernel that returns at once (one block of one thread): device {empty_ms:.6f} ms, "
           f"the floor under the launch-sized rows", flush=True)
     for name, r in res.items():
@@ -1029,6 +1321,13 @@ def main() -> int:
               f"{r['bound_by']} ({r['bytes']} bytes at {HBM_BYTES_PER_S / 1e12} TB/s, "
               f"{r['ops']} operations at {F32_OPS_PER_S / 1e12} Tops/s, both published): "
               f"{100 * r['bound_ms'] / k_dev:.1f} % of it; {lib}", flush=True)
+        if "traffic_bytes" in r:
+            r["hbm_random_traffic_ms"] = r["traffic_bytes"] / HBM_BYTES_PER_S * 1e3
+            print(f"kernel {name}: a table row fetched from device memory for every probe would "
+                  f"move {r['traffic_bytes']} bytes, {r['hbm_random_traffic_ms']:.6f} ms at "
+                  f"{HBM_BYTES_PER_S / 1e12} TB/s (no bound: rows shared by probes need not move "
+                  f"twice); the kernel takes {100 * k_dev / r['hbm_random_traffic_ms']:.1f} % of "
+                  f"that", flush=True)
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": launches[name],
@@ -1036,7 +1335,8 @@ def main() -> int:
          "plain_ms": res[name]["plain_ms"], "bound_ms": res[name]["bound_ms"],
          "bound_by": res[name]["bound_by"], "bytes": res[name]["bytes"],
          "library_ms": res[name]["library_ms"],
-         "other_shapes": res[name].get("other_shapes", [])}
+         "other_shapes": res[name].get("other_shapes", []),
+         **{k: res[name][k] for k in ("buckets", "hbm_random_traffic_ms") if k in res[name]}}
         for name in kernels.KERNELS
     ], "empty_kernel_ms": empty_ms}
     print(smi)

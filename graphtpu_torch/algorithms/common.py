@@ -84,16 +84,14 @@ def run_algorithm(
     processing-time window, bfs.cpp:105-107)."""
     import graphtpu_torch.algorithms.bfs  # noqa: F401  (registers)
     import graphtpu_torch.algorithms.cdlp  # noqa: F401  (registers)
+    import graphtpu_torch.algorithms.lcc  # noqa: F401  (registers)
     import graphtpu_torch.algorithms.pr  # noqa: F401  (registers)
     import graphtpu_torch.algorithms.sssp  # noqa: F401  (registers)
     import graphtpu_torch.algorithms.wcc  # noqa: F401  (registers)
 
     name = name.lower()
     if name not in ALGORITHMS:
-        raise ValueError(
-            f"unknown algorithm {name!r}; graphtpu_torch has {sorted(ALGORITHMS)} "
-            f"(lcc is still to port, ROADMAP Queue 1)"
-        )
+        raise ValueError(f"unknown algorithm {name!r}; graphtpu_torch has {sorted(ALGORITHMS)}")
     params = params or AlgorithmParams()
     cfg = cfg or PlatformConfig()
     with ComputationTimer(f"Processing ({name})"):

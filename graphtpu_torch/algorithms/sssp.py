@@ -17,8 +17,10 @@ the directed weighted edges; unreachable vertices serialize as the literal
   small device-to-host read per round, and the counts of full and tier
   rounds are the JAX kernel's.
 * "device": full rounds only (``_sssp_kernel``).
-* "hybrid" (host relaxations of sparse rounds) and "delta" (delta-stepping)
-  are not ported yet.
+* "delta": bucketed delta-stepping, the reference's own method
+  (LAGr_SingleSourceShortestPath with Delta = 2.5, sssp.cpp:70-78), on the
+  same kernels (``sssp_delta_run``).
+* "hybrid" (host relaxations of sparse rounds) is not ported yet.
 
 Every candidate is the same addition dist[u] + w in both packages and min
 is exact in any order, so the distances equal the JAX package's bit for
@@ -180,6 +182,147 @@ def sssp_adaptive_run(graph: Graph, src_dense: int, cfg: PlatformConfig, dtype=t
     return dist, niter
 
 
+class SplitCSR(NamedTuple):
+    """The out-edges of one weight class (light or heavy) as a push CSR."""
+
+    deg_pad: torch.Tensor  # [n+1] out-degrees within the class, 0 at n
+    indptr: torch.Tensor   # [n+1]
+    dst: torch.Tensor      # [m_class]
+    w: torch.Tensor        # [m_class]
+
+
+def sssp_delta_prep(graph: Graph, delta: float, dtype: torch.dtype, device):
+    """(light, heavy): the push CSR split at w <= delta against w > delta,
+    in CSR order, memoized on the Graph per (delta, dtype, device). An empty
+    class is an empty CSR: no sentinel edge is needed here."""
+    key = ("sssp_delta_prep", float(delta), str(dtype), str(torch.device(device)))
+    prep = graph.memo.get(key)
+    if prep is None:
+        np_dtype = np.float64 if dtype == torch.float64 else np.float32
+        n = graph.n
+        w = graph.w.astype(np_dtype)
+        light = w <= np_dtype(delta)
+        src_rep = np.repeat(np.arange(n, dtype=np.int64), graph.out_degree)
+
+        def split(mask):
+            cnt = np.bincount(src_rep[mask], minlength=n).astype(np.int64)
+            indptr = np.zeros(n + 1, dtype=np.int64)
+            np.cumsum(cnt, out=indptr[1:])
+            return SplitCSR(
+                int32_tensor(np.concatenate([cnt, [0]]), device), int32_tensor(indptr, device),
+                int32_tensor(graph.dst[mask], device),
+                torch.from_numpy(np.ascontiguousarray(w[mask])).to(device),
+            )
+
+        prep = graph.memo[key] = (split(light), split(~light))
+    return prep
+
+
+def _sssp_delta_loop(prep: SsspPrep, light: SplitCSR, heavy: SplitCSR, source: int, n: int,
+                     dtype, delta: float, k_cap: int, e_cap: int):
+    """The JAX kernel's nested while_loops as one host loop, in its phase
+    order. Vertices are taken in buckets of width delta by tentative
+    distance. Within bucket k the light edges (w <= delta) relax to a fixed
+    point: on the frontier engine (K5, K8) while the active set fits the
+    capacities, else by one dense sweep of every edge (K7), which is always
+    safe. Then the heavy edges of the settled bucket relax once, by frontier
+    if the bucket fits, else by one dense sweep; they land past the next
+    boundary, so a bucket is final when left. Then k becomes the smallest
+    bucket above k that holds a vertex. Returns (dist, relaxation steps,
+    per-phase step counts)."""
+    dev = prep.deg_pad.device
+    imax = np.iinfo(np.int32).max
+    limit = 4 * n
+    # bucket() in the run's dtype, with 1 / delta rounded to it, as in JAX
+    inv_delta = torch.tensor(1.0 / delta, dtype=dtype, device=dev)
+    top = torch.tensor(2**31 - 1, dtype=dtype, device=dev)
+    counts = {"buckets": 0, "light_active": 0, "light_dense": 0, "heavy_active": 0,
+              "heavy_dense": 0}
+
+    def bucket(dist):
+        # floor(dist / delta); inf, and what overflows int32, give imax
+        b = torch.floor(dist * inv_delta)
+        over = b >= top
+        return torch.where(over, imax, torch.where(over, 0, b).to(torch.int32))
+
+    def relax_frontier(dist, ids, csr: SplitCSR):
+        """Scatter-min relaxation of the out-edges of ``ids`` in one CSR."""
+        if not csr.dst.numel():  # a class without edges relaxes nothing
+            return dist, torch.zeros(n, dtype=torch.bool, device=dev)
+        exp = expand(ids, csr.deg_pad, csr.indptr, csr.dst, e_cap)
+        new = relax_min(dist, exp.row_ids, exp.neigh, exp.gpos, exp.valid, csr.w)
+        return new, new < dist
+
+    def derive(mask, deg_n):
+        """(ids, fits, any) of a mask: one read of (count, edge sum)."""
+        ids, _ = compact(mask, k_cap)
+        cnt, fe = mask_status(mask, deg_n).tolist()
+        return ids, cnt <= k_cap and fe <= e_cap, cnt > 0
+
+    def settle(changed, ids, improved):
+        """changed with the relaxed ids cleared (pad ids dropped) and the
+        improved vertices set."""
+        pad = torch.cat([changed, changed.new_zeros(1)])
+        return pad.index_fill_(0, ids.long(), False)[:n] | improved
+
+    light_deg_n, heavy_deg_n = light.deg_pad[:-1], heavy.deg_pad[:-1]
+    dist = _initial(n, source, dtype, dev)
+    changed = torch.zeros(n, dtype=torch.bool, device=dev)
+    changed[source] = True
+    k, it = 0, 0
+    while k < imax and it < limit:
+        counts["buckets"] += 1
+        ids, fits, any_a = derive(changed & (bucket(dist) == k), light_deg_n)
+        while any_a and it < limit:
+            while any_a and fits and it < limit:
+                with record_function("sssp.delta_light_step"):
+                    new, improved = relax_frontier(dist, ids, light)
+                    changed = settle(changed, ids, improved)
+                    dist = new
+                    ids, fits, any_a = derive(changed & (bucket(dist) == k), light_deg_n)
+                it += 1
+                counts["light_active"] += 1
+            while any_a and not fits and it < limit:
+                with record_function("sssp.delta_dense_step"):
+                    # a dense sweep relaxes every vertex's edges: the changed
+                    # set becomes exactly the improved vertices
+                    dist, changed = _sssp_dense_step(dist, prep.pull, prep.pull_w)
+                    ids, fits, any_a = derive(changed & (bucket(dist) == k), light_deg_n)
+                it += 1
+                counts["light_dense"] += 1
+        if it < limit:  # the heavy edges of the settled bucket, once
+            with record_function("sssp.delta_heavy_step"):
+                ids, fits, _ = derive(bucket(dist) == k, heavy_deg_n)
+                if fits:
+                    new, improved = relax_frontier(dist, ids, heavy)
+                    changed = settle(changed, ids, improved)
+                    dist = new
+                else:
+                    dist, changed = _sssp_dense_step(dist, prep.pull, prep.pull_w)
+            it += 1
+            counts["heavy_active" if fits else "heavy_dense"] += 1
+        b = bucket(dist)
+        k = int(torch.where(b > k, b, imax).min())
+    return dist, it, counts
+
+
+def sssp_delta_run(graph: Graph, src_dense: int, cfg: PlatformConfig, dtype=torch.float32,
+                   with_stats: bool = False):
+    """Delta-stepping SSSP. Returns (dist on cfg.device, relaxation steps),
+    and with ``with_stats`` also the per-phase step counts."""
+    delta = float(cfg.sssp_delta or 2.5)
+    light, heavy = sssp_delta_prep(graph, delta, dtype, cfg.device)
+    k_cap = int(cfg.sssp_frontier_rows or 1 << 16)
+    e_cap = int(cfg.sssp_frontier_edges or 1 << 18)
+    dist, niter, counts = _sssp_delta_loop(
+        sssp_prep(graph, dtype, cfg.device), light, heavy, src_dense, graph.n, dtype, delta,
+        k_cap, e_cap,
+    )
+    if with_stats:
+        return dist, niter, dict(counts, delta=delta, k_cap=k_cap, e_cap=e_cap)
+    return dist, niter
+
+
 @register("sssp")
 def sssp(graph: Graph, params: AlgorithmParams, cfg: PlatformConfig) -> AlgorithmResult:
     if params.source_vertex is None:
@@ -193,18 +336,18 @@ def sssp(graph: Graph, params: AlgorithmParams, cfg: PlatformConfig) -> Algorith
     impl = cfg.sssp_impl
     if impl not in IMPLS:
         raise ValueError(f"unknown sssp-impl {impl!r}; expected {'|'.join(IMPLS)}")
-    if impl in ("hybrid", "delta"):
-        where = {"hybrid": "sssp_hybrid_run, ROADMAP Queue 1, item 14",
-                 "delta": "_sssp_delta_kernel, ROADMAP Queue 1, item 9"}[impl]
+    if impl == "hybrid":
         raise NotImplementedError(
-            f"sssp-impl={impl} (graphtpu/algorithms/sssp.py:{where}) is not ported yet; "
-            "use auto, adaptive or device"
+            "sssp-impl=hybrid (graphtpu/algorithms/sssp.py:sssp_hybrid_run, ROADMAP Queue 1) "
+            "is not ported yet; use auto, adaptive, device or delta"
         )
     dtype = float_dtype(cfg)
     src_dense = graph.dense_source(params.source_vertex)
     if impl == "device":
         dist, niter = _sssp_kernel(sssp_prep(graph, dtype, cfg.device), src_dense, graph.n,
                                    dtype)
+    elif impl == "delta":
+        dist, niter = sssp_delta_run(graph, src_dense, cfg, dtype)
     else:
         dist, niter = sssp_adaptive_run(graph, src_dense, cfg, dtype)
     return AlgorithmResult("sssp", dist.cpu().numpy().astype(np.float64), iterations=int(niter))

@@ -48,12 +48,12 @@ def cmd_run(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="graphtpu_torch",
-        description="LDBC Graphalytics on PyTorch and CUDA (BFS, PageRank, WCC, CDLP, SSSP)",
+        description="LDBC Graphalytics on PyTorch and CUDA (BFS, PageRank, WCC, CDLP, LCC, SSSP)",
     )
     sub = ap.add_subparsers(dest="command", required=True)
     p = sub.add_parser("run", help="run one algorithm job (execute-job.sh analogue)")
     p.add_argument("--graph-properties", required=True)
-    p.add_argument("--algorithm", required=True, choices=["bfs", "pr", "wcc", "cdlp", "sssp"])
+    p.add_argument("--algorithm", required=True, choices=["bfs", "pr", "wcc", "cdlp", "lcc", "sssp"])
     p.add_argument("--output-file", default=None)
     p.add_argument("--validation-file", default=None)
     p.add_argument("--log-path", default=None)

@@ -14,7 +14,8 @@ Each kernel has a wrapper beside its plain PyTorch version:
 ``ops/spmv.py:slab_spmv_sum`` (K3), ``ops/pallas_gather.py:vreg_shuffle``
 (K4), ``ops/frontier.py:frontier_expand`` (K5), ``ops/spmv.py:slab_spmv_min``
 (K6), ``ops/spmv.py:csr_pull_reduce`` (K7) and ``ops/frontier.py:relax_min``
-(K8, kernel ``push_relax_min``). A wrapper dispatches on
+(K8, kernel ``push_relax_min``), ``ops/edgehash.py:edgehash_probe`` (K9) and
+``ops/triangles.py:wedge_rowblock`` (K10). A wrapper dispatches on
 the device of its tensors: a CPU tensor takes the plain version, a CUDA
 tensor launches the kernel or raises. K2, K3 and K6 also take every bucket
 of a slab plan in one launch (``slab_minmode_buckets``,
@@ -47,7 +48,7 @@ NVCC_FLAGS = (
 
 KERNELS = (
     "gather_rows", "slab_minmode", "slab_spmv_sum", "vreg_shuffle", "frontier_expand",
-    "slab_spmv_min", "csr_pull_reduce", "push_relax_min",
+    "slab_spmv_min", "csr_pull_reduce", "push_relax_min", "edgehash_probe", "wedge_rowblock",
 )
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -70,6 +71,10 @@ _SIGNATURES = {
     "gt_csr_pull_reduce": (_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _P, _I64, _P),
     # dist, row_ids, neigh, gpos, valid, w, out, e_cap, is_f64, stream
     "gt_push_relax_min": (_P, _P, _P, _P, _P, _P, _P, _I32, _I32, _P),
+    # table, rows, klo, khi, found, payload, p, stream
+    "gt_edgehash_probe": (_P, _I64, _P, _P, _P, _P, _I64, _P),
+    # slab, mslab, W, R, table, rows, id_bits, u_cred, edge_cred, stream
+    "gt_wedge_rowblock": (_P, _P, _I32, _I64, _P, _I64, _I32, _P, _P, _P),
     # stream: a kernel that returns at once (csrc/empty_kernel.cu)
     "gt_empty_kernel": (_P,),
 }

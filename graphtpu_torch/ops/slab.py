@@ -32,14 +32,17 @@ DEFAULT_BUCKET_COUNT = 10
 
 
 def optimal_bucket_bounds(
-    deg: np.ndarray, k: int = DEFAULT_BUCKET_COUNT, lo: int = 0,
+    deg: np.ndarray, k: int = DEFAULT_BUCKET_COUNT, kind: str = "elements", lo: int = 0,
     cap: Optional[int] = None,
 ) -> list:
     """Bucket upper bounds for THIS degree distribution: at most ``k``
-    boundaries minimizing the padded element count, where a row in a
-    width-W bucket costs W. Only degrees in (lo, cap] take part; rows
+    boundaries minimizing the padded cost, where a row in a width-W bucket
+    costs W (kind="elements": slab gathers) or W(W-1)/2 (kind="pairs": the
+    LCC wedge pair lists). Only degrees in (lo, cap] take part; rows
     above ``cap`` are the heavy tail. Boundaries land on degrees present,
     so distributions with <= k distinct degrees get exact buckets."""
+    if kind not in ("elements", "pairs"):
+        raise ValueError(f"optimal_bucket_bounds: unknown kind {kind!r}")
     deg = np.asarray(deg)
     mask = deg > lo
     if cap is not None:
@@ -52,7 +55,10 @@ def optimal_bucket_bounds(
     if ends.size <= k:
         return ends.tolist()
     csum = np.cumsum(hist)                        # rows with degree <= d
-    w = ends.astype(np.float64)
+    if kind == "pairs":
+        w = (ends * (ends - 1) // 2).astype(np.float64)
+    else:
+        w = ends.astype(np.float64)
     s = csum[ends].astype(np.float64)             # rows covered through ends[j]
     e = ends.size
     jlt = np.tril(np.ones((e, e), bool), k=-1)    # j < i

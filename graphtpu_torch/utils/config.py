@@ -15,6 +15,8 @@ import re
 from pathlib import Path
 from typing import Dict, List, Optional
 
+from graphtpu_torch.utils.logging import get_logger
+
 
 def parse_properties(path: str | os.PathLike) -> Dict[str, str]:
     """Parse a Java .properties file (key = value, # comments)."""
@@ -162,15 +164,22 @@ class PlatformConfig:
     wcc_impl: str = "auto"
     wcc_frontier_rows: int = 1 << 16
     wcc_frontier_edges: int = 1 << 18
-    # auto|adaptive|device (hybrid and delta are not ported yet):
+    # auto|adaptive|device|delta (hybrid is not ported yet):
     # auto/adaptive = changed-set Bellman-Ford on a frontier tier ladder
-    # (kernels K5, K8) with dense sweeps (K7); device = dense sweeps only
+    # (kernels K5, K8) with dense sweeps (K7); device = dense sweeps only;
+    # delta = bucketed delta-stepping on the same kernels
     sssp_impl: str = "auto"
+    # delta-stepping bucket width (sssp.cpp:70-78)
+    sssp_delta: float = 2.5
     sssp_frontier_rows: int = 1 << 16
     sssp_frontier_edges: int = 1 << 18
     # explicit frontier-tier edge budgets (comma list); empty = the (e/8, e)
     # ladder (algorithms/sssp.py sssp_tiers)
     sssp_tiers: str = ""
+    # auto|oriented|sweep: auto/oriented = degree-oriented wedges probed in
+    # the edge hash (kernel K10); sweep = the membership-sweep oracle; auto
+    # falls back to it when an oriented out-degree exceeds the widest bucket
+    lcc_impl: str = "auto"
     # slab degree-bucket upper bounds; None = per-graph DP-optimal bounds
     slab_buckets: Optional[tuple] = None
     # print "[CUDA][TIMER] cdlp iteration k took Xms" per CDLP iteration
@@ -183,6 +192,11 @@ class PlatformConfig:
         for key, (attr, cast) in _PLATFORM_PROPS.items():
             if key in props:
                 setattr(cfg, attr, cast(props[key]))
+        for key in sorted(_NOT_PORTED_PROPS.intersection(props)):
+            get_logger("config").warning(
+                "%s: key %s is not implemented in graphtpu_torch yet and is ignored "
+                "(the JAX package acts on it)", path, key,
+            )
         return cfg
 
 
@@ -211,6 +225,8 @@ _PLATFORM_PROPS = {
     "platform.graphtpu.sssp-frontier-rows": ("sssp_frontier_rows", int),
     "platform.graphtpu.sssp-frontier-edges": ("sssp_frontier_edges", int),
     "platform.graphtpu.sssp-tiers": ("sssp_tiers", str),
+    "platform.graphtpu.sssp-delta": ("sssp_delta", float),
+    "platform.graphtpu.lcc-impl": ("lcc_impl", str),
     "platform.graphtpu.slab-buckets": (
         "slab_buckets",
         lambda v: tuple(int(x) for x in str(v).split(",") if x.strip()),
@@ -220,3 +236,13 @@ _PLATFORM_PROPS = {
         lambda v: str(v).strip().lower() in ("1", "true", "yes"),
     ),
 }
+
+# platform.graphtpu.* keys the JAX package acts on and the port does not yet:
+# reading one logs a warning, so that the missing behaviour is not silent
+_NOT_PORTED_PROPS = frozenset(
+    "platform.graphtpu." + k for k in (
+        "spmv-impl", "skip-convergence-checks", "profile-dir", "num-devices",
+        "shard-checkpoints", "fault-injection", "bfs-active-threshold",
+        "sssp-active-threshold",
+    )
+)

@@ -95,6 +95,39 @@ def rmat_graph(
     return Graph(n, src, dst, w, mapping, directed=directed, weighted=weighted)
 
 
+def grid_graph(
+    side: int,
+    *,
+    weighted: bool = True,
+    torus: bool = True,
+    seed: int = 0,
+) -> Graph:
+    """2D grid or torus: the canonical HIGH-DIAMETER weighted graph
+    (diameter about ``side``, against about log n for RMAT), the regime
+    delta-stepping's bucket order is meant for (the reference runs
+    LAGr_SingleSourceShortestPath with Delta = 2.5, sssp.cpp:70-78).
+    Undirected; one weight per unordered pair."""
+    n = side * side
+    idx = np.arange(n, dtype=np.int64)
+    r, c = idx // side, idx % side
+    if torus:
+        right = r * side + (c + 1) % side
+        down = ((r + 1) % side) * side + c
+        src = np.concatenate([idx, idx])
+        dst = np.concatenate([right, down])
+    else:
+        keep_r = c < side - 1
+        keep_d = r < side - 1
+        src = np.concatenate([idx[keep_r], idx[keep_d]])
+        dst = np.concatenate([idx[keep_r] + 1, idx[keep_d] + side])
+    # both orientations (undirected storage)
+    src2 = np.concatenate([src, dst])
+    dst2 = np.concatenate([dst, src])
+    w = _pair_weight(src2, dst2, seed + 1) if weighted else None
+    mapping = np.arange(n, dtype=np.int64)
+    return Graph(n, src2, dst2, w, mapping, directed=False, weighted=weighted)
+
+
 def uniform_graph(
     n: int,
     m: int,

@@ -209,8 +209,8 @@ def test_golden_through_cli(fixtures_dir, tmp_path, capsys, name):
 
 
 def test_platform_properties_parse_like_jax(tmp_path):
-    """Every BFS/WCC/SSSP key the port reads parses as in the JAX package;
-    sssp-delta, which only the unported delta-stepping reads, is ignored."""
+    """Every BFS/WCC/SSSP key the port reads parses as in the JAX package,
+    sssp-delta (read by delta-stepping) among them."""
     props = tmp_path / "platform.properties"
     props.write_text("\n".join([
         "platform.graphtpu.bfs-impl = device", "platform.graphtpu.bfs-frontier-rows = 64",
@@ -227,6 +227,6 @@ def test_platform_properties_parse_like_jax(tmp_path):
     for attr in ("bfs_impl", "bfs_frontier_rows", "bfs_frontier_edges", "bfs_push_tiers",
                  "bfs_trunc", "bfs_bu_rows", "bfs_bu_edges", "bfs_step_mode", "wcc_impl",
                  "wcc_frontier_rows", "wcc_frontier_edges", "sssp_impl", "sssp_frontier_rows",
-                 "sssp_frontier_edges", "sssp_tiers"):
+                 "sssp_frontier_edges", "sssp_tiers", "sssp_delta"):
         assert getattr(got, attr) == getattr(want, attr), attr
         assert getattr(default, attr) == getattr(jdefault, attr), attr

@@ -12,6 +12,10 @@ import pytest
 import torch
 
 from graphtpu_torch.ops import kernels
+from graphtpu_torch.ops.edgehash import (
+    EdgeHash, _probe_lanes, build_edge_hash, build_edge_hash_device, edgehash_probe,
+    probe_edge_hash,
+)
 from graphtpu_torch.ops.frontier import (
     frontier_expand, frontier_expand_plain, relax_min, relax_min_plain,
 )
@@ -22,6 +26,7 @@ from graphtpu_torch.ops.minmode import (
 )
 from graphtpu_torch.ops.pallas_gather import vreg_shuffle, vreg_shuffle_plain
 from graphtpu_torch.ops.slab import build_slab_plan, result_buffer
+from graphtpu_torch.ops.triangles import wedge_rowblock
 from graphtpu_torch.ops.spmv import (
     CSR_ITEMS, CSR_MODES, _csr_pull_reduce_launch, csr_pull_reduce, csr_pull_reduce_plain,
     csr_scratch_layout, merge_path_starts, slab_spmv_min, slab_spmv_min_buckets,
@@ -553,3 +558,173 @@ def test_push_relax_min_matches_plain(cuda, dtype, case):
     want = relax_min_plain(*args)
     assert torch.equal(got.cpu(), want)
     assert torch.equal(got.cpu(), dist) == (case == "all_pad")
+
+
+# ---- K9 edgehash_probe and K10 wedge_rowblock ----
+
+ID_BITS = 20
+
+
+def _pair_hash(rng, slab, present_per_row=1500, absent=2000):
+    """An edge hash that holds a sample of the out-out pairs of ``slab``'s
+    rows (payload 1 or 2) and random other pairs: (EdgeHash on the CPU, the
+    sorted int64 keys, their payloads)."""
+    keys = [rng.integers(0, 1 << ID_BITS, size=absent).astype(np.int64) << ID_BITS
+            | rng.integers(0, 1 << ID_BITS, size=absent)]
+    for r in range(slab.shape[1]):
+        ids = slab[:, r][slab[:, r] >= 0].astype(np.int64)
+        if ids.size < 2:
+            continue
+        take = min(present_per_row, ids.size * (ids.size - 1) // 2)
+        i = rng.integers(0, ids.size - 1, size=take)
+        j = rng.integers(i + 1, ids.size)
+        keys.append((ids[i] << ID_BITS) | ids[j])
+    keys = np.unique(np.concatenate(keys))
+    payload = rng.integers(1, 3, size=keys.shape[0])
+    eh, spilled = build_edge_hash(keys, payload)
+    assert not spilled.any()
+    return eh, keys, payload
+
+
+def _wedge_slab(rng, w, r, full_rows):
+    """[W, R] slabs of a wedge bucket: rows of ascending distinct ids,
+    left-packed; ``full_rows`` rows of W entries, a few of random length,
+    the rest short (and some of one entry or of pad only); multiplicities
+    1 and 2."""
+    slab = np.full((w, r), -1, dtype=np.int32)
+    for c in range(r):
+        if c < full_rows:
+            d = w
+        elif c < full_rows + 3:
+            d = int(rng.integers(0, w + 1))
+        else:
+            d = int(rng.integers(0, min(w, 24) + 1))
+        slab[:d, c] = np.sort(rng.choice(1 << ID_BITS, size=d, replace=False))
+    mslab = np.where(slab >= 0, rng.integers(1, 3, size=slab.shape), 0).astype(np.int32)
+    return slab, mslab
+
+
+def _credits_by_real_pairs(slab, mslab, keys, payload):
+    """The credits from each row's real pairs, looked up in the sorted keys:
+    a reference that uses neither the hash nor the padded pair list."""
+    w, r = slab.shape
+    u = np.zeros(r, dtype=np.int64)
+    e = np.zeros((w, r), dtype=np.int64)
+    for c in range(r):
+        d = int((slab[:, c] >= 0).sum())
+        if d < 2:
+            continue
+        ii, jj = np.triu_indices(d, k=1)
+        k = (slab[ii, c].astype(np.int64) << ID_BITS) | slab[jj, c]
+        pos = np.minimum(np.searchsorted(keys, k), keys.shape[0] - 1)
+        hit = keys[pos] == k
+        u[c] = payload[pos][hit].sum()
+        np.add.at(e[:, c], ii[hit], mslab[jj[hit], c])
+        np.add.at(e[:, c], jj[hit], mslab[ii[hit], c])
+    return u.astype(np.int32), e.astype(np.int32)
+
+
+@pytest.mark.parametrize("p", [1, 3, 4, 5, 1000, 100003])
+def test_edgehash_probe_matches_plain(cuda, p):
+    """Present and absent keys, the key of all-ones halves (which must not
+    match an empty slot), and probe counts around a warp's four."""
+    rng = np.random.default_rng(p)
+    keys = np.unique(rng.integers(0, 1 << 40, size=50000, dtype=np.int64))
+    payload = rng.integers(1, 4, size=keys.shape[0])
+    eh, spilled = build_edge_hash(keys, payload)
+    assert not spilled.any()
+    probes = np.where(rng.random(p) < 0.5, rng.choice(keys, size=p),
+                      rng.integers(0, 1 << 40, size=p, dtype=np.int64))
+    klo = (probes & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+    khi = (probes >> 32).astype(np.int32)
+    klo[-1], khi[-1] = -1, -1
+    klo, khi = torch.from_numpy(klo), torch.from_numpy(khi)
+    want_found, want_pay = _probe_lanes(eh, klo, khi)
+    assert not bool(want_found[-1])
+    eh_d = EdgeHash(eh.table.to(cuda), eh.rows)
+    before = kernels.launch_counts["edgehash_probe"]
+    found, pay = edgehash_probe(eh_d, klo.to(cuda), khi.to(cuda))
+    assert kernels.launch_counts["edgehash_probe"] == before + 1
+    assert torch.equal(found.cpu(), want_found) and torch.equal(pay.cpu(), want_pay)
+    # the int64 entry point, and the plain version on the card
+    f64, p64 = probe_edge_hash(eh_d, torch.from_numpy(probes[:-1]).to(cuda))
+    assert torch.equal(f64.cpu(), want_found[:-1]) and torch.equal(p64.cpu(), want_pay[:-1])
+    with kernels.plain_torch():
+        f_pl, p_pl = edgehash_probe(eh_d, klo.to(cuda), khi.to(cuda))
+    assert torch.equal(f_pl.cpu(), want_found) and torch.equal(p_pl.cpu(), want_pay)
+
+
+def test_edge_hash_device_build_matches_host_build(cuda):
+    rng = np.random.default_rng(5)
+    keys = np.unique(rng.integers(0, 1 << 40, size=300000, dtype=np.int64))
+    payload = rng.integers(1, 3, size=keys.shape[0])
+    for fill in (0.25, 8.0):
+        want, want_sp = build_edge_hash(keys, payload, fill=fill)
+        got, got_sp = build_edge_hash_device(
+            torch.from_numpy(keys).to(cuda), torch.from_numpy(payload.astype(np.int32)).to(cuda),
+            fill=fill)
+        assert got.rows == want.rows and torch.equal(got.table.cpu(), want.table)
+        np.testing.assert_array_equal(got_sp, want_sp)
+        assert want_sp.any() == (fill == 8.0)
+
+
+@pytest.mark.parametrize("r", [1, 127, 2049])
+@pytest.mark.parametrize("w", [2, 3, 33, 625, 4096])
+def test_wedge_rowblock_matches_plain(cuda, w, r):
+    """K10 over bucket widths on both sides of the row split (W(W-1)/2 above
+    and below a block's pairs) and row counts that are no multiple of a
+    block's rows: rows of W entries, of one entry and of pad only,
+    multiplicities 1 and 2, present and absent pairs. Held against the
+    credits of the real pairs and, where the padded pair list is small
+    enough, against the plain version on the card; twice for the same bits."""
+    rng = np.random.default_rng(w * 10007 + r)
+    slab, mslab = _wedge_slab(rng, w, r, full_rows=1 if w > 128 else min(r, 5))
+    if r > 2:
+        slab[:, 1], mslab[:, 1] = -1, 0                       # a row of pad only
+        slab[1:, 2], mslab[1:, 2] = -1, 0                     # a row of one entry
+    eh, keys, payload = _pair_hash(rng, slab)
+    want_u, want_e = _credits_by_real_pairs(slab, mslab, keys, payload)
+    assert want_u.any() and want_e.any()
+    eh_d = EdgeHash(eh.table.to(cuda), eh.rows)
+    slab_d, mslab_d = torch.from_numpy(slab).to(cuda), torch.from_numpy(mslab).to(cuda)
+    before = kernels.launch_counts["wedge_rowblock"]
+    u, e = wedge_rowblock(slab_d, mslab_d, eh_d, ID_BITS, r)
+    assert kernels.launch_counts["wedge_rowblock"] == before + 1
+    np.testing.assert_array_equal(u.cpu().numpy(), want_u)
+    np.testing.assert_array_equal(e.cpu().numpy(), want_e)
+    u2, e2 = wedge_rowblock(slab_d, mslab_d, eh_d, ID_BITS, r)
+    assert torch.equal(u, u2) and torch.equal(e, e2)
+    if w * (w - 1) // 2 * r <= 1 << 26:
+        with kernels.plain_torch():
+            u_pl, e_pl = wedge_rowblock(slab_d, mslab_d, eh_d, ID_BITS, r)
+        assert torch.equal(u, u_pl) and torch.equal(e, e_pl)
+
+
+def test_wedge_rowblock_all_pad_and_width_one(cuda):
+    rng = np.random.default_rng(3)
+    slab, mslab = _wedge_slab(rng, 8, 40, full_rows=4)
+    eh, _, _ = _pair_hash(rng, slab)
+    eh_d = EdgeHash(eh.table.to(cuda), eh.rows)
+    pad = torch.full((8, 40), -1, dtype=torch.int32, device=cuda)
+    u, e = wedge_rowblock(pad, torch.zeros_like(pad), eh_d, ID_BITS, 40)
+    assert not u.any() and not e.any()
+    one = torch.from_numpy(slab[:1]).to(cuda)  # W = 1: no pair, no launch
+    before = kernels.launch_counts["wedge_rowblock"]
+    u, e = wedge_rowblock(one, torch.ones_like(one), eh_d, ID_BITS, 40)
+    assert kernels.launch_counts["wedge_rowblock"] == before
+    assert not u.any() and not e.any()
+
+
+@pytest.mark.parametrize("directed", [True, False])
+def test_lcc_oriented_on_the_card_matches_sweep_and_cpu(cuda, directed):
+    from graphtpu_torch.algorithms.common import run_algorithm
+    from graphtpu_torch.utils.config import AlgorithmParams, PlatformConfig
+    from graphtpu_torch.utils.synth import rmat_graph
+
+    g = rmat_graph(11, 12, directed=directed, seed=4)
+    runs = {(dev, impl): run_algorithm("lcc", g, AlgorithmParams(),
+                                       PlatformConfig(device=dev, lcc_impl=impl)).values
+            for dev in ("cuda", "cpu") for impl in ("oriented", "sweep")}
+    for got in runs.values():
+        np.testing.assert_array_equal(got, runs["cpu", "sweep"])
+    assert runs["cpu", "sweep"].max() > 0

@@ -107,7 +107,10 @@ def test_cdlp_auto_resolves_to_slab_and_adaptive_is_refused():
         run_algorithm("pr", tg, AlgorithmParams(damping_factor=0.85, num_iterations=2),
                       PlatformConfig(device="cpu", pr_impl="scan"))
     with pytest.raises(ValueError, match="unknown algorithm"):
-        run_algorithm("lcc", tg, AlgorithmParams(), PlatformConfig(device="cpu"))
+        run_algorithm("tc", tg, AlgorithmParams(), PlatformConfig(device="cpu"))
+    # lcc, the last algorithm to be ported, is in the registry
+    res = run_algorithm("lcc", tg, AlgorithmParams(), PlatformConfig(device="cpu"))
+    assert res.values.shape == (tg.n,) and 0.0 < res.values.max() <= 1.0
 
 
 def test_cdlp_iteration_timing_and_edgeless_graph(capsys):
@@ -173,7 +176,9 @@ def test_port_imports_no_jax_graphtpu_or_pandas():
         "mods = [m.name for m in pkgutil.walk_packages(graphtpu_torch.__path__, 'graphtpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = [k for k in sys.modules if k.startswith(('jax', 'graphtpu.', 'pandas')) or k == 'graphtpu']\n"
-        "assert len(mods) >= 25, mods\n"
+        "assert len(mods) >= 28, mods\n"
+        "for m in ('algorithms.lcc', 'ops.edgehash', 'ops.triangles'):\n"
+        "    assert 'graphtpu_torch.' + m in mods, m\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
