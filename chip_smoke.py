@@ -34,7 +34,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
 4. Launch counts: each path runs with the counts set to 0 just before it
    and read just after; every kernel of a path must have launched in it.
    vreg_shuffle has no path in the system, and no LCC path launches
-   edgehash_probe (K10 holds the probe inside): each has its own phase, and
+   edgehash_probe (K10 closes wedges by a search of the plan's closing CSR;
+   only K10's plain version probes the hash): each has its own phase, and
    its count is that phase's. Every profiler trace's count of each hand
    kernel is held against the wrappers' launch counts, and a trace that
    lost records is taken again.
@@ -52,7 +53,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
    frontier that fills it; both run twice on the same inputs and must give
    the same bits. K9 runs at 2^22 probes drawn from the benchmark graph's
    wedge plan (half present pairs, half random ones), K10 per bucket and
-   over all buckets of that plan, both twice for the same bits. A kernel
+   over all buckets of that plan, both twice for the same bits (K10's
+   bound counts merge steps: the wedges plus the out-list entries its
+   search reads). A kernel
    that returns at once gives the floor under the launch-sized rows.
 
 Exits non-zero if any phase fails. The last lines of stdout are the
@@ -401,7 +404,8 @@ def prepare_lcc_plan(g, device):
     print(f"lcc prep: {secs[0]:.3f} s cold, {secs[1]:.3f} s from the oriented cache "
           f"({cache.stat().st_size} bytes); {plan.ex.shape[0]} oriented edges, max d+ "
           f"{int(d_plus.max())}, {real} real wedges, {padded} padded probes of the plain "
-          f"version; table {plan.ehash.rows} rows, {table.numel() * 4} bytes; "
+          f"version; table {plan.ehash.rows} rows, {table.numel() * 4} bytes; closing CSR "
+          f"{sum(t.numel() * t.element_size() for t in plan.closing)} bytes; "
           f"{int(plan.spilled.sum())} spilled keys; buckets (W, R_pad, rows): "
           + ", ".join(f"({b.slab.shape[0]}, {b.slab.shape[1]}, {b.r_real})"
                       for b in plan.buckets), flush=True)
@@ -1115,6 +1119,7 @@ def phase_lcc_kernels(g, wplan, real_wedges, lcc_values, device):
     from graphtpu_torch.ops.triangles import (
         coefficients, lcc_oriented_numerator, numerator_from_credits, wedge_rowblock,
     )
+    from graphtpu_torch.tools.wedge_bucket_times import closing_keys, wedge_work
 
     res = {}
     eh, id_bits = wplan.ehash, wplan.id_bits
@@ -1160,19 +1165,26 @@ def phase_lcc_kernels(g, wplan, real_wedges, lcc_values, device):
         # per probe the two key halves, found (1 B) and payload (4 B)
         bytes=distinct * 512 + p * (8 + 5), ops=p * 64 * 3,
         # what a row fetched per probe moves: this design's traffic, no bound
-        traffic_bytes=p * (512 + 8 + 5),
+        traffic=(p * (512 + 8 + 5), "a table row fetched from device memory for every probe"),
         library=("torch.index_select of the rows alone",
                  lambda h=h: torch.index_select(eh.table, 0, h)),
     )
 
     # K10, bucket by bucket: kernel against plain, bit for bit, twice; the
     # plain pass is made once, timed with CUDA events, and its credits give
-    # the plain path's numerators
+    # the plain path's numerators. The kernel searches the closing CSR; the
+    # plain version probes the edge hash.
+    closing = wplan.closing
+    keys = closing_keys(wplan, device)
+    check(torch.equal(keys >> id_bits, torch.repeat_interleave(
+        torch.arange(g.n, device=device), closing.indptr.diff().long()))
+          and torch.equal(keys & ((1 << id_bits) - 1), closing.ids.long()),
+          "the closing CSR is not the hash's keys")
     buckets = []
     kernel_credits, plain_credits = [], []
-    real_entries = 0
+    real_entries = reads = 0
     for b in wplan.buckets:
-        args = (b.slab, b.mslab, eh, id_bits, b.chunk_cols)
+        args = (b.slab, b.mslab, eh, id_bits, b.chunk_cols, closing)
         got = wedge_rowblock(*args)
         again = wedge_rowblock(*args)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1189,17 +1201,16 @@ def phase_lcc_kernels(g, wplan, real_wedges, lcc_values, device):
         check(not bool(got[0][b.r_real:].any()), f"{what}: credits in pad rows")
         kernel_credits.append(got)
         plain_credits.append(want)
-        deg = (b.slab >= 0).sum(0, dtype=torch.int64)
-        wedges = int((deg * (deg - 1) // 2).sum())
-        real_entries += int(deg.sum())
-        k_ms = cuda_ms(lambda: wedge_rowblock(*args), reps=2)[0]
+        entries, wedges, b_reads = wedge_work(b.slab, keys, id_bits)
+        real_entries += entries
+        reads += b_reads
+        k_ms = cuda_ms(lambda: wedge_rowblock(*args), reps=3)[0]
         buckets.append(dict(W=w, R_pad=r_pad, rows=b.r_real, real_wedges=wedges,
-                            padded_probes=w * (w - 1) // 2 * r_pad, ms=k_ms,
-                            plain_ms=start.elapsed_time(end)))
+                            list_reads=b_reads, ms=k_ms, plain_ms=start.elapsed_time(end)))
         print(f"kernel wedge_rowblock bucket W={w} R_pad={r_pad} ({b.r_real} rows, {wedges} "
-              f"real wedges): device {k_ms:.6f} ms ({wedges / k_ms / 1e6:.3f} G probes/s, "
-              f"{wedges * 512 / k_ms / 1e9:.3f} TB/s of rows fetched, from the L2 or device "
-              f"memory) vs plain "
+              f"real wedges, {b_reads} out-list entries read): device {k_ms:.6f} ms "
+              f"({wedges / k_ms / 1e6:.3f} G searches/s, {b_reads * 4 / 1e9:.3f} GB of lists "
+              f"read, {b_reads * 4 / k_ms / 1e6:.3f} GB/s) vs plain "
               f"{buckets[-1]['plain_ms']:.3f} ms", flush=True)
     check(sum(bk["real_wedges"] for bk in buckets) == real_wedges, "real wedges by bucket")
     kernel_num = numerator_from_credits(wplan, kernel_credits)
@@ -1217,26 +1228,30 @@ def phase_lcc_kernels(g, wplan, real_wedges, lcc_values, device):
 
     def all_buckets():
         for b in wplan.buckets:
-            wedge_rowblock(b.slab, b.mslab, eh, id_bits, b.chunk_cols)
+            wedge_rowblock(b.slab, b.mslab, eh, id_bits, b.chunk_cols, closing)
 
     plain_ms = sum(bk["plain_ms"] for bk in buckets)
-    # the table read once whole (4.2G probes of 2M rows leave none out); the
-    # real slab and mslab entries read once; u_cred per row and edge_cred per
-    # real entry written once
+    # read once: the real slab and mslab entries, the closing CSR (ids and
+    # multiplicities of every list, the indptr); written once: u_cred per
+    # row and edge_cred per real entry
     rows = sum(b.r_real for b in wplan.buckets)
     small = real_entries * 8 + rows * 4 + real_entries * 4
-    nbytes = eh.table.numel() * 4 + small
+    nbytes = small + closing.ids.numel() * 5 + closing.indptr.numel() * 4
     res["wedge_rowblock"] = dict(
         max_abs_err=0.0,
-        times=(cuda_ms(all_buckets, reps=2), (plain_ms, plain_ms)),
+        times=(cuda_ms(all_buckets, reps=3), (plain_ms, plain_ms)),
         shape=(f"all {len(wplan.buckets)} buckets of the benchmark graph's wedge plan (one LCC "
                f"run's wedge work): {real_wedges} real wedges, {real_entries} slab entries, "
-               f"{rows} rows; plain version: one pass, CUDA events"),
-        bytes=nbytes, ops=real_wedges * 64 * 3,
-        library=None,  # no single call: pair enumeration, a hash probe, three scatter-adds
+               f"{rows} rows, {reads} out-list entries read, closing CSR of "
+               f"{closing.ids.numel()} heads; plain version: one pass, CUDA events"),
+        # merge steps: intersecting each entry's later entries (a) with out(x)
+        # up to the row's largest id (b) takes a + b steps, summed: the
+        # wedges plus the list entries read
+        bytes=nbytes, ops=real_wedges + reads,
+        library=None,  # no single call: pair enumeration, a search, three scatter-adds
         buckets=buckets,
-        # what a row fetched per real wedge moves: this design's traffic, no bound
-        traffic_bytes=real_wedges * 512 + small,
+        traffic=(reads * 4 + small,
+                 "each out-list entry read from device memory for every entry that reads it"),
     )
     return res, k9_launches
 
@@ -1286,6 +1301,10 @@ def main() -> int:
         for name in needed:
             check(path_launches[path][name] > 0,
                   f"kernel {name} was not launched on the {path} path")
+    k10 = path_launches["lcc"]["wedge_rowblock"]
+    check(k10 == RUNS_PER_PATH * len(wplan.buckets),
+          f"wedge_rowblock launched {k10} times in {RUNS_PER_PATH} lcc runs, expected one per "
+          f"bucket ({len(wplan.buckets)})")
     launches = {name: sum(c[name] for c in path_launches.values()) for name in kernels.KERNELS}
     launches["vreg_shuffle"] = phase_vreg_shuffle(device)
     print(f"peak device memory allocated {torch.cuda.max_memory_allocated(device) / 2**30:.3f} "
@@ -1321,13 +1340,13 @@ def main() -> int:
               f"{r['bound_by']} ({r['bytes']} bytes at {HBM_BYTES_PER_S / 1e12} TB/s, "
               f"{r['ops']} operations at {F32_OPS_PER_S / 1e12} Tops/s, both published): "
               f"{100 * r['bound_ms'] / k_dev:.1f} % of it; {lib}", flush=True)
-        if "traffic_bytes" in r:
-            r["hbm_random_traffic_ms"] = r["traffic_bytes"] / HBM_BYTES_PER_S * 1e3
-            print(f"kernel {name}: a table row fetched from device memory for every probe would "
-                  f"move {r['traffic_bytes']} bytes, {r['hbm_random_traffic_ms']:.6f} ms at "
-                  f"{HBM_BYTES_PER_S / 1e12} TB/s (no bound: rows shared by probes need not move "
-                  f"twice); the kernel takes {100 * k_dev / r['hbm_random_traffic_ms']:.1f} % of "
-                  f"that", flush=True)
+        if "traffic" in r:
+            traffic, how = r.pop("traffic")
+            r["traffic_ms"] = traffic / HBM_BYTES_PER_S * 1e3
+            print(f"kernel {name}: {how} would move {traffic} bytes, {r['traffic_ms']:.6f} ms at "
+                  f"{HBM_BYTES_PER_S / 1e12} TB/s (the design's traffic, no bound: what many "
+                  f"read need not move twice); the kernel takes "
+                  f"{100 * k_dev / r['traffic_ms']:.1f} % of that", flush=True)
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": launches[name],
@@ -1336,7 +1355,7 @@ def main() -> int:
          "bound_by": res[name]["bound_by"], "bytes": res[name]["bytes"],
          "library_ms": res[name]["library_ms"],
          "other_shapes": res[name].get("other_shapes", []),
-         **{k: res[name][k] for k in ("buckets", "hbm_random_traffic_ms") if k in res[name]}}
+         **{k: res[name][k] for k in ("buckets", "traffic_ms") if k in res[name]}}
         for name in kernels.KERNELS
     ], "empty_kernel_ms": empty_ms}
     print(smi)

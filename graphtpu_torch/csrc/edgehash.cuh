@@ -1,5 +1,4 @@
-// The edge-hash probe as device functions, shared by K9 (edgehash_probe.cu)
-// and K10 (wedge_rowblock.cu).
+// The edge-hash probe as device functions, used by K9 (edgehash_probe.cu).
 //
 // The table (graphtpu_torch/ops/edgehash.py) is int32 [rows, 128], rows a
 // power of two: a row holds 64 (even, odd) lane pairs, 512 bytes. The even

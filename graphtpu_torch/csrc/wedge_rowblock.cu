@@ -1,164 +1,183 @@
 // K10 wedge_rowblock: the triangle credits of one bucket of the LCC wedge
 // plan. slab and mslab are [W, R] int32 (transposed: entry i of row r at
-// [i * R + r]); a row holds the ranked ids of a vertex's oriented
+// [i * R + r]); a row holds the distinct ranked ids of a vertex u's oriented
 // out-neighbours, left-packed, -1 = pad, and mslab their edge multiplicities,
 // which must lie in [0, 255] (kept in a byte in shared memory; unchecked, and
-// undefined above that: the wedge plan's are 0, 1 or 2).
-// For every row r and every pair i < j of its real entries the key
-// (slab[i, r], slab[j, r]) is probed in the edge hash; a hit adds the payload
-// to u_cred[r], mslab[j, r] to edge_cred[i, r] and mslab[i, r] to
-// edge_cred[j, r]. u_cred [R] and edge_cred [W, R] are int32 and must be zero
-// when the kernel starts.
+// undefined above that: the wedge plan's are 0, 1 or 2). The closing CSR
+// (close_indptr [n_close + 1], close_ids, close_mult: int32, int32, uint8)
+// lists for every tail x < n_close the heads y of its oriented edges x -> y,
+// ascending and distinct, with their multiplicities; the plan's leaves out
+// the keys its edge hash spilled, which the host patch counts.
+// For every row r and every pair i < j of its real entries, with
+// x = slab[i, r] and y = slab[j, r]: if y is in out(x), u_cred[r] += mult(x, y),
+// edge_cred[i, r] += mslab[j, r] and edge_cred[j, r] += mslab[i, r]. u_cred [R]
+// and edge_cred [W, R] are int32 and must be zero when the kernel starts.
 //
 // Replaces graphtpu/ops/triangles.py:555-617 _wedge_bucket_rowblock, which
-// scans row blocks of rc columns and, within one, chunks of pc pairs of a
-// pair list padded to the bucket's width, so that every XLA step is a full
-// [pc, rc] tile: tiling for TPU lanes. None of that is kept. A row's real
-// pairs are walked, and nothing else.
+// probes the edge hash for every pair of a pair list padded to the bucket's
+// width, in [pc, rc] tiles shaped for TPU lanes. None of that is kept.
 //
-// What it costs on the card: each real pair is one 512 B fetch of a random
-// row of a table far larger than the L2, so this design moves about a row
-// per pair from device memory. That traffic is the design's and no lower
-// bound: the table itself, read once, is a few thousandths of it.
+// What bounds it on this card: the wedge (u; x, y) closes iff y is in out(x),
+// a sorted list of 4 B ids. An earlier design fetched a 512 B hash row per
+// wedge (2.17 TB at RMAT s20/ef32); this one streams, for every entry (r, i)
+// that has a later entry, out(x) up to the row's largest id (13.8G list
+// entries, 55 GB, at s20/ef32), and probes each entry read once in shared
+// memory. The lists are 121 MB distinct and the same hub lists recur, so the
+// stream comes mostly from the L2, at 1.1-1.6 TB/s: neither device memory
+// nor the L2 is the limit, and more pieces in flight or the next item's
+// bounds loaded ahead gained nothing on an NVIDIA H100 80GB HBM3 at 700 W.
+// The shared-memory probes are: random words hit one bank several times
+// over, and a warp waits for its lane with the longest chain of slots.
 //
-// Design: a probe is a whole warp (csrc/edgehash.cuh: one coalesced 512 B
-// request). A block takes the out-lists of its rows into shared memory (ids,
-// multiplicities as bytes, a credit per entry) and its warps walk the pairs,
-// K10_UNROLL row fetches in flight per warp. Credits are integer atomics in
-// shared memory: sums of integers are the same in any order, so the result
-// is the plain version's bit for bit.
-//
-// Pairs are numbered p = j (j - 1) / 2 + i for i < j, so the real pairs of a
-// row with d entries are exactly p < d (d - 1) / 2: padding is the tail of
-// the range, cut by a bound, and a warp steps from pair to pair by counting.
-// Narrow buckets pack several rows into a block (up to K10_MAX_ENTRIES
-// entries, about K10_PAIRS pairs); a wide row is split over blocks of
-// K10_PAIRS pairs each, which then add their credits to device memory with
-// atomics. A block of a split row whose first pair is past the row's real
-// pairs returns after one load.
-#include "edgehash.cuh"
+// Design: a block holds the entries of its rows in shared memory (ids,
+// multiplicities as bytes, a credit per entry, each row's real count and
+// largest id), a linear-probing hash of them keyed by (row, id), at most a
+// quarter full, and a filter of K10_FILTER bits per entry, a bit per hash
+// prefix. Its warps take items (row, i) one at a time from a shared counter,
+// so that an item's cost (from nothing to a list of thousands) does not hold
+// a warp's neighbours. A warp reads out(x) with its multiplicities in
+// coalesced pieces of 32 entries, K10_UNROLL in flight, and stops after the
+// piece that passes the row's largest id. A lane tests its id's bit in the
+// filter: most ids read (87 % at s20/ef32) close no wedge, and one word load
+// rejects nearly all of those, where a probe of the table walks a chain of
+// slots with the warp waiting for its longest one. An id
+// that passes is looked up in the table, and a hit at a later entry j adds
+// mslab[i] to j's credit (a shared-memory integer atomic) and the payload
+// and mslab[j] to the warp's sums, which go to u_cred and to i's credit once
+// per item. Integer sums are the same in any order, so the result
+// is the plain version's bit for bit. An out(x) of any length streams the
+// same way: nothing of it is copied. Narrow buckets pack up to K10_ITEMS
+// entries of several rows into a block; a row wider than that is held whole
+// by each of several blocks, each taking a range of its items and adding its
+// credits to device memory with atomics; a block whose first item has no
+// later entry returns after one load.
+#include "common.cuh"
 
 #define K10_THREADS 256
-#define K10_WARPS (K10_THREADS / 32)
-#define K10_UNROLL 4
-#define K10_PAIRS 8192        // pairs a block takes
-#define K10_MAX_ENTRIES 4096  // slab entries a block holds (also the widest row)
-#define K10_MAX_ROWS 1024     // rows a block holds
+#define K10_ITEMS 512        // slab entries (items) a block takes, at most
+#define K10_UNROLL 2         // 32-entry pieces of out(x) a warp has in flight
+#define K10_SLOTS 4          // hash slots per held entry, at least
+#define K10_FILTER 64        // filter bits per held entry, at least
+#define K10_MAX_WIDTH 4096   // the widest row
 
-// (i, j) of pair p in the order p = j (j - 1) / 2 + i, i < j.
-__device__ __forceinline__ void k10_decode(int p, int& i, int& j) {
-  j = (int)((1.0f + sqrtf(1.0f + 8.0f * (float)p)) * 0.5f);
-  if (j < 1) j = 1;
-  while (j * (j - 1) / 2 > p) --j;
-  while ((j + 1) * j / 2 <= p) ++j;
-  i = p - j * (j - 1) / 2;
+// The hash of id v of block row lr: its top bits give the first slot in the
+// table and the bit in the filter.
+__device__ __forceinline__ unsigned int k10_hash(int v, int lr) {
+  return ((unsigned int)v * 0x9E3779B1u) ^ ((unsigned int)lr * 0x85EBCA77u);
 }
 
 __global__ void __launch_bounds__(K10_THREADS)
-wedge_rowblock_kernel(const int* __restrict__ slab, const int* __restrict__ mslab,
-                      int W, long long R, GtEdgeHash eh, int id_bits,
+wedge_rowblock_kernel(const int* __restrict__ slab, const int* __restrict__ mslab, int W,
+                      long long R, const int* __restrict__ close_indptr,
+                      const int* __restrict__ close_ids,
+                      const unsigned char* __restrict__ close_mult, long long n_close,
                       int* __restrict__ u_cred, int* __restrict__ edge_cred,
-                      int rows_per_block, int chunks_per_row, int pairs_padded) {
+                      int rows_per_block, int chunks, int items_per_chunk, int shift,
+                      int fshift) {
   extern __shared__ int k10_smem[];
-  const int entries = rows_per_block * W;
-  int* ids = k10_smem;               // [rows_per_block, W]
-  int* cred = ids + entries;         // [rows_per_block, W]
-  int* ucred = cred + entries;       // [rows_per_block]
-  int* deg = ucred + rows_per_block; // [rows_per_block]: real entries of the row
-  unsigned char* mult = reinterpret_cast<unsigned char*>(deg + rows_per_block);
+  __shared__ int next_item;
+  const int held_max = rows_per_block * W;
+  const unsigned int mask = (1u << (32 - shift)) - 1u;
+  int* ids = k10_smem;                      // [rows_per_block * W]
+  int* cred = ids + held_max;               // [rows_per_block * W]
+  int* table = cred + held_max;             // [mask + 1]: an entry lr * W + j, -1 = empty
+  // [2^(32 - fshift) / 32]: a bit per hash prefix, set if an entry has it
+  unsigned int* filter = reinterpret_cast<unsigned int*>(table + mask + 1);
+  const unsigned int fwords = 1u << (27 - fshift);
+  int* ucred = reinterpret_cast<int*>(filter + fwords);  // [rows_per_block]
+  int* deg = ucred + rows_per_block;        // [rows_per_block]: real entries of the row
+  int* top = deg + rows_per_block;          // [rows_per_block]: the row's largest id
+  unsigned char* mult = reinterpret_cast<unsigned char*>(top + rows_per_block);
 
-  const long long group = blockIdx.x / chunks_per_row;
-  const int chunk = blockIdx.x % chunks_per_row;
+  const long long group = blockIdx.x / chunks;
+  const int chunk = blockIdx.x % chunks;
   const long long r0 = group * rows_per_block;
   const int nrows = (int)min((long long)rows_per_block, R - r0);
-  // this block's pairs of each of its rows: [p_lo, p_hi)
-  const int p_lo = chunk * K10_PAIRS;
-  const int p_hi = min(pairs_padded, p_lo + K10_PAIRS);
-  const int span = p_hi - p_lo;
-  int i_lo, j_lo, i_hi, j_hi;
-  k10_decode(p_lo, i_lo, j_lo);
-  k10_decode(p_hi - 1, i_hi, j_hi);
-  // a split row: no real pair in this chunk unless entry j_lo is real
-  if (chunks_per_row > 1 && __ldg(slab + (long long)j_lo * R + r0) < 0) return;
+  const int held = nrows * W;
+  const int t_lo = chunk * items_per_chunk;
+  const int t_hi = min(held, t_lo + items_per_chunk);
+  const bool split = chunks > 1;  // then one row a block, its items over the chunks
+  if (split && (t_lo + 1 >= W || __ldg(slab + (long long)(t_lo + 1) * R + r0) < 0)) return;
 
-  const bool split = chunks_per_row > 1;
-  const int loaded = nrows * (j_hi + 1);  // entries 0 .. j_hi of each row
+  for (unsigned int s = threadIdx.x; s <= mask; s += K10_THREADS) table[s] = -1;
+  for (unsigned int s = threadIdx.x; s < fwords; s += K10_THREADS) filter[s] = 0u;
   for (int t = threadIdx.x; t < nrows; t += K10_THREADS) {
     ucred[t] = 0;
     deg[t] = 0;
+    top[t] = -1;
   }
+  if (threadIdx.x == 0) next_item = t_lo;
   __syncthreads();
-  for (int e = threadIdx.x; e < loaded; e += K10_THREADS) {
-    const int i = e / nrows, lr = e - i * nrows;
+  for (int e = threadIdx.x; e < held; e += K10_THREADS) {
+    const int i = e / nrows, lr = e - i * nrows;  // neighbouring threads, neighbouring rows
     const long long at = (long long)i * R + r0 + lr;
     const int v = __ldg(slab + at);
-    ids[lr * W + i] = v;
-    mult[lr * W + i] = (unsigned char)__ldg(mslab + at);
-    cred[lr * W + i] = 0;
-    if (v >= 0) atomicMax(&deg[lr], i + 1);
-  }
-  __syncthreads();
-
-  // each warp walks a run of neighbouring items (row, pair) of the block
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int items = nrows * span;
-  int per_warp = (items + K10_WARPS - 1) / K10_WARPS;
-  per_warp = (per_warp + K10_UNROLL - 1) / K10_UNROLL * K10_UNROLL;
-  int t = warp * per_warp;
-  const int t_end = min(items, t + per_warp);
-  if (t < t_end) {
-    int lr = t / span, p = p_lo + (t - lr * span), i, j;
-    k10_decode(p, i, j);
-    int real = deg[lr] * (deg[lr] - 1) / 2;  // the row's real pairs
-    while (t < t_end) {
-      int klo[K10_UNROLL], khi[K10_UNROLL], at_i[K10_UNROLL], at_j[K10_UNROLL],
-          row[K10_UNROLL];
-      bool live[K10_UNROLL];
-      int4 v[K10_UNROLL];
-#pragma unroll
-      for (int k = 0; k < K10_UNROLL; ++k) {
-        live[k] = t < t_end && p < real;
-        if (live[k]) {
-          row[k] = lr;
-          at_i[k] = lr * W + i;
-          at_j[k] = lr * W + j;
-          const unsigned int x = (unsigned int)ids[at_i[k]];
-          const unsigned int y = (unsigned int)ids[at_j[k]];
-          klo[k] = (int)((x << id_bits) | y);
-          khi[k] = (int)(x >> (32 - id_bits));
-          v[k] = gt_eh_load(eh, klo[k], khi[k], lane);
-        }
-        // the next item: the next pair of this row, else the next row
-        ++t;
-        ++p;
-        if (++i == j) {
-          ++j;
-          i = 0;
-        }
-        if (p == p_hi && t < t_end) {
-          ++lr;
-          p = p_lo;
-          i = i_lo;
-          j = j_lo;
-          real = deg[lr] * (deg[lr] - 1) / 2;
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < K10_UNROLL; ++k) {
-        if (!live[k]) continue;  // the same in every lane
-        bool found;
-        const int pay = gt_eh_finish(v[k], klo[k], khi[k], found);
-        if (found && lane == 0) {
-          atomicAdd(&ucred[row[k]], pay);
-          atomicAdd(&cred[at_i[k]], (int)mult[at_j[k]]);
-          atomicAdd(&cred[at_j[k]], (int)mult[at_i[k]]);
-        }
-      }
+    const int k = lr * W + i;
+    ids[k] = v;
+    mult[k] = (unsigned char)__ldg(mslab + at);
+    cred[k] = 0;
+    if (v >= 0) {
+      atomicMax(&deg[lr], i + 1);
+      atomicMax(&top[lr], v);
+      const unsigned int h = k10_hash(v, lr), f = h >> fshift;
+      atomicOr(&filter[f >> 5], 1u << (f & 31));
+      unsigned int s = h >> shift;
+      while (atomicCAS(&table[s], -1, k) != -1) s = (s + 1) & mask;
     }
   }
   __syncthreads();
 
-  for (int e = threadIdx.x; e < loaded; e += K10_THREADS) {
+  const int lane = threadIdx.x & 31;
+  const unsigned int full = 0xffffffffu;
+  for (;;) {
+    int t = 0;
+    if (lane == 0) t = atomicAdd(&next_item, 1);
+    t = __shfl_sync(full, t, 0);
+    if (t >= t_hi) break;
+    const int lr = t / W, i = t - lr * W;
+    if (i + 1 >= deg[lr]) continue;  // pad, or the row's last entry: no later one
+    const int x = ids[t];
+    if ((unsigned long long)x >= (unsigned long long)n_close) continue;  // no out-list
+    const int end = __ldg(close_indptr + x + 1);
+    const int cut = top[lr], base = lr * W, mi = mult[t];
+    int su = 0, si = 0;
+    for (int p = __ldg(close_indptr + x); p < end; p += 32 * K10_UNROLL) {
+      int z[K10_UNROLL], mz[K10_UNROLL];
+#pragma unroll
+      for (int k = 0; k < K10_UNROLL; ++k) {
+        const int q = p + 32 * k + lane;
+        z[k] = q < end ? __ldg(close_ids + q) : -1;
+        mz[k] = q < end ? __ldg(close_mult + q) : 0;
+      }
+#pragma unroll
+      for (int k = 0; k < K10_UNROLL; ++k) {
+        if (z[k] < 0 || z[k] > cut) continue;
+        const unsigned int h = k10_hash(z[k], lr), f = h >> fshift;
+        if (!((filter[f >> 5] >> (f & 31)) & 1u)) continue;  // no entry has its prefix
+        unsigned int s = h >> shift;
+        int e;
+        while ((e = table[s]) >= 0 &&
+               (ids[e] != z[k] || (unsigned int)(e - base) >= (unsigned int)W))
+          s = (s + 1) & mask;
+        if (e >= 0 && e - base > i) {  // y = z[k] is entry j = e - base of the row, j > i
+          su += mz[k];
+          si += mult[e];
+          atomicAdd(&cred[e], mi);
+        }
+      }
+      // the list ascends: past the row's largest id, no later piece can hit
+      if (__shfl_sync(full, z[K10_UNROLL - 1], 31) > cut) break;
+    }
+    su = __reduce_add_sync(full, su);
+    si = __reduce_add_sync(full, si);
+    if (lane == 0) {
+      if (su) atomicAdd(&ucred[lr], su);
+      if (si) atomicAdd(&cred[t], si);
+    }
+  }
+  __syncthreads();
+
+  for (int e = threadIdx.x; e < held; e += K10_THREADS) {
     const int i = e / nrows, lr = e - i * nrows;
     const int c = cred[lr * W + i];
     int* out = edge_cred + (long long)i * R + r0 + lr;
@@ -167,40 +186,42 @@ wedge_rowblock_kernel(const int* __restrict__ slab, const int* __restrict__ msla
     else if (c)
       atomicAdd(out, c);
   }
-  for (int t2 = threadIdx.x; t2 < nrows; t2 += K10_THREADS) {
+  for (int t = threadIdx.x; t < nrows; t += K10_THREADS) {
     if (!split)
-      u_cred[r0 + t2] = ucred[t2];
-    else if (ucred[t2])
-      atomicAdd(u_cred + r0 + t2, ucred[t2]);
+      u_cred[r0 + t] = ucred[t];
+    else if (ucred[t])
+      atomicAdd(u_cred + r0 + t, ucred[t]);
   }
 }
 
-GT_EXPORT int gt_wedge_rowblock(const int* slab, const int* mslab, int W,
-                                long long R, const int* table, long long rows,
-                                int id_bits, int* u_cred, int* edge_cred,
-                                void* stream) {
+GT_EXPORT int gt_wedge_rowblock(const int* slab, const int* mslab, int W, long long R,
+                                const int* close_indptr, const int* close_ids,
+                                const unsigned char* close_mult, long long n_close,
+                                int* u_cred, int* edge_cred, void* stream) {
   if (R == 0 || W < 2) return (int)cudaGetLastError();
-  GtEdgeHash eh;
-  if (!gt_eh_init(eh, table, rows) || W > K10_MAX_ENTRIES || id_bits < 1 ||
-      id_bits > 31)
-    return (int)cudaErrorInvalidValue;
-  const int pairs = W * (W - 1) / 2;
-  const int chunks_per_row = (pairs + K10_PAIRS - 1) / K10_PAIRS;
-  int rows_per_block = 1;
-  if (chunks_per_row == 1) {
-    rows_per_block = min(K10_MAX_ROWS, min(K10_MAX_ENTRIES / W, K10_PAIRS / pairs));
-    if (rows_per_block > R) rows_per_block = (int)R;
-    if (rows_per_block < 1) rows_per_block = 1;
-  }
-  const long long groups = (R + rows_per_block - 1) / rows_per_block;
-  const long long blocks = groups * chunks_per_row;
+  if (W > K10_MAX_WIDTH || n_close < 0) return (int)cudaErrorInvalidValue;
+  int rows_per_block = W >= K10_ITEMS ? 1 : K10_ITEMS / W;
+  if (rows_per_block > R) rows_per_block = (int)R;
+  const int held = rows_per_block * W;
+  // more than one chunk only for a row wider than K10_ITEMS
+  const int chunks = (held + K10_ITEMS - 1) / K10_ITEMS;
+  const int items_per_chunk = (held + chunks - 1) / chunks;
+  int bits = 3, fbits = 5;
+  while ((1 << bits) < K10_SLOTS * held) ++bits;
+  while ((1 << fbits) < K10_FILTER * held) ++fbits;
+  const long long blocks = (R + rows_per_block - 1) / rows_per_block * chunks;
   if (blocks > 0x7fffffffll) return (int)cudaErrorInvalidValue;
-  // ids and credits (int32) and multiplicities (bytes) per entry, a sum and a
-  // count per row: at most 45,056 bytes
-  const size_t smem = (size_t)rows_per_block * W * 9 + (size_t)rows_per_block * 8;
-  wedge_rowblock_kernel<<<(unsigned int)blocks, K10_THREADS, smem,
-                          (cudaStream_t)stream>>>(
-      slab, mslab, W, R, eh, id_bits, u_cred, edge_cred, rows_per_block,
-      chunks_per_row, pairs);
+  // ids and credits (int32), the hash table, the filter, three ints a row,
+  // multiplicities (bytes): at most 135,180 bytes, at W = 4096
+  const size_t smem = (size_t)held * 9 + ((size_t)4 << bits) + ((size_t)1 << (fbits - 3)) +
+                      (size_t)rows_per_block * 12;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        wedge_rowblock_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  wedge_rowblock_kernel<<<(unsigned int)blocks, K10_THREADS, smem, (cudaStream_t)stream>>>(
+      slab, mslab, W, R, close_indptr, close_ids, close_mult, n_close, u_cred, edge_cred,
+      rows_per_block, chunks, items_per_chunk, 32 - bits, 32 - fbits);
   return (int)cudaGetLastError();
 }

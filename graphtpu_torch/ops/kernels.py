@@ -73,8 +73,9 @@ _SIGNATURES = {
     "gt_push_relax_min": (_P, _P, _P, _P, _P, _P, _P, _I32, _I32, _P),
     # table, rows, klo, khi, found, payload, p, stream
     "gt_edgehash_probe": (_P, _I64, _P, _P, _P, _P, _I64, _P),
-    # slab, mslab, W, R, table, rows, id_bits, u_cred, edge_cred, stream
-    "gt_wedge_rowblock": (_P, _P, _I32, _I64, _P, _I64, _I32, _P, _P, _P),
+    # slab, mslab, W, R, close_indptr, close_ids, close_mult, n_close, u_cred,
+    # edge_cred, stream
+    "gt_wedge_rowblock": (_P, _P, _I32, _I64, _P, _P, _P, _I64, _P, _P, _P),
     # stream: a kernel that returns at once (csrc/empty_kernel.cu)
     "gt_empty_kernel": (_P,),
 }

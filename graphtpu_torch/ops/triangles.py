@@ -7,15 +7,18 @@ cuts that: every symmetrized edge points from its lower-ranked endpoint to
 its higher-ranked one (rank = (degree, id)), so each triangle holds exactly
 one wedge (u -> x, u -> y) with an oriented edge x -> y, and enumerating the
 out-out pairs of every vertex and testing x -> y counts each triangle once.
-Out-degrees after orientation are small even where raw degrees are not, and
-each test is one hash-row fetch (ops/edgehash.py).
+Out-degrees after orientation are small even where raw degrees are not.
 
 Rows are bucketed by oriented out-degree d+ into padded slabs [W, R_pad]
 with per-graph DP-optimal widths. Per bucket, ``wedge_rowblock`` (kernel
-K10, csrc/wedge_rowblock.cu) probes every real out-out pair of every row
-and returns the credits; ``_wedge_bucket_rowblock`` is its plain PyTorch
-version, chunked over row blocks and pair chunks as the JAX package chunks
-it, so that its memory stays bounded.
+K10, csrc/wedge_rowblock.cu) tests every real out-out pair of every row
+and returns the credits. The kernel closes a wedge (u; x, y) by finding y
+in out(x), a sorted list of the plan's closing CSR; ``_wedge_bucket_rowblock``
+is its plain PyTorch version, which probes the edge hash (ops/edgehash.py)
+for each pair as the JAX package does, chunked over row blocks and pair
+chunks as the JAX package chunks it, so that its memory stays bounded. The
+closing CSR leaves out the keys the hash spilled, so both see the same
+edges.
 
 Graphalytics / LAGraph_lcc semantics (lcc.cpp:61-70; the numerator counts
 directed A-edges between distinct neighbours): each corner of a found
@@ -74,6 +77,25 @@ class WedgeBucket(NamedTuple):
     chunk_cols: int           # rc: the plain version's row-block width
 
 
+class ClosingCSR(NamedTuple):
+    """The oriented out-lists by tail, over ranked ids, without the keys the
+    edge hash spilled: what K10 searches to close a wedge."""
+    indptr: torch.Tensor  # [n + 1] int32
+    ids: torch.Tensor     # [M'] int32 heads, ascending within each tail's list
+    mult: torch.Tensor    # [M'] uint8 stored-direction multiplicity (1 or 2)
+
+
+def closing_csr(ex, ey, mult, spilled: np.ndarray, n: int) -> ClosingCSR:
+    """The closing CSR from the oriented stream sorted by (ex, ey) (int
+    tensors on the plan's device) and the hash's spill mask over it."""
+    if spilled.any():
+        keep = torch.from_numpy(~spilled).to(ex.device)
+        ex, ey, mult = ex[keep], ey[keep], mult[keep]
+    indptr = torch.zeros(n + 1, dtype=torch.int32, device=ex.device)
+    indptr[1:] = torch.cumsum(torch.bincount(ex, minlength=n), 0)
+    return ClosingCSR(indptr, ey.to(torch.int32).contiguous(), mult.to(torch.uint8))
+
+
 class WedgePlan(NamedTuple):
     buckets: tuple
     n: int
@@ -90,6 +112,7 @@ class WedgePlan(NamedTuple):
     ey: np.ndarray
     mult: np.ndarray
     spilled: np.ndarray       # bool mask over the oriented edge stream
+    closing: ClosingCSR       # what K10 searches, on the device
 
 
 def _orient_sort_kernel(eu, ev, mult, rank, id_bits):
@@ -250,6 +273,7 @@ def prepare_wedge_plan(graph, cache_dir=None, *, device) -> WedgePlan:
     # looked up through the module, so that a test can swap in a build that
     # overfills the table and forces spills
     ehash, spilled = edgehash.build_edge_hash_device(packed, mult_d, fill=0.25)
+    closing = closing_csr(ex32, ey32, mult_d, spilled, n)
 
     # bucket the rows with d+ >= 2 into padded slabs; collect every real
     # entry's (head, transposed flat position) for the edge-credit aggregation
@@ -308,7 +332,7 @@ def prepare_wedge_plan(graph, cache_dir=None, *, device) -> WedgePlan:
     return WedgePlan(
         tuple(buckets), n, id_bits, deg_s, rank, ehash,
         edge_pos, head_indptr, bucket_rows,
-        ex, ey, mult, spilled,
+        ex, ey, mult, spilled, closing,
     )
 
 
@@ -390,13 +414,34 @@ def plain_pair_chunk(w: int, rc: int) -> int:
     return 1 << (pc.bit_length() - 1)
 
 
-def wedge_rowblock(slab, mslab, ehash: EdgeHash, id_bits: int, chunk_cols: int):
+def _check_closing(closing: ClosingCSR, device) -> None:
+    """Types, shapes and device of a closing CSR, and positions that fit the
+    kernel's int32 indices (with room for a warp's pieces past the end)."""
+    indptr, ids, mult = closing
+    if (indptr.dtype != torch.int32 or ids.dtype != torch.int32 or mult.dtype != torch.uint8
+            or indptr.dim() != 1 or ids.dim() != 1 or mult.dim() != 1
+            or not all(t.is_contiguous() for t in closing)):
+        raise TypeError("wedge_rowblock: the closing CSR must be contiguous 1-D int32 indptr "
+                        "and ids and uint8 mult")
+    if indptr.shape[0] < 1 or ids.shape[0] != mult.shape[0] or ids.shape[0] > (1 << 31) - 1024:
+        raise ValueError(f"wedge_rowblock: closing CSR of {indptr.shape[0]} pointers, "
+                         f"{ids.shape[0]} ids and {mult.shape[0]} multiplicities")
+    if any(t.device != device for t in closing):
+        raise ValueError("wedge_rowblock: slabs, table and closing CSR must be on one device")
+
+
+def wedge_rowblock(slab, mslab, ehash: EdgeHash, id_bits: int, chunk_cols: int,
+                   closing: ClosingCSR):
     """K10 wrapper: the triangle credits of one bucket. For every row r of
-    ``slab`` [W, R_pad] (int32 ranked ids, left-packed, -1 pad) and every
-    pair i < j of its real entries, the key (slab[i, r], slab[j, r]) is
-    probed in ``ehash``; a hit adds the payload to u_cred[r], mslab[j, r] to
-    edge_cred[i, r] and mslab[i, r] to edge_cred[j, r]. Returns (u_cred
-    [R_pad], edge_cred [W, R_pad]) int32. ``mslab`` holds multiplicities
+    ``slab`` [W, R_pad] (int32 ranked ids, distinct within a row,
+    left-packed, -1 pad) and every pair i < j of its real entries, with
+    x = slab[i, r] and y = slab[j, r]: if (x, y) is an edge, mult(x, y) is
+    added to u_cred[r], mslab[j, r] to edge_cred[i, r] and mslab[i, r] to
+    edge_cred[j, r]. Returns (u_cred [R_pad], edge_cred [W, R_pad]) int32.
+    The kernel finds y in out(x) of ``closing`` (ascending, distinct ids per
+    list; the indptr is not read past its end, and ids beyond it have no
+    list); the plain version probes the key in ``ehash``: the two must hold
+    the same edges with the same payloads. ``mslab`` holds multiplicities
     in [0, 255]: the kernel keeps them in a byte and nothing checks it, so
     a larger value gives other credits on the card than the plain version's
     (the plan's are 0, 1 or 2). ``chunk_cols`` divides
@@ -409,6 +454,7 @@ def wedge_rowblock(slab, mslab, ehash: EdgeHash, id_bits: int, chunk_cols: int):
     if any(t.device != slab.device for t in (mslab, ehash.table)):
         raise ValueError("wedge_rowblock: slabs and table must be on one device")
     edgehash._check_table("wedge_rowblock", ehash)
+    _check_closing(closing, slab.device)
     w, r_pad = slab.shape
     if not 1 <= w <= _MAX_WEDGE_WIDTH or r_pad >= 1 << 31 or not 0 < id_bits < 32:
         raise ValueError(f"wedge_rowblock: W {w} outside [1, {_MAX_WEDGE_WIDTH}], R_pad {r_pad} "
@@ -424,7 +470,8 @@ def wedge_rowblock(slab, mslab, ehash: EdgeHash, id_bits: int, chunk_cols: int):
     if r_pad and w >= 2:
         kernels.launch(
             "wedge_rowblock", slab.device, slab.data_ptr(), mslab.data_ptr(), w, r_pad,
-            ehash.table.data_ptr(), ehash.rows, id_bits, u_cred.data_ptr(), edge_cred.data_ptr(),
+            closing.indptr.data_ptr(), closing.ids.data_ptr(), closing.mult.data_ptr(),
+            closing.indptr.shape[0] - 1, u_cred.data_ptr(), edge_cred.data_ptr(),
         )
     return u_cred, edge_cred
 
@@ -457,7 +504,7 @@ def lcc_oriented_numerator(plan: WedgePlan) -> np.ndarray:
     """Numerator per ORIGINAL vertex id: the sum over the triangles at v of
     the stored-direction multiplicity of the opposite edge."""
     return numerator_from_credits(plan, [
-        wedge_rowblock(b.slab, b.mslab, plan.ehash, plan.id_bits, b.chunk_cols)
+        wedge_rowblock(b.slab, b.mslab, plan.ehash, plan.id_bits, b.chunk_cols, plan.closing)
         for b in plan.buckets
     ])
 

@@ -26,7 +26,7 @@ from graphtpu_torch.ops.minmode import (
 )
 from graphtpu_torch.ops.pallas_gather import vreg_shuffle, vreg_shuffle_plain
 from graphtpu_torch.ops.slab import build_slab_plan, result_buffer
-from graphtpu_torch.ops.triangles import wedge_rowblock
+from graphtpu_torch.ops.triangles import ClosingCSR, wedge_rowblock
 from graphtpu_torch.ops.spmv import (
     CSR_ITEMS, CSR_MODES, _csr_pull_reduce_launch, csr_pull_reduce, csr_pull_reduce_plain,
     csr_scratch_layout, merge_path_starts, slab_spmv_min, slab_spmv_min_buckets,
@@ -586,6 +586,41 @@ def _pair_hash(rng, slab, present_per_row=1500, absent=2000):
     return eh, keys, payload
 
 
+def _closing_from_keys(keys, payload, device):
+    """The closing CSR of sorted int64 pair keys (x << ID_BITS | y) over
+    2^ID_BITS tails: each x's heads ascending, with their payloads."""
+    x, y = keys >> ID_BITS, keys & ((1 << ID_BITS) - 1)
+    indptr = np.zeros((1 << ID_BITS) + 1, dtype=np.int64)
+    np.cumsum(np.bincount(x, minlength=1 << ID_BITS), out=indptr[1:])
+    return ClosingCSR(*(torch.from_numpy(a).to(device) for a in (
+        indptr.astype(np.int32), y.astype(np.int32), payload.astype(np.uint8))))
+
+
+def _check_wedge_rowblock(slab, mslab, keys, payload, cuda, plain=True):
+    """K10 on ``slab`` against the credits of its real pairs looked up in
+    ``keys``, twice for the same bits, with one launch each; against its
+    plain version on the card too, unless ``plain`` is False."""
+    eh, spilled = build_edge_hash(keys, payload)
+    assert not spilled.any()
+    want_u, want_e = _credits_by_real_pairs(slab, mslab, keys, payload)
+    eh_d = EdgeHash(eh.table.to(cuda), eh.rows)
+    closing = _closing_from_keys(keys, payload, cuda)
+    slab_d, mslab_d = torch.from_numpy(slab).to(cuda), torch.from_numpy(mslab).to(cuda)
+    r = slab.shape[1]
+    before = kernels.launch_counts["wedge_rowblock"]
+    u, e = wedge_rowblock(slab_d, mslab_d, eh_d, ID_BITS, r, closing)
+    assert kernels.launch_counts["wedge_rowblock"] == before + 1
+    np.testing.assert_array_equal(u.cpu().numpy(), want_u)
+    np.testing.assert_array_equal(e.cpu().numpy(), want_e)
+    u2, e2 = wedge_rowblock(slab_d, mslab_d, eh_d, ID_BITS, r, closing)
+    assert torch.equal(u, u2) and torch.equal(e, e2)
+    if plain:
+        with kernels.plain_torch():
+            u_pl, e_pl = wedge_rowblock(slab_d, mslab_d, eh_d, ID_BITS, r, closing)
+        assert torch.equal(u, u_pl) and torch.equal(e, e_pl)
+    return want_u, want_e
+
+
 def _wedge_slab(rng, w, r, full_rows):
     """[W, R] slabs of a wedge bucket: rows of ascending distinct ids,
     left-packed; ``full_rows`` rows of W entries, a few of random length,
@@ -671,48 +706,121 @@ def test_edge_hash_device_build_matches_host_build(cuda):
 @pytest.mark.parametrize("r", [1, 127, 2049])
 @pytest.mark.parametrize("w", [2, 3, 33, 625, 4096])
 def test_wedge_rowblock_matches_plain(cuda, w, r):
-    """K10 over bucket widths on both sides of the row split (W(W-1)/2 above
-    and below a block's pairs) and row counts that are no multiple of a
-    block's rows: rows of W entries, of one entry and of pad only,
-    multiplicities 1 and 2, present and absent pairs. Held against the
-    credits of the real pairs and, where the padded pair list is small
-    enough, against the plain version on the card; twice for the same bits."""
+    """K10 over bucket widths on both sides of the row split (W above and
+    below a block's items) and row counts that are no multiple of a block's
+    rows: rows of W entries, of one entry and of pad only, multiplicities 1
+    and 2, present and absent pairs, the closing CSR built from the hash's
+    keys. Held against the credits of the real pairs and, where the padded
+    pair list is small enough, against the plain version on the card;
+    twice for the same bits."""
     rng = np.random.default_rng(w * 10007 + r)
     slab, mslab = _wedge_slab(rng, w, r, full_rows=1 if w > 128 else min(r, 5))
     if r > 2:
         slab[:, 1], mslab[:, 1] = -1, 0                       # a row of pad only
         slab[1:, 2], mslab[1:, 2] = -1, 0                     # a row of one entry
-    eh, keys, payload = _pair_hash(rng, slab)
-    want_u, want_e = _credits_by_real_pairs(slab, mslab, keys, payload)
+    _, keys, payload = _pair_hash(rng, slab)
+    want_u, want_e = _check_wedge_rowblock(slab, mslab, keys, payload, cuda,
+                                           plain=w * (w - 1) // 2 * r <= 1 << 26)
     assert want_u.any() and want_e.any()
-    eh_d = EdgeHash(eh.table.to(cuda), eh.rows)
-    slab_d, mslab_d = torch.from_numpy(slab).to(cuda), torch.from_numpy(mslab).to(cuda)
-    before = kernels.launch_counts["wedge_rowblock"]
-    u, e = wedge_rowblock(slab_d, mslab_d, eh_d, ID_BITS, r)
-    assert kernels.launch_counts["wedge_rowblock"] == before + 1
-    np.testing.assert_array_equal(u.cpu().numpy(), want_u)
-    np.testing.assert_array_equal(e.cpu().numpy(), want_e)
-    u2, e2 = wedge_rowblock(slab_d, mslab_d, eh_d, ID_BITS, r)
-    assert torch.equal(u, u2) and torch.equal(e, e2)
-    if w * (w - 1) // 2 * r <= 1 << 26:
-        with kernels.plain_torch():
-            u_pl, e_pl = wedge_rowblock(slab_d, mslab_d, eh_d, ID_BITS, r)
-        assert torch.equal(u, u_pl) and torch.equal(e, e_pl)
 
 
 def test_wedge_rowblock_all_pad_and_width_one(cuda):
     rng = np.random.default_rng(3)
     slab, mslab = _wedge_slab(rng, 8, 40, full_rows=4)
-    eh, _, _ = _pair_hash(rng, slab)
+    eh, keys, payload = _pair_hash(rng, slab)
     eh_d = EdgeHash(eh.table.to(cuda), eh.rows)
+    closing = _closing_from_keys(keys, payload, cuda)
     pad = torch.full((8, 40), -1, dtype=torch.int32, device=cuda)
-    u, e = wedge_rowblock(pad, torch.zeros_like(pad), eh_d, ID_BITS, 40)
+    u, e = wedge_rowblock(pad, torch.zeros_like(pad), eh_d, ID_BITS, 40, closing)
     assert not u.any() and not e.any()
     one = torch.from_numpy(slab[:1]).to(cuda)  # W = 1: no pair, no launch
     before = kernels.launch_counts["wedge_rowblock"]
-    u, e = wedge_rowblock(one, torch.ones_like(one), eh_d, ID_BITS, 40)
+    u, e = wedge_rowblock(one, torch.ones_like(one), eh_d, ID_BITS, 40, closing)
     assert kernels.launch_counts["wedge_rowblock"] == before
     assert not u.any() and not e.any()
+
+
+@pytest.mark.parametrize("w", [40, 1500])
+def test_wedge_rowblock_long_out_list(cuda, w):
+    """An out(x) of 20,000 heads, far longer than a warp's pieces in
+    flight and than a block's items, holding every other later entry of the
+    rows whose first entry is x, and lists of other lengths beside it."""
+    rng = np.random.default_rng(w)
+    slab, mslab = _wedge_slab(rng, w, 600, full_rows=3)
+    x = int(slab[0, 0])
+    slab[0, :] = np.where(slab[0, :] >= 0, x, -1)             # x leads every row
+    rest = np.arange(x + 1, 1 << ID_BITS)
+    for c in range(slab.shape[1]):                             # rows stay ascending, distinct
+        d = int((slab[:, c] >= 0).sum())
+        if d:
+            slab[1:d, c] = np.sort(rng.choice(rest, size=d - 1, replace=False))
+    later = np.unique(slab[1:][slab[1:] >= 0])[::2].astype(np.int64)
+    heads = np.union1d(later, rng.choice(rest, size=20000, replace=False))
+    _, keys, _ = _pair_hash(rng, slab)
+    keys = np.union1d(keys, (np.int64(x) << ID_BITS) | heads)
+    assert (keys >> ID_BITS == x).sum() >= 20000
+    payload = rng.integers(1, 3, size=keys.shape[0])
+    want_u, _ = _check_wedge_rowblock(slab, mslab, keys, payload, cuda, plain=w < 1000)
+    assert want_u.any()
+
+
+def test_wedge_rowblock_no_later_entry_closes(cuda):
+    """Every id of the slab has an out-list of 40 heads, none of them in the
+    slab, so no later entry of the first 200 rows is in out(x) of an
+    earlier one: those rows get no credit, beside 100 rows that close."""
+    rng = np.random.default_rng(11)
+    slab, mslab = _wedge_slab(rng, 24, 300, full_rows=20)
+    ids = np.unique(slab[slab >= 0]).astype(np.int64)
+    outside = np.setdiff1d(np.arange(1 << ID_BITS), ids)
+    keys = (ids[:, None] << ID_BITS) | rng.choice(outside, size=(ids.shape[0], 40))
+    _, own, _ = _pair_hash(rng, slab[:, 200:], absent=10)
+    keys = np.unique(np.concatenate([keys.reshape(-1), own]))
+    payload = rng.integers(1, 3, size=keys.shape[0])
+    want_u, want_e = _check_wedge_rowblock(slab, mslab, keys, payload, cuda)
+    assert not want_u[:200].any() and not want_e[:, :200].any()
+    assert want_u[200:].any()
+
+
+def test_wedge_rowblock_forced_spill_plan(cuda, monkeypatch):
+    """A wedge plan on the card whose hash spilled: the closing CSR leaves
+    the spilled keys out, so kernel = plain bucket by bucket, and the
+    numerators (host patch included) = the sweep's."""
+    from graphtpu_torch.algorithms.lcc import lcc_sweep_numerator
+    from graphtpu_torch.ops import edgehash, triangles
+    from graphtpu_torch.utils.synth import rmat_graph
+
+    g = rmat_graph(11, 12, directed=False, seed=2)
+    orig = edgehash.build_edge_hash_device
+    monkeypatch.setattr(edgehash, "build_edge_hash_device",
+                        lambda k, p, fill=0.25: orig(k, p, fill=64.0))
+    plan = triangles.prepare_wedge_plan(g, device=cuda)
+    assert plan.spilled.any()
+    for b in plan.buckets:
+        args = (b.slab, b.mslab, plan.ehash, plan.id_bits, b.chunk_cols, plan.closing)
+        got, again = wedge_rowblock(*args), wedge_rowblock(*args)
+        with kernels.plain_torch():
+            want = wedge_rowblock(*args)
+        for a, a2, c in zip(got, again, want):
+            assert torch.equal(a, c) and torch.equal(a, a2)
+    np.testing.assert_array_equal(triangles.lcc_oriented_numerator(plan),
+                                  lcc_sweep_numerator(g, "cpu")[0])
+
+
+def test_wedge_rowblock_real_plan_twice_same_bits(cuda):
+    """Every bucket of an RMAT graph's plan on the card: two kernel runs
+    give the same bits, and those of the plain version."""
+    from graphtpu_torch.ops import triangles
+    from graphtpu_torch.utils.synth import rmat_graph
+
+    plan = triangles.prepare_wedge_plan(rmat_graph(13, 16, directed=False, seed=5), device=cuda)
+    assert len(plan.buckets) > 4
+    for b in plan.buckets:
+        args = (b.slab, b.mslab, plan.ehash, plan.id_bits, b.chunk_cols, plan.closing)
+        got, again = wedge_rowblock(*args), wedge_rowblock(*args)
+        with kernels.plain_torch():
+            want = wedge_rowblock(*args)
+        for a, a2, c in zip(got, again, want):
+            assert torch.equal(a, a2) and torch.equal(a, c)
 
 
 @pytest.mark.parametrize("directed", [True, False])

@@ -9,13 +9,14 @@ sides divide the same int64 numerators by the same degrees in numpy float64.
 The JAX side runs as its own tests run it on the CPU (plain jit, no Pallas
 kernel is on this path). On the CPU the port's kernel wrappers (K9
 ``edgehash_probe``, K10 ``wedge_rowblock``, K1 ``gather_rows``) take their
-plain versions; a model of K10's walk over blocks, warps and pairs, written
-from the constants in its source, stands in for the kernel's index
-arithmetic, which only the card can run.
+plain versions; K10 closes a wedge by a search of the plan's closing CSR, not
+by the hash probe of its plain version, so a numpy model of that rule is held
+against the plain version, and a model of K10's dealing of work over blocks,
+warps and list pieces, written from the constants in its source, stands in
+for the kernel's index arithmetic, which only the card can run.
 """
 
 import logging
-import math
 import re
 from pathlib import Path
 
@@ -188,15 +189,26 @@ def test_wrappers_refuse_bad_arguments():
     with pytest.raises(ValueError, match="id_bits"):
         teh.probe_edge_hash_xy(eh, k32, k32, 32)
     slab = torch.zeros((3, 4), dtype=torch.int32)
+    cl = ttri.ClosingCSR(torch.zeros(33, dtype=torch.int32), torch.zeros(0, dtype=torch.int32),
+                         torch.zeros(0, dtype=torch.uint8))
     with pytest.raises(TypeError, match="2-D int32"):
-        ttri.wedge_rowblock(slab.long(), slab, eh, 5, 4)
+        ttri.wedge_rowblock(slab.long(), slab, eh, 5, 4, cl)
     with pytest.raises(ValueError, match="one shape"):
-        ttri.wedge_rowblock(slab, slab[:2], eh, 5, 4)
+        ttri.wedge_rowblock(slab, slab[:2], eh, 5, 4, cl)
     with pytest.raises(ValueError, match="chunk_cols"):
-        ttri.wedge_rowblock(slab, slab, eh, 5, 3)
+        ttri.wedge_rowblock(slab, slab, eh, 5, 3, cl)
     with pytest.raises(ValueError, match="outside"):
         ttri.wedge_rowblock(torch.zeros((4097, 1), dtype=torch.int32),
-                            torch.zeros((4097, 1), dtype=torch.int32), eh, 5, 1)
+                            torch.zeros((4097, 1), dtype=torch.int32), eh, 5, 1, cl)
+    with pytest.raises(TypeError, match="closing CSR"):
+        ttri.wedge_rowblock(slab, slab, eh, 5, 4, cl._replace(mult=cl.mult.int()))
+    with pytest.raises(TypeError, match="closing CSR"):
+        ttri.wedge_rowblock(slab, slab, eh, 5, 4, cl._replace(indptr=cl.indptr.long()))
+    with pytest.raises(ValueError, match="multiplicities"):
+        ttri.wedge_rowblock(slab, slab, eh, 5, 4,
+                            cl._replace(ids=torch.zeros(2, dtype=torch.int32)))
+    wu, we = ttri.wedge_rowblock(slab, slab, eh, 5, 4, cl)
+    assert not wu.any() and not we.any()
 
 
 # ---------------- bucket bounds and the wedge plan ----------------
@@ -233,6 +245,7 @@ def _port_plan(jplan):
         t(jplan.edge_pos) if has else None, t(jplan.head_indptr) if has else None,
         torch.from_numpy(np.concatenate([b.rows for b in buckets])) if has else None,
         jplan.ex, jplan.ey, jplan.mult, jplan.spilled,
+        ttri.closing_csr(t(jplan.ex), t(jplan.ey), t(jplan.mult), jplan.spilled, jplan.n),
     )
 
 
@@ -281,7 +294,7 @@ def test_rowblock_and_aggregate_match_jax_on_jax_plan(plans):
         np.testing.assert_array_equal(tu.numpy(), np.asarray(ju))
         np.testing.assert_array_equal(te.numpy(), np.asarray(je))
         wu, we = ttri.wedge_rowblock(tb.slab, tb.mslab, from_jax.ehash, from_jax.id_bits,
-                                     tb.chunk_cols)
+                                     tb.chunk_cols, from_jax.closing)
         assert torch.equal(wu, tu) and torch.equal(we, te)
         flat_j.append(je.reshape(-1))
         flat_t.append(te.reshape(-1))
@@ -295,83 +308,201 @@ def test_rowblock_and_aggregate_match_jax_on_jax_plan(plans):
     np.testing.assert_array_equal(ttri.lcc_oriented_numerator(tplan), numerator)
 
 
-# ---------------- a model of K10's walk ----------------
+# ---------------- the closing CSR and K10's closing rule ----------------
+
+
+def _forced_spill_plan(monkeypatch, tg):
+    """The port's plan of ``tg`` with a hash built to spill heavily (the
+    build is swapped in the module where prepare_wedge_plan looks it up)."""
+    orig = teh.build_edge_hash_device
+    monkeypatch.setattr(teh, "build_edge_hash_device",
+                        lambda k, p, fill=0.25: orig(k, p, fill=64.0))
+    plan = ttri.prepare_wedge_plan(tg, device="cpu")
+    monkeypatch.setattr(teh, "build_edge_hash_device", orig)
+    assert plan.spilled.any(), "expected forced spills"
+    return plan
+
+
+def _three_plans(plans, monkeypatch):
+    jg, jplan, tplan = plans
+    return {"port": tplan, "jax": _port_plan(jplan),
+            "forced-spill": _forced_spill_plan(monkeypatch, _twin(jg))}
+
+
+def test_closing_csr_holds_the_hash_keys(plans, monkeypatch):
+    """Every non-spilled key of the oriented stream is in the closing CSR
+    with payload = mult, every spilled key is absent, each list ascends, and
+    the hash finds every key of the CSR with the same payload."""
+    for name, plan in _three_plans(plans, monkeypatch).items():
+        indptr, ids, mult = (t.numpy() for t in plan.closing)
+        assert (indptr.dtype, ids.dtype, mult.dtype) == (np.int32, np.int32, np.uint8), name
+        assert indptr.shape == (plan.n + 1,) and indptr[0] == 0 and indptr[-1] == ids.shape[0]
+        tails = np.repeat(np.arange(plan.n), np.diff(indptr))
+        keys = (tails.astype(np.int64) << plan.id_bits) | ids
+        assert (np.diff(keys) > 0).all(), name  # ascending by (tail, head): each list ascends
+        stream = (plan.ex << plan.id_bits) | plan.ey
+        keep = ~plan.spilled
+        np.testing.assert_array_equal(keys, stream[keep], err_msg=name)
+        np.testing.assert_array_equal(mult, plan.mult[keep], err_msg=name)
+        assert not np.isin(stream[plan.spilled], keys).any(), name
+        found, pay = teh.probe_edge_hash(plan.ehash, torch.from_numpy(keys))
+        assert bool(found.all()), name
+        np.testing.assert_array_equal(pay.numpy(), mult, err_msg=name)
+        assert (name == "forced-spill") == bool(plan.spilled.any())
+
+
+def _closing_rule_credits(slab, mslab, closing):
+    """K10's rule in numpy: for each real entry i of a row, each later entry
+    y is searched in out(x) of the closing CSR, x = slab[i]; a hit credits
+    the row, i and j as the kernel does."""
+    indptr, ids, mult = (t.numpy().astype(np.int64) for t in closing)
+    w, r = slab.shape
+    u = np.zeros(r, dtype=np.int64)
+    e = np.zeros((w, r), dtype=np.int64)
+    for c in range(r):
+        row = slab[:, c][slab[:, c] >= 0]
+        for i in range(row.shape[0] - 1):
+            lst = ids[indptr[row[i]]:indptr[row[i] + 1]]
+            later = row[i + 1:]
+            pos = np.minimum(np.searchsorted(lst, later), max(lst.shape[0] - 1, 0))
+            hit = (lst[pos] == later) if lst.shape[0] else np.zeros(later.shape, bool)
+            j = i + 1 + np.nonzero(hit)[0]
+            u[c] += mult[indptr[row[i]] + pos[hit]].sum()
+            e[i, c] += mslab[j, c].sum()
+            e[j, c] += mslab[i, c]
+    return u.astype(np.int32), e.astype(np.int32)
+
+
+def test_closing_rule_equals_the_plain_rowblock(plans, monkeypatch):
+    """The closing-CSR search and the plain version's hash probe give the
+    same credits bit for bit, bucket by bucket, on the port's plan, on the
+    JAX package's own plan and on a plan whose hash spilled; the spilled
+    keys' triangles are left to the host patch by both."""
+    for name, plan in _three_plans(plans, monkeypatch).items():
+        assert plan.buckets, name
+        for b in plan.buckets:
+            want = ttri.wedge_rowblock(b.slab, b.mslab, plan.ehash, plan.id_bits,
+                                       b.chunk_cols, plan.closing)
+            got = _closing_rule_credits(b.slab.numpy(), b.mslab.numpy(), plan.closing)
+            np.testing.assert_array_equal(got[0], want[0].numpy(), err_msg=name)
+            np.testing.assert_array_equal(got[1], want[1].numpy(), err_msg=name)
+    np.testing.assert_array_equal(ttri.lcc_oriented_numerator(plan),
+                                  tlcc.lcc_sweep_numerator(_twin(plans[0]), "cpu")[0])
+
+
+# ---------------- a model of K10's dealing of work ----------------
 
 
 def _k10_constants():
     src = (REPO / "graphtpu_torch" / "csrc" / "wedge_rowblock.cu").read_text()
     val = lambda name: int(re.search(rf"#define {name} (\d+)", src).group(1))  # noqa: E731
-    return (val("K10_PAIRS"), val("K10_MAX_ENTRIES"), val("K10_MAX_ROWS"),
-            val("K10_THREADS") // 32, val("K10_UNROLL"))
+    return (val("K10_THREADS"), val("K10_ITEMS"), val("K10_UNROLL"), val("K10_SLOTS"),
+            val("K10_FILTER"), val("K10_MAX_WIDTH"))
 
 
-def _k10_decode(p):
-    j = max(int((1.0 + math.sqrt(np.float32(1.0 + 8.0 * p))) * 0.5), 1)
-    while j * (j - 1) // 2 > p:
-        j -= 1
-    while (j + 1) * j // 2 <= p:
-        j += 1
-    return p - j * (j - 1) // 2, j
+def _k10_hash(v, lr):
+    return ((v * 0x9E3779B1) ^ (lr * 0x85EBCA77)) & 0xFFFFFFFF
 
 
-def _k10_walk(w, degs):
-    """Every (row, i, j) the kernel probes, by its own arithmetic: the
-    host's choice of rows per block and chunks per row, a block's pair range
-    and early return, a warp's run of items and its step from pair to pair."""
-    pairs_pb, max_entries, max_rows, warps, unroll = _k10_constants()
-    r = len(degs)
-    pairs = w * (w - 1) // 2
-    cpr = -(-pairs // pairs_pb)
-    rpb = max(1, min(max_rows, max_entries // w, pairs_pb // pairs, r)) if cpr == 1 else 1
-    assert rpb * w * 9 + rpb * 8 <= 48 * 1024  # the block's shared memory
-    out = []
-    for block in range(-(-r // rpb) * cpr):
-        group, chunk = divmod(block, cpr)
+def _k10_walk(w, rows, lists):
+    """Every item (row, i) the kernel takes, every list entry each item
+    probes and every hit (row, i, j), by the kernel's own arithmetic: the
+    host's rows per block, chunks and hash size, a block's item range and
+    early return, its filter and hash of (row, id) with linear probing, and a warp's
+    pieces of out(x) with the stop past the row's largest id. ``rows`` are
+    the rows' real ids, ``lists`` the ascending out-lists by id."""
+    threads, max_items, unroll, slots_per, filter_per, max_width = _k10_constants()
+    assert 2 <= w <= max_width
+    r = len(rows)
+    rpb = min(1 if w >= max_items else max_items // w, r)
+    held_max = rpb * w
+    chunks = -(-held_max // max_items)
+    ipc = -(-held_max // chunks)
+    bits, fbits = 3, 5
+    while (1 << bits) < slots_per * held_max:
+        bits += 1
+    while (1 << fbits) < filter_per * held_max:
+        fbits += 1
+    shift, mask, fshift = 32 - bits, (1 << bits) - 1, 32 - fbits
+    smem = held_max * 9 + (4 << bits) + (1 << (fbits - 3)) + rpb * 12 + 4
+    assert smem <= 232448  # the block's shared memory
+    piece = 32 * unroll
+    items, probes, hits = [], [], []
+    for block in range(-(-r // rpb) * chunks):
+        group, chunk = divmod(block, chunks)
         r0 = group * rpb
         nrows = min(rpb, r - r0)
-        p_lo = chunk * pairs_pb
-        p_hi = min(pairs, p_lo + pairs_pb)
-        span = p_hi - p_lo
-        i_lo, j_lo = _k10_decode(p_lo)
-        _, j_hi = _k10_decode(p_hi - 1)
-        if cpr > 1 and degs[r0] <= j_lo:
+        t_lo, t_hi = chunk * ipc, min(nrows * w, chunk * ipc + ipc)
+        if chunks > 1 and (t_lo + 1 >= w or len(rows[r0]) <= t_lo + 1):
             continue
-        deg = [min(degs[r0 + lr], j_hi + 1) for lr in range(nrows)]
-        items = nrows * span
-        per_warp = -(-items // warps)
-        per_warp = -(-per_warp // unroll) * unroll
-        for warp in range(warps):
-            t = warp * per_warp
-            t_end = min(items, t + per_warp)
-            if t >= t_end:
+        ids = [-1] * (rpb * w)
+        table = [-1] * (1 << bits)
+        filt = set()
+        for lr in range(nrows):
+            for j, v in enumerate(rows[r0 + lr]):
+                ids[lr * w + j] = v
+                filt.add(_k10_hash(v, lr) >> fshift)
+                s = _k10_hash(v, lr) >> shift
+                while table[s] != -1:
+                    s = (s + 1) & mask
+                table[s] = lr * w + j
+        for t in range(t_lo, t_hi):  # the warps' shared counter hands out each once
+            lr, i = divmod(t, w)
+            row = rows[r0 + lr]
+            if i + 1 >= len(row):
                 continue
-            lr = t // span
-            p = p_lo + (t - lr * span)
-            i, j = _k10_decode(p)
-            real = deg[lr] * (deg[lr] - 1) // 2
-            while t < t_end:
-                for _ in range(unroll):
-                    if t < t_end and p < real:
-                        assert i < j <= j_hi and j < deg[lr]
-                        out.append((r0 + lr, i, j))
-                    t, p, i = t + 1, p + 1, i + 1
-                    if i == j:
-                        i, j = 0, j + 1
-                    if p == p_hi and t < t_end:
-                        lr, p, i, j = lr + 1, p_lo, i_lo, j_lo
-                        real = deg[lr] * (deg[lr] - 1) // 2
-    return out
+            items.append((r0 + lr, i))
+            lst, cut, base = lists[ids[t]], max(row), lr * w
+            for p in range(0, len(lst), piece):
+                z = [lst[q] if q < len(lst) else -1 for q in range(p, p + piece)]
+                for q, zk in zip(range(p, p + piece), z):
+                    if zk < 0 or zk > cut:
+                        continue
+                    probes.append((r0 + lr, i, q))
+                    if _k10_hash(zk, lr) >> fshift not in filt:
+                        continue
+                    s = _k10_hash(zk, lr) >> shift
+                    while table[s] >= 0 and (ids[table[s]] != zk or not 0 <= table[s] - base < w):
+                        s = (s + 1) & mask
+                    if table[s] >= 0 and table[s] - base > i:
+                        hits.append((r0 + lr, i, table[s] - base))
+                if z[-1] > cut:
+                    break
+    return items, probes, hits
 
 
 @pytest.mark.parametrize("w,r", [(2, 1), (2, 3000), (3, 127), (16, 300), (33, 127), (64, 70),
                                  (128, 9), (129, 5), (625, 3), (4096, 1)])
 def test_k10_walk_visits_each_real_pair_once(w, r):
+    """Rows of random length (the first of W entries) over ids with
+    out-lists that are empty, short, or longer than several of a warp's
+    pieces, many rows to a block, and rows split over blocks: every item
+    (row, i) with a later entry is taken once, every list entry up to the
+    row's largest id is probed once, so every (row, i, j), i < j < d, is
+    searched exactly once, and the hits are exactly the pairs with y in
+    out(x)."""
+    unroll = _k10_constants()[2]
     rng = np.random.default_rng(w + r)
+    n = 4 * w + 300
     degs = [int(d) for d in rng.integers(0, w + 1, size=r)]
     degs[0] = w
-    got = _k10_walk(w, degs)
-    want = [(row, i, j) for row in range(r) for j in range(degs[row]) for i in range(j)]
-    assert len(got) == len(set(got)) == len(want) and set(got) == set(want)
+    rows = [sorted(rng.choice(n, size=d, replace=False).tolist()) for d in degs]
+    lists = {}
+    for x in sorted({v for row in rows for v in row}):
+        size = int(rng.choice([0, rng.integers(1, 20), rng.integers(100, 7 * 32 * unroll)],
+                              p=[0.3, 0.5, 0.2]))
+        lists[x] = np.unique(rng.integers(x + 1, n + 1, size=size)).tolist()
+    items, probes, hits = _k10_walk(w, rows, lists)
+    want_items = [(c, i) for c in range(r) for i in range(degs[c] - 1)]
+    assert len(items) == len(set(items)) == len(want_items) and set(items) == set(want_items)
+    want_probes = [(c, i, q) for c, i in want_items
+                   for q, z in enumerate(lists[rows[c][i]]) if z <= rows[c][-1]]
+    assert len(probes) == len(set(probes)) and set(probes) == set(want_probes)
+    sets = {x: set(lst) for x, lst in lists.items()}
+    want_hits = [(c, i, j) for c, i in want_items for j in range(i + 1, degs[c])
+                 if rows[c][j] in sets[rows[c][i]]]
+    assert len(hits) == len(set(hits)) and set(hits) == set(want_hits)
+    assert w < 8 or want_hits  # the wide cases find triangles
 
 
 # ---------------- LCC end to end ----------------

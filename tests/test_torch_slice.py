@@ -177,7 +177,7 @@ def test_port_imports_no_jax_graphtpu_or_pandas():
         "for m in mods: importlib.import_module(m)\n"
         "bad = [k for k in sys.modules if k.startswith(('jax', 'graphtpu.', 'pandas')) or k == 'graphtpu']\n"
         "assert len(mods) >= 28, mods\n"
-        "for m in ('algorithms.lcc', 'ops.edgehash', 'ops.triangles'):\n"
+        "for m in ('algorithms.lcc', 'ops.edgehash', 'ops.triangles', 'ingest.grb'):\n"
         "    assert 'graphtpu_torch.' + m in mods, m\n"
         "assert not bad, bad\n"
     )
