@@ -12,12 +12,23 @@ Run from the root of a checkout:  python3 chip_smoke.py
    example-undirected, BFS, WCC and SSSP on test-{bfs,wcc,sssp}-
    {directed,undirected}, LCC under auto and sweep on its four goldens, and
    SSSP under delta on its four.
+2b. The benchmark harness on cuda:0: BenchmarkSuite over example-directed
+   and example-undirected x six algorithms, once with each job in a child
+   process (job-isolation=subprocess) and once in process; all 12 of each
+   must validate, and each job's makespan prints beside its processing
+   time. A job under fault-injection=hang:bfs must be recorded as a timeout
+   and killed within its 30 s timeout + 10 s, and the job after it must
+   validate. The CLI: `devices` must name the card, `benchmark --config`
+   on a copy of config-template/benchmark.properties (PageRank under
+   pr-impl=scan on example-directed) must exit 0, and `run --profile-dir`
+   must write a trace that holds K7 records.
 3. Real size: the benchmark graph (RMAT scale 20, edge factor 32,
    undirected, seed 42) and the SSSP benchmark graph (RMAT scale 20, edge
    factor 16, weighted, undirected, seed 42), both cached under
    intermediate/. Each path runs through run_algorithm on the kernels, then
    as plain PyTorch on the card: CDLP under auto and slab (itermax 10),
-   PageRank (20 iterations, d = 0.85), BFS from vertex 0 under auto and
+   PageRank (20 iterations, d = 0.85) under auto (the slab arm, K3) and
+   scan (the segment-sum arm, K7 in mode sum), BFS from vertex 0 under auto and
    device, WCC under auto, adaptive and device, SSSP from vertex 0 under
    auto, device and delta. LCC runs under auto on the benchmark graph: the
    wedge plan's prep is timed cold and from the oriented cache, its counts
@@ -25,14 +36,16 @@ Run from the root of a checkout:  python3 chip_smoke.py
    bucket (phase 5), whose numerators must equal the kernel path's; on two
    RMAT scale-14 graphs (directed, undirected) oriented must equal sweep.
    Kernel and plain results must be identical (PageRank
-   within 1e-4 relative), every impl of an algorithm must give the same
-   result, and iteration and phase counts must agree between kernel and
+   within 1e-4 relative, and scan within 1e-4 of auto), every impl of an
+   algorithm must give the same result, and iteration and phase counts must agree between kernel and
    plain runs; the phase counts print beside the JAX package's for the same
    graphs. Results are also checked edge by edge: BFS levels, WCC labels
    and SSSP distances are fixed points of their relaxations. Each
    kernel-path run is profiled (top device ops, idle share, named ranges).
 4. Launch counts: each path runs with the counts set to 0 just before it
-   and read just after; every kernel of a path must have launched in it.
+   and read just after; every kernel of a path must have launched in it,
+   and PageRank under scan must launch K7 in mode sum 20 times a run and
+   nothing else.
    vreg_shuffle has no path in the system, and no LCC path launches
    edgehash_probe (K10 closes wedges by a search of the plan's closing CSR;
    only K10's plain version probes the hash): each has its own phase, and
@@ -49,7 +62,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
    function (index_select, a CSR product, gather), that call's time. The
    library calls are yardsticks: the port never calls them. K7 is held and
    timed on the full pull CSRs (max_i32, min_plus float32) and on the WCC
-   slab plan's heavy rows, K5 at the CDLP tier and at BFS's top tier with a
+   slab plan's heavy rows, and in mode sum (its own row in the JSON line) on
+   the benchmark graph's pull CSR in float32 and float64 (within 1e-5 and
+   1e-12 relative of the plain version's float64 row sums; a hub of 10^6
+   edges over many blocks, runs of empty rows and an edgeless CSR by hand),
+   against one CSR product (cuSPARSE); K5 at the CDLP tier and at BFS's top tier with a
    frontier that fills it; both run twice on the same inputs and must give
    the same bits. K9 runs at 2^22 probes drawn from the benchmark graph's
    wedge plan (half present pairs, half random ones), K10 per bucket and
@@ -67,8 +84,10 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -96,7 +115,7 @@ TRACE_KERNELS = {
     ("slab_spmv_kernel",): ("slab_spmv_sum", "slab_spmv_min"),
     ("vreg_shuffle_kernel",): ("vreg_shuffle",),
     ("frontier_expand_kernel",): ("frontier_expand",),
-    ("k7_reduce",): ("csr_pull_reduce",),
+    ("k7_reduce",): ("csr_pull_reduce", "csr_pull_reduce_sum"),
     ("push_relax_min_kernel",): ("push_relax_min",),
     ("edgehash_probe_kernel",): ("edgehash_probe",),
     ("wedge_rowblock_kernel",): ("wedge_rowblock",),
@@ -104,6 +123,9 @@ TRACE_KERNELS = {
 TRACE_TRIES = 5  # traces taken before a kernel count that stays wrong fails the run
 PR_RTOL = 1e-4        # the validator's EPSILON (graphtpu/harness/validator.py:40)
 F32_SUM_RTOL = 1e-5   # float32 sums in another order than torch's
+F64_SUM_RTOL = 1e-12  # float64 sums in another order
+ALGOS = ["bfs", "pr", "wcc", "cdlp", "lcc", "sssp"]
+HANG_TIMEOUT_S = 30   # the hung job's timeout; it must be killed within 10 s of it
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 F32_OPS_PER_S = 67e12      # H100 SXM, published, outside the tensor cores
 
@@ -305,6 +327,110 @@ def phase_goldens(device):
         check(ok, f"golden {what} failed: {msg}")
 
 
+def _cli(*argv, cwd=None, timeout=600):
+    """``python -m graphtpu_torch.cli`` in a child process, the checkout's
+    package first on its path."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    return subprocess.run([sys.executable, "-m", "graphtpu_torch.cli", *argv], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def _suite(device, tmp, label, algorithms, job_isolation, timeout_seconds=300,
+           graphs=("example-directed", "example-undirected"), **platform_keys):
+    """(records, wall seconds) of a BenchmarkSuite on ``device``, its
+    reports under ``tmp/label``."""
+    from graphtpu_torch.harness.suite import BenchmarkSuite
+    from graphtpu_torch.utils.config import BenchmarkConfig, PlatformConfig
+
+    cfg = BenchmarkConfig(graphs=list(graphs), algorithms=algorithms,
+                          timeout_seconds=timeout_seconds, job_isolation=job_isolation,
+                          graphs_root=str(FIXTURES), output_dir=str(tmp / label / "out"),
+                          report_dir=str(tmp / label / "report"))
+    t0 = time.perf_counter()
+    records = BenchmarkSuite(cfg, PlatformConfig(
+        device=str(device), intermediate_dir=str(INTERMEDIATE), **platform_keys)).run()
+    wall = time.perf_counter() - t0
+    for r in records:
+        print(f"suite {label} {r.graph}/{r.algorithm}: success {r.success}, validated "
+              f"{r.validated}, processing {r.processing_time_seconds} s, makespan "
+              f"{r.makespan_seconds} s{', ' + r.error if r.error else ''}", flush=True)
+    return records, wall
+
+
+def phase_harness(device):
+    """The benchmark harness on the card: the suite in both job-isolation
+    modes, a hung job killed at its timeout, and the CLI's devices,
+    benchmark and run --profile-dir."""
+    import torch
+
+    from graphtpu_torch.utils.config import GraphSpec
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp_name:
+        tmp = Path(tmp_name)
+        for mode in ("subprocess", "inprocess"):
+            records, wall = _suite(device, tmp, mode, ALGOS, mode)
+            good = [r for r in records if r.success and r.validated is True]
+            spans = sorted(r.makespan_seconds for r in records)
+            summary = json.loads((tmp / mode / "report" / "summary.json").read_text())
+            print(f"suite {mode}: {len(good)}/{len(records)} jobs validate in {wall:.3f} s; "
+                  f"makespan per job min {spans[0]} median {spans[len(spans) // 2]} max "
+                  f"{spans[-1]} s; processing per job summed "
+                  f"{sum(r.processing_time_seconds for r in records):.3f} s", flush=True)
+            check(len(records) == 12 and len(good) == 12, f"suite {mode}: {len(good)}/12 validate")
+            check(summary["platform"] == "graphtpu_torch" and summary["succeeded"] == 12,
+                  f"suite {mode}: summary {summary}")
+
+        records, _ = _suite(device, tmp, "hang", ["bfs", "pr"], "subprocess", HANG_TIMEOUT_S,
+                            graphs=["example-directed"], fault_injection="hang:bfs")
+        hung, after = records
+        check(not hung.success and "timeout" in hung.error, f"the hung job: {hung}")
+        check(hung.makespan_seconds <= HANG_TIMEOUT_S + 10,
+              f"the hung job was killed after {hung.makespan_seconds} s")
+        check(after.success and after.validated is True, f"the job after the hung one: {after}")
+        print(f"hung job: killed after {hung.makespan_seconds} s (timeout {HANG_TIMEOUT_S} s); "
+              f"the next job on the card validates", flush=True)
+
+        r = _cli("devices", timeout=120)
+        check(r.returncode == 0, f"cli devices: {r.stderr[-2000:]}")
+        info = json.loads(r.stdout.strip().splitlines()[-1])
+        check(info["backend"] == "cuda" and torch.cuda.get_device_name(0) in info["devices"],
+              f"cli devices: {info}")
+        print(f"cli devices: {info}", flush=True)
+        props = tmp / "platform.properties"
+        props.write_text("platform.graphtpu.pr-impl = scan\n")
+        conf = tmp / "benchmark.properties"
+        conf.write_text((ROOT / "config-template" / "benchmark.properties").read_text().replace(
+            "graphs.root-directory = ../tests/fixtures/graphs",
+            f"graphs.root-directory = {FIXTURES}"))
+        t0 = time.perf_counter()
+        # one subprocess job: a job's child process takes 9-13 s to start (PERF.md §5)
+        r = _cli("benchmark", "--config", str(conf), "--graphs", "example-directed",
+                 "--algorithms", "pr", "--device", str(device), "--intermediate-dir",
+                 str(INTERMEDIATE), "--platform-properties", str(props), cwd=tmp)
+        check(r.returncode == 0, f"cli benchmark exited {r.returncode}: {r.stdout[-2000:]}")
+        print(f"cli benchmark (PageRank under pr-impl=scan on example-directed, a subprocess "
+              f"job): exit 0 in {time.perf_counter() - t0:.3f} s: "
+              f"{r.stdout.strip().splitlines()[-1]}", flush=True)
+
+        spec_path = FIXTURES / "example-directed.properties"
+        r = _cli("run", "--graph-properties", str(spec_path), "--algorithm", "pr",
+                 "--device", str(device), "--intermediate-dir", str(INTERMEDIATE),
+                 "--platform-properties", str(props), "--profile-dir", str(tmp / "prof"),
+                 "--validation-file", str(FIXTURES / "example-directed-PR"))
+        check(r.returncode == 0 and "validation: PASS" in r.stdout,
+              f"cli run --profile-dir: {r.stdout[-2000:]}")
+        traces = list((tmp / "prof").glob("example-directed-pr-*.json"))
+        check(len(traces) == 1, f"cli run --profile-dir wrote {len(traces)} traces")
+        events = json.loads(traces[0].read_text())["traceEvents"]
+        k7 = sum(1 for e in events if e.get("cat") == "kernel" and "k7_reduce" in e.get("name", ""))
+        iters = GraphSpec.from_properties(spec_path).params["pr"].num_iterations
+        check(k7 > 0, "the --profile-dir trace holds no K7 record")
+        print(f"cli run --profile-dir: {traces[0].name}, {len(events)} events, {k7} K7 kernel "
+              f"records for {iters} iterations", flush=True)
+
+
 def load_graph(name, scale, edge_factor, weighted):
     """An undirected RMAT graph (seed 42) from intermediate/, generated and
     cached on the first call."""
@@ -345,6 +471,7 @@ PATHS = {
                   ("gather_rows", "slab_minmode", "frontier_expand")),
     "cdlp-slab": ("cdlp", {"cdlp_impl": "slab"}, ("gather_rows", "slab_minmode")),
     "pr": ("pr", {}, ("gather_rows", "slab_spmv_sum")),
+    "pr-scan": ("pr", {"pr_impl": "scan"}, ("csr_pull_reduce_sum",)),
     "bfs-auto": ("bfs", {"bfs_impl": "auto"}, ("gather_rows", "frontier_expand")),
     "bfs-device": ("bfs", {"bfs_impl": "device"}, ("csr_pull_reduce",)),
     "wcc-auto": ("wcc", {"wcc_impl": "auto"}, ("slab_spmv_min", "frontier_expand")),
@@ -613,9 +740,18 @@ def phase_real_size(device):
     check(abs(mass - 1.0) < 1e-3, f"pr rank mass {mass} is not 1")
     rel = float(np.max(np.abs(kpr.values.astype(np.float64) - ppr.values) / np.abs(ppr.values)))
     check(rel <= PR_RTOL, f"pr kernel vs plain max relative error {rel} > {PR_RTOL}")
+    kscan, pscan = out["kernel", "pr-scan"], out["plain", "pr-scan"]
+    check(kscan.values.shape == (g.n,) and bool(np.isfinite(kscan.values).all()), "pr-scan output")
+    rel_scan = float(np.max(np.abs(kscan.values.astype(np.float64) - pscan.values)
+                            / np.abs(pscan.values)))
+    check(rel_scan <= PR_RTOL, f"pr-scan kernel vs plain max relative error {rel_scan} > {PR_RTOL}")
+    rel_arms = float(np.max(np.abs(kscan.values.astype(np.float64) - kpr.values)
+                            / np.abs(kpr.values)))
+    check(rel_arms <= PR_RTOL, f"pr-scan vs pr (slab) max relative error {rel_arms} > {PR_RTOL}")
     print(f"real size: cdlp labels identical, adaptive vs slab vs plain ({auto.iterations} "
           f"iterations, {len(np.unique(auto.values))} communities); pr max relative error "
-          f"{rel:.3e}, rank mass {mass:.9f}", flush=True)
+          f"{rel:.3e}, rank mass {mass:.9f}; pr-scan max relative error {rel_scan:.3e} vs its "
+          f"plain path, {rel_arms:.3e} vs the slab arm", flush=True)
     for algo in ("bfs", "wcc", "sssp"):
         names = [name for name, (a, _, _) in PATHS.items() if a == algo]
         first = out["kernel", names[0]].values
@@ -989,6 +1125,14 @@ def phase_traversal_kernels(g, gw, device):
         check(torch.equal(got, want), f"{what} differs")
         check(torch.equal(got, csr_pull_reduce(mode, x, csr.src, csr.indptr, w)),
               f"{what}: two runs differ")
+    def k7_agrees(mode, got, want):
+        """Bit for bit, but for sums: within F32_SUM_RTOL or F64_SUM_RTOL of
+        the plain version's float64 row sums."""
+        if mode != "sum":
+            return torch.equal(got, want)
+        rtol = F32_SUM_RTOL if got.dtype == torch.float32 else F64_SUM_RTOL
+        return bool(((got.double() - want.double()).abs() <= rtol * want.double().abs()).all())
+
     # by hand, per value size (a block takes CSR_ITEMS items of the merged
     # list of row ends and edges): rows ending exactly on a block's border,
     # runs of empty rows longer than a block, one row of 10^6 edges, hub rows
@@ -997,7 +1141,8 @@ def phase_traversal_kernels(g, gw, device):
     for mode, dtype, with_x in (("max_i32", torch.int32, True), ("min_i32", torch.int32, True),
                                 ("min_i32", torch.int32, False),
                                 ("min_plus", torch.float32, True),
-                                ("min_plus", torch.float64, True)):
+                                ("min_plus", torch.float64, True),
+                                ("sum", torch.float32, True), ("sum", torch.float64, True)):
         ipb = CSR_ITEMS[torch.empty(0, dtype=dtype).element_size()]
         runs = [ipb + 3, 1, 1, 2 * ipb - 5, 1]  # empty rows around rows of 7, 3 ipb, 1 edges
         shapes = {
@@ -1019,12 +1164,14 @@ def phase_traversal_kernels(g, gw, device):
                 x_h = torch.rand(n, generator=hand_gen, device=device, dtype=dtype) * 9
                 x_h[torch.rand(n, generator=hand_gen, device=device) < 0.3] = float("inf")
                 w_h = torch.rand(m_h, generator=hand_gen, device=device, dtype=dtype) + 0.01
+            elif mode == "sum":
+                x_h = torch.rand(n, generator=hand_gen, device=device, dtype=dtype)
             elif with_x:  # negative under max: the identity 0 is for empty rows only
                 x_h = torch.randint(-1000, -1, (n,), generator=hand_gen, device=device,
                                     dtype=torch.int32)
             got = csr_pull_reduce(mode, x_h, src_h, ip, w_h)
             what = f"csr_pull_reduce hand case {name} {mode} {dtype} x={'yes' if with_x else 'no'}"
-            check(torch.equal(got, csr_pull_reduce_plain(mode, x_h, src_h, ip, w_h)),
+            check(k7_agrees(mode, got, csr_pull_reduce_plain(mode, x_h, src_h, ip, w_h)),
                   f"{what} differs")
             check(torch.equal(got, csr_pull_reduce(mode, x_h, src_h, ip, w_h)),
                   f"{what}: two runs differ")
@@ -1059,6 +1206,42 @@ def phase_traversal_kernels(g, gw, device):
                  times=k7_times(cases[5]), bytes=4 * (rows_h + 1) + 4 * m7h + 4 * n + 4 * rows_h,
                  ops=m7h),
         ],
+    )
+
+    # K7 in mode sum: PageRank's scan arm over the benchmark graph's pull CSR
+    # (x like its contributions r / outdeg), float32 and float64, twice for
+    # the same bits, against the plain version and one CSR product
+    x32 = torch.rand(n, generator=hand_gen, device=device) / n
+    sum_err = 0.0
+    for xd, rtol in ((x32, F32_SUM_RTOL), (x32.double(), F64_SUM_RTOL)):
+        got = csr_pull_reduce("sum", xd, pull.src, pull.indptr)
+        want = csr_pull_reduce_plain("sum", xd, pull.src, pull.indptr)
+        err = (got.double() - want.double()).abs()
+        check(bool((err <= rtol * want.double().abs()).all()),
+              f"csr_pull_reduce sum {xd.dtype} on the benchmark graph differs beyond {rtol}")
+        check(torch.equal(got, csr_pull_reduce("sum", xd, pull.src, pull.indptr)),
+              f"csr_pull_reduce sum {xd.dtype}: two runs differ")
+        if xd.dtype == torch.float32:
+            sum_err = float(err.max())
+    ones = torch.sparse_csr_tensor(pull.indptr, pull.src, torch.ones(m7b, device=device),
+                                   size=(n, n))
+    y_lib = torch.mv(ones, x32)  # cuSPARSE's SpMV
+    check(torch.allclose(y_lib, csr_pull_reduce("sum", x32, pull.src, pull.indptr),
+                         rtol=F32_SUM_RTOL, atol=0), "the CSR product differs from K7 sum")
+    res["csr_pull_reduce_sum"] = dict(
+        max_abs_err=sum_err,
+        times=(cuda_ms(lambda: csr_pull_reduce("sum", x32, pull.src, pull.indptr)),
+               cuda_ms(lambda: csr_pull_reduce_plain("sum", x32, pull.src, pull.indptr))),
+        shape=f"sum float32 over the benchmark graph's {m7b} in-edges (one PageRank scan pull)",
+        # indptr, src, x, y; an add per edge
+        bytes=4 * (n + 1) + 4 * m7b + 8 * n, ops=m7b,
+        library=("torch.mv of a sparse CSR matrix of ones", lambda: torch.mv(ones, x32)),
+        other_shapes=[dict(
+            shape=f"sum float64 over the same {m7b} in-edges",
+            times=(cuda_ms(lambda: csr_pull_reduce("sum", x32.double(), pull.src, pull.indptr)),
+                   cuda_ms(lambda: csr_pull_reduce_plain("sum", x32.double(), pull.src,
+                                                         pull.indptr))),
+            bytes=4 * (n + 1) + 4 * m7b + 16 * n, ops=m7b)],
     )
 
     # K8: the first tier step of SSSP from vertex 0, in float32 and float64
@@ -1264,6 +1447,8 @@ SOURCES = {
     "frontier_expand": ("graphtpu_torch/csrc/frontier_expand.cu", "graphtpu/ops/frontier.py:103"),
     "slab_spmv_min": ("graphtpu_torch/csrc/slab_spmv.cu", "graphtpu/ops/spmv.py:82"),
     "csr_pull_reduce": ("graphtpu_torch/csrc/csr_pull_reduce.cu", "graphtpu/algorithms/sssp.py:72"),
+    "csr_pull_reduce_sum": ("graphtpu_torch/csrc/csr_pull_reduce.cu",
+                            "graphtpu/algorithms/pr.py:71"),
     "push_relax_min": ("graphtpu_torch/csrc/push_relax.cu", "graphtpu/algorithms/sssp.py:140"),
     "edgehash_probe": ("graphtpu_torch/csrc/edgehash_probe.cu", "graphtpu/ops/edgehash.py:159"),
     "wedge_rowblock": ("graphtpu_torch/csrc/wedge_rowblock.cu", "graphtpu/ops/triangles.py:555"),
@@ -1292,6 +1477,9 @@ def main() -> int:
     print(f"kernels: {lib.name} {built} ({time.perf_counter() - t0:.3f}s to load)", flush=True)
 
     phase_goldens(device)
+    t0 = time.perf_counter()
+    phase_harness(device)
+    print(f"harness phase: {time.perf_counter() - t0:.3f} s", flush=True)
     g, gw, prep, pr_plan, (wplan, real_wedges, lcc_values), path_launches = \
         phase_real_size(device)
     for path, (_, _, needed) in PATHS.items():
@@ -1301,11 +1489,15 @@ def main() -> int:
         for name in needed:
             check(path_launches[path][name] > 0,
                   f"kernel {name} was not launched on the {path} path")
+    scan = {k: v for k, v in path_launches["pr-scan"].items() if v}
+    check(scan == {"csr_pull_reduce_sum": RUNS_PER_PATH * PR_ITERS},
+          f"pr-scan launched {scan} in {RUNS_PER_PATH} runs, expected K7 sum {PR_ITERS} a run "
+          f"and nothing else")
     k10 = path_launches["lcc"]["wedge_rowblock"]
     check(k10 == RUNS_PER_PATH * len(wplan.buckets),
           f"wedge_rowblock launched {k10} times in {RUNS_PER_PATH} lcc runs, expected one per "
           f"bucket ({len(wplan.buckets)})")
-    launches = {name: sum(c[name] for c in path_launches.values()) for name in kernels.KERNELS}
+    launches = {name: sum(c[name] for c in path_launches.values()) for name in kernels.COUNTERS}
     launches["vreg_shuffle"] = phase_vreg_shuffle(device)
     print(f"peak device memory allocated {torch.cuda.max_memory_allocated(device) / 2**30:.3f} "
           f"GiB", flush=True)
@@ -1356,7 +1548,7 @@ def main() -> int:
          "library_ms": res[name]["library_ms"],
          "other_shapes": res[name].get("other_shapes", []),
          **{k: res[name][k] for k in ("buckets", "traffic_ms") if k in res[name]}}
-        for name in kernels.KERNELS
+        for name in kernels.COUNTERS
     ], "empty_kernel_ms": empty_ms}
     print(smi)
     print(json.dumps(report))

@@ -48,10 +48,13 @@ def build_incidence(graph: Graph):
     return out
 
 
-def _cdlp_sort_kernel(centers, neigh, deg, n, itermax):
+def _cdlp_sort_kernel(centers, neigh, deg, n, itermax, skip_checks=0):
     """The oracle: per iteration, sort (center, label) pairs, take run
     lengths, then per center the max count and the smallest label with
-    it. Torch ops only, independent of the slab path and its kernels."""
+    it. Torch ops only, independent of the slab path and its kernels.
+    The first ``skip_checks`` iterations count as not converged, without
+    the equality test and its blocking host read (the reference's
+    optimized_skip_checkequal, cdlp_kernel.cu:1254-1271)."""
     device = centers.device
     labels = torch.arange(n, dtype=torch.int32, device=device)
     has_neighbors = deg > 0
@@ -79,7 +82,7 @@ def _cdlp_sort_kernel(centers, neigh, deg, n, itermax):
             0, c_s, torch.where(counts == max_count[c_s], l_s, INT32_INF), "amin"
         )
         new = torch.where(has_neighbors, best.to(torch.int32), labels)
-        changed = bool((new != labels).any())
+        changed = it < skip_checks or bool((new != labels).any())
         labels, it = new, it + 1
     return labels, it
 
@@ -124,7 +127,7 @@ def cdlp(graph: Graph, params: AlgorithmParams, cfg: PlatformConfig) -> Algorith
         device = torch.device(cfg.device)
         labels, it = _cdlp_sort_kernel(
             *(torch.from_numpy(a).to(device) for a in (centers, neigh, deg)),
-            graph.n, itermax,
+            graph.n, itermax, int(cfg.skip_convergence_checks),
         )
     communities = graph.mapping[labels.cpu().numpy()]
     return AlgorithmResult("cdlp", communities, iterations=int(it))

@@ -11,6 +11,7 @@ floats — bfs.cpp:47-64, sssp.cpp:37-47, pr.cpp:27-44), with numpy only.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -94,6 +95,11 @@ def run_algorithm(
         raise ValueError(f"unknown algorithm {name!r}; graphtpu_torch has {sorted(ALGORITHMS)}")
     params = params or AlgorithmParams()
     cfg = cfg or PlatformConfig()
+    if cfg.fault_injection == f"hang:{name}":
+        # platform.graphtpu.fault-injection: a job that never returns, as a
+        # wedged kernel would, so that the timeout and kill paths run
+        while True:
+            time.sleep(3600)
     with ComputationTimer(f"Processing ({name})"):
         return ALGORITHMS[name](graph, params, cfg)
 

@@ -6,8 +6,11 @@ Semantics of LAGr_PageRankGX as the reference calls it (pr.cpp:58-63):
     r_{t+1}(v) = (1-d)/n + d * ( sum_{u->v} r_t(u)/outdeg(u)
                                  + sum_{outdeg(u)=0} r_t(u)/n )
 
-for a fixed iteration count. Each iteration is one plus.second slab SpMV
-(kernel K3 per bucket, ops/spmv.py) and one sum for the dangling mass.
+for a fixed iteration count. Each iteration is one pull sum and one sum
+for the dangling mass. ``pr-impl`` picks the pull: "auto"/"slab" a
+plus.second slab SpMV (kernel K3 over the buckets, ops/spmv.py), "scan" a
+segment sum over the pull CSR (kernel K7 in mode sum); spmv-impl=slab takes
+the slab arm whatever pr-impl says, as in the JAX package (pr.py:105).
 """
 
 from __future__ import annotations
@@ -19,26 +22,49 @@ from graphtpu_torch.algorithms.common import AlgorithmResult, float_dtype, regis
 from graphtpu_torch.core.graph import Graph
 from graphtpu_torch.core.semiring import PLUS_SECOND
 from graphtpu_torch.ops.slab import SlabPlan
-from graphtpu_torch.ops.spmv import build_pull_plan, slab_spmv
+from graphtpu_torch.ops.spmv import (
+    PullCSR, build_pull_plan, csr_pull_reduce, pull_csr, slab_spmv,
+)
 from graphtpu_torch.utils.config import AlgorithmParams, PlatformConfig
 
+IMPLS = ("auto", "slab", "scan")
+SPMV_IMPLS = ("scan", "xla", "slab")
 
-def _pr_slab_kernel(plan: SlabPlan, out_deg: torch.Tensor, damping: torch.Tensor,
-                    n: int, num_iterations: int) -> torch.Tensor:
-    """Ranks after ``num_iterations`` steps; the dtype is damping's."""
+
+def _pr_loop(pull, out_deg: torch.Tensor, damping: torch.Tensor, n: int,
+             num_iterations: int, r: torch.Tensor | None = None) -> torch.Tensor:
+    """Ranks after ``num_iterations`` steps of r <- teleport + d * (pull(r /
+    outdeg) + dangling mass / n) from ``r`` (default the uniform 1/n); the
+    dtype is damping's."""
     dtype = damping.dtype
     inv_n = torch.tensor(1.0 / n, dtype=dtype, device=out_deg.device)
     teleport = (1.0 - damping) * inv_n
     is_dangling = out_deg == 0
     safe_deg = torch.where(is_dangling, 1, out_deg).to(dtype)
     inv_deg = torch.where(is_dangling, 0.0, 1.0 / safe_deg)
-
-    r = torch.full((n,), 1.0 / n, dtype=dtype, device=out_deg.device)
+    if r is None:
+        r = torch.full((n,), 1.0 / n, dtype=dtype, device=out_deg.device)
     for _ in range(num_iterations):
-        pulled = slab_spmv(PLUS_SECOND, plan, r * inv_deg, n)
+        pulled = pull(r * inv_deg)
         dangling_mass = torch.where(is_dangling, r, 0.0).sum()
         r = teleport + damping * (pulled + dangling_mass * inv_n)
     return r
+
+
+def _pr_slab_kernel(plan: SlabPlan, out_deg: torch.Tensor, damping: torch.Tensor,
+                    n: int, num_iterations: int) -> torch.Tensor:
+    """The slab arm: each pull is one K3 launch over the plan's buckets."""
+    return _pr_loop(lambda x: slab_spmv(PLUS_SECOND, plan, x, n), out_deg, damping, n,
+                    num_iterations)
+
+
+def _pr_kernel(csr: PullCSR, out_deg: torch.Tensor, damping: torch.Tensor, n: int,
+               num_iterations: int, r: torch.Tensor | None = None) -> torch.Tensor:
+    """The segment-sum arm (graphtpu/algorithms/pr.py:_pr_kernel): each
+    pull is one K7 launch in mode sum over the pull CSR, the gather of
+    r / outdeg by source fused into the row sums."""
+    return _pr_loop(lambda x: csr_pull_reduce("sum", x, csr.src, csr.indptr), out_deg, damping,
+                    n, num_iterations, r)
 
 
 def _pull_plan_cached(graph: Graph, dtype: torch.dtype, device) -> SlabPlan:
@@ -57,19 +83,18 @@ def _pull_plan_cached(graph: Graph, dtype: torch.dtype, device) -> SlabPlan:
 def pr(graph: Graph, params: AlgorithmParams, cfg: PlatformConfig) -> AlgorithmResult:
     if params.damping_factor is None or params.num_iterations is None:
         raise ValueError("pr requires damping-factor and num-iterations")
-    if cfg.pr_impl == "scan":
-        raise NotImplementedError(
-            "pr-impl=scan (graphtpu/algorithms/pr.py:_pr_kernel) is not ported yet "
-            "(ROADMAP Queue 1); use auto or slab"
-        )
-    if cfg.pr_impl not in ("auto", "slab"):
-        raise ValueError(f"unknown pr-impl {cfg.pr_impl!r}; expected auto|slab|scan")
+    if cfg.pr_impl not in IMPLS:
+        raise ValueError(f"unknown pr-impl {cfg.pr_impl!r}; expected {'|'.join(IMPLS)}")
+    if cfg.spmv_impl not in SPMV_IMPLS:
+        raise ValueError(f"unknown spmv-impl {cfg.spmv_impl!r}; expected {'|'.join(SPMV_IMPLS)}")
     dtype = float_dtype(cfg)
     device = torch.device(cfg.device)
-    plan = _pull_plan_cached(graph, dtype, device)
     out_deg = torch.from_numpy(graph.out_degree.astype(np.int32)).to(device)
-    ranks = _pr_slab_kernel(
-        plan, out_deg, torch.tensor(params.damping_factor, dtype=dtype, device=device),
-        graph.n, int(params.num_iterations),
-    )
+    damping = torch.tensor(params.damping_factor, dtype=dtype, device=device)
+    if cfg.pr_impl in ("auto", "slab") or cfg.spmv_impl == "slab":
+        plan = _pull_plan_cached(graph, dtype, device)
+        ranks = _pr_slab_kernel(plan, out_deg, damping, graph.n, int(params.num_iterations))
+    else:
+        ranks = _pr_kernel(pull_csr(graph, device), out_deg, damping, graph.n,
+                           int(params.num_iterations))
     return AlgorithmResult("pr", ranks.cpu().numpy(), iterations=params.num_iterations)

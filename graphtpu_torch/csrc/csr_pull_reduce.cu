@@ -4,6 +4,8 @@
 //   mode 1 (min_i32):  x[src[e]]            identity INT32_INF  (WCC labels)
 //   mode 2 (min_plus): x[src[e]] + w[e]     identity +inf, float32 (SSSP)
 //   mode 3 (min_plus): x[src[e]] + w[e]     identity +inf, float64 (SSSP)
+//   mode 4 (sum):      x[src[e]]            identity 0, float32 (PageRank)
+//   mode 5 (sum):      x[src[e]]            identity 0, float64 (PageRank)
 // The identity is the value of a row without in-edges only: a max over
 // negative values stays negative, as in the JAX reduction. In the int32 modes
 // a null x reads the stored id src[e] itself (WCC's gather-free iteration 0,
@@ -13,8 +15,12 @@
 // table_gather(x, edges_src) (+ w) followed by pull_reduce(max/min) in
 // graphtpu/algorithms/bfs.py:54-56, :75-77, wcc.py:47-49, :210-213,
 // :220-222 and sssp.py:52-55, :72-75 (an XLA gather, then a packed-key
-// cummax over every edge). The plain version is the port's K1 gather, then a
-// scatter_reduce that widens all m segment ids to int64 on every call.
+// cummax over every edge), and PageRank's segment-sum pull,
+// pull_reduce("sum", table_gather(contrib, edges_src), ...) in
+// graphtpu/algorithms/pr.py:71-73 (a gather, then a float64 prefix sum
+// differenced at the row ends). The plain version is the port's K1 gather,
+// then a scatter_reduce (an index_add_ in float64 for sum) that widens all m
+// segment ids to int64 on every call.
 //
 // Bound on the card: bytes, and of those the gather. The src read (4 B per
 // edge) and the w read in min_plus (4 or 8 B per edge) are coalesced streams;
@@ -55,8 +61,12 @@
 // addition as the plain version's, so the result is bit-identical to it; no
 // atomics, so two runs give the same bits even for -0.0 against +0.0 (which
 // of the two a row keeps, and where a NaN survives, follows the fixed order
-// of the walk, not the plain version's). IPT is odd, so that the threads'
-// walks through shared memory fall on distinct banks.
+// of the walk, not the plain version's). A sum adds in the walk's fixed
+// order (a thread's items, the scan over threads, a hub's carries block by
+// block), so two runs give the same bits too; it rounds in the value type
+// where the plain version sums in float64, so the two agree to the rounding
+// of the row's additions. IPT is odd, so that the threads' walks through
+// shared memory fall on distinct banks.
 #include "common.cuh"
 
 #include <limits>
@@ -74,9 +84,12 @@ struct K7Items {
   static constexpr int value = sizeof(T) == 8 ? 5 : 9;
 };
 
-template <typename T, bool IS_MAX>
-__device__ __forceinline__ T pick(T a, T b) {
-  return IS_MAX ? (b > a ? b : a) : (b < a ? b : a);
+// the reduction of a mode
+enum K7Op { K7_MIN = 0, K7_MAX = 1, K7_SUM = 2 };
+
+template <typename T, int OP>
+__device__ __forceinline__ T fold(T a, T b) {
+  return OP == K7_SUM ? a + b : OP == K7_MAX ? (b > a ? b : a) : (b < a ? b : a);
 }
 
 // start_row[b] = row ends that precede diagonal b * ipb of the merged list:
@@ -97,7 +110,7 @@ __global__ void k7_partition(const int* __restrict__ indptr, long long n,
   start_row[b] = (int)lo;
 }
 
-template <typename T, bool IS_MAX, bool PLUS, int IPT>
+template <typename T, int OP, bool PLUS, int IPT>
 __global__ void __launch_bounds__(K7_THREADS)
 k7_reduce(const int* __restrict__ indptr, const int* __restrict__ src,
           const T* __restrict__ x, const T* __restrict__ w,
@@ -172,7 +185,7 @@ k7_reduce(const int* __restrict__ indptr, const int* __restrict__ src,
   if (left == IPT && j0 + ey <= row_end - IPT) {
     // the common case: IPT edges of one row, no row end among them
 #pragma unroll
-    for (int i = 0; i < IPT; ++i) acc = pick<T, IS_MAX>(acc, s_val[ey + i]);
+    for (int i = 0; i < IPT; ++i) acc = fold<T, OP>(acc, s_val[ey + i]);
   } else {
 #pragma unroll
     for (int i = 0; i < IPT; ++i) {
@@ -182,7 +195,7 @@ k7_reduce(const int* __restrict__ indptr, const int* __restrict__ src,
           first_row = rx;
           first_val = acc;
         } else {
-          y[i0 + rx] = (IS_MAX && s_ind[rx] == s_ind[rx + 1]) ? identity : acc;
+          y[i0 + rx] = (OP == K7_MAX && s_ind[rx] == s_ind[rx + 1]) ? identity : acc;
         }
         acc = neutral;
         ++rx;
@@ -190,7 +203,7 @@ k7_reduce(const int* __restrict__ indptr, const int* __restrict__ src,
         --left;
       }
       if (left > 0) {
-        acc = pick<T, IS_MAX>(acc, s_val[ey + i]);
+        acc = fold<T, OP>(acc, s_val[ey + i]);
         --left;
       }
     }
@@ -205,7 +218,7 @@ k7_reduce(const int* __restrict__ indptr, const int* __restrict__ src,
   for (int off = 1; off < 32; off <<= 1) {
     const int k2 = __shfl_up_sync(full, key, off);
     const T v2 = __shfl_up_sync(full, val, off);
-    if (lane >= off && k2 == key) val = pick<T, IS_MAX>(v2, val);
+    if (lane >= off && k2 == key) val = fold<T, OP>(v2, val);
   }
   if (lane == 31) {
     s_wk[warp] = key;
@@ -216,13 +229,13 @@ k7_reduce(const int* __restrict__ indptr, const int* __restrict__ src,
   T pv = neutral;
   for (int u = 0; u < warp; ++u) {
     if (s_wk[u] == pk) {
-      pv = pick<T, IS_MAX>(pv, s_wv[u]);
+      pv = fold<T, OP>(pv, s_wv[u]);
     } else {
       pk = s_wk[u];
       pv = s_wv[u];
     }
   }
-  if (pk == key) val = pick<T, IS_MAX>(pv, val);
+  if (pk == key) val = fold<T, OP>(pv, val);
   int in_key = __shfl_up_sync(full, key, 1);
   T in_val = __shfl_up_sync(full, val, 1);
   if (lane == 0) {
@@ -230,9 +243,9 @@ k7_reduce(const int* __restrict__ indptr, const int* __restrict__ src,
     in_val = pv;
   }
   if (first_row >= 0) {
-    if (in_key == first_row) first_val = pick<T, IS_MAX>(in_val, first_val);
+    if (in_key == first_row) first_val = fold<T, OP>(in_val, first_val);
     y[i0 + first_row] =
-        (IS_MAX && s_ind[first_row] == s_ind[first_row + 1]) ? identity : first_val;
+        (OP == K7_MAX && s_ind[first_row] == s_ind[first_row + 1]) ? identity : first_val;
   }
   if (tid == K7_THREADS - 1) {
     carry_row[blockIdx.x] = i0 + key;  // n in the last block: no such row
@@ -242,7 +255,7 @@ k7_reduce(const int* __restrict__ indptr, const int* __restrict__ src,
 
 // A warp per block carry: the first carry of a row folds the run of carries
 // of that row into y, which the block the row ends in has written.
-template <typename T, bool IS_MAX>
+template <typename T, int OP>
 __global__ void k7_fixup(const int* __restrict__ carry_row,
                          const T* __restrict__ carry_val, T* __restrict__ y,
                          long long n, long long nb, T neutral) {
@@ -256,18 +269,18 @@ __global__ void k7_fixup(const int* __restrict__ carry_row,
   for (long long base = b;; base += 32) {
     const long long b2 = base + lane;
     const bool same = b2 < nb && carry_row[b2] == r;
-    if (same) v = pick<T, IS_MAX>(v, carry_val[b2]);
+    if (same) v = fold<T, OP>(v, carry_val[b2]);
     if (!__all_sync(full, same)) break;
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
-    v = pick<T, IS_MAX>(v, __shfl_xor_sync(full, v, off));
-  if (lane == 0) y[r] = pick<T, IS_MAX>(v, y[r]);
+    v = fold<T, OP>(v, __shfl_xor_sync(full, v, off));
+  if (lane == 0) y[r] = fold<T, OP>(v, y[r]);
 }
 
 // The scratch of one call: start_row [nb + 1], carry_row [nb], then, at the
 // next multiple of 8 bytes, carry_val [nb] (ops/spmv.py csr_scratch_layout).
-template <typename T, bool IS_MAX, bool PLUS>
+template <typename T, int OP, bool PLUS>
 static int launch(const int* indptr, const int* src, const void* x,
                   const void* w, void* y, long long n, long long m,
                   T identity, int items_per_block, void* scratch,
@@ -282,20 +295,21 @@ static int launch(const int* indptr, const int* src, const void* x,
   int* start_row = (int*)scratch;
   int* carry_row = start_row + nb + 1;
   T* carry_val = (T*)((char*)scratch + val_off);
-  // the min modes' identities (INT32_MAX, +inf) are their neutral values
-  const T neutral = IS_MAX ? std::numeric_limits<T>::lowest() : identity;
+  // the min and sum modes' identities (INT32_MAX, +inf, 0) are their
+  // neutral values
+  const T neutral = OP == K7_MAX ? std::numeric_limits<T>::lowest() : identity;
   // where x is gathered: few blocks an SM, and the L1 the gathers need
   const cudaError_t carved = cudaFuncSetAttribute(
-      k7_reduce<T, IS_MAX, PLUS, IPT>,
+      k7_reduce<T, OP, PLUS, IPT>,
       cudaFuncAttributePreferredSharedMemoryCarveout,
       x ? K7_GATHER_CARVEOUT : (int)cudaSharedmemCarveoutDefault);
   if (carved != cudaSuccess) return (int)carved;
   k7_partition<<<gt_blocks(nb + 1, 256), 256, 0, s>>>(indptr, n, m, IPB, nb,
                                                       start_row);
-  k7_reduce<T, IS_MAX, PLUS, IPT><<<(unsigned int)nb, K7_THREADS, 0, s>>>(
+  k7_reduce<T, OP, PLUS, IPT><<<(unsigned int)nb, K7_THREADS, 0, s>>>(
       indptr, src, (const T*)x, (const T*)w, (T*)y, n, m, start_row, carry_row,
       carry_val, neutral, identity);
-  k7_fixup<T, IS_MAX><<<gt_blocks(nb * 32, 256), 256, 0, s>>>(
+  k7_fixup<T, OP><<<gt_blocks(nb * 32, 256), 256, 0, s>>>(
       carry_row, carry_val, (T*)y, n, nb, neutral);
   return (int)cudaGetLastError();
 }
@@ -316,19 +330,28 @@ GT_EXPORT int gt_csr_pull_reduce(const int* indptr, const int* src,
   const double dinf = std::numeric_limits<double>::infinity();
   switch (mode) {
     case 0:
-      return launch<int, true, false>(indptr, src, x, w, y, n, m, 0, ipb,
-                                      scratch, scratch_bytes, s);
+      return launch<int, K7_MAX, false>(indptr, src, x, w, y, n, m, 0, ipb,
+                                        scratch, scratch_bytes, s);
     case 1:
-      return launch<int, false, false>(indptr, src, x, w, y, n, m, GT_INT32_INF,
-                                       ipb, scratch, scratch_bytes, s);
+      return launch<int, K7_MIN, false>(indptr, src, x, w, y, n, m,
+                                        GT_INT32_INF, ipb, scratch,
+                                        scratch_bytes, s);
     case 2:
       if (!x || (!w && m > 0)) return (int)cudaErrorInvalidValue;
-      return launch<float, false, true>(indptr, src, x, w, y, n, m, finf, ipb,
-                                        scratch, scratch_bytes, s);
+      return launch<float, K7_MIN, true>(indptr, src, x, w, y, n, m, finf, ipb,
+                                         scratch, scratch_bytes, s);
     case 3:
       if (!x || (!w && m > 0)) return (int)cudaErrorInvalidValue;
-      return launch<double, false, true>(indptr, src, x, w, y, n, m, dinf, ipb,
-                                         scratch, scratch_bytes, s);
+      return launch<double, K7_MIN, true>(indptr, src, x, w, y, n, m, dinf,
+                                          ipb, scratch, scratch_bytes, s);
+    case 4:
+      if (!x) return (int)cudaErrorInvalidValue;
+      return launch<float, K7_SUM, false>(indptr, src, x, w, y, n, m, 0.0f,
+                                          ipb, scratch, scratch_bytes, s);
+    case 5:
+      if (!x) return (int)cudaErrorInvalidValue;
+      return launch<double, K7_SUM, false>(indptr, src, x, w, y, n, m, 0.0,
+                                           ipb, scratch, scratch_bytes, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -8,6 +8,8 @@ in-process analogue of the reference's Java ``Platform``
 from __future__ import annotations
 
 import dataclasses
+import os
+from pathlib import Path
 from typing import Dict, Optional
 
 import torch
@@ -15,6 +17,7 @@ import torch
 from graphtpu_torch.algorithms.common import AlgorithmResult, run_algorithm
 from graphtpu_torch.core.graph import Graph
 from graphtpu_torch.harness.collector import Collector
+from graphtpu_torch.ingest import cache as cache_mod
 from graphtpu_torch.ingest.loader import load_graph_from_spec
 from graphtpu_torch.utils.config import GraphSpec, PlatformConfig
 from graphtpu_torch.utils.logging import get_logger
@@ -44,15 +47,18 @@ class GraphTorchPlatform:
         self.graphs: Dict[str, Graph] = {}
         self.collector = Collector()
         self._prepared: set = set()
+        self._traces = 0  # processing windows traced under profile_dir
 
     def verify_setup(self) -> None:
         """Log the configured device; raise if it is a CUDA device that
-        this process cannot use."""
+        this process cannot use. A tensor is made on it, so a card that
+        refuses this process a context fails here, not inside a job."""
         device = torch.device(self.config.device)
         if device.type == "cuda":
             if not torch.cuda.is_available():
                 raise RuntimeError(f"device {device} configured, but CUDA is not available")
             idx = device.index if device.index is not None else torch.cuda.current_device()
+            torch.zeros(1, device=device)
             log.info(
                 "platform %s: device %s (%s), %d CUDA device(s)",
                 PLATFORM_NAME, device, torch.cuda.get_device_name(idx),
@@ -71,6 +77,7 @@ class GraphTorchPlatform:
         """Release the graph and its device state; cached files stay, like
         unload-graph.sh:32-38."""
         self.graphs.pop(graph_name, None)
+        cache_mod.unload(self.config.intermediate_dir, graph_name)
 
     def prepare(self, spec: GraphSpec, algorithm: str) -> None:
         """Warm-up outside the processing window: one run builds the CUDA
@@ -89,12 +96,39 @@ class GraphTorchPlatform:
     def run(self, spec: GraphSpec, algorithm: str) -> AlgorithmResult:
         """One algorithm job, the processing markers around the kernel
         (bfs.cpp:105-107). The result is on the host, so the window
-        covers the device work."""
+        covers the device work. Under ``profile_dir`` a torch.profiler
+        trace (device activity too on a CUDA device) covers the window; it
+        starts before the first marker and is written after the second,
+        so the window holds none of its set-up or export."""
         graph = self.graphs.get(spec.name) or self.load_graph(spec)
-        proc_time_start(self.collector.stream)
-        result = run_algorithm(algorithm, graph, spec.params.get(algorithm), self.config)
-        proc_time_end(self.collector.stream)
+        prof = None
+        if self.config.profile_dir:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if torch.device(self.config.device).type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            prof = profile(activities=activities)
+            prof.__enter__()
+        try:
+            proc_time_start(self.collector.stream)
+            result = run_algorithm(algorithm, graph, spec.params.get(algorithm), self.config)
+            proc_time_end(self.collector.stream)
+        finally:
+            if prof is not None:
+                prof.__exit__(None, None, None)
+                self._write_trace(prof, spec.name, algorithm)
         return result
+
+    def _write_trace(self, prof, graph_name: str, algorithm: str) -> Path:
+        """One Chrome trace per window: <profile_dir>/<graph>-<algo>-<pid>-<k>.json."""
+        out = Path(self.config.profile_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        self._traces += 1
+        path = out / f"{graph_name}-{algorithm}-{os.getpid()}-{self._traces}.json"
+        prof.export_chrome_trace(str(path))
+        log.info("profile of the processing window written to %s", path)
+        return path
 
     def finalize(self) -> BenchmarkMetrics:
         metrics = BenchmarkMetrics()

@@ -74,3 +74,13 @@ def load(intermediate_dir: str | os.PathLike, graph_name: str) -> Graph:
     g.name = graph_name
     log.info("loaded cache %s (%s)", path, g)
     return g
+
+
+def unload(intermediate_dir: str | os.PathLike, graph_name: str) -> None:
+    """Delete-graph hook. As in the reference (unload-graph.sh:32-38, whose
+    rm is commented out), the cached files stay, so repeat runs are cheap;
+    a name that is not the cache directory's own is refused, as the script
+    refuses a path without the graph's name."""
+    path = cache_path(intermediate_dir, graph_name)
+    if not graph_name or path.parent.name != graph_name:
+        raise ValueError(f"refusing to unload {path}: the path does not name graph {graph_name!r}")

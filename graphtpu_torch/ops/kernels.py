@@ -23,7 +23,7 @@ of a slab plan in one launch (``slab_minmode_buckets``,
 algorithms call. Inside ``plain_torch()`` CUDA
 tensors take the plain version too, so the whole path can run as its own
 reference on the card. A wrapper adds one to ``launch_counts[name]`` for
-each launch.
+each launch (K7 in mode sum to ``launch_counts["csr_pull_reduce_sum"]``).
 """
 
 from __future__ import annotations
@@ -80,7 +80,10 @@ _SIGNATURES = {
     "gt_empty_kernel": (_P,),
 }
 
-launch_counts = dict.fromkeys(KERNELS, 0)
+# a launch counter per kernel, and one for K7 in mode sum (PageRank's scan
+# arm), so that a run shows which of K7's callers it went through
+COUNTERS = KERNELS + ("csr_pull_reduce_sum",)
+launch_counts = dict.fromkeys(COUNTERS, 0)
 build_seconds = None  # seconds the last nvcc build took; None = not built here
 _lib = None
 _plain = False
@@ -198,12 +201,13 @@ def _call(name: str, device, *args) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {rc} ({msg})")
 
 
-def launch(name: str, device, *args) -> None:
+def launch(name: str, device, *args, counter: str | None = None) -> None:
     """Launch kernel ``name`` on ``device``'s current stream; raise if the
-    launch was refused, count it otherwise. ``args`` are the C arguments
-    before the stream (pointers and sizes as Python ints)."""
+    launch was refused, else add one to ``launch_counts[counter or name]``.
+    ``args`` are the C arguments before the stream (pointers and sizes as
+    Python ints)."""
     _call(name, device, *args)
-    launch_counts[name] += 1
+    launch_counts[counter or name] += 1
 
 
 def launch_empty(device) -> None:

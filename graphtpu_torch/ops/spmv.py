@@ -11,7 +11,8 @@ straight into the step's result buffer. Other semirings run as torch ops.
 
 K7 (``csr_pull_reduce``) is also the dense steps' edge-stream reduction:
 per row of a pull CSR, the max or min of x over its in-edges, or the min of
-x + w (BFS, WCC and SSSP).
+x + w (BFS, WCC and SSSP), and PageRank's segment-sum pull (``sum``, the
+pr-impl=scan arm).
 """
 
 from __future__ import annotations
@@ -203,12 +204,14 @@ CSR_MODES = {
     "max_i32": ({torch.int32: 0}, "max", 0),
     "min_i32": ({torch.int32: 1}, "min", INT32_INF),
     "min_plus": ({torch.float32: 2, torch.float64: 3}, "min", float("inf")),
+    "sum": ({torch.float32: 4, torch.float64: 5}, "sum", 0.0),
 }
 
 
 def csr_pull_reduce_plain(mode: str, x, src, indptr, w=None) -> torch.Tensor:
     """K7's plain PyTorch version: the K1 gather, then the segment
-    reduction by one scatter on int64 segment ids expanded from ``indptr``."""
+    reduction by one scatter on int64 segment ids expanded from ``indptr``;
+    a sum adds in float64 (an index_add_), rounded once to x's dtype."""
     _, kind, identity = CSR_MODES[mode]
     terms = src if x is None else table_gather(x, src)
     if w is not None:
@@ -216,6 +219,9 @@ def csr_pull_reduce_plain(mode: str, x, src, indptr, w=None) -> torch.Tensor:
     n = indptr.shape[0] - 1
     seg_ids = torch.repeat_interleave(torch.arange(n, device=src.device), indptr.diff(),
                                       output_size=src.shape[0])
+    if kind == "sum":
+        acc = torch.zeros(n, dtype=torch.float64, device=src.device)
+        return acc.index_add_(0, seg_ids, terms.to(torch.float64)).to(terms.dtype)
     return pull_reduce(kind, terms, seg_ids, indptr, identity)
 
 
@@ -225,13 +231,16 @@ def csr_pull_reduce(mode: str, x: torch.Tensor | None, src: torch.Tensor,
     of the pull-ordered ``src`` (indptr[-1] = len(src)): ``max_i32`` max of
     x[src[e]] (0 for a row without edges), ``min_i32`` min of x[src[e]]
     (INT32_INF), ``min_plus`` min of x[src[e]] + w[e] in x's float dtype
-    (+inf). In the int32 modes x None reads src[e] itself. All index
-    tensors int32, contiguous."""
+    (+inf), ``sum`` sum of x[src[e]] in x's float dtype (0). In the int32
+    modes x None reads src[e] itself. All index tensors int32, contiguous.
+    A launch in mode ``sum`` counts as ``csr_pull_reduce_sum``."""
     if mode not in CSR_MODES:
         raise ValueError(f"csr_pull_reduce: unknown mode {mode!r}")
     codes, _, _ = CSR_MODES[mode]
     if mode == "min_plus" and (x is None or w is None):
         raise ValueError("csr_pull_reduce: min_plus takes both x and w")
+    if mode == "sum" and x is None:
+        raise ValueError("csr_pull_reduce: sum takes x")
     if mode != "min_plus" and w is not None:
         raise ValueError(f"csr_pull_reduce: {mode} takes no w")
     dtype = torch.int32 if x is None else x.dtype
@@ -259,6 +268,7 @@ def _csr_pull_reduce_launch(code: int, dtype, x, src, indptr, w):
             "csr_pull_reduce", src.device, indptr.data_ptr(), src.data_ptr(),
             None if x is None else x.data_ptr(), None if w is None else w.data_ptr(),
             y.data_ptr(), n, m, code, CSR_ITEMS[y.element_size()], scratch.data_ptr(), nbytes,
+            counter="csr_pull_reduce_sum" if code in CSR_MODES["sum"][0].values() else None,
         )
     return y, scratch
 

@@ -2,9 +2,10 @@
 graphtpu/utils/config.py).
 
 The dataset descriptors (``graph.<name>.*``) parse exactly as in the JAX
-package. ``PlatformConfig`` carries the platform keys the port implements,
-under the same ``platform.graphtpu.*`` names, plus ``device``: the torch
-device every tensor of a run lives on.
+package, and so does the benchmark tier (``BenchmarkConfig``,
+``benchmark.custom.*``). ``PlatformConfig`` carries the platform keys the
+port implements, under the same ``platform.graphtpu.*`` names, plus
+``device``: the torch device every tensor of a run lives on.
 """
 
 from __future__ import annotations
@@ -122,8 +123,13 @@ class PlatformConfig:
     # compute precision for float-valued algorithms ("float32"|"float64")
     precision: str = "float32"
     # PageRank pull sum: "auto"/"slab" = padded-ELL row sums on kernel K3;
-    # "scan" (the segment-reduce arm) is not ported yet
+    # "scan" = a segment sum over the pull CSR on kernel K7 (mode sum)
     pr_impl: str = "auto"
+    # scan|xla|slab: the JAX package's lowering of the pull reduction. Under
+    # pr-impl=scan, slab takes the slab arm and scan and xla both take K7.
+    # BFS, WCC and SSSP reduce by min or max, which the two lowerings give
+    # alike, so there the key changes nothing (their dense steps run K7)
+    spmv_impl: str = "scan"
     # auto|adaptive|adaptive-host|slab|sort: auto/adaptive = full slab steps,
     # then active-set steps on the frontier engine (ops/active.py), run
     # host-stepped (adaptive-host) under iteration_timing; sort is the oracle
@@ -184,6 +190,14 @@ class PlatformConfig:
     slab_buckets: Optional[tuple] = None
     # print "[CUDA][TIMER] cdlp iteration k took Xms" per CDLP iteration
     iteration_timing: bool = False
+    # cdlp-impl=sort: take the first k iterations as not converged, without
+    # the equality test and its host read (cdlp_kernel.cu:1254-1271)
+    skip_convergence_checks: int = 0
+    # write a torch.profiler trace of each processing window here
+    profile_dir: Optional[str] = None
+    # failure-detection hook: "hang:<algo>" makes that algorithm's job block
+    # forever, to exercise the timeout and kill paths
+    fault_injection: Optional[str] = None
 
     @classmethod
     def from_properties(cls, path: str | os.PathLike) -> "PlatformConfig":
@@ -199,12 +213,28 @@ class PlatformConfig:
             )
         return cfg
 
+    def to_properties(self, path: str | os.PathLike) -> None:
+        """Write the keys that differ from the defaults as a
+        platform.properties file (the inverse of from_properties), device
+        included: how a subprocess job gets its parent's configuration."""
+        defaults = PlatformConfig()
+        lines = []
+        for key, (attr, _cast) in _PLATFORM_PROPS.items():
+            v = getattr(self, attr)
+            if v is None or v == getattr(defaults, attr):
+                continue
+            if isinstance(v, (tuple, list)):
+                v = ",".join(str(int(x)) for x in v)  # the comma list the parser reads
+            lines.append(f"{key} = {v}")
+        Path(path).write_text("\n".join(lines) + "\n")
+
 
 _PLATFORM_PROPS = {
     "platform.graphtpu.intermediate-dir": ("intermediate_dir", str),
     "platform.graphtpu.device": ("device", str),
     "platform.graphtpu.precision": ("precision", str),
     "platform.graphtpu.pr-impl": ("pr_impl", str),
+    "platform.graphtpu.spmv-impl": ("spmv_impl", str),
     "platform.graphtpu.cdlp-impl": ("cdlp_impl", str),
     "platform.graphtpu.cdlp-active-threshold": ("cdlp_active_threshold", float),
     "platform.graphtpu.cdlp-frontier-rows": ("cdlp_frontier_rows", int),
@@ -235,14 +265,80 @@ _PLATFORM_PROPS = {
         "iteration_timing",
         lambda v: str(v).strip().lower() in ("1", "true", "yes"),
     ),
+    "platform.graphtpu.skip-convergence-checks": ("skip_convergence_checks", int),
+    "platform.graphtpu.profile-dir": ("profile_dir", str),
+    "platform.graphtpu.fault-injection": ("fault_injection", str),
 }
 
 # platform.graphtpu.* keys the JAX package acts on and the port does not yet:
 # reading one logs a warning, so that the missing behaviour is not silent
 _NOT_PORTED_PROPS = frozenset(
     "platform.graphtpu." + k for k in (
-        "spmv-impl", "skip-convergence-checks", "profile-dir", "num-devices",
-        "shard-checkpoints", "fault-injection", "bfs-active-threshold",
-        "sssp-active-threshold",
+        "num-devices", "shard-checkpoints", "bfs-active-threshold", "sssp-active-threshold",
     )
 )
+
+
+@dataclasses.dataclass
+class BenchmarkConfig:
+    """Benchmark tier: the benchmark.custom.* keys
+    (config-template/cdlp.properties:8-23)."""
+
+    graphs: List[str] = dataclasses.field(default_factory=list)
+    algorithms: List[str] = dataclasses.field(default_factory=list)
+    timeout_seconds: int = 3600
+    output_required: bool = True
+    validation_required: bool = True
+    repetitions: int = 1
+    # "subprocess": each job is a child process, its pid in
+    #   <log>/executable.pid, SIGKILLed at the timeout (execute-job.sh:150);
+    #   the only mode whose timeout stops a kernel that never returns.
+    # "inprocess": jobs run in the suite's process and reuse its graphs and
+    #   device state; the timeout is a SIGALRM between host steps.
+    job_isolation: str = "subprocess"
+    graphs_root: str = "."
+    output_dir: str = "./output"
+    validation_dir: Optional[str] = None
+    report_dir: str = "./report"
+
+    @classmethod
+    def from_properties(cls, path: str | os.PathLike) -> "BenchmarkConfig":
+        props = parse_properties(path)
+        cfg = cls()
+
+        def split(v):
+            return [s.strip() for s in v.split(",") if s.strip()]
+
+        if "benchmark.custom.graphs" in props:
+            cfg.graphs = split(props["benchmark.custom.graphs"])
+        if "benchmark.custom.algorithms" in props:
+            cfg.algorithms = [a.lower() for a in split(props["benchmark.custom.algorithms"])]
+        if "benchmark.custom.timeout" in props:
+            cfg.timeout_seconds = int(props["benchmark.custom.timeout"])
+        if "benchmark.custom.output-required" in props:
+            cfg.output_required = props["benchmark.custom.output-required"].lower() == "true"
+        if "benchmark.custom.validation-required" in props:
+            cfg.validation_required = (
+                props["benchmark.custom.validation-required"].lower() == "true"
+            )
+        if "benchmark.custom.repetitions" in props:
+            cfg.repetitions = int(props["benchmark.custom.repetitions"])
+        if "benchmark.custom.job-isolation" in props:
+            v = props["benchmark.custom.job-isolation"].lower()
+            if v not in ("inprocess", "subprocess"):
+                raise ValueError(f"benchmark.custom.job-isolation: unknown mode {v!r}")
+            cfg.job_isolation = v
+        # dataset paths resolve against the properties file's directory, so a
+        # checked-in config names the vendored fixtures from any cwd
+        base = os.path.dirname(os.path.abspath(path))
+        if "graphs.root-directory" in props:
+            cfg.graphs_root = os.path.normpath(os.path.join(base, props["graphs.root-directory"]))
+        if "graphs.validation-directory" in props:
+            cfg.validation_dir = os.path.normpath(
+                os.path.join(base, props["graphs.validation-directory"])
+            )
+        if "benchmark.output-directory" in props:
+            cfg.output_dir = props["benchmark.output-directory"]
+        if "benchmark.report-directory" in props:
+            cfg.report_dir = props["benchmark.report-directory"]
+        return cfg

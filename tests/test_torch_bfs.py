@@ -136,7 +136,7 @@ def test_csr_pull_reduce_refuses_bad_arguments():
     indptr = torch.tensor([0, 3], dtype=torch.int32)
     x = torch.zeros(1, dtype=torch.float32)
     with pytest.raises(ValueError, match="unknown mode"):
-        csr_pull_reduce("sum", x, s, indptr)
+        csr_pull_reduce("prod", x, s, indptr)
     with pytest.raises(ValueError, match="both x and w"):
         csr_pull_reduce("min_plus", x, s, indptr)
     with pytest.raises(ValueError, match="takes no w"):

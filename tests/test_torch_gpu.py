@@ -836,3 +836,74 @@ def test_lcc_oriented_on_the_card_matches_sweep_and_cpu(cuda, directed):
     for got in runs.values():
         np.testing.assert_array_equal(got, runs["cpu", "sweep"])
     assert runs["cpu", "sweep"].max() > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["random", "row_ends_on_border", "empty_run", "one_row",
+                                  "hubs_only", "single_empty_row", "edgeless"])
+def test_csr_pull_reduce_sum_matches_plain(cuda, case, dtype):
+    """K7 in mode sum (PageRank's scan arm) on a random CSR with empty rows
+    and a hub of 10^5 edges split over many blocks, and on the hand cases:
+    within 1e-5 relative of the plain version's float64 row sums in float32
+    (1e-12 in float64), twice with the same bits, counted as
+    csr_pull_reduce_sum."""
+    rng = np.random.default_rng(len(case) * 7 + dtype.itemsize)
+    if case == "random":
+        src, indptr = _pull_csr(rng, 20000, 100000)
+        n_x = 20000
+    else:
+        deg = _k7_degrees(case, CSR_ITEMS[dtype.itemsize], rng)
+        ip = np.zeros(deg.shape[0] + 1, dtype=np.int64)
+        np.cumsum(deg, out=ip[1:])
+        n_x = 50_000
+        src = torch.from_numpy(rng.integers(0, n_x, size=int(ip[-1])).astype(np.int32))
+        indptr = torch.from_numpy(ip.astype(np.int32))
+    x = torch.from_numpy(rng.random(n_x)).to(dtype).to(cuda)
+    src, indptr = src.to(cuda), indptr.to(cuda)
+    before = dict(kernels.launch_counts)
+    got = csr_pull_reduce("sum", x, src, indptr)
+    again = csr_pull_reduce("sum", x, src, indptr)
+    launched = indptr.shape[0] > 1
+    sums = kernels.launch_counts["csr_pull_reduce_sum"] - before["csr_pull_reduce_sum"]
+    assert sums == 2 * launched
+    assert kernels.launch_counts["csr_pull_reduce"] == before["csr_pull_reduce"]
+    want = csr_pull_reduce_plain("sum", x, src, indptr)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.equal(got, again)
+    rtol = 1e-5 if dtype == torch.float32 else 1e-12
+    assert bool(((got.double() - want.double()).abs() <= rtol * want.double().abs()).all())
+    assert bool((got[(indptr.diff() == 0)] == 0).all())
+
+
+def test_csr_pull_reduce_sum_refuses_a_null_x(cuda):
+    """Mode sum gathers x: the library refuses a null x even without edges."""
+    indptr = torch.zeros(2, dtype=torch.int32, device=cuda)
+    y = torch.empty(1, dtype=torch.float32, device=cuda)
+    scratch = torch.empty(1024, dtype=torch.uint8, device=cuda)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        kernels.launch("csr_pull_reduce", cuda, indptr.data_ptr(), None, None, None,
+                       y.data_ptr(), 1, 0, 4, CSR_ITEMS[4], scratch.data_ptr(), 1024)
+
+
+@pytest.mark.parametrize("directed", [True, False])
+def test_pr_scan_on_the_card_matches_slab_and_cpu(cuda, directed):
+    """pr-impl=scan launches K7 sum once an iteration; its ranks are within
+    1e-4 of the slab arm's on the card and 1e-5 of its own on the CPU."""
+    from graphtpu_torch.algorithms.common import run_algorithm
+    from graphtpu_torch.entry import entry
+    from graphtpu_torch.utils.config import AlgorithmParams, PlatformConfig
+    from graphtpu_torch.utils.synth import rmat_graph
+
+    g = rmat_graph(14, 16, directed=directed, seed=5)
+    params = AlgorithmParams(damping_factor=0.85, num_iterations=20)
+    before = kernels.launch_counts["csr_pull_reduce_sum"]
+    scan = run_algorithm("pr", g, params, PlatformConfig(device="cuda", pr_impl="scan")).values
+    assert kernels.launch_counts["csr_pull_reduce_sum"] == before + 20
+    slab = run_algorithm("pr", g, params, PlatformConfig(device="cuda")).values
+    cpu = run_algorithm("pr", g, params, PlatformConfig(device="cpu", pr_impl="scan")).values
+    assert np.max(np.abs(scan - slab) / slab) <= 1e-4
+    np.testing.assert_allclose(scan, cpu, rtol=1e-5, atol=0)
+    step, args = entry()
+    cpu_step, cpu_args = entry("cpu")
+    np.testing.assert_allclose(step(*args).cpu().numpy(), cpu_step(*cpu_args).numpy(),
+                               rtol=1e-5, atol=0)

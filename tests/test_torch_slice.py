@@ -88,8 +88,9 @@ def test_sort_oracle_equals_slab_path(directed):
 
 def test_cdlp_auto_resolves_to_slab_and_adaptive_is_refused():
     """(Named for the first slice's behaviour.) auto and adaptive now run
-    the adaptive device path, which agrees with slab; an unknown impl,
-    pr-impl=scan and an unknown algorithm are refused."""
+    the adaptive device path, which agrees with slab; an unknown impl, an
+    unknown pr-impl and an unknown algorithm are refused (pr-impl=scan runs
+    since its port: tests/test_torch_pr_scan.py)."""
     _, tg = _twins(False, 0, scale=8, ef=4)
     params = AlgorithmParams(max_iterations=5)
     auto = run_algorithm("cdlp", tg, params, PlatformConfig(device="cpu"))
@@ -103,9 +104,9 @@ def test_cdlp_auto_resolves_to_slab_and_adaptive_is_refused():
         assert res.iterations == auto.iterations
     with pytest.raises(ValueError, match="unknown cdlp-impl"):
         run_algorithm("cdlp", tg, params, PlatformConfig(device="cpu", cdlp_impl="hash"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="unknown pr-impl"):
         run_algorithm("pr", tg, AlgorithmParams(damping_factor=0.85, num_iterations=2),
-                      PlatformConfig(device="cpu", pr_impl="scan"))
+                      PlatformConfig(device="cpu", pr_impl="segment"))
     with pytest.raises(ValueError, match="unknown algorithm"):
         run_algorithm("tc", tg, AlgorithmParams(), PlatformConfig(device="cpu"))
     # lcc, the last algorithm to be ported, is in the registry
