@@ -75,6 +75,20 @@ Run from the root of a checkout:  python3 chip_smoke.py
    search reads). A kernel
    that returns at once gives the floor under the launch-sized rows.
 
+6. Ingest: both RMAT graphs written once as .v/.e text under intermediate/
+   (each unordered pair once, weights in 17 significant digits), loaded
+   back through load_graph on the native library (parser, fused relabel)
+   three times each, and the benchmark graph once on the numpy arm (parse
+   and relabel timed apart, the relabel with the host sort and again with
+   the card's sort); every Graph must equal its RMAT graph bit for bit and
+   the native call counts must show the library ran. The device sort (the
+   sort a Graph takes where a card is visible) of the benchmark graph's
+   60.7M stored edges in a shuffled order must equal the native counting
+   sort of the same stream; its host-to-device, sort and device-to-host
+   times print apart. This phase runs after the kernel timings of 5, so
+   that its 3 GiB on the card and its host load come after them. The
+   numbers go into the JSON line's "ingest" object.
+
 Exits non-zero if any phase fails. The last lines of stdout are the
 card's name and power limit, one JSON line of per-kernel results, and
 {"ok": true, "device": {...}}.
@@ -140,11 +154,13 @@ def cuda_ms(fn, reps=10, empty_kernel=False):
     warm-up. Device ms is the device time the profiler attributes to the
     calls' kernels and copies; stream ms is the CUDA-event span per call,
     which also holds the time the device waits for the host to launch. A
-    profiler trace now and then loses device records (none at all, or
-    fewer hand-kernel records than the wrappers launched): it is taken
-    again, and after three such traces the stream span stands in for the
-    device time, with a line that says so. ``empty_kernel`` says that fn
-    is the kernel that returns at once, which otherwise is left out."""
+    profiler trace now and then loses device records (none at all, fewer
+    hand-kernel records than the wrappers launched, or a record whose
+    count is not a multiple of reps, as every call of fn launches the same
+    kernels): it is taken again, and after three such traces the stream
+    span stands in for the device time, with a line that says so.
+    ``empty_kernel`` says that fn is the kernel that returns at once,
+    which otherwise is left out; it opens and closes every trace."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -166,11 +182,17 @@ def cuda_ms(fn, reps=10, empty_kernel=False):
             kernels.launch_empty(torch.device("cuda:0"))  # see _device_events
             for _ in range(reps):
                 fn()
+            kernels.launch_empty(torch.device("cuda:0"))
             torch.cuda.synchronize()
-        device_us = sum(e.self_device_time_total for e in _device_events(prof, empty_kernel))
+        # with empty_kernel the trace's two bracketing calls are calls like the others
+        calls = reps + 2 * empty_kernel
+        events = _device_events(prof, empty_kernel)
+        device_us = sum(e.self_device_time_total for e in events)
         lost = trace_mismatch(prof) if device_us > 0 else ["no device time at all"]
-        if not lost:  # with empty_kernel the trace's leading one is a call like the others
-            return device_us / 1e3 / (reps + empty_kernel), stream_ms
+        lost += [f"{e.key[:48]}: {e.count} records in {calls} calls" for e in events
+                 if e.count % calls]
+        if not lost:
+            return device_us / 1e3 / calls, stream_ms
     print(f"cuda_ms: three profiler traces lost device records ({'; '.join(lost)}); the "
           f"CUDA-event span {stream_ms:.6f} ms stands in", flush=True)
     return stream_ms, stream_ms
@@ -203,7 +225,8 @@ def _device_events(prof, empty_kernel=False):
     ``wcc.*``, ``sssp.*``), which cover their kernels and the gaps between
     them. So is the kernel that returns at once: every trace starts with
     one, because a trace now and then loses its first device record, and
-    that record should not be one that is measured."""
+    that record should not be one that is measured (cuda_ms's traces also
+    end with one)."""
     return [
         e for e in prof.key_averages()
         if _on_device(e) and e.self_device_time_total > 0 and not e.key.startswith(RANGES)
@@ -253,6 +276,16 @@ def profile_run(fn):
                 count, host = e.count, host + e.cpu_time_total / 1e3
             ranges[e.key] = (count, host, span)
     return wall, device_ms, top, ranges
+
+
+def card_state():
+    """The card's SM clock, power draw and temperature now (nvidia-smi),
+    printed beside the longest kernel timings: a card that slows under
+    load shows there."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
 
 
 def bound_ms(nbytes, ops):
@@ -784,6 +817,188 @@ def phase_real_size(device):
               f"({small.nnz} stored edges; mean coefficient {by_impl['sweep'].mean():.6f})",
               flush=True)
     return g, gw, prep, pr_plan, (wplan, real_wedges, lcc), launches
+
+
+def _ascii_lines(cols) -> bytes:
+    """Lines of space-separated columns as text bytes. A column is an array
+    of non-negative ids below 2^31 or a NUL-padded bytes array (numpy "S")."""
+    import numpy as np
+
+    parts = []
+    for c in cols:
+        if c.dtype.kind == "S":
+            parts.append(c.view(np.uint8).reshape(c.shape[0], c.dtype.itemsize))
+            continue
+        c = c.astype(np.int32)
+        width = len(str(int(c.max()))) if c.size else 1
+        p = 10 ** np.arange(width - 1, -1, -1, dtype=np.int32)
+        lead = (c[:, None] < p) & (p > 1)  # leading zeros; a 0 keeps its last digit
+        parts.append(np.where(lead, 0, (c[:, None] // p) % 10 + 48).astype(np.uint8))
+    sep = np.full((parts[0].shape[0], 1), ord(" "), np.uint8)
+    mat = np.concatenate([x for q in parts for x in (q, sep)][:-1]
+                         + [np.full_like(sep, ord("\n"))], axis=1)
+    return mat[mat != 0].tobytes()
+
+
+def write_text_graph(g, name):
+    """The undirected graph ``g`` as Graphalytics text under
+    intermediate/<name>/: <name>.v, one vertex id a line, and <name>.e, each
+    unordered pair once (weights in 17 significant digits, which read back
+    to the same float64). Written once, as the RMAT graphs are cached.
+    Returns the two paths and the seconds the write took (None: cached)."""
+    import numpy as np
+
+    vpath, epath = (INTERMEDIATE / name / f"{name}{s}" for s in (".v", ".e"))
+    if vpath.exists() and epath.exists():
+        return vpath, epath, None
+    t0 = time.perf_counter()
+    vpath.parent.mkdir(parents=True, exist_ok=True)
+    once = g.src < g.dst
+    cols = [g.src[once], g.dst[once]]
+    if g.weighted:
+        w = g.w[once]
+        cols.append(np.array(list(map("%.17g".__mod__, w.tolist())), dtype="S24"))
+    chunk = 1 << 20
+    for path, columns in ((vpath, [g.mapping]), (epath, cols)):
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        with open(tmp, "wb") as f:
+            for i in range(0, columns[0].shape[0], chunk):
+                f.write(_ascii_lines([c[i:i + chunk] for c in columns]))
+        os.replace(tmp, path)
+    return vpath, epath, time.perf_counter() - t0
+
+
+def _median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def phase_ingest(g, gw, smi):
+    """The text ingest at real size: both RMAT graphs written as .v/.e text,
+    loaded back through load_graph on the native arm (3 runs) and, for the
+    benchmark graph, once on the numpy arm with parse and relabel apart;
+    every Graph must equal the RMAT one bit for bit. Then the device sort
+    (which a Graph takes where a card is visible) of the benchmark graph's
+    stored edges in a shuffled order against the native counting sort of
+    the same stream. Returns the numbers for the JSON line."""
+    import numpy as np
+    import torch
+
+    from graphtpu_torch.core import graph as graph_mod
+    from graphtpu_torch.ingest import native
+    from graphtpu_torch.ingest.loader import load_graph
+    from graphtpu_torch.ingest.relabel import (
+        _parse_edges_numpy, _parse_vertices_numpy, parse_edge_file, parse_vertex_file,
+    )
+
+    def same(a, b, what):
+        for name in ("src", "dst", "w", "mapping"):
+            x, y = getattr(a, name), getattr(b, name)
+            check(x.dtype == y.dtype and np.array_equal(x, y),
+                  f"ingest: {what} differs from the RMAT graph in {name}")
+
+    check(native.available(), "ingest: the native library is off (no C++ compiler?)")
+    report = {"card": smi, "graphs": {}}
+    for name, gr in ((BENCH_GRAPH, g), (SSSP_GRAPH, gw)):
+        vpath, epath, write_s = write_text_graph(gr, name)
+        lines = int((gr.src < gr.dst).sum())
+        print(f"ingest {name}: text {vpath.stat().st_size + epath.stat().st_size} bytes, "
+              f"{gr.n} vertex lines, {lines} edge lines, "
+              + (f"written in {write_s:.3f} s" if write_s is not None else "cached"), flush=True)
+        native.reset_call_counts()
+        secs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            back = load_graph(str(vpath), str(epath), directed=False, weighted=gr.weighted)
+            secs.append(time.perf_counter() - t0)
+            same(back, gr, f"{name} loaded natively")
+            del back
+        calls = dict(native.call_counts)
+        check(calls["gtio_relabel_edges"] == 3 and calls["gtio_parse_edges"] == 3,
+              f"ingest: {name} did not go through the native library 3 times: {calls}")
+        t0 = time.perf_counter()
+        vids = parse_vertex_file(str(vpath))
+        es, ed, ew = parse_edge_file(str(epath), gr.weighted)
+        t1 = time.perf_counter()
+        graph_mod.Graph.from_original_ids(vids, es, ed, ew, False, gr.weighted)
+        t2 = time.perf_counter()
+        del vids, es, ed, ew
+        entry = {"edge_lines": lines, "write_s": write_s, "native_load_s": secs,
+                 "native_parse_s": t1 - t0, "native_relabel_s": t2 - t1, "native_calls": calls}
+        print(f"ingest {name} native: load_graph {', '.join(f'{x:.3f}' for x in secs)} s, "
+              f"median {_median(secs):.3f} s; parse {t1 - t0:.3f} s, relabel {t2 - t1:.3f} s; "
+              f"Graph equal to the RMAT graph bit for bit; native calls {calls} ({smi})",
+              flush=True)
+        report["graphs"][name] = entry
+
+    # the numpy arm, once, on the benchmark graph
+    vpath, epath = (INTERMEDIATE / BENCH_GRAPH / f"{BENCH_GRAPH}{s}" for s in (".v", ".e"))
+    prev = os.environ.get("GRAPHTPU_NATIVE_LIB"), graph_mod.DEVICE_SORT_MIN
+    os.environ["GRAPHTPU_NATIVE_LIB"] = os.devnull
+    try:
+        check(not native.available(), "ingest: GRAPHTPU_NATIVE_LIB=/dev/null left it on")
+        t0 = time.perf_counter()
+        vids = _parse_vertices_numpy(str(vpath))
+        es, ed, _ = _parse_edges_numpy(str(epath), False)
+        t1 = time.perf_counter()
+        graph_mod.DEVICE_SORT_MIN = 1 << 62  # the host sort
+        back = graph_mod.Graph.from_original_ids(vids, es, ed, None, False, False)
+        t2 = time.perf_counter()
+        same(back, g, f"{BENCH_GRAPH} loaded by numpy")
+        del back
+        graph_mod.DEVICE_SORT_MIN = prev[1]  # the card's sort, as without a compiler
+        graph_mod.last_device_sort.clear()
+        t3 = time.perf_counter()
+        back = graph_mod.Graph.from_original_ids(vids, es, ed, None, False, False)
+        t4 = time.perf_counter()
+        check(bool(graph_mod.last_device_sort), "ingest: the numpy relabel did not sort on "
+              "the card")
+        same(back, g, f"{BENCH_GRAPH} loaded by numpy with the card's sort")
+    finally:
+        graph_mod.DEVICE_SORT_MIN = prev[1]
+        if prev[0] is None:
+            del os.environ["GRAPHTPU_NATIVE_LIB"]
+        else:
+            os.environ["GRAPHTPU_NATIVE_LIB"] = prev[0]
+    del back, vids, es, ed
+    report["graphs"][BENCH_GRAPH].update(numpy_parse_s=t1 - t0, numpy_relabel_s=t2 - t1,
+                                         numpy_relabel_device_sort_s=t4 - t3)
+    print(f"ingest {BENCH_GRAPH} numpy: parse {t1 - t0:.3f} s, relabel {t2 - t1:.3f} s with "
+          f"the host sort, {t4 - t3:.3f} s with the card's sort; Graphs equal bit for bit "
+          f"({smi})", flush=True)
+
+    # the device sort against the native sort of one shuffled stream
+    perm = np.random.default_rng(42).permutation(g.nnz)
+    src, dst = g.src[perm], g.dst[perm]
+    del perm
+    t0 = time.perf_counter()
+    ns, nd, _ = graph_mod._native_sort_edges(src, dst, None, g.n, "src", True)
+    nat = time.perf_counter() - t0
+    check(np.array_equal(ns, g.src) and np.array_equal(nd, g.dst),
+          "ingest: the native sort of the shuffled stream is not the graph's order")
+    dev = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for _ in range(3):  # the first also allocates the pinned host buffers
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = graph_mod._device_sort_edges(src, dst, None, "src", True)
+        dev.append({"total_s": time.perf_counter() - t0, **graph_mod.last_device_sort})
+        check(out is not None, "ingest: the device sort declined on the card")
+        check(np.array_equal(out[0], ns) and np.array_equal(out[1], nd) and out[2] is None,
+              "ingest: the device sort differs from the native sort")
+        del out
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    torch.cuda.empty_cache()
+    report["sort"] = {"edges": int(g.nnz), "native_s": nat, "device": dev,
+                      "device_peak_gib": peak}
+    print(f"ingest sort of {g.nnz} shuffled edges: native counting sort {nat:.3f} s; device "
+          f"peak memory {peak:.3f} GiB above what was allocated ({smi})", flush=True)
+    for i, d in enumerate(dev):
+        print(f"ingest device sort, run {i}: {d['total_s']:.3f} s (host-to-device "
+              f"{d['h2d_s']:.3f}, sort and dedup {d['sort_s']:.3f}, device-to-host "
+              f"{d['d2h_s']:.3f}); identical to the native sort ({smi})", flush=True)
+    return report
 
 
 def phase_vreg_shuffle(device):
@@ -1366,6 +1581,7 @@ def phase_lcc_kernels(g, wplan, real_wedges, lcc_values, device):
     buckets = []
     kernel_credits, plain_credits = [], []
     real_entries = reads = 0
+    print(f"card before the K10 timings: {card_state()}", flush=True)
     for b in wplan.buckets:
         args = (b.slab, b.mslab, eh, id_bits, b.chunk_cols, closing)
         got = wedge_rowblock(*args)
@@ -1420,9 +1636,11 @@ def phase_lcc_kernels(g, wplan, real_wedges, lcc_values, device):
     rows = sum(b.r_real for b in wplan.buckets)
     small = real_entries * 8 + rows * 4 + real_entries * 4
     nbytes = small + closing.ids.numel() * 5 + closing.indptr.numel() * 4
+    k10_times = cuda_ms(all_buckets, reps=3)
+    print(f"card after the K10 timings: {card_state()}", flush=True)
     res["wedge_rowblock"] = dict(
         max_abs_err=0.0,
-        times=(cuda_ms(all_buckets, reps=3), (plain_ms, plain_ms)),
+        times=(k10_times, (plain_ms, plain_ms)),
         shape=(f"all {len(wplan.buckets)} buckets of the benchmark graph's wedge plan (one LCC "
                f"run's wedge work): {real_wedges} real wedges, {real_entries} slab entries, "
                f"{rows} rows, {reads} out-list entries read, closing CSR of "
@@ -1456,6 +1674,7 @@ SOURCES = {
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -1475,6 +1694,12 @@ def main() -> int:
     built = (f"built in {kernels.build_seconds:.3f}s" if kernels.build_seconds is not None
              else "already built")
     print(f"kernels: {lib.name} {built} ({time.perf_counter() - t0:.3f}s to load)", flush=True)
+    from graphtpu_torch.ingest import native
+
+    check(native.available(), "the native ingest library is off (no C++ compiler?)")
+    built = (f"built in {native.build_seconds:.3f}s" if native.build_seconds is not None
+             else "already built")
+    print(f"native ingest library: {native.library_path().name} {built}", flush=True)
 
     phase_goldens(device)
     t0 = time.perf_counter()
@@ -1501,7 +1726,6 @@ def main() -> int:
     launches["vreg_shuffle"] = phase_vreg_shuffle(device)
     print(f"peak device memory allocated {torch.cuda.max_memory_allocated(device) / 2**30:.3f} "
           f"GiB", flush=True)
-
     res = phase_kernels(g, prep, pr_plan, device)
     res.update(phase_traversal_kernels(g, gw, device))
     lcc_res, launches["edgehash_probe"] = phase_lcc_kernels(g, wplan, real_wedges, lcc_values,
@@ -1539,6 +1763,9 @@ def main() -> int:
                   f"{HBM_BYTES_PER_S / 1e12} TB/s (the design's traffic, no bound: what many "
                   f"read need not move twice); the kernel takes "
                   f"{100 * k_dev / r['traffic_ms']:.1f} % of that", flush=True)
+    t0 = time.perf_counter()
+    ingest = phase_ingest(g, gw, smi)
+    print(f"ingest phase: {time.perf_counter() - t0:.3f} s", flush=True)
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": launches[name],
@@ -1549,7 +1776,8 @@ def main() -> int:
          "other_shapes": res[name].get("other_shapes", []),
          **{k: res[name][k] for k in ("buckets", "traffic_ms") if k in res[name]}}
         for name in kernels.COUNTERS
-    ], "empty_kernel_ms": empty_ms}
+    ], "empty_kernel_ms": empty_ms, "ingest": ingest}
+    print(f"chip_smoke total: {time.perf_counter() - t_start:.3f} s", flush=True)
     print(smi)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Command line: ``python -m graphtpu_torch.cli load|run|validate|benchmark|devices``
+"""Command line: ``python -m graphtpu_torch.cli load|run|validate|benchmark|download|devices``
 (counterpart of ``graphtpu.cli``).
 
 The reference drives its lifecycle through shell scripts
@@ -7,7 +7,8 @@ here the same surface is subcommands of one CLI. ``run`` is the
 execute-job.sh analogue: it loads the graph, warms up outside the
 processing window, runs one algorithm job, and optionally writes and
 validates the output. ``benchmark`` runs a suite from a benchmark.properties
-file, each job in a killable child process by default.
+file, each job in a killable child process by default. ``download`` fetches
+Graphalytics dataset archives (download-dataset-small.sh).
 """
 
 from __future__ import annotations
@@ -113,6 +114,36 @@ def cmd_benchmark(args) -> int:
     return 1 if bad else 0
 
 
+def cmd_download(args) -> int:
+    import tarfile
+
+    from graphtpu_torch.ingest.download import (
+        DEFAULT_BASE_URL, SMALL_DATASETS, download_dataset, download_small_datasets,
+    )
+
+    base_url = args.base_url or DEFAULT_BASE_URL
+    try:
+        if args.all_small:
+            for p in download_small_datasets(args.graphs_dir, base_url=base_url,
+                                             force=args.force):
+                print(f"ready: {p}")
+            return 0
+        if not args.graph:
+            print(f"download: need --graph <name> (known: {', '.join(SMALL_DATASETS)}) "
+                  "or --all-small", file=sys.stderr)
+            return 2
+        p = download_dataset(args.graph, args.graphs_dir, base_url=base_url, url=args.url,
+                             force=args.force)
+        print(f"ready: {p}")
+        return 0
+    except (OSError, ValueError, EOFError, ImportError, tarfile.TarError) as e:
+        # OSError: network or file system; TarError, EOFError: a corrupt or
+        # truncated archive; ValueError: a member that escapes the directory;
+        # ImportError: a .zst archive without the zstandard module
+        print(f"download failed: {e}", file=sys.stderr)
+        return 1
+
+
 def cmd_devices(args) -> int:
     """The CUDA cards this process sees, or the CPU when there are none."""
     import torch
@@ -164,6 +195,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--algorithms", default=None, help="comma list, overrides config")
     _add_platform_flags(p)
     p.set_defaults(fn=cmd_benchmark)
+
+    p = sub.add_parser("download",
+                       help="fetch Graphalytics dataset archives (download-dataset-small.sh analogue)")
+    p.add_argument("--graph", default=None, help="dataset name (e.g. datagen-7_5-fb)")
+    p.add_argument("--all-small", action="store_true",
+                   help="fetch the reference's full small-data-set list")
+    p.add_argument("--graphs-dir", default="./graphs")
+    p.add_argument("--base-url", default=None)
+    p.add_argument("--url", default=None,
+                   help="explicit archive URL (.tar.zst/.tar.gz/.tar; file:// supported)")
+    p.add_argument("--force", action="store_true", help="re-download even if present")
+    p.set_defaults(fn=cmd_download)
 
     p = sub.add_parser("devices", help="show the devices torch sees")
     p.set_defaults(fn=cmd_devices)

@@ -10,12 +10,14 @@ torch views of either order on a device the caller names.
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from graphtpu_torch.core.types import INDEX_DTYPE, ORIGINAL_ID_DTYPE
+from graphtpu_torch.ingest import native
 
 
 class COO(NamedTuple):
@@ -26,18 +28,130 @@ class COO(NamedTuple):
     w: torch.Tensor    # float [nnz]
 
 
+# Minimum edge count for the native counting sort: below it numpy's argsort
+# is as fast and the n-sized counter arrays are large beside the stream.
+NATIVE_SORT_MIN = 1 << 16
+
+
+def _ids_fit(src: np.ndarray, dst: np.ndarray, bound: int) -> bool:
+    return (src.min() >= 0 and dst.min() >= 0
+            and max(int(src.max()), int(dst.max())) < bound)
+
+
+def _native_sort_edges(src, dst, w, n: int, primary: str, dedup: bool):
+    """Sort (and optionally keep-first-dedup) an edge stream by the native
+    O(m + n) stable counting sort (gtio_sort_edges). Returns host (src,
+    dst, w), or None when it does not apply: a small stream, n >= 2^31,
+    the library off, or the native call declining (ids outside [0, n),
+    an allocation failure)."""
+    m = src.shape[0]
+    if not m or m < NATIVE_SORT_MIN or n >= (1 << 31) or not native.available():
+        return None
+    if primary == "src":
+        out = native.sort_edges(src, dst, w, n, dedup)
+    else:
+        out = native.sort_edges(dst, src, w, n, dedup)
+        if out is not None:
+            out = (out[1], out[0], out[2])
+    return out
+
+
+# Minimum edge count for the sort on a CUDA card.
+DEVICE_SORT_MIN = 1 << 22
+# seconds of the last device sort: host-to-device, sort, device-to-host
+last_device_sort: dict = {}
+
+
+def _device_sort_edges(src, dst, w, primary: str, dedup: bool):
+    """Sort (and optionally keep-first-dedup) an edge stream on the CUDA
+    card: the stable sort of the same packed (primary << 32) | secondary
+    key as _lexsort_edges, so the result equals the host sorts'. Returns
+    host (src, dst, w), or None when it does not apply (a stream under
+    DEVICE_SORT_MIN, no CUDA card, ids that do not fit 31 bits). A failure
+    on the card raises. The float64 weights are not co-sorted: an int32
+    position rides with the keys and the host applies it to ``w``."""
+    m = src.shape[0]
+    if (not m or m < DEVICE_SORT_MIN or not torch.cuda.is_available()
+            or not _ids_fit(src, dst, 1 << 31)):
+        return None
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    s_d = torch.from_numpy(np.ascontiguousarray(src, dtype=INDEX_DTYPE)).to(dev)
+    d_d = torch.from_numpy(np.ascontiguousarray(dst, dtype=INDEX_DTYPE)).to(dev)
+    torch.cuda.synchronize(dev)
+    t1 = time.perf_counter()
+    s_s, d_s, pos, keep = _device_sort_kernel(s_d, d_d, primary == "src", dedup,
+                                              w is not None, dev)
+    if dedup:
+        s_s, d_s = s_s[keep], d_s[keep]
+        pos = None if pos is None else pos[keep]
+    torch.cuda.synchronize(dev)
+    t2 = time.perf_counter()
+    host = [_pinned_copy(t) for t in (s_s, d_s) + (() if pos is None else (pos,))]
+    torch.cuda.synchronize(dev)
+    t3 = time.perf_counter()
+    last_device_sort.update(h2d_s=t1 - t0, sort_s=t2 - t1, d2h_s=t3 - t2)
+    s_h, d_h = host[0].numpy(), host[1].numpy()
+    w_h = None if w is None else np.asarray(w, dtype=np.float64)[host[2].numpy()]
+    return s_h, d_h, w_h
+
+
+def _pinned_copy(t: torch.Tensor) -> torch.Tensor:
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t, non_blocking=True)
+    return out
+
+
+def _device_sort_kernel(src, dst, prim_src: bool, dedup: bool, with_pos: bool, device):
+    """Stable sort of int32 ``src``, ``dst`` by (primary, secondary) on
+    ``device``: (src, dst, int32 positions in the input or None, keep-first
+    mask). ``keep`` is all True without ``dedup``."""
+    src = torch.as_tensor(src).to(device)
+    dst = torch.as_tensor(dst).to(device)
+    hi, lo = (src, dst) if prim_src else (dst, src)
+    key = (hi.to(torch.int64) << 32) | lo.to(torch.int64)
+    key_s, order = torch.sort(key, stable=True)
+    hi_s = (key_s >> 32).to(torch.int32)
+    lo_s = (key_s & 0xFFFFFFFF).to(torch.int32)
+    src_s, dst_s = (hi_s, lo_s) if prim_src else (lo_s, hi_s)
+    pos = order.to(torch.int32) if with_pos else None
+    keep = torch.ones(key_s.shape, dtype=torch.bool, device=key_s.device)
+    if dedup and key_s.numel() > 1:
+        keep[1:] = key_s[1:] != key_s[:-1]
+    return src_s, dst_s, pos, keep
+
+
+def _sort_edges(src, dst, w, n: int, primary: str, dedup: bool):
+    """(src, dst, w) sorted by (primary, secondary), stable, keep-first
+    deduplicated if ``dedup``: on the CUDA card where one is visible, else
+    by the native counting sort, else numpy's lexsort. All three give the
+    same arrays; on an H100 the card's sort of a 60.7M-edge stream, copies
+    included, takes about 1/50 of the native sort's time (PERF.md §5)."""
+    out = _device_sort_edges(src, dst, w, primary, dedup)
+    if out is None:
+        out = _native_sort_edges(src, dst, w, n, primary, dedup)
+    if out is not None:
+        return out
+    perm = _lexsort_edges(src, dst, primary)
+    src, dst = src[perm], dst[perm]
+    w = None if w is None else w[perm]
+    if dedup and src.size:
+        keep = np.empty(src.shape[0], dtype=bool)
+        keep[0] = True
+        np.logical_or(src[1:] != src[:-1], dst[1:] != dst[:-1], out=keep[1:])
+        if not keep.all():
+            src, dst = src[keep], dst[keep]
+            w = None if w is None else w[keep]
+    return src, dst, w
+
+
 def _lexsort_edges(src: np.ndarray, dst: np.ndarray, primary: str) -> np.ndarray:
     """Permutation sorting edges by (primary, secondary). When both id
     ranges fit 31 bits the two keys pack into one int64 and a STABLE
     argsort keeps the keep-first dedupe semantics for duplicate edges."""
     a, b = (src, dst) if primary == "dst" else (dst, src)
     # a = secondary, b = primary
-    if (
-        src.size
-        and src.min() >= 0
-        and dst.min() >= 0
-        and max(int(src.max()), int(dst.max())) < (1 << 31)
-    ):
+    if src.size and _ids_fit(src, dst, 1 << 31):
         key = (b.astype(np.int64) << 32) | a.astype(np.int64)
         return np.argsort(key, kind="stable")
     return np.lexsort((a, b))
@@ -74,17 +188,7 @@ class Graph:
         if w is not None:
             w = np.asarray(w, dtype=np.float64)
         if not presorted and src.size:
-            perm = _lexsort_edges(src, dst, "src")
-            src, dst = src[perm], dst[perm]
-            if w is not None:
-                w = w[perm]
-            keep = np.empty(src.shape[0], dtype=bool)
-            keep[0] = True
-            np.logical_or(src[1:] != src[:-1], dst[1:] != dst[:-1], out=keep[1:])
-            if not keep.all():
-                src, dst = src[keep], dst[keep]
-                if w is not None:
-                    w = w[keep]
+            src, dst, w = _sort_edges(src, dst, w, self.n, "src", True)
         self.src = src
         self.dst = dst
         self._w_arr = w
@@ -128,6 +232,18 @@ class Graph:
         the position in the vertex file, and ``mapping`` is the inverse."""
         vertex_ids = np.asarray(vertex_ids, dtype=ORIGINAL_ID_DTYPE)
         n = vertex_ids.shape[0]
+        # the fused native relabel (hash join, undirected doubling, radix
+        # sort and keep-first dedup in one pass) raises the numpy path's
+        # errors itself and returns None only when it declines
+        if np.asarray(edge_src).shape[0] >= NATIVE_SORT_MIN and native.available():
+            out = native.relabel_edges(
+                vertex_ids, edge_src, edge_dst,
+                None if edge_w is None else np.asarray(edge_w, dtype=np.float64), directed,
+            )
+            if out is not None:
+                s, d, w = out
+                return cls(n, s, d, w, vertex_ids, directed, weighted, presorted=True)
+
         order = np.argsort(vertex_ids, kind="stable")
         sorted_ids = vertex_ids[order]
         if np.any(sorted_ids[1:] == sorted_ids[:-1]):
@@ -209,11 +325,9 @@ class Graph:
         if not self.directed:
             return self.dst, self.src, self.w
         if self._pull_cache is None:
-            p = _lexsort_edges(self.src, self.dst, "dst")
-            w_raw = self._w_arr
-            self._pull_cache = (
-                self.src[p], self.dst[p], None if w_raw is None else w_raw[p]
-            )
+            # the raw weight slot: an unweighted graph co-sorts no ones
+            self._pull_cache = _sort_edges(self.src, self.dst, self._w_arr, self.n, "dst",
+                                           False)
         s, d, w = self._pull_cache
         return s, d, (self.w if w is None else w)
 

@@ -1,9 +1,13 @@
 """Edge/vertex list parsing and dense-id relabeling (counterpart of
-graphtpu/ingest/relabel.py), with numpy's parser.
+graphtpu/ingest/relabel.py).
 
 A .v file holds one original vertex id per line; a .e file holds
 ``src dst [weight]`` lines. Dense ids follow the vertex-file order and the
 mapping keeps the inverse (bin/py/relabel.py:37-61).
+
+Parsers, fastest first: the native C++ parser (``ingest/native.py``),
+then numpy's. A file the native parser refuses is parsed by numpy, with a
+warning, so both arms give the same arrays for any file numpy takes.
 """
 
 from __future__ import annotations
@@ -14,16 +18,17 @@ import numpy as np
 
 from graphtpu_torch.core.graph import Graph
 from graphtpu_torch.core.types import ORIGINAL_ID_DTYPE
+from graphtpu_torch.ingest import native
 from graphtpu_torch.utils.logging import get_logger
 
 log = get_logger("ingest")
 
 
-def parse_vertex_file(path: str) -> np.ndarray:
+def _parse_vertices_numpy(path: str) -> np.ndarray:
     return np.loadtxt(path, dtype=ORIGINAL_ID_DTYPE, ndmin=1)
 
 
-def parse_edge_file(path: str, weighted: bool):
+def _parse_edges_numpy(path: str, weighted: bool):
     # ids parse as int64 directly: a float64 round-trip corrupts ids above 2^53
     ids = np.loadtxt(path, dtype=ORIGINAL_ID_DTYPE, usecols=(0, 1), ndmin=2)
     if ids.size == 0:
@@ -36,6 +41,24 @@ def parse_edge_file(path: str, weighted: bool):
     dst = np.ascontiguousarray(ids[:, 1])
     w = np.loadtxt(path, dtype=np.float64, usecols=(2,), ndmin=1) if weighted else None
     return src, dst, w
+
+
+def parse_vertex_file(path: str) -> np.ndarray:
+    if native.available():
+        try:
+            return native.parse_vertices(path)
+        except native.NativeRefused as e:
+            log.warning("%s; parsing it with numpy", e)
+    return _parse_vertices_numpy(path)
+
+
+def parse_edge_file(path: str, weighted: bool):
+    if native.available():
+        try:
+            return native.parse_edges(path, weighted)
+        except native.NativeRefused as e:
+            log.warning("%s; parsing it with numpy", e)
+    return _parse_edges_numpy(path, weighted)
 
 
 def relabel(vertex_path: str, edge_path: str, directed: bool, weighted: bool) -> Graph:

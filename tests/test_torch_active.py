@@ -22,6 +22,8 @@ from graphtpu_torch.core.graph import Graph
 from graphtpu_torch.ops import active as ta
 from graphtpu_torch.utils.config import AlgorithmParams, PlatformConfig
 
+from torch_native_env import jax_native_on_port_build  # noqa: F401
+
 
 def _twin(jg):
     return Graph.from_arrays(jg.n, jg.src, jg.dst, None, jg.mapping, jg.directed, False)

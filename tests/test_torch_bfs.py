@@ -31,6 +31,8 @@ from graphtpu_torch.harness.validator import validate_result
 from graphtpu_torch.ops.spmv import csr_pull_reduce, csr_pull_reduce_plain
 from graphtpu_torch.utils.config import AlgorithmParams, GraphSpec, PlatformConfig
 
+from torch_native_env import jax_native_on_port_build  # noqa: F401
+
 GOLDENS = ["example-directed", "example-undirected", "test-bfs-directed", "test-bfs-undirected"]
 SOURCES = (0, 1, 5, 77)
 # (rows, edges) small enough for every phase on RMAT s9/ef8: rows 8 make

@@ -15,6 +15,8 @@ from graphtpu.ops import frontier as jf
 from graphtpu_torch.ops import frontier as tf
 from graphtpu_torch.ops.pallas_gather import vreg_shuffle, vreg_shuffle_plain
 
+from torch_native_env import jax_native_on_port_build  # noqa: F401
+
 
 def _t(a):
     return torch.from_numpy(np.array(a))

@@ -907,3 +907,40 @@ def test_pr_scan_on_the_card_matches_slab_and_cpu(cuda, directed):
     cpu_step, cpu_args = entry("cpu")
     np.testing.assert_allclose(step(*args).cpu().numpy(), cpu_step(*cpu_args).numpy(),
                                rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("prim_src", [True, False])
+@pytest.mark.parametrize("dedup", [True, False])
+def test_device_sort_on_the_card_matches_cpu(cuda, monkeypatch, prim_src, dedup):
+    """The device ingest sort: the kernel on the card gives the CPU run's
+    sort, positions and keep mask; _device_sort_edges gives the host
+    lexsort's (src, dst, w) and records its three times; a Graph built
+    with a card visible sorts there."""
+    from graphtpu_torch.core import graph as G
+
+    rng = np.random.default_rng(12)
+    n, m = 5000, 300_000
+    src = rng.integers(0, n, m).astype(np.int32)
+    dst = rng.integers(0, n, m).astype(np.int32)
+    src[m // 2:m // 2 + 500], dst[m // 2:m // 2 + 500] = src[:500], dst[:500]
+    w = rng.random(m)
+    got = G._device_sort_kernel(src, dst, prim_src, dedup, True, cuda)
+    want = G._device_sort_kernel(src, dst, prim_src, dedup, True, "cpu")
+    for a, b in zip(got, want):
+        assert a.is_cuda and torch.equal(a.cpu(), b)
+
+    primary = "src" if prim_src else "dst"
+    monkeypatch.setattr(G, "DEVICE_SORT_MIN", 1)
+    s, d, ws = G._device_sort_edges(src, dst, w, primary, dedup)
+    perm = G._lexsort_edges(src, dst, primary)
+    keep = np.ones(m, dtype=bool)
+    if dedup:
+        keep[1:] = (src[perm][1:] != src[perm][:-1]) | (dst[perm][1:] != dst[perm][:-1])
+    for a, b in zip((s, d, ws), (src[perm][keep], dst[perm][keep], w[perm][keep])):
+        assert np.array_equal(a, b)
+    assert set(G.last_device_sort) == {"h2d_s", "sort_s", "d2h_s"}
+    if prim_src and dedup:
+        G.last_device_sort.clear()
+        g = G.Graph(n, src, dst, w, np.arange(n), directed=True, weighted=True)
+        assert set(G.last_device_sort) == {"h2d_s", "sort_s", "d2h_s"}
+        assert np.array_equal(g.src, s) and np.array_equal(g.dst, d) and np.array_equal(g.w, ws)

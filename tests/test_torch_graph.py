@@ -22,6 +22,8 @@ from graphtpu_torch.ops.slab import build_slab_plan
 from graphtpu_torch.utils import synth as tsynth
 from graphtpu_torch.utils.config import GraphSpec, PlatformConfig
 
+from torch_native_env import jax_native_on_port_build  # noqa: F401
+
 CPU = torch.device("cpu")
 
 

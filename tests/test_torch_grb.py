@@ -24,6 +24,8 @@ from graphtpu_torch.ingest.relabel import relabel
 from graphtpu_torch.utils.config import GraphSpec, PlatformConfig
 from graphtpu_torch.utils.synth import uniform_graph
 
+from torch_native_env import jax_native_on_port_build  # noqa: F401
+
 INDPTR = np.array([0, 2, 3, 3], dtype=np.uint64)
 INDICES = np.array([1, 2, 0], dtype=np.uint64)
 VALS = np.array([1.5, 2.5, 3.5], dtype=np.float64)

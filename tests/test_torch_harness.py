@@ -29,6 +29,8 @@ from graphtpu_torch.utils.config import (
     _PLATFORM_PROPS, BenchmarkConfig, GraphSpec, PlatformConfig,
 )
 
+from torch_native_env import jax_native_on_port_build  # noqa: F401
+
 REPO = Path(__file__).resolve().parent.parent
 TEMPLATE = REPO / "config-template" / "benchmark.properties"
 ALGOS = ["bfs", "pr", "wcc", "cdlp", "lcc", "sssp"]

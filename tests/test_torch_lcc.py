@@ -46,6 +46,8 @@ from graphtpu_torch.ops import triangles as ttri
 from graphtpu_torch.ops.slab import optimal_bucket_bounds
 from graphtpu_torch.utils.config import AlgorithmParams, GraphSpec, PlatformConfig
 
+from torch_native_env import jax_native_on_port_build  # noqa: F401
+
 REPO = Path(__file__).resolve().parent.parent
 GOLDENS = ["example-directed", "example-undirected", "test-lcc-directed", "test-lcc-undirected"]
 CPU = PlatformConfig(device="cpu")

@@ -31,6 +31,8 @@ from graphtpu_torch.ops.pallas_gather import dma_row_gather
 from graphtpu_torch.ops import slab as tslab
 from graphtpu_torch.ops.slab import SlabPlan
 
+from torch_native_env import jax_native_on_port_build  # noqa: F401
+
 CPU = torch.device("cpu")
 
 

@@ -29,6 +29,8 @@ from graphtpu_torch.harness.validator import validate_result
 from graphtpu_torch.ops.spmv import csr_pull_reduce, csr_pull_reduce_plain
 from graphtpu_torch.utils.config import AlgorithmParams, GraphSpec, PlatformConfig
 
+from torch_native_env import jax_native_on_port_build  # noqa: F401
+
 PR = dict(damping_factor=0.85, num_iterations=20)
 RTOL = {"float32": 1e-5, "float64": 1e-12}
 

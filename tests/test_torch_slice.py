@@ -27,6 +27,8 @@ from graphtpu_torch.harness.platform import GraphTorchPlatform
 from graphtpu_torch.harness.validator import validate_result
 from graphtpu_torch.utils.config import AlgorithmParams, GraphSpec, PlatformConfig
 
+from torch_native_env import jax_native_on_port_build  # noqa: F401
+
 REPO = Path(__file__).resolve().parent.parent
 
 GOLDENS = [
@@ -177,8 +179,9 @@ def test_port_imports_no_jax_graphtpu_or_pandas():
         "mods = [m.name for m in pkgutil.walk_packages(graphtpu_torch.__path__, 'graphtpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = [k for k in sys.modules if k.startswith(('jax', 'graphtpu.', 'pandas')) or k == 'graphtpu']\n"
-        "assert len(mods) >= 28, mods\n"
-        "for m in ('algorithms.lcc', 'ops.edgehash', 'ops.triangles', 'ingest.grb'):\n"
+        "assert len(mods) >= 31, mods\n"
+        "for m in ('algorithms.lcc', 'ops.edgehash', 'ops.triangles', 'ingest.grb',\n"
+        "          'ingest.native', 'ingest.mm', 'ingest.download'):\n"
         "    assert 'graphtpu_torch.' + m in mods, m\n"
         "assert not bad, bad\n"
     )

@@ -31,6 +31,8 @@ from graphtpu_torch.harness.validator import validate_result
 from graphtpu_torch.ops.frontier import relax_min, relax_min_plain
 from graphtpu_torch.utils.config import AlgorithmParams, GraphSpec, PlatformConfig
 
+from torch_native_env import jax_native_on_port_build  # noqa: F401
+
 GOLDENS = ["example-directed", "example-undirected", "test-sssp-directed", "test-sssp-undirected"]
 DTYPES = {"float32": (np.float32, torch.float32), "float64": (np.float64, torch.float64)}
 # a three-tier ladder (rows e/4) that leaves the big rounds to full sweeps

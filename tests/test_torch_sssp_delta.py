@@ -34,6 +34,8 @@ from graphtpu_torch.harness.validator import validate_result
 from graphtpu_torch.utils.config import AlgorithmParams, GraphSpec, PlatformConfig
 from graphtpu_torch.utils.synth import grid_graph
 
+from torch_native_env import jax_native_on_port_build  # noqa: F401
+
 GOLDENS = ["example-directed", "example-undirected", "test-sssp-directed", "test-sssp-undirected"]
 DTYPES = {"float32": (np.float32, torch.float32), "float64": (np.float64, torch.float64)}
 ROOMY, TINY = (1 << 10, 1 << 14), (4, 16)

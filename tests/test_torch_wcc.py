@@ -32,6 +32,8 @@ from graphtpu_torch.harness.validator import validate_result
 from graphtpu_torch.ops.spmv import build_pull_plan, slab_spmv, slab_spmv_min
 from graphtpu_torch.utils.config import AlgorithmParams, GraphSpec, PlatformConfig
 
+from torch_native_env import jax_native_on_port_build  # noqa: F401
+
 GOLDENS = ["example-directed", "example-undirected", "test-wcc-directed", "test-wcc-undirected"]
 # (rows, edges): the default caps, caps under which iteration 0 overflows
 # and full steps precede active ones, and caps so small no active set fits
