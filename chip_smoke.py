@@ -28,9 +28,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
    intermediate/. Each path runs through run_algorithm on the kernels, then
    as plain PyTorch on the card: CDLP under auto and slab (itermax 10),
    PageRank (20 iterations, d = 0.85) under auto (the slab arm, K3) and
-   scan (the segment-sum arm, K7 in mode sum), BFS from vertex 0 under auto and
-   device, WCC under auto, adaptive and device, SSSP from vertex 0 under
-   auto, device and delta. LCC runs under auto on the benchmark graph: the
+   scan (the segment-sum arm, K7 in mode sum), BFS from vertex 0 under auto,
+   device and hybrid, WCC under auto, adaptive and device, SSSP from vertex 0
+   under auto, device, delta and hybrid (the hybrids: host steps for sparse
+   levels and rounds, K7 sweeps for the heavy ones). LCC runs under auto on
+   the benchmark graph: the
    wedge plan's prep is timed cold and from the oriented cache, its counts
    print, and the plain path is one pass of K10's plain version over every
    bucket (phase 5), whose numerators must equal the kernel path's; on two
@@ -48,8 +50,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
    nothing else.
    vreg_shuffle has no path in the system, and no LCC path launches
    edgehash_probe (K10 closes wedges by a search of the plan's closing CSR;
-   only K10's plain version probes the hash): each has its own phase, and
-   its count is that phase's. Every profiler trace's count of each hand
+   only K10's plain version probes the hash), and no algorithm calls
+   masked_spgemm (the GraphBLAS surface): each has its own phase, and its
+   count is that phase's. Every profiler trace's count of each hand
    kernel is held against the wrappers' launch counts, and a trace that
    lost records is taken again.
 5. Each kernel against its plain PyTorch version at the path's shapes and
@@ -58,7 +61,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
    bytes the function must move at these inputs (each input read once, each
    output written once; stored slots that are pad are not counted) over the
    card's published memory rate, or its operations over the float32 peak,
-   whichever is larger; and, where one PyTorch call computes the same
+   whichever is larger, and never less than the measured time of a kernel
+   that returns at once (bound_by "launch"); and, where one PyTorch call computes the same
    function (index_select, a CSR product, gather), that call's time. The
    library calls are yardsticks: the port never calls them. K7 is held and
    timed on the full pull CSRs (max_i32, min_plus float32) and on the WCC
@@ -74,6 +78,17 @@ Run from the root of a checkout:  python3 chip_smoke.py
    bound counts merge steps: the wedges plus the out-list entries its
    search reads). A kernel
    that returns at once gives the floor under the launch-sized rows.
+5b. K11 masked_spgemm: against its plain version on the card for each add
+   monoid (plus.times, min.plus, max.second, lor.land) and each value type
+   (float32, float64, int32, structural) on RMAT scale 14 (A its oriented
+   structure U, B its stored CSR, the mask every stored edge; float plus
+   sums within 1e-5 / 1e-12 relative, the rest bit for bit); then one call
+   at the benchmark graph's size, C<U> = U.U under plus.pair over its
+   degree-oriented structure (30.3M mask entries), whose sum must be the
+   triangle count that the LCC numerators give (their sum / 6), held bit
+   for bit against one pass of the plain version in chunks of the mask (the
+   whole slab does not fit in device memory); its launch count is this
+   call's.
 
 6. Ingest: both RMAT graphs written once as .v/.e text under intermediate/
    (each unordered pair once, weights in 17 significant digits), loaded
@@ -133,6 +148,7 @@ TRACE_KERNELS = {
     ("push_relax_min_kernel",): ("push_relax_min",),
     ("edgehash_probe_kernel",): ("edgehash_probe",),
     ("wedge_rowblock_kernel",): ("wedge_rowblock",),
+    ("masked_spgemm_kernel",): ("masked_spgemm",),
 }
 TRACE_TRIES = 5  # traces taken before a kernel count that stays wrong fails the run
 PR_RTOL = 1e-4        # the validator's EPSILON (graphtpu/harness/validator.py:40)
@@ -160,7 +176,9 @@ def cuda_ms(fn, reps=10, empty_kernel=False):
     kernels): it is taken again, and after three such traces the stream
     span stands in for the device time, with a line that says so.
     ``empty_kernel`` says that fn is the kernel that returns at once,
-    which otherwise is left out; it opens and closes every trace."""
+    which otherwise is left out; it opens and closes every trace. Its time
+    is the mean of the records a trace kept, if it kept at least ``reps``
+    (a lost record biases no mean of one kernel's records)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -188,6 +206,11 @@ def cuda_ms(fn, reps=10, empty_kernel=False):
         calls = reps + 2 * empty_kernel
         events = _device_events(prof, empty_kernel)
         device_us = sum(e.self_device_time_total for e in events)
+        kept = sum(e.count for e in events)
+        if empty_kernel and device_us > 0 and kept >= reps:
+            # one kernel only: the mean of the records the trace kept is its
+            # time, whichever of the calls lost theirs
+            return device_us / 1e3 / kept, stream_ms
         lost = trace_mismatch(prof) if device_us > 0 else ["no device time at all"]
         lost += [f"{e.key[:48]}: {e.count} records in {calls} calls" for e in events
                  if e.count % calls]
@@ -288,10 +311,13 @@ def card_state():
     ).stdout.strip()
 
 
-def bound_ms(nbytes, ops):
-    """(ms, "bytes" or "operations"): the least time the card could take."""
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+def bound_ms(nbytes, ops, launch_ms):
+    """(ms, "bytes", "operations" or "launch"): the least time the card
+    could take, the largest of the bytes over the memory rate, the
+    operations over the float32 peak, and ``launch_ms``, the measured time
+    of a kernel that returns at once (no launch takes less)."""
+    return max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"), (ops / F32_OPS_PER_S * 1e3, "operations"),
+               (launch_ms, "launch"), key=lambda t: t[0])
 
 
 def plan_counts(plan):
@@ -507,6 +533,7 @@ PATHS = {
     "pr-scan": ("pr", {"pr_impl": "scan"}, ("csr_pull_reduce_sum",)),
     "bfs-auto": ("bfs", {"bfs_impl": "auto"}, ("gather_rows", "frontier_expand")),
     "bfs-device": ("bfs", {"bfs_impl": "device"}, ("csr_pull_reduce",)),
+    "bfs-hybrid": ("bfs", {"bfs_impl": "hybrid"}, ("csr_pull_reduce",)),
     "wcc-auto": ("wcc", {"wcc_impl": "auto"}, ("slab_spmv_min", "frontier_expand")),
     "wcc-adaptive": ("wcc", {"wcc_impl": "adaptive"}, ("csr_pull_reduce", "frontier_expand")),
     "wcc-device": ("wcc", {"wcc_impl": "device"}, ("csr_pull_reduce",)),
@@ -515,6 +542,7 @@ PATHS = {
     "sssp-device": ("sssp", {"sssp_impl": "device"}, ("csr_pull_reduce",)),
     "sssp-delta": ("sssp", {"sssp_impl": "delta"},
                    ("csr_pull_reduce", "frontier_expand", "push_relax_min")),
+    "sssp-hybrid": ("sssp", {"sssp_impl": "hybrid"}, ("csr_pull_reduce",)),
     "lcc": ("lcc", {"lcc_impl": "auto"}, ("gather_rows", "wedge_rowblock")),
 }
 # the plain path of LCC is one pass of K10's plain version over every bucket,
@@ -796,10 +824,10 @@ def phase_real_size(device):
             check(out["kernel", name].iterations == out["plain", name].iterations,
                   f"{name} iteration counts differ, kernel vs plain")
     reached, components, finite = check_fixed_points(g, gw, out)
-    print(f"real size: bfs levels identical, auto vs device, kernel vs plain ({reached} "
-          f"reached); wcc labels identical, auto vs adaptive vs device ({components} "
-          f"components); sssp distances identical, auto vs device ({finite} finite); all "
-          f"fixed points over every edge", flush=True)
+    print(f"real size: bfs levels identical, auto vs device vs hybrid, kernel vs plain "
+          f"({reached} reached); wcc labels identical, auto vs adaptive vs device "
+          f"({components} components); sssp distances identical, auto vs device vs delta vs "
+          f"hybrid ({finite} finite); all fixed points over every edge", flush=True)
 
     lcc = out["kernel", "lcc"].values
     check(lcc.shape == (g.n,) and lcc.dtype == np.float64, "lcc output shape or dtype")
@@ -1506,7 +1534,8 @@ def phase_traversal_kernels(g, gw, device):
 
 def phase_lcc_kernels(g, wplan, real_wedges, lcc_values, device):
     """K9 and K10 against their plain versions on the benchmark graph's
-    wedge plan. Returns their results and K9's launches in its own drive."""
+    wedge plan. Returns their results, K9's launches in its own drive and
+    the sum of the LCC numerators."""
     import numpy as np
     import torch
 
@@ -1619,8 +1648,8 @@ def phase_lcc_kernels(g, wplan, real_wedges, lcc_values, device):
           "the lcc path's coefficients are not those of these numerators")
     check(np.array_equal(lcc_oriented_numerator(wplan), kernel_num),
           "lcc numerators: two runs differ")
-    triangles = int(kernel_num.sum())
-    print(f"real size: lcc numerators identical, kernel path vs plain path (sum {triangles}, "
+    num_sum = int(kernel_num.sum())
+    print(f"real size: lcc numerators identical, kernel path vs plain path (sum {num_sum}, "
           f"{int((kernel_num > 0).sum())} vertices in a triangle; mean coefficient "
           f"{lcc_values.mean():.6f})", flush=True)
     del kernel_credits, plain_credits
@@ -1654,7 +1683,227 @@ def phase_lcc_kernels(g, wplan, real_wedges, lcc_values, device):
         traffic=(reads * 4 + small,
                  "each out-list entry read from device memory for every entry that reads it"),
     )
-    return res, k9_launches
+    return res, k9_launches, num_sum
+
+
+SPGEMM_SCALE = 14    # (a): small enough for the plain slab, the bench graph's edge factor
+SPGEMM_SLOTS = 1 << 27  # padded slab slots per chunk of the plain pass at the bench size
+# (a): a semiring per add monoid
+SPGEMM_SEMIRINGS = ("plus.times", "min.plus", "max.second", "lor.land")
+
+
+def oriented_csr(g, device):
+    """(U, S, rows, cols): the degree-oriented structure U of an undirected
+    graph (each edge once, from the lower (degree, id) end to the higher) and
+    the graph's stored CSR S, both structural CSRs on ``device``; rows and
+    cols are U's entries as int32 tensors. Columns stay sorted within a row,
+    as the stored edges are sorted by (src, dst)."""
+    import torch
+
+    from graphtpu_torch.core.spgemm import CSR
+    from graphtpu_torch.ops.spmv import int32_tensor
+
+    s, d = int32_tensor(g.src, device), int32_tensor(g.dst, device)
+    deg = int32_tensor(g.out_degree, device)
+    ds, dd = deg[s.long()], deg[d.long()]
+    keep = (ds < dd) | ((ds == dd) & (s < d))
+    rows, cols = s[keep].contiguous(), d[keep].contiguous()
+    counts = torch.bincount(rows.long(), minlength=g.n)
+    indptr = torch.cat([counts.new_zeros(1), counts.cumsum(0)]).to(torch.int32)
+    sym = CSR(int32_tensor(g.indptr, device), d, None)
+    return CSR(indptr, cols, None), sym, rows, cols
+
+
+def spgemm_work(a, b, rows):
+    """(terms, search steps): the A entries that the mask entries walk, and
+    the steps of their searches of B's rows (a row of d entries takes
+    floor(log2 d) + 1 steps), as this run's data needs them."""
+    import torch
+
+    deg_a, deg_b = a.indptr.diff().long(), b.indptr.diff().double()
+    steps = torch.where(deg_b > 0, torch.floor(torch.log2(deg_b.clamp(min=1))) + 1, 0).long()
+    per_entry = steps[a.col.long()]
+    cs = torch.cat([per_entry.new_zeros(1), per_entry.cumsum(0)])
+    row_steps = cs[a.indptr[1:].long()] - cs[a.indptr[:-1].long()]
+    r = rows.long()
+    return int(deg_a[r].sum()), int(row_steps[r].sum())
+
+
+def plain_in_chunks(semiring, a, b, rows_h, cols_h):
+    """K11's plain version over the mask in chunks of at most SPGEMM_SLOTS
+    padded slab slots (the whole slab does not fit in device memory at the
+    bench size): the same buckets, entry by entry, as one call."""
+    import numpy as np
+    import torch
+
+    from graphtpu_torch.core.spgemm import _bucket_bounds, masked_spgemm_plain
+    from graphtpu_torch.ops import kernels
+
+    a_ip = a.indptr.cpu().numpy()
+    deg = np.diff(a_ip)[rows_h]
+    bounds = np.array(_bucket_bounds(int(np.diff(a_ip).max())))
+    slots = np.cumsum(bounds[np.searchsorted(bounds, deg)])
+    cuts = np.searchsorted(slots, np.arange(SPGEMM_SLOTS, slots[-1] + SPGEMM_SLOTS, SPGEMM_SLOTS))
+    edges = np.unique(np.concatenate([[0], np.minimum(cuts, rows_h.size), [rows_h.size]]))
+    with kernels.plain_torch():
+        parts = [masked_spgemm_plain(semiring, a, b, rows_h[lo:hi], cols_h[lo:hi],
+                                     a_indptr_host=a_ip) for lo, hi in zip(edges[:-1], edges[1:])]
+    return torch.cat(parts), len(parts)
+
+
+def phase_spgemm(g, num_sum, device):
+    """K11 masked_spgemm. (a) Against its plain version on the card, for each
+    add monoid and each value type, on RMAT scale SPGEMM_SCALE (the bench
+    graph's edge factor): A = its oriented structure U with values, B = its
+    stored CSR with values (rows longer than A's), the mask = every stored
+    edge. (b) One call at the bench graph's size: C<U> = U.U under plus.pair,
+    whose sum over the mask is the triangle count, a sixth of the LCC
+    numerators' sum; against one pass of its plain version in chunks.
+    Returns K11's result and its launches in (b)."""
+    import numpy as np
+    import torch
+
+    from graphtpu_torch.core.semiring import BY_NAME, PLUS_PAIR
+    from graphtpu_torch.core.spgemm import CSR, masked_spgemm, masked_spgemm_rows
+    from graphtpu_torch.ops import kernels
+    from graphtpu_torch.ops.spmv import int32_tensor
+    from graphtpu_torch.utils.synth import rmat_graph
+
+    gen = torch.Generator(device=device).manual_seed(11)
+    small = rmat_graph(SPGEMM_SCALE, 32, directed=False, seed=42)
+    u, sym, su_rows, su_cols = oriented_csr(small, device)
+    # the mask: every stored edge (rows in sorted order, cols = S's columns)
+    mrows, mcols = int32_tensor(small.src, device), sym.col
+    rows_h, cols_h = small.src.astype(np.int32), small.dst.astype(np.int32)
+
+    def values(n, dtype, name):
+        if name == "lor.land":
+            return torch.randint(0, 2, (n,), generator=gen, device=device).to(dtype)
+        if dtype == torch.int32:
+            return torch.randint(1, 10, (n,), generator=gen, device=device, dtype=torch.int32)
+        return (torch.rand(n, generator=gen, device=device, dtype=dtype) * 4 + 0.5)
+
+    worst = 0.0
+    for name in SPGEMM_SEMIRINGS:
+        for vt in (torch.float32, torch.float64, torch.int32, None):
+            a = CSR(u.indptr, u.col, None if vt is None else values(u.col.numel(), vt, name))
+            b = CSR(sym.indptr, sym.col, None if vt is None else values(sym.col.numel(), vt, name))
+            before = kernels.launch_counts["masked_spgemm"]
+            got = masked_spgemm_rows(BY_NAME[name], a, b, mrows, mcols)
+            check(kernels.launch_counts["masked_spgemm"] == before + 1,
+                  f"masked_spgemm {name}: one call did not count one launch")
+            with kernels.plain_torch():
+                want = masked_spgemm(BY_NAME[name], a, b, rows_h, cols_h)
+            what = f"masked_spgemm {name} {vt or 'structural'} (RMAT s{SPGEMM_SCALE}/ef32)"
+            check(got.dtype == want.dtype and got.shape == want.shape, f"{what}: dtype or shape")
+            if name.startswith("plus") and got.dtype.is_floating_point and vt is not None:
+                rtol = F32_SUM_RTOL if got.dtype == torch.float32 else F64_SUM_RTOL
+                rel = float(((got.double() - want.double()).abs() / want.double().abs()
+                             .clamp(min=1e-300)).max())
+                check(rel <= rtol, f"{what}: relative error {rel} > {rtol}")
+            else:
+                check(torch.equal(got, want), f"{what} differs from its plain version")
+            worst = max(worst, max_abs_err(got, want))
+            ident = BY_NAME[name].add.identity(got.dtype)
+            check(int((got != ident).sum()) > 0, f"{what}: no mask entry is reached")
+    print(f"masked_spgemm = plain on RMAT s{SPGEMM_SCALE}/ef32 ({small.nnz} mask entries, A = U "
+          f"{u.col.numel()} entries, B {sym.col.numel()}), semirings {SPGEMM_SEMIRINGS} x float32, "
+          f"float64, int32, structural (plus over floats within {F32_SUM_RTOL} / {F64_SUM_RTOL} "
+          f"relative; max abs err {worst:.3e})", flush=True)
+    s_terms, s_steps = spgemm_work(u, u, su_rows)
+    with kernels.plain_torch():
+        s_plain = cuda_ms(lambda: masked_spgemm(PLUS_PAIR, u, u, su_rows.cpu().numpy(),
+                                                su_cols.cpu().numpy()), reps=3)
+    small_shape = dict(
+        shape=(f"C<U> = U.U plus.pair on RMAT s{SPGEMM_SCALE}/ef32: {su_rows.numel()} mask "
+               f"entries, {s_terms} terms, {s_steps} search steps"),
+        times=(cuda_ms(lambda: masked_spgemm_rows(PLUS_PAIR, u, u, su_rows, su_cols)), s_plain),
+        bytes=su_rows.numel() * 12 + u.indptr.numel() * 4 + u.col.numel() * 4, ops=s_steps)
+    del u, sym, mrows, mcols, su_rows, su_cols
+
+    # (b) the bench graph
+    u, _, rows, cols = oriented_csr(g, device)
+    terms, steps = spgemm_work(u, u, rows)
+    m = rows.numel()
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = masked_spgemm_rows(PLUS_PAIR, u, u, rows, cols)
+    torch.cuda.synchronize()
+    one_call = time.perf_counter() - t0
+    launches = kernels.launch_counts["masked_spgemm"]
+    check(launches == 1, f"masked_spgemm launched {launches} times in one call")
+    check(one_call < 60, f"one masked_spgemm call at the bench size took {one_call:.1f} s")
+    check(got.dtype == torch.float32 and got.shape == (m,) and bool(torch.isfinite(got).all()),
+          "masked_spgemm at the bench size: dtype, shape or a value not finite")
+    triangles = int(got.double().sum())  # every value a count below 2^24: exact
+    check(triangles * 6 == num_sum,
+          f"C<U> = U.U sums to {triangles} triangles; the LCC numerators give {num_sum} / 6")
+    check(torch.equal(got, masked_spgemm_rows(PLUS_PAIR, u, u, rows, cols)),
+          "masked_spgemm: two runs differ")
+    k11_times = cuda_ms(lambda: masked_spgemm_rows(PLUS_PAIR, u, u, rows, cols), reps=3)
+    # the plain pass last: profiler traces taken after it lost records
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    rows_h, cols_h = rows.cpu().numpy(), cols.cpu().numpy()
+    start.record()
+    want, chunks = plain_in_chunks(PLUS_PAIR, u, u, rows_h, cols_h)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    check(torch.equal(got, want), "masked_spgemm differs from its plain version at the bench size")
+    del want
+    torch.cuda.empty_cache()
+    print(f"masked_spgemm C<U> = U.U (plus.pair) on {BENCH_GRAPH}: {m} mask entries, {terms} "
+          f"terms, {steps} search steps; one call {one_call:.3f} s; sum {triangles} triangles = "
+          f"the LCC numerators' {num_sum} / 6; identical to one pass of the plain version in "
+          f"{chunks} chunks ({plain_ms:.3f} ms)", flush=True)
+    res = dict(
+        max_abs_err=0.0,
+        times=(k11_times, (plain_ms, plain_ms)),
+        shape=(f"C<U> = U.U plus.pair over the bench graph's degree-oriented structure: {m} "
+               f"mask entries, {terms} terms, {steps} search steps; plain version: one pass "
+               f"in {chunks} chunks, CUDA events"),
+        # read once: the mask (rows, cols), U's indptr and columns (A and B
+        # are one CSR); written once: a float32 per mask entry. Operations:
+        # the search steps
+        bytes=m * 12 + u.indptr.numel() * 4 + u.col.numel() * 4, ops=steps,
+        library=None,  # none: torch has no masked SpGEMM (sampled_addmm takes dense factors)
+        other_shapes=[small_shape],
+    )
+    return {"masked_spgemm": res}, launches
+
+
+def report_kernel(name, r, empty_ms):
+    """Complete kernel ``name``'s result ``r`` with its times, bound and
+    library call's time (measured now), and print them."""
+    for o in r.get("other_shapes", ()):
+        (o["ms"], _), (o["plain_ms"], _) = o.pop("times")
+        o["bound_ms"], o["bound_by"] = bound_ms(o["bytes"], o.pop("ops"), empty_ms)
+        print(f"kernel {name} ({o['shape']}): device {o['ms']:.6f} ms vs plain "
+              f"{o['plain_ms']:.6f} ms; bound {o['bound_ms']:.6f} ms by {o['bound_by']} "
+              f"({o['bytes']} bytes): {100 * o['bound_ms'] / o['ms']:.1f} % of it",
+              flush=True)
+    (k_dev, k_stream), (p_dev, p_stream) = r["times"]
+    r["ms"], r["plain_ms"] = k_dev, p_dev
+    r["bound_ms"], r["bound_by"] = bound_ms(r["bytes"], r["ops"], empty_ms)
+    r["library_ms"], lib = None, "library call: none"
+    if r["library"] is not None:
+        lib_name, lib_fn = r["library"]
+        r["library_ms"] = cuda_ms(lib_fn, reps=100 if name == "vreg_shuffle" else 10)[0]
+        lib = f"library call ({lib_name}) {r['library_ms']:.6f} ms"
+    print(f"kernel {name} ({r['shape']}): device {k_dev:.6f} ms vs plain {p_dev:.6f} ms; "
+          f"stream span {k_stream:.6f} ms vs plain {p_stream:.6f} ms; "
+          f"max abs err {r['max_abs_err']:.3e}; bound {r['bound_ms']:.6f} ms by "
+          f"{r['bound_by']} ({r['bytes']} bytes at {HBM_BYTES_PER_S / 1e12} TB/s, "
+          f"{r['ops']} operations at {F32_OPS_PER_S / 1e12} Tops/s, both published): "
+          f"{100 * r['bound_ms'] / k_dev:.1f} % of it; {lib}", flush=True)
+    if "traffic" in r:
+        traffic, how = r.pop("traffic")
+        r["traffic_ms"] = traffic / HBM_BYTES_PER_S * 1e3
+        print(f"kernel {name}: {how} would move {traffic} bytes, {r['traffic_ms']:.6f} ms at "
+              f"{HBM_BYTES_PER_S / 1e12} TB/s (the design's traffic, no bound: what many "
+              f"read need not move twice); the kernel takes "
+              f"{100 * k_dev / r['traffic_ms']:.1f} % of that", flush=True)
 
 
 SOURCES = {
@@ -1670,6 +1919,7 @@ SOURCES = {
     "push_relax_min": ("graphtpu_torch/csrc/push_relax.cu", "graphtpu/algorithms/sssp.py:140"),
     "edgehash_probe": ("graphtpu_torch/csrc/edgehash_probe.cu", "graphtpu/ops/edgehash.py:159"),
     "wedge_rowblock": ("graphtpu_torch/csrc/wedge_rowblock.cu", "graphtpu/ops/triangles.py:555"),
+    "masked_spgemm": ("graphtpu_torch/csrc/masked_spgemm.cu", "graphtpu/core/spgemm.py:146"),
 }
 
 
@@ -1728,41 +1978,23 @@ def main() -> int:
           f"GiB", flush=True)
     res = phase_kernels(g, prep, pr_plan, device)
     res.update(phase_traversal_kernels(g, gw, device))
-    lcc_res, launches["edgehash_probe"] = phase_lcc_kernels(g, wplan, real_wedges, lcc_values,
-                                                            device)
+    lcc_res, launches["edgehash_probe"], num_sum = phase_lcc_kernels(
+        g, wplan, real_wedges, lcc_values, device)
     res.update(lcc_res)
     empty_ms = cuda_ms(lambda: kernels.launch_empty(device), reps=100, empty_kernel=True)[0]
     print(f"kernel that returns at once (one block of one thread): device {empty_ms:.6f} ms, "
           f"the floor under the launch-sized rows", flush=True)
     for name, r in res.items():
-        for o in r.get("other_shapes", ()):
-            (o["ms"], _), (o["plain_ms"], _) = o.pop("times")
-            o["bound_ms"], o["bound_by"] = bound_ms(o["bytes"], o.pop("ops"))
-            print(f"kernel {name} ({o['shape']}): device {o['ms']:.6f} ms vs plain "
-                  f"{o['plain_ms']:.6f} ms; bound {o['bound_ms']:.6f} ms by {o['bound_by']} "
-                  f"({o['bytes']} bytes): {100 * o['bound_ms'] / o['ms']:.1f} % of it",
-                  flush=True)
-        (k_dev, k_stream), (p_dev, p_stream) = r["times"]
-        r["ms"], r["plain_ms"] = k_dev, p_dev
-        r["bound_ms"], r["bound_by"] = bound_ms(r["bytes"], r["ops"])
-        r["library_ms"], lib = None, "library call: none"
-        if r["library"] is not None:
-            lib_name, lib_fn = r["library"]
-            r["library_ms"] = cuda_ms(lib_fn, reps=100 if name == "vreg_shuffle" else 10)[0]
-            lib = f"library call ({lib_name}) {r['library_ms']:.6f} ms"
-        print(f"kernel {name} ({r['shape']}): device {k_dev:.6f} ms vs plain {p_dev:.6f} ms; "
-              f"stream span {k_stream:.6f} ms vs plain {p_stream:.6f} ms; "
-              f"max abs err {r['max_abs_err']:.3e}; bound {r['bound_ms']:.6f} ms by "
-              f"{r['bound_by']} ({r['bytes']} bytes at {HBM_BYTES_PER_S / 1e12} TB/s, "
-              f"{r['ops']} operations at {F32_OPS_PER_S / 1e12} Tops/s, both published): "
-              f"{100 * r['bound_ms'] / k_dev:.1f} % of it; {lib}", flush=True)
-        if "traffic" in r:
-            traffic, how = r.pop("traffic")
-            r["traffic_ms"] = traffic / HBM_BYTES_PER_S * 1e3
-            print(f"kernel {name}: {how} would move {traffic} bytes, {r['traffic_ms']:.6f} ms at "
-                  f"{HBM_BYTES_PER_S / 1e12} TB/s (the design's traffic, no bound: what many "
-                  f"read need not move twice); the kernel takes "
-                  f"{100 * k_dev / r['traffic_ms']:.1f} % of that", flush=True)
+        report_kernel(name, r, empty_ms)
+    # after the other kernels' timings: in a run where K11's phase came
+    # first, every profiler trace taken after its chunked plain pass lost
+    # records
+    t0 = time.perf_counter()
+    spgemm_res, launches["masked_spgemm"] = phase_spgemm(g, num_sum, device)
+    print(f"spgemm phase: {time.perf_counter() - t0:.3f} s", flush=True)
+    for name, r in spgemm_res.items():
+        report_kernel(name, r, empty_ms)
+    res.update(spgemm_res)
     t0 = time.perf_counter()
     ingest = phase_ingest(g, gw, smi)
     print(f"ingest phase: {time.perf_counter() - t0:.3f} s", flush=True)

@@ -17,7 +17,10 @@ edges (undirected); unreachable vertices serialize as int64 max
   The step sequence, and so every phase counter, is the JAX kernel's.
 * "device": dense pull steps only (``_bfs_kernel``), each one kernel K7
   launch over every edge.
-* "hybrid" (host expansions for sparse levels) is not ported yet.
+* "hybrid": levels whose frontier's out-edges are at most
+  ``bfs_active_threshold`` of the edges expand on the host over the push
+  CSR (numpy); heavier levels run dense pull steps on K7 until the
+  frontier is light again (``bfs_hybrid_run``).
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import torch
 from torch.profiler import record_function
 
 from graphtpu_torch.algorithms.common import AlgorithmResult, register
-from graphtpu_torch.core.graph import Graph
+from graphtpu_torch.core.graph import Graph, frontier_edge_positions
 from graphtpu_torch.core.types import INT32_INF, UNREACHABLE
 from graphtpu_torch.ops.frontier import (
     compact,
@@ -251,6 +254,55 @@ def bfs_adaptive_run(graph: Graph, src_dense: int, cfg: Optional[PlatformConfig]
     return levels, niter
 
 
+def bfs_hybrid_run(graph: Graph, src_dense: int, cfg: Optional[PlatformConfig] = None):
+    """Direction-optimizing hybrid: sparse frontiers expand on the host over
+    the push CSR (out-edges, the right direction for directed graphs);
+    frontiers whose out-edges exceed ``bfs_active_threshold`` of the edges
+    run dense pull steps on cfg.device. Returns (int32 numpy levels with
+    INT32_INF unreachable, iterations), as the JAX package's does."""
+    cfg = cfg or PlatformConfig()
+    n, m = graph.n, graph.nnz
+    indptr_h, dst_h = graph.indptr, graph.dst
+    tau = cfg.bfs_active_threshold * max(m, 1)  # 0 runs every level with an edge dense
+
+    levels = np.full(n, INT32_INF, dtype=np.int32)
+    levels[src_dense] = 0
+    frontier = np.array([src_dense], dtype=np.int64)
+    level = 0
+    while frontier.size:
+        fe = int((indptr_h[frontier + 1] - indptr_h[frontier]).sum())
+        if fe <= tau:
+            with record_function("bfs.host_step"):
+                pos, _ = frontier_edge_positions(indptr_h, frontier)
+                cand = dst_h[pos]
+                cand = cand[levels[cand] == INT32_INF]
+                # dedupe by a mask scatter (cheaper than np.unique's sort)
+                mask = np.zeros(n, dtype=bool)
+                mask[cand] = True
+                frontier = np.nonzero(mask)[0]
+                levels[frontier] = level + 1
+            level += 1
+            continue
+        # dense device steps while the frontier stays heavy
+        csr = pull_csr(graph, cfg.device)
+        levels_d = torch.from_numpy(levels).to(cfg.device)
+        f_mask = np.zeros(n, dtype=np.int32)
+        f_mask[frontier] = 1
+        frontier_d = torch.from_numpy(f_mask).to(cfg.device)
+        while True:
+            with record_function("bfs.dense"):
+                levels_d, frontier_d = _bfs_dense_step(levels_d, frontier_d, level, csr)
+                frontier = np.nonzero(frontier_d.cpu().numpy())[0]
+            level += 1
+            if frontier.size == 0:
+                break
+            fe = int((indptr_h[frontier + 1] - indptr_h[frontier]).sum())
+            if fe <= tau:
+                break
+        levels = levels_d.cpu().numpy()
+    return levels, level
+
+
 @register("bfs")
 def bfs(graph: Graph, params: AlgorithmParams, cfg: PlatformConfig) -> AlgorithmResult:
     if params.source_vertex is None:
@@ -258,16 +310,15 @@ def bfs(graph: Graph, params: AlgorithmParams, cfg: PlatformConfig) -> Algorithm
     impl = cfg.bfs_impl
     if impl not in IMPLS:
         raise ValueError(f"unknown bfs-impl {impl!r}; expected {'|'.join(IMPLS)}")
-    if impl == "hybrid":
-        raise NotImplementedError(
-            "bfs-impl=hybrid (graphtpu/algorithms/bfs.py:bfs_hybrid_run) is not ported yet "
-            "(ROADMAP Queue 1, item 14); use auto, adaptive or device"
-        )
     src_dense = graph.dense_source(params.source_vertex)
-    if impl == "device":
-        levels, niter = _bfs_kernel(pull_csr(graph, cfg.device), src_dense, graph.n)
+    if impl == "hybrid":
+        levels, niter = bfs_hybrid_run(graph, src_dense, cfg)
     else:
-        levels, niter = bfs_adaptive_run(graph, src_dense, cfg)
-    levels = levels.cpu().numpy().astype(np.int64)
+        if impl == "device":
+            levels, niter = _bfs_kernel(pull_csr(graph, cfg.device), src_dense, graph.n)
+        else:
+            levels, niter = bfs_adaptive_run(graph, src_dense, cfg)
+        levels = levels.cpu().numpy()
+    levels = levels.astype(np.int64)
     levels[levels == INT32_INF] = UNREACHABLE
     return AlgorithmResult("bfs", levels, iterations=int(niter))

@@ -20,7 +20,10 @@ the directed weighted edges; unreachable vertices serialize as the literal
 * "delta": bucketed delta-stepping, the reference's own method
   (LAGr_SingleSourceShortestPath with Delta = 2.5, sssp.cpp:70-78), on the
   same kernels (``sssp_delta_run``).
-* "hybrid" (host relaxations of sparse rounds) is not ported yet.
+* "hybrid": rounds whose changed vertices' out-edges are at most
+  ``sssp_active_threshold`` of the edges relax on the host over the push
+  CSR (numpy, ``np.minimum.at``); heavier rounds run dense sweeps on K7
+  (``sssp_hybrid_run``).
 
 Every candidate is the same addition dist[u] + w in both packages and min
 is exact in any order, so the distances equal the JAX package's bit for
@@ -36,7 +39,7 @@ import torch
 from torch.profiler import record_function
 
 from graphtpu_torch.algorithms.common import AlgorithmResult, float_dtype, register
-from graphtpu_torch.core.graph import Graph
+from graphtpu_torch.core.graph import Graph, frontier_edge_positions
 from graphtpu_torch.ops.frontier import compact, expand, mask_status, relax_min
 from graphtpu_torch.ops.spmv import PullCSR, csr_pull_reduce, int32_tensor, pull_csr
 from graphtpu_torch.utils.config import AlgorithmParams, PlatformConfig
@@ -323,6 +326,54 @@ def sssp_delta_run(graph: Graph, src_dense: int, cfg: PlatformConfig, dtype=torc
     return dist, niter
 
 
+def sssp_hybrid_run(graph: Graph, src_dense: int, cfg: PlatformConfig, dtype=torch.float32):
+    """Changed-set Bellman-Ford: rounds whose changed vertices' out-edges
+    are at most ``sssp_active_threshold`` of the edges relax on the host
+    over the push CSR; heavier rounds run dense sweeps on cfg.device.
+    Returns (numpy distances in ``dtype``, rounds), as the JAX package's
+    does."""
+    n, m = graph.n, graph.nnz
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    indptr_h, dst_h = graph.indptr, graph.dst
+    w_h = graph.w.astype(np_dtype)
+    tau = cfg.sssp_active_threshold * max(m, 1)  # 0 runs every round with an edge dense
+
+    dist = np.full(n, np.inf, dtype=np_dtype)
+    dist[src_dense] = 0.0
+    changed = np.array([src_dense], dtype=np.int64)
+    rounds = 0
+    while changed.size:
+        fe = int((indptr_h[changed + 1] - indptr_h[changed]).sum())
+        if fe <= tau:
+            with record_function("sssp.host_step"):
+                # synchronous reads: every candidate before any update
+                pos, rows_rep = frontier_edge_positions(indptr_h, changed)
+                cand = dst_h[pos]
+                newd = dist[rows_rep] + w_h[pos]
+                improved = newd < dist[cand]
+                cand, newd = cand[improved], newd[improved]
+                np.minimum.at(dist, cand, newd)
+                mask = np.zeros(n, dtype=bool)
+                mask[cand] = True
+                changed = np.nonzero(mask)[0]
+            rounds += 1
+            continue
+        prep = sssp_prep(graph, dtype, cfg.device)
+        dist_d = torch.from_numpy(dist).to(cfg.device)
+        while True:
+            with record_function("sssp.full_step"):
+                dist_d, changed_d = _sssp_dense_step(dist_d, prep.pull, prep.pull_w)
+                changed = np.nonzero(changed_d.cpu().numpy())[0]
+            rounds += 1
+            if changed.size == 0:
+                break
+            fe = int((indptr_h[changed + 1] - indptr_h[changed]).sum())
+            if fe <= tau:
+                break
+        dist = dist_d.cpu().numpy()
+    return dist, rounds
+
+
 @register("sssp")
 def sssp(graph: Graph, params: AlgorithmParams, cfg: PlatformConfig) -> AlgorithmResult:
     if params.source_vertex is None:
@@ -336,13 +387,11 @@ def sssp(graph: Graph, params: AlgorithmParams, cfg: PlatformConfig) -> Algorith
     impl = cfg.sssp_impl
     if impl not in IMPLS:
         raise ValueError(f"unknown sssp-impl {impl!r}; expected {'|'.join(IMPLS)}")
-    if impl == "hybrid":
-        raise NotImplementedError(
-            "sssp-impl=hybrid (graphtpu/algorithms/sssp.py:sssp_hybrid_run, ROADMAP Queue 1) "
-            "is not ported yet; use auto, adaptive, device or delta"
-        )
     dtype = float_dtype(cfg)
     src_dense = graph.dense_source(params.source_vertex)
+    if impl == "hybrid":
+        dist, niter = sssp_hybrid_run(graph, src_dense, cfg, dtype)
+        return AlgorithmResult("sssp", dist.astype(np.float64), iterations=int(niter))
     if impl == "device":
         dist, niter = _sssp_kernel(sssp_prep(graph, dtype, cfg.device), src_dense, graph.n,
                                    dtype)

@@ -15,7 +15,8 @@ Each kernel has a wrapper beside its plain PyTorch version:
 (K4), ``ops/frontier.py:frontier_expand`` (K5), ``ops/spmv.py:slab_spmv_min``
 (K6), ``ops/spmv.py:csr_pull_reduce`` (K7) and ``ops/frontier.py:relax_min``
 (K8, kernel ``push_relax_min``), ``ops/edgehash.py:edgehash_probe`` (K9) and
-``ops/triangles.py:wedge_rowblock`` (K10). A wrapper dispatches on
+``ops/triangles.py:wedge_rowblock`` (K10), ``core/spgemm.py:masked_spgemm_rows``
+(K11, kernel ``masked_spgemm``). A wrapper dispatches on
 the device of its tensors: a CPU tensor takes the plain version, a CUDA
 tensor launches the kernel or raises. K2, K3 and K6 also take every bucket
 of a slab plan in one launch (``slab_minmode_buckets``,
@@ -49,6 +50,7 @@ NVCC_FLAGS = (
 KERNELS = (
     "gather_rows", "slab_minmode", "slab_spmv_sum", "vreg_shuffle", "frontier_expand",
     "slab_spmv_min", "csr_pull_reduce", "push_relax_min", "edgehash_probe", "wedge_rowblock",
+    "masked_spgemm",
 )
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -76,6 +78,10 @@ _SIGNATURES = {
     # slab, mslab, W, R, close_indptr, close_ids, close_mult, n_close, u_cred,
     # edge_cred, stream
     "gt_wedge_rowblock": (_P, _P, _I32, _I64, _P, _P, _P, _I64, _P, _P, _P),
+    # a_indptr, a_col, a_val (null = structural), b_indptr, b_col, b_val, rows,
+    # cols, out, m, a_rows, b_rows, vtype, add, mul, stream
+    "gt_masked_spgemm": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32,
+                         _I32, _P),
     # stream: a kernel that returns at once (csrc/empty_kernel.cu)
     "gt_empty_kernel": (_P,),
 }

@@ -34,6 +34,7 @@ call on one card. ``--out`` also writes the table to a file.
 from __future__ import annotations
 
 import argparse
+import runpy
 import subprocess
 import sys
 from pathlib import Path
@@ -58,27 +59,9 @@ class Progress(list):
         super().append(line)
 
 
-def device_ms(fn, reps=10):
-    """Device ms per call of fn(): the profiler's device time of the calls'
-    kernels, over ``reps`` calls after a warm-up. A trace that comes back
-    without any device record is taken again, up to three times."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(
-            e.self_device_time_total for e in prof.key_averages()
-            if getattr(e.device_type, "name", str(e.device_type)).endswith("CUDA")
-        )
-        if us > 0:
-            return us / 1e3 / reps
-    raise RuntimeError("the profiler recorded no device time in three traces")
+# device ms per call from traces whose record counts are whole; loaded by
+# path, as --root may make graphtpu_torch another checkout's
+device_ms = runpy.run_path(str(Path(__file__).with_name("trace_times.py")))["device_ms"]
 
 
 def sub_csr(indptr, src, w, rows):

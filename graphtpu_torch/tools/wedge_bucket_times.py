@@ -24,6 +24,7 @@ also writes the table to a file.
 from __future__ import annotations
 
 import argparse
+import runpy
 import subprocess
 import sys
 from pathlib import Path
@@ -32,27 +33,9 @@ HERE = Path(__file__).resolve().parents[2]
 BENCH_GRAPH = "bench-rmat-s20-ef32"
 
 
-def device_ms(fn, reps=3):
-    """Device ms per call of fn(): the profiler's device time of the calls'
-    kernels, over ``reps`` calls after a warm-up. A trace that comes back
-    without any device record is taken again, up to three times."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(
-            e.self_device_time_total for e in prof.key_averages()
-            if getattr(e.device_type, "name", str(e.device_type)).endswith("CUDA")
-        )
-        if us > 0:
-            return us / 1e3 / reps
-    raise RuntimeError("the profiler recorded no device time in three traces")
+# device ms per call from traces whose record counts are whole; loaded by
+# path, as --root may make graphtpu_torch another checkout's
+device_ms = runpy.run_path(str(Path(__file__).with_name("trace_times.py")))["device_ms"]
 
 
 def closing_keys(plan, device):
@@ -126,13 +109,13 @@ def main() -> int:
     for b in plan.buckets:
         w, r_pad = b.slab.shape
         entries, wedges, reads = wedge_work(b.slab, keys, plan.id_bits)
-        ms = device_ms(lambda: k10(b))
+        ms = device_ms(lambda: k10(b), reps=3)
         for k, v in enumerate((entries, wedges, reads, ms)):
             tot[k] += v
         lines.append(f"k10: {w} {r_pad} {b.r_real} {entries} {wedges} {reads} {ms:.6f} "
                      f"{wedges / ms / 1e6:.3f} {reads * 4 / ms / 1e6:.3f}")
         print(lines[-1], flush=True)
-    ms = device_ms(lambda: [k10(b) for b in plan.buckets])
+    ms = device_ms(lambda: [k10(b) for b in plan.buckets], reps=3)
     lines.append(f"k10: all - {sum(b.r_real for b in plan.buckets)} {tot[0]} {tot[1]} {tot[2]} "
                  f"{ms:.6f} {tot[1] / ms / 1e6:.3f} {tot[2] * 4 / ms / 1e6:.3f} "
                  f"(buckets one by one: {tot[3]:.6f} ms)")

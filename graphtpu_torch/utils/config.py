@@ -144,10 +144,14 @@ class PlatformConfig:
     # explicit ascending active-tier edge budgets (comma list); empty = the
     # single cdlp-frontier tier (ops/active.py cdlp_tiers)
     cdlp_tiers: str = ""
-    # auto|adaptive|device (hybrid is not ported yet): auto/adaptive = the
-    # push tier ladder, truncated bottom-up and the dense pull fallback
-    # (algorithms/bfs.py); device = dense pull steps only
+    # auto|adaptive|device|hybrid: auto/adaptive = the push tier ladder,
+    # truncated bottom-up and the dense pull fallback (algorithms/bfs.py);
+    # device = dense pull steps only; hybrid = host expansions of sparse
+    # levels, dense pull steps on the device for the heavy ones
     bfs_impl: str = "auto"
+    # hybrid: a level expands on the host while its frontier's out-edges
+    # are at most this fraction of the edges (0 = dense wherever any edge leaves)
+    bfs_active_threshold: float = 0.05
     # row budget of every push tier; 0 = 2^18 (each tier takes min(rows,
     # its edges, n))
     bfs_frontier_rows: int = 0
@@ -170,11 +174,15 @@ class PlatformConfig:
     wcc_impl: str = "auto"
     wcc_frontier_rows: int = 1 << 16
     wcc_frontier_edges: int = 1 << 18
-    # auto|adaptive|device|delta (hybrid is not ported yet):
-    # auto/adaptive = changed-set Bellman-Ford on a frontier tier ladder
-    # (kernels K5, K8) with dense sweeps (K7); device = dense sweeps only;
-    # delta = bucketed delta-stepping on the same kernels
+    # auto|adaptive|device|delta|hybrid: auto/adaptive = changed-set
+    # Bellman-Ford on a frontier tier ladder (kernels K5, K8) with dense
+    # sweeps (K7); device = dense sweeps only; delta = bucketed
+    # delta-stepping on the same kernels; hybrid = host relaxations of
+    # sparse rounds, dense sweeps on the device for the heavy ones
     sssp_impl: str = "auto"
+    # hybrid: a round relaxes on the host while its changed vertices'
+    # out-edges are at most this fraction of the edges
+    sssp_active_threshold: float = 0.05
     # delta-stepping bucket width (sssp.cpp:70-78)
     sssp_delta: float = 2.5
     sssp_frontier_rows: int = 1 << 16
@@ -248,6 +256,7 @@ _PLATFORM_PROPS = {
     "platform.graphtpu.bfs-bu-rows": ("bfs_bu_rows", int),
     "platform.graphtpu.bfs-bu-edges": ("bfs_bu_edges", int),
     "platform.graphtpu.bfs-step-mode": ("bfs_step_mode", str),
+    "platform.graphtpu.bfs-active-threshold": ("bfs_active_threshold", float),
     "platform.graphtpu.wcc-impl": ("wcc_impl", str),
     "platform.graphtpu.wcc-frontier-rows": ("wcc_frontier_rows", int),
     "platform.graphtpu.wcc-frontier-edges": ("wcc_frontier_edges", int),
@@ -256,6 +265,7 @@ _PLATFORM_PROPS = {
     "platform.graphtpu.sssp-frontier-edges": ("sssp_frontier_edges", int),
     "platform.graphtpu.sssp-tiers": ("sssp_tiers", str),
     "platform.graphtpu.sssp-delta": ("sssp_delta", float),
+    "platform.graphtpu.sssp-active-threshold": ("sssp_active_threshold", float),
     "platform.graphtpu.lcc-impl": ("lcc_impl", str),
     "platform.graphtpu.slab-buckets": (
         "slab_buckets",
@@ -274,7 +284,7 @@ _PLATFORM_PROPS = {
 # reading one logs a warning, so that the missing behaviour is not silent
 _NOT_PORTED_PROPS = frozenset(
     "platform.graphtpu." + k for k in (
-        "num-devices", "shard-checkpoints", "bfs-active-threshold", "sssp-active-threshold",
+        "num-devices", "shard-checkpoints",
     )
 )
 

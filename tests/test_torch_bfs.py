@@ -154,9 +154,12 @@ def test_errors():
         run_algorithm("bfs", tg, AlgorithmParams(), cpu)
     with pytest.raises(ValueError, match="not in graph"):
         run_algorithm("bfs", tg, AlgorithmParams(source_vertex=10 ** 9), cpu)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_algorithm("bfs", tg, AlgorithmParams(source_vertex=0),
-                      PlatformConfig(device="cpu", bfs_impl="hybrid"))
+    # the hybrid is ported: it runs, and agrees with the default impl
+    hybrid = run_algorithm("bfs", tg, AlgorithmParams(source_vertex=0),
+                           PlatformConfig(device="cpu", bfs_impl="hybrid"))
+    default = run_algorithm("bfs", tg, AlgorithmParams(source_vertex=0), cpu)
+    np.testing.assert_array_equal(hybrid.values, default.values)
+    assert hybrid.iterations == default.iterations
     with pytest.raises(ValueError, match="switch"):
         run_algorithm("bfs", tg, AlgorithmParams(source_vertex=0),
                       PlatformConfig(device="cpu", bfs_step_mode="switch"))

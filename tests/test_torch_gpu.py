@@ -944,3 +944,136 @@ def test_device_sort_on_the_card_matches_cpu(cuda, monkeypatch, prim_src, dedup)
         g = G.Graph(n, src, dst, w, np.arange(n), directed=True, weighted=True)
         assert set(G.last_device_sort) == {"h2d_s", "sort_s", "d2h_s"}
         assert np.array_equal(g.src, s) and np.array_equal(g.dst, d) and np.array_equal(g.w, ws)
+
+
+def _spgemm_inputs(seed, n=300):
+    """(A's indptr, col; B's indptr, col; mask rows, cols) as numpy: A's
+    rows hold 0-40 sorted columns with repeats (some rows empty), B's 0-24
+    but one of 700, longer than A's longest; the mask mixes random pairs
+    with pairs that a product reaches."""
+    rng = np.random.default_rng(seed)
+    a_deg = rng.integers(0, 41, n)
+    a_deg[::17] = 0
+    b_deg = rng.integers(0, 25, n)
+    b_deg[7] = 700
+
+    def csr(deg):
+        ip = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+        return ip, np.concatenate([np.sort(rng.integers(0, n, d)) for d in deg]).astype(np.int32)
+
+    (a_ip, a_col), (b_ip, b_col) = csr(a_deg), csr(b_deg)
+    a_col[a_ip[3]:a_ip[4]] = 7
+    rows = np.concatenate([rng.integers(0, n, 4000), np.repeat(np.arange(n), a_deg)])
+    ks = a_col.astype(np.int64)
+    reach = b_ip[ks] + (rng.random(ks.size) * np.maximum(b_ip[ks + 1] - b_ip[ks], 1)).astype(int)
+    cols = np.concatenate([rng.integers(0, n, 4000), b_col[np.minimum(reach, b_col.size - 1)]])
+    return (a_ip, a_col), (b_ip, b_col), rows.astype(np.int32), cols.astype(np.int32)
+
+
+def _spgemm_values(rng, size, dtype, name):
+    if name == "lor.land":  # a logical semiring: values in {0, 1}
+        return torch.from_numpy(rng.integers(0, 2, size)).to(dtype)
+    if dtype == torch.int32:
+        return torch.from_numpy(rng.integers(-9, 10, size)).to(dtype)
+    # one sign, so that a float sum's relative error is bounded (no cancellation)
+    return torch.from_numpy(rng.random(size) * 4 + 0.5).to(dtype)
+
+
+@pytest.mark.parametrize("values", ["float32", "float64", "int32", "structural-a",
+                                    "structural-b", "structural"])
+@pytest.mark.parametrize("name", ["plus.times", "min.plus", "max.second", "lor.land",
+                                  "plus.pair", "min.first", "any.secondi", "plus.second",
+                                  "min.second"])
+def test_masked_spgemm_matches_plain(cuda, name, values):
+    """K11 against its plain version (the JAX package's bucketed slab) on
+    the card and on the CPU: bit-identical, but plus over floats, which sums
+    up to 40 terms of one sign in another order: rtol 1e-5 in float32 (40 x
+    2^-24 = 2.4e-6 at worst) and 1e-12 in float64."""
+    from graphtpu_torch.core.semiring import BY_NAME
+    from graphtpu_torch.core.spgemm import CSR, masked_spgemm, masked_spgemm_rows
+
+    (a_ip, a_col), (b_ip, b_col), rows, cols = _spgemm_inputs(len(name) + len(values))
+    rng = np.random.default_rng(5)
+    dtype = getattr(torch, values) if not values.startswith("structural") else torch.float64
+    a_val = None if values in ("structural-a", "structural") else \
+        _spgemm_values(rng, a_col.size, dtype, name)
+    b_val = None if values in ("structural-b", "structural") else \
+        _spgemm_values(rng, b_col.size, dtype, name)
+    t = torch.from_numpy
+    a_cpu, b_cpu = CSR(t(a_ip), t(a_col), a_val), CSR(t(b_ip), t(b_col), b_val)
+    a, b = (CSR(*(None if x is None else x.to(cuda) for x in c)) for c in (a_cpu, b_cpu))
+    semiring = BY_NAME[name]
+    before = kernels.launch_counts["masked_spgemm"]
+    got = masked_spgemm_rows(semiring, a, b, t(rows).to(cuda), t(cols).to(cuda))
+    again = masked_spgemm(semiring, a, b, rows, cols)
+    assert kernels.launch_counts["masked_spgemm"] == before + 2
+    with kernels.plain_torch():
+        want = masked_spgemm(semiring, a, b, rows, cols)
+    cpu = masked_spgemm(semiring, a_cpu, b_cpu, rows, cols)
+    assert torch.equal(got, again)
+    assert got.dtype == want.dtype == cpu.dtype and got.shape == (rows.size,)
+    for x, y in ((got, want), (got, cpu)):  # the plain version on the card and on the CPU
+        if semiring.add.name == "plus" and got.dtype.is_floating_point:
+            rtol = 1e-5 if got.dtype == torch.float32 else 1e-12
+            np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(), rtol=rtol, atol=0)
+        else:
+            assert torch.equal(x.cpu(), y.cpu())
+    ident = semiring.add.identity(got.dtype)
+    empty_a = torch.from_numpy(np.isin(rows, np.flatnonzero(np.diff(a_ip) == 0)))
+    assert bool(empty_a.any()) and bool((got.cpu()[empty_a] == ident).all())
+    assert int((got.cpu() != ident).sum()) > 1000
+
+
+def test_masked_spgemm_refusals_and_empty_mask(cuda):
+    """On the card K11 refuses a semiring outside BY_NAME and values of two
+    dtypes; an empty mask launches nothing; an index outside the CSRs
+    matches nothing."""
+    from graphtpu_torch.core import semiring as sr
+    from graphtpu_torch.core.spgemm import CSR, masked_spgemm_rows
+
+    (a_ip, a_col), (b_ip, b_col), rows, cols = _spgemm_inputs(0, n=50)
+    d = lambda x: torch.from_numpy(x).to(cuda)  # noqa: E731
+    a = CSR(d(a_ip), d(a_col), None)
+    b = CSR(d(b_ip), d(b_col), None)
+    r, c = d(rows), d(cols)
+    other = sr.Semiring("max.pair", sr.MAX, sr.PLUS_PAIR.mul)
+    with pytest.raises(ValueError, match="BY_NAME"):
+        masked_spgemm_rows(other, a, b, r, c)
+    mixed_a = CSR(a.indptr, a.col, torch.ones(a_col.size, device=cuda))
+    mixed_b = CSR(b.indptr, b.col, torch.ones(b_col.size, device=cuda, dtype=torch.float64))
+    with pytest.raises(TypeError, match="one dtype"):
+        masked_spgemm_rows(sr.PLUS_TIMES, mixed_a, mixed_b, r, c)
+    before = kernels.launch_counts["masked_spgemm"]
+    out = masked_spgemm_rows(sr.PLUS_PAIR, a, b, r[:0], c[:0])
+    assert out.shape == (0,) and kernels.launch_counts["masked_spgemm"] == before
+    # a mask row outside A, or a column of A outside B's rows, matches nothing
+    far = torch.tensor([-1, 50, 1 << 30], dtype=torch.int32, device=cuda)
+    assert not masked_spgemm_rows(sr.PLUS_PAIR, a, b, far, far).any()
+    outside = CSR(a.indptr, torch.full_like(a.col, 1 << 20), None)
+    assert not masked_spgemm_rows(sr.PLUS_PAIR, outside, b, r, c).any()
+    assert masked_spgemm_rows(sr.PLUS_PAIR, a, b, r, c).any()
+
+
+@pytest.mark.parametrize("threshold", [0.0, 0.05, 1.0])
+@pytest.mark.parametrize("directed", [True, False])
+def test_hybrids_on_the_card_match_cpu(cuda, directed, threshold):
+    """bfs-impl=hybrid and sssp-impl=hybrid on the card: the CPU run's
+    levels, distances and iteration counts, with K7 launched for the dense
+    levels and rounds (none at threshold 1.0, where all run on the host)."""
+    from graphtpu_torch.algorithms.bfs import bfs_hybrid_run
+    from graphtpu_torch.algorithms.sssp import sssp_hybrid_run
+    from graphtpu_torch.utils.config import PlatformConfig
+    from graphtpu_torch.utils.synth import rmat_graph
+
+    g = rmat_graph(13, 16, directed=directed, weighted=True, seed=6)
+    over = dict(bfs_active_threshold=threshold, sssp_active_threshold=threshold)
+    kernels.reset_launch_counts()
+    got = (bfs_hybrid_run(g, 0, PlatformConfig(device=str(cuda), **over)),
+           sssp_hybrid_run(g, 0, PlatformConfig(device=str(cuda), **over)))
+    k7 = kernels.launch_counts["csr_pull_reduce"]
+    want = (bfs_hybrid_run(g, 0, PlatformConfig(device="cpu", **over)),
+            sssp_hybrid_run(g, 0, PlatformConfig(device="cpu", **over)))
+    for (gv, gn), (wv, wn) in zip(got, want):
+        np.testing.assert_array_equal(gv, wv)
+        assert gn == wn
+    assert (k7 > 0) == (threshold < 1.0), k7

@@ -179,12 +179,68 @@ def test_port_imports_no_jax_graphtpu_or_pandas():
         "mods = [m.name for m in pkgutil.walk_packages(graphtpu_torch.__path__, 'graphtpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = [k for k in sys.modules if k.startswith(('jax', 'graphtpu.', 'pandas')) or k == 'graphtpu']\n"
-        "assert len(mods) >= 31, mods\n"
+        "assert len(mods) >= 47, mods\n"
         "for m in ('algorithms.lcc', 'ops.edgehash', 'ops.triangles', 'ingest.grb',\n"
-        "          'ingest.native', 'ingest.mm', 'ingest.download'):\n"
+        "          'ingest.native', 'ingest.mm', 'ingest.download', 'core.spops',\n"
+        "          'core.spgemm'):\n"
         "    assert 'graphtpu_torch.' + m in mods, m\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           cwd=REPO, timeout=300)
     assert proc.returncode == 0, proc.stderr
+
+
+def _fake_profiler(monkeypatch, counts_per_trace):
+    """torch.profiler.profile replaced by traces whose one device record
+    has the given counts, one trace after another; returns the list of
+    traces taken."""
+    import torch.profiler
+
+    taken = []
+
+    class Event:
+        key, self_device_time_total = "some_kernel", 1000.0
+
+        class device_type:
+            name = "CUDA"
+
+    class Trace:
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            ev = Event()
+            ev.count = counts_per_trace[len(taken) - 1]
+            return [ev]
+
+    def fake_profile(**kw):
+        taken.append(kw)
+        return Trace()
+
+    monkeypatch.setattr(torch.profiler, "profile", fake_profile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    return taken
+
+
+def test_tools_device_ms_retakes_a_trace_that_lost_records(monkeypatch, capsys):
+    """The tools' shared device_ms (tools/trace_times.py, loaded by path as
+    the tools load it) takes a trace again while a record's count is not a
+    whole multiple of the calls, and fails after five such traces."""
+    import runpy
+
+    device_ms = runpy.run_path(str(REPO / "graphtpu_torch" / "tools" / "trace_times.py"))[
+        "device_ms"]
+    taken = _fake_profiler(monkeypatch, [7, 10, 20])
+    assert device_ms(lambda: None, reps=10) == 1000.0 / 1e3 / 10
+    assert len(taken) == 2 and "7 records in 10 calls" in capsys.readouterr().out
+    taken = _fake_profiler(monkeypatch, [3] * 5)
+    with pytest.raises(RuntimeError, match="5 traces in a row"):
+        device_ms(lambda: None, reps=10)
+    assert len(taken) == 5
+    for tool in ("csr_row_times", "slab_bucket_times", "wedge_bucket_times"):
+        ns = runpy.run_path(str(REPO / "graphtpu_torch" / "tools" / f"{tool}.py"))
+        assert ns["device_ms"].__code__.co_filename.endswith("trace_times.py"), tool

@@ -143,14 +143,12 @@ def test_errors():
         run_algorithm("sssp", tg, AlgorithmParams(source_vertex=-3), cpu)
     with pytest.raises(ValueError, match="weight-property"):
         run_algorithm("sssp", tg, AlgorithmParams(source_vertex=0, weight_property="cost"), cpu)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_algorithm("sssp", tg, AlgorithmParams(source_vertex=0),
-                      PlatformConfig(device="cpu", sssp_impl="hybrid"))
-    # delta-stepping is ported: it runs, and agrees with the default impl
-    delta = run_algorithm("sssp", tg, AlgorithmParams(source_vertex=0),
-                          PlatformConfig(device="cpu", sssp_impl="delta"))
-    np.testing.assert_array_equal(
-        delta.values, run_algorithm("sssp", tg, AlgorithmParams(source_vertex=0), cpu).values)
+    # delta-stepping and the hybrid are ported: they run, and agree with the default impl
+    for impl in ("delta", "hybrid"):
+        got = run_algorithm("sssp", tg, AlgorithmParams(source_vertex=0),
+                            PlatformConfig(device="cpu", sssp_impl=impl))
+        np.testing.assert_array_equal(
+            got.values, run_algorithm("sssp", tg, AlgorithmParams(source_vertex=0), cpu).values)
     with pytest.raises(ValueError, match="unknown sssp-impl"):
         run_algorithm("sssp", tg, AlgorithmParams(source_vertex=0),
                       PlatformConfig(device="cpu", sssp_impl="dense"))
