@@ -73,7 +73,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
    against one CSR product (cuSPARSE); K5 at the CDLP tier and at BFS's top tier with a
    frontier that fills it; both run twice on the same inputs and must give
    the same bits. K9 runs at 2^22 probes drawn from the benchmark graph's
-   wedge plan (half present pairs, half random ones), K10 per bucket and
+   wedge plan (half present pairs, half random ones), binned by partitions
+   of the table sized from the card's L2 (three launches a call: histogram,
+   scatter, probe; the single pass over the caller's order is timed and
+   held beside it), K10 per bucket and
    over all buckets of that plan, both twice for the same bits (K10's
    bound counts merge steps: the wedges plus the out-list entries its
    search reads). A kernel
@@ -88,7 +91,12 @@ Run from the root of a checkout:  python3 chip_smoke.py
    triangle count that the LCC numerators give (their sum / 6), held bit
    for bit against one pass of the plain version in chunks of the mask (the
    whole slab does not fit in device memory); its launch count is this
-   call's.
+   call's and must be the number its plan states (one per task list: warp
+   rows, block rows, column windows). K11's time is its launches alone;
+   a whole call's device time and wall time (planning on the card
+   included) print beside it, and the bound takes the lesser of the two
+   designs' operation counts (a search per term, or a read and a lookup
+   per row-wise B entry).
 
 6. Ingest: both RMAT graphs written once as .v/.e text under intermediate/
    (each unordered pair once, weights in 17 significant digits), loaded
@@ -137,7 +145,7 @@ JAX_STEPS = {
 }
 RANGES = ("cdlp.", "bfs.", "wcc.", "sssp.")  # the named profiler ranges of the loops
 # device kernel names (substrings of the profiler's keys) -> the wrappers whose
-# every launch runs exactly one such kernel
+# every launch runs exactly one such kernel (K9 and K11 launch several a call)
 TRACE_KERNELS = {
     ("gather_scalar_kernel", "gather_row_kernel"): ("gather_rows",),
     ("minmode_small_kernel", "minmode_wide_kernel"): ("slab_minmode",),
@@ -146,10 +154,12 @@ TRACE_KERNELS = {
     ("frontier_expand_kernel",): ("frontier_expand",),
     ("k7_reduce",): ("csr_pull_reduce", "csr_pull_reduce_sum"),
     ("push_relax_min_kernel",): ("push_relax_min",),
-    ("edgehash_probe_kernel",): ("edgehash_probe",),
+    ("k9_count_kernel", "k9_scatter_kernel", "k9_probe_kernel", "k9_unbin_kernel",
+     "k9_single_kernel"): ("edgehash_probe",),
     ("wedge_rowblock_kernel",): ("wedge_rowblock",),
-    ("masked_spgemm_kernel",): ("masked_spgemm",),
+    ("k11_warp_kernel", "k11_block_kernel"): ("masked_spgemm",),
 }
+TRACE_KERNELS_OF = {name: pats for pats, names in TRACE_KERNELS.items() for name in names}
 TRACE_TRIES = 5  # traces taken before a kernel count that stays wrong fails the run
 PR_RTOL = 1e-4        # the validator's EPSILON (graphtpu/harness/validator.py:40)
 F32_SUM_RTOL = 1e-5   # float32 sums in another order than torch's
@@ -165,7 +175,7 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def cuda_ms(fn, reps=10, empty_kernel=False):
+def cuda_ms(fn, reps=10, empty_kernel=False, only=None):
     """(device ms, stream ms) per call of fn(), over reps calls after a
     warm-up. Device ms is the device time the profiler attributes to the
     calls' kernels and copies; stream ms is the CUDA-event span per call,
@@ -178,7 +188,8 @@ def cuda_ms(fn, reps=10, empty_kernel=False):
     ``empty_kernel`` says that fn is the kernel that returns at once,
     which otherwise is left out; it opens and closes every trace. Its time
     is the mean of the records a trace kept, if it kept at least ``reps``
-    (a lost record biases no mean of one kernel's records)."""
+    (a lost record biases no mean of one kernel's records). ``only`` (names)
+    counts the device time of the records whose name holds one of them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -205,7 +216,8 @@ def cuda_ms(fn, reps=10, empty_kernel=False):
         # with empty_kernel the trace's two bracketing calls are calls like the others
         calls = reps + 2 * empty_kernel
         events = _device_events(prof, empty_kernel)
-        device_us = sum(e.self_device_time_total for e in events)
+        device_us = sum(e.self_device_time_total for e in events
+                        if only is None or any(n in e.key for n in only))
         kept = sum(e.count for e in events)
         if empty_kernel and device_us > 0 and kept >= reps:
             # one kernel only: the mean of the records the trace kept is its
@@ -1541,7 +1553,8 @@ def phase_lcc_kernels(g, wplan, real_wedges, lcc_values, device):
 
     from graphtpu_torch.ops import kernels
     from graphtpu_torch.ops.edgehash import (
-        _U32, _hash_rows, _probe_lanes, edgehash_probe, pair_key_halves, probe_edge_hash_xy,
+        _U32, _hash_rows, _probe_kernel, _probe_lanes, edgehash_probe, k9_bins, k9_partition_shift,
+        k9_parts, pair_key_halves, probe_edge_hash_xy,
     )
     from graphtpu_torch.ops.triangles import (
         coefficients, lcc_oriented_numerator, numerator_from_credits, wedge_rowblock,
@@ -1564,35 +1577,60 @@ def phase_lcc_kernels(g, wplan, real_wedges, lcc_values, device):
     x = torch.cat([ex[pick], rand[0]])[order].contiguous()
     y = torch.cat([ey[pick], rand[1]])[order].contiguous()
     present = (order < p // 2)
+    # the probes binned by partition of the table, each partition's probes
+    # grouped by row in a block: a histogram, a scatter, the probe and the
+    # unbin launch
+    pshift = k9_partition_shift(eh.rows, p)
+    check(k9_bins(eh.rows, p), f"{p} probes of a {eh.rows}-row table are not binned")
+    print(f"K9 bins: partitions of 2^{pshift} rows ({(512 << pshift) / 2**10:.0f} KB), "
+          f"{k9_parts(eh.rows, pshift)} partitions of the {eh.rows}-row table; the card's L2 "
+          f"{torch.cuda.get_device_properties(device).L2_cache_size} bytes", flush=True)
     kernels.reset_launch_counts()
     found, pay = probe_edge_hash_xy(eh, x, y, id_bits)  # K9's own drive: no LCC path calls it
     k9_launches = kernels.launch_counts["edgehash_probe"]
-    check(k9_launches == 1, f"edgehash_probe launched {k9_launches} times, expected 1")
+    check(k9_launches == 4, f"edgehash_probe launched {k9_launches} times, expected 4 (the "
+          f"histogram, the scatter, the probe and the unbin)")
     klo, khi = pair_key_halves(x, y, id_bits)
     want_found, want_pay = _probe_lanes(eh, klo, khi)
     again = edgehash_probe(eh, klo, khi)
+    single = _probe_kernel(eh, klo, khi, None)  # the probe alone, in the caller's order
     check(torch.equal(found, want_found) and torch.equal(pay, want_pay),
           "edgehash_probe differs from its plain version")
     check(torch.equal(found, again[0]) and torch.equal(pay, again[1]),
           "edgehash_probe: two runs differ")
+    check(torch.equal(found, single[0]) and torch.equal(pay, single[1]),
+          "edgehash_probe: the single pass differs from the binned passes")
     check(bool(found[present].all()) and bool((pay[present] >= 1).all()),
           "edgehash_probe missed an edge of the plan")
     check(not bool(pay[~found].any()), "edgehash_probe gave a payload for an absent key")
-    del want_found, want_pay, again
+    del want_found, want_pay, again, single
     h = _hash_rows(klo.long() & _U32, khi.long() & _U32, eh.rows)
     distinct = int(torch.unique(h).shape[0])
+    k9_names = TRACE_KERNELS_OF["edgehash_probe"]
+    call_ms = cuda_ms(lambda: edgehash_probe(eh, klo, khi))[0]
+    single_ms = cuda_ms(lambda: _probe_kernel(eh, klo, khi, None))[0]
+    print(f"kernel edgehash_probe: one call {call_ms:.6f} ms of device time (its torch scan "
+          f"included); the probe alone over the caller's order (the design before the bins) "
+          f"{single_ms:.6f} ms; a row fetched per probe would move {p * (512 + 8 + 5)} bytes, "
+          f"{p * (512 + 8 + 5) / HBM_BYTES_PER_S * 1e3:.6f} ms", flush=True)
     res["edgehash_probe"] = dict(
         max_abs_err=0.0,
-        times=(cuda_ms(lambda: edgehash_probe(eh, klo, khi)),
+        times=(cuda_ms(lambda: edgehash_probe(eh, klo, khi), only=k9_names),
                cuda_ms(lambda: _probe_lanes(eh, klo, khi), reps=3)),
+        call_ms=call_ms, single_pass_ms=single_ms,
         shape=(f"{p} probes of the benchmark graph's edge hash ({eh.rows} rows, "
                f"{eh.table.numel() * 4} bytes): {int(found.sum())} found, "
                f"{distinct} distinct rows"),
         # the table is an input read once: each distinct row probed, 512 B;
         # per probe the two key halves, found (1 B) and payload (4 B)
         bytes=distinct * 512 + p * (8 + 5), ops=p * 64 * 3,
-        # what a row fetched per probe moves: this design's traffic, no bound
-        traffic=(p * (512 + 8 + 5), "a table row fetched from device memory for every probe"),
+        # what the binned design moves when each distinct row reaches the
+        # card once: the rows; the keys read by the histogram and the
+        # scatter, the bins (8 B) and places (4 B) it writes, the bins the
+        # probe reads and its packed results (4 B), the places and results
+        # the unbin reads and the results it writes (5 B)
+        traffic=(distinct * 512 + p * (8 + 8 + 12 + 8 + 4 + 8 + 5),
+                 "each distinct row fetched once, the keys, bins, places and results"),
         library=("torch.index_select of the rows alone",
                  lambda h=h: torch.index_select(eh.table, 0, h)),
     )
@@ -1692,41 +1730,16 @@ SPGEMM_SLOTS = 1 << 27  # padded slab slots per chunk of the plain pass at the b
 SPGEMM_SEMIRINGS = ("plus.times", "min.plus", "max.second", "lor.land")
 
 
-def oriented_csr(g, device):
-    """(U, S, rows, cols): the degree-oriented structure U of an undirected
-    graph (each edge once, from the lower (degree, id) end to the higher) and
-    the graph's stored CSR S, both structural CSRs on ``device``; rows and
-    cols are U's entries as int32 tensors. Columns stay sorted within a row,
-    as the stored edges are sorted by (src, dst)."""
-    import torch
+def plan_summary(plan):
+    """K11's task lists of a plan, in words."""
+    def entries(t):
+        return int((t[:, 2] - t[:, 1]).sum()) if t.shape[0] else 0
 
-    from graphtpu_torch.core.spgemm import CSR
-    from graphtpu_torch.ops.spmv import int32_tensor
-
-    s, d = int32_tensor(g.src, device), int32_tensor(g.dst, device)
-    deg = int32_tensor(g.out_degree, device)
-    ds, dd = deg[s.long()], deg[d.long()]
-    keep = (ds < dd) | ((ds == dd) & (s < d))
-    rows, cols = s[keep].contiguous(), d[keep].contiguous()
-    counts = torch.bincount(rows.long(), minlength=g.n)
-    indptr = torch.cat([counts.new_zeros(1), counts.cumsum(0)]).to(torch.int32)
-    sym = CSR(int32_tensor(g.indptr, device), d, None)
-    return CSR(indptr, cols, None), sym, rows, cols
-
-
-def spgemm_work(a, b, rows):
-    """(terms, search steps): the A entries that the mask entries walk, and
-    the steps of their searches of B's rows (a row of d entries takes
-    floor(log2 d) + 1 steps), as this run's data needs them."""
-    import torch
-
-    deg_a, deg_b = a.indptr.diff().long(), b.indptr.diff().double()
-    steps = torch.where(deg_b > 0, torch.floor(torch.log2(deg_b.clamp(min=1))) + 1, 0).long()
-    per_entry = steps[a.col.long()]
-    cs = torch.cat([per_entry.new_zeros(1), per_entry.cumsum(0)])
-    row_steps = cs[a.indptr[1:].long()] - cs[a.indptr[:-1].long()]
-    r = rows.long()
-    return int(deg_a[r].sum()), int(row_steps[r].sum())
+    return (f"{plan.warp_tasks.shape[0]} warp rows ({entries(plan.warp_tasks)} mask entries), "
+            f"{plan.block_tasks.shape[0]} block rows ({entries(plan.block_tasks)}), "
+            f"{plan.win_tasks.shape[0]} column windows ({entries(plan.win_tasks)}); "
+            f"{plan.launches} launches; mask "
+            f"{'regrouped by row' if plan.idx is not None else 'in row order'}")
 
 
 def plain_in_chunks(semiring, a, b, rows_h, cols_h):
@@ -1764,9 +1777,12 @@ def phase_spgemm(g, num_sum, device):
     import torch
 
     from graphtpu_torch.core.semiring import BY_NAME, PLUS_PAIR
-    from graphtpu_torch.core.spgemm import CSR, masked_spgemm, masked_spgemm_rows
+    from graphtpu_torch.core.spgemm import (
+        CSR, masked_spgemm, masked_spgemm_rows, plan_masked_spgemm,
+    )
     from graphtpu_torch.ops import kernels
     from graphtpu_torch.ops.spmv import int32_tensor
+    from graphtpu_torch.tools.spgemm_times import oriented_csr, spgemm_work
     from graphtpu_torch.utils.synth import rmat_graph
 
     gen = torch.Generator(device=device).manual_seed(11)
@@ -1784,17 +1800,24 @@ def phase_spgemm(g, num_sum, device):
         return (torch.rand(n, generator=gen, device=device, dtype=dtype) * 4 + 0.5)
 
     worst = 0.0
+    plan = plan_masked_spgemm(u, sym, mrows, mcols)
+    print(f"masked_spgemm plan on RMAT s{SPGEMM_SCALE}/ef32 (mask: every stored edge): "
+          f"{plan_summary(plan)}", flush=True)
+    check(plan.launches == 3, "the s14 mask does not reach all three task lists")
     for name in SPGEMM_SEMIRINGS:
         for vt in (torch.float32, torch.float64, torch.int32, None):
             a = CSR(u.indptr, u.col, None if vt is None else values(u.col.numel(), vt, name))
             b = CSR(sym.indptr, sym.col, None if vt is None else values(sym.col.numel(), vt, name))
             before = kernels.launch_counts["masked_spgemm"]
             got = masked_spgemm_rows(BY_NAME[name], a, b, mrows, mcols)
-            check(kernels.launch_counts["masked_spgemm"] == before + 1,
-                  f"masked_spgemm {name}: one call did not count one launch")
+            check(kernels.launch_counts["masked_spgemm"] == before + plan.launches,
+                  f"masked_spgemm {name}: one call did not count its plan's "
+                  f"{plan.launches} launches")
+            what = f"masked_spgemm {name} {vt or 'structural'} (RMAT s{SPGEMM_SCALE}/ef32)"
+            check(torch.equal(got, masked_spgemm_rows(BY_NAME[name], a, b, mrows, mcols)),
+                  f"{what}: two calls differ")
             with kernels.plain_torch():
                 want = masked_spgemm(BY_NAME[name], a, b, rows_h, cols_h)
-            what = f"masked_spgemm {name} {vt or 'structural'} (RMAT s{SPGEMM_SCALE}/ef32)"
             check(got.dtype == want.dtype and got.shape == want.shape, f"{what}: dtype or shape")
             if name.startswith("plus") and got.dtype.is_floating_point and vt is not None:
                 rtol = F32_SUM_RTOL if got.dtype == torch.float32 else F64_SUM_RTOL
@@ -1809,22 +1832,29 @@ def phase_spgemm(g, num_sum, device):
     print(f"masked_spgemm = plain on RMAT s{SPGEMM_SCALE}/ef32 ({small.nnz} mask entries, A = U "
           f"{u.col.numel()} entries, B {sym.col.numel()}), semirings {SPGEMM_SEMIRINGS} x float32, "
           f"float64, int32, structural (plus over floats within {F32_SUM_RTOL} / {F64_SUM_RTOL} "
-          f"relative; max abs err {worst:.3e})", flush=True)
-    s_terms, s_steps = spgemm_work(u, u, su_rows)
+          f"relative; max abs err {worst:.3e}); two calls equal", flush=True)
+    s_terms, s_steps, s_reads = spgemm_work(u, u, su_rows)
     with kernels.plain_torch():
         s_plain = cuda_ms(lambda: masked_spgemm(PLUS_PAIR, u, u, su_rows.cpu().numpy(),
                                                 su_cols.cpu().numpy()), reps=3)
     small_shape = dict(
         shape=(f"C<U> = U.U plus.pair on RMAT s{SPGEMM_SCALE}/ef32: {su_rows.numel()} mask "
-               f"entries, {s_terms} terms, {s_steps} search steps"),
-        times=(cuda_ms(lambda: masked_spgemm_rows(PLUS_PAIR, u, u, su_rows, su_cols)), s_plain),
-        bytes=su_rows.numel() * 12 + u.indptr.numel() * 4 + u.col.numel() * 4, ops=s_steps)
+               f"entries, {s_terms} terms, {s_steps} search steps, {s_reads} row-wise reads; "
+               f"K11's launches alone"),
+        times=(cuda_ms(lambda: masked_spgemm_rows(PLUS_PAIR, u, u, su_rows, su_cols),
+                       only=TRACE_KERNELS_OF["masked_spgemm"]), s_plain),
+        bytes=su_rows.numel() * 12 + u.indptr.numel() * 4 + u.col.numel() * 4,
+        ops=min(s_steps, 2 * s_reads))
     del u, sym, mrows, mcols, su_rows, su_cols
 
     # (b) the bench graph
     u, _, rows, cols = oriented_csr(g, device)
-    terms, steps = spgemm_work(u, u, rows)
+    terms, steps, reads = spgemm_work(u, u, rows)
     m = rows.numel()
+    plan = plan_masked_spgemm(u, u, rows, cols)
+    check(plan.idx is None, "U's entries are sorted by row: the plan should keep their order")
+    print(f"masked_spgemm plan on {BENCH_GRAPH} (mask: U): {plan_summary(plan)}", flush=True)
+    del plan
     kernels.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1832,7 +1862,9 @@ def phase_spgemm(g, num_sum, device):
     torch.cuda.synchronize()
     one_call = time.perf_counter() - t0
     launches = kernels.launch_counts["masked_spgemm"]
-    check(launches == 1, f"masked_spgemm launched {launches} times in one call")
+    stated = plan_masked_spgemm(u, u, rows, cols).launches
+    check(launches == stated, f"masked_spgemm launched {launches} times in one call; its plan "
+          f"states {stated}")
     check(one_call < 60, f"one masked_spgemm call at the bench size took {one_call:.1f} s")
     check(got.dtype == torch.float32 and got.shape == (m,) and bool(torch.isfinite(got).all()),
           "masked_spgemm at the bench size: dtype, shape or a value not finite")
@@ -1841,7 +1873,17 @@ def phase_spgemm(g, num_sum, device):
           f"C<U> = U.U sums to {triangles} triangles; the LCC numerators give {num_sum} / 6")
     check(torch.equal(got, masked_spgemm_rows(PLUS_PAIR, u, u, rows, cols)),
           "masked_spgemm: two runs differ")
-    k11_times = cuda_ms(lambda: masked_spgemm_rows(PLUS_PAIR, u, u, rows, cols), reps=3)
+    k11_call = lambda: masked_spgemm_rows(PLUS_PAIR, u, u, rows, cols)  # noqa: E731
+    k11_times = cuda_ms(k11_call, reps=3, only=TRACE_KERNELS_OF["masked_spgemm"])
+    call_ms = cuda_ms(k11_call, reps=3)[0]
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        k11_call()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    call_wall_ms = sorted(walls)[1]
     # the plain pass last: profiler traces taken after it lost records
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     rows_h, cols_h = rows.cpu().numpy(), cols.cpu().numpy()
@@ -1854,19 +1896,26 @@ def phase_spgemm(g, num_sum, device):
     del want
     torch.cuda.empty_cache()
     print(f"masked_spgemm C<U> = U.U (plus.pair) on {BENCH_GRAPH}: {m} mask entries, {terms} "
-          f"terms, {steps} search steps; one call {one_call:.3f} s; sum {triangles} triangles = "
-          f"the LCC numerators' {num_sum} / 6; identical to one pass of the plain version in "
-          f"{chunks} chunks ({plain_ms:.3f} ms)", flush=True)
+          f"terms, {steps} search steps (the first design's operations), {reads} row-wise reads "
+          f"and as many lookups (this design's: {2 * reads}); first call {one_call:.3f} s, "
+          f"{launches} launches; a call {call_ms:.6f} ms of device time (planning included), "
+          f"{call_wall_ms:.3f} ms of wall time; sum {triangles} triangles = the LCC numerators' "
+          f"{num_sum} / 6; identical to one pass of the plain version in {chunks} chunks "
+          f"({plain_ms:.3f} ms)", flush=True)
     res = dict(
         max_abs_err=0.0,
         times=(k11_times, (plain_ms, plain_ms)),
         shape=(f"C<U> = U.U plus.pair over the bench graph's degree-oriented structure: {m} "
-               f"mask entries, {terms} terms, {steps} search steps; plain version: one pass "
-               f"in {chunks} chunks, CUDA events"),
+               f"mask entries, {terms} terms, {steps} search steps, {reads} row-wise reads; "
+               f"K11's {launches} launches alone; plain version: one pass in {chunks} chunks, "
+               f"CUDA events"),
+        call_ms=call_ms, call_wall_ms=call_wall_ms,
         # read once: the mask (rows, cols), U's indptr and columns (A and B
         # are one CSR); written once: a float32 per mask entry. Operations:
-        # the search steps
-        bytes=m * 12 + u.indptr.numel() * 4 + u.col.numel() * 4, ops=steps,
+        # the lesser of the two designs' counts, the search steps of one
+        # search per term or a read and a lookup per row-wise B entry
+        bytes=m * 12 + u.indptr.numel() * 4 + u.col.numel() * 4, ops=min(steps, 2 * reads),
+        ops_by_design={"search per term": steps, "row-wise read and lookup": 2 * reads},
         library=None,  # none: torch has no masked SpGEMM (sampled_addmm takes dense factors)
         other_shapes=[small_shape],
     )
@@ -1897,6 +1946,16 @@ def report_kernel(name, r, empty_ms):
           f"{r['bound_by']} ({r['bytes']} bytes at {HBM_BYTES_PER_S / 1e12} TB/s, "
           f"{r['ops']} operations at {F32_OPS_PER_S / 1e12} Tops/s, both published): "
           f"{100 * r['bound_ms'] / k_dev:.1f} % of it; {lib}", flush=True)
+    for design, ops in r.get("ops_by_design", {}).items():
+        print(f"kernel {name}: {ops} operations by the {design} design, a bound of "
+              f"{ops / F32_OPS_PER_S * 1e3:.6f} ms; the kernel takes "
+              f"{100 * ops / F32_OPS_PER_S * 1e3 / k_dev:.1f} % of it", flush=True)
+    if "call_ms" in r:
+        print(f"kernel {name}: a whole call {r['call_ms']:.6f} ms of device time"
+              + (f", {r['call_wall_ms']:.3f} ms of wall time (planning included)"
+                 if "call_wall_ms" in r else "")
+              + (f"; the single pass {r['single_pass_ms']:.6f} ms" if "single_pass_ms" in r
+                 else ""), flush=True)
     if "traffic" in r:
         traffic, how = r.pop("traffic")
         r["traffic_ms"] = traffic / HBM_BYTES_PER_S * 1e3
@@ -2006,7 +2065,8 @@ def main() -> int:
          "bound_by": res[name]["bound_by"], "bytes": res[name]["bytes"],
          "library_ms": res[name]["library_ms"],
          "other_shapes": res[name].get("other_shapes", []),
-         **{k: res[name][k] for k in ("buckets", "traffic_ms") if k in res[name]}}
+         **{k: res[name][k] for k in ("buckets", "traffic_ms", "call_ms", "call_wall_ms",
+                                      "single_pass_ms", "ops_by_design") if k in res[name]}}
         for name in kernels.COUNTERS
     ], "empty_kernel_ms": empty_ms, "ingest": ingest}
     print(f"chip_smoke total: {time.perf_counter() - t_start:.3f} s", flush=True)

@@ -1,17 +1,27 @@
 """graphtpu_torch — the PyTorch / CUDA port of graphtpu for one NVIDIA H100.
 
 A second package beside ``graphtpu`` (the JAX reference, which it is held
-against). This slice covers single-device PageRank and CDLP on the
-degree-bucketed slab path: ``.v/.e`` ingest, the host ``Graph``, the slab
-plan, the iterated kernels, the serializer and the golden validator,
-through the platform lifecycle (``harness/platform.py``) and
-``python -m graphtpu_torch.cli run``.
+against). It covers all six LDBC Graphalytics algorithms on one device:
+PageRank (slab and scan arms), CDLP (adaptive, slab, sort), BFS, WCC and
+SSSP (adaptive, device, hybrid; SSSP also delta-stepping) and LCC
+(oriented wedges, sweep), each through ``algorithms/common.py:run_algorithm``.
+Around them: the ingest (``.v/.e`` text through the native C++ parser or
+numpy, the device edge sort, the binary cache, ``.grb``/``.vtb``,
+MatrixMarket, dataset download), the host ``Graph``, the Graphalytics
+harness (platform lifecycle, suite with killable subprocess jobs,
+collector, validator) and ``python -m graphtpu_torch.cli
+load|run|validate|benchmark|download|devices``, and the GraphBLAS surface
+(``core/spops.py``, ``core/spgemm.py``).
 
-Its module tree mirrors ``graphtpu/``. It imports torch and numpy, never
-jax, graphtpu or pandas. Every tensor lives on the device named by
-``PlatformConfig.device``. The hand-written kernels (K1 gather_rows, K2
-slab_minmode, K3 slab_spmv_sum) are CUDA C++ for sm_90a under ``csrc/``,
-built at first use (``ops/kernels.py``).
+Its module tree mirrors ``graphtpu/`` (``parallel/`` is not ported yet). It
+imports torch and numpy, never jax, graphtpu or pandas. Every tensor lives
+on the device named by ``PlatformConfig.device``. The hand-written kernels,
+CUDA C++ for sm_90a under ``csrc/``, built at first use
+(``ops/kernels.py``), are K1 gather_rows, K2 slab_minmode, K3
+slab_spmv_sum, K4 vreg_shuffle, K5 frontier_expand, K6 slab_spmv_min, K7
+csr_pull_reduce, K8 push_relax_min, K9 edgehash_probe, K10 wedge_rowblock
+and K11 masked_spgemm; each wrapper takes its plain PyTorch version for a
+CPU tensor.
 """
 
 __version__ = "0.1.0"

@@ -45,7 +45,9 @@ from graphtpu_torch.ops.gather import table_gather
 from graphtpu_torch.ops.spmv import PullCSR, csr_pull_reduce, int32_tensor, pull_csr
 from graphtpu_torch.utils.config import AlgorithmParams, PlatformConfig
 
-IMPLS = ("auto", "adaptive", "device", "hybrid")
+# "dense" is the JAX package's name of the dense kernel on one device:
+# it runs as "device"
+IMPLS = ("auto", "adaptive", "device", "dense", "hybrid")
 
 # in-neighbours probed per row by the truncated bottom-up (the JAX
 # package's measured default; bfs-trunc overrides)
@@ -314,7 +316,7 @@ def bfs(graph: Graph, params: AlgorithmParams, cfg: PlatformConfig) -> Algorithm
     if impl == "hybrid":
         levels, niter = bfs_hybrid_run(graph, src_dense, cfg)
     else:
-        if impl == "device":
+        if impl in ("device", "dense"):
             levels, niter = _bfs_kernel(pull_csr(graph, cfg.device), src_dense, graph.n)
         else:
             levels, niter = bfs_adaptive_run(graph, src_dense, cfg)

@@ -8,8 +8,9 @@ Semantics of LAGr_PageRankGX as the reference calls it (pr.cpp:58-63):
 
 for a fixed iteration count. Each iteration is one pull sum and one sum
 for the dangling mass. ``pr-impl`` picks the pull: "auto"/"slab" a
-plus.second slab SpMV (kernel K3 over the buckets, ops/spmv.py), "scan" a
-segment sum over the pull CSR (kernel K7 in mode sum); spmv-impl=slab takes
+plus.second slab SpMV (kernel K3 over the buckets, ops/spmv.py), "scan"
+(or "segment", the JAX package's name) a segment sum over the pull CSR
+(kernel K7 in mode sum); spmv-impl=slab takes
 the slab arm whatever pr-impl says, as in the JAX package (pr.py:105).
 """
 
@@ -27,7 +28,9 @@ from graphtpu_torch.ops.spmv import (
 )
 from graphtpu_torch.utils.config import AlgorithmParams, PlatformConfig
 
-IMPLS = ("auto", "slab", "scan")
+# "segment" is the JAX package's name of its segment-sum arm on one
+# device: it runs as "scan"
+IMPLS = ("auto", "slab", "scan", "segment")
 SPMV_IMPLS = ("scan", "xla", "slab")
 
 

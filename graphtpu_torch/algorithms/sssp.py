@@ -44,7 +44,9 @@ from graphtpu_torch.ops.frontier import compact, expand, mask_status, relax_min
 from graphtpu_torch.ops.spmv import PullCSR, csr_pull_reduce, int32_tensor, pull_csr
 from graphtpu_torch.utils.config import AlgorithmParams, PlatformConfig
 
-IMPLS = ("auto", "adaptive", "device", "hybrid", "delta")
+# "dense" is the JAX package's name of the dense kernel on one device:
+# it runs as "device"
+IMPLS = ("auto", "adaptive", "device", "dense", "hybrid", "delta")
 
 
 class SsspPrep(NamedTuple):
@@ -392,7 +394,7 @@ def sssp(graph: Graph, params: AlgorithmParams, cfg: PlatformConfig) -> Algorith
     if impl == "hybrid":
         dist, niter = sssp_hybrid_run(graph, src_dense, cfg, dtype)
         return AlgorithmResult("sssp", dist.astype(np.float64), iterations=int(niter))
-    if impl == "device":
+    if impl in ("device", "dense"):
         dist, niter = _sssp_kernel(sssp_prep(graph, dtype, cfg.device), src_dense, graph.n,
                                    dtype)
     elif impl == "delta":

@@ -50,7 +50,9 @@ from graphtpu_torch.ops.spmv import (
 )
 from graphtpu_torch.utils.config import AlgorithmParams, PlatformConfig
 
-IMPLS = ("auto", "slab", "adaptive", "device")
+# "dense" is the JAX package's name of the dense kernel on one device:
+# it runs as "device"
+IMPLS = ("auto", "slab", "adaptive", "device", "dense")
 
 
 def _finish(labels: torch.Tensor, neigh_min: torch.Tensor):
@@ -245,7 +247,7 @@ def wcc_adaptive_run(graph: Graph, cfg: PlatformConfig, with_stats: bool = False
 def wcc(graph: Graph, params: AlgorithmParams, cfg: PlatformConfig) -> AlgorithmResult:
     if cfg.wcc_impl not in IMPLS:
         raise ValueError(f"unknown wcc-impl {cfg.wcc_impl!r}; expected {'|'.join(IMPLS)}")
-    if cfg.wcc_impl == "device":
+    if cfg.wcc_impl in ("device", "dense"):
         sym = graph.symmetrized()
         labels, niter = _wcc_kernel(pull_csr(sym, cfg.device), sym.n)
     else:

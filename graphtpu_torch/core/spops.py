@@ -6,7 +6,10 @@ card, ``ops/gather.py``), the semiring's multiply, and one segment
 reduction keyed by the edge destinations. The reduction is a
 ``scatter_reduce`` into an output filled with what ``jax.ops.segment_*``
 gives an empty segment, so that empty segments come out as in the JAX
-package. Segment ids must lie in [0, num_segments).
+package. ``degrees`` drops keys outside [0, num_segments), as
+``jax.ops.segment_sum`` does; ``segment_reduce``, ``spmv``, ``assign`` and
+``extract`` (on the CPU; K1 reads 0 for it on the card) raise on such an
+index where JAX drops the update or does not raise.
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ _SEGMENT = {"plus": ("sum", None), "min": ("amin", None), "max": ("amax", None),
 def segment_reduce(monoid: Monoid, values: torch.Tensor, segment_ids: torch.Tensor,
                    num_segments: int, indices_are_sorted: bool = True) -> torch.Tensor:
     """Reduce ``values`` by ``segment_ids`` under ``monoid``. Sorted ids are
-    not needed; the flag is kept for the JAX package's signature."""
+    not needed; the flag is kept for the JAX package's signature. An id
+    outside [0, num_segments) raises (``jax.ops.segment_*`` drops it)."""
     op, fill_monoid = _SEGMENT[monoid.name]
     fill = (fill_monoid or monoid).identity(values.dtype)
     out = torch.full((num_segments,), fill, dtype=values.dtype, device=values.device)
@@ -51,7 +55,8 @@ def masked_fill(updated: torch.Tensor, mask: torch.Tensor, old: torch.Tensor) ->
 def assign(vec: torch.Tensor, idx: torch.Tensor, vals, mask: torch.Tensor = None) -> torch.Tensor:
     """GrB_Vector_assign: a copy of ``vec`` with vec[idx] = vals (under a
     mask aligned with idx, if given). ``vals`` is a scalar or a tensor
-    matching idx."""
+    matching idx. An index outside [0, len(vec)) raises (JAX drops that
+    update); a negative one counts from the end, as torch indexing does."""
     idx = idx.long()
     vals = torch.as_tensor(vals, dtype=vec.dtype, device=vec.device)
     if mask is not None:
@@ -62,7 +67,9 @@ def assign(vec: torch.Tensor, idx: torch.Tensor, vals, mask: torch.Tensor = None
 
 
 def extract(vec: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """GrB_Vector_extract: vec[idx] through the table gather (K1)."""
+    """GrB_Vector_extract: vec[idx] through the table gather (K1). An index
+    outside [0, len(vec)) raises on the CPU and reads 0 on the card (K1),
+    where the JAX package's gather does not raise."""
     return table_gather(vec, idx.to(torch.int32))
 
 
@@ -75,8 +82,12 @@ def reduce_vector(monoid: Monoid, vec: torch.Tensor) -> torch.Tensor:
 
 
 def degrees(edges_key: torch.Tensor, num_segments: int) -> torch.Tensor:
-    """Per-vertex edge counts (sorted or unsorted keys), int32."""
-    return torch.bincount(edges_key.long(), minlength=num_segments).to(torch.int32)
+    """Per-vertex edge counts (sorted or unsorted keys), int32 [num_segments].
+    Keys outside [0, num_segments) are dropped, as jax.ops.segment_sum drops
+    them."""
+    key = edges_key.long()
+    key = key[(key >= 0) & (key < num_segments)]
+    return torch.bincount(key, minlength=num_segments).to(torch.int32)
 
 
 def pack_edge_keys_f64(src: torch.Tensor, dst: torch.Tensor, n: int) -> torch.Tensor:

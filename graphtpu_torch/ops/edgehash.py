@@ -16,10 +16,15 @@ and returned to the caller as a mask, to be handled exactly on the host
 fill (a mean of 16 keys per row) that all but never happens.
 
 ``edgehash_probe`` is the wrapper of kernel K9 (csrc/edgehash_probe.cu):
-row fetch, 64-slot compare and payload select in one kernel. ``_probe_lanes``
-is its plain PyTorch version. The 32-bit products of the hash wrap; torch
-does not promise that for signed tensors, so the plain code multiplies in
-int64 in 16-bit pieces that cannot overflow, and masks.
+row fetch, 64-slot compare and payload select in one kernel, run over the
+probes binned by table partition (a histogram and a scatter launch before
+it, an unbin launch after it), a block grouping each partition's probes by
+row so that a row reaches the SM once for all its probes there; a call too
+small to gain (``k9_bins``) takes the probe launch alone. ``_probe_lanes``
+is its plain PyTorch version, and ``probe_bin_plan`` the bin order's. The
+32-bit products of the hash wrap; torch does not promise that for signed
+tensors, so the plain code multiplies in int64 in 16-bit pieces that cannot
+overflow, and masks.
 """
 
 from __future__ import annotations
@@ -35,6 +40,17 @@ PAYLOAD_BITS = 2
 _PAYLOAD_MASK = (1 << PAYLOAD_BITS) - 1
 _SLOTS = 64          # key slots per row
 _ROW = 2 * _SLOTS    # int32 lanes per row (lo/odd interleaved) == 128
+
+# K9's bins (csrc/edgehash_probe.cu): at most K9_MAX_PARTS partitions;
+# K9_TILE probes a tile of the bin passes; a probe block groups the probes
+# of one partition by row, K9_CHUNK at a time. A call is binned only where its
+# probes share rows: at least K9_BIN_MIN_PROBES of them, and at least one
+# per row of the table on average (below that the bin, scan and unbin
+# passes cost more than the fetches they save)
+K9_MAX_PARTS = 1 << 11
+K9_TILE = 16384  # csrc/edgehash_probe.cu: 2 steps of 8192
+K9_CHUNK = 4096
+K9_BIN_MIN_PROBES = 1 << 20
 
 _M_LO = np.uint32(0x9E3779B1)   # golden-ratio prime
 _M_HI = np.uint32(0x85EBCA77)   # murmur3 fmix prime
@@ -181,10 +197,103 @@ def _check_table(name: str, eh: EdgeHash) -> None:
                          f"table's first dimension ({t.shape[0]})")
 
 
+def k9_partition_shift(rows: int, p: int) -> int:
+    """log2 of the rows of one K9 partition for a call of ``p`` probes: a
+    partition's probes (about K9_CHUNK / 2 of them) are grouped by row in one
+    block's shared memory, so 2^pshift is about K9_CHUNK / 2 * rows / p rows,
+    raised where the table would have more than K9_MAX_PARTS partitions."""
+    b = int(rows).bit_length() - 1
+    target = (K9_CHUNK // 2) * int(rows) // max(int(p), 1)
+    shift = target.bit_length() - 1 if target >= 1 else 0
+    return min(max(shift, b - (K9_MAX_PARTS.bit_length() - 1), 0), b)
+
+
+def k9_parts(rows: int, pshift: int) -> int:
+    """Partitions of a table of ``rows`` rows (a power of two) at 2^pshift
+    rows each."""
+    return max(1, int(rows) >> pshift)
+
+
+def k9_bins(rows: int, p: int) -> bool:
+    """K9's size rule: bin a call's probes when it has at least
+    K9_BIN_MIN_PROBES probes and at least one per row of the table; else
+    the probe kernel runs alone over the caller's order."""
+    return p >= K9_BIN_MIN_PROBES and p >= rows
+
+
+def _partitions(eh: EdgeHash, klo: torch.Tensor, khi: torch.Tensor, pshift: int):
+    return _hash_rows(klo.long() & _U32, khi.long() & _U32, eh.rows) >> pshift
+
+
+def probe_bin_plan(eh: EdgeHash, klo: torch.Tensor, khi: torch.Tensor, pshift: int):
+    """The bin order of K9's scatter as torch ops: int64 [P], the probes'
+    indices ordered by partition (row >> pshift), the caller's order within
+    a partition (the kernel's order there follows its atomics)."""
+    return torch.sort(_partitions(eh, klo, khi, pshift), stable=True).indices
+
+
+def edgehash_bin(eh: EdgeHash, klo: torch.Tensor, khi: torch.Tensor, pshift: int):
+    """(bklo, bkhi, pos, starts): the keys in bin order, each probe's place
+    there (int32 [P], in the caller's order) and each partition's first
+    place (int32 [parts]). On the card: K9's histogram launch, a torch scan
+    of its [tiles, parts] counts in partition order and its scatter launch
+    (each counted as a K9 launch); on the CPU, ``probe_bin_plan``."""
+    p, dev = klo.shape[0], klo.device
+    parts = k9_parts(eh.rows, pshift)
+    if parts > K9_MAX_PARTS:
+        raise ValueError(f"edgehash_bin: {parts} partitions; K9 takes at most {K9_MAX_PARTS}")
+    if not kernels.use_kernel(eh.table):
+        perm = probe_bin_plan(eh, klo, khi, pshift)
+        pos = torch.empty_like(perm)
+        pos[perm] = torch.arange(p, device=dev)
+        counts = torch.bincount(_partitions(eh, klo, khi, pshift), minlength=parts)
+        starts = (counts.cumsum(0) - counts).to(torch.int32)
+        return klo[perm], khi[perm], pos.to(torch.int32), starts
+    tiles = (p + K9_TILE - 1) // K9_TILE
+    counts = torch.empty(tiles * parts, dtype=torch.int32, device=dev)
+    bins = torch.empty((p, 2), dtype=torch.int32, device=dev)  # (klo, khi) pairs
+    pos = torch.empty(p, dtype=torch.int32, device=dev)
+    args = (eh.table.data_ptr(), eh.rows, klo.data_ptr(), khi.data_ptr(), p, pshift, parts, tiles)
+    kernels.launch("edgehash_bin_count", dev, *args, counts.data_ptr(), counter="edgehash_probe")
+    by_part = counts.view(tiles, parts).t().reshape(-1)
+    first = (by_part.cumsum(0, dtype=torch.int32) - by_part).view(parts, tiles)
+    offsets = first.t().contiguous()
+    kernels.launch("edgehash_bin_scatter", dev, *args, offsets.data_ptr(), bins.data_ptr(),
+                   pos.data_ptr(), counter="edgehash_probe")
+    return bins[:, 0], bins[:, 1], pos, first[:, 0]
+
+
+def _probe_kernel(eh: EdgeHash, klo: torch.Tensor, khi: torch.Tensor, pshift):
+    """K9 on the card: the probes binned at 2^pshift rows a partition (four
+    launches), or the probe alone over the caller's order where ``pshift``
+    is None (one)."""
+    p, dev = klo.shape[0], klo.device
+    found = torch.empty(p, dtype=torch.bool, device=dev)
+    payload = torch.empty(p, dtype=torch.int32, device=dev)
+    if not p:
+        return found, payload
+    if pshift is None:
+        kernels.launch("edgehash_probe", dev, eh.table.data_ptr(), eh.rows, klo.data_ptr(),
+                       khi.data_ptr(), found.data_ptr(), payload.data_ptr(), p)
+        return found, payload
+    bklo, _, pos, starts = edgehash_bin(eh, klo, khi, pshift)
+    starts = starts.contiguous()
+    res = torch.empty(p, dtype=torch.int32, device=dev)
+    # bklo is column 0 of the [P, 2] pairs: its pointer is the pairs'
+    kernels.launch("edgehash_bin_probe", dev, eh.table.data_ptr(), eh.rows, bklo.data_ptr(),
+                   starts.data_ptr(), starts.shape[0], p, pshift, res.data_ptr(),
+                   counter="edgehash_probe")
+    kernels.launch("edgehash_unbin", dev, pos.data_ptr(), res.data_ptr(), found.data_ptr(),
+                   payload.data_ptr(), p, counter="edgehash_probe")
+    return found, payload
+
+
 def edgehash_probe(eh: EdgeHash, klo: torch.Tensor, khi: torch.Tensor):
     """K9 wrapper: (found bool [P], payload int32 [P]) for keys given as
     flat int32 halves ``klo``, ``khi`` [P] on the table's device. A key not
-    in the table gives (False, 0)."""
+    in the table gives (False, 0). On the card the probes are binned by
+    partition of the table (``k9_partition_shift``) where ``k9_bins`` says
+    so: four K9 launches, else one."""
     _check_table("edgehash_probe", eh)
     if any(t.dtype != torch.int32 or t.dim() != 1 for t in (klo, khi)) or klo.shape != khi.shape:
         raise TypeError("edgehash_probe: klo and khi must be 1-D int32 of one length")
@@ -195,14 +304,10 @@ def edgehash_probe(eh: EdgeHash, klo: torch.Tensor, khi: torch.Tensor):
     if not kernels.use_kernel(eh.table):
         return _probe_lanes(eh, klo, khi)
     p = klo.shape[0]
-    found = torch.empty(p, dtype=torch.bool, device=klo.device)
-    payload = torch.empty(p, dtype=torch.int32, device=klo.device)
-    if p:
-        kernels.launch(
-            "edgehash_probe", klo.device, eh.table.data_ptr(), eh.rows, klo.data_ptr(),
-            khi.data_ptr(), found.data_ptr(), payload.data_ptr(), p,
-        )
-    return found, payload
+    if p >= 1 << 31:
+        raise ValueError("edgehash_probe: K9 takes fewer than 2^31 probes a call")
+    binned = k9_bins(eh.rows, p)
+    return _probe_kernel(eh, klo, khi, k9_partition_shift(eh.rows, p) if binned else None)
 
 
 def probe_edge_hash(eh: EdgeHash, keys: torch.Tensor):

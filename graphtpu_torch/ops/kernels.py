@@ -24,7 +24,10 @@ of a slab plan in one launch (``slab_minmode_buckets``,
 algorithms call. Inside ``plain_torch()`` CUDA
 tensors take the plain version too, so the whole path can run as its own
 reference on the card. A wrapper adds one to ``launch_counts[name]`` for
-each launch (K7 in mode sum to ``launch_counts["csr_pull_reduce_sum"]``).
+each launch (K7 in mode sum to ``launch_counts["csr_pull_reduce_sum"]``);
+K9 and K11 may launch more than once a call (K9: a histogram, a scatter, the
+probe and the unbin; K11: one launch per task list of its plan), and count
+each.
 """
 
 from __future__ import annotations
@@ -75,13 +78,22 @@ _SIGNATURES = {
     "gt_push_relax_min": (_P, _P, _P, _P, _P, _P, _P, _I32, _I32, _P),
     # table, rows, klo, khi, found, payload, p, stream
     "gt_edgehash_probe": (_P, _I64, _P, _P, _P, _P, _I64, _P),
+    # table, rows, klo, khi, p, pshift, parts, tiles, counts, stream
+    "gt_edgehash_bin_count": (_P, _I64, _P, _P, _I64, _I32, _I32, _I32, _P, _P),
+    # table, rows, klo, khi, p, pshift, parts, tiles, offsets, bins, pos, stream
+    "gt_edgehash_bin_scatter": (_P, _I64, _P, _P, _I64, _I32, _I32, _I32, _P, _P, _P, _P),
+    # table, rows, bins, starts, parts, p, pshift, res, stream
+    "gt_edgehash_bin_probe": (_P, _I64, _P, _P, _I32, _I64, _I32, _P, _P),
+    # pos, res, found, payload, p, stream
+    "gt_edgehash_unbin": (_P, _P, _P, _P, _I64, _P),
     # slab, mslab, W, R, close_indptr, close_ids, close_mult, n_close, u_cred,
     # edge_cred, stream
     "gt_wedge_rowblock": (_P, _P, _I32, _I64, _P, _P, _P, _I64, _P, _P, _P),
-    # a_indptr, a_col, a_val (null = structural), b_indptr, b_col, b_val, rows,
-    # cols, out, m, a_rows, b_rows, vtype, add, mul, stream
-    "gt_masked_spgemm": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32,
-                         _I32, _P),
+    # a_indptr, a_col, a_val (null = structural), b_indptr, b_col, b_val, cw,
+    # a_rows, b_rows, vtype, add, mul, kind, tasks, ntask, cols, idx (null =
+    # identity), out, stream
+    "gt_masked_spgemm": (_P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32, _P,
+                         _I32, _P, _P, _P, _P),
     # stream: a kernel that returns at once (csrc/empty_kernel.cu)
     "gt_empty_kernel": (_P,),
 }

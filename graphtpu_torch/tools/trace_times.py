@@ -23,9 +23,10 @@ def _on_device(e) -> bool:
     return getattr(e.device_type, "name", str(e.device_type)).endswith("CUDA")
 
 
-def device_ms(fn, reps=10, tries=TRACE_TRIES):
+def device_ms(fn, reps=10, tries=TRACE_TRIES, only=None):
     """Device ms per call of fn(): the profiler's device time of the calls'
-    kernels and copies, over ``reps`` calls after a warm-up. Raises after
+    kernels and copies, over ``reps`` calls after a warm-up; with ``only``
+    (names), that of the records whose name holds one of them. Raises after
     ``tries`` traces in a row that lost records."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -40,7 +41,8 @@ def device_ms(fn, reps=10, tries=TRACE_TRIES):
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
                   if _on_device(e) and e.self_device_time_total > 0]
-        us = sum(e.self_device_time_total for e in events)
+        us = sum(e.self_device_time_total for e in events
+                 if only is None or any(n in e.key for n in only))
         lost = [f"{e.key[:48]}: {e.count} records in {reps} calls" for e in events
                 if e.count % reps]
         if us > 0 and not lost:

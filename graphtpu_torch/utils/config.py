@@ -123,7 +123,8 @@ class PlatformConfig:
     # compute precision for float-valued algorithms ("float32"|"float64")
     precision: str = "float32"
     # PageRank pull sum: "auto"/"slab" = padded-ELL row sums on kernel K3;
-    # "scan" = a segment sum over the pull CSR on kernel K7 (mode sum)
+    # "scan" (or the JAX package's name "segment") = a segment sum over the
+    # pull CSR on kernel K7 (mode sum)
     pr_impl: str = "auto"
     # scan|xla|slab: the JAX package's lowering of the pull reduction. Under
     # pr-impl=scan, slab takes the slab arm and scan and xla both take K7.
@@ -144,9 +145,9 @@ class PlatformConfig:
     # explicit ascending active-tier edge budgets (comma list); empty = the
     # single cdlp-frontier tier (ops/active.py cdlp_tiers)
     cdlp_tiers: str = ""
-    # auto|adaptive|device|hybrid: auto/adaptive = the push tier ladder,
+    # auto|adaptive|device|dense|hybrid: auto/adaptive = the push tier ladder,
     # truncated bottom-up and the dense pull fallback (algorithms/bfs.py);
-    # device = dense pull steps only; hybrid = host expansions of sparse
+    # device (or dense, the JAX package's name) = dense pull steps only; hybrid = host expansions of sparse
     # levels, dense pull steps on the device for the heavy ones
     bfs_impl: str = "auto"
     # hybrid: a level expands on the host while its frontier's out-edges
@@ -168,15 +169,16 @@ class PlatformConfig:
     bfs_bu_edges: int = 0
     # ""/phases run; "switch" (a TPU compile-time experiment) is not ported
     bfs_step_mode: str = ""
-    # auto|slab|adaptive|device: auto/slab = full steps on the slab plan
+    # auto|slab|adaptive|device|dense: auto/slab = full steps on the slab plan
     # (kernel K6), adaptive = full steps on the edge stream (K7), both with
-    # active-set steps on the frontier engine; device = dense steps only
+    # active-set steps on the frontier engine; device (or dense) = dense
+    # steps only
     wcc_impl: str = "auto"
     wcc_frontier_rows: int = 1 << 16
     wcc_frontier_edges: int = 1 << 18
-    # auto|adaptive|device|delta|hybrid: auto/adaptive = changed-set
+    # auto|adaptive|device|dense|delta|hybrid: auto/adaptive = changed-set
     # Bellman-Ford on a frontier tier ladder (kernels K5, K8) with dense
-    # sweeps (K7); device = dense sweeps only; delta = bucketed
+    # sweeps (K7); device (or dense) = dense sweeps only; delta = bucketed
     # delta-stepping on the same kernels; hybrid = host relaxations of
     # sparse rounds, dense sweeps on the device for the heavy ones
     sssp_impl: str = "auto"

@@ -148,7 +148,8 @@ def test_csr_pull_reduce_refuses_bad_arguments():
 
 
 def test_errors():
-    tg = _twin(j_rmat_graph(6, 4, directed=True, seed=1))
+    jg = j_rmat_graph(6, 4, directed=True, seed=1)
+    tg = _twin(jg)
     cpu = PlatformConfig(device="cpu")
     with pytest.raises(ValueError, match="requires source-vertex"):
         run_algorithm("bfs", tg, AlgorithmParams(), cpu)
@@ -163,9 +164,16 @@ def test_errors():
     with pytest.raises(ValueError, match="switch"):
         run_algorithm("bfs", tg, AlgorithmParams(source_vertex=0),
                       PlatformConfig(device="cpu", bfs_step_mode="switch"))
+    # "dense" is the JAX package's one-chip dense kernel: the port runs it as
+    # "device", with the JAX package's levels and iteration count
+    want = j_run_algorithm("bfs", jg, JParams(source_vertex=0), JConfig(bfs_impl="dense"))
+    dense = run_algorithm("bfs", tg, AlgorithmParams(source_vertex=0),
+                          PlatformConfig(device="cpu", bfs_impl="dense"))
+    np.testing.assert_array_equal(dense.values, want.values)
+    assert dense.iterations == want.iterations
     with pytest.raises(ValueError, match="unknown bfs-impl"):
         run_algorithm("bfs", tg, AlgorithmParams(source_vertex=0),
-                      PlatformConfig(device="cpu", bfs_impl="dense"))
+                      PlatformConfig(device="cpu", bfs_impl="bogus"))
     res = run_algorithm("bfs", tg, AlgorithmParams(source_vertex=0),
                         PlatformConfig(device="cpu", bfs_step_mode="phases"))
     assert res.values[0] == 0

@@ -13,8 +13,8 @@ import torch
 
 from graphtpu_torch.ops import kernels
 from graphtpu_torch.ops.edgehash import (
-    EdgeHash, _probe_lanes, build_edge_hash, build_edge_hash_device, edgehash_probe,
-    probe_edge_hash,
+    K9_BIN_MIN_PROBES, EdgeHash, _hash_rows, _probe_kernel, _probe_lanes, _U32, build_edge_hash,
+    build_edge_hash_device, edgehash_bin, edgehash_probe, k9_bins, probe_edge_hash,
 )
 from graphtpu_torch.ops.frontier import (
     frontier_expand, frontier_expand_plain, relax_min, relax_min_plain,
@@ -662,7 +662,10 @@ def _credits_by_real_pairs(slab, mslab, keys, payload):
 @pytest.mark.parametrize("p", [1, 3, 4, 5, 1000, 100003])
 def test_edgehash_probe_matches_plain(cuda, p):
     """Present and absent keys, the key of all-ones halves (which must not
-    match an empty slot), and probe counts around a warp's four."""
+    match an empty slot), and probe counts around a warp's four; too few
+    probes to bin, so one launch a call. The binned path, forced at
+    partitions of 4 rows: a histogram, a scatter, the probe and the unbin
+    launch, the bin order a permutation whose partitions do not decrease."""
     rng = np.random.default_rng(p)
     keys = np.unique(rng.integers(0, 1 << 40, size=50000, dtype=np.int64))
     payload = rng.integers(1, 4, size=keys.shape[0])
@@ -687,6 +690,56 @@ def test_edgehash_probe_matches_plain(cuda, p):
     with kernels.plain_torch():
         f_pl, p_pl = edgehash_probe(eh_d, klo.to(cuda), khi.to(cuda))
     assert torch.equal(f_pl.cpu(), want_found) and torch.equal(p_pl.cpu(), want_pay)
+    before = kernels.launch_counts["edgehash_probe"]
+    f_bin, p_bin = _probe_kernel(eh_d, klo.to(cuda), khi.to(cuda), 2)
+    assert kernels.launch_counts["edgehash_probe"] == before + 4
+    assert torch.equal(f_bin.cpu(), want_found) and torch.equal(p_bin.cpu(), want_pay)
+    bklo, bkhi, pos, starts = edgehash_bin(eh_d, klo.to(cuda), khi.to(cuda), 2)
+    pos = pos.long().cpu()
+    assert torch.equal(torch.sort(pos).values, torch.arange(p))
+    assert torch.equal(bklo.cpu()[pos], klo) and torch.equal(bkhi.cpu()[pos], khi)
+    part = _hash_rows(bklo.cpu().long() & _U32, bkhi.cpu().long() & _U32, eh.rows) >> 2
+    assert bool((part.diff() >= 0).all())
+    assert torch.equal(starts.cpu().long(), torch.searchsorted(part, torch.arange(starts.numel())))
+
+
+@pytest.mark.parametrize("case", ["one-row", "one-probe", "under-the-rule", "at-the-rule"])
+def test_edgehash_probe_bins_at_the_size_rule(cuda, case):
+    """K9 on a table of 2^17 rows: a call of K9_BIN_MIN_PROBES - 1 probes
+    takes one launch, one of K9_BIN_MIN_PROBES the four of the bins; every
+    probe in one row (5,000 probes, more than a probe block's chunk) and a
+    single probe, binned at partitions of 64 rows. All equal the plain
+    version bit for bit."""
+    rng = np.random.default_rng(11)
+    keys = np.unique(rng.integers(0, 1 << 40, size=1 << 20, dtype=np.int64))
+    payload = rng.integers(1, 4, size=keys.shape[0]).astype(np.int32)
+    eh, _ = build_edge_hash_device(torch.from_numpy(keys).to(cuda),
+                                   torch.from_numpy(payload).to(cuda))
+    assert eh.rows == 1 << 17 and k9_bins(eh.rows, K9_BIN_MIN_PROBES)
+    if case == "one-row":  # the keys stored in key 0's row, probed over and over
+        h = _hash_rows(torch.from_numpy(keys & 0xFFFFFFFF), torch.from_numpy(keys >> 32),
+                       eh.rows).numpy()
+        probes = rng.choice(keys[h == h[0]], size=5000)
+    else:
+        p = {"one-probe": 1, "under-the-rule": K9_BIN_MIN_PROBES - 1,
+             "at-the-rule": K9_BIN_MIN_PROBES}[case]
+        probes = np.where(rng.random(p) < 0.5, rng.choice(keys, size=p),
+                          rng.integers(0, 1 << 40, size=p, dtype=np.int64))
+    klo = torch.from_numpy((probes & 0xFFFFFFFF).astype(np.uint32).view(np.int32)).to(cuda)
+    khi = torch.from_numpy((probes >> 32).astype(np.int32)).to(cuda)
+    with kernels.plain_torch():
+        want = edgehash_probe(eh, klo, khi)
+    before = kernels.launch_counts["edgehash_probe"]
+    if case in ("one-row", "one-probe"):  # 2048 partitions of 64 rows, K9's most
+        got = _probe_kernel(eh, klo, khi, 6)
+        expected = 4
+    else:
+        got = edgehash_probe(eh, klo, khi)
+        expected = 4 if case == "at-the-rule" else 1
+    assert kernels.launch_counts["edgehash_probe"] == before + expected
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if case == "one-row":
+        assert bool(got[0].all())
 
 
 def test_edge_hash_device_build_matches_host_build(cuda):
@@ -949,8 +1002,11 @@ def test_device_sort_on_the_card_matches_cpu(cuda, monkeypatch, prim_src, dedup)
 def _spgemm_inputs(seed, n=300):
     """(A's indptr, col; B's indptr, col; mask rows, cols) as numpy: A's
     rows hold 0-40 sorted columns with repeats (some rows empty), B's 0-24
-    but one of 700, longer than A's longest; the mask mixes random pairs
-    with pairs that a product reaches."""
+    but one of 700, longer than A's longest; the mask, in no order, mixes
+    random pairs with pairs that a product reaches, columns outside B's
+    (negative and past n), and row 5 with every column and 1,200 more,
+    longer than K11's shared-memory table holds (column windows); row 3
+    reaches B's long row (a block's row)."""
     rng = np.random.default_rng(seed)
     a_deg = rng.integers(0, 41, n)
     a_deg[::17] = 0
@@ -967,7 +1023,11 @@ def _spgemm_inputs(seed, n=300):
     ks = a_col.astype(np.int64)
     reach = b_ip[ks] + (rng.random(ks.size) * np.maximum(b_ip[ks + 1] - b_ip[ks], 1)).astype(int)
     cols = np.concatenate([rng.integers(0, n, 4000), b_col[np.minimum(reach, b_col.size - 1)]])
-    return (a_ip, a_col), (b_ip, b_col), rows.astype(np.int32), cols.astype(np.int32)
+    long_row = np.concatenate([np.arange(n), rng.integers(0, n, 1200)])
+    rows = np.concatenate([rows, np.full(long_row.size, 5), rng.integers(0, n, 3)])
+    cols = np.concatenate([cols, long_row, [-5, n + 10, 1 << 30]])
+    order = rng.permutation(rows.size)
+    return (a_ip, a_col), (b_ip, b_col), rows[order].astype(np.int32), cols[order].astype(np.int32)
 
 
 def _spgemm_values(rng, size, dtype, name):
@@ -988,9 +1048,14 @@ def test_masked_spgemm_matches_plain(cuda, name, values):
     """K11 against its plain version (the JAX package's bucketed slab) on
     the card and on the CPU: bit-identical, but plus over floats, which sums
     up to 40 terms of one sign in another order: rtol 1e-5 in float32 (40 x
-    2^-24 = 2.4e-6 at worst) and 1e-12 in float64."""
+    2^-24 = 2.4e-6 at worst) and 1e-12 in float64. Two calls give equal
+    results, float plus too. The mask comes in no order and its plan holds
+    all three task lists (warp rows, block rows, column windows of a row
+    longer than the table): three launches a call."""
     from graphtpu_torch.core.semiring import BY_NAME
-    from graphtpu_torch.core.spgemm import CSR, masked_spgemm, masked_spgemm_rows
+    from graphtpu_torch.core.spgemm import (
+        CSR, masked_spgemm, masked_spgemm_rows, plan_masked_spgemm,
+    )
 
     (a_ip, a_col), (b_ip, b_col), rows, cols = _spgemm_inputs(len(name) + len(values))
     rng = np.random.default_rng(5)
@@ -1003,10 +1068,12 @@ def test_masked_spgemm_matches_plain(cuda, name, values):
     a_cpu, b_cpu = CSR(t(a_ip), t(a_col), a_val), CSR(t(b_ip), t(b_col), b_val)
     a, b = (CSR(*(None if x is None else x.to(cuda) for x in c)) for c in (a_cpu, b_cpu))
     semiring = BY_NAME[name]
+    plan = plan_masked_spgemm(a, b, t(rows).to(cuda), t(cols).to(cuda))
+    assert plan.idx is not None and plan.launches == 3
     before = kernels.launch_counts["masked_spgemm"]
     got = masked_spgemm_rows(semiring, a, b, t(rows).to(cuda), t(cols).to(cuda))
     again = masked_spgemm(semiring, a, b, rows, cols)
-    assert kernels.launch_counts["masked_spgemm"] == before + 2
+    assert kernels.launch_counts["masked_spgemm"] == before + 2 * plan.launches
     with kernels.plain_torch():
         want = masked_spgemm(semiring, a, b, rows, cols)
     cpu = masked_spgemm(semiring, a_cpu, b_cpu, rows, cols)
@@ -1022,6 +1089,42 @@ def test_masked_spgemm_matches_plain(cuda, name, values):
     empty_a = torch.from_numpy(np.isin(rows, np.flatnonzero(np.diff(a_ip) == 0)))
     assert bool(empty_a.any()) and bool((got.cpu()[empty_a] == ident).all())
     assert int((got.cpu() != ident).sum()) > 1000
+
+
+def test_masked_spgemm_plan_reads_the_card_twice(cuda):
+    """A K11 call reads the card twice where the mask comes in row order
+    (the order check with the count of rows, then the task lists' sizes)
+    and once more where it comes out of order; its windows add no read.
+    Counted: the synchronizing calls made from the package's own lines."""
+    import warnings
+
+    from graphtpu_torch.core.semiring import PLUS_TIMES
+    from graphtpu_torch.core.spgemm import CSR, masked_spgemm_rows, plan_masked_spgemm
+
+    (a_ip, a_col), (b_ip, b_col), rows, cols = _spgemm_inputs(1)
+    d = lambda x: torch.from_numpy(x).to(cuda)  # noqa: E731
+    a = CSR(d(a_ip), d(a_col), torch.ones(a_col.size, device=cuda))
+    b = CSR(d(b_ip), d(b_col), torch.ones(b_col.size, device=cuda))
+    order = np.argsort(rows, kind="stable")
+    r, c = d(rows[order]), d(cols[order])
+    assert plan_masked_spgemm(a, b, r, c).launches == 3
+
+    def reads(fn):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return [f"{w.filename}:{w.lineno}" for w in seen
+                if "synchroniz" in str(w.message) and "graphtpu_torch" in w.filename]
+
+    got = reads(lambda: masked_spgemm_rows(PLUS_TIMES, a, b, r, c))
+    assert len(got) == 2, got
+    got = reads(lambda: masked_spgemm_rows(PLUS_TIMES, a, b, d(rows), d(cols)))
+    assert len(got) == 3, got
 
 
 def test_masked_spgemm_refusals_and_empty_mask(cuda):
@@ -1049,6 +1152,11 @@ def test_masked_spgemm_refusals_and_empty_mask(cuda):
     # a mask row outside A, or a column of A outside B's rows, matches nothing
     far = torch.tensor([-1, 50, 1 << 30], dtype=torch.int32, device=cuda)
     assert not masked_spgemm_rows(sr.PLUS_PAIR, a, b, far, far).any()
+    # ... also among rows inside, in every task list: the others keep their values
+    mixed_r, mixed_c = torch.cat([r, far, far.flip(0)]), torch.cat([c, c[:3], c[:3]])
+    got = masked_spgemm_rows(sr.PLUS_PAIR, a, b, mixed_r, mixed_c)
+    assert torch.equal(got[:r.numel()], masked_spgemm_rows(sr.PLUS_PAIR, a, b, r, c))
+    assert not got[r.numel():].any()
     outside = CSR(a.indptr, torch.full_like(a.col, 1 << 20), None)
     assert not masked_spgemm_rows(sr.PLUS_PAIR, outside, b, r, c).any()
     assert masked_spgemm_rows(sr.PLUS_PAIR, a, b, r, c).any()

@@ -176,6 +176,55 @@ def test_probe_xy_matches_jax_and_all_ones_key_misses():
     assert not bool(f.any()) and not bool(p.any())
 
 
+def test_k9_partition_size_and_size_rule():
+    """A partition holds about K9_CHUNK / 2 of the call's probes, and a table
+    has at most K9_MAX_PARTS of them; the probes are binned from
+    K9_BIN_MIN_PROBES on, and only where they are at least the table's rows."""
+    half = teh.K9_CHUNK // 2
+    assert teh.k9_partition_shift(1 << 21, 1 << 22) == 10        # 2,048 probes a partition
+    assert teh.k9_parts(1 << 21, 10) == 2048
+    assert (1 << teh.k9_partition_shift(1 << 16, 1 << 20)) * (1 << 20) // (1 << 16) == half
+    assert teh.k9_parts(1 << 30, teh.k9_partition_shift(1 << 30, 1 << 26)) == teh.K9_MAX_PARTS
+    assert teh.k9_partition_shift(1 << 4, 1 << 24) == 0            # a partition of one row
+    assert teh.k9_partition_shift(1 << 4, 1) == 4                  # the whole table
+    m = teh.K9_BIN_MIN_PROBES
+    assert teh.k9_bins(1 << 16, m) and not teh.k9_bins(1 << 16, m - 1)
+    assert teh.k9_bins(m, m) and not teh.k9_bins(2 * m, 2 * m - 1)
+
+
+@pytest.mark.parametrize("pshift", [0, 3, 6])
+def test_k9_bin_plan_reorders_probes(pshift):
+    """The bin order is a permutation under which the partitions (row >>
+    pshift) do not decrease; probing in bin order and taking each probe's
+    result from its place there gives _probe_lanes's results, which are the
+    JAX package's."""
+    keys, payload = _random_keys(6, size=20000)
+    eh, _ = teh.build_edge_hash(keys, payload)
+    j_eh, _ = jeh.build_edge_hash(keys, payload)
+    rng = np.random.default_rng(6)
+    probes = np.where(rng.random(30001) < 0.5, rng.choice(keys, 30001),
+                      rng.integers(0, 1 << 40, 30001, dtype=np.int64))
+    klo = torch.from_numpy((probes & 0xFFFFFFFF).astype(np.uint32).view(np.int32))
+    khi = torch.from_numpy((probes >> 32).astype(np.int32))
+    perm = teh.probe_bin_plan(eh, klo, khi, pshift)
+    assert torch.equal(torch.sort(perm).values, torch.arange(perm.shape[0]))
+    part = teh._hash_rows(klo.long() & teh._U32, khi.long() & teh._U32, eh.rows) >> pshift
+    assert bool((part[perm].diff() >= 0).all())
+    assert int(part.unique().numel()) > 1
+    bklo, bkhi, pos, starts = teh.edgehash_bin(eh, klo, khi, pshift)  # the CPU: the plan's
+    assert torch.equal(bklo, klo[perm]) and torch.equal(bklo[pos.long()], klo)
+    np.testing.assert_array_equal(starts.numpy(), np.searchsorted(part[perm].numpy(),
+                                                                  np.arange(starts.numel())))
+    b_found, b_pay = teh._probe_lanes(eh, bklo, bkhi)
+    found, pay = b_found[pos.long()], b_pay[pos.long()]
+    want_found, want_pay = teh._probe_lanes(eh, klo, khi)
+    assert torch.equal(found, want_found) and torch.equal(pay, want_pay)
+    assert bool(found.any()) and not bool(found.all())
+    j_found, j_pay = jeh.probe_edge_hash(j_eh, jnp.asarray(probes))
+    np.testing.assert_array_equal(found.numpy(), np.asarray(j_found))
+    np.testing.assert_array_equal(pay.numpy(), np.asarray(j_pay))
+
+
 def test_wrappers_refuse_bad_arguments():
     keys, payload = _random_keys(5, size=200)
     eh, _ = teh.build_edge_hash(keys, payload)

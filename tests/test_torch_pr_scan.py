@@ -112,8 +112,10 @@ def test_csr_pull_reduce_sum_refuses_bad_inputs():
 
 def test_spmv_impl_picks_the_arm_as_in_jax():
     """spmv-impl=slab takes the slab arm under pr-impl=scan; scan and xla take
-    K7's; an unknown pr-impl or spmv-impl is refused."""
-    _, tg = _twins(8, True)
+    K7's; pr-impl=segment (the JAX package's name of its segment-sum arm)
+    takes K7's with the JAX package's ranks; an unknown pr-impl or spmv-impl
+    is refused."""
+    jg, tg = _twins(8, True)
     params = AlgorithmParams(**PR)
     base = run_algorithm("pr", tg, params, PlatformConfig(device="cpu"))
     assert not any(k[0] == "pull_csr" for k in tg.memo if isinstance(k, tuple))
@@ -127,8 +129,12 @@ def test_spmv_impl_picks_the_arm_as_in_jax():
     assert any(k[0] == "pull_csr" for k in tg.memo if isinstance(k, tuple))
     np.testing.assert_array_equal(scans[0], scans[1])
     np.testing.assert_allclose(scans[0], base.values, rtol=1e-5)
+    segment = run_algorithm("pr", tg, params, PlatformConfig(device="cpu", pr_impl="segment"))
+    np.testing.assert_array_equal(segment.values, scans[0])
+    want = j_run_algorithm("pr", jg, JParams(**PR), JConfig(pr_impl="segment"))
+    np.testing.assert_allclose(segment.values, want.values, rtol=RTOL["float32"], atol=0)
     with pytest.raises(ValueError, match="unknown pr-impl"):
-        run_algorithm("pr", tg, params, PlatformConfig(device="cpu", pr_impl="segment"))
+        run_algorithm("pr", tg, params, PlatformConfig(device="cpu", pr_impl="bogus"))
     with pytest.raises(ValueError, match="unknown spmv-impl"):
         run_algorithm("pr", tg, params,
                       PlatformConfig(device="cpu", pr_impl="scan", spmv_impl="ell"))

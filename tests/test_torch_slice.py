@@ -92,7 +92,8 @@ def test_cdlp_auto_resolves_to_slab_and_adaptive_is_refused():
     """(Named for the first slice's behaviour.) auto and adaptive now run
     the adaptive device path, which agrees with slab; an unknown impl, an
     unknown pr-impl and an unknown algorithm are refused (pr-impl=scan runs
-    since its port: tests/test_torch_pr_scan.py)."""
+    since its port, and segment, the JAX package's name of that arm, as
+    scan: tests/test_torch_pr_scan.py)."""
     _, tg = _twins(False, 0, scale=8, ef=4)
     params = AlgorithmParams(max_iterations=5)
     auto = run_algorithm("cdlp", tg, params, PlatformConfig(device="cpu"))
@@ -108,7 +109,7 @@ def test_cdlp_auto_resolves_to_slab_and_adaptive_is_refused():
         run_algorithm("cdlp", tg, params, PlatformConfig(device="cpu", cdlp_impl="hash"))
     with pytest.raises(ValueError, match="unknown pr-impl"):
         run_algorithm("pr", tg, AlgorithmParams(damping_factor=0.85, num_iterations=2),
-                      PlatformConfig(device="cpu", pr_impl="segment"))
+                      PlatformConfig(device="cpu", pr_impl="bogus"))
     with pytest.raises(ValueError, match="unknown algorithm"):
         run_algorithm("tc", tg, AlgorithmParams(), PlatformConfig(device="cpu"))
     # lcc, the last algorithm to be ported, is in the registry
@@ -189,6 +190,20 @@ def test_port_imports_no_jax_graphtpu_or_pandas():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           cwd=REPO, timeout=300)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_package_docstring_names_what_the_port_holds():
+    """The package's docstring names the six algorithms, the harness, the
+    ingest, the GraphBLAS surface and every hand kernel K1-K11 by name."""
+    import graphtpu_torch
+    from graphtpu_torch.ops import kernels
+
+    doc = " ".join(graphtpu_torch.__doc__.split())
+    for words in ("PageRank", "CDLP", "BFS", "WCC", "SSSP", "LCC", "harness", "ingest",
+                  "GraphBLAS", "core/spops.py", "core/spgemm.py"):
+        assert words in doc, words
+    for k, name in enumerate(kernels.KERNELS, start=1):
+        assert f"K{k} {name}" in doc, name
 
 
 def _fake_profiler(monkeypatch, counts_per_trace):

@@ -147,6 +147,12 @@ def test_degrees_and_packed_keys_match_jax():
     for key in (jg.src, jg.dst):
         want = jspops.degrees(jnp.asarray(key.astype(np.int32)), jg.n + 3)  # 3 empty tails
         _assert_same(tspops.degrees(_t(key.astype(np.int32)), jg.n + 3), want, "plus")
+    # keys outside [0, num_segments), negative ones too, are dropped as JAX drops them
+    for keys, n in (([0, 2, 5, 2], 3), ([0, 2, 5, 2, -1, -7, 3], 3), ([-2, 9], 4), ([], 3)):
+        key = np.asarray(keys, np.int32)
+        got = tspops.degrees(_t(key), n)
+        assert got.shape == (n,)
+        _assert_same(got, jspops.degrees(jnp.asarray(key), n), "plus")
     want = jspops.pack_edge_keys_f64(jnp.asarray(jg.src), jnp.asarray(jg.dst), jg.n)
     _assert_same(tspops.pack_edge_keys_f64(_t(jg.src), _t(jg.dst), jg.n), want, "min")
 
@@ -299,3 +305,170 @@ def test_spmm_matches_jax(case):
     plan = build_pull_plan(tg, device="cpu", wdtype=ndt)
     got = tspgemm.spmm(tsr.BY_NAME[name], plan, _t(x), tg.n)
     _assert_same(got, want, tsr.BY_NAME[name].add.name)
+
+
+# ---------------------------------------------------------------- K11's plan
+
+_UFUNC = {"plus": np.add, "min": np.minimum, "max": np.maximum, "lor": np.maximum}
+
+
+def _apply_k11_plan(plan, name, a, b, m):
+    """K11's arithmetic per task of ``plan``, in numpy, for CSR triples a,
+    b of numpy arrays: each task's mask columns (a table of distinct
+    columns), the B rows that A.row(row) names walked once, a B entry
+    counted where its column differs from the one before it in its row and
+    lies in the task's window, its term reduced into its column's
+    accumulator, and each mask entry given its column's value."""
+    (a_ip, a_col, a_val), (b_ip, b_col, b_val) = a, b
+    semiring = tsr.BY_NAME[name]
+    dtype = b_val.dtype if b_val is not None else (a_val.dtype if a_val is not None
+                                                   else np.dtype(np.float32))
+    ident = semiring.add.identity(torch.from_numpy(np.zeros(0, dtype)).dtype)
+    ufunc = _UFUNC[semiring.add.name]
+    a_rows, b_rows = a_ip.size - 1, b_ip.size - 1
+    b_first = np.ones(b_col.size, bool)
+    b_first[1:] = b_col[1:] != b_col[:-1]
+    b_first[b_ip[:-1][np.diff(b_ip) > 0]] = True
+    out = np.full(m, ident, dtype)
+
+    def run(tasks, cols, idx, windowed):
+        for row, s, e, *window in tasks.numpy().astype(np.int64):
+            entry_cols = cols[s:e]
+            uniq, inv = np.unique(entry_cols, return_inverse=True)
+            acc = np.full(uniq.size, ident, dtype)
+            if 0 <= row < a_rows:
+                p = np.arange(a_ip[row], a_ip[row + 1])
+                p = p[(a_col[p] >= 0) & (a_col[p] < b_rows)]
+                k = a_col[p]
+                lens = b_ip[k + 1] - b_ip[k]
+                owner = np.repeat(p, lens)
+                q = np.repeat(b_ip[k], lens) + np.arange(lens.sum()) - np.repeat(
+                    np.cumsum(lens) - lens, lens)
+                c = b_col[q]
+                sel = b_first[q] & np.isin(c, uniq)
+                if windowed:
+                    sel &= (c >= window[0]) & (c <= window[1])
+                owner, q, c = owner[sel], q[sel], c[sel]
+                if a_val is not None and b_val is not None:
+                    av = torch.from_numpy(a_val[owner])
+                    terms = semiring.mul(av, torch.from_numpy(b_val[q])).numpy()
+                elif b_val is not None:
+                    terms = b_val[q]
+                elif a_val is not None:
+                    terms = a_val[owner]
+                else:
+                    terms = np.ones(q.size, dtype)
+                ufunc.at(acc, np.searchsorted(uniq, c), terms.astype(dtype))
+            out[np.arange(s, e) if idx is None else idx[s:e]] = acc[inv]
+
+    cols = plan.cols.numpy()
+    idx = None if plan.idx is None else plan.idx.numpy()
+    run(plan.warp_tasks, cols, idx, False)
+    run(plan.block_tasks, cols, idx, False)
+    run(plan.win_tasks, plan.win_cols.numpy(), plan.win_idx.numpy(), True)
+    return out
+
+
+def _k11_case(scale, seed):
+    """(A, B, mask rows, cols) from RMAT graphs of ``scale``: A the graph's
+    CSR with some rows emptied, B another graph's CSR with some columns
+    doubled (duplicate B columns), the mask every stored edge of a third
+    graph, shuffled (unsorted), with repeated entries, A's longest row
+    holding every column and 1,100 more (longer than two windows) and its
+    second longest 200 columns (a block's row)."""
+    rng = np.random.default_rng(seed)
+    ga = j_rmat_graph(scale, 8, directed=True, seed=seed)
+    gb = j_rmat_graph(scale, 6, directed=False, seed=seed + 1)
+    gm = j_rmat_graph(scale, 4, directed=True, seed=seed + 2)
+    n = ga.n
+    a_deg = np.diff(ga.indptr)
+    keep = np.repeat(~np.isin(np.arange(n), rng.choice(n, n // 8, replace=False)), a_deg)
+    a_ip = np.concatenate([[0], np.cumsum(np.bincount(ga.src[keep], minlength=n))])
+    a_col = ga.dst[keep]
+    times = rng.integers(1, 3, gb.dst.size)          # each B entry once or twice
+    b_col = np.repeat(gb.dst, times)
+    b_ip = np.concatenate([[0], np.cumsum(np.bincount(np.repeat(gb.src, times),
+                                                      minlength=gb.n))])
+    long_row = np.concatenate([np.arange(n), rng.integers(0, n, 1100)])
+    by_deg = np.argsort(np.diff(a_ip), kind="stable")
+    rows = np.concatenate([gm.src, gm.src[:50], np.full(long_row.size, by_deg[-1]),
+                           np.full(200, by_deg[-2])])
+    cols = np.concatenate([gm.dst, gm.dst[:50], long_row, rng.integers(0, n, 200)])
+    order = rng.permutation(rows.size)
+    return ((a_ip.astype(np.int32), a_col.astype(np.int32)),
+            (b_ip.astype(np.int32), b_col.astype(np.int32)),
+            rows[order].astype(np.int32), cols[order].astype(np.int32))
+
+
+# per scale: together each add monoid, each value type, a structural product
+_PLAN_CASES = {7: [("plus.times", "int32"), ("plus.pair", None)],
+               8: [("min.plus", "float32"), ("lor.land", "int32")],
+               9: [("max.second", "float32"), ("plus.times", "float64")]}
+
+
+@pytest.mark.parametrize("small_classes", [False, True], ids=["k11-sizes", "tiny-sizes"])
+@pytest.mark.parametrize("scale", [7, 8, 9])
+def test_k11_plan_applied_matches_jax(scale, small_classes, monkeypatch):
+    """K11's plan (row grouping of an unsorted mask, row work, warp, block
+    and window tasks), applied with the kernel's per-task arithmetic on the
+    CPU, gives the JAX package's masked_spgemm: duplicate mask entries each
+    get the value, duplicate B columns count once, empty A-rows give the
+    identity, and a row longer than a window is cut into windows. With
+    ``tiny-sizes`` the class limits shrink so that every class is large."""
+    if small_classes:
+        monkeypatch.setattr(tspgemm, "K11_WARP_ENTRIES", 4)
+        monkeypatch.setattr(tspgemm, "K11_WARP_WORK", 40)
+        monkeypatch.setattr(tspgemm, "K11_WINDOW", 16)
+    (a_ip, a_col), (b_ip, b_col), rows, cols = _k11_case(scale, scale)
+    plan = tspgemm.plan_masked_spgemm(tspgemm.CSR(_t(a_ip), _t(a_col), None),
+                                      tspgemm.CSR(_t(b_ip), _t(b_col), None), _t(rows), _t(cols))
+    assert plan.idx is not None                               # the mask came unsorted
+    assert plan.launches == 3 and plan.win_tasks.shape[0] >= 2
+    window = tspgemm.K11_WINDOW
+    assert int((plan.win_tasks[:, 2] - plan.win_tasks[:, 1]).max()) <= window
+    assert int((plan.block_tasks[:, 2] - plan.block_tasks[:, 1]).max()) <= window
+    assert int((plan.warp_tasks[:, 2] - plan.warp_tasks[:, 1]).max()) <= \
+        tspgemm.K11_WARP_ENTRIES
+    rng = np.random.default_rng(scale)
+    for name, dtype in _PLAN_CASES[scale]:
+        a_val = None if dtype is None else _values(rng, a_col.size, dtype, name)
+        b_val = None if dtype is None else _values(rng, b_col.size, dtype, name)
+        got = _apply_k11_plan(plan, name, (a_ip, a_col, a_val), (b_ip, b_col, b_val), rows.size)
+        ja = jspgemm.CSR(jnp.asarray(a_ip), jnp.asarray(a_col),
+                         None if a_val is None else jnp.asarray(a_val))
+        jb = jspgemm.CSR(jnp.asarray(b_ip), jnp.asarray(b_col),
+                         None if b_val is None else jnp.asarray(b_val))
+        want = jspgemm.masked_spgemm(jsr.BY_NAME[name], ja, jb, rows, cols, a_indptr_host=a_ip)
+        _assert_same(torch.from_numpy(got), want, tsr.BY_NAME[name].add.name)
+        ident = tsr.BY_NAME[name].add.identity(torch.from_numpy(got).dtype)
+        assert (got != ident).sum() > rows.size // 10
+
+
+def test_k11_plan_grouping_and_work():
+    """A mask sorted by row is used as it is (idx None), its groups starting
+    where the row changes; row_work is the B entries a row-wise walk reads,
+    0 outside A and for A columns outside B; rows without work are in no
+    task; an empty mask has no task."""
+    a_ip = np.array([0, 3, 3, 5], np.int32)
+    a_col = np.array([0, 2, 9, 1, 1], np.int32)            # 9: outside B's rows
+    b_ip = np.array([0, 2, 7, 8], np.int32)
+    a = tspgemm.CSR(_t(a_ip), _t(a_col), None)
+    b = tspgemm.CSR(_t(b_ip), _t(np.arange(8, dtype=np.int32) % 3), None)
+    work = tspgemm.row_work(a, b, _t(np.array([0, 1, 2, -1, 3, 7], np.int32)))
+    np.testing.assert_array_equal(work.numpy(), [2 + 1, 0, 5 + 5, 0, 0, 0])
+    rows = _t(np.array([0, 0, 1, 2, 2, 2, 5], np.int32))
+    cols = _t(np.array([1, 0, 0, 2, 2, 1, 0], np.int32))
+    grouped = tspgemm.group_mask_rows(rows, cols)
+    assert grouped[2] is None
+    np.testing.assert_array_equal(grouped[3].numpy(), [0, 2, 3, 6])
+    plan = tspgemm.plan_masked_spgemm(a, b, rows, cols)
+    assert plan.idx is None and plan.launches == 1
+    np.testing.assert_array_equal(plan.warp_tasks.numpy(), [[0, 0, 2], [2, 3, 6]])
+    assert plan.block_tasks.shape == (0, 5) and plan.win_tasks.shape == (0, 5)
+    empty = tspgemm.plan_masked_spgemm(a, b, rows[:0], cols[:0])
+    assert empty.launches == 0 and empty.cols.shape == (0,)
+    shuffled = tspgemm.group_mask_rows(rows.flip(0), cols.flip(0))
+    np.testing.assert_array_equal(shuffled[0].numpy(), rows.numpy())
+    np.testing.assert_array_equal(shuffled[2].numpy(),
+                                  np.argsort(rows.flip(0).numpy(), kind="stable"))
+    np.testing.assert_array_equal(shuffled[3].numpy(), [0, 2, 3, 6])

@@ -149,9 +149,16 @@ def test_errors():
                             PlatformConfig(device="cpu", sssp_impl=impl))
         np.testing.assert_array_equal(
             got.values, run_algorithm("sssp", tg, AlgorithmParams(source_vertex=0), cpu).values)
+    # "dense" is the JAX package's one-chip dense kernel: the port runs it as
+    # "device", with the JAX package's distances and round count
+    want = j_run_algorithm("sssp", jg, JParams(source_vertex=0), JConfig(sssp_impl="dense"))
+    dense = run_algorithm("sssp", tg, AlgorithmParams(source_vertex=0),
+                          PlatformConfig(device="cpu", sssp_impl="dense"))
+    np.testing.assert_array_equal(dense.values, want.values)
+    assert dense.iterations == want.iterations
     with pytest.raises(ValueError, match="unknown sssp-impl"):
         run_algorithm("sssp", tg, AlgorithmParams(source_vertex=0),
-                      PlatformConfig(device="cpu", sssp_impl="dense"))
+                      PlatformConfig(device="cpu", sssp_impl="bogus"))
     res = run_algorithm("sssp", tg, AlgorithmParams(source_vertex=0, weight_property="weight"), cpu)
     assert res.values[0] == 0.0
 

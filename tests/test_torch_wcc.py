@@ -90,9 +90,16 @@ def test_run_algorithm_matches_jax(graphs, impl):
 
 
 def test_unknown_impl_is_refused(graphs):
-    _, tg = graphs
+    """"dense", the JAX package's one-chip dense kernel, runs as "device" with
+    the JAX package's labels; a value neither package knows is refused."""
+    jg, tg = graphs
+    want = j_run_algorithm("wcc", jg, JParams(), JConfig(wcc_impl="dense"))
+    got = run_algorithm("wcc", tg, AlgorithmParams(),
+                        PlatformConfig(device="cpu", wcc_impl="dense"))
+    np.testing.assert_array_equal(got.values, want.values)
+    assert got.iterations == want.iterations
     with pytest.raises(ValueError, match="unknown wcc-impl"):
-        run_algorithm("wcc", tg, AlgorithmParams(), PlatformConfig(device="cpu", wcc_impl="dense"))
+        run_algorithm("wcc", tg, AlgorithmParams(), PlatformConfig(device="cpu", wcc_impl="bogus"))
 
 
 def _slabs(seed, w, r, n):
