@@ -112,6 +112,22 @@ Run from the root of a checkout:  python3 chip_smoke.py
    that its 3 GiB on the card and its host load come after them. The
    numbers go into the JSON line's "ingest" object.
 
+7. The port bench: ``python -m graphtpu_torch.bench`` in a child process on
+   cuda:0 at its defaults, on the graphs phase 3 cached, 3 timed runs a
+   value. Its JSON line must say backend cuda and hold no error, only the
+   first rung of each ladder, positive rates, every sol_pct in (0, 100],
+   and the step counts (the JAX package's where JAX_STEPS has them) and
+   LCC nonzeros that phase 3 measured; its headline values print beside
+   the card's name and power limit.
+8. The distributed base: the naive distributed loops (PageRank segment,
+   BFS, SSSP and WCC dense, CDLP sort, LCC sweep) over a one-rank NCCL
+   group on cuda:0, each through try_run_distributed on the bench graphs
+   (LCC's sweep on RMAT s14/ef16: at the bench size it takes over a
+   minute), bit for bit equal to run_algorithm's one-device run of the
+   same loop (PageRank within 1e-4 relative), each run's launch counts
+   showing the kernels its block routes to; then a 2-rank gloo mesh's
+   start is timed and dryrun_multichip(2) runs over it on the CPU.
+
 Exits non-zero if any phase fails. The last lines of stdout are the
 card's name and power limit, one JSON line of per-kernel results, and
 {"ok": true, "device": {...}}.
@@ -504,16 +520,12 @@ def phase_harness(device):
 
 def load_graph(name, scale, edge_factor, weighted):
     """An undirected RMAT graph (seed 42) from intermediate/, generated and
-    cached on the first call."""
+    cached on the first call (the bench's cache)."""
+    from graphtpu_torch.bench import load_or_make
     from graphtpu_torch.ingest import cache as cache_mod
-    from graphtpu_torch.utils.synth import rmat_graph
 
-    if cache_mod.exists(INTERMEDIATE, name):
-        return cache_mod.load(INTERMEDIATE, name), "cache"
-    g = rmat_graph(scale, edge_factor, directed=False, weighted=weighted, seed=42)
-    cache_mod.save(g, INTERMEDIATE, name)
-    g.name = name  # as a graph loaded from the cache has it
-    return g, "generated"
+    source = "cache" if cache_mod.exists(INTERMEDIATE, name) else "generated"
+    return load_or_make(str(INTERMEDIATE), name, scale, edge_factor, weighted), source
 
 
 RUNS_PER_PATH = 4  # timed_run's warm-up and its three timed runs
@@ -856,28 +868,7 @@ def phase_real_size(device):
         print(f"lcc oriented = sweep on RMAT s14/ef16 {'directed' if directed else 'undirected'} "
               f"({small.nnz} stored edges; mean coefficient {by_impl['sweep'].mean():.6f})",
               flush=True)
-    return g, gw, prep, pr_plan, (wplan, real_wedges, lcc), launches
-
-
-def _ascii_lines(cols) -> bytes:
-    """Lines of space-separated columns as text bytes. A column is an array
-    of non-negative ids below 2^31 or a NUL-padded bytes array (numpy "S")."""
-    import numpy as np
-
-    parts = []
-    for c in cols:
-        if c.dtype.kind == "S":
-            parts.append(c.view(np.uint8).reshape(c.shape[0], c.dtype.itemsize))
-            continue
-        c = c.astype(np.int32)
-        width = len(str(int(c.max()))) if c.size else 1
-        p = 10 ** np.arange(width - 1, -1, -1, dtype=np.int32)
-        lead = (c[:, None] < p) & (p > 1)  # leading zeros; a 0 keeps its last digit
-        parts.append(np.where(lead, 0, (c[:, None] // p) % 10 + 48).astype(np.uint8))
-    sep = np.full((parts[0].shape[0], 1), ord(" "), np.uint8)
-    mat = np.concatenate([x for q in parts for x in (q, sep)][:-1]
-                         + [np.full_like(sep, ord("\n"))], axis=1)
-    return mat[mat != 0].tobytes()
+    return g, gw, prep, pr_plan, (wplan, real_wedges, lcc), launches, steps["kernel"]
 
 
 def write_text_graph(g, name):
@@ -887,6 +878,8 @@ def write_text_graph(g, name):
     to the same float64). Written once, as the RMAT graphs are cached.
     Returns the two paths and the seconds the write took (None: cached)."""
     import numpy as np
+
+    from graphtpu_torch.bench import write_text
 
     vpath, epath = (INTERMEDIATE / name / f"{name}{s}" for s in (".v", ".e"))
     if vpath.exists() and epath.exists():
@@ -898,13 +891,8 @@ def write_text_graph(g, name):
     if g.weighted:
         w = g.w[once]
         cols.append(np.array(list(map("%.17g".__mod__, w.tolist())), dtype="S24"))
-    chunk = 1 << 20
-    for path, columns in ((vpath, [g.mapping]), (epath, cols)):
-        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        with open(tmp, "wb") as f:
-            for i in range(0, columns[0].shape[0], chunk):
-                f.write(_ascii_lines([c[i:i + chunk] for c in columns]))
-        os.replace(tmp, path)
+    write_text(vpath, [g.mapping])
+    write_text(epath, cols)
     return vpath, epath, time.perf_counter() - t0
 
 
@@ -912,10 +900,17 @@ def _median(xs):
     return sorted(xs)[len(xs) // 2]
 
 
+# load_graph runs a graph on the native arm; the bench phase times the
+# benchmark graph's native parse and relabel (one warm-up, BENCH_REPS runs)
+INGEST_NATIVE_RUNS = {BENCH_GRAPH: 1, SSSP_GRAPH: 3}
+
+
 def phase_ingest(g, gw, smi):
     """The text ingest at real size: both RMAT graphs written as .v/.e text,
-    loaded back through load_graph on the native arm (3 runs) and, for the
-    benchmark graph, once on the numpy arm with parse and relabel apart;
+    loaded back through load_graph on the native arm (the weighted graph 3
+    runs; the benchmark graph once, as the bench phase times its native
+    parse and relabel) and, for the benchmark graph, once on the numpy arm
+    with parse and relabel apart;
     every Graph must equal the RMAT one bit for bit. Then the device sort
     (which a Graph takes where a card is visible) of the benchmark graph's
     stored edges in a shuffled order against the native counting sort of
@@ -946,15 +941,16 @@ def phase_ingest(g, gw, smi):
               + (f"written in {write_s:.3f} s" if write_s is not None else "cached"), flush=True)
         native.reset_call_counts()
         secs = []
-        for _ in range(3):
+        runs = INGEST_NATIVE_RUNS[name]
+        for _ in range(runs):
             t0 = time.perf_counter()
             back = load_graph(str(vpath), str(epath), directed=False, weighted=gr.weighted)
             secs.append(time.perf_counter() - t0)
             same(back, gr, f"{name} loaded natively")
             del back
         calls = dict(native.call_counts)
-        check(calls["gtio_relabel_edges"] == 3 and calls["gtio_parse_edges"] == 3,
-              f"ingest: {name} did not go through the native library 3 times: {calls}")
+        check(calls["gtio_relabel_edges"] == runs and calls["gtio_parse_edges"] == runs,
+              f"ingest: {name} did not go through the native library {runs} times: {calls}")
         t0 = time.perf_counter()
         vids = parse_vertex_file(str(vpath))
         es, ed, ew = parse_edge_file(str(epath), gr.weighted)
@@ -1038,6 +1034,174 @@ def phase_ingest(g, gw, smi):
         print(f"ingest device sort, run {i}: {d['total_s']:.3f} s (host-to-device "
               f"{d['h2d_s']:.3f}, sort and dedup {d['sort_s']:.3f}, device-to-host "
               f"{d['d2h_s']:.3f}); identical to the native sort ({smi})", flush=True)
+    return report
+
+
+BENCH_REPS = 3  # the bench phase's timed runs a value (GRAPHTPU_BENCH_REPS)
+# the bench's ladders and their first rungs
+BENCH_FIRST_RUNGS = {"wcc": "auto:slab-adaptive", "sssp": "adaptive", "lcc": "wedge",
+                     "ingest": "text"}
+BENCH_RATES = ("cdlp_edges_per_s", "pr_nnz_per_s", "bfs_gteps", "wcc_edges_per_s",
+               "ingest_rows_per_s", "ingest_parse_rows_per_s")
+
+
+def phase_bench(smi, real_steps, lcc_nonzero):
+    """``python -m graphtpu_torch.bench`` in a child process on cuda:0 at its
+    defaults, on the graphs cached by phase 3, with BENCH_REPS timed runs a
+    value. Its JSON line must say backend cuda, hold no error and only
+    first rungs, positive rates, every sol_pct in (0, 100], and the step
+    counts and LCC nonzeros that phase 3 measured (the JAX package's counts
+    where JAX_STEPS has them). Returns the bench's JSON object."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("GRAPHTPU_BENCH_")}
+    env.update(GRAPHTPU_BENCH_REPS=str(BENCH_REPS), GRAPHTPU_BENCH_CACHE=str(INTERMEDIATE),
+               PYTHONPATH=os.pathsep.join(p for p in (str(ROOT), env.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "graphtpu_torch.bench"], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"bench exited {proc.returncode}: {proc.stderr[-3000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    d = out["details"]
+    check(out["metric"] == "cdlp_edges_per_s" and d["backend"] == "cuda", "bench: not on cuda")
+    errors = [k for k in d if k.endswith(("_error", "_errors"))]
+    check(not errors, f"bench: {[(k, d[k]) for k in errors]}")
+    for name, rung in BENCH_FIRST_RUNGS.items():
+        check(d.get(f"{name}_impl_used") == rung,
+              f"bench: {name} ran {d.get(f'{name}_impl_used')}, not its first rung {rung}")
+    for k in BENCH_RATES:
+        check(d[k] > 0, f"bench: {k} = {d[k]}")
+    shares = {k: v for k, v in d.items() if k.endswith("_sol_pct") or k.endswith("_volume")}
+    check(len(shares) == 5 and all(0 < v <= 100 for v in shares.values()),
+          f"bench: shares outside (0, 100]: {shares}")
+    (it, full), (bn, tiers, bu, dense), wcc, sssp, _ = real_steps
+    bench_bfs = (d["bfs_iters"],
+                 {int(k[5:]): v for k, v in d["bfs_phase_steps"].items() if k.startswith("tier_")},
+                 d["bfs_phase_steps"]["bottom_up"], d["bfs_phase_steps"]["dense"])
+    got = {"cdlp": (d["cdlp_iters"], d["cdlp_full_steps"], d["cdlp_active_steps"]),
+           "bfs": bench_bfs,
+           "wcc": (d["wcc_iters"], d["wcc_full_steps"], d["wcc_active_steps"]),
+           "sssp": (d["sssp_rounds"], d["sssp_full_steps"], d["sssp_active_steps"])}
+    want = {"cdlp": (max(it, 1), full, it - full), "bfs": (bn, tiers, bu, dense),
+            "wcc": wcc["wcc-auto"], "sssp": sssp}
+    for name in got:
+        check(got[name] == want[name],
+              f"bench: {name} steps {got[name]}, phase 3 measured {want[name]}")
+        if name in JAX_STEPS:
+            check(got[name] == JAX_STEPS[name], f"bench: {name} steps differ from JAX's")
+    check(d["lcc_nonzero"] == lcc_nonzero,
+          f"bench: lcc_nonzero {d['lcc_nonzero']}, phase 3 {lcc_nonzero}")
+    print(f"bench ({smi}; {BENCH_REPS} timed runs a value, child process {wall:.3f} s): "
+          f"cdlp_edges_per_s {d['cdlp_edges_per_s']:.6e} (median {d['cdlp_s']:.6f} s, min "
+          f"{d['cdlp_s_min']:.6f}, max {d['cdlp_s_max']:.6f}, event span "
+          f"{d['cdlp_s_event_s']:.6f}); pr_nnz_per_s {d['pr_nnz_per_s']:.6e}; bfs_gteps "
+          f"{d['bfs_gteps']:.6f}; wcc_s {d['wcc_s']:.6f}; sssp_s {d['sssp_s']:.6f}; lcc_s "
+          f"{d['lcc_s']:.6f} (cold {d['lcc_cold_s']:.6f}, prep {d['lcc_prep_s']:.6f}); ingest "
+          f"parse {d['ingest_parse_s']:.6f} s, relabel {d['ingest_relabel_s']:.6f} s "
+          f"({d['ingest_parser']}); steps equal phase 3's and the JAX package's", flush=True)
+    print("bench sol_pct: " + ", ".join(f"{k} {v:.4f}" for k, v in shares.items())
+          + "; peak device bytes: " + ", ".join(
+              f"{k[:-len('_peak_device_bytes')]} {v}" for k, v in d.items()
+              if k.endswith("_peak_device_bytes")), flush=True)
+    return out
+
+
+# the naive distributed kernels, each through try_run_distributed, against
+# run_algorithm's one-device impl of the same loop: name -> (algorithm,
+# the impl that selects the distributed kernel, the one-device impl, the
+# kernels its shards launch)
+PARALLEL_RUNS = {
+    "pr_dist": ("pr", {"pr_impl": "segment"}, {"pr_impl": "scan"}, ("csr_pull_reduce_sum",)),
+    "bfs_dist": ("bfs", {"bfs_impl": "dense"}, {"bfs_impl": "device"}, ("csr_pull_reduce",)),
+    "sssp_dist": ("sssp", {"sssp_impl": "dense"}, {"sssp_impl": "device"},
+                  ("csr_pull_reduce",)),
+    "wcc_dist": ("wcc", {"wcc_impl": "dense"}, {"wcc_impl": "device"},
+                 ("csr_pull_reduce", "gather_rows")),
+    "cdlp_dist": ("cdlp", {"cdlp_impl": "sort"}, {"cdlp_impl": "sort"}, ("gather_rows",)),
+    "lcc_dist": ("lcc", {"lcc_impl": "sweep"}, {"lcc_impl": "sweep"}, ("gather_rows",)),
+}
+PARALLEL_LCC_SCALE = 14  # the sweep's graph: RMAT s14/ef16, as phase 3's oracle check
+
+
+def phase_parallel(g, gw, device, smi):
+    """The naive distributed kernels (graphtpu_torch/parallel/algorithms.py)
+    over a one-rank NCCL group on cuda:0, each through try_run_distributed
+    with num-devices 1, on the bench graphs (LCC's sweep on RMAT s14/ef16):
+    bit for bit equal to run_algorithm under the one-device impl of the same
+    loop (PageRank within PR_RTOL), each run's launch counts showing the
+    kernels its shard routes to. Then dryrun_multichip(2) over gloo on the
+    CPU. Returns the times."""
+    import numpy as np
+    import torch
+
+    from graphtpu_torch.algorithms.common import run_algorithm
+    from graphtpu_torch.entry import dryrun_multichip
+    from graphtpu_torch.ops import kernels
+    from graphtpu_torch.parallel import dispatch
+    from graphtpu_torch.parallel.mesh import current_mesh, make_mesh
+    from graphtpu_torch.utils.config import AlgorithmParams, PlatformConfig
+    from graphtpu_torch.utils.synth import rmat_graph
+
+    mesh = make_mesh(1, device)
+    check((mesh.size, mesh.backend, mesh.device) == (1, "nccl", torch.device("cuda", 0)),
+          f"parallel: mesh {mesh.size} x {mesh.backend} on {mesh.device}")
+    small = rmat_graph(PARALLEL_LCC_SCALE, 16, directed=False, seed=7)
+    params = {"pr": AlgorithmParams(damping_factor=DAMPING, num_iterations=PR_ITERS),
+              "bfs": AlgorithmParams(source_vertex=0), "sssp": AlgorithmParams(source_vertex=0),
+              "wcc": AlgorithmParams(), "cdlp": AlgorithmParams(max_iterations=CDLP_ITERS),
+              "lcc": AlgorithmParams()}
+    graph_of = {"sssp": gw, "lcc": small}
+    report = {}
+    for name, (algo, dist_impl, one_impl, needed) in PARALLEL_RUNS.items():
+        gr = graph_of.get(algo, g)
+        cfg = PlatformConfig(device=str(device), intermediate_dir=str(INTERMEDIATE),
+                             num_devices=1, **dist_impl)
+        secs = []
+        for _ in range(2):  # the first run installs the shards
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = dispatch.try_run_distributed(algo, gr, params[algo], cfg)
+            secs.append(time.perf_counter() - t0)
+            counts = {k: v for k, v in kernels.launch_counts.items() if v}
+        check(res is not None, f"parallel: {name} declined")
+        for k in needed:
+            check(counts.get(k, 0) > 0, f"parallel: {name} launched no {k}: {counts}")
+        one_cfg = PlatformConfig(device=str(device), intermediate_dir=str(INTERMEDIATE),
+                                 **one_impl)
+        for _ in range(2):  # the first run builds and copies the one-device plan
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one = run_algorithm(algo, gr, params[algo], one_cfg)
+            one_s = time.perf_counter() - t0
+        check(res.values.shape == one.values.shape and res.iterations == one.iterations,
+              f"parallel: {name} shape or iterations differ from the one-device run")
+        if algo == "pr":
+            err = float(np.max(np.abs(res.values - one.values) / np.abs(one.values)))
+            check(err <= PR_RTOL, f"parallel: {name} max relative error {err} > {PR_RTOL}")
+        else:
+            err = 0.0
+            check(np.array_equal(res.values, one.values),
+                  f"parallel: {name} differs from the one-device {one_impl}")
+        report[name] = {"s": secs[1], "first_s": secs[0], "one_device_s": one_s,
+                        "launches": counts, "max_rel_err": err}
+        print(f"parallel {name} (1 NCCL rank, {smi}): {secs[1]:.6f} s warm ({secs[0]:.6f} s "
+              f"with the shard's install), one-device {one_impl} {one_s:.6f} s warm; "
+              f"{'max relative error %.3e' % err if algo == 'pr' else 'equal bit for bit'}, "
+              f"{res.iterations} iterations; launches {counts}", flush=True)
+    for gr in (g, gw, small):
+        dispatch.purge_sharded(gr)
+    check(current_mesh() is None, "parallel: the mesh outlived the last sharded graph")
+    # a gloo mesh's start (its worker's import of torch and the group's
+    # rendezvous), what a num-devices job's warm-up pays; the dry run reuses it
+    t0 = time.perf_counter()
+    make_mesh(2, "cpu")
+    start_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dryrun_multichip(2)
+    check(current_mesh() is None, "parallel: the dry run left its mesh running")
+    report["gloo_mesh_2_start_s"] = start_s
+    print(f"parallel: a 2-rank gloo mesh started in {start_s:.3f} s; dryrun_multichip(2) over "
+          f"it on the CPU passed in {time.perf_counter() - t0:.3f} s ({smi})", flush=True)
     return report
 
 
@@ -2014,7 +2178,7 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_harness(device)
     print(f"harness phase: {time.perf_counter() - t0:.3f} s", flush=True)
-    g, gw, prep, pr_plan, (wplan, real_wedges, lcc_values), path_launches = \
+    g, gw, prep, pr_plan, (wplan, real_wedges, lcc_values), path_launches, real_steps = \
         phase_real_size(device)
     for path, (_, _, needed) in PATHS.items():
         per_run = {k: v / RUNS_PER_PATH for k, v in path_launches[path].items() if v}
@@ -2057,6 +2221,13 @@ def main() -> int:
     t0 = time.perf_counter()
     ingest = phase_ingest(g, gw, smi)
     print(f"ingest phase: {time.perf_counter() - t0:.3f} s", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    bench = phase_bench(smi, real_steps, int((lcc_values > 0).sum()))
+    print(f"bench phase: {time.perf_counter() - t0:.3f} s", flush=True)
+    t0 = time.perf_counter()
+    parallel = phase_parallel(g, gw, device, smi)
+    print(f"parallel phase: {time.perf_counter() - t0:.3f} s", flush=True)
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": launches[name],
@@ -2068,7 +2239,7 @@ def main() -> int:
          **{k: res[name][k] for k in ("buckets", "traffic_ms", "call_ms", "call_wall_ms",
                                       "single_pass_ms", "ops_by_design") if k in res[name]}}
         for name in kernels.COUNTERS
-    ], "empty_kernel_ms": empty_ms, "ingest": ingest}
+    ], "empty_kernel_ms": empty_ms, "ingest": ingest, "bench": bench, "parallel": parallel}
     print(f"chip_smoke total: {time.perf_counter() - t_start:.3f} s", flush=True)
     print(smi)
     print(json.dumps(report))

@@ -11,9 +11,14 @@ MatrixMarket, dataset download), the host ``Graph``, the Graphalytics
 harness (platform lifecycle, suite with killable subprocess jobs,
 collector, validator) and ``python -m graphtpu_torch.cli
 load|run|validate|benchmark|download|devices``, and the GraphBLAS surface
-(``core/spops.py``, ``core/spgemm.py``).
+(``core/spops.py``, ``core/spgemm.py``). ``python -m graphtpu_torch.bench``
+is the benchmark entry point (one JSON line, ``utils/sections.py`` and
+``utils/roofline.py`` under it). ``parallel/`` holds the distributed base:
+rank groups over torch.distributed, row partitions, multi-host launch and
+the naive distributed loops that ``num-devices`` above 1 routes to.
 
-Its module tree mirrors ``graphtpu/`` (``parallel/`` is not ported yet). It
+Its module tree mirrors ``graphtpu/`` (``parallel/``'s slab, adaptive,
+wedge and checkpoint modules are not ported yet). It
 imports torch and numpy, never jax, graphtpu or pandas. Every tensor lives
 on the device named by ``PlatformConfig.device``. The hand-written kernels,
 CUDA C++ for sm_90a under ``csrc/``, built at first use

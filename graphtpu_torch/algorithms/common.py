@@ -101,6 +101,12 @@ def run_algorithm(
         while True:
             time.sleep(3600)
     with ComputationTimer(f"Processing ({name})"):
+        if cfg.num_devices > 1:
+            from graphtpu_torch.parallel.dispatch import try_run_distributed
+
+            result = try_run_distributed(name, graph, params, cfg)
+            if result is not None:
+                return result
         return ALGORITHMS[name](graph, params, cfg)
 
 

@@ -49,6 +49,7 @@ from graphtpu_torch.ops.spmv import (
     slab_spmv_min_buckets,
 )
 from graphtpu_torch.utils.config import AlgorithmParams, PlatformConfig
+from graphtpu_torch.utils.roofline import plan_gather_count
 
 # "dense" is the JAX package's name of the dense kernel on one device:
 # it runs as "device"
@@ -186,15 +187,6 @@ def _wcc_slab_steps(plan: SlabPlan, n: int):
         return _finish(labels0, assemble(plan, buf, heavy, rest))
 
     return full_step, iter0_step
-
-
-def plan_gather_count(plan: SlabPlan) -> int:
-    """Gathered slots of one slab-plan sweep: every slab element plus the
-    heavy stream (graphtpu/utils/roofline.py plan_gather_count)."""
-    total = sum(int(b.slab.numel()) for b in plan.slabs)
-    if plan.heavy_neigh is not None:
-        total += int(plan.heavy_neigh.shape[0])
-    return total
 
 
 def wcc_prep(sym: Graph, device) -> WccPrep:

@@ -24,6 +24,8 @@ def _add_platform_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--intermediate-dir", default="./intermediate")
     p.add_argument("--device", default=None, help="torch device (default: cuda)")
     p.add_argument("--precision", choices=["float32", "float64"], default=None)
+    p.add_argument("--num-devices", type=int, default=0,
+                   help="ranks of the row-partitioned distributed loops (0/1 = one device)")
     p.add_argument("--cdlp-impl", choices=["auto", "slab", "sort"], default=None)
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace of each processing window here")
@@ -40,9 +42,14 @@ def _platform_config(args):
         else PlatformConfig()
     )
     cfg.intermediate_dir = args.intermediate_dir
-    for attr in ("device", "precision", "cdlp_impl", "profile_dir"):
+    for attr in ("device", "precision", "num_devices", "cdlp_impl", "profile_dir"):
         if getattr(args, attr):
             setattr(cfg, attr, getattr(args, attr))
+    # one process per host: joins the hosts' group when GRAPHTPU_COORDINATOR
+    # and friends are set, and does nothing otherwise
+    from graphtpu_torch.parallel import multihost
+
+    multihost.initialize(cfg.device)
     return cfg
 
 
@@ -80,7 +87,9 @@ def cmd_run(args) -> int:
     metrics = platform.finalize()
     print(f"processing time: {metrics.processing_time_seconds}s "
           f"(iterations: {result.iterations})")
-    if args.output_file:
+    from graphtpu_torch.parallel import multihost
+
+    if args.output_file and multihost.is_primary():  # one writer in a multi-host run
         result.write(graph, args.output_file)
         print(f"output written to {args.output_file}")
     if args.validation_file:

@@ -8,6 +8,9 @@ its example arguments, on the card unless ``device`` says otherwise:
 
     step, args = entry()
     r1 = step(*args)
+
+``dryrun_multichip(n)`` runs the naive distributed PageRank, BFS and CDLP
+over n gloo ranks on the CPU.
 """
 
 from __future__ import annotations
@@ -35,3 +38,31 @@ def entry(device: str = "cuda"):
     damping = torch.tensor(0.85, dtype=torch.float32, device=device)
     r0 = torch.full((g.n,), 1.0 / g.n, dtype=torch.float32, device=device)
     return pr_step, (csr.src, csr.indptr, out_deg, damping, r0)
+
+
+def dryrun_multichip(n_devices: int) -> None:
+    """One distributed step of each naive kernel over ``n_devices`` gloo ranks
+    on the CPU (counterpart of ``__graft_entry__.dryrun_multichip``): the
+    segment-sum PageRank (2 iterations), BFS from vertex 0 and CDLP by a
+    per-rank sort (2 iterations) on the JAX dry run's graph,
+    ``uniform_graph(64 n, 1024 n, directed, seed 0)``, with its checks:
+    PageRank's mass is kept, the source is at level 0, every vertex has a
+    label. The ranks stop afterwards."""
+    from graphtpu_torch.parallel import algorithms as dist
+    from graphtpu_torch.parallel.mesh import make_mesh
+    from graphtpu_torch.parallel.partition import ShardedGraph
+    from graphtpu_torch.utils.synth import uniform_graph
+
+    mesh = make_mesh(n_devices, "cpu")
+    try:
+        g = uniform_graph(64 * n_devices, 1024 * n_devices, directed=True, seed=0)
+        sg = ShardedGraph(g, mesh, wdtype=np.float32)
+        ranks = dist.pr_dist(sg, 0.85, 2)
+        levels, _ = dist.bfs_dist(sg, 0)
+        labels, _ = dist.cdlp_dist(sg, 2)
+    finally:
+        mesh.close()
+    total = float(ranks.sum())
+    assert 0.9 < total < 1.1, f"PageRank mass not conserved: {total}"
+    assert int(levels[0]) == 0, "BFS source level wrong"
+    assert labels.shape[0] == sg.n

@@ -76,13 +76,20 @@ class GraphTorchPlatform:
     def delete_graph(self, graph_name: str) -> None:
         """Release the graph and its device state; cached files stay, like
         unload-graph.sh:32-38."""
-        self.graphs.pop(graph_name, None)
+        graph = self.graphs.pop(graph_name, None)
+        if graph is not None and self.config.num_devices > 1:
+            from graphtpu_torch.parallel.dispatch import purge_sharded
+
+            purge_sharded(graph)
         cache_mod.unload(self.config.intermediate_dir, graph_name)
 
     def prepare(self, spec: GraphSpec, algorithm: str) -> None:
         """Warm-up outside the processing window: one run builds the CUDA
         kernels and the slab plan and copies it to the device, all
-        memoized, so the timed run pays neither."""
+        memoized, so the timed run pays neither. Under num-devices > 1 the
+        same run starts the mesh's worker processes and installs the
+        graph's blocks on the ranks, both kept for the timed run (under
+        subprocess isolation each job's child pays them in its makespan)."""
         key = (spec.name, algorithm)
         if key in self._prepared:
             return

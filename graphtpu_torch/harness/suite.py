@@ -40,10 +40,11 @@ ALGO_SUFFIX = {"bfs": "BFS", "pr": "PR", "wcc": "WCC", "cdlp": "CDLP", "lcc": "L
 
 
 def _is_primary() -> bool:
-    """True on the process that writes outputs and reports. The port runs
-    in one process, so always; ranks come with the distributed port
-    (ROADMAP Queue 1, item 8)."""
-    return True
+    """True on the process that writes outputs and reports: rank 0 of a
+    multi-host run, and always on a single host."""
+    from graphtpu_torch.parallel.multihost import is_primary
+
+    return is_primary()
 
 
 @dataclasses.dataclass
@@ -140,7 +141,11 @@ class BenchmarkSuite:
         rec = RunRecord(graph=spec.name, algorithm=algorithm, repetition=repetition,
                         success=False, validated=None, processing_time_seconds=-1.0,
                         makespan_seconds=-1.0, iterations=None)
-        if self.cfg.job_isolation == "subprocess":
+        from graphtpu_torch.parallel.multihost import is_multihost
+
+        # multi-host: every ranked process runs each (collective) job itself;
+        # a child process would sit outside the hosts' group
+        if self.cfg.job_isolation == "subprocess" and not is_multihost():
             self._run_subprocess(spec, algorithm, repetition, rec)
         else:
             self._run_inprocess(spec, algorithm, rec)

@@ -122,6 +122,10 @@ class PlatformConfig:
     device: str = "cuda"
     # compute precision for float-valued algorithms ("float32"|"float64")
     precision: str = "float32"
+    # ranks (one device each) an algorithm runs over; above 1, run_algorithm
+    # tries the distributed loops first (parallel/dispatch.py), which cover
+    # the naive impls; 0 and 1 run on ``device`` alone
+    num_devices: int = 0
     # PageRank pull sum: "auto"/"slab" = padded-ELL row sums on kernel K3;
     # "scan" (or the JAX package's name "segment") = a segment sum over the
     # pull CSR on kernel K7 (mode sum)
@@ -243,6 +247,7 @@ _PLATFORM_PROPS = {
     "platform.graphtpu.intermediate-dir": ("intermediate_dir", str),
     "platform.graphtpu.device": ("device", str),
     "platform.graphtpu.precision": ("precision", str),
+    "platform.graphtpu.num-devices": ("num_devices", int),
     "platform.graphtpu.pr-impl": ("pr_impl", str),
     "platform.graphtpu.spmv-impl": ("spmv_impl", str),
     "platform.graphtpu.cdlp-impl": ("cdlp_impl", str),
@@ -286,7 +291,7 @@ _PLATFORM_PROPS = {
 # reading one logs a warning, so that the missing behaviour is not silent
 _NOT_PORTED_PROPS = frozenset(
     "platform.graphtpu." + k for k in (
-        "num-devices", "shard-checkpoints",
+        "shard-checkpoints",
     )
 )
 

@@ -1185,3 +1185,81 @@ def test_hybrids_on_the_card_match_cpu(cuda, directed, threshold):
         np.testing.assert_array_equal(gv, wv)
         assert gn == wn
     assert (k7 > 0) == (threshold < 1.0), k7
+
+
+BENCH_COUNTS = ("cdlp_iters", "cdlp_full_steps", "cdlp_active_steps", "bfs_iters",
+                "bfs_phase_steps", "wcc_iters", "wcc_full_steps", "wcc_active_steps",
+                "sssp_rounds", "sssp_full_steps", "sssp_active_steps", "lcc_nonzero",
+                "lcc_padded_probes", "ingest_rows", "n", "nnz_stored")
+
+
+def test_bench_on_the_card_matches_its_cpu_counts(cuda, tmp_path, monkeypatch):
+    """graphtpu_torch.bench at RMAT scale 12 on the card: backend cuda and the
+    card's name, no error and only first rungs, every share in (0, 100], a
+    CUDA-event span and a peak per section; its counts equal the same
+    bench's on the CPU."""
+    from graphtpu_torch import bench
+
+    env = {"GRAPHTPU_BENCH_SCALE": "12", "GRAPHTPU_BENCH_EDGE_FACTOR": "16",
+           "GRAPHTPU_BENCH_SSSP_SCALE": "12", "GRAPHTPU_BENCH_SSSP_EF": "8",
+           "GRAPHTPU_BENCH_REPS": "2", "GRAPHTPU_BENCH_CACHE": str(tmp_path)}
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    runs = {}
+    for platform in ("cuda", "cpu"):
+        monkeypatch.setenv("GRAPHTPU_BENCH_PLATFORM", platform)
+        runs[platform] = bench.run_bench()["details"]
+    d = runs["cuda"]
+    assert d["backend"] == "cuda" and d["card"] == torch.cuda.get_device_name(0)
+    assert d["power_limit"].endswith("W")
+    assert not [k for k in d if k.endswith(("_error", "_errors"))]
+    assert (d["wcc_impl_used"], d["sssp_impl_used"], d["lcc_impl_used"],
+            d["ingest_impl_used"]) == ("auto:slab-adaptive", "adaptive", "wedge", "text")
+    for k in ("cdlp_sol_pct", "pr_sol_pct", "bfs_sol_pct_volume", "wcc_sol_pct",
+              "sssp_sol_pct"):
+        assert 0 < d[k] <= 100, k
+    for p in ("cdlp_s", "pr_s", "bfs_s", "wcc_s", "sssp_s", "lcc_s", "ingest_s"):
+        assert d[f"{p}_event_s"] > 0 and d[f"{p}_min"] <= d[p] <= d[f"{p}_max"], p
+    for s in ("cdlp", "pr", "bfs", "wcc", "sssp", "lcc"):
+        assert d[f"{s}_peak_device_bytes"] > 0, s
+    # the native fused relabel sorts on the host: the section allocates nothing there
+    assert d["ingest_peak_device_bytes"] >= 0
+    assert {k: d[k] for k in BENCH_COUNTS} == {k: runs["cpu"][k] for k in BENCH_COUNTS}
+
+
+@pytest.mark.parametrize("algo", ["pr", "bfs", "sssp", "wcc", "cdlp", "lcc"])
+def test_naive_distributed_kernels_on_one_nccl_rank(cuda, algo):
+    """Each naive distributed kernel over a one-rank NCCL group, through
+    try_run_distributed with num-devices 1, against run_algorithm's
+    one-device impl of the same loop on the card: bit for bit (PageRank
+    within 1e-4 relative), with the kernels its shard routes to launched."""
+    from graphtpu_torch.algorithms.common import run_algorithm
+    from graphtpu_torch.parallel import dispatch
+    from graphtpu_torch.parallel.mesh import current_mesh, make_mesh
+    from graphtpu_torch.utils.config import AlgorithmParams, PlatformConfig
+    from graphtpu_torch.utils.synth import rmat_graph
+
+    runs = {"pr": ("segment", "scan", "csr_pull_reduce_sum"),
+            "bfs": ("dense", "device", "csr_pull_reduce"),
+            "sssp": ("dense", "device", "csr_pull_reduce"),
+            "wcc": ("dense", "device", "csr_pull_reduce"),
+            "cdlp": ("sort", "sort", "gather_rows"), "lcc": ("sweep", "sweep", "gather_rows")}
+    dist_impl, one_impl, kernel = runs[algo]
+    g = rmat_graph(12, 16, directed=True, weighted=algo == "sssp", seed=5)
+    params = AlgorithmParams(source_vertex=0, damping_factor=0.85, num_iterations=10,
+                             max_iterations=10)
+    mesh = make_mesh(1, "cuda")
+    assert (mesh.size, mesh.backend) == (1, "nccl")
+    kernels.reset_launch_counts()
+    res = dispatch.try_run_distributed(algo, g, params, PlatformConfig(
+        device="cuda", num_devices=1, **{f"{algo}_impl": dist_impl}))
+    assert kernels.launch_counts[kernel] > 0
+    one = run_algorithm(algo, g, params, PlatformConfig(device="cuda",
+                                                        **{f"{algo}_impl": one_impl}))
+    assert res.iterations == one.iterations
+    if algo == "pr":
+        np.testing.assert_allclose(res.values, one.values, rtol=1e-4)
+    else:
+        np.testing.assert_array_equal(res.values, one.values)
+    dispatch.purge_sharded(g)
+    assert current_mesh() is None

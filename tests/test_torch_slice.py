@@ -180,10 +180,12 @@ def test_port_imports_no_jax_graphtpu_or_pandas():
         "mods = [m.name for m in pkgutil.walk_packages(graphtpu_torch.__path__, 'graphtpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = [k for k in sys.modules if k.startswith(('jax', 'graphtpu.', 'pandas')) or k == 'graphtpu']\n"
-        "assert len(mods) >= 47, mods\n"
+        "assert len(mods) >= 56, mods\n"
         "for m in ('algorithms.lcc', 'ops.edgehash', 'ops.triangles', 'ingest.grb',\n"
         "          'ingest.native', 'ingest.mm', 'ingest.download', 'core.spops',\n"
-        "          'core.spgemm'):\n"
+        "          'core.spgemm', 'bench', 'utils.sections', 'utils.roofline',\n"
+        "          'parallel.mesh', 'parallel.partition', 'parallel.multihost',\n"
+        "          'parallel.algorithms', 'parallel.dispatch'):\n"
         "    assert 'graphtpu_torch.' + m in mods, m\n"
         "assert not bad, bad\n"
     )

@@ -200,12 +200,12 @@ class _Records(logging.Handler):
 
 def test_platform_keys_not_ported_yet_log_a_warning(tmp_path):
     """A key the JAX package acts on and the port does not yet logs one
-    warning each; the keys the port reads, sssp-delta, lcc-impl, the four
+    warning each; the keys the port reads, num-devices, sssp-delta, lcc-impl, the four
     the harness's port brought (spmv-impl, skip-convergence-checks,
     profile-dir, fault-injection) and the hybrids' two thresholds among
     them, parse as in the JAX package and log nothing."""
-    not_ported = {"num-devices": "4", "shard-checkpoints": "false"}
-    ported = {"sssp-delta": "0.5", "lcc-impl": "sweep", "sssp-impl": "delta",
+    not_ported = {"shard-checkpoints": "false"}
+    ported = {"num-devices": "4", "sssp-delta": "0.5", "lcc-impl": "sweep", "sssp-impl": "delta",
               "intermediate-dir": "x", "no-such-key": "1", "spmv-impl": "slab",
               "skip-convergence-checks": "3", "profile-dir": "/tmp/p",
               "fault-injection": "hang:bfs", "bfs-active-threshold": "0.2",
@@ -221,7 +221,7 @@ def test_platform_keys_not_ported_yet_log_a_warning(tmp_path):
     finally:
         logger.removeHandler(handler)
     want = JConfig.from_properties(props)
-    for attr in ("sssp_delta", "lcc_impl", "sssp_impl", "intermediate_dir", "spmv_impl",
+    for attr in ("num_devices", "sssp_delta", "lcc_impl", "sssp_impl", "intermediate_dir", "spmv_impl",
                  "skip_convergence_checks", "profile_dir", "fault_injection",
                  "bfs_active_threshold", "sssp_active_threshold"):
         assert getattr(got, attr) == getattr(want, attr), attr
@@ -234,7 +234,6 @@ def test_platform_keys_not_ported_yet_log_a_warning(tmp_path):
     from graphtpu.utils.config import _PLATFORM_PROPS as J_PROPS
     from graphtpu_torch.utils.config import _NOT_PORTED_PROPS, _PLATFORM_PROPS
 
-    assert _NOT_PORTED_PROPS == {"platform.graphtpu.num-devices",
-                                 "platform.graphtpu.shard-checkpoints"}
+    assert _NOT_PORTED_PROPS == {"platform.graphtpu.shard-checkpoints"}
     assert _NOT_PORTED_PROPS <= set(J_PROPS)
     assert _NOT_PORTED_PROPS | set(_PLATFORM_PROPS) >= set(J_PROPS)
