@@ -119,14 +119,20 @@ Run from the root of a checkout:  python3 chip_smoke.py
    and the step counts (the JAX package's where JAX_STEPS has them) and
    LCC nonzeros that phase 3 measured; its headline values print beside
    the card's name and power limit.
-8. The distributed base: the naive distributed loops (PageRank segment,
-   BFS, SSSP and WCC dense, CDLP sort, LCC sweep) over a one-rank NCCL
-   group on cuda:0, each through try_run_distributed on the bench graphs
-   (LCC's sweep on RMAT s14/ef16: at the bench size it takes over a
-   minute), bit for bit equal to run_algorithm's one-device run of the
-   same loop (PageRank within 1e-4 relative), each run's launch counts
-   showing the kernels its block routes to; then a 2-rank gloo mesh's
-   start is timed and dryrun_multichip(2) runs over it on the CPU.
+8. The distributed loops over a one-rank NCCL group on cuda:0, each through
+   try_run_distributed on the bench graphs: the naive loops (PageRank
+   segment, BFS, SSSP and WCC dense, CDLP sort, LCC sweep, the last on RMAT
+   s14/ef16: at the bench size it takes over a minute), then the JAX
+   package's defaults (slab PageRank, slab CDLP 10 iterations, adaptive BFS
+   and SSSP from vertex 0, slab-adaptive WCC, oriented LCC on phase 3's
+   wedge plan). Each is bit for bit equal to run_algorithm's one-device
+   twin (PageRank within 1e-4 relative), and each run's launch counts show
+   the kernels its rank routes to. The defaults' step counts print beside
+   the twin's and the JAX package's: SSSP's rounds, full and active rounds
+   and BFS's levels must equal both, every iteration count but WCC's the
+   twin's. Each run prints its warm time, its first time (the host plans'
+   build and install) and the twin's. Then a 2-rank gloo mesh's start is
+   timed and dryrun_multichip(2) runs over it on the CPU.
 
 Exits non-zero if any phase fails. The last lines of stdout are the
 card's name and power limit, one JSON line of per-kernel results, and
@@ -1105,10 +1111,10 @@ def phase_bench(smi, real_steps, lcc_nonzero):
     return out
 
 
-# the naive distributed kernels, each through try_run_distributed, against
-# run_algorithm's one-device impl of the same loop: name -> (algorithm,
-# the impl that selects the distributed kernel, the one-device impl, the
-# kernels its shards launch)
+# the distributed loops, each through try_run_distributed, against
+# run_algorithm's one-device twin: name -> (algorithm, the impl that selects
+# the distributed loop, the twin's impl, the kernels its ranks launch). The
+# naive loops first, then the JAX package's defaults.
 PARALLEL_RUNS = {
     "pr_dist": ("pr", {"pr_impl": "segment"}, {"pr_impl": "scan"}, ("csr_pull_reduce_sum",)),
     "bfs_dist": ("bfs", {"bfs_impl": "dense"}, {"bfs_impl": "device"}, ("csr_pull_reduce",)),
@@ -1118,18 +1124,59 @@ PARALLEL_RUNS = {
                  ("csr_pull_reduce", "gather_rows")),
     "cdlp_dist": ("cdlp", {"cdlp_impl": "sort"}, {"cdlp_impl": "sort"}, ("gather_rows",)),
     "lcc_dist": ("lcc", {"lcc_impl": "sweep"}, {"lcc_impl": "sweep"}, ("gather_rows",)),
+    "pr_slab_dist": ("pr", {"pr_impl": "slab"}, {"pr_impl": "slab"},
+                     ("gather_rows", "slab_spmv_sum")),
+    "cdlp_slab_dist": ("cdlp", {"cdlp_impl": "slab"}, {"cdlp_impl": "slab"}, ("slab_minmode",)),
+    "bfs_adaptive_dist": ("bfs", {"bfs_impl": "adaptive"}, {"bfs_impl": "adaptive"},
+                          ("frontier_expand", "gather_rows")),
+    "sssp_adaptive_dist": ("sssp", {"sssp_impl": "adaptive"}, {"sssp_impl": "adaptive"},
+                           ("frontier_expand", "push_relax_min", "csr_pull_reduce")),
+    "wcc_adaptive_dist": ("wcc", {"wcc_impl": "auto"}, {"wcc_impl": "auto"},
+                          ("slab_spmv_min", "frontier_expand")),
+    "lcc_oriented_dist": ("lcc", {"lcc_impl": "auto"}, {"lcc_impl": "auto"},
+                          ("wedge_rowblock",)),
 }
 PARALLEL_LCC_SCALE = 14  # the sweep's graph: RMAT s14/ef16, as phase 3's oracle check
 
 
-def phase_parallel(g, gw, device, smi):
-    """The naive distributed kernels (graphtpu_torch/parallel/algorithms.py)
-    over a one-rank NCCL group on cuda:0, each through try_run_distributed
-    with num-devices 1, on the bench graphs (LCC's sweep on RMAT s14/ef16):
-    bit for bit equal to run_algorithm under the one-device impl of the same
-    loop (PageRank within PR_RTOL), each run's launch counts showing the
-    kernels its shard routes to. Then dryrun_multichip(2) over gloo on the
-    CPU. Returns the times."""
+def _dist_steps(name, sg, cfg):
+    """The step counts of a default distributed loop, from one more run
+    with its statistics (outside the counted run): BFS levels and (tier
+    steps by edge budget, bottom-up, dense); SSSP and WCC (rounds, full,
+    active); None for the others."""
+    from graphtpu_torch.parallel.adaptive_bfs import bfs_adaptive_dist
+    from graphtpu_torch.parallel.adaptive_sssp import sssp_adaptive_dist
+    from graphtpu_torch.parallel.adaptive_wcc import wcc_adaptive_dist
+
+    if name == "bfs_adaptive_dist":
+        _, it, st = bfs_adaptive_dist(sg, 0, cfg, with_stats=True)
+        return it, st["tier_steps"], st["bu_steps"], st["dense_steps"]
+    if name == "sssp_adaptive_dist":
+        _, it, st = sssp_adaptive_dist(sg, 0, cfg, with_stats=True)
+        return it, st["full_steps"], st["active_steps"]
+    if name == "wcc_adaptive_dist":
+        _, it, st = wcc_adaptive_dist(sg, cfg, with_stats=True)
+        return it, st["full_steps"], st["active_steps"]
+    return None
+
+
+def phase_parallel(g, gw, device, smi, real_steps):
+    """The distributed loops (graphtpu_torch/parallel/) over a one-rank NCCL
+    group on cuda:0, each through try_run_distributed with num-devices 1, on
+    the bench graphs (the naive LCC sweep on RMAT s14/ef16): first the naive
+    loops, then the JAX package's defaults (slab PageRank and CDLP, adaptive
+    BFS, SSSP and WCC, oriented-wedge LCC, the last on phase 3's memoized
+    wedge plan). Each equals run_algorithm under its one-device twin bit for
+    bit (PageRank within PR_RTOL), each run's launch counts show the kernels
+    its rank routes to, and the default loops' step counts print beside the
+    twin's and the JAX package's (``real_steps``, phase 3's): SSSP's rounds,
+    full and active rounds and BFS's levels must equal them, as must CDLP's
+    iterations the twin's; BFS's phases and WCC's rounds follow per-rank
+    budgets and gates of their own, which tests/test_torch_dist_adaptive.py
+    holds against the JAX package's distributed functions. The host plan
+    builds and installs are timed (a first run's extra time). Then
+    dryrun_multichip(2) over gloo on the CPU. Returns the times, launches and
+    step counts."""
     import numpy as np
     import torch
 
@@ -1149,14 +1196,17 @@ def phase_parallel(g, gw, device, smi):
               "bfs": AlgorithmParams(source_vertex=0), "sssp": AlgorithmParams(source_vertex=0),
               "wcc": AlgorithmParams(), "cdlp": AlgorithmParams(max_iterations=CDLP_ITERS),
               "lcc": AlgorithmParams()}
-    graph_of = {"sssp": gw, "lcc": small}
+    _, (bn, btiers, bbu, bdense), wcc_steps, sssp_steps, _ = real_steps
+    twin_steps = {"bfs_adaptive_dist": (bn, btiers, bbu, bdense),
+                  "sssp_adaptive_dist": sssp_steps,
+                  "wcc_adaptive_dist": wcc_steps["wcc-auto"]}
     report = {}
     for name, (algo, dist_impl, one_impl, needed) in PARALLEL_RUNS.items():
-        gr = graph_of.get(algo, g)
+        gr = small if name == "lcc_dist" else gw if algo == "sssp" else g
         cfg = PlatformConfig(device=str(device), intermediate_dir=str(INTERMEDIATE),
                              num_devices=1, **dist_impl)
         secs = []
-        for _ in range(2):  # the first run installs the shards
+        for _ in range(2):  # the first run builds the host plans and installs them
             kernels.reset_launch_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1173,8 +1223,11 @@ def phase_parallel(g, gw, device, smi):
             t0 = time.perf_counter()
             one = run_algorithm(algo, gr, params[algo], one_cfg)
             one_s = time.perf_counter() - t0
-        check(res.values.shape == one.values.shape and res.iterations == one.iterations,
-              f"parallel: {name} shape or iterations differ from the one-device run")
+        check(res.values.shape == one.values.shape, f"parallel: {name} shape differs")
+        if name != "wcc_adaptive_dist":  # its rounds follow its own gate (docstring)
+            check(res.iterations == one.iterations,
+                  f"parallel: {name} {res.iterations} iterations, the one-device twin "
+                  f"{one.iterations}")
         if algo == "pr":
             err = float(np.max(np.abs(res.values - one.values) / np.abs(one.values)))
             check(err <= PR_RTOL, f"parallel: {name} max relative error {err} > {PR_RTOL}")
@@ -1182,12 +1235,24 @@ def phase_parallel(g, gw, device, smi):
             err = 0.0
             check(np.array_equal(res.values, one.values),
                   f"parallel: {name} differs from the one-device {one_impl}")
+        steps = _dist_steps(name, dispatch._sharded(gr, cfg, np.float32), cfg)
         report[name] = {"s": secs[1], "first_s": secs[0], "one_device_s": one_s,
-                        "launches": counts, "max_rel_err": err}
+                        "launches": counts, "max_rel_err": err, "iterations": res.iterations}
+        said = ""
+        if steps is not None:
+            report[name]["steps"] = steps
+            jax_steps = JAX_STEPS[algo]
+            said = (f"; steps {steps}, the one-device twin's {twin_steps[name]}, the JAX "
+                    f"package's one-device {jax_steps}")
+            if algo == "sssp":
+                check(steps == twin_steps[name] == jax_steps,
+                      f"parallel: {name} steps {steps} differ from the twin's or JAX's")
+            if algo == "bfs":
+                check(steps[0] == bn == jax_steps[0], f"parallel: {name} levels {steps[0]}")
         print(f"parallel {name} (1 NCCL rank, {smi}): {secs[1]:.6f} s warm ({secs[0]:.6f} s "
-              f"with the shard's install), one-device {one_impl} {one_s:.6f} s warm; "
-              f"{'max relative error %.3e' % err if algo == 'pr' else 'equal bit for bit'}, "
-              f"{res.iterations} iterations; launches {counts}", flush=True)
+              f"with the host plans' build and install), one-device {one_impl} {one_s:.6f} s "
+              f"warm; {'max relative error %.3e' % err if algo == 'pr' else 'equal bit for bit'}"
+              f", {res.iterations} iterations{said}; launches {counts}", flush=True)
     for gr in (g, gw, small):
         dispatch.purge_sharded(gr)
     check(current_mesh() is None, "parallel: the mesh outlived the last sharded graph")
@@ -2226,7 +2291,7 @@ def main() -> int:
     bench = phase_bench(smi, real_steps, int((lcc_values > 0).sum()))
     print(f"bench phase: {time.perf_counter() - t0:.3f} s", flush=True)
     t0 = time.perf_counter()
-    parallel = phase_parallel(g, gw, device, smi)
+    parallel = phase_parallel(g, gw, device, smi, real_steps)
     print(f"parallel phase: {time.perf_counter() - t0:.3f} s", flush=True)
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],

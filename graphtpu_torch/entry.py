@@ -51,15 +51,17 @@ def dryrun_multichip(n_devices: int) -> None:
     from graphtpu_torch.parallel import algorithms as dist
     from graphtpu_torch.parallel.mesh import make_mesh
     from graphtpu_torch.parallel.partition import ShardedGraph
+    from graphtpu_torch.utils.config import PlatformConfig
     from graphtpu_torch.utils.synth import uniform_graph
 
+    naive = PlatformConfig(device="cpu", pr_impl="segment", bfs_impl="dense", cdlp_impl="sort")
     mesh = make_mesh(n_devices, "cpu")
     try:
         g = uniform_graph(64 * n_devices, 1024 * n_devices, directed=True, seed=0)
         sg = ShardedGraph(g, mesh, wdtype=np.float32)
-        ranks = dist.pr_dist(sg, 0.85, 2)
-        levels, _ = dist.bfs_dist(sg, 0)
-        labels, _ = dist.cdlp_dist(sg, 2)
+        ranks = dist.pr_dist(sg, 0.85, 2, cfg=naive)
+        levels, _ = dist.bfs_dist(sg, 0, naive)
+        labels, _ = dist.cdlp_dist(sg, 2, naive)
     finally:
         mesh.close()
     total = float(ranks.sum())

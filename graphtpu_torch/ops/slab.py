@@ -99,6 +99,16 @@ def resolve_buckets(deg: np.ndarray, buckets=None) -> tuple:
     return tuple(bounds) if bounds else DEFAULT_BUCKETS
 
 
+def bucket_policy_key(buckets) -> list:
+    """Identity of a bucket choice for plan memo keys: explicit bounds
+    verbatim, else the auto policy (the DP-optimal bounds with
+    DEFAULT_BUCKET_COUNT buckets; the JAX package's auto policy also reads
+    two environment knobs, which the port does not have)."""
+    if buckets is not None:
+        return ["explicit", [int(b) for b in buckets]]
+    return ["auto", DEFAULT_BUCKET_COUNT]
+
+
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
     a = np.ascontiguousarray(a)
     if not a.flags.writeable:

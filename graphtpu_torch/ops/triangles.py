@@ -430,7 +430,7 @@ def _check_closing(closing: ClosingCSR, device) -> None:
         raise ValueError("wedge_rowblock: slabs, table and closing CSR must be on one device")
 
 
-def wedge_rowblock(slab, mslab, ehash: EdgeHash, id_bits: int, chunk_cols: int,
+def wedge_rowblock(slab, mslab, ehash: Optional[EdgeHash], id_bits: int, chunk_cols: int,
                    closing: ClosingCSR):
     """K10 wrapper: the triangle credits of one bucket. For every row r of
     ``slab`` [W, R_pad] (int32 ranked ids, distinct within a row,
@@ -446,20 +446,23 @@ def wedge_rowblock(slab, mslab, ehash: EdgeHash, id_bits: int, chunk_cols: int,
     a larger value gives other credits on the card than the plain version's
     (the plan's are 0, 1 or 2). ``chunk_cols`` divides
     R_pad and is the plain version's row-block width; the kernel ignores
-    it."""
+    it, and it ignores ``ehash`` too, which may then be None."""
     if slab.dtype != torch.int32 or mslab.dtype != torch.int32 or slab.dim() != 2:
         raise TypeError("wedge_rowblock: slab and mslab must be 2-D int32")
     if slab.shape != mslab.shape or not (slab.is_contiguous() and mslab.is_contiguous()):
         raise ValueError("wedge_rowblock: slab and mslab must be contiguous, of one shape")
-    if any(t.device != slab.device for t in (mslab, ehash.table)):
+    if mslab.device != slab.device or (ehash is not None and ehash.table.device != slab.device):
         raise ValueError("wedge_rowblock: slabs and table must be on one device")
-    edgehash._check_table("wedge_rowblock", ehash)
+    if ehash is not None:
+        edgehash._check_table("wedge_rowblock", ehash)
     _check_closing(closing, slab.device)
     w, r_pad = slab.shape
     if not 1 <= w <= _MAX_WEDGE_WIDTH or r_pad >= 1 << 31 or not 0 < id_bits < 32:
         raise ValueError(f"wedge_rowblock: W {w} outside [1, {_MAX_WEDGE_WIDTH}], R_pad {r_pad} "
                          f"or id_bits {id_bits} out of range")
     if not kernels.use_kernel(slab):
+        if ehash is None:
+            raise ValueError("wedge_rowblock: the plain version probes the edge hash: give it")
         if chunk_cols < 1 or r_pad % chunk_cols:
             raise ValueError(f"wedge_rowblock: chunk_cols {chunk_cols} must divide R_pad {r_pad}")
         pc = plain_pair_chunk(w, chunk_cols)

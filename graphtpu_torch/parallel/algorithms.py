@@ -1,31 +1,36 @@
-"""The naive distributed kernels over a row-partitioned mesh (counterpart of
-the naive arms of graphtpu/parallel/algorithms.py).
+"""The distributed loops over a row-partitioned mesh (counterpart of
+graphtpu/parallel/algorithms.py): the wrappers that route each algorithm to
+its distributed loop, as the JAX package's do, and the naive loops.
 
-Each loop has its single-device sibling's semantics and step sequence.
-Per step, every rank reduces the edges that end in its row block with the
-port's kernels on its own block (``_spmv_block``: K7 over the block's pull
-CSR, whose gather is K1's), then the dense iterate is replicated again by
-one all-gather of the row blocks. The dense update then runs on every rank
-alike, so each rank reaches the same convergence flag with no other
-collective. The per-rank bodies are module-level functions that
-``Mesh.call`` runs on every rank; the ``*_dist`` functions are the callers.
+``pr_dist``, ``bfs_dist``, ``sssp_dist``, ``wcc_dist``, ``cdlp_dist`` and
+``lcc_dist`` take the PlatformConfig. By default they run the JAX
+package's default distributed loops: the slab PageRank and CDLP
+(``slab_pr.py``, ``slab_cdlp.py``), the adaptive BFS, SSSP and WCC
+(``adaptive_bfs.py``, ``adaptive_sssp.py``, ``adaptive_wcc.py``) and the
+oriented-wedge LCC (``wedge_lcc.py``, with the sweep as its fall-back when
+the wedge plan's capacity is exceeded, unless ``lcc-impl=oriented``). The
+naive loops below run under the JAX package's names ``segment``,
+``dense``, ``sort`` and ``sweep``, and under the port's one-device names
+for the same loops, ``scan`` and ``device``.
 
-* ``pr_dist`` (``pr-impl=segment``, or the port's name ``scan``): PageRank
-  on K7 in mode sum;
-* ``bfs_dist`` (``bfs-impl=dense`` or ``device``): one K7 ``max_i32``
-  pull a level;
-* ``sssp_dist`` (``sssp-impl=dense`` or ``device``): one K7 ``min_plus``
-  sweep a round;
-* ``wcc_dist`` (``wcc-impl=dense`` or ``device``): one K7 ``min_i32``
-  sweep a round on the symmetrized structure, then two pointer jumps;
-* ``cdlp_dist`` (``cdlp-impl=sort``): each rank sorts and run-length scans
-  its own centre block (``ops/minmode.py:stream_minmode``);
-* ``lcc_dist`` (``lcc-impl=sweep``): the membership sweep's A-edges split
-  over the ranks, the numerators summed by one all-reduce.
+Each naive loop has its single-device sibling's semantics and step
+sequence. Per step, every rank reduces the edges that end in its row block
+with the port's kernels on its own block (``_spmv_block``: K7 over the
+block's pull CSR, whose gather is K1's), then the dense iterate is
+replicated again by one all-gather of the row blocks. The dense update then
+runs on every rank alike, so each rank reaches the same convergence flag
+with no other collective. The per-rank bodies are module-level functions
+that ``Mesh.call`` runs on every rank.
 
-The JAX package's default distributed impls (slab CDLP and PageRank,
-adaptive BFS, SSSP and WCC, oriented-wedge LCC) are ROADMAP Queue 1
-sub-slices 2b-2d; ``dispatch.try_run_distributed`` declines them.
+* PageRank on K7 in mode sum;
+* BFS: one K7 ``max_i32`` pull a level;
+* SSSP: one K7 ``min_plus`` sweep a round;
+* WCC: one K7 ``min_i32`` sweep a round on the symmetrized structure, then
+  two pointer jumps;
+* CDLP: each rank sorts and run-length scans its own centre block
+  (``ops/minmode.py:stream_minmode``);
+* LCC: the membership sweep's A-edges split over the ranks, the numerators
+  summed by one all-reduce.
 """
 
 from __future__ import annotations
@@ -38,8 +43,15 @@ from graphtpu_torch.ops.gather import table_gather
 from graphtpu_torch.ops.spmv import csr_pull_reduce
 from graphtpu_torch.parallel.mesh import Mesh, all_gather_rows, all_reduce_sum
 from graphtpu_torch.parallel.partition import ShardedCOO, ShardedGraph
+from graphtpu_torch.utils.logging import get_logger
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
+# the impl names that select each naive loop (the JAX package's, then the
+# port's one-device names for the same loops)
+_NAIVE = {
+    "pr": ("segment", "scan"), "bfs": ("dense", "device"), "sssp": ("dense", "device"),
+    "wcc": ("dense", "device"), "cdlp": ("sort",), "lcc": ("sweep",),
+}
 
 
 def _spmv_block(mode: str, shard: ShardedCOO, x: torch.Tensor) -> torch.Tensor:
@@ -81,8 +93,14 @@ def _pr_body(mesh: Mesh, key, out_deg: np.ndarray, damping: float, n: int, iters
     return _host(r, n)
 
 
-def pr_dist(sg: ShardedGraph, damping: float, num_iterations: int, dtype=np.float32):
-    """Distributed PageRank (the segment-sum pull on K7): ranks [n]."""
+def pr_dist(sg: ShardedGraph, damping: float, num_iterations: int, dtype=np.float32, cfg=None):
+    """Distributed PageRank: ranks [n]. By default the slab pull plan split
+    per bucket over the ranks (``slab_pr.py``); ``pr-impl`` segment or scan
+    runs the segment-sum pull on K7."""
+    if (getattr(cfg, "pr_impl", "") or "slab") not in _NAIVE["pr"]:
+        from graphtpu_torch.parallel.slab_pr import pr_slab_dist
+
+        return pr_slab_dist(sg, damping, num_iterations, dtype=dtype)
     key = sg.pull()
     args = (key, sg.out_degree_padded(), float(damping), sg.n, int(num_iterations),
             np.dtype(dtype).name)
@@ -109,9 +127,15 @@ def _bfs_body(mesh: Mesh, key, source: int, n: int, n_pad: int):
     return _host(levels, n), level
 
 
-def bfs_dist(sg: ShardedGraph, source_dense: int):
-    """Distributed BFS, one full-edge pull a level: (int32 levels [n] with
-    INT32_INF unreachable, levels run including the last, empty one)."""
+def bfs_dist(sg: ShardedGraph, source_dense: int, cfg=None):
+    """Distributed BFS: (int32 levels [n] with INT32_INF unreachable, levels
+    run including the last, empty one). By default the three-phase adaptive
+    loop (``adaptive_bfs.py``); ``bfs-impl`` dense or device runs one
+    full-edge pull a level."""
+    if (getattr(cfg, "bfs_impl", "") or "adaptive") not in _NAIVE["bfs"]:
+        from graphtpu_torch.parallel.adaptive_bfs import bfs_adaptive_dist
+
+        return bfs_adaptive_dist(sg, source_dense, cfg)
     key = sg.pull()
     return sg.mesh.call(_bfs_body, [(key, int(source_dense), sg.n, sg.n_pad)] * sg.num_devices)
 
@@ -131,9 +155,14 @@ def _sssp_body(mesh: Mesh, key, source: int, n: int, n_pad: int):
     return _host(dist, n), it
 
 
-def sssp_dist(sg: ShardedGraph, source_dense: int):
-    """Distributed SSSP, one full min.plus sweep a round, in the graph's
-    wdtype: (float64 distances [n], rounds)."""
+def sssp_dist(sg: ShardedGraph, source_dense: int, cfg=None):
+    """Distributed SSSP in the graph's wdtype: (float64 distances [n],
+    rounds). By default the tiered changed-set loop (``adaptive_sssp.py``);
+    ``sssp-impl`` dense or device runs one full min.plus sweep a round."""
+    if (getattr(cfg, "sssp_impl", "") or "adaptive") not in _NAIVE["sssp"]:
+        from graphtpu_torch.parallel.adaptive_sssp import sssp_adaptive_dist
+
+        return sssp_adaptive_dist(sg, source_dense, cfg)
     key = sg.pull()
     d, it = sg.mesh.call(_sssp_body, [(key, int(source_dense), sg.n, sg.n_pad)] * sg.num_devices)
     return d.astype(np.float64), it
@@ -155,8 +184,14 @@ def _wcc_body(mesh: Mesh, key, n: int, n_pad: int):
     return _host(labels, n), it
 
 
-def wcc_dist(sg: ShardedGraph):
-    """Distributed WCC on the symmetrized structure: (labels [n], rounds)."""
+def wcc_dist(sg: ShardedGraph, cfg=None):
+    """Distributed WCC on the symmetrized structure: (labels [n], rounds).
+    By default the convergence-adaptive loop (``adaptive_wcc.py``);
+    ``wcc-impl`` dense or device runs one full sweep a round."""
+    if (getattr(cfg, "wcc_impl", "") or "adaptive") not in _NAIVE["wcc"]:
+        from graphtpu_torch.parallel.adaptive_wcc import wcc_adaptive_dist
+
+        return wcc_adaptive_dist(sg, cfg)
     key = sg.pull_symmetrized()
     return sg.mesh.call(_wcc_body, [(key, sg.n, sg.n_pad)] * sg.num_devices)
 
@@ -184,8 +219,15 @@ def _cdlp_body(mesh: Mesh, key, deg: np.ndarray, n: int, rows: int, itermax: int
     return _host(labels, n), it
 
 
-def cdlp_dist(sg: ShardedGraph, itermax: int):
-    """Distributed CDLP by a per-rank sort: (dense-id labels [n], iterations)."""
+def cdlp_dist(sg: ShardedGraph, itermax: int, cfg=None):
+    """Distributed CDLP: (dense-id labels [n], iterations). By default the
+    slab min-mode plan split per bucket over the ranks (``slab_cdlp.py``,
+    with ``cfg.slab_buckets``); ``cdlp-impl=sort`` sorts per rank."""
+    if (getattr(cfg, "cdlp_impl", "") or "slab") not in _NAIVE["cdlp"]:
+        from graphtpu_torch.parallel.slab_cdlp import cdlp_slab_dist
+
+        buckets = getattr(cfg, "slab_buckets", None)
+        return cdlp_slab_dist(sg, itermax, tuple(buckets) if buckets else None)
     key = sg.incidence()
     args = (key, sg.incidence_degree_padded(), sg.n, sg.rows_per_dev, int(itermax))
     return sg.mesh.call(_cdlp_body, [args] * sg.num_devices)
@@ -211,7 +253,28 @@ def _lcc_body(mesh: Mesh, s_indptr: np.ndarray, s_dst: np.ndarray, n: int, searc
     return all_reduce_sum(numerator).cpu().numpy()
 
 
-def lcc_dist(sg: ShardedGraph) -> np.ndarray:
+def lcc_dist(sg: ShardedGraph, cfg=None) -> np.ndarray:
+    """Distributed LCC, coefficients float64 [n]. By default the
+    oriented-wedge plan with its bucket columns split over the ranks
+    (``wedge_lcc.py``); the membership sweep where ``lcc-impl=sweep``, or
+    where the wedge plan's capacity is exceeded and lcc-impl is not
+    ``oriented``."""
+    impl = getattr(cfg, "lcc_impl", "") or "auto"
+    if impl not in _NAIVE["lcc"]:
+        from graphtpu_torch.ops.triangles import WedgeCapacityError
+        from graphtpu_torch.parallel.wedge_lcc import lcc_oriented_dist
+
+        try:
+            return lcc_oriented_dist(sg, cache_dir=getattr(cfg, "intermediate_dir", None))
+        except WedgeCapacityError:
+            if impl == "oriented":
+                raise
+            get_logger("dist").warning(
+                "wedge-plan capacity exceeded; falling back to membership sweep")
+    return _lcc_dist_sweep(sg)
+
+
+def _lcc_dist_sweep(sg: ShardedGraph) -> np.ndarray:
     """Distributed LCC by the membership sweep: each bucket's A-edges are
     cut into D contiguous runs of ceil(count / (D * chunk)) * chunk edges,
     the JAX package's split; coefficients float64 [n]."""

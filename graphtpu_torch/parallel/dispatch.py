@@ -2,17 +2,17 @@
 graphtpu/parallel/dispatch.py).
 
 ``run_algorithm`` calls ``try_run_distributed`` when ``num-devices`` > 1.
-It runs the naive distributed kernel of ``parallel/algorithms.py`` where
-the configured impl selects one (the JAX package's names ``segment``,
-``dense``, ``sort`` and ``sweep``, and the port's one-device names for the
-same loops, ``scan`` and ``device``). For any other impl, the JAX default
-among them, it returns None with a warning that names the ROADMAP
-sub-slice which ports that distributed impl, and ``run_algorithm`` runs the
-one-device path: the JAX contract for "no distributed implementation".
+It runs every algorithm over the ranks under every impl name the
+one-device path takes, routed as the JAX package routes it
+(``parallel/algorithms.py``): the JAX defaults run the slab, adaptive and
+wedge loops, and ``segment``/``scan``, ``dense``/``device``, ``sort`` and
+``sweep`` the naive ones. An impl name the port does not know raises
+ValueError, as on one device.
 """
 
 from __future__ import annotations
 
+import importlib
 from typing import Optional
 
 import numpy as np
@@ -28,16 +28,9 @@ from graphtpu_torch.utils.logging import get_logger
 
 log = get_logger("dispatch")
 
-# algorithm -> (the config attribute, the impls with a naive distributed
-# kernel, the ROADMAP sub-slice that ports the JAX default)
-NAIVE = {
-    "pr": ("pr_impl", ("segment", "scan"), "2b (parallel/slab_pr.py)"),
-    "cdlp": ("cdlp_impl", ("sort",), "2b (parallel/slab_cdlp.py)"),
-    "bfs": ("bfs_impl", ("dense", "device"), "2c (parallel/adaptive_bfs.py)"),
-    "sssp": ("sssp_impl", ("dense", "device"), "2c (parallel/adaptive_sssp.py)"),
-    "wcc": ("wcc_impl", ("dense", "device"), "2c (parallel/adaptive_wcc.py)"),
-    "lcc": ("lcc_impl", ("sweep",), "2d (parallel/wedge_lcc.py)"),
-}
+# algorithm -> the config attribute of its impl; graphtpu_torch.algorithms.<name>.IMPLS
+# lists the names the port takes
+IMPL_ATTRS = {name: f"{name}_impl" for name in ("pr", "cdlp", "bfs", "sssp", "wcc", "lcc")}
 
 _sharded_cache: dict = {}
 
@@ -69,31 +62,26 @@ def _source(name: str, graph: Graph, params: AlgorithmParams) -> int:
 
 def try_run_distributed(name: str, graph: Graph, params: AlgorithmParams,
                         cfg: PlatformConfig) -> Optional[AlgorithmResult]:
-    """Run ``name`` over ``cfg.num_devices`` ranks; None where the configured
-    impl has no distributed kernel in the port (the caller runs the
-    one-device path)."""
-    if name not in NAIVE:
+    """Run ``name`` over ``cfg.num_devices`` ranks; None for an algorithm
+    without a distributed loop (the caller runs the one-device path)."""
+    if name not in IMPL_ATTRS:
         log.info("no distributed implementation of %s: the one-device path runs", name)
         return None
-    attr, naive, sub_slice = NAIVE[name]
+    attr = IMPL_ATTRS[name]
+    impls = importlib.import_module(f"graphtpu_torch.algorithms.{name}").IMPLS
     impl = getattr(cfg, attr)
-    if impl not in naive:
-        log.warning(
-            "num-devices %d: %s=%s has no distributed implementation in graphtpu_torch yet "
-            "(ROADMAP Queue 1, sub-slice %s; distributed here: %s=%s); the one-device path runs",
-            cfg.num_devices, attr.replace("_", "-"), impl, sub_slice,
-            attr.replace("_", "-"), "|".join(naive),
-        )
-        return None
+    if impl not in impls:
+        raise ValueError(f"unknown {attr.replace('_', '-')} {impl!r}; expected {'|'.join(impls)}")
     wdtype = np.float64 if cfg.precision == "float64" else np.float32
     sg = _sharded(graph, cfg, wdtype)
     if name == "pr":
         if params.damping_factor is None or params.num_iterations is None:
             raise ValueError("pr requires damping-factor and num-iterations")
-        ranks = dist.pr_dist(sg, params.damping_factor, params.num_iterations, dtype=wdtype)
+        ranks = dist.pr_dist(sg, params.damping_factor, params.num_iterations, dtype=wdtype,
+                             cfg=cfg)
         return AlgorithmResult("pr", ranks.astype(np.float64), iterations=params.num_iterations)
     if name == "bfs":
-        levels, it = dist.bfs_dist(sg, _source("bfs", graph, params))
+        levels, it = dist.bfs_dist(sg, _source("bfs", graph, params), cfg)
         levels = levels.astype(np.int64)
         levels[levels == INT32_INF] = UNREACHABLE
         return AlgorithmResult("bfs", levels, iterations=it)
@@ -101,14 +89,14 @@ def try_run_distributed(name: str, graph: Graph, params: AlgorithmParams,
         if params.weight_property not in (None, "weight"):
             raise ValueError(f"unsupported sssp weight-property {params.weight_property!r}; "
                              "only 'weight' exists in the ingested graph")
-        d, it = dist.sssp_dist(sg, _source("sssp", graph, params))
+        d, it = dist.sssp_dist(sg, _source("sssp", graph, params), cfg)
         return AlgorithmResult("sssp", d, iterations=it)
     if name == "wcc":
-        labels, it = dist.wcc_dist(sg)
+        labels, it = dist.wcc_dist(sg, cfg)
         return AlgorithmResult("wcc", graph.mapping[labels], iterations=it)
     if name == "cdlp":
         if params.max_iterations is None:
             raise ValueError("cdlp requires max-iterations")
-        labels, it = dist.cdlp_dist(sg, params.max_iterations)
+        labels, it = dist.cdlp_dist(sg, params.max_iterations, cfg)
         return AlgorithmResult("cdlp", graph.mapping[labels], iterations=it)
-    return AlgorithmResult("lcc", dist.lcc_dist(sg))
+    return AlgorithmResult("lcc", dist.lcc_dist(sg, cfg))

@@ -52,7 +52,8 @@ from graphtpu_torch.utils.logging import get_logger
 log = get_logger("mesh")
 
 ROOT = Path(__file__).resolve().parents[2]
-# a collective that waits longer than this raises (a rank that died)
+# a collective that waits longer than this raises (a rank that died); the
+# value at a mesh's start holds for all its ranks
 GROUP_TIMEOUT_S = 600.0
 # seconds a worker is given to leave after the stop message before it is killed
 STOP_GRACE_S = 10.0
@@ -132,10 +133,22 @@ def all_gather_rows(block: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _all_reduce(t: torch.Tensor, op) -> torch.Tensor:
+    """``op`` over the ranks, elementwise, into ``t`` (a contiguous copy of
+    ``t`` where ``t`` is not contiguous, returned in its place)."""
+    t = t.contiguous()
+    dist.all_reduce(t, op=op)
+    return t
+
+
 def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
     """Elementwise sum over the ranks, in place (JAX's psum)."""
-    dist.all_reduce(t, op=dist.ReduceOp.SUM)
-    return t
+    return _all_reduce(t, dist.ReduceOp.SUM)
+
+
+def all_reduce_min(t: torch.Tensor) -> torch.Tensor:
+    """Elementwise minimum over the ranks, in place (JAX's pmin)."""
+    return _all_reduce(t, dist.ReduceOp.MIN)
 
 
 # -- the worker pool ---------------------------------------------------------
@@ -156,7 +169,7 @@ class _Worker:
         env["PYTHONPATH"] = os.pathsep.join(p for p in (str(ROOT), env.get("PYTHONPATH")) if p)
         self.proc = subprocess.Popen(
             [sys.executable, "-c", _WORKER, str(rank), str(size), backend, store, str(card),
-             str(cmd_r), str(rep_w)],
+             str(GROUP_TIMEOUT_S), str(cmd_r), str(rep_w)],
             pass_fds=(cmd_r, rep_w), env=env, cwd=str(ROOT),
         )
         os.close(cmd_r)
@@ -199,11 +212,12 @@ def _rank_device(backend: str, card: int) -> torch.device:
     return torch.device("cuda", card) if backend == "nccl" else torch.device("cpu")
 
 
-def _init_group(backend: str, store: str, size: int, rank: int, card: int) -> None:
+def _init_group(backend: str, store: str, size: int, rank: int, card: int,
+                timeout_s: float) -> None:
     if backend == "nccl":
         torch.cuda.set_device(card)
     dist.init_process_group(backend, init_method=f"file://{store}", world_size=size, rank=rank,
-                            timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+                            timeout=datetime.timedelta(seconds=timeout_s))
 
 
 _current: Optional[Mesh] = None
@@ -247,7 +261,7 @@ def make_mesh(num_devices: int, device="cuda") -> Mesh:
     os.unlink(store)  # the file store makes it
     workers = [_Worker(r, num_devices, backend, store, first + r) for r in range(1, num_devices)]
     try:
-        _init_group(backend, store, num_devices, 0, first)
+        _init_group(backend, store, num_devices, 0, first, GROUP_TIMEOUT_S)
     except BaseException:
         for w in workers:
             w.proc.kill()
@@ -271,13 +285,13 @@ atexit.register(close_mesh)
 
 
 def _worker_main(argv) -> None:
-    rank, size, backend, store, card, cmd_fd, rep_fd = argv
+    rank, size, backend, store, card, timeout_s, cmd_fd, rep_fd = argv
     cmd = Connection(int(cmd_fd), writable=False)
     rep = Connection(int(rep_fd), readable=False)
     if backend == "gloo":
         # CPU ranks share one host: one thread each, not one per core each
         torch.set_num_threads(1)
-    _init_group(backend, store, int(size), int(rank), int(card))
+    _init_group(backend, store, int(size), int(rank), int(card), float(timeout_s))
     mesh = Mesh(int(size), int(rank), backend, _rank_device(backend, int(card)))
     while True:
         try:

@@ -12,10 +12,11 @@ stream into the same [D, m_pad] blocks (``ROW_ALIGN``, ``EDGE_ALIGN``).
 The host builds every block (each process holds the whole Graph, as every
 JAX process does), and each rank keeps only its own block, on its own
 device (``ShardedGraph.pull`` and friends install it once and return the
-key it is kept under). A rank's block also carries its pull CSR: the valid
-entries are a prefix of the block and their rows ascend, so ``src[:count]``
-with ``indptr`` over the rank's rows is what the kernels take (``count``
-is kept on the host, so a step reads nothing back).
+key it is kept under; the default loops install their plans the same way,
+through ``ShardedGraph.installed``). A rank's block also carries its pull
+CSR: the valid entries are a prefix of the block and their rows ascend, so
+``src[:count]`` with ``indptr`` over the rank's rows is what the kernels
+take (``count`` is kept on the host, so a step reads nothing back).
 """
 
 from __future__ import annotations
@@ -112,6 +113,25 @@ def _install(mesh: Mesh, key, fields: tuple, rows: int) -> None:
     mesh.state[key] = cls(*t, torch.from_numpy(indptr).to(mesh.device), int(indptr[-1]))
 
 
+def _on_device(tree, device):
+    if isinstance(tree, tuple):
+        return tuple(_on_device(t, device) for t in tree)
+    return torch.from_numpy(np.ascontiguousarray(tree)).to(device)
+
+
+def install_arrays(mesh: Mesh, key, *arrays) -> None:
+    """Per rank: keep ``arrays`` (numpy arrays, or tuples of them, nested)
+    on its device under ``key``, as the same tuples of tensors."""
+    mesh.state[key] = _on_device(arrays, mesh.device)
+
+
+def rank_part(tree, d: int):
+    """Rank d's part of host arrays [D, ...] (tuples of them, nested)."""
+    if isinstance(tree, tuple):
+        return tuple(rank_part(t, d) for t in tree)
+    return tree[d]
+
+
 def _drop(mesh: Mesh, keys) -> None:
     for k in keys:
         mesh.state.pop(k, None)
@@ -168,14 +188,36 @@ class ShardedGraph:
 
     # -- rank-held blocks ------------------------------------------------------
 
-    def _installed_key(self, kind: str, build) -> tuple:
+    def installed(self, kind: str, install, per_rank) -> tuple:
+        """Key of each rank's state of ``kind``. On the first call,
+        ``install(mesh, key, *per_rank()[d])`` runs on every rank d; later
+        calls send nothing. ``release`` and ``forget`` drop it."""
         key = (self.key, kind)
         if kind not in self._installed:
-            fields = build()[:-2]  # without indptr and count
-            self.mesh.call(_install, [(key, tuple(a[d] for a in fields), self.rows_per_dev)
-                                      for d in range(self.num_devices)])
+            self.mesh.call(install, [(key, *args) for args in per_rank()])
             self._installed.add(kind)
         return key
+
+    def installed_parts(self, kind: str, parts: tuple, replicated: tuple = ()) -> tuple:
+        """Key under which rank d holds ``(rank_part(parts, d), *replicated)``
+        as tensors on its device, installed once (``install_arrays``)."""
+        return self.installed(kind, install_arrays, lambda: [
+            (rank_part(parts, d), *replicated) for d in range(self.num_devices)])
+
+    def forget(self, kind: str) -> None:
+        """Drop each rank's state of ``kind``, if installed."""
+        if kind in self._installed:
+            self._installed.discard(kind)
+            if not self.mesh.closed:
+                self.mesh.call(_drop, [([(self.key, kind)],)] * self.num_devices)
+
+    def _installed_key(self, kind: str, build) -> tuple:
+        def per_rank():
+            fields = build()[:-2]  # without indptr and count
+            return [(tuple(a[d] for a in fields), self.rows_per_dev)
+                    for d in range(self.num_devices)]
+
+        return self.installed(kind, _install, per_rank)
 
     def pull(self) -> tuple:
         """Key of each rank's block of the pull-ordered edges."""
@@ -193,7 +235,7 @@ class ShardedGraph:
         return self._installed_key("incidence", self.incidence_host)
 
     def release(self) -> None:
-        """Drop this graph's blocks on every rank."""
+        """Drop this graph's blocks and plans on every rank."""
         if self._installed and not self.mesh.closed:
             keys = [(self.key, k) for k in self._installed]
             self.mesh.call(_drop, [(keys,)] * self.num_devices)

@@ -123,8 +123,8 @@ class PlatformConfig:
     # compute precision for float-valued algorithms ("float32"|"float64")
     precision: str = "float32"
     # ranks (one device each) an algorithm runs over; above 1, run_algorithm
-    # tries the distributed loops first (parallel/dispatch.py), which cover
-    # the naive impls; 0 and 1 run on ``device`` alone
+    # runs the distributed loops (parallel/dispatch.py), routed by the impl
+    # keys as in the JAX package; 0 and 1 run on ``device`` alone
     num_devices: int = 0
     # PageRank pull sum: "auto"/"slab" = padded-ELL row sums on kernel K3;
     # "scan" (or the JAX package's name "segment") = a segment sum over the

@@ -22,6 +22,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from graphtpu.ingest.loader import load_graph_from_spec as j_load
 from graphtpu.parallel import ShardedGraph as JShardedGraph
@@ -62,8 +63,13 @@ def _twin(jg):
 
 @pytest.fixture(scope="module", params=[2, 4], ids=["2ranks", "4ranks"])
 def ranks(request):
+    # rank 0 takes one thread, as the worker ranks do (the CPU ranks share
+    # one host, and so do the suite's other test processes)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
     make_mesh(request.param, "cpu")
-    return request.param
+    yield request.param
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module", params=["example-directed", "example-undirected", "random"])
@@ -110,7 +116,7 @@ def test_partitions_equal_jax(ranks, graphs):
 
 def test_pr_matches_jax(ranks, graphs):
     sg, jsg = _pair(ranks, graphs)
-    ranks_t = dist.pr_dist(sg, 0.85, 10, dtype=np.float64)
+    ranks_t = dist.pr_dist(sg, 0.85, 10, dtype=np.float64, cfg=PlatformConfig(pr_impl="segment"))
     ranks_j = jdist.pr_dist(jsg, 0.85, 10, dtype=np.float64, cfg=JConfig(pr_impl="segment"))
     np.testing.assert_allclose(ranks_t, ranks_j, rtol=RTOL, atol=0)
     sg.release()
@@ -121,18 +127,20 @@ def test_traversals_match_jax_bit_for_bit(ranks, graphs):
     iteration count; SSSP distances within 1e-12 relative."""
     sg, jsg = _pair(ranks, graphs)
     src = int(np.argmax(graphs[1].out_degree))  # a source that reaches the graph
+    naive = PlatformConfig(**NAIVE)
     for got, want in (
-        (dist.bfs_dist(sg, src), jdist.bfs_dist(jsg, src, JConfig(bfs_impl="dense"))),
-        (dist.wcc_dist(sg), jdist.wcc_dist(jsg, JConfig(wcc_impl="dense"))),
-        (dist.cdlp_dist(sg, 10), jdist.cdlp_dist(jsg, 10, JConfig(cdlp_impl="sort"))),
+        (dist.bfs_dist(sg, src, naive), jdist.bfs_dist(jsg, src, JConfig(bfs_impl="dense"))),
+        (dist.wcc_dist(sg, naive), jdist.wcc_dist(jsg, JConfig(wcc_impl="dense"))),
+        (dist.cdlp_dist(sg, 10, naive), jdist.cdlp_dist(jsg, 10, JConfig(cdlp_impl="sort"))),
     ):
         np.testing.assert_array_equal(got[0], np.asarray(want[0]))
         assert got[1] == want[1]
-    d, it = dist.sssp_dist(sg, src)
+    d, it = dist.sssp_dist(sg, src, naive)
     jd, jit = jdist.sssp_dist(jsg, src, JConfig(sssp_impl="dense"))
     np.testing.assert_allclose(d, jd, rtol=RTOL, atol=0)
     assert it == jit and np.isinf(d).sum() == np.isinf(jd).sum()
-    np.testing.assert_array_equal(dist.lcc_dist(sg), jdist.lcc_dist(jsg, JConfig(lcc_impl="sweep")))
+    np.testing.assert_array_equal(dist.lcc_dist(sg, naive),
+                                  jdist.lcc_dist(jsg, JConfig(lcc_impl="sweep")))
     sg.release()
 
 
@@ -165,29 +173,99 @@ class _Records(logging.Handler):
         self.messages.append(record.getMessage())
 
 
-def test_default_impls_warn_and_run_on_one_device(ranks):
-    """The JAX defaults (slab, adaptive, wedge) have no distributed port yet:
-    try_run_distributed returns None with a warning naming the ROADMAP
-    sub-slice, and run_algorithm's one-device path validates."""
+# the impl names of the port's one-device paths that name the naive loops
+# under another name in the JAX package
+_JAX_NAME = {("pr", "scan"): "segment", ("bfs", "device"): "dense", ("sssp", "device"): "dense",
+             ("wcc", "device"): "dense"}
+# algorithm -> the JAX package's distributed functions its wrapper routes to:
+# (module, name) of the default loop, then of the naive one
+_JAX_TARGETS = {
+    "pr": (("graphtpu.parallel.slab_pr", "pr_slab_dist"),
+           ("graphtpu.parallel.algorithms", "pr_dist_kernel")),
+    "cdlp": (("graphtpu.parallel.slab_cdlp", "cdlp_slab_dist"),
+             ("graphtpu.parallel.algorithms", "cdlp_dist_kernel")),
+    "bfs": (("graphtpu.parallel.adaptive_bfs", "bfs_adaptive_dist"),
+            ("graphtpu.parallel.algorithms", "bfs_dist_kernel")),
+    "sssp": (("graphtpu.parallel.adaptive_sssp", "sssp_adaptive_dist"),
+             ("graphtpu.parallel.algorithms", "sssp_dist_kernel")),
+    "wcc": (("graphtpu.parallel.adaptive_wcc", "wcc_adaptive_dist"),
+            ("graphtpu.parallel.algorithms", "wcc_dist_kernel")),
+    "lcc": (("graphtpu.parallel.wedge_lcc", "lcc_oriented_dist"),
+            ("graphtpu.parallel.algorithms", "_lcc_dist_sweep")),
+}
+
+
+class _Picked(Exception):
+    pass
+
+
+def _jax_pick(algo, impl, jsg, monkeypatch):
+    """The module of the distributed function the JAX wrapper of ``algo``
+    picks under ``impl`` (each candidate replaced by a spy that stops it)."""
+    import importlib
+
+    with monkeypatch.context() as mp:
+        for module, name in _JAX_TARGETS[algo]:
+            def spy(*args, _module=module, **kwargs):
+                raise _Picked(_module.rsplit(".", 1)[1])
+
+            mp.setattr(importlib.import_module(module), name, spy)
+        cfg = JConfig(**{f"{algo}_impl": _JAX_NAME.get((algo, impl), impl)})
+        call = {"pr": lambda: jdist.pr_dist(jsg, 0.85, 2, dtype=np.float64, cfg=cfg),
+                "cdlp": lambda: jdist.cdlp_dist(jsg, 2, cfg),
+                "bfs": lambda: jdist.bfs_dist(jsg, 0, cfg),
+                "sssp": lambda: jdist.sssp_dist(jsg, 0, cfg),
+                "wcc": lambda: jdist.wcc_dist(jsg, cfg),
+                "lcc": lambda: jdist.lcc_dist(jsg, cfg)}[algo]
+        with pytest.raises(_Picked) as picked:
+            call()
+    return str(picked.value)
+
+
+def test_default_impls_warn_and_run_on_one_device(ranks, monkeypatch, tmp_path):
+    """Every algorithm under every impl name the port takes runs over the
+    ranks (the one-device path never runs, and nothing warns): through the
+    distributed loop of the module the JAX package's wrapper picks for that
+    name (the port's one-device names scan and device read as segment and
+    dense), and validates against the golden files. Before the default
+    loops were ported, the JAX defaults warned here and ran on one device."""
+    import importlib
+
     spec = GraphSpec.from_properties(FIXTURES / "example-directed.properties")
-    g = _twin(j_load(JSpec.from_properties(FIXTURES / "example-directed.properties"),
-                     use_cache=False))
-    cfg = PlatformConfig(device="cpu", num_devices=ranks)
+    jg = j_load(JSpec.from_properties(FIXTURES / "example-directed.properties"), use_cache=False)
+    g = _twin(jg)
+    jsg = JShardedGraph(jg, j_make_mesh(ranks), wdtype=np.float64)
+    for algo in tcommon.ALGORITHMS:
+        monkeypatch.setitem(tcommon.ALGORITHMS, algo, _one_device_trap)
     handler = _Records()
-    logger = logging.getLogger("graphtpu_torch.dispatch")
+    handler.setLevel(logging.WARNING)
+    logger = logging.getLogger("graphtpu_torch")
     logger.addHandler(handler)
+    mesh = make_mesh(ranks, "cpu")
+    bodies = []
+
+    def spy(fn, per_rank_args, call=mesh.call):
+        bodies.append(fn.__module__.rsplit(".", 1)[1])
+        return call(fn, per_rank_args)
+
+    monkeypatch.setattr(mesh, "call", spy)
+    runs = 0
     try:
-        for algo, sub in (("pr", "2b"), ("cdlp", "2b"), ("bfs", "2c"), ("sssp", "2c"),
-                          ("wcc", "2c"), ("lcc", "2d")):
-            params = spec.params.get(algo)
-            assert dispatch.try_run_distributed(algo, g, params, cfg) is None
-            assert f"sub-slice {sub}" in handler.messages[-1], handler.messages[-1]
-            res = run_algorithm(algo, g, params, cfg)
-            ok, msg = validate_result(res, g, str(FIXTURES / f"example-directed-{SUFFIX[algo]}"))
-            assert ok, msg
+        for algo, attr in dispatch.IMPL_ATTRS.items():
+            for impl in importlib.import_module(f"graphtpu_torch.algorithms.{algo}").IMPLS:
+                cfg = PlatformConfig(device="cpu", num_devices=ranks, precision="float64",
+                                     intermediate_dir=str(tmp_path),
+                                     **{attr: impl})
+                bodies.clear()
+                res = dispatch.try_run_distributed(algo, g, spec.params.get(algo), cfg)
+                assert bodies[-1] == _jax_pick(algo, impl, jsg, monkeypatch), (algo, impl)
+                ok, msg = validate_result(res, g, str(FIXTURES / f"example-directed-{SUFFIX[algo]}"))
+                assert ok, f"{algo} {attr}={impl}: {msg}"
+                runs += 1
     finally:
         logger.removeHandler(handler)
-    assert len(handler.messages) == 12
+        dispatch.purge_sharded(g)
+    assert runs == 28 and not handler.messages, handler.messages
 
 
 def test_dist_matches_single_device_on_random_graph(ranks):

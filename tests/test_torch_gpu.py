@@ -1263,3 +1263,75 @@ def test_naive_distributed_kernels_on_one_nccl_rank(cuda, algo):
         np.testing.assert_array_equal(res.values, one.values)
     dispatch.purge_sharded(g)
     assert current_mesh() is None
+
+
+@pytest.mark.parametrize("algo", ["pr", "bfs", "sssp", "wcc", "cdlp", "lcc"])
+def test_default_distributed_loops_on_one_nccl_rank(cuda, algo, tmp_path):
+    """Each of the JAX package's default distributed loops (slab PageRank
+    and CDLP, adaptive BFS, SSSP and WCC, oriented-wedge LCC) over a
+    one-rank NCCL group, through try_run_distributed with num-devices 1 and
+    no impl set, against run_algorithm's one-device default on the card: bit
+    for bit (PageRank within 1e-4 relative), with the kernels its rank
+    routes to launched."""
+    from graphtpu_torch.algorithms.common import run_algorithm
+    from graphtpu_torch.parallel import dispatch
+    from graphtpu_torch.parallel.mesh import current_mesh, make_mesh
+    from graphtpu_torch.utils.config import AlgorithmParams, PlatformConfig
+    from graphtpu_torch.utils.synth import rmat_graph
+
+    needed = {"pr": ("gather_rows", "slab_spmv_sum"), "cdlp": ("slab_minmode",),
+              "bfs": ("frontier_expand", "gather_rows"),
+              "sssp": ("frontier_expand", "push_relax_min"),
+              "wcc": ("slab_spmv_min",), "lcc": ("wedge_rowblock",)}[algo]
+    g = rmat_graph(12, 16, directed=True, weighted=algo == "sssp", seed=5)
+    params = AlgorithmParams(source_vertex=0, damping_factor=0.85, num_iterations=10,
+                             max_iterations=10)
+    mesh = make_mesh(1, "cuda")
+    assert (mesh.size, mesh.backend) == (1, "nccl")
+    kernels.reset_launch_counts()
+    res = dispatch.try_run_distributed(algo, g, params, PlatformConfig(
+        device="cuda", num_devices=1, intermediate_dir=str(tmp_path)))
+    for k in needed:
+        assert kernels.launch_counts[k] > 0, k
+    one = run_algorithm(algo, g, params, PlatformConfig(device="cuda",
+                                                        intermediate_dir=str(tmp_path)))
+    if algo == "pr":
+        np.testing.assert_allclose(res.values, one.values, rtol=1e-4)
+    else:
+        np.testing.assert_array_equal(res.values, one.values)
+    dispatch.purge_sharded(g)
+    assert current_mesh() is None
+
+
+def test_default_distributed_loops_over_every_card(cuda, tmp_path):
+    """The JAX package's default distributed loops over one NCCL rank a
+    card, every card of the machine (skips with fewer than two), each
+    through try_run_distributed with no impl set, against run_algorithm's
+    one-device default on cuda:0: bit for bit, PageRank within 1e-4
+    relative (RMAT scale 14, directed)."""
+    from graphtpu_torch.algorithms.common import run_algorithm
+    from graphtpu_torch.parallel import dispatch
+    from graphtpu_torch.parallel.mesh import current_mesh, make_mesh
+    from graphtpu_torch.utils.config import AlgorithmParams, PlatformConfig
+    from graphtpu_torch.utils.synth import rmat_graph
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip(f"needs two or more cards, has {cards}")
+    params = AlgorithmParams(source_vertex=0, damping_factor=0.85, num_iterations=10,
+                             max_iterations=10)
+    mesh = make_mesh(cards, "cuda:0")
+    assert (mesh.size, mesh.backend) == (cards, "nccl")
+    for weighted, algos in ((False, ("pr", "cdlp", "bfs", "wcc", "lcc")), (True, ("sssp",))):
+        g = rmat_graph(14, 16, directed=True, weighted=weighted, seed=5)
+        for algo in algos:
+            res = dispatch.try_run_distributed(algo, g, params, PlatformConfig(
+                device="cuda:0", num_devices=cards, intermediate_dir=str(tmp_path)))
+            one = run_algorithm(algo, g, params, PlatformConfig(
+                device="cuda:0", intermediate_dir=str(tmp_path)))
+            if algo == "pr":
+                np.testing.assert_allclose(res.values, one.values, rtol=1e-4)
+            else:
+                np.testing.assert_array_equal(res.values, one.values, err_msg=algo)
+        dispatch.purge_sharded(g)
+    assert current_mesh() is None

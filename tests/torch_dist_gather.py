@@ -1,7 +1,9 @@
 """The port's rank-held blocks gathered back to the host, for the tests of
 graphtpu_torch/parallel/ (a check that each rank holds its own block).
 
-``gather_block`` runs on every rank through ``Mesh.call``, so a worker
+``gather_block`` (a partition's blocks) and ``gather_tensors`` (any
+tensors a rank keeps, such as a plan's) run on every rank through
+``Mesh.call``, so a worker
 process imports this module by name: the module-scoped autouse fixture
 puts tests/ on the workers' PYTHONPATH while the test module runs. This
 module imports nothing of JAX, so a worker stays as light as the port.
@@ -43,3 +45,24 @@ def gather_block(mesh: Mesh, key) -> tuple:
 def gather(sg, key) -> tuple:
     """What the ranks of ``sg``'s mesh hold under ``key``, on the host."""
     return sg.mesh.call(gather_block, [(key,)] * sg.num_devices)
+
+
+def gather_tensors(mesh: Mesh, key, path) -> tuple:
+    """Per rank: the tensors found by ``path`` (indices and attribute names,
+    in turn) in what the rank holds under ``key``, each all-gathered to a
+    [D, ...] host array (a tuple or list there gives one array per tensor)."""
+    obj = mesh.state[key]
+    for p in path:
+        obj = getattr(obj, p) if isinstance(p, str) else obj[p]
+    out = []
+    for t in obj if isinstance(obj, (tuple, list)) else (obj,):
+        g = all_gather_rows((t.to(torch.uint8) if t.dtype == torch.bool else t).reshape(-1))
+        g = g.reshape((mesh.size,) + tuple(t.shape)).cpu().numpy()
+        out.append(g.astype(bool) if t.dtype == torch.bool else g)
+    return tuple(out)
+
+
+def gather_at(sg, key, *path) -> tuple:
+    """What the ranks of ``sg``'s mesh hold at ``path`` under ``key``, as
+    [D, ...] host arrays."""
+    return sg.mesh.call(gather_tensors, [(key, path)] * sg.num_devices)
