@@ -12,11 +12,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
    example-undirected, BFS, WCC and SSSP on test-{bfs,wcc,sssp}-
    {directed,undirected}, LCC under auto and sweep on its four goldens, and
    SSSP under delta on its four.
-2b. The benchmark harness on cuda:0: BenchmarkSuite over example-directed
-   and example-undirected x six algorithms, once with each job in a child
-   process (job-isolation=subprocess) and once in process; all 12 of each
-   must validate, and each job's makespan prints beside its processing
-   time. A job under fault-injection=hang:bfs must be recorded as a timeout
+2b. The benchmark harness on cuda:0: BenchmarkSuite over six algorithms,
+   on example-directed with each job in a child process
+   (job-isolation=subprocess) and on example-directed and
+   example-undirected in process; all 6 and all 12 must validate, and each
+   job's makespan prints beside its processing time. A job under fault-injection=hang:bfs must be recorded as a timeout
    and killed within its 30 s timeout + 10 s, and the job after it must
    validate. The CLI: `devices` must name the card, `benchmark --config`
    on a copy of config-template/benchmark.properties (PageRank under
@@ -131,8 +131,22 @@ Run from the root of a checkout:  python3 chip_smoke.py
    the twin's and the JAX package's: SSSP's rounds, full and active rounds
    and BFS's levels must equal both, every iteration count but WCC's the
    twin's. Each run prints its warm time, its first time (the host plans'
-   build and install) and the twin's. Then a 2-rank gloo mesh's start is
+   build and install) and the twin's; shard-checkpoints is off there, so
+   that every call builds its plans. Then a 2-rank gloo mesh's start is
    timed and dryrun_multichip(2) runs over it on the CPU.
+9. The sharded checkpoints (shard-checkpoints) on the bench graph over one
+   NCCL rank, with a temporary intermediate directory: PageRank, CDLP and
+   WCC under their defaults (their slab plans pr-pull, cdlp-incidence,
+   wcc-slab) and BFS under dense (the pull partition), each on a fresh
+   sharded graph twice: built and saved, then restored with every builder
+   replaced by a trap. The restored results must equal the saved run's
+   bit for bit (PageRank too) and launch K1, K2, K3, K6 (and K7); each
+   kind's build, save and load seconds, its bytes on disk and its first
+   runs (restored; saved; built, the saved run less its save) print beside
+   the card's name and power limit.
+10. ``python -m graphtpu_torch.bench --scaling`` on cuda in a child process:
+   the JAX scaling line's keys, one row per D in 1, 2, 4, 8 the machine's
+   cards hold (one card: one row), no TPU constant.
 
 Exits non-zero if any phase fails. The last lines of stdout are the
 card's name and power limit, one JSON line of per-kernel results, and
@@ -462,8 +476,12 @@ def phase_harness(device):
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp_name:
         tmp = Path(tmp_name)
-        for mode in ("subprocess", "inprocess"):
-            records, wall = _suite(device, tmp, mode, ALGOS, mode)
+        # a child process a job costs about 10 s of start-up: the subprocess
+        # mode runs the six algorithms on one graph, the in-process mode on two
+        for mode, graphs in (("subprocess", ["example-directed"]),
+                             ("inprocess", ["example-directed", "example-undirected"])):
+            records, wall = _suite(device, tmp, mode, ALGOS, mode, graphs=graphs)
+            jobs = len(graphs) * len(ALGOS)
             good = [r for r in records if r.success and r.validated is True]
             spans = sorted(r.makespan_seconds for r in records)
             summary = json.loads((tmp / mode / "report" / "summary.json").read_text())
@@ -471,8 +489,9 @@ def phase_harness(device):
                   f"makespan per job min {spans[0]} median {spans[len(spans) // 2]} max "
                   f"{spans[-1]} s; processing per job summed "
                   f"{sum(r.processing_time_seconds for r in records):.3f} s", flush=True)
-            check(len(records) == 12 and len(good) == 12, f"suite {mode}: {len(good)}/12 validate")
-            check(summary["platform"] == "graphtpu_torch" and summary["succeeded"] == 12,
+            check(len(records) == jobs and len(good) == jobs,
+                  f"suite {mode}: {len(good)}/{jobs} validate")
+            check(summary["platform"] == "graphtpu_torch" and summary["succeeded"] == jobs,
                   f"suite {mode}: summary {summary}")
 
         records, _ = _suite(device, tmp, "hang", ["bfs", "pr"], "subprocess", HANG_TIMEOUT_S,
@@ -1174,7 +1193,9 @@ def phase_parallel(g, gw, device, smi, real_steps):
     iterations the twin's; BFS's phases and WCC's rounds follow per-rank
     budgets and gates of their own, which tests/test_torch_dist_adaptive.py
     holds against the JAX package's distributed functions. The host plan
-    builds and installs are timed (a first run's extra time). Then
+    builds and installs are timed (a first run's extra time); shard-checkpoints
+    is off here, so that a first run builds its plans in every call
+    (``phase_checkpoint`` measures the checkpoints). Then
     dryrun_multichip(2) over gloo on the CPU. Returns the times, launches and
     step counts."""
     import numpy as np
@@ -1204,7 +1225,7 @@ def phase_parallel(g, gw, device, smi, real_steps):
     for name, (algo, dist_impl, one_impl, needed) in PARALLEL_RUNS.items():
         gr = small if name == "lcc_dist" else gw if algo == "sssp" else g
         cfg = PlatformConfig(device=str(device), intermediate_dir=str(INTERMEDIATE),
-                             num_devices=1, **dist_impl)
+                             num_devices=1, shard_checkpoints=False, **dist_impl)
         secs = []
         for _ in range(2):  # the first run builds the host plans and installs them
             kernels.reset_launch_counts()
@@ -2211,6 +2232,187 @@ SOURCES = {
 }
 
 
+# the checkpointed distributed runs: what each persists -> (algorithm, impl
+# keys, the kernels its restored run must launch); BFS under dense reads the
+# pull partition
+CKPT_RUNS = {
+    "pr-pull": ("pr", {}, ("gather_rows", "slab_spmv_sum")),
+    "cdlp-incidence": ("cdlp", {}, ("gather_rows", "slab_minmode")),
+    "wcc-slab": ("wcc", {}, ("gather_rows", "slab_spmv_min")),
+    "pull": ("bfs", {"bfs_impl": "dense"}, ("csr_pull_reduce",)),
+}
+
+
+@contextlib.contextmanager
+def patched(replacements):
+    """Each (owner, attribute) of ``replacements`` set to its value for the
+    block, then restored."""
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr in replacements]
+    try:
+        for (owner, attr), value in replacements.items():
+            setattr(owner, attr, value)
+        yield
+    finally:
+        for owner, attr, value in saved:
+            setattr(owner, attr, value)
+
+
+def clocked(fn, label, times):
+    """``fn``, adding the seconds of each call to ``times[label]`` (``label``
+    a string, or a function of the call's keyword arguments)."""
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            key = label(kwargs) if callable(label) else label
+            times[key] = times.get(key, 0.0) + time.perf_counter() - t0
+    return wrapper
+
+
+def _tree_bytes(d, skip=()):
+    return sum(f.stat().st_size for f in Path(d).rglob("*")
+               if f.is_file() and not any(part in skip for part in f.parts))
+
+
+def phase_checkpoint(g, device, smi):
+    """The sharded checkpoints (``shard-checkpoints``, parallel/checkpoint.py)
+    on the bench graph over one NCCL rank, through try_run_distributed with
+    num-devices 1 and a temporary intermediate directory: PageRank, CDLP and
+    WCC under their defaults (the slab plans pr-pull, cdlp-incidence,
+    wcc-slab) and BFS under dense (the pull partition). Two passes, each on
+    a fresh ShardedGraph (``purge_sharded`` after each): with nothing saved
+    (built, saved, installed), then with every builder replaced by a trap
+    (restored, installed), then a warm run. The restored results must equal
+    the saved run's bit for bit (PageRank too: the same plan arrays through
+    the same kernels) and the restored
+    runs must launch K1, K2, K3 and K6 (and K7 for BFS). Prints each kind's
+    build, save and load seconds (the functions themselves, timed in
+    place), its bytes on disk, and its first runs' seconds: restored, saved,
+    and built (the saved run's less its save). Returns them."""
+    import numpy as np
+    import torch
+
+    from graphtpu_torch.ops import kernels
+    from graphtpu_torch.parallel import adaptive_wcc, checkpoint, dispatch, slab_cdlp, slab_pr
+    from graphtpu_torch.parallel.mesh import current_mesh, make_mesh
+    from graphtpu_torch.parallel.partition import ShardedGraph
+    from graphtpu_torch.utils.config import AlgorithmParams, PlatformConfig
+
+    params = {"pr": AlgorithmParams(damping_factor=DAMPING, num_iterations=PR_ITERS),
+              "cdlp": AlgorithmParams(max_iterations=CDLP_ITERS), "wcc": AlgorithmParams(),
+              "bfs": AlgorithmParams(source_vertex=0)}
+    builders = {(ShardedGraph, "_pull_of"): "pull",
+                (slab_pr, "build_dist_slab_plan_from"): "pr-pull",
+                (slab_cdlp, "build_dist_slab_plan"): "cdlp-incidence",
+                (adaptive_wcc, "build_dist_slab_plan_from"): "wcc-slab"}
+
+    def trap(*args, **kwargs):
+        raise RuntimeError("checkpoint: a builder ran although a checkpoint was saved")
+
+    def one_pass(tmp, warm=False):
+        make_mesh(1, device)
+        # the group's communicator starts at its first collective: here,
+        # outside the timed runs
+        torch.distributed.all_reduce(torch.zeros(1, device=device))
+        out = {}
+        for kind, (algo, impl, _) in CKPT_RUNS.items():
+            cfg = PlatformConfig(device=str(device), intermediate_dir=tmp, num_devices=1, **impl)
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = dispatch.try_run_distributed(algo, g, params[algo], cfg)
+            secs = time.perf_counter() - t0
+            counts = {k: v for k, v in kernels.launch_counts.items() if v}
+            out[kind] = {"res": res, "s": secs, "launches": counts}
+            if warm:
+                t0 = time.perf_counter()
+                dispatch.try_run_distributed(algo, g, params[algo], cfg)
+                out[kind]["warm_s"] = time.perf_counter() - t0
+        dispatch.purge_sharded(g)
+        return out
+
+    times = {}
+    with tempfile.TemporaryDirectory(prefix="graphtpu-ckpt-") as tmp:
+        with patched({**{k: clocked(getattr(*k), f"build {v}", times)
+                         for k, v in builders.items()},
+                      (checkpoint, "save_plan"): clocked(
+                          checkpoint.save_plan, lambda kw: f"save {kw['kind']}", times),
+                      (checkpoint, "save_pull_named"): clocked(
+                          checkpoint.save_pull_named, "save pull", times)}):
+            saved = one_pass(tmp)
+        shards = Path(tmp) / g.name / "shards-1"
+        check(all(checkpoint.plan_exists(tmp, g.name, 1, k) for k in CKPT_RUNS if k != "pull")
+              and checkpoint.exists(tmp, g.name, 1), "checkpoint: a plan or the pull was not saved")
+        disk = {k: _tree_bytes(shards / f"plan-{k}") for k in CKPT_RUNS if k != "pull"}
+        disk["pull"] = _tree_bytes(shards, skip={f"plan-{k}" for k in CKPT_RUNS})
+        with patched({**{k: trap for k in builders},
+                      (checkpoint, "load_plan"): clocked(
+                          checkpoint.load_plan, lambda kw: f"load {kw['kind']}", times),
+                      (checkpoint, "load_pull_named"): clocked(
+                          checkpoint.load_pull_named, "load pull", times)}):
+            restored = one_pass(tmp, warm=True)
+    check(current_mesh() is None, "checkpoint: the mesh outlived the last sharded graph")
+    report = {}
+    for kind, (algo, _, needed) in CKPT_RUNS.items():
+        b, c = saved[kind], restored[kind]
+        for k in needed:
+            check(c["launches"].get(k, 0) > 0,
+                  f"checkpoint: the restored {algo} run launched no {k}: {c['launches']}")
+        # the same plan arrays and kernels on the same rank: equal bit for bit
+        check(np.array_equal(c["res"].values, b["res"].values),
+              f"checkpoint: the restored {algo} run differs from the saved one")
+        build_s, save_s, load_s = (times[f"{x} {kind}"] for x in ("build", "save", "load"))
+        built_s = b["s"] - save_s  # build, install, run
+        report[kind] = {"build_s": build_s, "save_s": save_s, "load_s": load_s,
+                        "built_first_s": built_s, "saved_first_s": b["s"],
+                        "restored_first_s": c["s"], "warm_s": c["warm_s"],
+                        "launches": c["launches"], "bytes": disk[kind]}
+        print(f"checkpoint {kind} ({algo}, 1 NCCL rank, {smi}): build {build_s:.3f} s, save "
+              f"{save_s:.3f} s ({disk[kind]} B on disk), load {load_s:.3f} s; first run "
+              f"restored {c['s']:.3f} s (load, install, run), built and saved {b['s']:.3f} s, "
+              f"so built {built_s:.3f} s (build, install, run); warm "
+              f"{c['warm_s']:.6f} s; restored equal bit for bit; "
+              f"launches {c['launches']}", flush=True)
+    return report
+
+
+def phase_scaling(smi):
+    """``python -m graphtpu_torch.bench --scaling`` on the cards (NCCL ranks,
+    D up to the cards torch sees) in a child process: its line must hold the
+    JAX scaling line's keys, backend cuda, one row for each D of 1, 2, 4, 8
+    the machine holds, positive rates, the D = 1 row at efficiency 1, and no
+    TPU constant."""
+    import torch
+
+    env = dict(os.environ, GRAPHTPU_SCALING_PLATFORM="cuda", GRAPHTPU_BENCH_REPS="3")
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (str(ROOT), env.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "graphtpu_torch.bench", "--scaling"], cwd=ROOT,
+                          env=env, capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    check(proc.returncode == 0, f"scaling: exit {proc.returncode}: {proc.stderr[-4000:]}")
+    line = proc.stdout.strip().splitlines()[-1]
+    out = json.loads(line)
+    d = out["details"]
+    rows = [n for n in (1, 2, 4, 8) if n <= torch.cuda.device_count()]
+    check(set(out) == {"metric", "value", "unit", "vs_baseline", "details"}
+          and out["metric"] == "pr_scaling_efficiency", f"scaling: keys {sorted(out)}")
+    check({"backend", "graph", "n", "nnz_stored", "note", "table", "projected_2host"} <= set(d)
+          and d["backend"] == "cuda", f"scaling: details {sorted(d)}")
+    check([r["devices"] for r in d["table"]] == rows, f"scaling: rows {d['table']}")
+    for r in d["table"]:
+        check(all(r[k] > 0 for k in ("pr_nnz_per_s", "cdlp_edges_per_s", "bfs_teps")),
+              f"scaling: a rate is not positive: {r}")
+    check(d["table"][0]["pr_efficiency"] == 1.0 and "ici_gbps" not in line,
+          f"scaling: the D = 1 row or a TPU constant: {line}")
+    t = d["table"][0]
+    print(f"scaling ({smi}, {secs:.3f} s): {len(rows)} row(s); D = 1: PR {t['pr_nnz_per_s']:.6e} "
+          f"nnz/s, CDLP {t['cdlp_edges_per_s']:.6e} edges/s, BFS {t['bfs_teps']:.6e} TEPS "
+          f"(rmat s16/ef16, median of 3); {d['note']}", flush=True)
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2293,6 +2495,12 @@ def main() -> int:
     t0 = time.perf_counter()
     parallel = phase_parallel(g, gw, device, smi, real_steps)
     print(f"parallel phase: {time.perf_counter() - t0:.3f} s", flush=True)
+    t0 = time.perf_counter()
+    ckpt = phase_checkpoint(g, device, smi)
+    print(f"checkpoint phase: {time.perf_counter() - t0:.3f} s", flush=True)
+    t0 = time.perf_counter()
+    scaling = phase_scaling(smi)
+    print(f"scaling phase: {time.perf_counter() - t0:.3f} s", flush=True)
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": launches[name],
@@ -2304,7 +2512,8 @@ def main() -> int:
          **{k: res[name][k] for k in ("buckets", "traffic_ms", "call_ms", "call_wall_ms",
                                       "single_pass_ms", "ops_by_design") if k in res[name]}}
         for name in kernels.COUNTERS
-    ], "empty_kernel_ms": empty_ms, "ingest": ingest, "bench": bench, "parallel": parallel}
+    ], "empty_kernel_ms": empty_ms, "ingest": ingest, "bench": bench, "parallel": parallel,
+       "checkpoint": ckpt, "scaling": scaling}
     print(f"chip_smoke total: {time.perf_counter() - t_start:.3f} s", flush=True)
     print(smi)
     print(json.dumps(report))

@@ -13,12 +13,14 @@ collector, validator) and ``python -m graphtpu_torch.cli
 load|run|validate|benchmark|download|devices``, and the GraphBLAS surface
 (``core/spops.py``, ``core/spgemm.py``). ``python -m graphtpu_torch.bench``
 is the benchmark entry point (one JSON line, ``utils/sections.py`` and
-``utils/roofline.py`` under it). ``parallel/`` holds the distributed base:
-rank groups over torch.distributed, row partitions, multi-host launch and
-the naive distributed loops that ``num-devices`` above 1 routes to.
+``utils/roofline.py`` under it; ``--scaling`` prints the distributed
+scaling table). ``parallel/`` holds the distributed layer that
+``num-devices`` above 1 routes to: rank groups over torch.distributed, row
+partitions and the sharded checkpoints that persist them and the slab
+plans (``shard-checkpoints``), multi-host launch, the naive distributed
+loops and the JAX package's default ones (slab, adaptive, wedge).
 
-Its module tree mirrors ``graphtpu/`` (``parallel/``'s slab, adaptive,
-wedge and checkpoint modules are not ported yet). It
+Its module tree mirrors ``graphtpu/``, module for module. It
 imports torch and numpy, never jax, graphtpu or pandas. Every tensor lives
 on the device named by ``PlatformConfig.device``. The hand-written kernels,
 CUDA C++ for sm_90a under ``csrc/``, built at first use

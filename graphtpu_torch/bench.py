@@ -1,8 +1,9 @@
-"""The port's benchmark entry point (counterpart of ``bench.py:main``): prints
-one JSON line.
+"""The port's benchmark entry point (counterpart of ``bench.py:main`` and
+``bench.py:main_scaling``): prints one JSON line.
 
     python -m graphtpu_torch.bench                                # on cuda:0
     GRAPHTPU_BENCH_PLATFORM=cpu GRAPHTPU_BENCH_SCALE=8 python -m graphtpu_torch.bench
+    python -m graphtpu_torch.bench --scaling                      # see run_scaling
 
 Headline metric: CDLP throughput in processed incidence entries per second
 on the bench graph (RMAT scale 20, edge factor 32, undirected, seed 42),
@@ -458,8 +459,115 @@ def run_bench() -> dict:
             "vs_baseline": rate / BASELINE_CDLP_EDGES_PER_S, "details": details}
 
 
+# ------------------------------------------------------------------ scaling
+
+SCALING_DEVICES = (1, 2, 4, 8)  # the first is every efficiency's base
+SCALING_ITERS = 10  # PageRank's iterations and CDLP's itermax, as bench.py's
+# the host NIC's rate (about 100 Gbit/s) that the two-host projection
+# assumes: stated, not measured
+DCN_GBPS = 12.5
+
+
+def run_scaling() -> dict:
+    """The scaling table (``bench.py:main_scaling``): the distributed
+    PageRank (10 iterations), CDLP (10) and BFS (from vertex 0), each under
+    its default loop (``parallel/algorithms.py``), on RMAT
+    GRAPHTPU_SCALING_SCALE / _EDGE_FACTOR (16 / 16, undirected, seed 42)
+    over D ranks for each D of SCALING_DEVICES (1, 2, 4, 8) that the
+    platform holds. GRAPHTPU_SCALING_PLATFORM "cuda" (the default)
+    runs NCCL ranks, one card each from cuda:0, up to the cards torch sees
+    (one card: one row), and exits non-zero without a card; "cpu" runs gloo
+    ranks on this host, which checks shapes and collectives, not speed-up.
+
+    Each row holds the JAX row's keys and formulas: the median seconds of
+    GRAPHTPU_BENCH_REPS timed runs (5) after one warm-up (which builds and
+    installs the plans) as rates, each rate's efficiency against D times
+    the D = 1 row's, the bytes each rank sends a step when it all-gathers
+    its row block (rows_per_dev x (D - 1) x 4) and the share of pull edges
+    whose source row lies on another rank. ``projected_2host`` models two
+    hosts of one card each: a PageRank step's compute at the chip rate
+    (GRAPHTPU_CHIP_NNZ_PER_S, else the D = 1 row's rate) against the
+    all-gather of n/2 float32 over the host NIC at DCN_GBPS."""
+    from graphtpu_torch.parallel import algorithms as dist
+    from graphtpu_torch.parallel.mesh import close_mesh, make_mesh
+    from graphtpu_torch.parallel.partition import ShardedGraph
+    from graphtpu_torch.utils.synth import rmat_graph
+
+    platform = os.environ.get("GRAPHTPU_SCALING_PLATFORM", "cuda")
+    if platform not in ("cuda", "cpu"):
+        raise ValueError(f"GRAPHTPU_SCALING_PLATFORM={platform!r}: cuda or cpu")
+    if platform == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("bench --scaling: GRAPHTPU_SCALING_PLATFORM=cuda, but torch sees no "
+                         "CUDA card (GRAPHTPU_SCALING_PLATFORM=cpu runs gloo ranks)")
+    device = torch.device("cuda:0" if platform == "cuda" else "cpu")
+    _device_ping(device)
+    name, limit = card() if platform == "cuda" else (None, None)
+    scale = _env_int("GRAPHTPU_SCALING_SCALE", 16)
+    edge_factor = _env_int("GRAPHTPU_SCALING_EDGE_FACTOR", 16)
+    reps = _env_int("GRAPHTPU_BENCH_REPS", 5)
+    if reps < 1:
+        raise ValueError(f"GRAPHTPU_BENCH_REPS={reps}: at least 1")
+    avail = torch.cuda.device_count() if platform == "cuda" else max(SCALING_DEVICES)
+    counts = [d for d in SCALING_DEVICES if d <= avail]
+
+    g = rmat_graph(scale, edge_factor, directed=False, seed=42)
+    psrc, pdst, _ = g.pull_arrays()
+    table = []
+    try:
+        for d in counts:
+            sg = ShardedGraph(g, make_mesh(d, device))
+            rows = sg.rows_per_dev
+            edge_cut = float(np.mean((psrc // rows) != (pdst // rows))) if d > 1 else 0.0
+            _, t_pr = timed(lambda: dist.pr_dist(sg, 0.85, SCALING_ITERS), device, reps)
+            (_, it), t_cdlp = timed(lambda: dist.cdlp_dist(sg, SCALING_ITERS), device, reps)
+            _, t_bfs = timed(lambda: dist.bfs_dist(sg, 0), device, reps)
+            table.append({"devices": d,
+                          "pr_nnz_per_s": g.nnz * SCALING_ITERS / t_pr["s"],
+                          "cdlp_edges_per_s": 2 * g.nnz * max(it, 1) / t_cdlp["s"],
+                          "bfs_teps": g.nnz / t_bfs["s"],
+                          "bytes_per_iter_per_dev": rows * (d - 1) * 4,
+                          "edge_cut_frac": edge_cut})
+            sg.release()
+    finally:
+        close_mesh()
+    base = table[0]
+    for row in table:
+        for rate, eff in (("pr_nnz_per_s", "pr_efficiency"),
+                          ("cdlp_edges_per_s", "cdlp_efficiency"), ("bfs_teps", "bfs_efficiency")):
+            row[eff] = row[rate] / (row["devices"] * base[rate])
+
+    chip_rate = float(os.environ.get("GRAPHTPU_CHIP_NNZ_PER_S") or base["pr_nnz_per_s"])
+    t1 = g.nnz / chip_rate
+    t_comp2 = (g.nnz / 2) / chip_rate
+    t_comm2 = (g.n / 2 * 4) / (DCN_GBPS * 1e9)
+    projected = {
+        "model": "2 hosts x 1 card; PR iter = comp(nnz/2 @ chip rate) + "
+                 "host NIC all-gather(n/2 f32)",
+        "chip_nnz_per_s": chip_rate,
+        "chip_rate_from": ("GRAPHTPU_CHIP_NNZ_PER_S" if os.environ.get("GRAPHTPU_CHIP_NNZ_PER_S")
+                           else "the D = 1 row"),
+        "dcn_gbps": DCN_GBPS,
+        "efficiency_no_overlap": t1 / (2 * (t_comp2 + t_comm2)),
+        "efficiency_overlapped": t1 / (2 * max(t_comp2, t_comm2)),
+    }
+    if platform == "cpu":
+        note = "gloo ranks on one host's cores: validates shapes and collectives, not speed-up"
+    elif len(table) == 1:
+        note = "one card: the table holds the D = 1 row only"
+    else:
+        note = f"NCCL ranks, one card each ({len(table)} rows)"
+    top = table[-1]
+    return {"metric": "pr_scaling_efficiency", "value": top["pr_efficiency"],
+            "unit": f"ratio@{top['devices']}dev", "vs_baseline": top["pr_efficiency"] / 0.70,
+            "details": {"backend": device.type, "card": name, "power_limit": limit,
+                        "reps": reps, "graph": f"rmat scale={scale} ef={edge_factor} undirected",
+                        "n": g.n, "nnz_stored": g.nnz, "note": note, "table": table,
+                        "projected_2host": projected}}
+
+
 def main() -> int:
-    print(json.dumps(run_bench()), flush=True)
+    out = run_scaling() if "--scaling" in sys.argv[1:] else run_bench()
+    print(json.dumps(out), flush=True)
     return 0
 
 

@@ -100,13 +100,14 @@ def resolve_buckets(deg: np.ndarray, buckets=None) -> tuple:
 
 
 def bucket_policy_key(buckets) -> list:
-    """Identity of a bucket choice for plan memo keys: explicit bounds
-    verbatim, else the auto policy (the DP-optimal bounds with
-    DEFAULT_BUCKET_COUNT buckets; the JAX package's auto policy also reads
-    two environment knobs, which the port does not have)."""
+    """Identity of a bucket choice for plan memo keys and checkpoint
+    manifests: explicit bounds verbatim, else the auto policy (the
+    DP-optimal bounds with DEFAULT_BUCKET_COUNT buckets) as the JAX
+    package's key names it with its two environment knobs unset (the port
+    has neither), so that each package accepts the other's plans."""
     if buckets is not None:
         return ["explicit", [int(b) for b in buckets]]
-    return ["auto", DEFAULT_BUCKET_COUNT]
+    return ["auto", "", DEFAULT_BUCKET_COUNT]
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:

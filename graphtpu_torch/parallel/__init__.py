@@ -5,7 +5,8 @@ over torch.distributed (``mesh.py``), row-partitioned graphs
 ones and the wrappers (``algorithms.py``), and the JAX package's defaults,
 the slab CDLP and PageRank (``slab_cdlp.py``, ``slab_pr.py``), the
 adaptive BFS, SSSP and WCC (``adaptive_bfs.py``, ``adaptive_sssp.py``,
-``adaptive_wcc.py``) and the oriented-wedge LCC (``wedge_lcc.py``), whose
-host plans ``checkpoint.py`` memoizes. The checkpoints on disk
-(``shard-checkpoints``) are ROADMAP sub-slice 2e.
+``adaptive_wcc.py``) and the oriented-wedge LCC (``wedge_lcc.py``).
+``checkpoint.py`` memoizes the host plans and, under ``shard-checkpoints``,
+saves the partitions and slab plans of a named graph to disk in the JAX
+package's files and restores them on a later run.
 """

@@ -145,7 +145,7 @@ def _build_slab_plan(sg):
         return build_dist_slab_plan_from(dst.astype(np.int64), src.astype(np.int32), sg.n,
                                          sg.num_devices, None)
 
-    return cached_plan(sg, "_dist_wcc_slab_plan", build)
+    return cached_plan(sg, "_dist_wcc_slab_plan", "wcc-slab", build)
 
 
 def wcc_adaptive_dist(sg, cfg=None, with_stats: bool = False):

@@ -7,7 +7,9 @@ one-device path takes, routed as the JAX package routes it
 (``parallel/algorithms.py``): the JAX defaults run the slab, adaptive and
 wedge loops, and ``segment``/``scan``, ``dense``/``device``, ``sort`` and
 ``sweep`` the naive ones. An impl name the port does not know raises
-ValueError, as on one device.
+ValueError, as on one device. With ``shard-checkpoints`` on (the default), a
+named graph's sharded views persist under ``intermediate-dir``
+(``ShardedGraph.ckpt``, ``checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -51,6 +53,8 @@ def _sharded(graph: Graph, cfg: PlatformConfig, wdtype) -> ShardedGraph:
     sg = _sharded_cache.get(key)
     if sg is None or sg.mesh is not mesh:  # a new mesh holds none of the old blocks
         sg = _sharded_cache[key] = ShardedGraph(graph, mesh, wdtype=wdtype)
+        if cfg.shard_checkpoints and getattr(graph, "name", None):
+            sg.ckpt = (cfg.intermediate_dir, graph.name)
     return sg
 
 

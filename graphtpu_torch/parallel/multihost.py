@@ -87,3 +87,23 @@ def is_primary() -> bool:
 def is_multihost() -> bool:
     """True when this process is one of several that ``initialize`` joined."""
     return _initialized and dist.get_world_size() > 1
+
+
+def barrier() -> None:
+    """Wait for every process that ``initialize`` joined; nothing without
+    several."""
+    if is_multihost():
+        dist.barrier()
+
+
+def everywhere(flag: bool) -> bool:
+    """True when ``flag`` holds on every process that ``initialize`` joined
+    (one all-reduce), so that they take one branch together; ``flag``
+    itself without several."""
+    if not is_multihost():
+        return flag
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if dist.get_backend() == "nccl" else torch.device("cpu"))
+    t = torch.tensor([int(flag)], dtype=torch.int32, device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MIN)
+    return bool(t.item())

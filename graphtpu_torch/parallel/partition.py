@@ -10,19 +10,21 @@ package's, array for array: ``_partition_stream`` cuts the same key-sorted
 stream into the same [D, m_pad] blocks (``ROW_ALIGN``, ``EDGE_ALIGN``).
 
 The host builds every block (each process holds the whole Graph, as every
-JAX process does), and each rank keeps only its own block, on its own
-device (``ShardedGraph.pull`` and friends install it once and return the
-key it is kept under; the default loops install their plans the same way,
-through ``ShardedGraph.installed``). A rank's block also carries its pull
-CSR: the valid entries are a prefix of the block and their rows ascend, so
-``src[:count]`` with ``indptr`` over the rank's rows is what the kernels
-take (``count`` is kept on the host, so a step reads nothing back).
+JAX process does), or restores it from a sharded checkpoint when
+``ShardedGraph.ckpt`` is set (``checkpoint.py``), and each rank keeps only
+its own block, on its own device (``ShardedGraph.pull`` and friends
+install it once and return the key it is kept under; the default loops
+install their plans the same way, through ``ShardedGraph.installed``). A
+rank's block also carries its pull CSR: the valid entries are a prefix of
+the block and their rows ascend, so ``src[:count]`` with ``indptr`` over
+the rank's rows is what the kernels take (``count`` is kept on the host,
+so a step reads nothing back).
 """
 
 from __future__ import annotations
 
 import itertools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -153,6 +155,10 @@ class ShardedGraph:
         self.wdtype = np.dtype(wdtype)
         self.key = next(_keys)
         self._installed: set = set()
+        # (intermediate_dir, graph_name): when set, the host partitions and
+        # slab plans are restored from the sharded checkpoints there, and
+        # saved there after a fresh build (``checkpoint.py``)
+        self.ckpt: Optional[tuple] = None
 
     def pad_vector(self, vec: np.ndarray, pad_value) -> np.ndarray:
         out = np.full(self.n_pad, pad_value, dtype=vec.dtype)
@@ -170,11 +176,28 @@ class ShardedGraph:
         )
         return ShardedCOO(cols["src"], dst_local, cols["w"], valid)
 
+    def _persisted_pull(self, graph_fn, suffix: str) -> ShardedCOO:
+        """The pull partition of ``graph_fn()``: with ``ckpt`` set, the one
+        saved under "<name><suffix>" when it fits, else built and saved."""
+        if self.ckpt is None:
+            return self._pull_of(graph_fn())
+        from graphtpu_torch.parallel import checkpoint
+
+        inter, name = self.ckpt
+        coo = checkpoint.load_pull_named(self, inter, name + suffix, graph_fn)
+        if coo is None:
+            graph = graph_fn()
+            coo = self._pull_of(graph)
+            checkpoint.save_pull_named(self, inter, name + suffix, coo, graph)
+        return coo
+
     def pull_host(self) -> ShardedCOO:
-        return self._pull_of(self.graph)
+        return self._persisted_pull(lambda: self.graph, "")
 
     def pull_symmetrized_host(self) -> ShardedCOO:
-        return self._pull_of(self.graph.symmetrized())
+        """The symmetrized structure's pull partition, checkpointed under
+        "<name>-sym" (the largest partition: twice the edges)."""
+        return self._persisted_pull(self.graph.symmetrized, "-sym")
 
     def incidence_host(self) -> ShardedIncidence:
         from graphtpu_torch.algorithms.cdlp import build_incidence

@@ -237,16 +237,16 @@ def _cdlp_body(mesh: Mesh, key, n: int, itermax: int, undirected: bool):
 
 def cdlp_slab_dist(sg, itermax: int, buckets=None):
     """Distributed slab CDLP on a ShardedGraph: (dense-id labels [n] int32,
-    iterations). The plan is built once per bucket choice and installed
-    once."""
+    iterations). The plan is built (or restored from its checkpoint) once
+    per bucket choice and installed once."""
     from graphtpu_torch.parallel.checkpoint import cached_plan
 
     bkey = bucket_policy_key(buckets)
     if getattr(sg, "_dist_slab_buckets", None) != bkey:
         sg._dist_slab_plan = None  # another bucket choice: another plan
         sg.forget("cdlp-slab")
-    plan = cached_plan(sg, "_dist_slab_plan",
-                       lambda: build_dist_slab_plan(sg.graph, sg.num_devices, buckets))
+    plan = cached_plan(sg, "_dist_slab_plan", "cdlp-incidence",
+                       lambda: build_dist_slab_plan(sg.graph, sg.num_devices, buckets), buckets)
     sg._dist_slab_buckets = bkey
     if not plan.bucket_slabs and plan.heavy is None:
         return np.arange(sg.n, dtype=np.int32), 0

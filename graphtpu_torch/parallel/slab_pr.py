@@ -66,7 +66,8 @@ def _pr_body(mesh: Mesh, key, deg_key, damping: float, n: int, iters: int, dtype
 
 def pr_slab_dist(sg, damping: float, num_iterations: int, dtype=np.float32) -> np.ndarray:
     """Distributed slab PageRank on a ShardedGraph: ranks [n] on the host.
-    The pull plan and the out-degrees are installed once."""
+    The pull plan (built, or restored from its checkpoint) and the
+    out-degrees are installed once."""
     from graphtpu_torch.parallel.checkpoint import cached_plan
 
     def build():
@@ -74,7 +75,7 @@ def pr_slab_dist(sg, damping: float, num_iterations: int, dtype=np.float32) -> n
         return build_dist_slab_plan_from(dst.astype(np.int64), src.astype(np.int32), sg.n,
                                          sg.num_devices, None)
 
-    plan = cached_plan(sg, "_dist_pr_plan", build)
+    plan = cached_plan(sg, "_dist_pr_plan", "pr-pull", build)
     key = install_plan(sg, "pr-pull", plan)
     deg = sg.graph.out_degree.astype(np.int32)
     deg_key = sg.installed("out-degree", install_arrays, lambda: [(deg,)] * sg.num_devices)

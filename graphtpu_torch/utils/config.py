@@ -16,8 +16,6 @@ import re
 from pathlib import Path
 from typing import Dict, List, Optional
 
-from graphtpu_torch.utils.logging import get_logger
-
 
 def parse_properties(path: str | os.PathLike) -> Dict[str, str]:
     """Parse a Java .properties file (key = value, # comments)."""
@@ -126,6 +124,10 @@ class PlatformConfig:
     # runs the distributed loops (parallel/dispatch.py), routed by the impl
     # keys as in the JAX package; 0 and 1 run on ``device`` alone
     num_devices: int = 0
+    # under num-devices > 1, persist a named graph's host partitions and slab
+    # plans under intermediate/<graph>/shards-<D>/ and restore them on a later
+    # run instead of rebuilding (parallel/checkpoint.py, the JAX package's files)
+    shard_checkpoints: bool = True
     # PageRank pull sum: "auto"/"slab" = padded-ELL row sums on kernel K3;
     # "scan" (or the JAX package's name "segment") = a segment sum over the
     # pull CSR on kernel K7 (mode sum)
@@ -220,11 +222,6 @@ class PlatformConfig:
         for key, (attr, cast) in _PLATFORM_PROPS.items():
             if key in props:
                 setattr(cfg, attr, cast(props[key]))
-        for key in sorted(_NOT_PORTED_PROPS.intersection(props)):
-            get_logger("config").warning(
-                "%s: key %s is not implemented in graphtpu_torch yet and is ignored "
-                "(the JAX package acts on it)", path, key,
-            )
         return cfg
 
     def to_properties(self, path: str | os.PathLike) -> None:
@@ -248,6 +245,10 @@ _PLATFORM_PROPS = {
     "platform.graphtpu.device": ("device", str),
     "platform.graphtpu.precision": ("precision", str),
     "platform.graphtpu.num-devices": ("num_devices", int),
+    "platform.graphtpu.shard-checkpoints": (
+        "shard_checkpoints",
+        lambda v: str(v).lower() == "true",
+    ),
     "platform.graphtpu.pr-impl": ("pr_impl", str),
     "platform.graphtpu.spmv-impl": ("spmv_impl", str),
     "platform.graphtpu.cdlp-impl": ("cdlp_impl", str),
@@ -286,14 +287,6 @@ _PLATFORM_PROPS = {
     "platform.graphtpu.profile-dir": ("profile_dir", str),
     "platform.graphtpu.fault-injection": ("fault_injection", str),
 }
-
-# platform.graphtpu.* keys the JAX package acts on and the port does not yet:
-# reading one logs a warning, so that the missing behaviour is not silent
-_NOT_PORTED_PROPS = frozenset(
-    "platform.graphtpu." + k for k in (
-        "shard-checkpoints",
-    )
-)
 
 
 @dataclasses.dataclass

@@ -192,3 +192,70 @@ def test_no_card_exits_nonzero_without_a_result(tmp_path):
     assert proc.stdout == ""
     assert "no CUDA card" in proc.stderr
     assert not list(tmp_path.iterdir())  # nothing generated, nothing run
+
+
+# the keys of bench.py:main_scaling's line, its "details" and a table row
+SCALING_DETAILS = {"backend", "graph", "n", "nnz_stored", "note", "table", "projected_2host"}
+SCALING_ROW = {"devices", "pr_nnz_per_s", "cdlp_edges_per_s", "bfs_teps",
+               "bytes_per_iter_per_dev", "edge_cut_frac", "pr_efficiency", "cdlp_efficiency",
+               "bfs_efficiency"}
+
+
+def test_scaling_mode_on_gloo_ranks(monkeypatch):
+    """The scaling mode (``--scaling``, bench.py:main_scaling) with
+    GRAPHTPU_SCALING_PLATFORM=cpu on RMAT scale 8 over 1 and 2 gloo ranks:
+    the JAX line's keys and row keys (plus card, power_limit and reps),
+    bytes_per_iter_per_dev and edge_cut_frac by the JAX formula on the JAX
+    package's ShardedGraph of the same graph, efficiencies against the
+    D = 1 row, and no TPU constant in the line (the chip rate is the
+    D = 1 row's)."""
+    from graphtpu.parallel import ShardedGraph as JShardedGraph
+    from graphtpu.parallel import make_mesh as j_make_mesh
+    from graphtpu.utils.synth import rmat_graph as j_rmat_graph
+
+    src = (REPO / "bench.py").read_text()
+    for k in SCALING_DETAILS | SCALING_ROW:
+        assert re.search(rf'"{k}"', src), k  # each is a key the JAX bench prints
+    for k, v in {"GRAPHTPU_SCALING_PLATFORM": "cpu", "GRAPHTPU_SCALING_SCALE": "8",
+                 "GRAPHTPU_SCALING_EDGE_FACTOR": "8", "GRAPHTPU_BENCH_REPS": "2"}.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setattr(bench, "SCALING_DEVICES", (1, 2))
+    monkeypatch.delenv("GRAPHTPU_CHIP_NNZ_PER_S", raising=False)
+    out = bench.run_scaling()
+    line = json.dumps(out)
+    assert set(out) == {"metric", "value", "unit", "vs_baseline", "details"}
+    assert (out["metric"], out["unit"]) == ("pr_scaling_efficiency", "ratio@2dev")
+    d = out["details"]
+    assert set(d) == SCALING_DETAILS | {"card", "power_limit", "reps"}
+    assert (d["backend"], d["card"], d["reps"]) == ("cpu", None, 2)
+    jg = j_rmat_graph(8, 8, directed=False, seed=42)
+    assert (d["n"], d["nnz_stored"]) == (jg.n, jg.nnz)
+    psrc, pdst, _ = jg.pull_arrays()
+    assert [row["devices"] for row in d["table"]] == [1, 2]
+    for row in d["table"]:
+        assert set(row) == SCALING_ROW
+        D = row["devices"]
+        rows = JShardedGraph(jg, j_make_mesh(D)).rows_per_dev
+        assert row["bytes_per_iter_per_dev"] == rows * (D - 1) * 4
+        assert row["edge_cut_frac"] == (
+            float(np.mean((psrc // rows) != (pdst // rows))) if D > 1 else 0.0)
+        for rate, eff in (("pr_nnz_per_s", "pr_efficiency"),
+                          ("cdlp_edges_per_s", "cdlp_efficiency"), ("bfs_teps", "bfs_efficiency")):
+            assert row[rate] > 0
+            assert row[eff] == pytest.approx(row[rate] / (D * d["table"][0][rate]))
+    assert out["value"] == d["table"][-1]["pr_efficiency"]
+    p = d["projected_2host"]
+    assert p["chip_nnz_per_s"] == d["table"][0]["pr_nnz_per_s"] and p["dcn_gbps"] == 12.5
+    assert "ici_gbps" not in line and "3.7e8" not in line and "370000000" not in line
+    assert "45.0" not in line
+
+
+def test_scaling_without_a_card_exits_nonzero(tmp_path):
+    env = {k: v for k, v in os.environ.items() if not k.startswith("GRAPHTPU_SCALING_")}
+    env.update(CUDA_VISIBLE_DEVICES="", GRAPHTPU_SCALING_SCALE="6",
+               PYTHONPATH=os.pathsep.join(p for p in (str(REPO), env.get("PYTHONPATH")) if p))
+    proc = subprocess.run([sys.executable, "-m", "graphtpu_torch.bench", "--scaling"],
+                          capture_output=True, text=True, cwd=tmp_path, env=env, timeout=300)
+    assert proc.returncode != 0
+    assert proc.stdout == ""
+    assert "no CUDA card" in proc.stderr

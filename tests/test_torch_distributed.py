@@ -145,7 +145,7 @@ def test_traversals_match_jax_bit_for_bit(ranks, graphs):
 
 
 @pytest.mark.parametrize("name", ["example-directed", "example-undirected"])
-def test_dispatch_all_six(ranks, name, monkeypatch):
+def test_dispatch_all_six(ranks, name, monkeypatch, tmp_path):
     """run_algorithm under num-devices = D with the naive impls routes every
     algorithm through try_run_distributed (the one-device functions are
     replaced by a trap) and validates the example goldens."""
@@ -153,7 +153,8 @@ def test_dispatch_all_six(ranks, name, monkeypatch):
     g = _twin(j_load(JSpec.from_properties(FIXTURES / f"{name}.properties"), use_cache=False))
     for algo in tcommon.ALGORITHMS:
         monkeypatch.setitem(tcommon.ALGORITHMS, algo, _one_device_trap)
-    cfg = PlatformConfig(device="cpu", num_devices=ranks, precision="float64", **NAIVE)
+    cfg = PlatformConfig(device="cpu", num_devices=ranks, precision="float64",
+                         intermediate_dir=str(tmp_path), **NAIVE)
     for algo in tspec.algorithms:
         res = run_algorithm(algo, g, tspec.params.get(algo), cfg)
         ok, msg = validate_result(res, g, str(FIXTURES / f"{name}-{SUFFIX[algo]}"))
@@ -364,24 +365,35 @@ def test_dryrun_multichip():
 def test_multihost_environment_joins_two_processes(tmp_path):
     """Two processes with GRAPHTPU_COORDINATOR, GRAPHTPU_NUM_PROCESSES and
     GRAPHTPU_PROCESS_ID form one group (gloo), and run_algorithm's naive BFS
-    runs over it; each process's levels validate."""
+    runs over it; each process's levels validate. Each process writes its
+    own rank's shard of the pull partition's checkpoint (shard-checkpoints
+    is on by default) and the primary the manifest, leaving no temporary
+    file; a run on a fresh copy of the graph restores the partition on both
+    processes (the builder is a trap) and validates again."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     code = (
         "import sys\n"
-        "from graphtpu_torch.parallel import multihost\n"
+        "from graphtpu_torch.parallel import checkpoint, multihost, partition\n"
         "from graphtpu_torch.algorithms.common import run_algorithm\n"
         "from graphtpu_torch.harness.validator import validate_result\n"
         "from graphtpu_torch.ingest.loader import load_graph_from_spec\n"
         "from graphtpu_torch.utils.config import GraphSpec, PlatformConfig\n"
         f"spec = GraphSpec.from_properties({str(FIXTURES / 'example-directed.properties')!r})\n"
         "assert multihost.initialize('cpu') and multihost.is_multihost()\n"
+        "written, write_npz = [], checkpoint._write_npz\n"
+        "checkpoint._write_npz = lambda p, **a: (written.append((p, a)), write_npz(p, **a))\n"
         "g = load_graph_from_spec(spec, use_cache=False)\n"
         "cfg = PlatformConfig(device='cpu', num_devices=2, bfs_impl='dense')\n"
         "res = run_algorithm('bfs', g, spec.params['bfs'], cfg)\n"
         f"ok, msg = validate_result(res, g, {str(FIXTURES / 'example-directed-BFS')!r})\n"
-        "print('primary' if multihost.is_primary() else 'secondary', ok, msg)\n"
+        "wrote = [p.name for p, _ in written]\n"
+        "partition.ShardedGraph._pull_of = lambda *a: sys.exit('rebuilt')\n"
+        "g2 = load_graph_from_spec(spec, use_cache=False)\n"
+        "res2 = run_algorithm('bfs', g2, spec.params['bfs'], cfg)\n"
+        f"ok2, msg2 = validate_result(res2, g2, {str(FIXTURES / 'example-directed-BFS')!r})\n"
+        "print('primary' if multihost.is_primary() else 'secondary', ok, ok2, wrote, msg, msg2)\n"
     )
     env = dict(os.environ, GRAPHTPU_COORDINATOR=f"127.0.0.1:{port}", GRAPHTPU_NUM_PROCESSES="2",
                GRAPHTPU_NATIVE_LIB=os.devnull,
@@ -393,5 +405,7 @@ def test_multihost_environment_joins_two_processes(tmp_path):
     outs = [p.communicate(timeout=240) for p in procs]
     for p, (out, err) in zip(procs, outs):
         assert p.returncode == 0, err
-    assert outs[0][0].splitlines()[-1].startswith("primary True")
-    assert outs[1][0].splitlines()[-1].startswith("secondary True")
+    assert outs[0][0].splitlines()[-1].startswith("primary True True ['shard-0.npz']")
+    assert outs[1][0].splitlines()[-1].startswith("secondary True True ['shard-1.npz']")
+    d = tmp_path / "intermediate" / "example-directed" / "shards-2"
+    assert sorted(f.name for f in d.iterdir()) == ["manifest.json", "shard-0.npz", "shard-1.npz"]

@@ -1335,3 +1335,95 @@ def test_default_distributed_loops_over_every_card(cuda, tmp_path):
                 np.testing.assert_array_equal(res.values, one.values, err_msg=algo)
         dispatch.purge_sharded(g)
     assert current_mesh() is None
+
+
+def test_checkpoints_save_and_restore_over_every_card(cuda, tmp_path, monkeypatch):
+    """shard-checkpoints over one NCCL rank a card (every card of the
+    machine, one included): a named RMAT s14 graph's first distributed
+    PageRank, CDLP, WCC and dense BFS save the slab plans and the pull
+    partition; a freshly loaded twin restores them with every builder
+    replaced by a trap, launches K1, K2, K3, K6 and K7 on them, and equals
+    the first run bit for bit (PageRank within 1e-12 relative in
+    float64)."""
+    import dataclasses
+
+    from graphtpu_torch.core.graph import Graph
+    from graphtpu_torch.parallel import adaptive_wcc, checkpoint, dispatch, slab_cdlp, slab_pr
+    from graphtpu_torch.parallel.mesh import current_mesh
+    from graphtpu_torch.parallel.partition import ShardedGraph
+    from graphtpu_torch.utils.config import AlgorithmParams, PlatformConfig
+    from graphtpu_torch.utils.synth import rmat_graph
+
+    cards = torch.cuda.device_count()
+    src = rmat_graph(14, 16, directed=True, seed=5)
+    params = AlgorithmParams(source_vertex=0, damping_factor=0.85, num_iterations=10,
+                             max_iterations=10)
+    cfg = PlatformConfig(device="cuda:0", num_devices=cards, precision="float64",
+                         intermediate_dir=str(tmp_path))
+    runs = (("pr", {}, ("gather_rows", "slab_spmv_sum")),
+            ("cdlp", {}, ("gather_rows", "slab_minmode")),
+            ("wcc", {}, ("gather_rows", "slab_spmv_min")),
+            ("bfs", {"bfs_impl": "dense"}, ("csr_pull_reduce",)))
+
+    def fresh():
+        g = Graph.from_arrays(src.n, src.src, src.dst, None, src.mapping, True, False)
+        g.name = "ckpt-s14"
+        return g
+
+    def run_all(g):
+        out = []
+        for algo, impl, needed in runs:
+            kernels.reset_launch_counts()
+            res = dispatch.try_run_distributed(algo, g, params, dataclasses.replace(cfg, **impl))
+            for k in needed:
+                assert kernels.launch_counts[k] > 0, (algo, k)
+            out.append(res.values)
+        dispatch.purge_sharded(g)
+        return out
+
+    first = run_all(fresh())
+    for kind in ("pr-pull", "cdlp-incidence", "wcc-slab"):
+        assert checkpoint.plan_exists(tmp_path, "ckpt-s14", cards, kind), kind
+    assert checkpoint.exists(tmp_path, "ckpt-s14", cards)
+
+    def trap(*args, **kwargs):
+        raise AssertionError("rebuilt despite a saved checkpoint")
+
+    monkeypatch.setattr(ShardedGraph, "_pull_of", trap)
+    for mod in (slab_cdlp, slab_pr, adaptive_wcc):
+        monkeypatch.setattr(mod, "build_dist_slab_plan_from", trap)
+    monkeypatch.setattr(slab_cdlp, "build_dist_slab_plan", trap)
+    second = run_all(fresh())
+    np.testing.assert_allclose(second[0], first[0], rtol=1e-12, atol=0)
+    for a, b in zip(second[1:], first[1:]):
+        np.testing.assert_array_equal(a, b)
+    assert current_mesh() is None
+
+
+def test_scaling_mode_on_the_cards(cuda):
+    """``python -m graphtpu_torch.bench --scaling`` on cuda (the default
+    platform) at RMAT s12: one row per D in 1, 2, 4, 8 that the machine's
+    cards hold, positive rates, the card's name, no TPU constant."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    env = {k: v for k, v in os.environ.items() if not k.startswith("GRAPHTPU_SCALING_")}
+    env.update(GRAPHTPU_SCALING_SCALE="12", GRAPHTPU_BENCH_REPS="2",
+               PYTHONPATH=os.pathsep.join(p for p in (str(root), env.get("PYTHONPATH")) if p))
+    proc = subprocess.run([sys.executable, "-m", "graphtpu_torch.bench", "--scaling"],
+                          capture_output=True, text=True, cwd=root, env=env, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    line = proc.stdout.strip().splitlines()[-1]
+    out = json.loads(line)
+    d = out["details"]
+    assert out["metric"] == "pr_scaling_efficiency" and d["backend"] == "cuda"
+    assert d["card"] == torch.cuda.get_device_name(0)
+    assert [r["devices"] for r in d["table"]] == [
+        n for n in (1, 2, 4, 8) if n <= torch.cuda.device_count()]
+    assert all(r[k] > 0 for r in d["table"] for k in ("pr_nnz_per_s", "cdlp_edges_per_s",
+                                                       "bfs_teps"))
+    assert d["table"][0]["pr_efficiency"] == 1.0 and "ici_gbps" not in line

@@ -185,7 +185,7 @@ def test_port_imports_no_jax_graphtpu_or_pandas():
         "          'ingest.native', 'ingest.mm', 'ingest.download', 'core.spops',\n"
         "          'core.spgemm', 'bench', 'utils.sections', 'utils.roofline',\n"
         "          'parallel.mesh', 'parallel.partition', 'parallel.multihost',\n"
-        "          'parallel.algorithms', 'parallel.dispatch'):\n"
+        "          'parallel.algorithms', 'parallel.dispatch', 'parallel.checkpoint'):\n"
         "    assert 'graphtpu_torch.' + m in mods, m\n"
         "assert not bad, bad\n"
     )
@@ -196,13 +196,15 @@ def test_port_imports_no_jax_graphtpu_or_pandas():
 
 def test_package_docstring_names_what_the_port_holds():
     """The package's docstring names the six algorithms, the harness, the
-    ingest, the GraphBLAS surface and every hand kernel K1-K11 by name."""
+    ingest, the GraphBLAS surface, the sharded checkpoints, the scaling
+    mode and every hand kernel K1-K11 by name."""
     import graphtpu_torch
     from graphtpu_torch.ops import kernels
 
     doc = " ".join(graphtpu_torch.__doc__.split())
     for words in ("PageRank", "CDLP", "BFS", "WCC", "SSSP", "LCC", "harness", "ingest",
-                  "GraphBLAS", "core/spops.py", "core/spgemm.py"):
+                  "GraphBLAS", "core/spops.py", "core/spgemm.py", "sharded checkpoints",
+                  "shard-checkpoints", "--scaling", "module for module"):
         assert words in doc, words
     for k, name in enumerate(kernels.KERNELS, start=1):
         assert f"K{k} {name}" in doc, name

@@ -199,41 +199,45 @@ class _Records(logging.Handler):
 
 
 def test_platform_keys_not_ported_yet_log_a_warning(tmp_path):
-    """A key the JAX package acts on and the port does not yet logs one
-    warning each; the keys the port reads, num-devices, sssp-delta, lcc-impl, the four
-    the harness's port brought (spmv-impl, skip-convergence-checks,
-    profile-dir, fault-injection) and the hybrids' two thresholds among
-    them, parse as in the JAX package and log nothing."""
-    not_ported = {"shard-checkpoints": "false"}
-    ported = {"num-devices": "4", "sssp-delta": "0.5", "lcc-impl": "sweep", "sssp-impl": "delta",
+    """No key the JAX package acts on is left unported, so none logs a
+    warning: shard-checkpoints (the last one ported), num-devices,
+    sssp-delta, lcc-impl, the four the harness's port brought (spmv-impl,
+    skip-convergence-checks, profile-dir, fault-injection) and the
+    hybrids' two thresholds parse as in the JAX package and log nothing."""
+    ported = {"shard-checkpoints": "false", "num-devices": "4", "sssp-delta": "0.5",
+              "lcc-impl": "sweep", "sssp-impl": "delta",
               "intermediate-dir": "x", "no-such-key": "1", "spmv-impl": "slab",
               "skip-convergence-checks": "3", "profile-dir": "/tmp/p",
               "fault-injection": "hang:bfs", "bfs-active-threshold": "0.2",
               "sssp-active-threshold": "0.3"}
     props = tmp_path / "platform.properties"
-    props.write_text("".join(f"platform.graphtpu.{k} = {v}\n"
-                             for k, v in {**not_ported, **ported}.items()))
+    props.write_text("".join(f"platform.graphtpu.{k} = {v}\n" for k, v in ported.items()))
     handler = _Records()
-    logger = logging.getLogger("graphtpu_torch.config")
+    logger = logging.getLogger("graphtpu_torch")
     logger.addHandler(handler)
     try:
         got = PlatformConfig.from_properties(props)
     finally:
         logger.removeHandler(handler)
     want = JConfig.from_properties(props)
-    for attr in ("num_devices", "sssp_delta", "lcc_impl", "sssp_impl", "intermediate_dir", "spmv_impl",
-                 "skip_convergence_checks", "profile_dir", "fault_injection",
-                 "bfs_active_threshold", "sssp_active_threshold"):
+    for attr in ("shard_checkpoints", "num_devices", "sssp_delta", "lcc_impl", "sssp_impl",
+                 "intermediate_dir", "spmv_impl", "skip_convergence_checks", "profile_dir",
+                 "fault_injection", "bfs_active_threshold", "sssp_active_threshold"):
         assert getattr(got, attr) == getattr(want, attr), attr
-    assert (PlatformConfig().sssp_delta, PlatformConfig().lcc_impl) == \
-        (JConfig().sssp_delta, JConfig().lcc_impl) == (2.5, "auto")
-    assert len(handler.messages) == len(not_ported)
-    for key in not_ported:
-        assert sum(f"platform.graphtpu.{key} " in m for m in handler.messages) == 1, key
-    # each of them is a key the JAX package knows
+    assert got.shard_checkpoints is False
+    assert (PlatformConfig().sssp_delta, PlatformConfig().lcc_impl,
+            PlatformConfig().shard_checkpoints) == \
+        (JConfig().sssp_delta, JConfig().lcc_impl, JConfig().shard_checkpoints) == \
+        (2.5, "auto", True)
+    # "True" as the JAX package reads it (any case), anything else False
+    for text, value in (("True", True), ("TRUE", True), ("yes", False)):
+        props.write_text(f"platform.graphtpu.shard-checkpoints = {text}\n")
+        assert PlatformConfig.from_properties(props).shard_checkpoints is \
+            JConfig.from_properties(props).shard_checkpoints is value, text
+    assert not handler.messages, handler.messages
+    # the port reads every key the JAX package knows
     from graphtpu.utils.config import _PLATFORM_PROPS as J_PROPS
-    from graphtpu_torch.utils.config import _NOT_PORTED_PROPS, _PLATFORM_PROPS
+    from graphtpu_torch.utils import config as tconfig
 
-    assert _NOT_PORTED_PROPS == {"platform.graphtpu.shard-checkpoints"}
-    assert _NOT_PORTED_PROPS <= set(J_PROPS)
-    assert _NOT_PORTED_PROPS | set(_PLATFORM_PROPS) >= set(J_PROPS)
+    assert set(tconfig._PLATFORM_PROPS) >= set(J_PROPS)
+    assert not hasattr(tconfig, "_NOT_PORTED_PROPS")
