@@ -45,7 +45,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
    and SSSP distances are fixed points of their relaxations. Each
    kernel-path run is profiled (top device ops, idle share, named ranges).
 4. Launch counts: each path runs with the counts set to 0 just before it
-   and read just after; every kernel of a path must have launched in it,
+   and read just after; every kernel of a path must have launched in it
+   (CDLP auto and slab: K12 on the heavy rows and the tier steps, K7 on
+   iteration 0's heavy rows; BFS auto: K13 in its bottom-up steps),
    and PageRank under scan must launch K7 in mode sum 20 times a run and
    nothing else.
    vreg_shuffle has no path in the system, and no LCC path launches
@@ -72,15 +74,19 @@ Run from the root of a checkout:  python3 chip_smoke.py
    edges over many blocks, runs of empty rows and an edgeless CSR by hand),
    against one CSR product (cuSPARSE); K5 at the CDLP tier and at BFS's top tier with a
    frontier that fills it; both run twice on the same inputs and must give
-   the same bits. K9 runs at 2^22 probes drawn from the benchmark graph's
-   wedge plan (half present pairs, half random ones), binned by partitions
-   of the table sized from the card's L2 (three launches a call: histogram,
-   scatter, probe; the single pass over the caller's order is timed and
-   held beside it), K10 per bucket and
-   over all buckets of that plan, both twice for the same bits (K10's
-   bound counts merge steps: the wedges plus the out-list entries its
-   search reads). A kernel
-   that returns at once gives the floor under the launch-sized rows.
+   the same bits. K12 (segment_minmode) runs at the bench CDLP plan's heavy
+   rows in gather mode (the labels after iteration 0) and in identity mode,
+   and at a CDLP auto run's largest tier step (its stream taken from the
+   run), K13 (bfs_trunc_probe) at BFS auto's first bottom-up step (taken
+   from a run); each twice, bit for bit against its plain version. K9 runs
+   at 2^22 probes drawn from the benchmark graph's wedge plan (half present
+   pairs, half random ones), binned by partitions of the table sized from
+   the card's L2 (three launches a call: histogram, scatter, probe; the
+   single pass over the caller's order is timed and held beside it), K10
+   per bucket and over all buckets of that plan, both twice for the same
+   bits (K10's bound counts merge steps: the wedges plus the out-list
+   entries its search reads). A kernel that returns at once gives the
+   floor under the launch-sized rows.
 5b. K11 masked_spgemm: against its plain version on the card for each add
    monoid (plus.times, min.plus, max.second, lor.land) and each value type
    (float32, float64, int32, structural) on RMAT scale 14 (A its oriented
@@ -127,7 +133,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
    and SSSP from vertex 0, slab-adaptive WCC, oriented LCC on phase 3's
    wedge plan). Each is bit for bit equal to run_algorithm's one-device
    twin (PageRank within 1e-4 relative), and each run's launch counts show
-   the kernels its rank routes to. The defaults' step counts print beside
+   the kernels its rank routes to (K12 in the sort and slab CDLP, K13 in the
+   adaptive BFS). The defaults' step counts print beside
    the twin's and the JAX package's: SSSP's rounds, full and active rounds
    and BFS's levels must equal both, every iteration count but WCC's the
    twin's. Each run prints its warm time, its first time (the host plans'
@@ -181,7 +188,7 @@ JAX_STEPS = {
 }
 RANGES = ("cdlp.", "bfs.", "wcc.", "sssp.")  # the named profiler ranges of the loops
 # device kernel names (substrings of the profiler's keys) -> the wrappers whose
-# every launch runs exactly one such kernel (K9 and K11 launch several a call)
+# every launch runs exactly one such kernel (K9, K11 and K12 launch several a call)
 TRACE_KERNELS = {
     ("gather_scalar_kernel", "gather_row_kernel"): ("gather_rows",),
     ("minmode_small_kernel", "minmode_wide_kernel"): ("slab_minmode",),
@@ -194,6 +201,8 @@ TRACE_KERNELS = {
      "k9_single_kernel"): ("edgehash_probe",),
     ("wedge_rowblock_kernel",): ("wedge_rowblock",),
     ("k11_warp_kernel", "k11_block_kernel"): ("masked_spgemm",),
+    ("k12_warp_kernel", "k12_block_kernel"): ("segment_minmode",),
+    ("k13_probe_kernel",): ("bfs_trunc_probe",),
 }
 TRACE_KERNELS_OF = {name: pats for pats, names in TRACE_KERNELS.items() for name in names}
 TRACE_TRIES = 5  # traces taken before a kernel count that stays wrong fails the run
@@ -576,11 +585,14 @@ def timed_run(algo, g, params, cfg, reps=RUNS_PER_PATH - 1):
 # the main paths at real size: name -> (algorithm, config, kernels it must launch)
 PATHS = {
     "cdlp-auto": ("cdlp", {"cdlp_impl": "auto"},
-                  ("gather_rows", "slab_minmode", "frontier_expand")),
-    "cdlp-slab": ("cdlp", {"cdlp_impl": "slab"}, ("gather_rows", "slab_minmode")),
+                  ("gather_rows", "slab_minmode", "frontier_expand", "segment_minmode",
+                   "csr_pull_reduce")),
+    "cdlp-slab": ("cdlp", {"cdlp_impl": "slab"},
+                  ("gather_rows", "slab_minmode", "segment_minmode", "csr_pull_reduce")),
     "pr": ("pr", {}, ("gather_rows", "slab_spmv_sum")),
     "pr-scan": ("pr", {"pr_impl": "scan"}, ("csr_pull_reduce_sum",)),
-    "bfs-auto": ("bfs", {"bfs_impl": "auto"}, ("gather_rows", "frontier_expand")),
+    "bfs-auto": ("bfs", {"bfs_impl": "auto"},
+                 ("gather_rows", "frontier_expand", "bfs_trunc_probe")),
     "bfs-device": ("bfs", {"bfs_impl": "device"}, ("csr_pull_reduce",)),
     "bfs-hybrid": ("bfs", {"bfs_impl": "hybrid"}, ("csr_pull_reduce",)),
     "wcc-auto": ("wcc", {"wcc_impl": "auto"}, ("slab_spmv_min", "frontier_expand")),
@@ -1141,13 +1153,14 @@ PARALLEL_RUNS = {
                   ("csr_pull_reduce",)),
     "wcc_dist": ("wcc", {"wcc_impl": "dense"}, {"wcc_impl": "device"},
                  ("csr_pull_reduce", "gather_rows")),
-    "cdlp_dist": ("cdlp", {"cdlp_impl": "sort"}, {"cdlp_impl": "sort"}, ("gather_rows",)),
+    "cdlp_dist": ("cdlp", {"cdlp_impl": "sort"}, {"cdlp_impl": "sort"}, ("segment_minmode",)),
     "lcc_dist": ("lcc", {"lcc_impl": "sweep"}, {"lcc_impl": "sweep"}, ("gather_rows",)),
     "pr_slab_dist": ("pr", {"pr_impl": "slab"}, {"pr_impl": "slab"},
                      ("gather_rows", "slab_spmv_sum")),
-    "cdlp_slab_dist": ("cdlp", {"cdlp_impl": "slab"}, {"cdlp_impl": "slab"}, ("slab_minmode",)),
+    "cdlp_slab_dist": ("cdlp", {"cdlp_impl": "slab"}, {"cdlp_impl": "slab"},
+                       ("slab_minmode", "segment_minmode", "csr_pull_reduce")),
     "bfs_adaptive_dist": ("bfs", {"bfs_impl": "adaptive"}, {"bfs_impl": "adaptive"},
-                          ("frontier_expand", "gather_rows")),
+                          ("frontier_expand", "gather_rows", "bfs_trunc_probe")),
     "sssp_adaptive_dist": ("sssp", {"sssp_impl": "adaptive"}, {"sssp_impl": "adaptive"},
                            ("frontier_expand", "push_relax_min", "csr_pull_reduce")),
     "wcc_adaptive_dist": ("wcc", {"wcc_impl": "auto"}, {"wcc_impl": "auto"},
@@ -1547,7 +1560,100 @@ def phase_kernels(g, prep, pr_plan, device):
         library=None,  # no single call: a scatter, a cummax and three gathers
     )
 
+    res.update(k12_k13(g, prep, lab1, bprep, device))
     return res
+
+
+def _captured(owner, attr, fn):
+    """Run fn() with ``owner.attr`` replaced by a wrapper that keeps the
+    positional arguments of each call (tensors cloned); returns them."""
+    calls = []
+    real = getattr(owner, attr)
+
+    def keep(*args, **kwargs):
+        calls.append(tuple(a.clone() if hasattr(a, "clone") else a for a in args))
+        return real(*args, **kwargs)
+
+    with patched({(owner, attr): keep}):
+        fn()
+    check(calls, f"{attr} was not called")
+    return calls
+
+
+def k12_k13(g, prep, lab1, bprep, device):
+    """K12 (segment_minmode) at the shapes of the CDLP paths: the heavy rows
+    of a full step (gather mode, the labels after iteration 0), one CDLP
+    auto tier step (the stream of a run's largest one, as the loop builds
+    it) and
+    the heavy rows in identity mode (iteration 0 on a directed graph); K13
+    (bfs_trunc_probe) at BFS auto's first bottom-up step (its arguments
+    taken from a run). Each is held bit for bit against its plain version,
+    twice. No single PyTorch call computes either: no library time."""
+    import torch
+
+    from graphtpu_torch.algorithms import bfs as bfs_mod
+    from graphtpu_torch.algorithms.bfs import bfs_adaptive_run
+    from graphtpu_torch.ops import active
+    from graphtpu_torch.ops.frontier import bfs_trunc_probe, bfs_trunc_probe_plain
+    from graphtpu_torch.ops.minmode import stream_minmode, stream_minmode_plain
+    from graphtpu_torch.utils.config import PlatformConfig
+
+    n, plan = g.n, prep.plan
+    cfg = PlatformConfig(device=str(device))
+    heavy = (plan.heavy_centers, plan.heavy_neigh, plan.heavy_indptr)
+    tiers = _captured(
+        active, "stream_minmode",
+        lambda: active.cdlp_adaptive_device_run(g, None, None, prep.deg_pad[:-1].cpu().numpy(),
+                                                CDLP_ITERS, cfg, prep=prep))
+    t_labels, *tier = max(tiers, key=lambda a: int(a[3][-1]))  # the most real edges
+    shapes = {"heavy": (lab1, heavy, False), "tier": (t_labels, tuple(tier), False),
+              "identity": (None, heavy, True)}
+    times = {}
+    for what, (labels, (centers, neigh, indptr), identity) in shapes.items():
+        got = stream_minmode(labels, centers, neigh, indptr, identity)
+        again = stream_minmode(labels, centers, neigh, indptr, identity)
+        want = stream_minmode_plain(labels, centers, neigh, indptr, identity)
+        check(torch.equal(got, want), f"segment_minmode ({what}) differs from its plain version")
+        check(torch.equal(got, again), f"segment_minmode ({what}): two runs differ")
+        h, m, real = indptr.shape[0] - 1, neigh.shape[0], int(indptr[-1])
+        times[what] = dict(
+            times=(cuda_ms(lambda: stream_minmode(labels, centers, neigh, indptr, identity)),
+                   cuda_ms(lambda: stream_minmode_plain(labels, centers, neigh, indptr,
+                                                        identity))),
+            # neigh and indptr read once, the labels once (gather mode), a
+            # result a segment; a count per entry
+            bytes=4 * (real + (h + 1) + h + (0 if identity else n)), ops=real,
+            shape=(f"{what}: {h} segments, {real} entries"
+                   + (f" (+ {m - real} pad slots in no segment)" if m > real else "")
+                   + (", identity mode" if identity else ", gather mode")))
+    main = times.pop("heavy")
+    k12 = dict(max_abs_err=0.0, library=None,  # none: a sort, a run-length pass, a scatter-max
+               other_shapes=list(times.values()), **main)
+    print(f"segment_minmode = plain, twice the same bits, at the heavy rows, a CDLP auto tier "
+          f"and identity mode ({k12['other_shapes'][0]['shape']})", flush=True)
+
+    t_trunc = bfs_mod.BFS_TRUNC
+    (levels, level, trunc, pdeg, t), *_ = _captured(
+        bfs_mod, "bfs_trunc_probe", lambda: bfs_adaptive_run(g, 0, cfg))
+    check((trunc.shape[0], t) == (t_trunc * n, t_trunc), "bfs_trunc_probe: not BFS's shape")
+    got = bfs_trunc_probe(levels, level, trunc, pdeg, t)
+    again = bfs_trunc_probe(levels, level, trunc, pdeg, t)
+    want = bfs_trunc_probe_plain(levels, level, trunc, pdeg, t)
+    for a, a2, b, name in zip(got, again, want, ("claim", "resid")):
+        check(torch.equal(a, b), f"bfs_trunc_probe {name} differs from its plain version")
+        check(torch.equal(a, a2), f"bfs_trunc_probe {name}: two runs differ")
+    frontier = int((levels == level).sum())
+    k13 = dict(
+        max_abs_err=0.0, library=None,  # none: a gather, an any over t, two masks
+        times=(cuda_ms(lambda: bfs_trunc_probe(levels, level, trunc, pdeg, t)),
+               cuda_ms(lambda: bfs_trunc_probe_plain(levels, level, trunc, pdeg, t))),
+        shape=(f"BFS auto's first bottom-up step: n = {n}, t = {t}, level {level}, frontier "
+               f"{frontier}, {int(got[0].sum())} claimed, {int(got[1].sum())} residual"),
+        # levels once, the table, pdeg; two bool masks; a compare per probe
+        bytes=4 * n + 4 * t * n + 4 * n + 2 * n, ops=t * n,
+    )
+    print(f"bfs_trunc_probe = plain, twice the same bits ({k13['shape']})", flush=True)
+    return {"segment_minmode": k12, "bfs_trunc_probe": k13}
 
 
 def phase_traversal_kernels(g, gw, device):
@@ -2229,6 +2335,9 @@ SOURCES = {
     "edgehash_probe": ("graphtpu_torch/csrc/edgehash_probe.cu", "graphtpu/ops/edgehash.py:159"),
     "wedge_rowblock": ("graphtpu_torch/csrc/wedge_rowblock.cu", "graphtpu/ops/triangles.py:555"),
     "masked_spgemm": ("graphtpu_torch/csrc/masked_spgemm.cu", "graphtpu/core/spgemm.py:146"),
+    "segment_minmode": ("graphtpu_torch/csrc/segment_minmode.cu", "graphtpu/ops/minmode.py:77"),
+    "bfs_trunc_probe": ("graphtpu_torch/csrc/bfs_trunc_probe.cu",
+                        "graphtpu/algorithms/bfs.py:213"),
 }
 
 
@@ -2237,7 +2346,7 @@ SOURCES = {
 # pull partition
 CKPT_RUNS = {
     "pr-pull": ("pr", {}, ("gather_rows", "slab_spmv_sum")),
-    "cdlp-incidence": ("cdlp", {}, ("gather_rows", "slab_minmode")),
+    "cdlp-incidence": ("cdlp", {}, ("gather_rows", "slab_minmode", "segment_minmode")),
     "wcc-slab": ("wcc", {}, ("gather_rows", "slab_spmv_min")),
     "pull": ("bfs", {"bfs_impl": "dense"}, ("csr_pull_reduce",)),
 }

@@ -26,9 +26,9 @@ on the device named by ``PlatformConfig.device``. The hand-written kernels,
 CUDA C++ for sm_90a under ``csrc/``, built at first use
 (``ops/kernels.py``), are K1 gather_rows, K2 slab_minmode, K3
 slab_spmv_sum, K4 vreg_shuffle, K5 frontier_expand, K6 slab_spmv_min, K7
-csr_pull_reduce, K8 push_relax_min, K9 edgehash_probe, K10 wedge_rowblock
-and K11 masked_spgemm; each wrapper takes its plain PyTorch version for a
-CPU tensor.
+csr_pull_reduce, K8 push_relax_min, K9 edgehash_probe, K10 wedge_rowblock,
+K11 masked_spgemm, K12 segment_minmode and K13 bfs_trunc_probe; each
+wrapper takes its plain PyTorch version for a CPU tensor.
 """
 
 __version__ = "0.1.0"

@@ -10,7 +10,8 @@ edges (undirected); unreachable vertices serialize as int64 max
 * "auto" / "adaptive": direction-optimizing BFS (``bfs_adaptive_run``).
   Each level runs the smallest push tier whose (rows, edges) budget holds
   its frontier, on the frontier engine (ops/frontier.py, kernels K1 and K5);
-  frontiers above the top tier run a truncated bottom-up; a bottom-up whose
+  frontiers above the top tier run a truncated bottom-up (its probe of the
+  first in-neighbours on kernel K13, ``bfs_trunc_probe``); a bottom-up whose
   residual overflows its budgets, and only then, a dense pull step. JAX
   runs the phases as nested while_loops in one program; here they are a host
   loop over device tensors, with one small device-to-host read per step.
@@ -35,6 +36,7 @@ from graphtpu_torch.algorithms.common import AlgorithmResult, register
 from graphtpu_torch.core.graph import Graph, frontier_edge_positions
 from graphtpu_torch.core.types import INT32_INF, UNREACHABLE
 from graphtpu_torch.ops.frontier import (
+    bfs_trunc_probe,
     compact,
     compact_stream,
     expand,
@@ -154,15 +156,12 @@ def _bfs_adaptive_loop(prep: BfsPrep, source: int, n: int, t_trunc: int, tiers, 
         # in-neighbours hit the frontier are claimed; rows with more
         # in-edges that the probe missed get their full lists checked
         # through the frontier engine, unless that residual overflows
-        fmask_pad = torch.cat([(levels == level).to(torch.int32), levels.new_zeros(1)])
-        hit = table_gather(fmask_pad, trunc_tbl).reshape(t_trunc, n).max(0).values
-        unvis = levels == INT32_INF
-        claim_trunc = unvis & (hit == 1)
-        resid_mask = unvis & (pdeg_n > t_trunc) & (hit == 0)
+        claim_trunc, resid_mask = bfs_trunc_probe(levels, level, trunc_tbl, pdeg_n, t_trunc)
         rids, rcnt = compact(resid_mask, k_bu)
         fe_r = frontier_deg_sum(rids, pull_deg_pad)
         ok = (rcnt <= k_bu) & (fe_r <= e_bu)
         exp = expand(rids, pull_deg_pad, pull.indptr, pull.src, e_bu, with_row_ids=False)
+        fmask_pad = torch.cat([(levels == level).to(torch.int32), levels.new_zeros(1)])
         rhit = (exp.valid & (table_gather(fmask_pad, exp.neigh) == 1)).to(torch.int32)
         # segment-any per residual row: a cumsum differenced at the row
         # starts (clamped: a residual past e_bu is discarded by ok anyway)

@@ -56,7 +56,8 @@
 //    before it is counted. A label is inserted with
 //    atomicCAS on the key and atomicAdd on the count; the value the add
 //    returns is the label's running count, so the largest
-//    (count << 32 | INT32_MAX - label) over all inserts is the answer: the
+//    (count << 32 | INT32_MAX - label) over all inserts is the answer
+//    (hash_insert, csrc/minmode.cuh, which K12 shares): the
 //    last insert of the most frequent label carries its full count, and among
 //    equal counts the smaller label packs larger. That holds in any insertion
 //    order, and no pass over the table is needed. The lanes of a warp share a
@@ -66,7 +67,7 @@
 //    times slower). Pads never enter a table; INT32_INF marks an empty entry.
 //    Tables take at most 48 KB a block (W = 4096: 6144 entries of 8 B).
 //  * mode 2 takes the same kernels without the sort or the tables.
-#include "common.cuh"
+#include "minmode.cuh"
 
 #define GT_MODE_GATHER 0
 #define GT_MODE_IDENTITY 1
@@ -77,7 +78,6 @@
 #define GT_WIDE_THREADS 512
 #define GT_WIDE_UNROLL 4
 #define GT_WIDE_SLOTS 4  // a row is shared by more threads while each keeps this many slots
-#define GT_EMPTY GT_INT32_INF
 
 __device__ __forceinline__ int load_label(const int* __restrict__ slab,
                                           const int* __restrict__ labels,
@@ -161,30 +161,6 @@ minmode_small_kernel(const __grid_constant__ GtTable t,
   else if (w <= 16) best = minmode_regs<16>(slab, labels, w, R, r, bound, mode);
   else best = minmode_regs<32>(slab, labels, w, R, r, bound, mode);
   out[t.b[k].out_off + r] = best;
-}
-
-// Counts `add` more of `label` in a row's table; returns the packed key
-// (running count << 32 | INT32_MAX - label): larger is better.
-__device__ __forceinline__ unsigned long long hash_insert(int* keys, int* cnts,
-                                                          int size, int label,
-                                                          int add) {
-  int idx = (int)__umulhi((unsigned int)label * 2654435761u, (unsigned int)size);
-  for (;;) {
-    const int prev = atomicCAS(keys + idx, GT_EMPTY, label);
-    if (prev == GT_EMPTY || prev == label) break;
-    if (++idx == size) idx = 0;  // size > W >= distinct labels: an entry is free
-  }
-  const unsigned long long c =
-      (unsigned long long)(atomicAdd(cnts + idx, add) + add);
-  return (c << 32) | ((unsigned int)GT_INT32_INF - (unsigned int)label);
-}
-
-__device__ __forceinline__ unsigned long long warp_max_u64(
-    unsigned long long v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = max(v, __shfl_down_sync(0xffffffffu, v, off));
-  return v;
 }
 
 // The labels of one round of a row: slots w, w + G, .., w + (UNROLL - 1) G of

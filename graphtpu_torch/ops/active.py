@@ -165,10 +165,10 @@ def _adaptive_loop(prep: AdaptivePrep, n: int, itermax: int, directed: bool, tie
     def tier_step(labels, ids, k_i, e_i):
         ids_i = ids[:k_i]  # ascending, pad = n
         exp = expand(ids_i, deg_pad, indptr_pad, neigh, e_i, with_row_ids=False)
-        # segment k_i collects the pad slots and is dropped
+        # the pad slots lie past seg_starts[k_i] and join no segment (the JAX
+        # kernel gives them a segment k_i of their own and drops its result)
         centers = torch.where(exp.valid, exp.rows_local, k_i)
-        indptr = torch.cat([exp.seg_starts, exp.seg_starts.new_full((1,), e_i)])
-        winners = stream_minmode(labels, centers, exp.neigh, indptr)[:k_i]
+        winners = stream_minmode(labels, centers, exp.neigh, exp.seg_starts)
         valid_row = ids_i < n
         old = table_gather(labels, torch.where(valid_row, ids_i, 0))
         changed_row = valid_row & (winners != old)

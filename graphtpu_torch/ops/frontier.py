@@ -7,8 +7,9 @@ with n) plus its true count. ``compact`` turns a dense mask into one,
 slots on kernel K5 (``frontier_expand``), ``compact_stream`` dedupes a
 stream of vertex ids back into a frontier, ``mask_status`` gives a
 mask's (count, edge-sum), the numbers a caller needs to decide whether a
-frontier fits its capacities, and ``relax_min`` is SSSP's push relaxation
-over an expansion on kernel K8 (``push_relax_min``). Every function
+frontier fits its capacities, ``relax_min`` is SSSP's push relaxation
+over an expansion on kernel K8 (``push_relax_min``), and
+``bfs_trunc_probe`` is BFS's truncated bottom-up probe on kernel K13. Every function
 returns the JAX function's values, pad slots included, and never reads a
 value back to the host.
 """
@@ -19,6 +20,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from graphtpu_torch.core.types import INT32_INF
 from graphtpu_torch.ops import kernels
 from graphtpu_torch.ops.gather import table_gather
 
@@ -187,6 +189,48 @@ def relax_min(dist: torch.Tensor, row_ids: torch.Tensor, neigh: torch.Tensor,
             e_cap, int(dist.dtype == torch.float64),
         )
     return out
+
+
+def bfs_trunc_probe_plain(levels, level: int, trunc, pdeg, t: int, row_offset: int = 0):
+    """K13's plain PyTorch version: a gather of the levels at the table's
+    ids (an id outside [0, len(levels)) is no hit), an any over the t
+    table rows, and the two masks."""
+    r, n = pdeg.shape[0], levels.shape[0]
+    ok = (trunc >= 0) & (trunc < n)
+    hit = ok & (levels.index_select(0, torch.where(ok, trunc, 0)) == level)
+    hit = hit.reshape(t, r).any(0)
+    unvisited = levels[row_offset:row_offset + r] == INT32_INF
+    return unvisited & hit, unvisited & (pdeg > t) & ~hit
+
+
+def bfs_trunc_probe(levels: torch.Tensor, level: int, trunc: torch.Tensor,
+                    pdeg: torch.Tensor, t: int, row_offset: int = 0):
+    """K13 wrapper: the truncated bottom-up probe of BFS over r =
+    len(pdeg) rows. Row v hits when one of its first ``t`` in-neighbours,
+    ``trunc[j * r + v]`` (an id outside [0, len(levels)) is the sentinel),
+    sits at ``level``; it is unvisited when ``levels[row_offset + v]`` is
+    INT32_INF. Returns bool [r] masks (claim: unvisited and hit; resid:
+    unvisited, not hit and ``pdeg[v] > t``, the rows whose full in-lists
+    must be checked). ``levels`` (the frontier's source, replicated in the
+    distributed BFS), ``trunc`` [t * r] and ``pdeg`` are int32."""
+    ts = (levels, trunc, pdeg)
+    if any(x.dtype != torch.int32 or x.dim() != 1 for x in ts):
+        raise TypeError("bfs_trunc_probe: levels, trunc and pdeg must be 1-D int32")
+    if any(x.device != levels.device for x in ts) or not all(x.is_contiguous() for x in ts):
+        raise ValueError("bfs_trunc_probe: inputs must be contiguous, on one device")
+    r, n = pdeg.shape[0], levels.shape[0]
+    if t < 1 or trunc.shape[0] != t * r or not 0 <= row_offset <= n - r:
+        raise ValueError(f"bfs_trunc_probe: need t >= 1, t * {r} table entries and rows "
+                         f"[{row_offset}, {row_offset + r}) inside {n} levels")
+    if not kernels.use_kernel(levels):
+        return bfs_trunc_probe_plain(levels, level, trunc, pdeg, t, row_offset)
+    claim = torch.empty(r, dtype=torch.bool, device=levels.device)
+    resid = torch.empty(r, dtype=torch.bool, device=levels.device)
+    if r:
+        kernels.launch("bfs_trunc_probe", levels.device, levels.data_ptr(), n, int(level),
+                       trunc.data_ptr(), t, r, row_offset, pdeg.data_ptr(), claim.data_ptr(),
+                       resid.data_ptr())
+    return claim, resid
 
 
 def scatter_frontier(mask_cap: int, neigh: torch.Tensor, active: torch.Tensor) -> torch.Tensor:

@@ -16,7 +16,8 @@ Each kernel has a wrapper beside its plain PyTorch version:
 (K6), ``ops/spmv.py:csr_pull_reduce`` (K7) and ``ops/frontier.py:relax_min``
 (K8, kernel ``push_relax_min``), ``ops/edgehash.py:edgehash_probe`` (K9) and
 ``ops/triangles.py:wedge_rowblock`` (K10), ``core/spgemm.py:masked_spgemm_rows``
-(K11, kernel ``masked_spgemm``). A wrapper dispatches on
+(K11, kernel ``masked_spgemm``), ``ops/minmode.py:stream_minmode`` (K12, kernel
+``segment_minmode``) and ``ops/frontier.py:bfs_trunc_probe`` (K13). A wrapper dispatches on
 the device of its tensors: a CPU tensor takes the plain version, a CUDA
 tensor launches the kernel or raises. K2, K3 and K6 also take every bucket
 of a slab plan in one launch (``slab_minmode_buckets``,
@@ -25,9 +26,9 @@ algorithms call. Inside ``plain_torch()`` CUDA
 tensors take the plain version too, so the whole path can run as its own
 reference on the card. A wrapper adds one to ``launch_counts[name]`` for
 each launch (K7 in mode sum to ``launch_counts["csr_pull_reduce_sum"]``);
-K9 and K11 may launch more than once a call (K9: a histogram, a scatter, the
-probe and the unbin; K11: one launch per task list of its plan), and count
-each.
+K9, K11 and K12 may launch more than once a call (K9: a histogram, a scatter,
+the probe and the unbin; K11: one launch per task list of its plan; K12: a
+warp per segment, then a block per long segment), and count each.
 """
 
 from __future__ import annotations
@@ -53,7 +54,7 @@ NVCC_FLAGS = (
 KERNELS = (
     "gather_rows", "slab_minmode", "slab_spmv_sum", "vreg_shuffle", "frontier_expand",
     "slab_spmv_min", "csr_pull_reduce", "push_relax_min", "edgehash_probe", "wedge_rowblock",
-    "masked_spgemm",
+    "masked_spgemm", "segment_minmode", "bfs_trunc_probe",
 )
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -94,6 +95,13 @@ _SIGNATURES = {
     # identity), out, stream
     "gt_masked_spgemm": (_P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32, _P,
                          _I32, _P, _P, _P, _P),
+    # labels (null = identity), neigh, indptr, h, m, bound, out, work list, stream
+    "gt_segment_minmode_warp": (_P, _P, _P, _I32, _I64, _I64, _P, _P, _P),
+    # labels, neigh, indptr, h, m, bound, out, work list, table keys, table
+    # counts (null unless m > 4096), stream
+    "gt_segment_minmode_block": (_P, _P, _P, _I32, _I64, _I64, _P, _P, _P, _P, _P),
+    # levels, n_levels, level, trunc, t, rows, row_offset, pdeg, claim, resid, stream
+    "gt_bfs_trunc_probe": (_P, _I64, _I32, _P, _I32, _I64, _I64, _P, _P, _P, _P),
     # stream: a kernel that returns at once (csrc/empty_kernel.cu)
     "gt_empty_kernel": (_P,),
 }

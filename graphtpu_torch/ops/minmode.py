@@ -7,16 +7,18 @@ labels itself. It takes all buckets of a plan at once
 (``slab_minmode_buckets``): one launch for the buckets up to SMALL_WIDTH
 wide (a sort in registers) and one for the wider ones (counting in
 shared-memory hash tables), writing straight into the step's result
-buffer. Rows heavier than the largest bucket go through
-``stream_minmode``: a pair sort, a run-length pass and a per-segment max,
-in torch ops. One K1 gather by the inverse permutation assembles the
-result.
+buffer. Rows heavier than the largest bucket go through kernel K12
+(``stream_minmode``, kernel ``segment_minmode``): a warp per short segment,
+a block per long one, with no host read; its plain version is a pair sort,
+a run-length pass and a per-segment max in torch ops. One K1 gather by the
+inverse permutation assembles the result.
 
 Iteration 0 needs no label gather, since labels are the vertex ids: on
 duplicate-free incidence (undirected graphs) the mode is the minimum
-neighbour id (K2 "min"); otherwise K2 runs on the stored ids
-("identity"). The iteration loop runs on the host with one device read
-per iteration, and stops at a fixed point (LAGraph_cdlp.c:328-332).
+neighbour id (K2 "min", and K7 ``min_i32`` over the heavy rows); otherwise
+K2 and K12 run on the stored ids ("identity"). The iteration loop runs on
+the host with one device read per iteration, and stops at a fixed point
+(LAGraph_cdlp.c:328-332).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import torch
 from graphtpu_torch.core.types import INT32_INF
 from graphtpu_torch.ops import kernels
 from graphtpu_torch.ops.gather import table_gather
-from graphtpu_torch.ops.scan_reduce import seg_min_scan
+from graphtpu_torch.ops.spmv import csr_pull_reduce
 from graphtpu_torch.ops.slab import (
     BucketTable, SlabPlan, assemble, build_slab_plan, check_result_buffer, fill_buckets,
     result_buffer,
@@ -37,6 +39,8 @@ _M31 = (1 << 31) - 1
 MODES = {"gather": 0, "identity": 1, "min": 2}
 MAX_SLAB_WIDTH = 4096  # K2's widest row: a 6144-entry table in 48 KB of shared memory
 SMALL_WIDTH = 32       # GT_SMALL_W of csrc/slab_minmode.cu: up to here K2 sorts in registers
+K12_WARP_LEN = 32      # csrc/segment_minmode.cu: a segment up to here takes one warp
+K12_SMEM_LEN = 4096    # its longest segment counted in shared memory; longer ones in scratch
 
 
 def _rowwise_minmode_plain(lab: torch.Tensor) -> torch.Tensor:
@@ -146,13 +150,17 @@ def _slab_minmode(labels: torch.Tensor, slab: torch.Tensor) -> torch.Tensor:
     return slab_minmode(slab, "gather", labels.shape[0], labels)
 
 
-def stream_minmode(labels, centers, neigh, indptr, identity=False):
-    """Min-mode per segment of a center-sorted incidence stream.
+def stream_minmode_plain(labels, centers, neigh, indptr, identity=False):
+    """K12's plain PyTorch version: min-mode per segment of a center-sorted
+    incidence stream.
 
-    ``centers`` are ascending local segment ids [m], ``neigh`` global
-    vertex ids [m], ``indptr`` [H+1] the segment starts. Returns the
-    winner label per segment [H] (INT32_INF for an empty one).
-    ``identity=True`` takes the labels to be the ids (iteration 0).
+    ``centers`` are ascending local segment ids [m] in [0, H] (H: the
+    entry joins no segment), ``neigh`` global vertex ids [m], ``indptr``
+    [H+1] the segment starts. Returns the winner label per segment [H]
+    (INT32_INF for an empty one).
+    ``identity=True`` takes the labels to be the ids (iteration 0). An id
+    outside [0, len(labels)) in gather mode, and a label that is negative
+    or INT32_INF, is a pad: it joins no segment's count.
 
     One sort of the (center << 31 | label) int64 keys makes each run of
     equal (center, label) contiguous; the runs and their lengths come from
@@ -160,13 +168,74 @@ def stream_minmode(labels, centers, neigh, indptr, identity=False):
     (count << 31 | INT32_MAX - label), i.e. the longest run and, among
     equals, the smallest label. Counts stay below 2^32, so the key is
     exact for every graph size: one method, no fast path."""
-    lab = neigh if identity else table_gather(labels, neigh)
-    key = torch.sort((centers.to(torch.int64) << 31) | lab.to(torch.int64)).values
+    h = indptr.shape[0] - 1
+    if identity:
+        lab = neigh
+        ok = (lab >= 0) & (lab != INT32_INF)
+    else:
+        ok = (neigh >= 0) & (neigh < labels.shape[0])
+        lab = labels.index_select(0, torch.where(ok, neigh, 0))
+        ok &= (lab >= 0) & (lab != INT32_INF)
+    # the pads form segment H, which is dropped
+    seg = torch.where(ok, centers, h).to(torch.int64)
+    key = torch.sort((seg << 31) | torch.where(ok, lab, 0).to(torch.int64)).values
     runs, counts = torch.unique_consecutive(key, return_counts=True)
     win = (counts << 31) | (_M31 - (runs & _M31))
-    best = torch.zeros(indptr.shape[0] - 1, dtype=torch.int64, device=key.device)
+    best = torch.zeros(h + 1, dtype=torch.int64, device=key.device)
     best.scatter_reduce_(0, runs >> 31, win, "amax")
-    return (_M31 - (best & _M31)).to(torch.int32)
+    return (_M31 - (best[:h] & _M31)).to(torch.int32)
+
+
+def _check_stream(labels, centers, neigh, indptr, identity) -> None:
+    for name, t in (("centers", centers), ("neigh", neigh), ("indptr", indptr)):
+        if t.dtype != torch.int32 or t.dim() != 1:
+            raise TypeError(f"stream_minmode: {name} must be a 1-D int32 tensor")
+    if centers.shape != neigh.shape or indptr.shape[0] < 1:
+        raise ValueError("stream_minmode: need centers and neigh of one length and H+1 >= 1 "
+                         "indptr entries")
+    if not identity and (labels is None or labels.dtype != torch.int32 or labels.dim() != 1):
+        raise TypeError("stream_minmode: gather mode needs 1-D int32 labels")
+    on = [neigh, indptr] + ([] if identity else [labels])
+    if any(t.device != neigh.device for t in on + [centers]):
+        raise ValueError("stream_minmode: inputs must lie on one device")
+    if kernels.use_kernel(neigh):
+        if not all(t.is_contiguous() for t in on):
+            raise ValueError("stream_minmode: neigh, indptr and labels must be contiguous")
+        m = neigh.shape[0]
+        if m + m // 2 >= 1 << 31:
+            raise ValueError(f"stream_minmode: a stream of {m} entries is too long for K12")
+
+
+def stream_minmode(labels, centers, neigh, indptr, identity=False):
+    """K12 wrapper: min-mode per segment s of ``indptr`` [H+1] (int32
+    starts over ``neigh`` [m], ascending in [0, m]) of ``labels[neigh]``, or
+    of the ids themselves with ``identity=True``; INT32_INF for an empty
+    segment, [H] int32. Entries past ``indptr[-1]`` join no segment.
+    ``centers`` [m], the segment id of each entry, is what only the plain
+    version reads: in every caller it is ``repeat_interleave(arange(H),
+    diff(indptr))`` followed by H for each entry past ``indptr[-1]``, so
+    the kernel, which takes the segments from ``indptr``, computes the same
+    function. Pads as in ``stream_minmode_plain``. On a CUDA tensor no
+    value is read back to the host."""
+    _check_stream(labels, centers, neigh, indptr, identity)
+    if not kernels.use_kernel(neigh):
+        return stream_minmode_plain(labels, centers, neigh, indptr, identity)
+    dev, h, m = neigh.device, indptr.shape[0] - 1, neigh.shape[0]
+    out = torch.empty(h, dtype=torch.int32, device=dev)
+    if h == 0:
+        return out
+    wide = torch.empty(h + 1, dtype=torch.int32, device=dev)  # its count, then segment ids
+    args = (None if identity else labels.data_ptr(), neigh.data_ptr(), indptr.data_ptr(), h,
+            m, 0 if identity else labels.shape[0], out.data_ptr(), wide.data_ptr())
+    kernels.launch("segment_minmode_warp", dev, *args, counter="segment_minmode")
+    if m > K12_WARP_LEN:  # else no segment is long enough for the block kernel
+        keys = cnts = None
+        if m > K12_SMEM_LEN:
+            table = torch.empty(2, m + m // 2, dtype=torch.int32, device=dev)
+            keys, cnts = table[0].data_ptr(), table[1].data_ptr()
+        kernels.launch("segment_minmode_block", dev, *args, keys, cnts,
+                       counter="segment_minmode")
+    return out
 
 
 def _heavy_minmode(labels, plan: SlabPlan):
@@ -183,8 +252,8 @@ def _iter0_minmode(plan: SlabPlan, labels0: torch.Tensor) -> torch.Tensor:
     buf = result_buffer(plan, torch.int32)
     slab_minmode_buckets(plan, "min", labels0.shape[0], None, buf)
     heavy = None
-    if plan.heavy_rows is not None:
-        heavy = seg_min_scan(plan.heavy_neigh, plan.heavy_centers, plan.heavy_indptr, INT32_INF)
+    if plan.heavy_rows is not None:  # each heavy row's minimum id, on K7
+        heavy = csr_pull_reduce("min_i32", None, plan.heavy_neigh, plan.heavy_indptr)
     return assemble(plan, buf, heavy, _rest(plan, labels0))
 
 

@@ -10,10 +10,10 @@ working on its own rows.
   once, so a claim is a count >= 1);
 * truncated bottom-up, for heavy levels: each rank probes the first
   ``t_trunc`` in-neighbours of its unvisited rows against the replicated
-  frontier mask, checks the rows the probe missed through its local pull
-  CSR (K5), and one all-gather replicates the new levels; an all-reduced
-  count of the ranks whose residual fits aborts the level everywhere when
-  one does not;
+  levels (kernel K13, ``bfs_trunc_probe``), checks the rows the probe
+  missed through its local pull CSR (K5), and one all-gather replicates
+  the new levels; an all-reduced count of the ranks whose residual fits
+  aborts the level everywhere when one does not;
 * dense pull, the fallback: K7 ``max_i32`` over the rank's pull block,
   then an all-gather.
 
@@ -36,7 +36,9 @@ import torch
 
 from graphtpu_torch.algorithms.bfs import BFS_TRUNC
 from graphtpu_torch.core.types import INT32_INF
-from graphtpu_torch.ops.frontier import compact, expand, frontier_deg_sum, mask_status
+from graphtpu_torch.ops.frontier import (
+    bfs_trunc_probe, compact, expand, frontier_deg_sum, mask_status,
+)
 from graphtpu_torch.ops.gather import table_gather
 from graphtpu_torch.parallel.algorithms import _spmv_block
 from graphtpu_torch.parallel.mesh import Mesh, all_gather_rows, all_reduce_sum
@@ -131,18 +133,15 @@ def _bfs_body(mesh: Mesh, key, coo_key, source: int, n: int, r: int, t_trunc: in
         return levels, status(levels, level + 1).tolist()
 
     def bu_step(levels, level):
-        fmask_pad = torch.cat([(levels == level).to(torch.int32), levels.new_zeros(1)])
-        hit = table_gather(fmask_pad, trunc).reshape(t_trunc, r).max(0).values
+        claim_trunc, resid = bfs_trunc_probe(levels, level, trunc, qdeg[:r], t_trunc, my)
         lv_local = levels[my:my + r]
-        unvis = lv_local == INT32_INF
-        claim_trunc = unvis & (hit == 1)
-        resid = unvis & (qdeg[:r] > t_trunc) & (hit == 0)
         rids, rcnt = compact(resid, k_bu)
         fe_r = frontier_deg_sum(rids, qdeg)
         ok_l = (rcnt <= k_bu) & (fe_r <= e_bu)
         # the level applies only where every rank's residual fits
         ok = all_reduce_sum(ok_l.to(torch.int32).reshape(1))[0] == mesh.size
         exp = expand(rids, qdeg, qi, qsrc, e_bu, with_row_ids=False)
+        fmask_pad = torch.cat([(levels == level).to(torch.int32), levels.new_zeros(1)])
         rhit = (exp.valid & (table_gather(fmask_pad, exp.neigh) == 1)).to(torch.int32)
         cs = torch.cat([rhit.new_zeros(1), torch.cumsum(rhit, 0, dtype=torch.int32)])
         # clamped: a residual past e_bu is discarded by ok anyway

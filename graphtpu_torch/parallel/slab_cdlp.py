@@ -8,10 +8,12 @@ bucket and degree skew balances by construction. Rank d's slabs are the
 each rank keeps them as one ``BucketTable`` and runs K2 over all of them in
 at most two launches a step, as the one-device path does
 (``ops/minmode.py:slab_minmode_buckets``). Rows heavier than the largest
-bucket are split the same way into a per-rank edge stream
-(``stream_minmode``), whose padding edges form a trailing junk segment,
-cut off after the reduction. A rank's results (its buckets' columns, then
-its heavy rows) form one block of L labels; one all-gather replicates the
+bucket are split the same way into a per-rank edge stream (K12,
+``stream_minmode``; iteration 0's minimum id on K7 ``min_i32``), whose
+padding edges form a trailing junk segment: K7 reduces it and its result
+is cut off, K12 is given the segments before it. A rank's results (its
+buckets' columns, then its heavy rows) form one block of L labels; one
+all-gather replicates the
 [D * L] blocks, and the host-built inverse permutation assembles them in
 vertex order by one K1 gather; vertices without neighbours keep their
 label. The loop stops at a fixed point, read once a step from the
@@ -29,10 +31,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from graphtpu_torch.core.types import INT32_INF
 from graphtpu_torch.ops.gather import table_gather
 from graphtpu_torch.ops.minmode import slab_minmode_buckets, stream_minmode
-from graphtpu_torch.ops.scan_reduce import seg_min_scan
 from graphtpu_torch.ops.slab import BucketTable, SlabBucket, SlabPlan, bucket_policy_key
 from graphtpu_torch.ops.spmv import csr_pull_reduce, slab_spmv_min_buckets
 from graphtpu_torch.parallel.mesh import Mesh, all_gather_rows
@@ -194,12 +194,12 @@ def local_step(rs: RankSlabs, labels: torch.Tensor, first: Optional[str],
         slab_minmode_buckets(rs.plan, "gather", n, labels, buf)
     if rs.heavy is not None:
         c, nb, ip = rs.heavy
-        if reduce == "min":
+        if reduce == "min" or first == "min":
             hout = csr_pull_reduce("min_i32", None if first else labels, nb, ip)
-        elif first == "min":
-            hout = seg_min_scan(nb, c, ip, INT32_INF)
         else:
-            hout = stream_minmode(labels, c, nb, ip, identity=first == "mode")
+            # the padding past ip[-2] joins no segment (K12 would count the
+            # trailing junk segment's entries, all of one label, for nothing)
+            hout = stream_minmode(labels, c, nb, ip[:-1], identity=first == "mode")
         total = rs.plan.table.total
         buf[total:] = hout[:rs.length - total]  # the junk segment goes
     return all_gather_rows(buf)

@@ -17,12 +17,14 @@ from graphtpu_torch.ops.edgehash import (
     build_edge_hash_device, edgehash_bin, edgehash_probe, k9_bins, probe_edge_hash,
 )
 from graphtpu_torch.ops.frontier import (
-    frontier_expand, frontier_expand_plain, relax_min, relax_min_plain,
+    bfs_trunc_probe, bfs_trunc_probe_plain, frontier_expand, frontier_expand_plain, relax_min,
+    relax_min_plain,
 )
 from graphtpu_torch.ops.gather import gather_rows, gather_rows_plain
 from graphtpu_torch.core.types import INT32_INF
 from graphtpu_torch.ops.minmode import (
-    slab_minmode, slab_minmode_buckets, slab_minmode_plain,
+    K12_SMEM_LEN, K12_WARP_LEN, slab_minmode, slab_minmode_buckets, slab_minmode_plain,
+    stream_minmode, stream_minmode_plain,
 )
 from graphtpu_torch.ops.pallas_gather import vreg_shuffle, vreg_shuffle_plain
 from graphtpu_torch.ops.slab import build_slab_plan, result_buffer
@@ -1427,3 +1429,168 @@ def test_scaling_mode_on_the_cards(cuda):
     assert all(r[k] > 0 for r in d["table"] for k in ("pr_nnz_per_s", "cdlp_edges_per_s",
                                                        "bfs_teps"))
     assert d["table"][0]["pr_efficiency"] == 1.0 and "ici_gbps" not in line
+
+
+# ---------------------------------------------------------------- K12, K13
+
+
+def _k12_stream(rng, seg_len, n_ids):
+    """(centers, neigh, indptr) of segments of the given lengths, neighbour
+    ids in [0, n_ids)."""
+    seg_len = np.asarray(seg_len, dtype=np.int64)
+    indptr = np.concatenate([[0], np.cumsum(seg_len)]).astype(np.int32)
+    centers = np.repeat(np.arange(seg_len.shape[0]), seg_len).astype(np.int32)
+    neigh = rng.integers(0, n_ids, size=centers.shape[0]).astype(np.int32)
+    return centers, neigh, indptr
+
+
+def _k12_assert_matches_plain(labels, centers, neigh, indptr, identity, device):
+    """K12 on the card = its plain version on the CPU, twice for the same
+    bits; each call adds 1 launch, or 2 where a segment can be longer than
+    a warp's."""
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    lab = None if identity else t(labels)
+    want = stream_minmode_plain(lab, t(centers), t(neigh), t(indptr), identity)
+    args = (None if identity else lab.to(device), t(centers).to(device), t(neigh).to(device),
+            t(indptr).to(device))
+    before = kernels.launch_counts["segment_minmode"]
+    got = stream_minmode(*args, identity=identity)
+    again = stream_minmode(*args, identity=identity)
+    per_call = 0 if indptr.shape[0] == 1 else 1 + (neigh.shape[0] > K12_WARP_LEN)
+    assert kernels.launch_counts["segment_minmode"] == before + 2 * per_call
+    assert torch.equal(got, again)
+    assert torch.equal(got.cpu(), want)
+    return want
+
+
+# one segment of each length class: empty, a warp's, past a warp, the
+# shared-memory table's largest and past it (the global-memory table)
+K12_LENGTHS = [0, 1, 2, 5, 31, 32, 33, 64, 100, 1000, 4095, 4096, 4097, 10000, 70000]
+
+
+@pytest.mark.parametrize("identity", [False, True], ids=["gather", "identity"])
+@pytest.mark.parametrize("n_labels", [3, 40, 1 << 20], ids=["ties", "some", "distinct"])
+def test_segment_minmode_every_length_class(cuda, n_labels, identity):
+    rng = np.random.default_rng(n_labels)
+    n = 1 << 20
+    seg_len = rng.permutation(np.repeat(K12_LENGTHS, 3))
+    centers, neigh, indptr = _k12_stream(rng, seg_len, n)
+    if identity and n_labels < n:
+        neigh %= n_labels  # the ids are the labels: few of them make ties
+    labels = rng.integers(0, n_labels, size=n).astype(np.int32)
+    want = _k12_assert_matches_plain(labels, centers, neigh, indptr, identity, cuda)
+    assert (want.numpy()[seg_len == 0] == INT32_INF).all()
+
+
+@pytest.mark.parametrize("m", [0, 1, 31, 32, 33, K12_SMEM_LEN, K12_SMEM_LEN + 1])
+def test_segment_minmode_streams_at_the_route_boundaries(cuda, m):
+    """Streams whose length sits at a launch or table boundary, in segments
+    of random lengths, empty ones among them."""
+    rng = np.random.default_rng(m)
+    cuts = np.sort(rng.integers(0, m + 1, size=7))
+    seg_len = np.diff(np.concatenate([[0], cuts, [m]]))
+    centers, neigh, indptr = _k12_stream(rng, seg_len, 300)
+    labels = rng.integers(0, 9, size=300).astype(np.int32)
+    for identity in (False, True):
+        _k12_assert_matches_plain(labels, centers, neigh, indptr, identity, cuda)
+
+
+@pytest.mark.parametrize("case", ["all_distinct_wide", "all_equal", "tie", "pads",
+                                  "largest_label", "no_segment"])
+def test_segment_minmode_hand_cases(cuda, case):
+    """More distinct labels than the shared table holds (6,144) in a
+    segment of 4,096 and one of 9,000; a segment of one label; two labels
+    tied at the top; ids outside the labels and negative labels as pads;
+    INT32_INF - 1 as a label; no segment at all."""
+    rng = np.random.default_rng(7)
+    n = 20000
+    labels = rng.permutation(n).astype(np.int32)
+    identity = False
+    if case == "all_distinct_wide":
+        seg_len = [4096, 9000, 0, 40]
+        centers, _, indptr = _k12_stream(rng, seg_len, n)
+        neigh = np.concatenate([rng.permutation(n)[:4096], rng.permutation(n)[:9000],
+                                rng.permutation(n)[:40]]).astype(np.int32)
+    elif case == "all_equal":
+        centers, neigh, indptr = _k12_stream(rng, [5000, 20, 300], n)
+        labels[:] = 77
+    elif case == "tie":
+        # labels 3 and 9 tie at 100 entries each, 50 others once
+        seg = np.concatenate([np.full(100, 3), np.full(100, 9), np.arange(100, 150)])
+        neigh = np.concatenate([rng.permutation(seg), rng.permutation(seg[:140])]).astype(
+            np.int32)
+        labels = np.arange(n, dtype=np.int32)
+        centers, _, indptr = _k12_stream(rng, [250, 140], n)
+        identity = True
+    elif case == "pads":
+        centers, neigh, indptr = _k12_stream(rng, [10, 40, 5000, 3], n)
+        neigh[::3] = n + 5  # past the labels
+        neigh[1::7] = -4
+        labels[::5] = -1  # a negative label is a pad
+    elif case == "largest_label":
+        labels[:] = INT32_INF - 1
+        labels[0] = 5
+        centers, neigh, indptr = _k12_stream(rng, [3, 40, 5000], n)
+        neigh[indptr[:-1]] = 0  # one 5 against many INT32_INF - 1
+    else:
+        centers = neigh = np.zeros(0, dtype=np.int32)
+        indptr = np.zeros(1, dtype=np.int32)
+    want = _k12_assert_matches_plain(labels, centers, neigh, indptr, identity, cuda).numpy()
+    if case == "all_distinct_wide":
+        assert want[0] == labels[neigh[:4096]].min() and want[2] == INT32_INF
+    elif case == "all_equal":
+        assert (want == 77).all()
+    elif case == "tie":
+        assert want.tolist() == [3, 3]
+    elif case == "largest_label":
+        assert want.tolist() == [INT32_INF - 1] * 3
+    elif case == "no_segment":
+        assert want.shape == (0,)
+
+
+def test_segment_minmode_makes_no_host_read(cuda):
+    """Under sync debug mode "error" a call that waits for the device
+    raises: K12 must not (torch.unique_consecutive would)."""
+    rng = np.random.default_rng(3)
+    centers, neigh, indptr = _k12_stream(rng, [0, 7, 60, 5000, 9000, 2], 1000)
+    args = [torch.from_numpy(a).to(cuda) for a in (centers, neigh, indptr)]
+    labels = torch.from_numpy(rng.integers(0, 20, size=1000).astype(np.int32)).to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = stream_minmode(labels, *args)
+        ident = stream_minmode(None, *args, identity=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got, stream_minmode_plain(labels, *args))
+    assert torch.equal(ident, stream_minmode_plain(None, *args, identity=True))
+
+
+@pytest.mark.parametrize("t", [1, 2, 4, 11])
+@pytest.mark.parametrize("case", ["random", "sentinel_only", "rank_rows"])
+def test_bfs_trunc_probe_matches_plain(cuda, t, case):
+    rng = np.random.default_rng(t)
+    n, level = 100003, 4
+    levels = np.where(rng.random(n) < 0.5, rng.integers(0, level + 1, size=n),
+                      INT32_INF).astype(np.int32)
+    pdeg = rng.integers(0, 3 * t + 1, size=n).astype(np.int32)
+    trunc = rng.integers(0, n, size=(t, n)).astype(np.int32)
+    trunc[np.arange(t)[:, None] >= pdeg[None, :]] = n
+    if case == "sentinel_only":
+        trunc[:, ::2] = n  # rows that probe nothing
+        trunc[:, 1::4] = -1
+    off, rows = 0, n
+    if case == "rank_rows":  # a rank's rows of the replicated levels
+        off, rows = 40000, 30001
+        trunc = trunc[:, off:off + rows]
+        pdeg = pdeg[off:off + rows]
+    tt = lambda a: torch.from_numpy(np.ascontiguousarray(a).reshape(-1))  # noqa: E731
+    args = (tt(levels), level, tt(trunc), tt(pdeg), t, off)
+    want = bfs_trunc_probe_plain(*args)
+    before = kernels.launch_counts["bfs_trunc_probe"]
+    got = bfs_trunc_probe(*(a.to(cuda) if torch.is_tensor(a) else a for a in args))
+    assert kernels.launch_counts["bfs_trunc_probe"] == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bool and torch.equal(g.cpu(), w)
+    if case == "sentinel_only":
+        assert not bool(want[0][::2].any())
