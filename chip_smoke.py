@@ -76,9 +76,12 @@ Run from the root of a checkout:  python3 chip_smoke.py
    frontier that fills it; both run twice on the same inputs and must give
    the same bits. K12 (segment_minmode) runs at the bench CDLP plan's heavy
    rows in gather mode (the labels after iteration 0) and in identity mode,
-   and at a CDLP auto run's largest tier step (its stream taken from the
-   run), K13 (bfs_trunc_probe) at BFS auto's first bottom-up step (taken
-   from a run); each twice, bit for bit against its plain version. K9 runs
+   at a CDLP auto run's largest tier step (its stream taken from the run),
+   over the whole incidence (cdlp-impl=sort's call) and on vertex 0's
+   segment alone, each call's work items (its classes, bins and the
+   fallback's bins) printed; K13 (bfs_trunc_probe) at BFS auto's first
+   bottom-up step (taken from a run); each twice, bit for bit against its
+   plain version. K9 runs
    at 2^22 probes drawn from the benchmark graph's wedge plan (half present
    pairs, half random ones), binned by partitions of the table sized from
    the card's L2 (three launches a call: histogram, scatter, probe; the
@@ -134,7 +137,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
    wedge plan). Each is bit for bit equal to run_algorithm's one-device
    twin (PageRank within 1e-4 relative), and each run's launch counts show
    the kernels its rank routes to (K12 in the sort and slab CDLP, K13 in the
-   adaptive BFS). The defaults' step counts print beside
+   adaptive BFS). The one-device sort, CDLP sort's twin, must launch K12 and
+   equal the torch-op oracle it replaced (``_cdlp_sort_kernel``, timed
+   beside it) and its own plain version bit for bit. The defaults' step
+   counts print beside
    the twin's and the JAX package's: SSSP's rounds, full and active rounds
    and BFS's levels must equal both, every iteration count but WCC's the
    twin's. Each run prints its warm time, its first time (the host plans'
@@ -201,7 +207,7 @@ TRACE_KERNELS = {
      "k9_single_kernel"): ("edgehash_probe",),
     ("wedge_rowblock_kernel",): ("wedge_rowblock",),
     ("k11_warp_kernel", "k11_block_kernel"): ("masked_spgemm",),
-    ("k12_warp_kernel", "k12_block_kernel"): ("segment_minmode",),
+    ("k12_warp_kernel", "k12_grid_kernel"): ("segment_minmode",),
     ("k13_probe_kernel",): ("bfs_trunc_probe",),
 }
 TRACE_KERNELS_OF = {name: pats for pats, names in TRACE_KERNELS.items() for name in names}
@@ -595,7 +601,8 @@ PATHS = {
                  ("gather_rows", "frontier_expand", "bfs_trunc_probe")),
     "bfs-device": ("bfs", {"bfs_impl": "device"}, ("csr_pull_reduce",)),
     "bfs-hybrid": ("bfs", {"bfs_impl": "hybrid"}, ("csr_pull_reduce",)),
-    "wcc-auto": ("wcc", {"wcc_impl": "auto"}, ("slab_spmv_min", "frontier_expand")),
+    "wcc-auto": ("wcc", {"wcc_impl": "auto"},
+                 ("slab_spmv_min", "frontier_expand", "csr_pull_reduce")),
     "wcc-adaptive": ("wcc", {"wcc_impl": "adaptive"}, ("csr_pull_reduce", "frontier_expand")),
     "wcc-device": ("wcc", {"wcc_impl": "device"}, ("csr_pull_reduce",)),
     "sssp-auto": ("sssp", {"sssp_impl": "auto"},
@@ -703,7 +710,7 @@ def phase_real_size(device):
     from graphtpu_torch.algorithms.sssp import (
         _sssp_kernel, sssp_adaptive_run, sssp_delta_run, sssp_prep,
     )
-    from graphtpu_torch.algorithms.wcc import _wcc_kernel, wcc_adaptive_run
+    from graphtpu_torch.algorithms.wcc import _wcc_kernel, wcc_adaptive_run, wcc_slab_plan
     from graphtpu_torch.ops import kernels
     from graphtpu_torch.ops.active import cdlp_adaptive_device_run, prepare_cdlp_adaptive
     from graphtpu_torch.ops.spmv import pull_csr
@@ -802,8 +809,11 @@ def phase_real_size(device):
                 g, centers, neigh, deg, CDLP_ITERS, cfgs["cdlp-auto"], prep=prep,
                 with_stats=True)
             _, bn, bst = bfs_adaptive_run(g, 0, cfgs["bfs-auto"], with_stats=True)
-            wcc = {name: wcc_adaptive_run(g, cfgs[name], with_stats=True)[1:]
-                   for name in ("wcc-auto", "wcc-adaptive")}
+            wcc, wcc_k7 = {}, {}
+            for name in ("wcc-auto", "wcc-adaptive"):
+                kernels.reset_launch_counts()
+                wcc[name] = wcc_adaptive_run(g, cfgs[name], with_stats=True)[1:]
+                wcc_k7[name] = kernels.launch_counts.get("csr_pull_reduce", 0)
             _, sn, sst = sssp_adaptive_run(gw, 0, cfgs["sssp-auto"], torch.float32,
                                            with_stats=True)
             _, dn, dst = sssp_delta_run(gw, 0, cfgs["sssp-delta"], torch.float32,
@@ -844,6 +854,18 @@ def phase_real_size(device):
         check(bfs_steps == JAX_STEPS["bfs"], f"bfs-auto steps ({label}) differ from JAX's")
         for name, counts in wcc_steps.items():
             check(counts == JAX_STEPS["wcc"], f"{name} steps ({label}) differ from JAX's")
+        if label == "kernel":
+            # K7 min_i32 a run: one a full step (iteration 0 included) over the
+            # slab plan's heavy rows (auto) or the whole pull CSR (adaptive),
+            # and one an active step over its expansion
+            heavy = int(wcc_slab_plan(g.symmetrized(), device).heavy_rows is not None)
+            for name, per_full in (("wcc-auto", heavy), ("wcc-adaptive", 1)):
+                _, wf, wa = wcc_steps[name]
+                print(f"{name} K7 launches a run: {wcc_k7[name]} ({wf} full steps x {per_full} "
+                      f"+ {wa} active steps)", flush=True)
+                check(wcc_k7[name] == wf * per_full + wa,
+                      f"{name}: {wcc_k7[name]} csr_pull_reduce launches a run, not "
+                      f"{wf} x {per_full} + {wa}: the active step is not on K7")
         check(sssp_steps == JAX_STEPS["sssp"], f"sssp-auto steps ({label}) differ from JAX's")
     check(steps["kernel"] == steps["plain"], "phase counts differ, kernel vs plain")
 
@@ -1192,6 +1214,49 @@ def _dist_steps(name, sg, cfg):
     return None
 
 
+def _sort_twin_against_oracle(g, one, one_s, one_counts, smi):
+    """The one-device cdlp-impl=sort (K12 over the whole incidence, run by
+    phase_parallel as cdlp_dist's twin, ``one`` in ``one_s`` warm seconds
+    with launches ``one_counts``) against the torch-op oracle it replaced,
+    ``_cdlp_sort_kernel``, on the card (two runs, the second timed) and
+    against the same route under ``plain_torch()``: bit for bit, labels
+    and iterations. The oracle, when it was the route, took 3.83-3.86 s
+    warm on an H100 80GB HBM3 at 700 W."""
+    import numpy as np
+    import torch
+
+    from graphtpu_torch.algorithms.cdlp import _cdlp_sort_kernel, build_incidence
+    from graphtpu_torch.algorithms.common import run_algorithm
+    from graphtpu_torch.ops import kernels
+    from graphtpu_torch.utils.config import AlgorithmParams, PlatformConfig
+
+    check(one_counts.get("segment_minmode", 0) > 0,
+          f"parallel: the one-device sort launched no segment_minmode: {one_counts}")
+    centers, neigh = build_incidence(g)
+    deg = np.bincount(centers, minlength=g.n).astype(np.int32)
+    args = [torch.from_numpy(a).cuda() for a in (centers, neigh, deg)]
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        labels, it = _cdlp_sort_kernel(*args, g.n, CDLP_ITERS)
+        oracle_s = time.perf_counter() - t0
+    check(np.array_equal(g.mapping[labels.cpu().numpy()], one.values) and it == one.iterations,
+          "parallel: the one-device sort differs from the torch-op oracle")
+    with kernels.plain_torch():
+        plain = run_algorithm("cdlp", g, AlgorithmParams(max_iterations=CDLP_ITERS),
+                              PlatformConfig(device="cuda:0", intermediate_dir=str(INTERMEDIATE),
+                                             cdlp_impl="sort"))
+    check(np.array_equal(plain.values, one.values) and plain.iterations == one.iterations,
+          "parallel: the one-device sort differs from its plain version")
+    print(f"cdlp-impl=sort on one device ({smi}): {one_s:.6f} s warm on K12 "
+          f"({one_counts.get('segment_minmode', 0)} segment_minmode launches), the torch-op "
+          f"oracle {oracle_s:.6f} s warm in this call (3.83-3.86 s on an H100 80GB HBM3 at "
+          f"700 W when it was the route); equal bit for bit to the oracle and to "
+          f"plain_torch(), {it} iterations",
+          flush=True)
+    return {"s": one_s, "oracle_s": oracle_s, "launches": one_counts, "iterations": int(it)}
+
+
 def phase_parallel(g, gw, device, smi, real_steps):
     """The distributed loops (graphtpu_torch/parallel/) over a one-rank NCCL
     group on cuda:0, each through try_run_distributed with num-devices 1, on
@@ -1253,10 +1318,15 @@ def phase_parallel(g, gw, device, smi, real_steps):
         one_cfg = PlatformConfig(device=str(device), intermediate_dir=str(INTERMEDIATE),
                                  **one_impl)
         for _ in range(2):  # the first run builds and copies the one-device plan
+            kernels.reset_launch_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             one = run_algorithm(algo, gr, params[algo], one_cfg)
             one_s = time.perf_counter() - t0
+            one_counts = {k: v for k, v in kernels.launch_counts.items() if v}
+        if name == "cdlp_dist":
+            report["cdlp_sort_one_device"] = _sort_twin_against_oracle(gr, one, one_s,
+                                                                       one_counts, smi)
         check(res.values.shape == one.values.shape, f"parallel: {name} shape differs")
         if name != "wcc_adaptive_dist":  # its rounds follow its own gate (docstring)
             check(res.iterations == one.iterations,
@@ -1564,76 +1634,61 @@ def phase_kernels(g, prep, pr_plan, device):
     return res
 
 
-def _captured(owner, attr, fn):
-    """Run fn() with ``owner.attr`` replaced by a wrapper that keeps the
-    positional arguments of each call (tensors cloned); returns them."""
-    calls = []
-    real = getattr(owner, attr)
-
-    def keep(*args, **kwargs):
-        calls.append(tuple(a.clone() if hasattr(a, "clone") else a for a in args))
-        return real(*args, **kwargs)
-
-    with patched({(owner, attr): keep}):
-        fn()
-    check(calls, f"{attr} was not called")
-    return calls
-
-
 def k12_k13(g, prep, lab1, bprep, device):
-    """K12 (segment_minmode) at the shapes of the CDLP paths: the heavy rows
-    of a full step (gather mode, the labels after iteration 0), one CDLP
-    auto tier step (the stream of a run's largest one, as the loop builds
-    it) and
-    the heavy rows in identity mode (iteration 0 on a directed graph); K13
-    (bfs_trunc_probe) at BFS auto's first bottom-up step (its arguments
-    taken from a run). Each is held bit for bit against its plain version,
-    twice. No single PyTorch call computes either: no library time."""
+    """K12 (segment_minmode) at the shapes of the CDLP paths
+    (``tools/minmode_times.py:k12_shapes``): the heavy rows of a full step
+    (gather mode, the labels after iteration 0), the heavy rows in identity
+    mode (iteration 0 on a directed graph), one CDLP auto tier step (the
+    stream of a run's largest one, as the loop builds it), the whole
+    incidence (cdlp-impl=sort's call) and vertex 0's segment alone; each
+    call's work items (medium, block-class and long segments, bins, long
+    chunks, and the bins and chunks of the global-memory fallback) print.
+    K13 (bfs_trunc_probe) at BFS auto's first bottom-up step (its
+    arguments taken from a run). Each is held bit for bit against its plain
+    version, twice. No single PyTorch call computes either: no library
+    time."""
     import torch
 
     from graphtpu_torch.algorithms import bfs as bfs_mod
     from graphtpu_torch.algorithms.bfs import bfs_adaptive_run
-    from graphtpu_torch.ops import active
     from graphtpu_torch.ops.frontier import bfs_trunc_probe, bfs_trunc_probe_plain
-    from graphtpu_torch.ops.minmode import stream_minmode, stream_minmode_plain
+    from graphtpu_torch.ops.minmode import (
+        _k12_launch, k12_work, stream_minmode, stream_minmode_plain,
+    )
+    from graphtpu_torch.tools.minmode_times import captured, k12_shapes, shape_bytes
     from graphtpu_torch.utils.config import PlatformConfig
 
-    n, plan = g.n, prep.plan
+    n = g.n
     cfg = PlatformConfig(device=str(device))
-    heavy = (plan.heavy_centers, plan.heavy_neigh, plan.heavy_indptr)
-    tiers = _captured(
-        active, "stream_minmode",
-        lambda: active.cdlp_adaptive_device_run(g, None, None, prep.deg_pad[:-1].cpu().numpy(),
-                                                CDLP_ITERS, cfg, prep=prep))
-    t_labels, *tier = max(tiers, key=lambda a: int(a[3][-1]))  # the most real edges
-    shapes = {"heavy": (lab1, heavy, False), "tier": (t_labels, tuple(tier), False),
-              "identity": (None, heavy, True)}
     times = {}
-    for what, (labels, (centers, neigh, indptr), identity) in shapes.items():
+    for what, (labels, centers, neigh, indptr, identity) in k12_shapes(g, device, prep,
+                                                                         lab1).items():
         got = stream_minmode(labels, centers, neigh, indptr, identity)
         again = stream_minmode(labels, centers, neigh, indptr, identity)
         want = stream_minmode_plain(labels, centers, neigh, indptr, identity)
         check(torch.equal(got, want), f"segment_minmode ({what}) differs from its plain version")
         check(torch.equal(got, again), f"segment_minmode ({what}): two runs differ")
+        work = k12_work(_k12_launch(labels, neigh, indptr, identity)[1])
         h, m, real = indptr.shape[0] - 1, neigh.shape[0], int(indptr[-1])
         times[what] = dict(
             times=(cuda_ms(lambda: stream_minmode(labels, centers, neigh, indptr, identity)),
                    cuda_ms(lambda: stream_minmode_plain(labels, centers, neigh, indptr,
                                                         identity))),
-            # neigh and indptr read once, the labels once (gather mode), a
-            # result a segment; a count per entry
-            bytes=4 * (real + (h + 1) + h + (0 if identity else n)), ops=real,
+            # neigh and indptr read once, in gather mode the labels the
+            # entries reach (at most n), a result a segment; a count per
+            # entry; never below the launch floor (bound_ms)
+            bytes=shape_bytes(labels, neigh, indptr, n), ops=real, work=work,
             shape=(f"{what}: {h} segments, {real} entries"
                    + (f" (+ {m - real} pad slots in no segment)" if m > real else "")
                    + (", identity mode" if identity else ", gather mode")))
+        print(f"segment_minmode = plain, twice the same bits, at {times[what]['shape']}; "
+              f"work items {work}", flush=True)
     main = times.pop("heavy")
     k12 = dict(max_abs_err=0.0, library=None,  # none: a sort, a run-length pass, a scatter-max
                other_shapes=list(times.values()), **main)
-    print(f"segment_minmode = plain, twice the same bits, at the heavy rows, a CDLP auto tier "
-          f"and identity mode ({k12['other_shapes'][0]['shape']})", flush=True)
 
     t_trunc = bfs_mod.BFS_TRUNC
-    (levels, level, trunc, pdeg, t), *_ = _captured(
+    (levels, level, trunc, pdeg, t), *_ = captured(
         bfs_mod, "bfs_trunc_probe", lambda: bfs_adaptive_run(g, 0, cfg))
     check((trunc.shape[0], t) == (t_trunc * n, t_trunc), "bfs_trunc_probe: not BFS's shape")
     got = bfs_trunc_probe(levels, level, trunc, pdeg, t)
@@ -2619,7 +2674,8 @@ def main() -> int:
          "library_ms": res[name]["library_ms"],
          "other_shapes": res[name].get("other_shapes", []),
          **{k: res[name][k] for k in ("buckets", "traffic_ms", "call_ms", "call_wall_ms",
-                                      "single_pass_ms", "ops_by_design") if k in res[name]}}
+                                      "single_pass_ms", "ops_by_design", "work")
+            if k in res[name]}}
         for name in kernels.COUNTERS
     ], "empty_kernel_ms": empty_ms, "ingest": ingest, "bench": bench, "parallel": parallel,
        "checkpoint": ckpt, "scaling": scaling}

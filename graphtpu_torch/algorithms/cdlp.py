@@ -11,8 +11,11 @@ ids during compute and original ids at output.
 labels change, then active-set steps on the frontier engine
 (ops/active.py, kernels K2 and K5); under ``iteration_timing`` they run
 host-stepped, as "adaptive-host". "slab" is the degree-bucketed path on
-kernel K2 alone (ops/minmode.py); "sort" is the torch-op oracle, the
-reference's global sort and run-length scan (LAGraph_cdlp.c:286-323).
+kernel K2 alone (ops/minmode.py); "sort" takes each vertex's min-mode over
+its whole incidence row on kernel K12 (``stream_minmode``), the function
+the reference computes by a global sort and run-length scan
+(LAGraph_cdlp.c:286-323), which ``_cdlp_sort_kernel`` keeps in torch ops as
+the oracle.
 """
 
 from __future__ import annotations
@@ -87,6 +90,41 @@ def _cdlp_sort_kernel(centers, neigh, deg, n, itermax, skip_checks=0):
     return labels, it
 
 
+def incidence_csr(graph: Graph, centers, neigh, deg, device):
+    """(centers, neigh, indptr, deg) of the incidence on ``device``: int32,
+    indptr the prefix of the incidence degrees. Memoized on the Graph,
+    keyed by the device."""
+    key = ("cdlp_incidence_csr", str(device))
+    csr = graph.memo.get(key)
+    if csr is None:
+        indptr = np.zeros(graph.n + 1, dtype=np.int64)
+        np.cumsum(deg, out=indptr[1:])
+        csr = tuple(torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
+                    for a in (centers, neigh, indptr, deg))
+        graph.memo[key] = csr
+    return csr
+
+
+def cdlp_sort_run(graph: Graph, centers, neigh, deg, itermax: int, skip_checks: int, device):
+    """cdlp-impl=sort: per iteration, each vertex's min-mode over its
+    incidence row on K12 (its plain version on the CPU and under
+    ``kernels.plain_torch()``); vertices without neighbours keep their
+    label. The first ``skip_checks`` iterations count as changed, without
+    the read (as ``_cdlp_sort_kernel``); after them, one device read an
+    iteration. Returns (labels on ``device``, iterations)."""
+    from graphtpu_torch.ops.minmode import stream_minmode
+
+    c, nb, indptr, d = incidence_csr(graph, centers, neigh, deg, device)
+    has_neighbors = d > 0
+    labels = torch.arange(graph.n, dtype=torch.int32, device=device)
+    it, changed = 0, True
+    while changed and it < itermax:
+        new = torch.where(has_neighbors, stream_minmode(labels, c, nb, indptr), labels)
+        changed = it < skip_checks or bool((new != labels).any())
+        labels, it = new, it + 1
+    return labels, it
+
+
 def _resolve_impl(cfg: PlatformConfig) -> str:
     impl = cfg.cdlp_impl
     if impl not in IMPLS:
@@ -124,10 +162,7 @@ def cdlp(graph: Graph, params: AlgorithmParams, cfg: PlatformConfig) -> Algorith
 
         labels, it = cdlp_slab_run(graph, centers, neigh, deg, itermax, cfg)
     else:
-        device = torch.device(cfg.device)
-        labels, it = _cdlp_sort_kernel(
-            *(torch.from_numpy(a).to(device) for a in (centers, neigh, deg)),
-            graph.n, itermax, int(cfg.skip_convergence_checks),
-        )
+        labels, it = cdlp_sort_run(graph, centers, neigh, deg, itermax,
+                                   int(cfg.skip_convergence_checks), torch.device(cfg.device))
     communities = graph.mapping[labels.cpu().numpy()]
     return AlgorithmResult("cdlp", communities, iterations=int(it))

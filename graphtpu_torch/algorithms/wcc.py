@@ -42,7 +42,6 @@ from graphtpu_torch.ops.frontier import (
     mask_status,
 )
 from graphtpu_torch.ops.gather import table_gather
-from graphtpu_torch.ops.scan_reduce import seg_min_scan
 from graphtpu_torch.ops.slab import SlabPlan, assemble, result_buffer
 from graphtpu_torch.ops.spmv import (
     PullCSR, build_pull_plan, csr_pull_reduce, int32_tensor, pull_csr, slab_spmv,
@@ -109,11 +108,12 @@ def _wcc_adaptive_loop(full_step, iter0_step, prep: WccPrep, n: int, k_cap: int,
 
     def active_step(labels, act_ids):
         exp = expand(act_ids, deg_pad, indptr, edges_src, e_cap, with_row_ids=False)
-        lab_at = torch.where(exp.valid, table_gather(labels, exp.neigh), INT32_INF)
-        # segment k_cap collects the pad slots and is dropped
+        # each active row's minimum neighbour label on K7; the valid slots are
+        # exactly those before seg_starts[k_cap] (the active set's edges fit
+        # e_cap here), so segment k_cap holds every pad slot (neighbour 0,
+        # inside the labels) and is dropped
         indptr_ext = torch.cat([exp.seg_starts, exp.seg_starts.new_full((1,), e_cap)])
-        centers_ext = torch.where(exp.valid, exp.rows_local, k_cap)
-        mins = seg_min_scan(lab_at, centers_ext, indptr_ext, INT32_INF)[:k_cap]
+        mins = csr_pull_reduce("min_i32", labels, exp.neigh, indptr_ext)[:k_cap]
         valid_row = act_ids < n
         old = table_gather(labels, torch.where(valid_row, act_ids, 0))
         winners = torch.minimum(old, mins)

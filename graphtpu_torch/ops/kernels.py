@@ -28,7 +28,8 @@ reference on the card. A wrapper adds one to ``launch_counts[name]`` for
 each launch (K7 in mode sum to ``launch_counts["csr_pull_reduce_sum"]``);
 K9, K11 and K12 may launch more than once a call (K9: a histogram, a scatter,
 the probe and the unbin; K11: one launch per task list of its plan; K12: a
-warp per segment, then a block per long segment), and count each.
+warp per segment, then a persistent grid for the longer ones), and count
+each.
 """
 
 from __future__ import annotations
@@ -95,15 +96,20 @@ _SIGNATURES = {
     # identity), out, stream
     "gt_masked_spgemm": (_P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32, _P,
                          _I32, _P, _P, _P, _P),
-    # labels (null = identity), neigh, indptr, h, m, bound, out, work list, stream
-    "gt_segment_minmode_warp": (_P, _P, _P, _I32, _I64, _I64, _P, _P, _P),
-    # labels, neigh, indptr, h, m, bound, out, work list, table keys, table
-    # counts (null unless m > 4096), stream
-    "gt_segment_minmode_block": (_P, _P, _P, _I32, _I64, _I64, _P, _P, _P, _P, _P),
+    # K12's two launches: labels (null = identity), neigh, indptr, h, m, bound,
+    # out, scratch, scratch ints, med_len, long_len, stream
+    **{f"gt_segment_minmode_{k}": (_P, _P, _P, _I32, _I64, _I64, _P, _P, _I64, _I32, _I32, _P)
+       for k in ("warp", "grid")},
     # levels, n_levels, level, trunc, t, rows, row_offset, pdeg, claim, resid, stream
     "gt_bfs_trunc_probe": (_P, _I64, _I32, _P, _I32, _I64, _I64, _P, _P, _P, _P),
     # stream: a kernel that returns at once (csrc/empty_kernel.cu)
     "gt_empty_kernel": (_P,),
+}
+
+# host functions that size a launch's scratch, returning a count
+_QUERIES = {
+    # h, m, long_len -> the ints of K12's scratch
+    "gt_segment_minmode_scratch_ints": (_I32, _I64, _I32),
 }
 
 # a launch counter per kernel, and one for K7 in mode sum (PageRank's scan
@@ -211,6 +217,10 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.gt_error_string.argtypes = (ctypes.c_int,)
         lib.gt_error_string.restype = ctypes.c_char_p
+        for name, argtypes in _QUERIES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = _I64
         _lib = lib
     return _lib
 
@@ -234,6 +244,11 @@ def launch(name: str, device, *args, counter: str | None = None) -> None:
     Python ints)."""
     _call(name, device, *args)
     launch_counts[counter or name] += 1
+
+
+def query(name: str, *args) -> int:
+    """A host function of the library (``_QUERIES``): no launch, no stream."""
+    return int(getattr(library(), "gt_" + name)(*args))
 
 
 def launch_empty(device) -> None:

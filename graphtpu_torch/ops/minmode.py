@@ -9,7 +9,9 @@ wide (a sort in registers) and one for the wider ones (counting in
 shared-memory hash tables), writing straight into the step's result
 buffer. Rows heavier than the largest bucket go through kernel K12
 (``stream_minmode``, kernel ``segment_minmode``): a warp per short segment,
-a block per long one, with no host read; its plain version is a pair sort,
+a warp or a block with a shared-memory table per medium one, and a long
+one's chunks counted into (label, count) pairs, then hash bins of the
+pairs, a block each, with no host read; its plain version is a pair sort,
 a run-length pass and a per-segment max in torch ops. One K1 gather by the
 inverse permutation assembles the result.
 
@@ -39,8 +41,22 @@ _M31 = (1 << 31) - 1
 MODES = {"gather": 0, "identity": 1, "min": 2}
 MAX_SLAB_WIDTH = 4096  # K2's widest row: a 6144-entry table in 48 KB of shared memory
 SMALL_WIDTH = 32       # GT_SMALL_W of csrc/slab_minmode.cu: up to here K2 sorts in registers
-K12_WARP_LEN = 32      # csrc/segment_minmode.cu: a segment up to here takes one warp
-K12_SMEM_LEN = 4096    # its longest segment counted in shared memory; longer ones in scratch
+# K12's classes by segment length (csrc/segment_minmode.cu): up to
+# K12_WARP_LEN a warp in registers; up to K12_MED_LEN a warp with a shared
+# table of its own (at most 512); up to K12_SMEM_LEN a 256-thread block's
+# shared table (at most 4,096); longer ones in chunks of 4,096 entries,
+# each counted into (label, count) pairs, the pairs then counted by hash
+# bins of at most 4,096 pairs, a block each. K12_MED_LEN and K12_SMEM_LEN
+# were set from the chip's times of each class alone (tools/minmode_times.py
+# --classes; PERF.md §6): on an H100 80GB HBM3 at 700 W, over 2^24 entries
+# a length, a warp's table beat a block's at every length up to 512 (0.489
+# against 0.597 ms at 512), a block's beat bins at every length up to 4,096
+# (0.534 against 1.201 ms at 4,096). K12 takes the two bounds as launch
+# arguments only so that that tool can time one class under each unit;
+# every call in the package passes these values.
+K12_WARP_LEN = 32
+K12_MED_LEN = 512
+K12_SMEM_LEN = 4096
 
 
 def _rowwise_minmode_plain(lab: torch.Tensor) -> torch.Tensor:
@@ -206,6 +222,38 @@ def _check_stream(labels, centers, neigh, indptr, identity) -> None:
             raise ValueError(f"stream_minmode: a stream of {m} entries is too long for K12")
 
 
+def k12_launches(h: int, m: int) -> int:
+    """K12's launches in one call on a stream of H segments over m entries:
+    the warp kernel, and the grid kernel where a segment can be longer than
+    a warp's."""
+    return 0 if h == 0 else 1 + (m > K12_WARP_LEN)
+
+
+# K12's work items, as its scratch header counts them (k12_work)
+K12_WORK = ("medium", "block", "long", "bins", "long_chunks", "fallback_chunks",
+            "fallback_bins")
+
+
+def _k12_launch(labels, neigh, indptr, identity):
+    """(result, scratch) of K12's launches on a CUDA stream."""
+    dev, h, m = neigh.device, indptr.shape[0] - 1, neigh.shape[0]
+    out = torch.empty(h, dtype=torch.int32, device=dev)
+    ints = kernels.query("segment_minmode_scratch_ints", h, m, K12_SMEM_LEN)
+    scratch = torch.empty(ints, dtype=torch.int32, device=dev)
+    args = (None if identity else labels.data_ptr(), neigh.data_ptr(), indptr.data_ptr(), h,
+            m, 0 if identity else labels.shape[0], out.data_ptr(), scratch.data_ptr(), ints,
+            K12_MED_LEN, K12_SMEM_LEN)
+    for name in ("warp", "grid")[:k12_launches(h, m)]:
+        kernels.launch(f"segment_minmode_{name}", dev, *args, counter="segment_minmode")
+    return out, scratch
+
+
+def k12_work(scratch) -> dict:
+    """The work items of the K12 call that left ``scratch`` (``K12_WORK``),
+    read back to the host: for measuring scripts."""
+    return dict(zip(K12_WORK, scratch[:len(K12_WORK)].tolist()))
+
+
 def stream_minmode(labels, centers, neigh, indptr, identity=False):
     """K12 wrapper: min-mode per segment s of ``indptr`` [H+1] (int32
     starts over ``neigh`` [m], ascending in [0, m]) of ``labels[neigh]``, or
@@ -216,26 +264,12 @@ def stream_minmode(labels, centers, neigh, indptr, identity=False):
     diff(indptr))`` followed by H for each entry past ``indptr[-1]``, so
     the kernel, which takes the segments from ``indptr``, computes the same
     function. Pads as in ``stream_minmode_plain``. On a CUDA tensor no
-    value is read back to the host."""
+    value is read back to the host; a stream of m entries with m + m/2 >=
+    2^31 raises there (K12's indices are int32)."""
     _check_stream(labels, centers, neigh, indptr, identity)
     if not kernels.use_kernel(neigh):
         return stream_minmode_plain(labels, centers, neigh, indptr, identity)
-    dev, h, m = neigh.device, indptr.shape[0] - 1, neigh.shape[0]
-    out = torch.empty(h, dtype=torch.int32, device=dev)
-    if h == 0:
-        return out
-    wide = torch.empty(h + 1, dtype=torch.int32, device=dev)  # its count, then segment ids
-    args = (None if identity else labels.data_ptr(), neigh.data_ptr(), indptr.data_ptr(), h,
-            m, 0 if identity else labels.shape[0], out.data_ptr(), wide.data_ptr())
-    kernels.launch("segment_minmode_warp", dev, *args, counter="segment_minmode")
-    if m > K12_WARP_LEN:  # else no segment is long enough for the block kernel
-        keys = cnts = None
-        if m > K12_SMEM_LEN:
-            table = torch.empty(2, m + m // 2, dtype=torch.int32, device=dev)
-            keys, cnts = table[0].data_ptr(), table[1].data_ptr()
-        kernels.launch("segment_minmode_block", dev, *args, keys, cnts,
-                       counter="segment_minmode")
-    return out
+    return _k12_launch(labels, neigh, indptr, identity)[0]
 
 
 def _heavy_minmode(labels, plan: SlabPlan):

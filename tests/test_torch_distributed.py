@@ -223,7 +223,7 @@ def _jax_pick(algo, impl, jsg, monkeypatch):
     return str(picked.value)
 
 
-def test_default_impls_warn_and_run_on_one_device(ranks, monkeypatch, tmp_path):
+def test_every_impl_runs_over_the_ranks_through_the_jax_loop(ranks, monkeypatch, tmp_path):
     """Every algorithm under every impl name the port takes runs over the
     ranks (the one-device path never runs, and nothing warns): through the
     distributed loop of the module the JAX package's wrapper picks for that

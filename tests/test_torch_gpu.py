@@ -23,8 +23,8 @@ from graphtpu_torch.ops.frontier import (
 from graphtpu_torch.ops.gather import gather_rows, gather_rows_plain
 from graphtpu_torch.core.types import INT32_INF
 from graphtpu_torch.ops.minmode import (
-    K12_SMEM_LEN, K12_WARP_LEN, slab_minmode, slab_minmode_buckets, slab_minmode_plain,
-    stream_minmode, stream_minmode_plain,
+    K12_MED_LEN, K12_SMEM_LEN, K12_WARP_LEN, _k12_launch, k12_work, slab_minmode,
+    slab_minmode_buckets, slab_minmode_plain, stream_minmode, stream_minmode_plain,
 )
 from graphtpu_torch.ops.pallas_gather import vreg_shuffle, vreg_shuffle_plain
 from graphtpu_torch.ops.slab import build_slab_plan, result_buffer
@@ -1245,7 +1245,8 @@ def test_naive_distributed_kernels_on_one_nccl_rank(cuda, algo):
             "bfs": ("dense", "device", "csr_pull_reduce"),
             "sssp": ("dense", "device", "csr_pull_reduce"),
             "wcc": ("dense", "device", "csr_pull_reduce"),
-            "cdlp": ("sort", "sort", "gather_rows"), "lcc": ("sweep", "sweep", "gather_rows")}
+            "cdlp": ("sort", "sort", "segment_minmode"),
+            "lcc": ("sweep", "sweep", "gather_rows")}
     dist_impl, one_impl, kernel = runs[algo]
     g = rmat_graph(12, 16, directed=True, weighted=algo == "sssp", seed=5)
     params = AlgorithmParams(source_vertex=0, damping_factor=0.85, num_iterations=10,
@@ -1446,8 +1447,9 @@ def _k12_stream(rng, seg_len, n_ids):
 
 def _k12_assert_matches_plain(labels, centers, neigh, indptr, identity, device):
     """K12 on the card = its plain version on the CPU, twice for the same
-    bits; each call adds 1 launch, or 2 where a segment can be longer than
-    a warp's."""
+    bits; each call adds one launch (the warp kernel), two where a segment
+    can be longer than a warp's (the persistent grid kernel too), none on
+    no segment."""
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
     lab = None if identity else t(labels)
     want = stream_minmode_plain(lab, t(centers), t(neigh), t(indptr), identity)
@@ -1456,16 +1458,20 @@ def _k12_assert_matches_plain(labels, centers, neigh, indptr, identity, device):
     before = kernels.launch_counts["segment_minmode"]
     got = stream_minmode(*args, identity=identity)
     again = stream_minmode(*args, identity=identity)
-    per_call = 0 if indptr.shape[0] == 1 else 1 + (neigh.shape[0] > K12_WARP_LEN)
+    h, m = indptr.shape[0] - 1, neigh.shape[0]
+    per_call = 0 if h == 0 else 1 + (m > K12_WARP_LEN)
     assert kernels.launch_counts["segment_minmode"] == before + 2 * per_call
     assert torch.equal(got, again)
     assert torch.equal(got.cpu(), want)
     return want
 
 
-# one segment of each length class: empty, a warp's, past a warp, the
-# shared-memory table's largest and past it (the global-memory table)
-K12_LENGTHS = [0, 1, 2, 5, 31, 32, 33, 64, 100, 1000, 4095, 4096, 4097, 10000, 70000]
+# one segment at each side of every class boundary: empty, a warp's in
+# registers, a warp's table (K12_MED_LEN, at most 512), a block's table
+# (K12_SMEM_LEN), then bins (a bin holds about 2,048 entries), vertex 0's
+# segment on the bench graph (101,056) and one of 250,000
+K12_LENGTHS = [0, 1, 2, 5, 31, 32, 33, 64, 100, K12_MED_LEN, K12_MED_LEN + 1, 512, 513, 1000,
+               4095, 4096, 4097, 10000, 70000, 101056, 250000]
 
 
 @pytest.mark.parametrize("identity", [False, True], ids=["gather", "identity"])
@@ -1482,7 +1488,8 @@ def test_segment_minmode_every_length_class(cuda, n_labels, identity):
     assert (want.numpy()[seg_len == 0] == INT32_INF).all()
 
 
-@pytest.mark.parametrize("m", [0, 1, 31, 32, 33, K12_SMEM_LEN, K12_SMEM_LEN + 1])
+@pytest.mark.parametrize("m", [0, 1, 31, 32, 33, K12_MED_LEN, K12_MED_LEN + 1, K12_SMEM_LEN,
+                               K12_SMEM_LEN + 1])
 def test_segment_minmode_streams_at_the_route_boundaries(cuda, m):
     """Streams whose length sits at a launch or table boundary, in segments
     of random lengths, empty ones among them."""
@@ -1546,6 +1553,79 @@ def test_segment_minmode_hand_cases(cuda, case):
         assert want.tolist() == [INT32_INF - 1] * 3
     elif case == "no_segment":
         assert want.shape == (0,)
+
+
+def _k12_bin_of(v, nb):
+    """csrc/segment_minmode.cu's k12_bin_of: the bins among nb of labels v
+    (an array)."""
+    x = np.asarray(v, dtype=np.uint64) & np.uint64(0xFFFFFFFF)
+    for shift, mul in ((16, 0x85EBCA6B), (13, 0xC2B2AE35), (16, None)):
+        x ^= x >> np.uint64(shift)
+        if mul is not None:
+            x = (x * np.uint64(mul)) & np.uint64(0xFFFFFFFF)
+    return (x * np.uint64(nb)) >> np.uint64(32)
+
+
+K12_LONG_BINS = 49  # bins of a segment of 100,000 entries: ceil(100,000 / 2,048)
+
+
+def _k12_long_case(case, rng):
+    """(labels, centers, neigh, indptr, identity) of one long segment
+    (100,000 entries, K12_LONG_BINS bins) and two short ones around it."""
+    n, length = 1 << 20, 100000
+    labels = rng.permutation(n).astype(np.int32)
+    seg = rng.integers(0, n, size=length)
+    identity = False
+    if case == "hot_label":  # 90 % one label: one pair a chunk, no bin overflows
+        seg[: 9 * length // 10] = 12345
+        labels[12345] = 777
+    elif case == "all_distinct":  # every id once, counted as the labels themselves
+        seg = rng.permutation(n)[:length]
+        identity = True
+    else:
+        bins = _k12_bin_of(np.arange(n), K12_LONG_BINS)
+        identity = True
+        labels = np.arange(n, dtype=np.int32)
+        if case == "tie_across_bins":  # two labels at 700 entries each, in different bins
+            a = 1000
+            b = int(np.flatnonzero(bins[a + 1:] != bins[a])[0]) + a + 1
+            others = rng.permutation(np.setdiff1d(np.arange(n), [a, b]))[:length - 1400]
+            seg = np.concatenate([np.repeat([b, a], 700), others])
+        else:  # 10,000 distinct ids of bin 0: a bin of 10,000 pairs, past the shared table
+            seg = np.concatenate([rng.permutation(np.flatnonzero(bins == 0))[:10000],
+                                  rng.permutation(np.flatnonzero(bins != 0))[:length - 10000]])
+        seg = rng.permutation(seg)
+    neigh = np.concatenate([rng.integers(0, n, size=40), seg, rng.integers(0, n, size=7)])
+    seg_len = [40, length, 7]
+    indptr = np.concatenate([[0], np.cumsum(seg_len)]).astype(np.int32)
+    centers = np.repeat(np.arange(3), seg_len).astype(np.int32)
+    return labels, centers, neigh.astype(np.int32), indptr, identity
+
+
+@pytest.mark.parametrize("case", ["hot_label", "all_distinct", "tie_across_bins",
+                                  "overflow_bin"])
+def test_segment_minmode_long_segment_cases(cuda, case):
+    """A long segment's bins: one hot label in 90 % of it (one pair a chunk),
+    every id distinct in identity mode, two labels tied at the top count
+    that fall in different bins (the smaller wins), and a bin of 10,000
+    pairs, past the shared table's 4,096, counted by the global-memory
+    fallback in 3 chunks. Twice the same bits as the plain version; the
+    fallback taken by that bin alone."""
+    labels, centers, neigh, indptr, identity = _k12_long_case(case, np.random.default_rng(5))
+    want = _k12_assert_matches_plain(labels, centers, neigh, indptr, identity, cuda).numpy()
+    t = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
+    _, scratch = _k12_launch(None if identity else t(labels), t(neigh), t(indptr), identity)
+    work = k12_work(scratch)
+    assert (work["long"], work["bins"], work["long_chunks"]) == (1, K12_LONG_BINS, 25)
+    overflow = case == "overflow_bin"
+    assert (work["fallback_bins"], work["fallback_chunks"]) == (overflow, 3 * overflow)
+    seg = neigh[40:100040]
+    if case == "hot_label":
+        assert want[1] == 777
+    elif case == "tie_across_bins":
+        assert want[1] == 1000
+    else:  # every label once: the smallest
+        assert want[1] == seg.min()
 
 
 def test_segment_minmode_makes_no_host_read(cuda):

@@ -198,7 +198,7 @@ class _Records(logging.Handler):
         self.messages.append(record.getMessage())
 
 
-def test_platform_keys_not_ported_yet_log_a_warning(tmp_path):
+def test_every_platform_key_parses_as_in_jax_and_logs_no_warning(tmp_path):
     """No key the JAX package acts on is left unported, so none logs a
     warning: shard-checkpoints (the last one ported), num-devices,
     sssp-delta, lcc-impl, the four the harness's port brought (spmv-impl,
