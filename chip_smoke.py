@@ -36,20 +36,25 @@ Run from the root of a checkout:  python3 chip_smoke.py
    wedge plan's prep is timed cold and from the oriented cache, its counts
    print, and the plain path is one pass of K10's plain version over every
    bucket (phase 5), whose numerators must equal the kernel path's; on two
-   RMAT scale-14 graphs (directed, undirected) oriented must equal sweep.
+   RMAT scale-14 graphs (directed, undirected) oriented must equal sweep,
+   and on the benchmark graph the sweep's numerators (K15, phase 5) must
+   equal the oriented ones.
    Kernel and plain results must be identical (PageRank
    within 1e-4 relative, and scan within 1e-4 of auto), every impl of an
    algorithm must give the same result, and iteration and phase counts must agree between kernel and
    plain runs; the phase counts print beside the JAX package's for the same
    graphs. Results are also checked edge by edge: BFS levels, WCC labels
    and SSSP distances are fixed points of their relaxations. Each
-   kernel-path run is profiled (top device ops, idle share, named ranges).
+   kernel-path run is profiled (top device ops, idle share, named ranges);
+   the traces of CDLP, BFS, WCC and SSSP under auto and of LCC must hold no
+   sort kernel (the frontiers compact on K14).
 4. Launch counts: each path runs with the counts set to 0 just before it
    and read just after; every kernel of a path must have launched in it
    (CDLP auto and slab: K12 on the heavy rows and the tier steps, K7 on
-   iteration 0's heavy rows; BFS auto: K13 in its bottom-up steps),
-   and PageRank under scan must launch K7 in mode sum 20 times a run and
-   nothing else.
+   iteration 0's heavy rows; BFS auto: K13 in its bottom-up steps and K7
+   on their residual rows; K14 on every adaptive path), PageRank under scan
+   must launch K7 in mode sum 20 times a run and nothing else, and LCC K7
+   in mode sum_i64 once a run.
    vreg_shuffle has no path in the system, and no LCC path launches
    edgehash_probe (K10 closes wedges by a search of the plan's closing CSR;
    only K10's plain version probes the hash), and no algorithm calls
@@ -81,15 +86,22 @@ Run from the root of a checkout:  python3 chip_smoke.py
    segment alone, each call's work items (its classes, bins and the
    fallback's bins) printed; K13 (bfs_trunc_probe) at BFS auto's first
    bottom-up step (taken from a run); each twice, bit for bit against its
-   plain version. K9 runs
+   plain version. K14 (frontier_compact) on CDLP auto's and BFS auto's
+   masks, BFS auto's 2^18-slot tier stream (all taken from runs) and BFS's
+   top tier of 2^22 slots, under sync debug mode "error", with torch.sort
+   and torch.unique as yardsticks; K7 max_i32 on BFS auto's residual test
+   and K8's int32 mode on a WCC active step's expansion. K9 runs
    at 2^22 probes drawn from the benchmark graph's wedge plan (half present
    pairs, half random ones), binned by partitions of the table sized from
    the card's L2 (three launches a call: histogram, scatter, probe; the
    single pass over the caller's order is timed and held beside it), K10
    per bucket and over all buckets of that plan, both twice for the same
    bits (K10's bound counts merge steps: the wedges plus the out-list
-   entries its search reads). A kernel that returns at once gives the
-   floor under the launch-sized rows.
+   entries its search reads); K7 sum_i64 on the plan's head credits; K15
+   (lcc_sweep_member) over the whole sweep of the benchmark graph, timed,
+   and against its plain version on the first 2^16 A-edges of each degree
+   bucket (the whole plain sweep takes over a minute). A kernel that
+   returns at once gives the floor under the launch-sized rows.
 5b. K11 masked_spgemm: against its plain version on the card for each add
    monoid (plus.times, min.plus, max.second, lor.land) and each value type
    (float32, float64, int32, structural) on RMAT scale 14 (A its oriented
@@ -147,8 +159,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
    build and install) and the twin's; shard-checkpoints is off there, so
    that every call builds its plans. Then a 2-rank gloo mesh's start is
    timed and dryrun_multichip(2) runs over it on the CPU.
-9. The sharded checkpoints (shard-checkpoints) on the bench graph over one
-   NCCL rank, with a temporary intermediate directory: PageRank, CDLP and
+9. The sharded checkpoints (shard-checkpoints) on RMAT s18/ef32 (CKPT_GRAPH,
+   a quarter of the bench graph: its four compressed saves of 134 MB took
+   185-231 s of the script's time limit at full size) over one NCCL rank, with a temporary intermediate directory: PageRank, CDLP and
    WCC under their defaults (their slab plans pr-pull, cdlp-incidence,
    wcc-slab) and BFS under dense (the pull partition), each on a fresh
    sharded graph twice: built and saved, then restored with every builder
@@ -181,6 +194,7 @@ ROOT = Path(__file__).resolve().parent
 FIXTURES = ROOT / "tests" / "fixtures" / "graphs"
 INTERMEDIATE = ROOT / "intermediate"
 BENCH_GRAPH = "bench-rmat-s20-ef32"
+CKPT_GRAPH = ("bench-rmat-s18-ef32", 18, 32)  # the checkpoint phase's graph (docstring, 9)
 SSSP_GRAPH = "bench-rmat-s20-ef16-w"
 CDLP_ITERS, PR_ITERS, DAMPING = 10, 20, 0.85
 # the JAX package's step counts on the same graphs from vertex 0, default
@@ -201,15 +215,24 @@ TRACE_KERNELS = {
     ("slab_spmv_kernel",): ("slab_spmv_sum", "slab_spmv_min"),
     ("vreg_shuffle_kernel",): ("vreg_shuffle",),
     ("frontier_expand_kernel",): ("frontier_expand",),
-    ("k7_reduce",): ("csr_pull_reduce", "csr_pull_reduce_sum"),
+    ("k7_reduce",): ("csr_pull_reduce", "csr_pull_reduce_sum", "csr_pull_reduce_sum_i64"),
     ("push_relax_min_kernel",): ("push_relax_min",),
+    ("push_relax_min_i32_kernel",): ("push_relax_min_i32",),
     ("k9_count_kernel", "k9_scatter_kernel", "k9_probe_kernel", "k9_unbin_kernel",
      "k9_single_kernel"): ("edgehash_probe",),
     ("wedge_rowblock_kernel",): ("wedge_rowblock",),
     ("k11_warp_kernel", "k11_block_kernel"): ("masked_spgemm",),
     ("k12_warp_kernel", "k12_grid_kernel"): ("segment_minmode",),
     ("k13_probe_kernel",): ("bfs_trunc_probe",),
+    ("k14_write",): ("frontier_compact",),  # K14's last launch: one a call
+    ("lcc_sweep_kernel",): ("lcc_sweep_member",),
 }
+# the device kernels of a sort (cub's radix, segmented and merge sorts, torch's
+# own small sorts), matched without regard to case (torch's radixSortKVInPlace):
+# no profiled trace of the paths in NO_SORT_PATHS may hold one
+SORT_KERNELS = ("radixsort", "segmentedsort", "mergesort", "sortkeyvalueinplace",
+                "bitonicsort")
+NO_SORT_PATHS = ("cdlp-auto", "bfs-auto", "wcc-auto", "sssp-auto", "lcc")
 TRACE_KERNELS_OF = {name: pats for pats, names in TRACE_KERNELS.items() for name in names}
 TRACE_TRIES = 5  # traces taken before a kernel count that stays wrong fails the run
 PR_RTOL = 1e-4        # the validator's EPSILON (graphtpu/harness/validator.py:40)
@@ -238,7 +261,7 @@ def cuda_ms(fn, reps=10, empty_kernel=False, only=None):
     span stands in for the device time, with a line that says so.
     ``empty_kernel`` says that fn is the kernel that returns at once,
     which otherwise is left out; it opens and closes every trace. Its time
-    is the mean of the records a trace kept, if it kept at least ``reps``
+    is the mean of the records a trace kept, if it kept at least half of ``reps``
     (a lost record biases no mean of one kernel's records). ``only`` (names)
     counts the device time of the records whose name holds one of them."""
     import torch
@@ -270,9 +293,11 @@ def cuda_ms(fn, reps=10, empty_kernel=False, only=None):
         device_us = sum(e.self_device_time_total for e in events
                         if only is None or any(n in e.key for n in only))
         kept = sum(e.count for e in events)
-        if empty_kernel and device_us > 0 and kept >= reps:
+        if empty_kernel and device_us > 0 and kept >= reps // 2:
             # one kernel only: the mean of the records the trace kept is its
-            # time, whichever of the calls lost theirs
+            # time, whichever of the calls lost theirs (a trace that kept 99
+            # of 102 must not hand the floor to the stream span, which holds
+            # the host's launch time)
             return device_us / 1e3 / kept, stream_ms
         lost = trace_mismatch(prof) if device_us > 0 else ["no device time at all"]
         lost += [f"{e.key[:48]}: {e.count} records in {calls} calls" for e in events
@@ -321,9 +346,10 @@ def _device_events(prof, empty_kernel=False):
 
 
 def profile_run(fn):
-    """(wall seconds, device ms, top kernels, named ranges) of one profiled
-    call of fn(). A named range (one per step kind of the adaptive loops:
-    ``cdlp.*``, ``bfs.*``, ``wcc.*``, ``sssp.*``) gives its count, its host
+    """(wall seconds, device ms, top kernels, named ranges, the names of
+    every device record) of one profiled call of fn(). A named range (one
+    per step kind of the adaptive loops: ``cdlp.*``, ``bfs.*``, ``wcc.*``,
+    ``sssp.*``) gives its count, its host
     wall ms (the waits for the device included) and its device span ms
     (first to last kernel, gaps included). The trace's count of each hand
     kernel must equal the wrappers' launch counts: a trace that lost records
@@ -361,7 +387,7 @@ def profile_run(fn):
             else:
                 count, host = e.count, host + e.cpu_time_total / 1e3
             ranges[e.key] = (count, host, span)
-    return wall, device_ms, top, ranges
+    return wall, device_ms, top, ranges, [e.key for e in events]
 
 
 def card_state():
@@ -592,26 +618,28 @@ def timed_run(algo, g, params, cfg, reps=RUNS_PER_PATH - 1):
 PATHS = {
     "cdlp-auto": ("cdlp", {"cdlp_impl": "auto"},
                   ("gather_rows", "slab_minmode", "frontier_expand", "segment_minmode",
-                   "csr_pull_reduce")),
+                   "csr_pull_reduce", "frontier_compact")),
     "cdlp-slab": ("cdlp", {"cdlp_impl": "slab"},
                   ("gather_rows", "slab_minmode", "segment_minmode", "csr_pull_reduce")),
-    "pr": ("pr", {}, ("gather_rows", "slab_spmv_sum")),
+    "pr": ("pr", {}, ("gather_rows", "slab_spmv_sum", "csr_pull_reduce_sum")),
     "pr-scan": ("pr", {"pr_impl": "scan"}, ("csr_pull_reduce_sum",)),
     "bfs-auto": ("bfs", {"bfs_impl": "auto"},
-                 ("gather_rows", "frontier_expand", "bfs_trunc_probe")),
+                 ("gather_rows", "frontier_expand", "bfs_trunc_probe", "frontier_compact",
+                  "csr_pull_reduce")),
     "bfs-device": ("bfs", {"bfs_impl": "device"}, ("csr_pull_reduce",)),
     "bfs-hybrid": ("bfs", {"bfs_impl": "hybrid"}, ("csr_pull_reduce",)),
     "wcc-auto": ("wcc", {"wcc_impl": "auto"},
-                 ("slab_spmv_min", "frontier_expand", "csr_pull_reduce")),
-    "wcc-adaptive": ("wcc", {"wcc_impl": "adaptive"}, ("csr_pull_reduce", "frontier_expand")),
+                 ("slab_spmv_min", "frontier_expand", "csr_pull_reduce", "frontier_compact")),
+    "wcc-adaptive": ("wcc", {"wcc_impl": "adaptive"},
+                     ("csr_pull_reduce", "frontier_expand", "frontier_compact")),
     "wcc-device": ("wcc", {"wcc_impl": "device"}, ("csr_pull_reduce",)),
     "sssp-auto": ("sssp", {"sssp_impl": "auto"},
-                  ("csr_pull_reduce", "frontier_expand", "push_relax_min")),
+                  ("csr_pull_reduce", "frontier_expand", "push_relax_min", "frontier_compact")),
     "sssp-device": ("sssp", {"sssp_impl": "device"}, ("csr_pull_reduce",)),
     "sssp-delta": ("sssp", {"sssp_impl": "delta"},
-                   ("csr_pull_reduce", "frontier_expand", "push_relax_min")),
+                   ("csr_pull_reduce", "frontier_expand", "push_relax_min", "frontier_compact")),
     "sssp-hybrid": ("sssp", {"sssp_impl": "hybrid"}, ("csr_pull_reduce",)),
-    "lcc": ("lcc", {"lcc_impl": "auto"}, ("gather_rows", "wedge_rowblock")),
+    "lcc": ("lcc", {"lcc_impl": "auto"}, ("wedge_rowblock", "csr_pull_reduce_sum_i64")),
 }
 # the plain path of LCC is one pass of K10's plain version over every bucket,
 # made once, in phase_lcc_kernels
@@ -771,8 +799,11 @@ def phase_real_size(device):
         if label == "kernel":
             # what follows compares and profiles: it does not count
             for name, (algo, _, _) in PATHS.items():
-                wall, dev_ms, top, ranges = profile_run(
+                wall, dev_ms, top, ranges, names = profile_run(
                     lambda: run_algorithm(algo, graph_of[algo], params[algo], cfgs[name]))
+                if name in NO_SORT_PATHS:
+                    sorts = [k for k in names if any(p in k.lower() for p in SORT_KERNELS)]
+                    check(not sorts, f"the {name} trace holds sort kernels: {sorts}")
                 print(f"profile {name} (kernel path): wall {wall:.6f}s, device busy "
                       f"{dev_ms:.3f} ms, idle share {1 - dev_ms / 1e3 / wall:.3f}; top: "
                       + "; ".join(f"{k} {ms:.3f} ms" for k, ms in top)
@@ -1176,19 +1207,22 @@ PARALLEL_RUNS = {
     "wcc_dist": ("wcc", {"wcc_impl": "dense"}, {"wcc_impl": "device"},
                  ("csr_pull_reduce", "gather_rows")),
     "cdlp_dist": ("cdlp", {"cdlp_impl": "sort"}, {"cdlp_impl": "sort"}, ("segment_minmode",)),
-    "lcc_dist": ("lcc", {"lcc_impl": "sweep"}, {"lcc_impl": "sweep"}, ("gather_rows",)),
+    "lcc_dist": ("lcc", {"lcc_impl": "sweep"}, {"lcc_impl": "sweep"}, ("lcc_sweep_member",)),
     "pr_slab_dist": ("pr", {"pr_impl": "slab"}, {"pr_impl": "slab"},
-                     ("gather_rows", "slab_spmv_sum")),
+                     ("gather_rows", "slab_spmv_sum", "csr_pull_reduce_sum")),
     "cdlp_slab_dist": ("cdlp", {"cdlp_impl": "slab"}, {"cdlp_impl": "slab"},
                        ("slab_minmode", "segment_minmode", "csr_pull_reduce")),
     "bfs_adaptive_dist": ("bfs", {"bfs_impl": "adaptive"}, {"bfs_impl": "adaptive"},
-                          ("frontier_expand", "gather_rows", "bfs_trunc_probe")),
+                          ("frontier_expand", "gather_rows", "bfs_trunc_probe",
+                           "frontier_compact", "csr_pull_reduce")),
     "sssp_adaptive_dist": ("sssp", {"sssp_impl": "adaptive"}, {"sssp_impl": "adaptive"},
-                           ("frontier_expand", "push_relax_min", "csr_pull_reduce")),
+                           ("frontier_expand", "push_relax_min", "csr_pull_reduce",
+                            "frontier_compact")),
     "wcc_adaptive_dist": ("wcc", {"wcc_impl": "auto"}, {"wcc_impl": "auto"},
-                          ("slab_spmv_min", "frontier_expand")),
+                          ("slab_spmv_min", "frontier_expand", "frontier_compact",
+                           "push_relax_min_i32")),
     "lcc_oriented_dist": ("lcc", {"lcc_impl": "auto"}, {"lcc_impl": "auto"},
-                          ("wedge_rowblock",)),
+                          ("wedge_rowblock", "csr_pull_reduce_sum_i64")),
 }
 PARALLEL_LCC_SCALE = 14  # the sweep's graph: RMAT s14/ef16, as phase 3's oracle check
 
@@ -1631,7 +1665,90 @@ def phase_kernels(g, prep, pr_plan, device):
     )
 
     res.update(k12_k13(g, prep, lab1, bprep, device))
+    res.update(k14(g, top_args, e_top, k_top, device))
     return res
+
+
+def k14(g, top_args, e_top, k_top, device):
+    """K14 (frontier_compact) at the shapes of the adaptive paths, each
+    taken from a run: compact on CDLP auto's fullest changed mask and BFS
+    auto's fullest level mask (n = 2^20), compact_stream on BFS auto's
+    widest tier stream (2^18 slots) and on BFS's top push tier filled by a
+    random frontier (2^22 slots). Each is held bit for bit against its
+    plain version, twice, and its calls run under sync debug mode "error"
+    (no host read). The library yardstick is one torch.sort (compact) or
+    torch.unique (compact_stream) of the same masked key."""
+    import torch
+
+    from graphtpu_torch.algorithms import bfs as bfs_mod
+    from graphtpu_torch.algorithms.common import run_algorithm
+    from graphtpu_torch.ops import active as active_mod
+    from graphtpu_torch.ops.frontier import (
+        compact, compact_plain, compact_stream, compact_stream_plain, frontier_expand,
+    )
+    from graphtpu_torch.tools.minmode_times import captured
+    from graphtpu_torch.utils.config import AlgorithmParams, PlatformConfig
+
+    n = g.n
+    cfg = PlatformConfig(device=str(device))
+    masks = captured(active_mod, "compact", lambda: run_algorithm(
+        "cdlp", g, AlgorithmParams(max_iterations=CDLP_ITERS),
+        PlatformConfig(device=str(device), cdlp_impl="auto")))
+    bfs_calls = {}
+
+    def bfs_run():
+        bfs_calls["compact_stream"] = captured(
+            bfs_mod, "compact_stream", lambda: bfs_mod.bfs_adaptive_run(g, 0, cfg))
+
+    bfs_calls["compact"] = captured(bfs_mod, "compact", bfs_run)
+    fullest = lambda calls: max(calls, key=lambda c: int(c[0].sum()))  # noqa: E731
+    cdlp_mask, cdlp_k = fullest(masks)[:2]
+    bfs_mask, bfs_k = fullest(bfs_calls["compact"])[:2]
+    vals, active, s_k, s_n = max(bfs_calls["compact_stream"], key=lambda c: c[0].shape[0])
+    _, _, _, top_neigh, top_valid = frontier_expand(*top_args, e_top, False)
+    shapes = {
+        "cdlp": ("mask", (cdlp_mask, cdlp_k)),
+        "bfs": ("mask", (bfs_mask, bfs_k)),
+        "bfs-stream": ("stream", (vals, active, s_k, s_n)),
+        "bfs-top-stream": ("stream", (top_neigh, top_valid, k_top, n)),
+    }
+    idx = torch.arange(n, dtype=torch.int32, device=device)
+    rows = {}
+    for what, (kind, args) in shapes.items():
+        fn, plain = (compact, compact_plain) if kind == "mask" else (compact_stream,
+                                                                    compact_stream_plain)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got, again = fn(*args), fn(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        want = plain(*args)
+        for a, a2, b, field in zip(got, again, want, ("ids", "count")):
+            check(torch.equal(a, b), f"frontier_compact ({what}) {field} differs from plain")
+            check(torch.equal(a, a2), f"frontier_compact ({what}) {field}: two runs differ")
+        k, count = args[-1] if kind == "mask" else args[2], int(got[1])
+        if kind == "mask":
+            key = torch.where(args[0], idx, n)
+            library = ("torch.sort of where(mask, id, n)", lambda key=key: torch.sort(key))
+            shape = (f"{what}: compact of a mask of {n} vertices, {count} set, k = {k}")
+            # the mask, the ids and the count; a test per vertex
+            nbytes, ops = n + 4 * k + 4, n
+        else:
+            key = torch.where(args[1], args[0], args[3])
+            library = ("torch.unique of where(active, vals, n)", lambda key=key: torch.unique(key))
+            e = args[0].shape[0]
+            shape = (f"{what}: compact_stream of {e} slots ({int(args[1].sum())} active), "
+                     f"{count} distinct of n = {args[3]}, k = {k}")
+            # the values and the active flags, the ids and the count; a mark per slot
+            nbytes, ops = 5 * e + 4 * k + 4, e
+        rows[what] = dict(times=(cuda_ms(lambda: fn(*args)), cuda_ms(lambda: plain(*args))),
+                          shape=shape, bytes=nbytes, ops=ops, library=library)
+        print(f"frontier_compact = plain, twice the same bits, no host read, at {shape}",
+              flush=True)
+    main = rows.pop("cdlp")
+    return {"frontier_compact": dict(max_abs_err=0.0, other_shapes=list(rows.values()),
+                                     **main)}
 
 
 def k12_k13(g, prep, lab1, bprep, device):
@@ -1716,6 +1833,7 @@ def phase_traversal_kernels(g, gw, device):
     shapes and on small hand-made cases."""
     import torch
 
+    from graphtpu_torch.algorithms.pr import _pull_plan_cached
     from graphtpu_torch.algorithms.sssp import _initial, _sssp_dense_step, sssp_prep, sssp_tiers
     from graphtpu_torch.algorithms.wcc import _wcc_slab_steps, wcc_slab_plan
     from graphtpu_torch.core.types import INT32_INF
@@ -1909,6 +2027,22 @@ def phase_traversal_kernels(g, gw, device):
                                                          pull.indptr))),
             bytes=4 * (n + 1) + 4 * m7b + 16 * n, ops=m7b)],
     )
+    # and on the PageRank slab plan's heavy rows, what a slab pull launches
+    pr_plan = _pull_plan_cached(g, torch.float32, device)
+    hp = PullCSR(pr_plan.heavy_neigh, pr_plan.heavy_indptr)
+    m7p, rows_p = int(hp.src.shape[0]), hp.indptr.shape[0] - 1
+    got = csr_pull_reduce("sum", x32, hp.src, hp.indptr)
+    check(k7_agrees("sum", got, csr_pull_reduce_plain("sum", x32, hp.src, hp.indptr)),
+          "csr_pull_reduce sum on PageRank's heavy rows differs")
+    check(torch.equal(got, csr_pull_reduce("sum", x32, hp.src, hp.indptr)),
+          "csr_pull_reduce sum on PageRank's heavy rows: two runs differ")
+    res["csr_pull_reduce_sum"]["other_shapes"].append(dict(
+        shape=(f"sum float32 over the PageRank slab plan's {rows_p} heavy rows, {m7p} edges "
+               f"(one slab pull's heavy rows)"),
+        times=(cuda_ms(lambda: csr_pull_reduce("sum", x32, hp.src, hp.indptr)),
+               cuda_ms(lambda: csr_pull_reduce_plain("sum", x32, hp.src, hp.indptr))),
+        # indptr, src, x (12.8M edges reach every value), y; an add per edge
+        bytes=4 * (rows_p + 1) + 4 * m7p + 4 * n + 4 * rows_p, ops=m7p))
 
     # K8: the first tier step of SSSP from vertex 0, in float32 and float64
     cfg = PlatformConfig(device=str(device))
@@ -1952,12 +2086,66 @@ def phase_traversal_kernels(g, gw, device):
         bytes=8 * gw.n + 13 * e_i + 4 * int(exp.valid.sum()), ops=2 * int(exp.valid.sum()),
         library=None,  # no single call: two gathers, an add and a scatter-min
     )
+
+    # K7 max_i32 on BFS auto's residual test (the rows of a bottom-up step
+    # that the probe missed, their full in-lists expanded), taken from a run
+    from graphtpu_torch.algorithms import bfs as bfs_mod
+    from graphtpu_torch.algorithms import wcc as wcc_mod
+    from graphtpu_torch.ops.frontier import (
+        relax_min_i32, relax_min_i32_plain, residual_hits, residual_indptr,
+    )
+    from graphtpu_torch.tools.minmode_times import captured
+
+    fmask_pad, rexp, e_bu = captured(bfs_mod, "residual_hits",
+                                     lambda: bfs_mod.bfs_adaptive_run(g, 0, cfg))[0]
+    r_ip = residual_indptr(rexp, e_bu)  # what residual_hits hands K7
+    got = csr_pull_reduce("max_i32", fmask_pad, rexp.neigh, r_ip)
+    check(torch.equal(got, csr_pull_reduce_plain("max_i32", fmask_pad, rexp.neigh, r_ip)),
+          "csr_pull_reduce max_i32 on BFS's residual differs from its plain version")
+    check(torch.equal(got, csr_pull_reduce("max_i32", fmask_pad, rexp.neigh, r_ip)),
+          "csr_pull_reduce max_i32 on BFS's residual: two runs differ")
+    check(torch.equal(residual_hits(fmask_pad, rexp, e_bu), got[:-1] > 0),
+          "residual_hits is not K7 max_i32 over the clamped row starts")
+    k_bu, r_edges = r_ip.shape[0] - 2, int(rexp.edge_count)
+    res["csr_pull_reduce"]["other_shapes"].append(dict(
+        shape=(f"max_i32 on BFS auto's first bottom-up residual: {k_bu} row slots "
+               f"({int((rexp.seg_starts.diff() > 0).sum())} rows with edges, {r_edges} edges, "
+               f"{int(got[:-1].sum())} hit) in {e_bu} slots, and the closing segment"),
+        times=(cuda_ms(lambda: csr_pull_reduce("max_i32", fmask_pad, rexp.neigh, r_ip)),
+               cuda_ms(lambda: csr_pull_reduce_plain("max_i32", fmask_pad, rexp.neigh, r_ip))),
+        # indptr, src and a frontier flag per slot, y; a max per slot
+        bytes=4 * (k_bu + 2) + 8 * e_bu + 4 * (k_bu + 1), ops=e_bu))
+
+    # K8's int32 mode on a WCC active step's expansion (from a WCC auto run,
+    # expanded again with its owners), the labels after iteration 0
+    ids_a, deg_a, ip_a, src_a, e_a = captured(
+        wcc_mod, "expand", lambda: wcc_mod.wcc_adaptive_run(g, cfg))[-1][:5]
+    wexp = expand(ids_a, deg_a, ip_a, src_a, e_a)
+    wslots = (lab1, wexp.row_ids, wexp.neigh, wexp.valid)
+    got = relax_min_i32(n, *wslots)
+    check(torch.equal(got, relax_min_i32_plain(n, *wslots)),
+          "push_relax_min_i32 on a WCC expansion differs from its plain version")
+    check(torch.equal(got, relax_min_i32(n, *wslots)), "push_relax_min_i32: two runs differ")
+    w_valid = int(wexp.valid.sum())
+    res["push_relax_min_i32"] = dict(
+        max_abs_err=0.0,
+        times=(cuda_ms(lambda: relax_min_i32(n, *wslots)),
+               cuda_ms(lambda: relax_min_i32_plain(n, *wslots))),
+        shape=(f"int32, WCC auto's active step: {int((ids_a < n).sum())} active rows, "
+               f"{w_valid} edges in {e_a} slots, into {n} labels"),
+        # valid (bool) per slot; row_ids, neigh (int32) and a label per valid
+        # slot (the kernel reads them there only); the INT32_INF vector
+        # written; a min per valid slot
+        bytes=e_a + 12 * w_valid + 4 * n, ops=w_valid,
+        library=None,  # no single call: a gather, two wheres and a scatter_reduce
+    )
     return res
 
 
 def phase_lcc_kernels(g, wplan, real_wedges, lcc_values, device):
     """K9 and K10 against their plain versions on the benchmark graph's
-    wedge plan. Returns their results, K9's launches in its own drive and
+    wedge plan, K7 sum_i64 on its head credits and K15 over the sweep.
+    Returns their results, K9's and K15's launches in their own drives and
     the sum of the LCC numerators."""
     import numpy as np
     import torch
@@ -2101,7 +2289,35 @@ def phase_lcc_kernels(g, wplan, real_wedges, lcc_values, device):
     print(f"real size: lcc numerators identical, kernel path vs plain path (sum {num_sum}, "
           f"{int((kernel_num > 0).sum())} vertices in a triangle; mean coefficient "
           f"{lcc_values.mean():.6f})", flush=True)
-    del kernel_credits, plain_credits
+    del plain_credits
+
+    # K7 sum_i64 on the plan's head credits: the kernel credits of every
+    # bucket, gathered in head order and summed per head
+    from graphtpu_torch.ops.spmv import csr_pull_reduce, csr_pull_reduce_plain
+
+    flat = torch.cat([edge_cred.reshape(-1) for _, edge_cred in kernel_credits])
+    del kernel_credits
+    heads = (flat, wplan.edge_pos, wplan.head_indptr)
+    got = csr_pull_reduce("sum_i64", *heads)
+    check(torch.equal(got, csr_pull_reduce_plain("sum_i64", *heads)),
+          "csr_pull_reduce sum_i64 on the head credits differs from its plain version")
+    check(torch.equal(got, csr_pull_reduce("sum_i64", *heads)),
+          "csr_pull_reduce sum_i64: two runs differ")
+    m_pos = int(wplan.edge_pos.shape[0])
+    res["csr_pull_reduce_sum_i64"] = dict(
+        max_abs_err=0.0,
+        times=(cuda_ms(lambda: csr_pull_reduce("sum_i64", *heads)),
+               cuda_ms(lambda: csr_pull_reduce_plain("sum_i64", *heads))),
+        shape=(f"sum_i64, LCC's head sums on the benchmark graph's wedge plan: {m_pos} real "
+               f"slab entries' credits (of {flat.shape[0]} flat) into {g.n} heads "
+               f"(max {int(got.max())})"),
+        # indptr, the positions and a credit per entry, the int64 sums; an
+        # add per entry
+        bytes=4 * (g.n + 1) + 8 * m_pos + 8 * g.n, ops=m_pos,
+        library=None,  # none: torch's CSR products take no int32 values into int64
+    )
+    del flat, heads, got
+    res["lcc_sweep_member"], k15_launches = k15(g, kernel_num, device)
 
     def all_buckets():
         for b in wplan.buckets:
@@ -2132,7 +2348,104 @@ def phase_lcc_kernels(g, wplan, real_wedges, lcc_values, device):
         traffic=(reads * 4 + small,
                  "each out-list entry read from device memory for every entry that reads it"),
     )
-    return res, k9_launches, num_sum
+    return res, k9_launches, k15_launches, num_sum
+
+
+K15_PREFIX = 1 << 16  # A-edges of each bucket in K15's plain pass at the bench size
+
+
+def k15(g, oriented_num, device):
+    """K15 (lcc_sweep_member) over the whole RMAT s20/ef32 sweep: the
+    sweep's numerators (one launch a nonempty bucket, counted) must equal
+    the oriented (K10) numerators bit for bit. Timed over all buckets; the
+    plain pass runs on the first K15_PREFIX A-edges of each bucket (the
+    whole plain sweep takes over a minute), against the kernel on the same
+    A-edges, bit for bit and timed, once with CUDA events. The bound's
+    operations are the search steps these A-edges take (d(c) searches of
+    ceil(log2(d(o) + 1)) steps each), its bytes each input once (the CSR,
+    the A-edges, the numerators read and written). Returns the row and the
+    sweep's launches."""
+    import numpy as np
+    import torch
+
+    from graphtpu_torch.algorithms.lcc import (
+        _bucket_bounds, _lcc_bucket_sweep, lcc_sweep_numerator, prepare_lcc,
+    )
+    from graphtpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    num, _ = lcc_sweep_numerator(g, device)
+    sweep_s = time.perf_counter() - t0
+    launches = kernels.launch_counts["lcc_sweep_member"]
+    check(np.array_equal(num, oriented_num),
+          "lcc sweep numerators (K15) differ from the oriented ones (K10)")
+    s_indptr, s_dst, s_deg, c, o, dc = prepare_lcc(g)
+    max_deg = int(s_deg.max())
+    iters = max(1, int(np.ceil(np.log2(max(max_deg, 2) + 1))))
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    indptr, col = dev(s_indptr), dev(s_dst)
+    host = []  # (pad, c, o) of each nonempty bucket
+    for pad in _bucket_bounds(max_deg):
+        sel = (dc > (0 if pad == 16 else pad // 8)) & (dc <= pad)
+        if sel.any():
+            host.append((pad, c[sel], o[sel]))
+    check(launches == len(host), f"lcc_sweep_member launched {launches} times, not one a "
+          f"nonempty bucket ({len(host)})")
+
+    def counts(parts):
+        """(A-edges, neighbour searches, search steps, bytes): indptr and
+        col of S, c and o, the numerators read and written."""
+        edges = sum(cb.shape[0] for _, cb, _ in parts)
+        searches = sum(int(s_deg[cb].sum()) for _, cb, _ in parts)
+        steps = sum(int((s_deg[cb] * np.ceil(np.log2(s_deg[ob] + 1.0))).sum())
+                    for _, cb, ob in parts)
+        return edges, searches, steps, 4 * (g.n + 1 + s_dst.shape[0]) + 8 * edges + 16 * g.n
+
+    def on_device(parts):
+        return [(pad, dev(cb), dev(ob)) for pad, cb, ob in parts]
+
+    def sweep(bs, numerator):
+        numerator.zero_()
+        for pad, cb, ob in bs:
+            _lcc_bucket_sweep(numerator, indptr, col, cb, ob, pad, iters)
+
+    prefix_h = [(pad, cb[:K15_PREFIX], ob[:K15_PREFIX]) for pad, cb, ob in host]
+    whole, prefix = on_device(host), on_device(prefix_h)
+    got, want, again = (torch.zeros(g.n, dtype=torch.int64, device=device) for _ in range(3))
+    sweep(prefix, got)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with kernels.plain_torch():
+        start.record()
+        sweep(prefix, want)
+        end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    check(torch.equal(got, want), "lcc_sweep_member on the bucket prefixes differs from plain")
+    sweep(prefix, again)
+    check(torch.equal(got, again), "lcc_sweep_member: two runs differ")
+    p_edges, p_searches, p_steps, p_bytes = counts(prefix_h)
+    w_edges, w_searches, w_steps, w_bytes = counts(host)
+    k_whole = cuda_ms(lambda: sweep(whole, again), reps=2)
+    print(f"lcc sweep (K15) on the benchmark graph: numerators equal the oriented ones; "
+          f"{launches} launches (buckets {[p for p, _, _ in host]}), {w_edges} A-edges, "
+          f"{w_searches} neighbour searches, {w_steps} search steps; lcc_sweep_numerator "
+          f"{sweep_s:.3f} s with its host prep; the plain pass over the first {K15_PREFIX} "
+          f"A-edges of each bucket {plain_ms:.3f} ms (CUDA events)", flush=True)
+    row = dict(
+        max_abs_err=0.0, library=None,  # none: a gather, a search, a scatter-add
+        times=(cuda_ms(lambda: sweep(prefix, got), reps=3), (plain_ms, plain_ms)),
+        shape=(f"the first {K15_PREFIX} A-edges of each of the {len(host)} buckets of the "
+               f"benchmark graph's sweep: {p_edges} A-edges, {p_searches} neighbour searches, "
+               f"{p_steps} search steps; plain version: one pass, CUDA events"),
+        bytes=p_bytes, ops=p_steps,
+        other_shapes=[dict(
+            shape=(f"the whole sweep of the benchmark graph: {w_edges} A-edges in {len(host)} "
+                   f"buckets, {w_searches} neighbour searches, {w_steps} search steps, "
+                   f"{launches} launches"),
+            times=(k_whole, None), bytes=w_bytes, ops=w_steps)],
+    )
+    return row, launches
 
 
 SPGEMM_SCALE = 14    # (a): small enough for the plain slab, the bench graph's edge factor
@@ -2337,12 +2650,20 @@ def report_kernel(name, r, empty_ms):
     """Complete kernel ``name``'s result ``r`` with its times, bound and
     library call's time (measured now), and print them."""
     for o in r.get("other_shapes", ()):
-        (o["ms"], _), (o["plain_ms"], _) = o.pop("times")
+        (o["ms"], _), plain = o.pop("times")
+        o["plain_ms"] = None if plain is None else plain[0]  # None: not timed at this shape
         o["bound_ms"], o["bound_by"] = bound_ms(o["bytes"], o.pop("ops"), empty_ms)
-        print(f"kernel {name} ({o['shape']}): device {o['ms']:.6f} ms vs plain "
-              f"{o['plain_ms']:.6f} ms; bound {o['bound_ms']:.6f} ms by {o['bound_by']} "
-              f"({o['bytes']} bytes): {100 * o['bound_ms'] / o['ms']:.1f} % of it",
-              flush=True)
+        lib = ""
+        if o.get("library") is not None:
+            lib_name, lib_fn = o.pop("library")
+            o["library_ms"] = cuda_ms(lib_fn)[0]
+            lib = f"; library call ({lib_name}) {o['library_ms']:.6f} ms"
+        o.pop("library", None)
+        plain_s = ("not timed at this shape" if o["plain_ms"] is None
+                   else f"{o['plain_ms']:.6f} ms")
+        print(f"kernel {name} ({o['shape']}): device {o['ms']:.6f} ms vs plain {plain_s}; "
+              f"bound {o['bound_ms']:.6f} ms by {o['bound_by']} ({o['bytes']} bytes): "
+              f"{100 * o['bound_ms'] / o['ms']:.1f} % of it{lib}", flush=True)
     (k_dev, k_stream), (p_dev, p_stream) = r["times"]
     r["ms"], r["plain_ms"] = k_dev, p_dev
     r["bound_ms"], r["bound_by"] = bound_ms(r["bytes"], r["ops"], empty_ms)
@@ -2393,6 +2714,13 @@ SOURCES = {
     "segment_minmode": ("graphtpu_torch/csrc/segment_minmode.cu", "graphtpu/ops/minmode.py:77"),
     "bfs_trunc_probe": ("graphtpu_torch/csrc/bfs_trunc_probe.cu",
                         "graphtpu/algorithms/bfs.py:213"),
+    "frontier_compact": ("graphtpu_torch/csrc/frontier_compact.cu",
+                         "graphtpu/ops/frontier.py:85"),
+    "lcc_sweep_member": ("graphtpu_torch/csrc/lcc_sweep.cu", "graphtpu/algorithms/lcc.py:79"),
+    "csr_pull_reduce_sum_i64": ("graphtpu_torch/csrc/csr_pull_reduce.cu",
+                                "graphtpu/ops/triangles.py:621"),
+    "push_relax_min_i32": ("graphtpu_torch/csrc/push_relax.cu",
+                           "graphtpu/parallel/adaptive_wcc.py:79"),
 }
 
 
@@ -2441,7 +2769,7 @@ def _tree_bytes(d, skip=()):
 
 def phase_checkpoint(g, device, smi):
     """The sharded checkpoints (``shard-checkpoints``, parallel/checkpoint.py)
-    on the bench graph over one NCCL rank, through try_run_distributed with
+    on graph ``g`` (CKPT_GRAPH) over one NCCL rank, through try_run_distributed with
     num-devices 1 and a temporary intermediate directory: PageRank, CDLP and
     WCC under their defaults (the slab plans pr-pull, cdlp-incidence,
     wcc-slab) and BFS under dense (the pull partition). Two passes, each on
@@ -2626,14 +2954,17 @@ def main() -> int:
     check(k10 == RUNS_PER_PATH * len(wplan.buckets),
           f"wedge_rowblock launched {k10} times in {RUNS_PER_PATH} lcc runs, expected one per "
           f"bucket ({len(wplan.buckets)})")
+    heads = path_launches["lcc"]["csr_pull_reduce_sum_i64"]
+    check(heads == RUNS_PER_PATH, f"csr_pull_reduce sum_i64 launched {heads} times in "
+          f"{RUNS_PER_PATH} lcc runs, expected one a run (the head sums)")
     launches = {name: sum(c[name] for c in path_launches.values()) for name in kernels.COUNTERS}
     launches["vreg_shuffle"] = phase_vreg_shuffle(device)
     print(f"peak device memory allocated {torch.cuda.max_memory_allocated(device) / 2**30:.3f} "
           f"GiB", flush=True)
     res = phase_kernels(g, prep, pr_plan, device)
     res.update(phase_traversal_kernels(g, gw, device))
-    lcc_res, launches["edgehash_probe"], num_sum = phase_lcc_kernels(
-        g, wplan, real_wedges, lcc_values, device)
+    lcc_res, launches["edgehash_probe"], launches["lcc_sweep_member"], num_sum = \
+        phase_lcc_kernels(g, wplan, real_wedges, lcc_values, device)
     res.update(lcc_res)
     empty_ms = cuda_ms(lambda: kernels.launch_empty(device), reps=100, empty_kernel=True)[0]
     print(f"kernel that returns at once (one block of one thread): device {empty_ms:.6f} ms, "
@@ -2658,9 +2989,15 @@ def main() -> int:
     print(f"bench phase: {time.perf_counter() - t0:.3f} s", flush=True)
     t0 = time.perf_counter()
     parallel = phase_parallel(g, gw, device, smi, real_steps)
+    # K8's int32 mode runs on the distributed WCC's active steps only: its
+    # count is that warm run's
+    launches["push_relax_min_i32"] = parallel["wcc_adaptive_dist"]["launches"].get(
+        "push_relax_min_i32", 0)
     print(f"parallel phase: {time.perf_counter() - t0:.3f} s", flush=True)
     t0 = time.perf_counter()
-    ckpt = phase_checkpoint(g, device, smi)
+    gc, _ = load_graph(*CKPT_GRAPH, weighted=False)
+    ckpt = phase_checkpoint(gc, device, smi)
+    del gc
     print(f"checkpoint phase: {time.perf_counter() - t0:.3f} s", flush=True)
     t0 = time.perf_counter()
     scaling = phase_scaling(smi)

@@ -27,8 +27,9 @@ CUDA C++ for sm_90a under ``csrc/``, built at first use
 (``ops/kernels.py``), are K1 gather_rows, K2 slab_minmode, K3
 slab_spmv_sum, K4 vreg_shuffle, K5 frontier_expand, K6 slab_spmv_min, K7
 csr_pull_reduce, K8 push_relax_min, K9 edgehash_probe, K10 wedge_rowblock,
-K11 masked_spgemm, K12 segment_minmode and K13 bfs_trunc_probe; each
-wrapper takes its plain PyTorch version for a CPU tensor.
+K11 masked_spgemm, K12 segment_minmode, K13 bfs_trunc_probe, K14
+frontier_compact and K15 lcc_sweep_member; each wrapper takes its plain
+PyTorch version for a CPU tensor.
 """
 
 __version__ = "0.1.0"

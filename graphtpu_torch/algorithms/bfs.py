@@ -11,11 +11,15 @@ edges (undirected); unreachable vertices serialize as int64 max
   Each level runs the smallest push tier whose (rows, edges) budget holds
   its frontier, on the frontier engine (ops/frontier.py, kernels K1 and K5);
   frontiers above the top tier run a truncated bottom-up (its probe of the
-  first in-neighbours on kernel K13, ``bfs_trunc_probe``); a bottom-up whose
-  residual overflows its budgets, and only then, a dense pull step. JAX
-  runs the phases as nested while_loops in one program; here they are a host
-  loop over device tensors, with one small device-to-host read per step.
-  The step sequence, and so every phase counter, is the JAX kernel's.
+  first in-neighbours on kernel K13, ``bfs_trunc_probe``, its residual rows'
+  test on K7); a bottom-up whose residual overflows its budgets, and only
+  then, a dense pull step. JAX runs the phases as nested while_loops in one
+  program (``bfs-step-mode=phases``) or as one while_loop over a switch of
+  the step bodies (``switch``); here both are the same host loop over
+  device tensors, which runs the step of the chosen phase, with one small
+  device-to-host read per step. The step sequence, and so every phase
+  counter, is the JAX kernel's under either mode. Frontiers are compacted
+  on kernel K14.
 * "device": dense pull steps only (``_bfs_kernel``), each one kernel K7
   launch over every edge.
 * "hybrid": levels whose frontier's out-edges are at most
@@ -42,6 +46,7 @@ from graphtpu_torch.ops.frontier import (
     expand,
     frontier_deg_sum,
     mask_status,
+    residual_hits,
 )
 from graphtpu_torch.ops.gather import table_gather
 from graphtpu_torch.ops.spmv import PullCSR, csr_pull_reduce, int32_tensor, pull_csr
@@ -162,13 +167,9 @@ def _bfs_adaptive_loop(prep: BfsPrep, source: int, n: int, t_trunc: int, tiers, 
         ok = (rcnt <= k_bu) & (fe_r <= e_bu)
         exp = expand(rids, pull_deg_pad, pull.indptr, pull.src, e_bu, with_row_ids=False)
         fmask_pad = torch.cat([(levels == level).to(torch.int32), levels.new_zeros(1)])
-        rhit = (exp.valid & (table_gather(fmask_pad, exp.neigh) == 1)).to(torch.int32)
-        # segment-any per residual row: a cumsum differenced at the row
-        # starts (clamped: a residual past e_bu is discarded by ok anyway)
-        cs = torch.cat([rhit.new_zeros(1), torch.cumsum(rhit, 0, dtype=torch.int32)])
-        starts = torch.clamp(exp.seg_starts, max=e_bu)
-        seg_hits = table_gather(cs, starts[1:]) - table_gather(cs, starts[:-1])
-        claimed = torch.where(seg_hits > 0, rids, n)
+        # segment-any per residual row (K7; a residual past e_bu is
+        # discarded by ok anyway)
+        claimed = torch.where(residual_hits(fmask_pad, exp, e_bu), rids, n)
         updated = torch.where(claim_trunc, level + 1, levels)
         updated = torch.cat([updated, updated.new_zeros(1)]).index_fill_(
             0, claimed.long(), level + 1)[:n]
@@ -210,13 +211,17 @@ def _bfs_adaptive_loop(prep: BfsPrep, source: int, n: int, t_trunc: int, tiers, 
     return levels, level, counts
 
 
+STEP_MODES = ("phases", "switch")
+
+
 def _step_mode(cfg) -> None:
+    """Both of the JAX package's step modes run the one host loop: each
+    step is the chosen phase's, which is what the switch's body computes
+    (the JAX package's own test holds the two modes equal, counters and
+    all)."""
     mode = cfg.bfs_step_mode or "phases"
-    if mode == "switch":
-        raise ValueError("bfs-step-mode=switch (a TPU compile-time experiment) is not ported; "
-                         "use phases")
-    if mode != "phases":
-        raise ValueError(f"unknown bfs-step-mode {mode!r}; expected phases")
+    if mode not in STEP_MODES:
+        raise ValueError(f"unknown bfs-step-mode {mode!r}; expected {'|'.join(STEP_MODES)}")
 
 
 def bfs_adaptive_run(graph: Graph, src_dense: int, cfg: Optional[PlatformConfig] = None,

@@ -19,8 +19,9 @@ denominator is |N(v)|(|N(v)| - 1); vertices with |N(v)| < 2 get 0.0
   tests (other, x) in S by a branchless binary search over the CSR columns;
   each hit adds 1 to numerator[x]. Work is the sum over A-edges of
   min(d(u), d(w)). The JAX package scans fixed chunks of A-edges padded to a
-  static width per degree bucket; here the chunks are a host loop, every
-  gather on kernel K1.
+  static width per degree bucket; on the card a bucket is one launch of
+  kernel K15 (``lcc_sweep_member``), and its plain version is those chunks
+  as a host loop of torch ops.
 
 Numerators are integers summed in any order, so both paths and both
 packages agree bit for bit; the coefficients divide the same int64
@@ -34,6 +35,7 @@ import torch
 
 from graphtpu_torch.algorithms.common import AlgorithmResult, register
 from graphtpu_torch.core.graph import Graph
+from graphtpu_torch.ops import kernels
 from graphtpu_torch.ops.gather import table_gather
 from graphtpu_torch.ops.spmv import int32_tensor
 from graphtpu_torch.ops.triangles import WedgeCapacityError, coefficients, lcc_oriented
@@ -77,10 +79,10 @@ def _row_member(indptr, col, rows, x, search_iters):
     return (lo < hi_fixed) & (table_gather(col, lo.clamp(0, nnz - 1)) == x)
 
 
-def _lcc_bucket_sweep(numerator, indptr, col, c, o, pad, search_iters):
-    """Add to ``numerator`` (int64 [n], in place) the common-neighbour hits
-    of the A-edges whose enumerated endpoint ``c`` has degree <= pad; ``o``
-    is the other endpoint."""
+def _lcc_bucket_sweep_plain(numerator, indptr, col, c, o, pad, search_iters):
+    """K15's plain PyTorch version, the JAX function's chunks: a gather of
+    each chunk's [chunk, pad] neighbours, the branchless search, an
+    index_add_ of the hits."""
     nnz = col.shape[0]
     offs = torch.arange(pad, dtype=torch.int32, device=col.device)[None, :]
     chunk = max(1, min(_CHUNK, _CHUNK_ELEMS // pad))
@@ -93,6 +95,36 @@ def _lcc_bucket_sweep(numerator, indptr, col, c, o, pad, search_iters):
         found = _row_member(indptr, col, oe, x, search_iters)
         hits = (found & valid).to(numerator.dtype)
         numerator.index_add_(0, x.reshape(-1).long(), hits.reshape(-1))
+    return numerator
+
+
+# K15's threads per A-edge, every bucket: a warp. Only
+# tools/lcc_sweep_times.py passes another unit (64, 128 or 256): over the
+# bench graph's whole sweep a warp is within 3 % of the best unit per bucket
+K15_UNIT = 32
+
+
+def _lcc_bucket_sweep(numerator, indptr, col, c, o, pad, search_iters, unit=K15_UNIT):
+    """K15 wrapper: add to ``numerator`` (int64 [n], in place) the
+    common-neighbour hits of the A-edges whose enumerated endpoint ``c`` has
+    degree <= pad; ``o`` is the other endpoint. ``indptr`` [n+1], ``col``
+    (S's CSR, each row sorted), ``c`` and ``o`` are int32. One launch a
+    bucket on the card, ``unit`` threads an A-edge (``search_iters`` is the
+    plain version's)."""
+    ts = (indptr, col, c, o)
+    if any(t.dtype != torch.int32 or t.dim() != 1 for t in ts) or numerator.dtype != torch.int64:
+        raise TypeError("lcc_sweep_member: int32 indptr, col, c and o; int64 numerator")
+    if c.shape != o.shape or indptr.shape[0] != numerator.shape[0] + 1 or pad < 1:
+        raise ValueError("lcc_sweep_member: c and o of one length, n + 1 indptr entries, "
+                         "pad >= 1")
+    ts += (numerator,)
+    if any(t.device != numerator.device for t in ts) or not all(t.is_contiguous() for t in ts):
+        raise ValueError("lcc_sweep_member: inputs must be contiguous, on one device")
+    if not kernels.use_kernel(numerator):
+        return _lcc_bucket_sweep_plain(numerator, indptr, col, c, o, pad, search_iters)
+    if c.shape[0]:
+        kernels.launch("lcc_sweep_member", numerator.device, indptr.data_ptr(), col.data_ptr(),
+                       c.data_ptr(), o.data_ptr(), c.shape[0], unit, numerator.data_ptr())
     return numerator
 
 

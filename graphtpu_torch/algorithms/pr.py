@@ -8,7 +8,8 @@ Semantics of LAGr_PageRankGX as the reference calls it (pr.cpp:58-63):
 
 for a fixed iteration count. Each iteration is one pull sum and one sum
 for the dangling mass. ``pr-impl`` picks the pull: "auto"/"slab" a
-plus.second slab SpMV (kernel K3 over the buckets, ops/spmv.py), "scan"
+plus.second slab SpMV (kernel K3 over the buckets, K7 in mode sum over
+the heavy rows, ops/spmv.py), "scan"
 (or "segment", the JAX package's name) a segment sum over the pull CSR
 (kernel K7 in mode sum); spmv-impl=slab takes
 the slab arm whatever pr-impl says, as in the JAX package (pr.py:105).

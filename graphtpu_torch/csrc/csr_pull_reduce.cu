@@ -6,6 +6,8 @@
 //   mode 3 (min_plus): x[src[e]] + w[e]     identity +inf, float64 (SSSP)
 //   mode 4 (sum):      x[src[e]]            identity 0, float32 (PageRank)
 //   mode 5 (sum):      x[src[e]]            identity 0, float64 (PageRank)
+//   mode 6 (sum_i64):  x[src[e]]            identity 0, int32 values summed
+//                                           into int64 (LCC's edge credits)
 // The identity is the value of a row without in-edges only: a max over
 // negative values stays negative, as in the JAX reduction. In the int32 modes
 // a null x reads the stored id src[e] itself (WCC's gather-free iteration 0,
@@ -18,7 +20,12 @@
 // cummax over every edge), and PageRank's segment-sum pull,
 // pull_reduce("sum", table_gather(contrib, edges_src), ...) in
 // graphtpu/algorithms/pr.py:71-73 (a gather, then a float64 prefix sum
-// differenced at the row ends). The plain version is the port's K1 gather,
+// differenced at the row ends). Mode 6 replaces the int64 sums of LCC's
+// edge credits per head, a gather and a prefix sum differenced at the head
+// starts in graphtpu/ops/triangles.py:620-642 `_aggregate_heads` and
+// graphtpu/parallel/wedge_lcc.py:149-160; integer sums are exact in any
+// order, so it equals the plain version bit for bit. The plain version is
+// the port's K1 gather,
 // then a scatter_reduce (an index_add_ in float64 for sum) that widens all m
 // segment ids to int64 on every call.
 //
@@ -110,10 +117,12 @@ __global__ void k7_partition(const int* __restrict__ indptr, long long n,
   start_row[b] = (int)lo;
 }
 
-template <typename T, int OP, bool PLUS, int IPT>
+// T is the type of the sums and of y; X that of the gathered x (mode 6 sums
+// int32 values into int64, every other mode has X = T)
+template <typename T, int OP, bool PLUS, int IPT, typename X>
 __global__ void __launch_bounds__(K7_THREADS)
 k7_reduce(const int* __restrict__ indptr, const int* __restrict__ src,
-          const T* __restrict__ x, const T* __restrict__ w,
+          const X* __restrict__ x, const T* __restrict__ w,
           T* __restrict__ y, long long n, long long m,
           const int* __restrict__ start_row, int* __restrict__ carry_row,
           T* __restrict__ carry_val, T neutral, T identity) {
@@ -146,7 +155,7 @@ k7_reduce(const int* __restrict__ indptr, const int* __restrict__ src,
     if (x) {
 #pragma unroll
       for (int k = 0; k < IPT; ++k)
-        v[k] = k * K7_THREADS + tid < nedges ? __ldg(x + s[k]) : neutral;
+        v[k] = k * K7_THREADS + tid < nedges ? (T)__ldg(x + s[k]) : neutral;
     } else {
 #pragma unroll
       for (int k = 0; k < IPT; ++k) v[k] = (T)s[k];
@@ -280,7 +289,7 @@ __global__ void k7_fixup(const int* __restrict__ carry_row,
 
 // The scratch of one call: start_row [nb + 1], carry_row [nb], then, at the
 // next multiple of 8 bytes, carry_val [nb] (ops/spmv.py csr_scratch_layout).
-template <typename T, int OP, bool PLUS>
+template <typename T, int OP, bool PLUS, typename X = T>
 static int launch(const int* indptr, const int* src, const void* x,
                   const void* w, void* y, long long n, long long m,
                   T identity, int items_per_block, void* scratch,
@@ -300,14 +309,14 @@ static int launch(const int* indptr, const int* src, const void* x,
   const T neutral = OP == K7_MAX ? std::numeric_limits<T>::lowest() : identity;
   // where x is gathered: few blocks an SM, and the L1 the gathers need
   const cudaError_t carved = cudaFuncSetAttribute(
-      k7_reduce<T, OP, PLUS, IPT>,
+      k7_reduce<T, OP, PLUS, IPT, X>,
       cudaFuncAttributePreferredSharedMemoryCarveout,
       x ? K7_GATHER_CARVEOUT : (int)cudaSharedmemCarveoutDefault);
   if (carved != cudaSuccess) return (int)carved;
   k7_partition<<<gt_blocks(nb + 1, 256), 256, 0, s>>>(indptr, n, m, IPB, nb,
                                                       start_row);
-  k7_reduce<T, OP, PLUS, IPT><<<(unsigned int)nb, K7_THREADS, 0, s>>>(
-      indptr, src, (const T*)x, (const T*)w, (T*)y, n, m, start_row, carry_row,
+  k7_reduce<T, OP, PLUS, IPT, X><<<(unsigned int)nb, K7_THREADS, 0, s>>>(
+      indptr, src, (const X*)x, (const T*)w, (T*)y, n, m, start_row, carry_row,
       carry_val, neutral, identity);
   k7_fixup<T, OP><<<gt_blocks(nb * 32, 256), 256, 0, s>>>(
       carry_row, carry_val, (T*)y, n, nb, neutral);
@@ -352,6 +361,11 @@ GT_EXPORT int gt_csr_pull_reduce(const int* indptr, const int* src,
       if (!x) return (int)cudaErrorInvalidValue;
       return launch<double, K7_SUM, false>(indptr, src, x, w, y, n, m, 0.0,
                                            ipb, scratch, scratch_bytes, s);
+    case 6:
+      if (!x) return (int)cudaErrorInvalidValue;
+      return launch<long long, K7_SUM, false, int>(indptr, src, x, w, y, n, m,
+                                                   0LL, ipb, scratch,
+                                                   scratch_bytes, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

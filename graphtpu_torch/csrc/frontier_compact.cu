@@ -1,0 +1,204 @@
+// K14 frontier_compact: the frontier engine's two compactions into a padded,
+// ascending id list ids [k] (int32, padded with n, cut at k) with the true
+// count as a 0-d int32 on the device:
+//   compact(mask [n] bool, k):             the ids v with mask[v];
+//   compact_stream(vals [e], active [e], k, n): the distinct values vals[j]
+//                                          with active[j] and vals[j] in [0, n).
+//
+// Replaces graphtpu/ops/frontier.py:85 `compact` (a sort of where(mask, id,
+// n), then a slice) and :145 `compact_stream` (a sort of where(active, vals,
+// n), a dedupe mask, a second sort, a slice), which the port ran as
+// torch.sort (cub's radix sort, several kernels and passes over the whole
+// stream) on every tier, derive and bottom-up step.
+//
+// Bound on an H100 (3.35 TB/s): bytes. compact reads the mask once (1 B a
+// vertex) and writes k ids; compact_stream reads the stream once (5 B a slot),
+// touches a bitmap of n bits and writes k ids. At the CDLP and BFS tier shapes
+// (n = 2^20, k = 2^16..2^18, e = 2^18..2^22) every call is a few MB, so a
+// call costs its launches.
+//
+// Design: no sort. A frontier's ids are the set bits of a bitmap in order, so
+// both entries compact 32-bit words: compact builds the words from the mask by
+// __ballot_sync (a warp reads 1,024 consecutive bytes in 32 coalesced steps
+// and lane i keeps word i), compact_stream marks a scratch bitmap of ceil(n /
+// 32) words by atomicOr (zeroed by a memset on the stream first), which
+// dedupes and orders the values by construction. Then two launches over the
+// words: k14_count gives each block's popcount; k14_write finds its block's
+// offset and the total by a block-wide sum over the (at most K14_MAX_BLOCKS)
+// counts, hands each thread its word's offset by a block scan, and writes the
+// set bits' ids below k; its grid also fills the pad slots [total, k) with n,
+// and block 0 writes the count. Launch sizes come from the shapes alone and
+// nothing is read back to the host. A block takes whole steps of
+// K14_THREADS words, as many steps as keep the grid at K14_MAX_BLOCKS blocks
+// or fewer.
+#include "common.cuh"
+
+#define K14_THREADS 256
+#define K14_MAX_BLOCKS 1024
+
+// steps of K14_THREADS words a block takes, for nwords words
+static inline long long k14_steps(long long nwords) {
+  const long long per_step = K14_THREADS;
+  const long long steps = (nwords + per_step - 1) / per_step;
+  return steps <= K14_MAX_BLOCKS ? 1 : (steps + K14_MAX_BLOCKS - 1) / K14_MAX_BLOCKS;
+}
+
+// Word w of the frontier, for the thread that owns it (word index
+// step_base + threadIdx.x). From a mask, the warp builds its 32 words: lane i
+// reads byte 32 * j + i of each of them in turn and keeps the ballot of word i.
+template <bool BITMAP>
+__device__ __forceinline__ unsigned int k14_word(const bool* __restrict__ mask,
+                                                 const unsigned int* __restrict__ bits,
+                                                 long long n, long long nwords,
+                                                 long long step_base) {
+  const int lane = threadIdx.x & 31;
+  const long long w = step_base + threadIdx.x;
+  if (BITMAP) return w < nwords ? bits[w] : 0u;
+  const long long warp_first = step_base + (threadIdx.x & ~31);  // word of lane 0
+  unsigned int mine = 0;
+  for (int i = 0; i < 32; ++i) {
+    const long long v = (warp_first + i) * 32 + lane;
+    const unsigned int b = __ballot_sync(0xffffffffu, v < n && mask[v]);
+    if (lane == i) mine = b;
+  }
+  return mine;
+}
+
+__device__ __forceinline__ long long k14_block_sum(long long v, long long* s_red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  __syncthreads();  // s_red may still be read from an earlier call
+  if (lane == 0) s_red[warp] = v;
+  __syncthreads();
+  long long t = 0;
+#pragma unroll
+  for (int u = 0; u < K14_THREADS / 32; ++u) t += s_red[u];
+  return t;
+}
+
+template <bool BITMAP>
+__global__ void __launch_bounds__(K14_THREADS)
+k14_count(const bool* __restrict__ mask, const unsigned int* __restrict__ bits,
+          long long n, long long nwords, long long steps, int* __restrict__ counts) {
+  __shared__ long long s_red[K14_THREADS / 32];
+  long long c = 0;
+  for (long long s = 0; s < steps; ++s) {
+    const long long base = ((long long)blockIdx.x * steps + s) * K14_THREADS;
+    if (base >= nwords) break;  // block-uniform
+    c += __popc(k14_word<BITMAP>(mask, bits, n, nwords, base));
+  }
+  const long long total = k14_block_sum(c, s_red);
+  if (threadIdx.x == 0) counts[blockIdx.x] = (int)total;
+}
+
+template <bool BITMAP>
+__global__ void __launch_bounds__(K14_THREADS)
+k14_write(const bool* __restrict__ mask, const unsigned int* __restrict__ bits,
+          long long n, long long nwords, long long steps, const int* __restrict__ counts,
+          int nb, int* __restrict__ ids, long long k, int* __restrict__ count_out) {
+  __shared__ long long s_red[K14_THREADS / 32];
+  __shared__ int s_scan[K14_THREADS / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // this block's offset (the counts of the blocks before it) and the total
+  long long before = 0, after = 0;
+  for (int b = threadIdx.x; b < nb; b += K14_THREADS) {
+    if (b < (int)blockIdx.x) before += counts[b]; else after += counts[b];
+  }
+  long long base = k14_block_sum(before, s_red);
+  const long long total = base + k14_block_sum(after, s_red);
+  if (blockIdx.x == 0 && threadIdx.x == 0) count_out[0] = (int)total;
+  // the pad slots [total, k), over the whole grid
+  for (long long q = total + (long long)blockIdx.x * K14_THREADS + threadIdx.x; q < k;
+       q += (long long)gridDim.x * K14_THREADS)
+    ids[q] = (int)n;
+  for (long long s = 0; s < steps && base < k; ++s) {
+    const long long step_base = ((long long)blockIdx.x * steps + s) * K14_THREADS;
+    if (step_base >= nwords) break;  // block-uniform
+    unsigned int word = k14_word<BITMAP>(mask, bits, n, nwords, step_base);
+    // exclusive scan of the words' popcounts over the block
+    const int c = __popc(word);
+    int incl = c;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += y;
+    }
+    if (lane == 31) s_scan[warp] = incl;
+    __syncthreads();
+    int warp_off = 0, step_total = 0;
+#pragma unroll
+    for (int u = 0; u < K14_THREADS / 32; ++u) {
+      const int t = s_scan[u];
+      if (u < warp) warp_off += t;
+      step_total += t;
+    }
+    __syncthreads();  // s_scan is written again by the next step
+    long long pos = base + warp_off + incl - c;
+    const long long first_id = (step_base + threadIdx.x) * 32;
+    while (word && pos < k) {
+      const int bit = __ffs(word) - 1;
+      ids[pos++] = (int)(first_id + bit);
+      word &= word - 1;
+    }
+    base += step_total;
+  }
+}
+
+// Marks bit v of the bitmap for every active slot j with v = vals[j] in [0, n).
+__global__ void __launch_bounds__(K14_THREADS)
+k14_mark(const int* __restrict__ vals, const bool* __restrict__ active, long long e,
+         long long n, unsigned int* __restrict__ bits) {
+  const long long j = (long long)blockIdx.x * K14_THREADS + threadIdx.x;
+  if (j >= e || !active[j]) return;
+  const int v = vals[j];
+  if (v < 0 || (long long)v >= n) return;
+  const unsigned int m = 1u << (v & 31);
+  unsigned int* word = bits + (v >> 5);
+  if (!(*(volatile unsigned int*)word & m)) atomicOr(word, m);
+}
+
+// The scratch of a call: counts [K14_MAX_BLOCKS] int32.
+template <bool BITMAP>
+static int k14_compact_words(const bool* mask, const unsigned int* bits, long long n,
+                             int* ids, long long k, int* count_out, int* counts,
+                             long long scratch_ints, cudaStream_t s) {
+  const long long nwords = (n + 31) / 32;
+  const long long steps = k14_steps(nwords);
+  const long long nb_ll = nwords ? (nwords + steps * K14_THREADS - 1) / (steps * K14_THREADS) : 1;
+  if (nb_ll > K14_MAX_BLOCKS || scratch_ints < nb_ll) return (int)cudaErrorInvalidValue;
+  const int nb = (int)nb_ll;
+  k14_count<BITMAP><<<nb, K14_THREADS, 0, s>>>(mask, bits, n, nwords, steps, counts);
+  k14_write<BITMAP><<<nb, K14_THREADS, 0, s>>>(mask, bits, n, nwords, steps, counts, nb,
+                                               ids, k, count_out);
+  return (int)cudaGetLastError();
+}
+
+// mask [n] bool; ids [k] int32; count_out 0-d int32; scratch [scratch_ints] int32.
+GT_EXPORT int gt_frontier_compact(const bool* mask, long long n, int* ids, long long k,
+                                  int* count_out, int* scratch, long long scratch_ints,
+                                  void* stream) {
+  if (n < 0 || n > 0x7fffffffLL || k < 0 || !count_out || !scratch)
+    return (int)cudaErrorInvalidValue;
+  return k14_compact_words<false>(mask, nullptr, n, ids, k, count_out, scratch,
+                                  scratch_ints, (cudaStream_t)stream);
+}
+
+// vals [e] int32 and active [e] bool; bits: ceil(n / 32) words of scratch,
+// zeroed here; ids, count_out and scratch as above.
+GT_EXPORT int gt_frontier_compact_stream(const int* vals, const bool* active, long long e,
+                                         long long n, unsigned int* bits, int* ids,
+                                         long long k, int* count_out, int* scratch,
+                                         long long scratch_ints, void* stream) {
+  if (n < 0 || n > 0x7fffffffLL || e < 0 || k < 0 || !count_out || !scratch)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long nwords = (n + 31) / 32;
+  if (nwords) {
+    const cudaError_t z = cudaMemsetAsync(bits, 0, nwords * sizeof(unsigned int), s);
+    if (z != cudaSuccess) return (int)z;
+  }
+  if (e && nwords)
+    k14_mark<<<gt_blocks(e, K14_THREADS), K14_THREADS, 0, s>>>(vals, active, e, n, bits);
+  return k14_compact_words<true>(nullptr, bits, n, ids, k, count_out, scratch, scratch_ints, s);
+}

@@ -2,16 +2,18 @@
 (counterpart of graphtpu/ops/frontier.py).
 
 A frontier is a fixed-capacity id buffer ``ids [K]`` (ascending, padded
-with n) plus its true count. ``compact`` turns a dense mask into one,
-``expand`` lays the frontier's adjacency slices out in ``e_cap`` edge
-slots on kernel K5 (``frontier_expand``), ``compact_stream`` dedupes a
-stream of vertex ids back into a frontier, ``mask_status`` gives a
-mask's (count, edge-sum), the numbers a caller needs to decide whether a
-frontier fits its capacities, ``relax_min`` is SSSP's push relaxation
-over an expansion on kernel K8 (``push_relax_min``), and
-``bfs_trunc_probe`` is BFS's truncated bottom-up probe on kernel K13. Every function
-returns the JAX function's values, pad slots included, and never reads a
-value back to the host.
+with n) plus its true count. ``compact`` turns a dense mask into one and
+``compact_stream`` dedupes a stream of vertex ids back into one, both on
+kernel K14 (``frontier_compact``); ``expand`` lays the frontier's adjacency
+slices out in ``e_cap`` edge slots on kernel K5 (``frontier_expand``),
+``residual_hits`` says which rows of an expansion reach a marked vertex (K7
+``max_i32``), ``mask_status`` gives a mask's (count, edge-sum), the numbers
+a caller needs to decide whether a frontier fits its capacities,
+``relax_min`` is SSSP's push relaxation over an expansion on kernel K8
+(``push_relax_min``), ``relax_min_i32`` the distributed WCC's scatter-min on
+K8's int32 mode, and ``bfs_trunc_probe`` is BFS's truncated bottom-up probe
+on kernel K13. Every function returns the JAX function's values, pad slots
+included, and never reads a value back to the host.
 """
 
 from __future__ import annotations
@@ -23,6 +25,11 @@ import torch
 from graphtpu_torch.core.types import INT32_INF
 from graphtpu_torch.ops import kernels
 from graphtpu_torch.ops.gather import table_gather
+from graphtpu_torch.ops.spmv import csr_pull_reduce
+
+# K14's scratch: one count per block of its grid (csrc/frontier_compact.cu
+# K14_MAX_BLOCKS)
+K14_MAX_BLOCKS = 1024
 
 
 class Expansion(NamedTuple):
@@ -41,13 +48,36 @@ def mask_status(mask: torch.Tensor, deg: torch.Tensor) -> torch.Tensor:
     return torch.stack([mask.sum(), torch.where(mask, deg, 0).sum()])
 
 
-def compact(mask: torch.Tensor, k: int):
-    """Dense bool mask [n] -> (ids [k] ascending, padded with n, count).
-    Ids past k are cut; the count is the true one."""
+def compact_plain(mask: torch.Tensor, k: int):
+    """K14's plain PyTorch version of ``compact``, the JAX function's
+    formulation: a sort of where(mask, id, n), cut or padded to k."""
     n = mask.shape[0]
     idx = torch.arange(n, dtype=torch.int32, device=mask.device)
     ids = torch.sort(torch.where(mask, idx, n)).values
     return _fit(ids, k, n), mask.sum(dtype=torch.int32)
+
+
+def _k14_outputs(k: int, device):
+    return (torch.empty(k, dtype=torch.int32, device=device),
+            torch.empty((), dtype=torch.int32, device=device),
+            torch.empty(K14_MAX_BLOCKS, dtype=torch.int32, device=device))
+
+
+def compact(mask: torch.Tensor, k: int):
+    """K14 wrapper: dense bool mask [n] -> (ids [k] ascending, padded with
+    n, count as a 0-d int32). Ids past k are cut; the count is the true
+    one. ``mask`` is 1-D and contiguous (a slice of a longer mask is)."""
+    if mask.dtype != torch.bool or mask.dim() != 1 or not mask.is_contiguous():
+        raise TypeError("compact: mask must be a contiguous 1-D bool tensor")
+    if k < 0:
+        raise ValueError(f"compact: k {k} < 0")
+    if not kernels.use_kernel(mask):
+        return compact_plain(mask, k)
+    n = mask.shape[0]
+    ids, count, scratch = _k14_outputs(k, mask.device)
+    kernels.launch("frontier_compact", mask.device, mask.data_ptr(), n, ids.data_ptr(), k,
+                   count.data_ptr(), scratch.data_ptr(), K14_MAX_BLOCKS)
+    return ids, count
 
 
 def _fit(ids: torch.Tensor, k: int, n: int) -> torch.Tensor:
@@ -130,14 +160,57 @@ def expand(ids: torch.Tensor, deg_pad: torch.Tensor, indptr_pad: torch.Tensor,
     return Expansion(rows_local, row_ids, nb, gpos, starts, starts[-1], valid)
 
 
-def compact_stream(vals: torch.Tensor, active: torch.Tensor, k: int, n: int):
-    """Unique active values of a stream -> (ids [k] ascending, padded with
-    n, true count)."""
+def compact_stream_plain(vals: torch.Tensor, active: torch.Tensor, k: int, n: int):
+    """K14's plain PyTorch version of ``compact_stream``, the JAX
+    function's formulation: a sort, a dedupe mask, a second sort."""
     s = torch.sort(torch.where(active, vals, n)).values
     first = s < n
     first[1:] &= s[1:] != s[:-1]
     ids = torch.sort(torch.where(first, s, n)).values
     return _fit(ids, k, n), first.sum(dtype=torch.int32)
+
+
+def compact_stream(vals: torch.Tensor, active: torch.Tensor, k: int, n: int):
+    """K14 wrapper: the distinct active values of a stream -> (ids [k]
+    ascending, padded with n, true count as a 0-d int32). ``vals`` [e] int32
+    holds ids in [0, n] (n, the pad id, is never taken), ``active`` [e]
+    bool. On the card the values mark a bitmap of n bits, which dedupes and
+    orders them without a sort."""
+    if vals.dtype != torch.int32 or active.dtype != torch.bool:
+        raise TypeError("compact_stream: vals must be int32, active bool")
+    if vals.dim() != 1 or vals.shape != active.shape or active.device != vals.device:
+        raise ValueError("compact_stream: vals and active must be 1-D, of one length and device")
+    if not (vals.is_contiguous() and active.is_contiguous()) or k < 0 or not 0 <= n < 1 << 31:
+        raise ValueError(f"compact_stream: contiguous inputs, k >= 0 and n in [0, 2^31) "
+                         f"(k {k}, n {n})")
+    if not kernels.use_kernel(vals):
+        return compact_stream_plain(vals, active, k, n)
+    ids, count, scratch = _k14_outputs(k, vals.device)
+    bitmap = torch.empty(max((n + 31) // 32, 1), dtype=torch.int32, device=vals.device)
+    kernels.launch("frontier_compact_stream", vals.device, vals.data_ptr(), active.data_ptr(),
+                   vals.shape[0], n, bitmap.data_ptr(), ids.data_ptr(), k, count.data_ptr(),
+                   scratch.data_ptr(), K14_MAX_BLOCKS, counter="frontier_compact")
+    return ids, count
+
+
+def residual_hits(fmask_pad: torch.Tensor, exp: Expansion, e_cap: int) -> torch.Tensor:
+    """Bool [K]: whether any slot of frontier row i of ``exp`` (``e_cap``
+    slots) holds a neighbour marked 1 in ``fmask_pad`` (int32 [n+1], 0 at
+    n). BFS's bottom-up residual test, the JAX package's cumsum of the hits
+    differenced at the row starts, as one K7 ``max_i32`` over the rows'
+    slot ranges: the starts are clamped to e_cap, and one more segment
+    closes the slots past the last row (pad slots, whose neighbour 0 may
+    be marked) and is dropped. A row's range holds only valid slots, so
+    the two agree on every row, a cut one included."""
+    indptr = residual_indptr(exp, e_cap)
+    return csr_pull_reduce("max_i32", fmask_pad, exp.neigh, indptr)[:-1] > 0
+
+
+def residual_indptr(exp: Expansion, e_cap: int) -> torch.Tensor:
+    """The K7 indptr of ``residual_hits``: the frontier rows' slot starts
+    clamped to ``e_cap``, closed by one more segment that ends at e_cap."""
+    starts = torch.clamp(exp.seg_starts, max=e_cap)
+    return torch.cat([starts, starts.new_full((1,), e_cap)])
 
 
 def frontier_deg_sum(ids: torch.Tensor, deg_pad: torch.Tensor) -> torch.Tensor:
@@ -188,6 +261,48 @@ def relax_min(dist: torch.Tensor, row_ids: torch.Tensor, neigh: torch.Tensor,
             neigh.data_ptr(), gpos.data_ptr(), valid.data_ptr(), w.data_ptr(), out.data_ptr(),
             e_cap, int(dist.dtype == torch.float64),
         )
+    return out
+
+
+def relax_min_i32_plain(n_out: int, labels, row_ids, neigh, valid, row_offset: int = 0):
+    """K8's int32 mode, plain PyTorch: the JAX function's gather of the
+    owners' labels and scatter-min into a vector of INT32_INF whose extra
+    slot n_out takes the invalid slots."""
+    cand = torch.full((n_out + 1,), INT32_INF, dtype=torch.int32, device=labels.device)
+    if not valid.numel():
+        return cand[:n_out]
+    lab = table_gather(labels, torch.where(valid, row_ids + row_offset, 0))
+    cand.scatter_reduce_(0, torch.where(valid, neigh, n_out).long(),
+                         torch.where(valid, lab, INT32_INF), "amin")
+    return cand[:n_out]
+
+
+def relax_min_i32(n_out: int, labels: torch.Tensor, row_ids: torch.Tensor,
+                  neigh: torch.Tensor, valid: torch.Tensor, row_offset: int = 0) -> torch.Tensor:
+    """K8 wrapper, int32 mode: int32 [n_out] of INT32_INF lowered, for each
+    valid slot e of an expansion, to labels[row_ids[e] + row_offset] at
+    neigh[e] (in [0, n_out)). The distributed WCC's active step."""
+    slots = (row_ids, neigh)
+    if labels.dtype != torch.int32 or any(t.dtype != torch.int32 for t in slots):
+        raise TypeError("relax_min_i32: labels, row_ids and neigh must be int32")
+    if valid.dtype != torch.bool:
+        raise TypeError("relax_min_i32: valid must be bool")
+    ts = (labels, valid) + slots
+    if any(t.dim() != 1 for t in ts) or any(t.shape != valid.shape for t in slots):
+        raise ValueError("relax_min_i32: 1-D inputs, the three slot tensors of one length")
+    if any(t.device != labels.device for t in ts) or not all(t.is_contiguous() for t in ts):
+        raise ValueError("relax_min_i32: inputs must be contiguous, on one device")
+    if n_out < 0 or row_offset < 0 or valid.shape[0] >= 1 << 31:
+        raise ValueError(f"relax_min_i32: n_out {n_out}, row_offset {row_offset} or "
+                         f"{valid.shape[0]} slots out of range")
+    if not kernels.use_kernel(labels):
+        return relax_min_i32_plain(n_out, labels, row_ids, neigh, valid, row_offset)
+    out = torch.full((n_out,), INT32_INF, dtype=torch.int32, device=labels.device)
+    e_cap = valid.shape[0]
+    if e_cap:
+        kernels.launch("push_relax_min_i32", labels.device, labels.data_ptr(),
+                       row_ids.data_ptr(), neigh.data_ptr(), valid.data_ptr(), out.data_ptr(),
+                       e_cap, row_offset, n_out)
     return out
 
 

@@ -17,7 +17,10 @@ Each kernel has a wrapper beside its plain PyTorch version:
 (K8, kernel ``push_relax_min``), ``ops/edgehash.py:edgehash_probe`` (K9) and
 ``ops/triangles.py:wedge_rowblock`` (K10), ``core/spgemm.py:masked_spgemm_rows``
 (K11, kernel ``masked_spgemm``), ``ops/minmode.py:stream_minmode`` (K12, kernel
-``segment_minmode``) and ``ops/frontier.py:bfs_trunc_probe`` (K13). A wrapper dispatches on
+``segment_minmode``), ``ops/frontier.py:bfs_trunc_probe`` (K13),
+``ops/frontier.py:compact`` and ``compact_stream`` (K14, kernel
+``frontier_compact``) and ``algorithms/lcc.py:_lcc_bucket_sweep`` (K15,
+kernel ``lcc_sweep_member``). A wrapper dispatches on
 the device of its tensors: a CPU tensor takes the plain version, a CUDA
 tensor launches the kernel or raises. K2, K3 and K6 also take every bucket
 of a slab plan in one launch (``slab_minmode_buckets``,
@@ -25,11 +28,14 @@ of a slab plan in one launch (``slab_minmode_buckets``,
 algorithms call. Inside ``plain_torch()`` CUDA
 tensors take the plain version too, so the whole path can run as its own
 reference on the card. A wrapper adds one to ``launch_counts[name]`` for
-each launch (K7 in mode sum to ``launch_counts["csr_pull_reduce_sum"]``);
-K9, K11 and K12 may launch more than once a call (K9: a histogram, a scatter,
-the probe and the unbin; K11: one launch per task list of its plan; K12: a
-warp per segment, then a persistent grid for the longer ones), and count
-each.
+each launch (K7 in mode sum to ``launch_counts["csr_pull_reduce_sum"]``, in
+mode sum_i64 to ``"csr_pull_reduce_sum_i64"``, K8's int32 mode,
+``ops/frontier.py:relax_min_i32``, to ``"push_relax_min_i32"``); K9, K11
+and K12 may launch more than once a call (K9: a histogram, a scatter, the
+probe and the unbin; K11: one launch per task list of its plan; K12: a warp
+per segment, then a persistent grid for the longer ones), and count each. A
+call of K14 is one count: its C entry runs a count and a write kernel (and
+in compact_stream, before them, a memset and the bitmap's marking).
 """
 
 from __future__ import annotations
@@ -55,7 +61,8 @@ NVCC_FLAGS = (
 KERNELS = (
     "gather_rows", "slab_minmode", "slab_spmv_sum", "vreg_shuffle", "frontier_expand",
     "slab_spmv_min", "csr_pull_reduce", "push_relax_min", "edgehash_probe", "wedge_rowblock",
-    "masked_spgemm", "segment_minmode", "bfs_trunc_probe",
+    "masked_spgemm", "segment_minmode", "bfs_trunc_probe", "frontier_compact",
+    "lcc_sweep_member",
 )
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -102,6 +109,14 @@ _SIGNATURES = {
        for k in ("warp", "grid")},
     # levels, n_levels, level, trunc, t, rows, row_offset, pdeg, claim, resid, stream
     "gt_bfs_trunc_probe": (_P, _I64, _I32, _P, _I32, _I64, _I64, _P, _P, _P, _P),
+    # labels, row_ids, neigh, valid, out, e_cap, row_offset, n_out, stream
+    "gt_push_relax_min_i32": (_P, _P, _P, _P, _P, _I32, _I64, _I64, _P),
+    # mask, n, ids, k, count, scratch, scratch ints, stream
+    "gt_frontier_compact": (_P, _I64, _P, _I64, _P, _P, _I64, _P),
+    # vals, active, e, n, bitmap, ids, k, count, scratch, scratch ints, stream
+    "gt_frontier_compact_stream": (_P, _P, _I64, _I64, _P, _P, _I64, _P, _P, _I64, _P),
+    # indptr, col, c, o, a, unit (threads an A-edge), numerator, stream
+    "gt_lcc_sweep_member": (_P, _P, _P, _P, _I64, _I32, _P, _P),
     # stream: a kernel that returns at once (csrc/empty_kernel.cu)
     "gt_empty_kernel": (_P,),
 }
@@ -112,9 +127,11 @@ _QUERIES = {
     "gt_segment_minmode_scratch_ints": (_I32, _I64, _I32),
 }
 
-# a launch counter per kernel, and one for K7 in mode sum (PageRank's scan
-# arm), so that a run shows which of K7's callers it went through
-COUNTERS = KERNELS + ("csr_pull_reduce_sum",)
+# a launch counter per kernel, and one for each of K7's sum modes (sum:
+# PageRank's scan arm and slab PageRank's heavy rows; sum_i64: LCC's credit
+# sums) and K8's int32 mode (the distributed WCC's active step), so that a
+# run shows which callers it went through
+COUNTERS = KERNELS + ("csr_pull_reduce_sum", "csr_pull_reduce_sum_i64", "push_relax_min_i32")
 launch_counts = dict.fromkeys(COUNTERS, 0)
 build_seconds = None  # seconds the last nvcc build took; None = not built here
 _lib = None

@@ -205,13 +205,17 @@ CSR_MODES = {
     "min_i32": ({torch.int32: 1}, "min", INT32_INF),
     "min_plus": ({torch.float32: 2, torch.float64: 3}, "min", float("inf")),
     "sum": ({torch.float32: 4, torch.float64: 5}, "sum", 0.0),
+    "sum_i64": ({torch.int32: 6}, "sum", 0),  # int32 values, int64 sums
 }
+# the launch counter of each mode that has its own (ops/kernels.py COUNTERS)
+_CSR_COUNTERS = {"sum": "csr_pull_reduce_sum", "sum_i64": "csr_pull_reduce_sum_i64"}
 
 
 def csr_pull_reduce_plain(mode: str, x, src, indptr, w=None) -> torch.Tensor:
     """K7's plain PyTorch version: the K1 gather, then the segment
     reduction by one scatter on int64 segment ids expanded from ``indptr``;
-    a sum adds in float64 (an index_add_), rounded once to x's dtype."""
+    a sum adds in float64 (an index_add_), rounded once to x's dtype, and
+    ``sum_i64`` in int64, exact."""
     _, kind, identity = CSR_MODES[mode]
     terms = src if x is None else table_gather(x, src)
     if w is not None:
@@ -219,6 +223,9 @@ def csr_pull_reduce_plain(mode: str, x, src, indptr, w=None) -> torch.Tensor:
     n = indptr.shape[0] - 1
     seg_ids = torch.repeat_interleave(torch.arange(n, device=src.device), indptr.diff(),
                                       output_size=src.shape[0])
+    if mode == "sum_i64":
+        acc = torch.zeros(n, dtype=torch.int64, device=src.device)
+        return acc.index_add_(0, seg_ids, terms.to(torch.int64))
     if kind == "sum":
         acc = torch.zeros(n, dtype=torch.float64, device=src.device)
         return acc.index_add_(0, seg_ids, terms.to(torch.float64)).to(terms.dtype)
@@ -231,16 +238,18 @@ def csr_pull_reduce(mode: str, x: torch.Tensor | None, src: torch.Tensor,
     of the pull-ordered ``src`` (indptr[-1] = len(src)): ``max_i32`` max of
     x[src[e]] (0 for a row without edges), ``min_i32`` min of x[src[e]]
     (INT32_INF), ``min_plus`` min of x[src[e]] + w[e] in x's float dtype
-    (+inf), ``sum`` sum of x[src[e]] in x's float dtype (0). In the int32
+    (+inf), ``sum`` sum of x[src[e]] in x's float dtype (0), ``sum_i64``
+    the exact int64 sum of int32 x[src[e]] (0). In the max_i32 and min_i32
     modes x None reads src[e] itself. All index tensors int32, contiguous.
-    A launch in mode ``sum`` counts as ``csr_pull_reduce_sum``."""
+    A launch in mode ``sum`` counts as ``csr_pull_reduce_sum``, in
+    ``sum_i64`` as ``csr_pull_reduce_sum_i64``."""
     if mode not in CSR_MODES:
         raise ValueError(f"csr_pull_reduce: unknown mode {mode!r}")
     codes, _, _ = CSR_MODES[mode]
     if mode == "min_plus" and (x is None or w is None):
         raise ValueError("csr_pull_reduce: min_plus takes both x and w")
-    if mode == "sum" and x is None:
-        raise ValueError("csr_pull_reduce: sum takes x")
+    if mode in ("sum", "sum_i64") and x is None:
+        raise ValueError(f"csr_pull_reduce: {mode} takes x")
     if mode != "min_plus" and w is not None:
         raise ValueError(f"csr_pull_reduce: {mode} takes no w")
     dtype = torch.int32 if x is None else x.dtype
@@ -253,12 +262,14 @@ def csr_pull_reduce(mode: str, x: torch.Tensor | None, src: torch.Tensor,
         raise ValueError("csr_pull_reduce: inputs must be contiguous, on one device")
     if not kernels.use_kernel(src):
         return csr_pull_reduce_plain(mode, x, src, indptr, w)
-    return _csr_pull_reduce_launch(codes[dtype], dtype, x, src, indptr, w)[0]
+    out = torch.int64 if mode == "sum_i64" else dtype
+    return _csr_pull_reduce_launch(codes[dtype], out, x, src, indptr, w,
+                                   _CSR_COUNTERS.get(mode))[0]
 
 
-def _csr_pull_reduce_launch(code: int, dtype, x, src, indptr, w):
-    """(y, scratch) of one K7 launch: the scratch holds the partition and
-    the carries afterwards (``csr_scratch_layout``)."""
+def _csr_pull_reduce_launch(code: int, dtype, x, src, indptr, w, counter=None):
+    """(y, scratch) of one K7 launch, y of ``dtype``: the scratch holds the
+    partition and the carries afterwards (``csr_scratch_layout``)."""
     n, m = indptr.shape[0] - 1, src.shape[0]
     y = torch.empty(n, dtype=dtype, device=src.device)
     _, _, nbytes = csr_scratch_layout(n, m, y.element_size())
@@ -268,7 +279,7 @@ def _csr_pull_reduce_launch(code: int, dtype, x, src, indptr, w):
             "csr_pull_reduce", src.device, indptr.data_ptr(), src.data_ptr(),
             None if x is None else x.data_ptr(), None if w is None else w.data_ptr(),
             y.data_ptr(), n, m, code, CSR_ITEMS[y.element_size()], scratch.data_ptr(), nbytes,
-            counter="csr_pull_reduce_sum" if code in CSR_MODES["sum"][0].values() else None,
+            counter=counter,
         )
     return y, scratch
 
@@ -320,11 +331,12 @@ def slab_spmv(semiring: Semiring, plan: SlabPlan, x: torch.Tensor, n: int) -> to
     edges get the monoid identity."""
     ident = semiring.add.identity(x.dtype)
     min_kernels = _slab_min_kernels(semiring, plan, x)
+    sum_kernels = (semiring.add.name == "plus" and x.dtype in _K3_DTYPES
+                   and all(b.values is None for b in plan.slabs))
     buf = result_buffer(plan, x.dtype)
     if min_kernels:
         slab_spmv_min_buckets(plan, x, n, buf)
-    elif (semiring.add.name == "plus" and x.dtype in _K3_DTYPES
-          and all(b.values is None for b in plan.slabs)):
+    elif sum_kernels:
         slab_spmv_sum_buckets(plan, x, buf)
     else:
         def bucket_body(bucket):
@@ -339,6 +351,8 @@ def slab_spmv(semiring: Semiring, plan: SlabPlan, x: torch.Tensor, n: int) -> to
     heavy = None
     if plan.heavy_rows is not None and min_kernels:
         heavy = csr_pull_reduce("min_i32", x, plan.heavy_neigh, plan.heavy_indptr)
+    elif plan.heavy_rows is not None and sum_kernels and plan.heavy_values is None:
+        heavy = csr_pull_reduce("sum", x, plan.heavy_neigh, plan.heavy_indptr)
     elif plan.heavy_rows is not None:
         hx = table_gather(x, plan.heavy_neigh)
         terms = semiring.mul(plan.heavy_values, hx) if plan.heavy_values is not None else hx

@@ -45,9 +45,8 @@ from graphtpu_torch.core.types import INT32_INF
 from graphtpu_torch.ops import edgehash, kernels
 from graphtpu_torch.ops.edgehash import EdgeHash, probe_edge_hash_xy
 from graphtpu_torch.ops.gather import table_gather
-from graphtpu_torch.ops.scan_reduce import seg_sum_scan
 from graphtpu_torch.ops.slab import optimal_bucket_bounds
-from graphtpu_torch.ops.spmv import int32_tensor
+from graphtpu_torch.ops.spmv import csr_pull_reduce, int32_tensor
 from graphtpu_torch.utils.logging import get_logger
 
 # The plain version's tiling, and the plan's row-block width that follows
@@ -480,10 +479,11 @@ def wedge_rowblock(slab, mslab, ehash: Optional[EdgeHash], id_bits: int, chunk_c
 
 
 def _aggregate_heads(edge_cred_flat, edge_pos, head_indptr):
-    """The real slab entries' credits gathered in head order (kernel K1)
-    and summed per head, in int64."""
-    vals = table_gather(edge_cred_flat, edge_pos)
-    return seg_sum_scan(vals, head_indptr, acc_dtype=torch.int64, out_dtype=torch.int64)
+    """The real slab entries' credits in head order summed per head, in
+    int64: one K7 ``sum_i64`` over the heads' segments of ``edge_pos``,
+    gathering the int32 credits (the JAX package's gather and prefix sum
+    differenced at the head starts)."""
+    return csr_pull_reduce("sum_i64", edge_cred_flat, edge_pos, head_indptr)
 
 
 def numerator_from_credits(plan: WedgePlan, credits) -> np.ndarray:

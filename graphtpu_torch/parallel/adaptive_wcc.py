@@ -4,9 +4,10 @@ WCC, on the symmetrized structure.
 
 Two kernels share one phase machinery. Rounds whose changed labels fit
 the capacities (rows, edges) are active steps: each rank compacts the
-changed rows it owns, expands them through its local symmetrized push CSR
-(kernel K5), scatter-mins their labels into an [n_pad] vector of INT32_INF
-and one all-reduce of the minimum merges the ranks' vectors. Active steps
+changed rows it owns (kernel K14), expands them through its local
+symmetrized push CSR (kernel K5), scatter-mins their labels into an [n_pad]
+vector of INT32_INF (K8's int32 mode, ``relax_min_i32``) and one all-reduce
+of the minimum merges the ranks' vectors. Active steps
 propagate minima only (no pointer jumps): a label then changes only through
 an edge, so ``new < labels`` is the whole next changed set. Heavier rounds
 are full steps: the neighbours' minimum label, then two pointer jumps on
@@ -31,7 +32,7 @@ import numpy as np
 import torch
 
 from graphtpu_torch.core.types import INT32_INF
-from graphtpu_torch.ops.frontier import compact, expand, mask_status
+from graphtpu_torch.ops.frontier import compact, expand, mask_status, relax_min_i32
 from graphtpu_torch.ops.gather import table_gather
 from graphtpu_torch.ops.spmv import csr_pull_reduce
 from graphtpu_torch.parallel.adaptive_bfs import _local_csr
@@ -84,11 +85,8 @@ def _adaptive_loop(mesh: Mesh, key, n: int, r: int, k_cap: int, e_cap: int, full
     def active_step(labels, changed):
         ids_l, _ = compact(changed[my:my + r], k_cap)
         exp = expand(ids_l, pdeg, pi, pdst, e_cap)
-        lab_u = table_gather(labels, torch.where(exp.valid, exp.row_ids + my, 0))
-        targets = torch.where(exp.valid, exp.neigh, n_pad).long()
-        cand = torch.full((n_pad + 1,), INT32_INF, dtype=torch.int32, device=labels.device)
-        cand.scatter_reduce_(0, targets, torch.where(exp.valid, lab_u, INT32_INF), "amin")
-        new = torch.minimum(labels, all_reduce_min(cand[:n_pad]))
+        cand = relax_min_i32(n_pad, labels, exp.row_ids, exp.neigh, exp.valid, my)
+        new = torch.minimum(labels, all_reduce_min(cand))
         return new, new < labels
 
     ok, nonempty = derive(changed)

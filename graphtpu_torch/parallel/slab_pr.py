@@ -4,8 +4,8 @@ the JAX package's default distributed PageRank.
 The pull sum runs over the bucket-split slab plan of the in-edges
 (``slab_cdlp.build_dist_slab_plan_from``): each rank sums its columns of
 every bucket in one launch of kernel K3 (``slab_spmv_sum_buckets``) and its
-heavy rows by a float64 prefix sum over its edge stream (``seg_sum_scan``,
-the padding's junk segment cut off); one all-gather and the inverse
+heavy rows by one launch of K7 in mode ``sum`` over its edge stream (the
+padding's junk segment cut off); one all-gather and the inverse
 permutation's K1 gather give the pulled vector on every rank. The dangling
 mass and the teleport term are computed alike on every rank
 (LAGr_PageRankGX, pr.cpp:58-63). The sums add in another order than the
@@ -17,9 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from graphtpu_torch.ops.gather import table_gather
-from graphtpu_torch.ops.scan_reduce import seg_sum_scan
-from graphtpu_torch.ops.spmv import slab_spmv_sum_buckets
+from graphtpu_torch.ops.spmv import csr_pull_reduce, slab_spmv_sum_buckets
 from graphtpu_torch.parallel.mesh import Mesh, all_gather_rows
 from graphtpu_torch.parallel.partition import install_arrays
 from graphtpu_torch.parallel.slab_cdlp import (
@@ -37,7 +35,7 @@ def pull_step(rs: RankSlabs, x: torch.Tensor) -> torch.Tensor:
     if rs.heavy is not None:
         _, nb, ip = rs.heavy
         total = rs.plan.table.total
-        buf[total:] = seg_sum_scan(table_gather(x, nb), ip, out_dtype=x.dtype)[:rs.length - total]
+        buf[total:] = csr_pull_reduce("sum", x, nb, ip)[:rs.length - total]
     return all_gather_rows(buf)
 
 

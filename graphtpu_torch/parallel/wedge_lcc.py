@@ -13,7 +13,8 @@ the replicated edge hash instead, so only a CPU rank holds the hash. The
 apex (u) credits of a bucket come back by one all-gather; the edge (x, y)
 credits are summed per head over the rank's own slab entries (a stable
 sort of the entries by head, padding as head n, the junk segment, done
-once at install; then a K1 gather in head order and an int64 segment sum)
+once at install; then one K7 ``sum_i64`` over the heads' segments, which
+gathers the credits in head order and sums them exactly in int64)
 and one all-reduce sums the ranks' numerators. The spilled keys are
 patched on the host, as on one device.
 
@@ -30,8 +31,7 @@ import numpy as np
 import torch
 
 from graphtpu_torch.ops.edgehash import EdgeHash
-from graphtpu_torch.ops.gather import table_gather
-from graphtpu_torch.ops.scan_reduce import seg_sum_scan
+from graphtpu_torch.ops.spmv import csr_pull_reduce
 from graphtpu_torch.ops.triangles import (
     ClosingCSR, _patch_spilled, coefficients, wedge_plan, wedge_rowblock,
 )
@@ -108,8 +108,8 @@ def _lcc_body(mesh: Mesh, key, n: int, id_bits: int) -> np.ndarray:
                                            st.closing)
         apex.append(all_gather_rows(u_cred)[:r_real])
         edge_creds.append(edge_cred.reshape(-1))
-    ordered = table_gather(torch.cat(edge_creds), st.pos)
-    num = seg_sum_scan(ordered, st.hip, acc_dtype=torch.int64, out_dtype=torch.int64)[:n]
+    # segment n, the padding's, is dropped
+    num = csr_pull_reduce("sum_i64", torch.cat(edge_creds), st.pos, st.hip)[:n]
     num = all_reduce_sum(num)
     # a bucket's rows are distinct, and no row is in two buckets
     num[st.bucket_rows] += torch.cat(apex).long()

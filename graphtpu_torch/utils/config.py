@@ -173,7 +173,8 @@ class PlatformConfig:
     # 0 = 2^15 rows, 2^18 edges
     bfs_bu_rows: int = 0
     bfs_bu_edges: int = 0
-    # ""/phases run; "switch" (a TPU compile-time experiment) is not ported
+    # ""/phases or switch: the JAX package's two step modes, which give the
+    # same steps; both run the port's one host loop (algorithms/bfs.py)
     bfs_step_mode: str = ""
     # auto|slab|adaptive|device|dense: auto/slab = full steps on the slab plan
     # (kernel K6), adaptive = full steps on the edge stream (K7), both with

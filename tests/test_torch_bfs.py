@@ -72,6 +72,31 @@ def test_adaptive_matches_jax(graphs, caps):
         assert (totals[:6] > 0).all(), totals
 
 
+@pytest.mark.parametrize("directed", [False, True])
+def test_bfs_step_mode_switch_matches_jax(directed):
+    """bfs-step-mode=switch, as tests/test_bfs_hybrid.py holds the JAX
+    package's switch run: levels, iterations and per-phase counts equal
+    the JAX package's switch run (and so its phases run) under small caps
+    that force tiers, bottom-up and dense steps."""
+    jg = j_rmat_graph(9, 8, directed=directed, seed=5)
+    tg = _twin(jg)
+    base = dict(bfs_frontier_rows=64, bfs_frontier_edges=256, bfs_bu_rows=32, bfs_bu_edges=512)
+    jl, jn, js = jbfs.bfs_adaptive_run(jg, 0, JConfig(bfs_step_mode="switch", **base),
+                                       with_stats=True)
+    for mode in ("switch", "phases"):
+        tl, tn, ts = tbfs.bfs_adaptive_run(
+            tg, 0, PlatformConfig(device="cpu", bfs_step_mode=mode, **base), with_stats=True)
+        np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+        assert (tn, ts) == (jn, js), mode
+    assert sum(js["tier_steps"].values()) and js["bu_steps"] and js["dense_steps"], js
+    got = run_algorithm("bfs", tg, AlgorithmParams(source_vertex=0),
+                        PlatformConfig(device="cpu", bfs_step_mode="switch", **base))
+    want = j_run_algorithm("bfs", jg, JParams(source_vertex=0),
+                           JConfig(bfs_step_mode="switch", **base))
+    np.testing.assert_array_equal(got.values, want.values)
+    assert got.iterations == want.iterations
+
+
 def test_default_tiers_match_jax_stats_keys(graphs):
     jg, tg = graphs
     _, _, ts = tbfs.bfs_adaptive_run(tg, 0, PlatformConfig(device="cpu"), with_stats=True)
@@ -161,9 +186,9 @@ def test_errors():
     default = run_algorithm("bfs", tg, AlgorithmParams(source_vertex=0), cpu)
     np.testing.assert_array_equal(hybrid.values, default.values)
     assert hybrid.iterations == default.iterations
-    with pytest.raises(ValueError, match="switch"):
+    with pytest.raises(ValueError, match="unknown bfs-step-mode"):
         run_algorithm("bfs", tg, AlgorithmParams(source_vertex=0),
-                      PlatformConfig(device="cpu", bfs_step_mode="switch"))
+                      PlatformConfig(device="cpu", bfs_step_mode="bogus"))
     # "dense" is the JAX package's one-chip dense kernel: the port runs it as
     # "device", with the JAX package's levels and iteration count
     want = j_run_algorithm("bfs", jg, JParams(source_vertex=0), JConfig(bfs_impl="dense"))

@@ -17,8 +17,9 @@ from graphtpu_torch.ops.edgehash import (
     build_edge_hash_device, edgehash_bin, edgehash_probe, k9_bins, probe_edge_hash,
 )
 from graphtpu_torch.ops.frontier import (
-    bfs_trunc_probe, bfs_trunc_probe_plain, frontier_expand, frontier_expand_plain, relax_min,
-    relax_min_plain,
+    bfs_trunc_probe, bfs_trunc_probe_plain, compact, compact_plain, compact_stream,
+    compact_stream_plain, expand, frontier_expand, frontier_expand_plain, relax_min,
+    relax_min_i32, relax_min_i32_plain, relax_min_plain, residual_hits,
 )
 from graphtpu_torch.ops.gather import gather_rows, gather_rows_plain
 from graphtpu_torch.core.types import INT32_INF
@@ -187,6 +188,29 @@ def test_bucket_table_launches_match_plain(cuda, buckets):
         buf = result_buffer(plan, torch.int32)
         slab_spmv_min_buckets(plan, xm, n, buf)
         assert torch.equal(buf[:total], plain(lambda s: slab_spmv_min_plain(s, xm, n)))
+
+
+@pytest.mark.parametrize("dtype, rtol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+def test_slab_spmv_plus_heavy_rows_on_k7(cuda, dtype, rtol):
+    """slab_spmv's plus.second pull (PageRank's) on the card: the buckets
+    in one K3 launch, the heavy rows in one K7 ``sum`` launch, no other K7
+    launch, against the same plan's plain pull on the CPU."""
+    from graphtpu_torch.core.semiring import PLUS_SECOND
+    from graphtpu_torch.ops.spmv import slab_spmv
+
+    n, buckets = 3000, (3, 20, 32, 33, 100, 700)
+    plan_c = _random_plan(np.random.default_rng(7), n, buckets, "cpu")
+    plan_g = _random_plan(np.random.default_rng(7), n, buckets, cuda)
+    heavy = int(plan_c.heavy_rows.shape[0])
+    assert heavy > 0
+    x = torch.from_numpy(np.random.default_rng(8).random(n)).to(dtype)
+    before = dict(kernels.launch_counts)
+    got = slab_spmv(PLUS_SECOND, plan_g, x.to(cuda), n).cpu()
+    launched = {k: v - before.get(k, 0) for k, v in kernels.launch_counts.items()
+                if v != before.get(k, 0)}
+    assert launched["slab_spmv_sum"] == 1 and launched["csr_pull_reduce_sum"] == 1
+    assert "csr_pull_reduce" not in launched
+    torch.testing.assert_close(got, slab_spmv(PLUS_SECOND, plan_c, x, n), rtol=rtol, atol=0)
 
 
 def test_slab_minmode_refuses_unsupported_width(cuda):
@@ -1246,7 +1270,7 @@ def test_naive_distributed_kernels_on_one_nccl_rank(cuda, algo):
             "sssp": ("dense", "device", "csr_pull_reduce"),
             "wcc": ("dense", "device", "csr_pull_reduce"),
             "cdlp": ("sort", "sort", "segment_minmode"),
-            "lcc": ("sweep", "sweep", "gather_rows")}
+            "lcc": ("sweep", "sweep", "lcc_sweep_member")}
     dist_impl, one_impl, kernel = runs[algo]
     g = rmat_graph(12, 16, directed=True, weighted=algo == "sssp", seed=5)
     params = AlgorithmParams(source_vertex=0, damping_factor=0.85, num_iterations=10,
@@ -1283,9 +1307,10 @@ def test_default_distributed_loops_on_one_nccl_rank(cuda, algo, tmp_path):
     from graphtpu_torch.utils.synth import rmat_graph
 
     needed = {"pr": ("gather_rows", "slab_spmv_sum"), "cdlp": ("slab_minmode",),
-              "bfs": ("frontier_expand", "gather_rows"),
-              "sssp": ("frontier_expand", "push_relax_min"),
-              "wcc": ("slab_spmv_min",), "lcc": ("wedge_rowblock",)}[algo]
+              "bfs": ("frontier_expand", "gather_rows", "frontier_compact"),
+              "sssp": ("frontier_expand", "push_relax_min", "frontier_compact"),
+              "wcc": ("slab_spmv_min",),
+              "lcc": ("wedge_rowblock", "csr_pull_reduce_sum_i64")}[algo]
     g = rmat_graph(12, 16, directed=True, weighted=algo == "sssp", seed=5)
     params = AlgorithmParams(source_vertex=0, damping_factor=0.85, num_iterations=10,
                              max_iterations=10)
@@ -1674,3 +1699,264 @@ def test_bfs_trunc_probe_matches_plain(cuda, t, case):
         assert g.dtype == torch.bool and torch.equal(g.cpu(), w)
     if case == "sentinel_only":
         assert not bool(want[0][::2].any())
+
+
+# ---------------------------------------------------------------- K14
+
+
+def _numpy_compact(mask, k):
+    """The expected (ids, count) of compact, from numpy alone."""
+    n = mask.shape[0]
+    nz = np.nonzero(mask)[0].astype(np.int32)
+    ids = np.full(k, n, dtype=np.int32)
+    ids[:min(k, nz.shape[0])] = nz[:k]
+    return ids, nz.shape[0]
+
+
+@pytest.mark.parametrize("density", [0.0, 0.001, 0.3, 1.0])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 1000, 8193, 300007, (1 << 20) + 3])
+def test_frontier_compact_matches_plain(cuda, n, density):
+    """compact at n around a word and a block step, empty, sparse, dense
+    and full masks, with k cut below the count, exact, above it and above
+    n; one launch a call."""
+    rng = np.random.default_rng(n)
+    mask = rng.random(n) < density
+    cnt = int(mask.sum())
+    for k in sorted({1, max(cnt - 1, 1), max(cnt, 1), cnt + 5, n + 10}):
+        before = kernels.launch_counts["frontier_compact"]
+        ids, count = compact(torch.from_numpy(mask).to(cuda), k)
+        assert kernels.launch_counts["frontier_compact"] == before + 1
+        want_ids, want_cnt = _numpy_compact(mask, k)
+        plain_ids, plain_cnt = compact_plain(torch.from_numpy(mask), k)
+        assert ids.dtype == torch.int32 and count.dtype == torch.int32 and count.dim() == 0
+        np.testing.assert_array_equal(ids.cpu().numpy(), want_ids)
+        assert int(count) == want_cnt == int(plain_cnt)
+        assert torch.equal(ids.cpu(), plain_ids)
+
+
+def test_frontier_compact_on_a_slice_with_an_offset(cuda):
+    """A rank's rows of a longer mask (a view with a storage offset that is
+    no multiple of 4) compact like the copy."""
+    rng = np.random.default_rng(11)
+    full = torch.from_numpy(rng.random(100_001) < 0.2).to(cuda)
+    for lo, hi in ((3, 50_004), (50_004, 100_001), (77, 78)):
+        view = full[lo:hi]
+        assert view.storage_offset() == lo
+        for k in (1, 4096, hi - lo + 3):
+            got, want = compact(view, k), compact_plain(view.cpu(), k)
+            assert torch.equal(got[0].cpu(), want[0]) and int(got[1]) == int(want[1])
+
+
+def _numpy_compact_stream(vals, active, k, n):
+    u = np.unique(vals[active & (vals < n)]).astype(np.int32)
+    ids = np.full(k, n, dtype=np.int32)
+    ids[:min(k, u.shape[0])] = u[:k]
+    return ids, u.shape[0]
+
+
+@pytest.mark.parametrize("case", ["random", "with_pad_value", "all_inactive", "empty_stream",
+                                  "one_value", "every_vertex"])
+@pytest.mark.parametrize("n", [1, 33, 1000, 65537, 1 << 20])
+def test_frontier_compact_stream_matches_plain(cuda, n, case):
+    """compact_stream on streams with repeats, the pad value n among the
+    values (never taken), no active slot, no slot, one repeated value and
+    every vertex once (shuffled); k below, at and above the distinct
+    count; one launch a call."""
+    rng = np.random.default_rng(n + len(case))
+    e = 0 if case == "empty_stream" else int(rng.integers(1, 4 * n + 2))
+    vals = rng.integers(0, n + 1, size=e).astype(np.int32)
+    active = rng.random(e) < 0.6
+    if case == "with_pad_value":
+        vals[::3] = n
+    elif case == "all_inactive":
+        active[:] = False
+    elif case == "one_value":
+        vals[:], active[:] = n // 2, True
+    elif case == "every_vertex":
+        vals, active = rng.permutation(n).astype(np.int32), np.ones(n, dtype=bool)
+    distinct = _numpy_compact_stream(vals, active, 1, n)[1]
+    for k in sorted({1, max(distinct - 1, 1), max(distinct, 1), distinct + 7}):
+        tv, ta = torch.from_numpy(vals), torch.from_numpy(active)
+        before = kernels.launch_counts["frontier_compact"]
+        ids, count = compact_stream(tv.to(cuda), ta.to(cuda), k, n)
+        assert kernels.launch_counts["frontier_compact"] == before + 1
+        want_ids, want_cnt = _numpy_compact_stream(vals, active, k, n)
+        np.testing.assert_array_equal(ids.cpu().numpy(), want_ids)
+        assert int(count) == want_cnt
+        plain = compact_stream_plain(tv, ta, k, n)
+        assert torch.equal(ids.cpu(), plain[0]) and int(plain[1]) == want_cnt
+
+
+def test_frontier_compact_makes_no_host_read(cuda):
+    """Under sync debug mode "error" a call that waits for the device
+    raises: K14's launch sizes come from shapes alone."""
+    rng = np.random.default_rng(2)
+    mask = torch.from_numpy(rng.random(70_000) < 0.1).to(cuda)
+    vals = torch.from_numpy(rng.integers(0, 70_000, size=200_000).astype(np.int32)).to(cuda)
+    active = torch.from_numpy(rng.random(200_000) < 0.5).to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a = compact(mask, 4096)
+        b = compact_stream(vals, active, 1 << 16, 70_000)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    pa, pb = compact_plain(mask, 4096), compact_stream_plain(vals, active, 1 << 16, 70_000)
+    assert torch.equal(a[0], pa[0]) and torch.equal(a[1], pa[1])
+    assert torch.equal(b[0], pb[0]) and torch.equal(b[1], pb[1])
+
+
+# ------------------------------------------------- K7 sum_i64, max_i32 residual
+
+
+@pytest.mark.parametrize("case", ["random", "row_ends_on_border", "empty_run", "one_row",
+                                  "hubs_only", "single_empty_row", "edgeless"])
+def test_csr_pull_reduce_sum_i64_matches_plain_and_numpy(cuda, case):
+    """K7 in mode sum_i64: int32 values near 2^31 (and negative ones), so
+    rows sum past 2^32; bit for bit against the plain version and numpy's
+    int64 sums, twice the same bits, counted as csr_pull_reduce_sum_i64."""
+    rng = np.random.default_rng(len(case) * 13)
+    if case == "random":
+        src, indptr = _pull_csr(rng, 20000, 100000)
+        n_x = 20000
+    else:
+        deg = _k7_degrees(case, CSR_ITEMS[8], rng)
+        ip = np.zeros(deg.shape[0] + 1, dtype=np.int64)
+        np.cumsum(deg, out=ip[1:])
+        n_x = 50_000
+        src = torch.from_numpy(rng.integers(0, n_x, size=int(ip[-1])).astype(np.int32))
+        indptr = torch.from_numpy(ip.astype(np.int32))
+    x = rng.integers(-(1 << 20), (1 << 31) - 1, size=n_x).astype(np.int32)
+    ip_h, src_h = indptr.numpy().astype(np.int64), src.numpy()
+    want = np.add.reduceat(np.concatenate([x[src_h].astype(np.int64), [0]]), ip_h[:-1]) \
+        if ip_h.shape[0] > 1 else np.zeros(0, np.int64)
+    want[np.diff(ip_h) == 0] = 0
+    xd, src_d, ip_d = torch.from_numpy(x).to(cuda), src.to(cuda), indptr.to(cuda)
+    before = dict(kernels.launch_counts)
+    got = csr_pull_reduce("sum_i64", xd, src_d, ip_d)
+    again = csr_pull_reduce("sum_i64", xd, src_d, ip_d)
+    launched = indptr.shape[0] > 1
+    assert (kernels.launch_counts["csr_pull_reduce_sum_i64"]
+            - before["csr_pull_reduce_sum_i64"]) == 2 * launched
+    assert kernels.launch_counts["csr_pull_reduce"] == before["csr_pull_reduce"]
+    assert got.dtype == torch.int64 and torch.equal(got, again)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    assert torch.equal(got.cpu(), csr_pull_reduce_plain("sum_i64", torch.from_numpy(x), src,
+                                                        indptr))
+    if case == "hubs_only":
+        assert int(got.abs().max()) > 1 << 32
+
+
+@pytest.mark.parametrize("case", ["fits", "cut", "no_residual"])
+def test_residual_hits_match_the_cumsum_on_the_card(cuda, case):
+    """BFS's residual test on K7 max_i32 against the JAX package's
+    formulation (a cumsum of the valid hits differenced at the clamped row
+    starts), on a random expansion whose edges fit the slots, are cut by
+    them, or are none; the pad slots' neighbour 0 is marked."""
+    rng = np.random.default_rng(len(case))
+    n, k, e_cap = 30000, 4096, 1 << 16
+    deg = rng.integers(0, 40, size=n).astype(np.int32)
+    deg_pad = np.concatenate([deg, [0]]).astype(np.int32)
+    ip = np.concatenate([[0], np.cumsum(deg_pad)]).astype(np.int32)
+    neigh = rng.integers(0, n, size=int(ip[-2])).astype(np.int32)
+    cnt = {"fits": 1000, "cut": 4000, "no_residual": 0}[case]
+    ids = np.full(k, n, dtype=np.int32)
+    ids[:cnt] = np.sort(rng.choice(n, size=cnt, replace=False))
+    fmask = np.concatenate([rng.random(n) < 0.05, [0]]).astype(np.int32)
+    fmask[0] = 1
+    t = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
+    exp = expand(t(ids), t(deg_pad), t(ip), t(neigh), e_cap, with_row_ids=False)
+    before = kernels.launch_counts["csr_pull_reduce"]
+    got = residual_hits(t(fmask), exp, e_cap)
+    assert kernels.launch_counts["csr_pull_reduce"] == before + 1
+    rhit = (exp.valid & (t(fmask)[exp.neigh.long()] == 1)).to(torch.int64)
+    cs = torch.cat([rhit.new_zeros(1), torch.cumsum(rhit, 0)])
+    starts = torch.clamp(exp.seg_starts, max=e_cap).long()
+    want = (cs[starts[1:]] - cs[starts[:-1]]) > 0
+    assert got.shape == (k,) and torch.equal(got, want)
+    assert case == "no_residual" or bool(got.any())
+    if case == "cut":
+        assert int(exp.edge_count) > e_cap
+
+
+# ---------------------------------------------------------------- K8 int32
+
+
+@pytest.mark.parametrize("case", ["random", "all_pad", "equal_candidates", "rank_offset"])
+def test_relax_min_i32_matches_plain(cuda, case):
+    """K8's int32 mode: contended targets, a frontier of pad slots only,
+    one candidate for every slot, and a rank's row offset into the
+    replicated labels; one launch a call."""
+    rng = np.random.default_rng(len(case) + 40)
+    n_lab, n_out, e_cap = 50000, 20000, 1 << 16
+    labels = rng.integers(0, n_lab, size=n_lab).astype(np.int32)
+    row_ids = rng.integers(0, 10000, size=e_cap).astype(np.int32)
+    neigh = rng.integers(0, 300, size=e_cap).astype(np.int32)
+    valid = rng.random(e_cap) < 0.7
+    offset = 0
+    if case == "all_pad":
+        valid[:] = False
+    elif case == "equal_candidates":
+        row_ids[:] = 7
+    elif case == "rank_offset":
+        offset, neigh = 40000, rng.integers(0, n_out, size=e_cap).astype(np.int32)
+    tt = [torch.from_numpy(a) for a in (labels, row_ids, neigh, valid)]
+    want = relax_min_i32_plain(n_out, *tt, offset)
+    before = kernels.launch_counts["push_relax_min_i32"]
+    got = relax_min_i32(n_out, *(a.to(cuda) for a in tt), offset)
+    assert kernels.launch_counts["push_relax_min_i32"] == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+    hit = np.full(n_out, INT32_INF, dtype=np.int64)
+    np.minimum.at(hit, neigh[valid], labels[row_ids[valid] + offset])
+    np.testing.assert_array_equal(want.numpy(), hit)
+
+
+# ---------------------------------------------------------------- K15
+
+
+@pytest.mark.parametrize("directed", [True, False])
+@pytest.mark.parametrize("scale", [8, 11])
+def test_lcc_sweep_member_matches_plain(cuda, directed, scale):
+    """The sweep on the card against its plain version on the CPU, bucket
+    by bucket (numerators bit for bit) under every unit of threads an
+    A-edge the kernel takes (a warp, the default, up to a block), with one
+    launch per nonempty bucket, counted from the degrees."""
+    from graphtpu_torch.algorithms.lcc import _lcc_bucket_sweep, lcc_sweep_numerator, prepare_lcc
+    from graphtpu_torch.utils.synth import rmat_graph
+
+    g = rmat_graph(scale, 16, directed=directed, seed=scale)
+    s_indptr, s_dst, s_deg, c, o, dc = prepare_lcc(g)
+    iters = max(1, int(np.ceil(np.log2(max(int(s_deg.max()), 2) + 1))))
+    t = lambda a, dev: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    for lo, hi in ((0, 16), (16, 128), (128, 1024), (1024, 8192)):
+        sel = (dc > lo) & (dc <= hi)
+        if not sel.any():
+            continue
+        want = _lcc_bucket_sweep(torch.zeros(g.n, dtype=torch.int64), t(s_indptr, "cpu"),
+                                 t(s_dst, "cpu"), t(c[sel], "cpu"), t(o[sel], "cpu"), hi, iters)
+        for unit in (32, 64, 128, 256):
+            before = kernels.launch_counts["lcc_sweep_member"]
+            got = _lcc_bucket_sweep(torch.zeros(g.n, dtype=torch.int64, device=cuda),
+                                    t(s_indptr, cuda), t(s_dst, cuda), t(c[sel], cuda),
+                                    t(o[sel], cuda), hi, iters, unit)
+            assert kernels.launch_counts["lcc_sweep_member"] == before + 1
+            assert torch.equal(got.cpu(), want), (lo, hi, unit)
+    nonempty = sum(bool(((dc > lo) & (dc <= hi)).any()) for lo, hi in
+                   zip([0] + [16 * 8 ** i for i in range(6)], [16 * 8 ** i for i in range(7)]))
+    before = kernels.launch_counts["lcc_sweep_member"]
+    num, _ = lcc_sweep_numerator(g, cuda)
+    assert kernels.launch_counts["lcc_sweep_member"] == before + nonempty
+    np.testing.assert_array_equal(num, lcc_sweep_numerator(g, "cpu")[0])
+    assert num.max() > 0
+
+
+@pytest.mark.parametrize("unit", [16, 48, 512])
+def test_lcc_sweep_member_refuses_other_units(cuda, unit):
+    """A unit that is not a power of two from a warp to a block is refused
+    by the launch, not run."""
+    from graphtpu_torch.algorithms.lcc import _lcc_bucket_sweep
+
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=cuda)  # noqa: E731
+    with pytest.raises(RuntimeError, match="lcc_sweep_member"):
+        _lcc_bucket_sweep(torch.zeros(2, dtype=torch.int64, device=cuda), i32([0, 1, 2]),
+                          i32([1, 0]), i32([0]), i32([1]), 16, 2, unit)
