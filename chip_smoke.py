@@ -98,9 +98,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
    per bucket and over all buckets of that plan, both twice for the same
    bits (K10's bound counts merge steps: the wedges plus the out-list
    entries its search reads); K7 sum_i64 on the plan's head credits; K15
-   (lcc_sweep_member) over the whole sweep of the benchmark graph, timed,
-   and against its plain version on the first 2^16 A-edges of each degree
-   bucket (the whole plain sweep takes over a minute). A kernel that
+   (lcc_sweep_member) over the whole sweep of the benchmark graph's c-row
+   plan (one entry per unordered pair, weight 2; its pairs, searches and
+   atomics printed), timed, and against its plain version on the first
+   2^16 entries of each degree bucket (the whole plain sweep takes over a
+   minute). A kernel that
    returns at once gives the floor under the launch-sized rows.
 5b. K11 masked_spgemm: against its plain version on the card for each add
    monoid (plus.times, min.plus, max.second, lor.land) and each value type
@@ -2351,25 +2353,31 @@ def phase_lcc_kernels(g, wplan, real_wedges, lcc_values, device):
     return res, k9_launches, k15_launches, num_sum
 
 
-K15_PREFIX = 1 << 16  # A-edges of each bucket in K15's plain pass at the bench size
+K15_PREFIX = 1 << 16  # plan entries of each bucket in K15's plain pass at the bench size
 
 
 def k15(g, oriented_num, device):
-    """K15 (lcc_sweep_member) over the whole RMAT s20/ef32 sweep: the
-    sweep's numerators (one launch a nonempty bucket, counted) must equal
-    the oriented (K10) numerators bit for bit. Timed over all buckets; the
-    plain pass runs on the first K15_PREFIX A-edges of each bucket (the
-    whole plain sweep takes over a minute), against the kernel on the same
-    A-edges, bit for bit and timed, once with CUDA events. The bound's
-    operations are the search steps these A-edges take (d(c) searches of
-    ceil(log2(d(o) + 1)) steps each), its bytes each input once (the CSR,
-    the A-edges, the numerators read and written). Returns the row and the
-    sweep's launches."""
+    """K15 (lcc_sweep_member) over the whole RMAT s20/ef32 sweep, on the
+    c-row plan (``sweep_plan``: one entry per unordered pair, weight 2):
+    the sweep's numerators (one launch a nonempty bucket, counted) must
+    equal the oriented (K10) numerators bit for bit. Timed over all
+    buckets; the plain pass runs on the first K15_PREFIX entries of each
+    bucket (the whole plain sweep takes over a minute), against the kernel
+    on the same entries, bit for bit, twice, and timed once with CUDA
+    events. Prints the plan's pairs, searches, search steps, items and
+    atomics (at most one a lane of an item), beside those of the A-edge
+    lists that an entry a directed edge would sweep. The bound counts the
+    plan's own work: d(c) searches of ceil(log2(d(o) + 1)) steps each an
+    entry, and its bytes each input once (the CSR, the entries' c and o,
+    the numerators read and written); the A-edge lists' steps (an entry
+    counting weight times) print as a second design's bound. Returns the
+    row and the sweep's launches."""
     import numpy as np
     import torch
 
     from graphtpu_torch.algorithms.lcc import (
-        _bucket_bounds, _lcc_bucket_sweep, lcc_sweep_numerator, prepare_lcc,
+        K15_TILE, _lcc_bucket_sweep, lcc_sweep_numerator, plan_buckets, search_iters_of,
+        sweep_items, sweep_plan,
     )
     from graphtpu_torch.ops import kernels
 
@@ -2380,35 +2388,38 @@ def k15(g, oriented_num, device):
     launches = kernels.launch_counts["lcc_sweep_member"]
     check(np.array_equal(num, oriented_num),
           "lcc sweep numerators (K15) differ from the oriented ones (K10)")
-    s_indptr, s_dst, s_deg, c, o, dc = prepare_lcc(g)
-    max_deg = int(s_deg.max())
-    iters = max(1, int(np.ceil(np.log2(max(max_deg, 2) + 1))))
+    plan = sweep_plan(g, device)
+    s_deg, w = plan.s_deg, plan.weight
+    iters = search_iters_of(s_deg)
     dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
-    indptr, col = dev(s_indptr), dev(s_dst)
-    host = []  # (pad, c, o) of each nonempty bucket
-    for pad in _bucket_bounds(max_deg):
-        sel = (dc > (0 if pad == 16 else pad // 8)) & (dc <= pad)
-        if sel.any():
-            host.append((pad, c[sel], o[sel]))
+    indptr, col = dev(plan.s_indptr), dev(plan.s_dst)
+    host = [(pad, plan.c[sel], plan.o[sel]) for pad, sel in plan_buckets(plan)]
     check(launches == len(host), f"lcc_sweep_member launched {launches} times, not one a "
           f"nonempty bucket ({len(host)})")
 
     def counts(parts):
-        """(A-edges, neighbour searches, search steps, bytes): indptr and
-        col of S, c and o, the numerators read and written."""
-        edges = sum(cb.shape[0] for _, cb, _ in parts)
+        """(entries, searches, search steps, items, atomics at most, and the
+        A-edges, searches and steps they stand for, bytes): indptr and col
+        of S, the A-edges' c and o, the numerators read and written."""
+        entries = sum(cb.shape[0] for _, cb, _ in parts)
         searches = sum(int(s_deg[cb].sum()) for _, cb, _ in parts)
         steps = sum(int((s_deg[cb] * np.ceil(np.log2(s_deg[ob] + 1.0))).sum())
                     for _, cb, ob in parts)
-        return edges, searches, steps, 4 * (g.n + 1 + s_dst.shape[0]) + 8 * edges + 16 * g.n
+        its = [sweep_items(cb, s_deg) for _, cb, _ in parts]
+        atomics = sum(int(np.minimum(K15_TILE, s_deg[cb[it[:, 0]]] - it[:, 2]).sum())
+                      for it, (_, cb, _) in zip(its, parts) if it.shape[0])
+        return (entries, searches, steps, sum(it.shape[0] for it in its), atomics, w * entries,
+                w * searches, w * steps, 4 * (g.n + 1 + plan.s_dst.shape[0]) + 8 * entries
+                + 16 * g.n)
 
     def on_device(parts):
-        return [(pad, dev(cb), dev(ob)) for pad, cb, ob in parts]
+        return [(pad, dev(cb), dev(ob), dev(sweep_items(cb, s_deg)))
+                for pad, cb, ob in parts]
 
     def sweep(bs, numerator):
         numerator.zero_()
-        for pad, cb, ob in bs:
-            _lcc_bucket_sweep(numerator, indptr, col, cb, ob, pad, iters)
+        for pad, cb, ob, items in bs:
+            _lcc_bucket_sweep(numerator, indptr, col, cb, ob, pad, iters, w, items)
 
     prefix_h = [(pad, cb[:K15_PREFIX], ob[:K15_PREFIX]) for pad, cb, ob in host]
     whole, prefix = on_device(host), on_device(prefix_h)
@@ -2424,26 +2435,35 @@ def k15(g, oriented_num, device):
     check(torch.equal(got, want), "lcc_sweep_member on the bucket prefixes differs from plain")
     sweep(prefix, again)
     check(torch.equal(got, again), "lcc_sweep_member: two runs differ")
-    p_edges, p_searches, p_steps, p_bytes = counts(prefix_h)
-    w_edges, w_searches, w_steps, w_bytes = counts(host)
+    sweep(whole, again)
+    check(np.array_equal(again.cpu().numpy(), oriented_num), "lcc_sweep_member: the whole "
+          "sweep's numerators differ from the oriented ones")
+    p_cnt, w_cnt = counts(prefix_h), counts(host)
+
+    def said(cnt):
+        return (f"{cnt[0]} pairs, {cnt[1]} searches, {cnt[2]} search steps, {cnt[3]} items, "
+                f"{cnt[4]} atomics at most (standing for {cnt[5]} A-edges, {cnt[6]} searches, "
+                f"{cnt[7]} search steps)")
+
     k_whole = cuda_ms(lambda: sweep(whole, again), reps=2)
-    print(f"lcc sweep (K15) on the benchmark graph: numerators equal the oriented ones; "
-          f"{launches} launches (buckets {[p for p, _, _ in host]}), {w_edges} A-edges, "
-          f"{w_searches} neighbour searches, {w_steps} search steps; lcc_sweep_numerator "
-          f"{sweep_s:.3f} s with its host prep; the plain pass over the first {K15_PREFIX} "
-          f"A-edges of each bucket {plain_ms:.3f} ms (CUDA events)", flush=True)
+    print(f"lcc sweep (K15) on the benchmark graph's c-row plan (weight {w}): numerators equal "
+          f"the oriented ones; {launches} launches (buckets {[p for p, _, _ in host]}); "
+          f"{said(w_cnt)}; lcc_sweep_numerator {sweep_s:.3f} s with its host prep; the whole "
+          f"sweep {k_whole[0]:.3f} ms; the plain pass over the first {K15_PREFIX} entries of "
+          f"each bucket {plain_ms:.3f} ms (CUDA events)", flush=True)
     row = dict(
         max_abs_err=0.0, library=None,  # none: a gather, a search, a scatter-add
         times=(cuda_ms(lambda: sweep(prefix, got), reps=3), (plain_ms, plain_ms)),
-        shape=(f"the first {K15_PREFIX} A-edges of each of the {len(host)} buckets of the "
-               f"benchmark graph's sweep: {p_edges} A-edges, {p_searches} neighbour searches, "
-               f"{p_steps} search steps; plain version: one pass, CUDA events"),
-        bytes=p_bytes, ops=p_steps,
+        shape=(f"the first {K15_PREFIX} entries of each of the {len(host)} buckets of the "
+               f"benchmark graph's c-row plan: {said(p_cnt)}; plain version: one pass, CUDA "
+               f"events"),
+        bytes=p_cnt[8], ops=p_cnt[2],
+        ops_by_design={"one search per A-edge (the A-edge lists')": p_cnt[7]},
         other_shapes=[dict(
-            shape=(f"the whole sweep of the benchmark graph: {w_edges} A-edges in {len(host)} "
-                   f"buckets, {w_searches} neighbour searches, {w_steps} search steps, "
-                   f"{launches} launches"),
-            times=(k_whole, None), bytes=w_bytes, ops=w_steps)],
+            shape=(f"the whole sweep of the benchmark graph: {said(w_cnt)} in {len(host)} "
+                   f"buckets, {launches} launches; by the A-edge lists' {w_cnt[7]} search "
+                   f"steps a bound of {w_cnt[7] / F32_OPS_PER_S * 1e3:.6f} ms"),
+            times=(k_whole, None), bytes=w_cnt[8], ops=w_cnt[2])],
     )
     return row, launches
 

@@ -18,19 +18,31 @@
 // call costs its launches.
 //
 // Design: no sort. A frontier's ids are the set bits of a bitmap in order, so
-// both entries compact 32-bit words: compact builds the words from the mask by
-// __ballot_sync (a warp reads 1,024 consecutive bytes in 32 coalesced steps
-// and lane i keeps word i), compact_stream marks a scratch bitmap of ceil(n /
-// 32) words by atomicOr (zeroed by a memset on the stream first), which
-// dedupes and orders the values by construction. Then two launches over the
-// words: k14_count gives each block's popcount; k14_write finds its block's
-// offset and the total by a block-wide sum over the (at most K14_MAX_BLOCKS)
-// counts, hands each thread its word's offset by a block scan, and writes the
-// set bits' ids below k; its grid also fills the pad slots [total, k) with n,
-// and block 0 writes the count. Launch sizes come from the shapes alone and
-// nothing is read back to the host. A block takes whole steps of
-// K14_THREADS words, as many steps as keep the grid at K14_MAX_BLOCKS blocks
-// or fewer.
+// both entries compact 32-bit words. compact builds a lane's word from its own
+// 32 mask bytes: two 16-byte loads and a multiply that packs each 4 bytes'
+// low bits into a nibble. A mask that starts off a 16-byte boundary (a rank's
+// slice of a longer mask) is read from the boundary below its start, and each
+// word takes its high bits from the next lane's first load (the last lane
+// loads that one itself). compact_stream marks the values into a bitmap of
+// ceil(n / 32) words (zeroed by a memset on the stream first), which dedupes
+// and orders them by construction: a slot reads its value's word through L1
+// and, unless the bit is set there, sets it by atomicOr (a stale copy in L1
+// only misses a mark, which costs a redundant atomic). On BFS's 2^22-slot
+// stream over the bench graph the low-id hubs' words take thousands of marks
+// each; an atomic a mark queues them in one L2 slice, and each SM's L1
+// answers its own repeats once it holds the set bit. (A byte map of plain
+// stores, compacted as a mask, the bitmap read in L2, and marks aggregated
+// over a warp's lanes were no faster at 2^18 slots and slower at 2^22:
+// PERF.md, section 6.) The slots' values and flags are read once, as a
+// stream (__ldcs).
+// Then two launches over the words: k14_count gives each block's popcount;
+// k14_write finds its block's offset and the total by a block-wide sum over
+// the (at most K14_MAX_BLOCKS) counts, hands each thread its word's offset by
+// a block scan, and writes the set bits' ids below k; its grid also fills the
+// pad slots [total, k) with n, and block 0 writes the count. Launch sizes come
+// from the shapes alone and nothing is read back to the host. A block takes
+// whole steps of K14_THREADS words, as many steps as keep the grid at
+// K14_MAX_BLOCKS blocks or fewer.
 #include "common.cuh"
 
 #define K14_THREADS 256
@@ -43,25 +55,44 @@ static inline long long k14_steps(long long nwords) {
   return steps <= K14_MAX_BLOCKS ? 1 : (steps + K14_MAX_BLOCKS - 1) / K14_MAX_BLOCKS;
 }
 
+// The low bits of 4 mask bytes (0 or 1 each) as a nibble, byte 0 lowest: the
+// product puts byte i's bit at bit 24 + i, and no two partial products meet.
+__device__ __forceinline__ unsigned int k14_nibble(unsigned int u) {
+  return (((u & 0x01010101u) * 0x01020408u) >> 24) & 0xfu;
+}
+
+__device__ __forceinline__ unsigned int k14_pack16(uint4 v) {
+  return k14_nibble(v.x) | k14_nibble(v.y) << 4 | k14_nibble(v.z) << 8 | k14_nibble(v.w) << 12;
+}
+
+// The 16 mask bits of the aligned chunk at byte `at` of the stream that starts
+// at `base` (16-byte aligned); 0 for a chunk past the last mask byte (`end`).
+__device__ __forceinline__ unsigned int k14_chunk(const unsigned char* __restrict__ base,
+                                                  long long at, long long end) {
+  if (at >= end) return 0u;
+  return k14_pack16(__ldg(reinterpret_cast<const uint4*>(base + at)));
+}
+
 // Word w of the frontier, for the thread that owns it (word index
-// step_base + threadIdx.x). From a mask, the warp builds its 32 words: lane i
-// reads byte 32 * j + i of each of them in turn and keeps the ballot of word i.
+// step_base + threadIdx.x). A mask's bytes start `mis` bytes past the aligned
+// `base`: the thread reads the two chunks of aligned word w, takes the first
+// chunk of aligned word w + 1 from the next lane, and shifts. Bits past n and
+// words past nwords are 0. Every lane of the warp must call.
 template <bool BITMAP>
-__device__ __forceinline__ unsigned int k14_word(const bool* __restrict__ mask,
+__device__ __forceinline__ unsigned int k14_word(const unsigned char* __restrict__ base, int mis,
                                                  const unsigned int* __restrict__ bits,
                                                  long long n, long long nwords,
                                                  long long step_base) {
-  const int lane = threadIdx.x & 31;
   const long long w = step_base + threadIdx.x;
   if (BITMAP) return w < nwords ? bits[w] : 0u;
-  const long long warp_first = step_base + (threadIdx.x & ~31);  // word of lane 0
-  unsigned int mine = 0;
-  for (int i = 0; i < 32; ++i) {
-    const long long v = (warp_first + i) * 32 + lane;
-    const unsigned int b = __ballot_sync(0xffffffffu, v < n && mask[v]);
-    if (lane == i) mine = b;
-  }
-  return mine;
+  const long long end = mis + n, at = 32 * w;
+  const unsigned int lo = k14_chunk(base, at, end) | k14_chunk(base, at + 16, end) << 16;
+  unsigned int next = __shfl_down_sync(0xffffffffu, lo, 1);
+  if ((threadIdx.x & 31) == 31) next = k14_chunk(base, at + 32, end);
+  unsigned int word = mis ? (lo >> mis) | (next << (32 - mis)) : lo;
+  const long long left = n - 32 * w;  // the word's real bits
+  if (left < 32) word = left <= 0 ? 0u : word & ((1u << left) - 1u);
+  return word;
 }
 
 __device__ __forceinline__ long long k14_block_sum(long long v, long long* s_red) {
@@ -79,14 +110,14 @@ __device__ __forceinline__ long long k14_block_sum(long long v, long long* s_red
 
 template <bool BITMAP>
 __global__ void __launch_bounds__(K14_THREADS)
-k14_count(const bool* __restrict__ mask, const unsigned int* __restrict__ bits,
+k14_count(const unsigned char* __restrict__ mask, int mis, const unsigned int* __restrict__ bits,
           long long n, long long nwords, long long steps, int* __restrict__ counts) {
   __shared__ long long s_red[K14_THREADS / 32];
   long long c = 0;
   for (long long s = 0; s < steps; ++s) {
     const long long base = ((long long)blockIdx.x * steps + s) * K14_THREADS;
     if (base >= nwords) break;  // block-uniform
-    c += __popc(k14_word<BITMAP>(mask, bits, n, nwords, base));
+    c += __popc(k14_word<BITMAP>(mask, mis, bits, n, nwords, base));
   }
   const long long total = k14_block_sum(c, s_red);
   if (threadIdx.x == 0) counts[blockIdx.x] = (int)total;
@@ -94,12 +125,16 @@ k14_count(const bool* __restrict__ mask, const unsigned int* __restrict__ bits,
 
 template <bool BITMAP>
 __global__ void __launch_bounds__(K14_THREADS)
-k14_write(const bool* __restrict__ mask, const unsigned int* __restrict__ bits,
+k14_write(const unsigned char* __restrict__ mask, int mis, const unsigned int* __restrict__ bits,
           long long n, long long nwords, long long steps, const int* __restrict__ counts,
           int nb, int* __restrict__ ids, long long k, int* __restrict__ count_out) {
   __shared__ long long s_red[K14_THREADS / 32];
   __shared__ int s_scan[K14_THREADS / 32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // the first step's word, read while the counts are read
+  const long long first_base = (long long)blockIdx.x * steps * K14_THREADS;
+  const unsigned int first_word =
+      first_base < nwords ? k14_word<BITMAP>(mask, mis, bits, n, nwords, first_base) : 0u;
   // this block's offset (the counts of the blocks before it) and the total
   long long before = 0, after = 0;
   for (int b = threadIdx.x; b < nb; b += K14_THREADS) {
@@ -115,7 +150,8 @@ k14_write(const bool* __restrict__ mask, const unsigned int* __restrict__ bits,
   for (long long s = 0; s < steps && base < k; ++s) {
     const long long step_base = ((long long)blockIdx.x * steps + s) * K14_THREADS;
     if (step_base >= nwords) break;  // block-uniform
-    unsigned int word = k14_word<BITMAP>(mask, bits, n, nwords, step_base);
+    unsigned int word =
+        s == 0 ? first_word : k14_word<BITMAP>(mask, mis, bits, n, nwords, step_base);
     // exclusive scan of the words' popcounts over the block
     const int c = __popc(word);
     int incl = c;
@@ -145,22 +181,23 @@ k14_write(const bool* __restrict__ mask, const unsigned int* __restrict__ bits,
   }
 }
 
-// Marks bit v of the bitmap for every active slot j with v = vals[j] in [0, n).
+// Marks value v = vals[j] of every active slot j with v in [0, n) into the
+// bitmap (see the header).
 __global__ void __launch_bounds__(K14_THREADS)
 k14_mark(const int* __restrict__ vals, const bool* __restrict__ active, long long e,
          long long n, unsigned int* __restrict__ bits) {
   const long long j = (long long)blockIdx.x * K14_THREADS + threadIdx.x;
-  if (j >= e || !active[j]) return;
-  const int v = vals[j];
+  if (j >= e || !__ldcs(reinterpret_cast<const unsigned char*>(active) + j)) return;
+  const int v = __ldcs(vals + j);
   if (v < 0 || (long long)v >= n) return;
-  const unsigned int m = 1u << (v & 31);
+  const unsigned int bit = 1u << (v & 31);
   unsigned int* word = bits + (v >> 5);
-  if (!(*(volatile unsigned int*)word & m)) atomicOr(word, m);
+  if (!(__ldca(word) & bit)) atomicOr(word, bit);
 }
 
 // The scratch of a call: counts [K14_MAX_BLOCKS] int32.
 template <bool BITMAP>
-static int k14_compact_words(const bool* mask, const unsigned int* bits, long long n,
+static int k14_compact_words(const unsigned char* mask, const unsigned int* bits, long long n,
                              int* ids, long long k, int* count_out, int* counts,
                              long long scratch_ints, cudaStream_t s) {
   const long long nwords = (n + 31) / 32;
@@ -168,8 +205,10 @@ static int k14_compact_words(const bool* mask, const unsigned int* bits, long lo
   const long long nb_ll = nwords ? (nwords + steps * K14_THREADS - 1) / (steps * K14_THREADS) : 1;
   if (nb_ll > K14_MAX_BLOCKS || scratch_ints < nb_ll) return (int)cudaErrorInvalidValue;
   const int nb = (int)nb_ll;
-  k14_count<BITMAP><<<nb, K14_THREADS, 0, s>>>(mask, bits, n, nwords, steps, counts);
-  k14_write<BITMAP><<<nb, K14_THREADS, 0, s>>>(mask, bits, n, nwords, steps, counts, nb,
+  const int mis = (int)((uintptr_t)mask & 15);
+  const unsigned char* base = mask - mis;  // 16-byte aligned
+  k14_count<BITMAP><<<nb, K14_THREADS, 0, s>>>(base, mis, bits, n, nwords, steps, counts);
+  k14_write<BITMAP><<<nb, K14_THREADS, 0, s>>>(base, mis, bits, n, nwords, steps, counts, nb,
                                                ids, k, count_out);
   return (int)cudaGetLastError();
 }
@@ -180,25 +219,25 @@ GT_EXPORT int gt_frontier_compact(const bool* mask, long long n, int* ids, long 
                                   void* stream) {
   if (n < 0 || n > 0x7fffffffLL || k < 0 || !count_out || !scratch)
     return (int)cudaErrorInvalidValue;
-  return k14_compact_words<false>(mask, nullptr, n, ids, k, count_out, scratch,
-                                  scratch_ints, (cudaStream_t)stream);
+  return k14_compact_words<false>((const unsigned char*)mask, nullptr, n, ids, k, count_out,
+                                  scratch, scratch_ints, (cudaStream_t)stream);
 }
 
 // vals [e] int32 and active [e] bool; bits: ceil(n / 32) words of scratch,
 // zeroed here; ids, count_out and scratch as above.
 GT_EXPORT int gt_frontier_compact_stream(const int* vals, const bool* active, long long e,
-                                         long long n, unsigned int* bits, int* ids,
-                                         long long k, int* count_out, int* scratch,
-                                         long long scratch_ints, void* stream) {
-  if (n < 0 || n > 0x7fffffffLL || e < 0 || k < 0 || !count_out || !scratch)
+                                         long long n, unsigned int* bits, int* ids, long long k,
+                                         int* count_out, int* scratch, long long scratch_ints,
+                                         void* stream) {
+  if (n < 0 || n > 0x7fffffffLL || e < 0 || k < 0 || !count_out || !scratch || !bits)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const long long nwords = (n + 31) / 32;
   if (nwords) {
-    const cudaError_t z = cudaMemsetAsync(bits, 0, nwords * sizeof(unsigned int), s);
+    const cudaError_t z = cudaMemsetAsync(bits, 0, 4 * nwords, s);
     if (z != cudaSuccess) return (int)z;
   }
-  if (e && nwords)
+  if (e && n)
     k14_mark<<<gt_blocks(e, K14_THREADS), K14_THREADS, 0, s>>>(vals, active, e, n, bits);
   return k14_compact_words<true>(nullptr, bits, n, ids, k, count_out, scratch, scratch_ints, s);
 }

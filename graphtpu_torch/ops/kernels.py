@@ -115,8 +115,9 @@ _SIGNATURES = {
     "gt_frontier_compact": (_P, _I64, _P, _I64, _P, _P, _I64, _P),
     # vals, active, e, n, bitmap, ids, k, count, scratch, scratch ints, stream
     "gt_frontier_compact_stream": (_P, _P, _I64, _I64, _P, _P, _I64, _P, _P, _I64, _P),
-    # indptr, col, c, o, a, unit (threads an A-edge), numerator, stream
-    "gt_lcc_sweep_member": (_P, _P, _P, _P, _I64, _I32, _P, _P),
+    # indptr, col, c, o, items, n_items, weight, unit (threads an item), ilp
+    # (searches a lane runs in step), numerator, stream
+    "gt_lcc_sweep_member": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P, _P),
     # stream: a kernel that returns at once (csrc/empty_kernel.cu)
     "gt_empty_kernel": (_P,),
 }
@@ -134,7 +135,7 @@ _QUERIES = {
 COUNTERS = KERNELS + ("csr_pull_reduce_sum", "csr_pull_reduce_sum_i64", "push_relax_min_i32")
 launch_counts = dict.fromkeys(COUNTERS, 0)
 build_seconds = None  # seconds the last nvcc build took; None = not built here
-_lib = None
+_libs = {}
 _plain = False
 
 
@@ -173,19 +174,22 @@ def _sources():
     return sorted(CSRC_DIR.glob("*.cu")), sorted(CSRC_DIR.glob("*.cuh"))
 
 
-def library_path() -> Path:
+def library_path(defines=()) -> Path:
     cu, cuh = _sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(f"-D{d}" for d in defines)).encode())
     for p in cu + cuh:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return BUILD_DIR / f"libgraphtpu_torch_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the kernels unless a build of these exact sources exists."""
+def build(defines=()) -> Path:
+    """Compile the kernels unless a build of these exact sources exists.
+    ``defines``: preprocessor names a measuring tool's own build sets (a
+    library of its own; the path's build sets none)."""
     global build_seconds
-    out = library_path()
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+    out = library_path(defines)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -198,7 +202,7 @@ def build() -> Path:
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
             objs = [Path(objdir) / f"{src.stem}.o" for src in cu]
-            _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+            _run_all([[nvcc, *flags, "-c", "-o", str(o), str(src)]
                       for src, o in zip(cu, objs)])
             tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
             try:
@@ -224,10 +228,11 @@ def _run_all(cmds) -> None:
         raise RuntimeError("\n".join(errors))
 
 
-def library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+def library(defines=()) -> ctypes.CDLL:
+    """The loaded build (``build``'s ``defines``), its functions typed."""
+    defines = tuple(defines)
+    if defines not in _libs:
+        lib = ctypes.CDLL(str(build(defines)))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
@@ -238,8 +243,8 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = _I64
-        _lib = lib
-    return _lib
+        _libs[defines] = lib
+    return _libs[defines]
 
 
 def _call(name: str, device, *args) -> None:

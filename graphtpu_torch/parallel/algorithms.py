@@ -236,20 +236,18 @@ def cdlp_dist(sg: ShardedGraph, itermax: int, cfg=None):
 # --------------------------------------------------------------------- LCC
 
 
-def _lcc_body(mesh: Mesh, s_indptr: np.ndarray, s_dst: np.ndarray, n: int, search_iters: int,
-              buckets: list):
-    """This rank's share of the sweep's A-edges, bucket by bucket; the
-    partial numerators summed over the ranks."""
-    from graphtpu_torch.algorithms.lcc import _lcc_bucket_sweep
+def _lcc_body(mesh: Mesh, plan, search_iters: int, buckets: list):
+    """This rank's c-rows of the sweep plan, bucket by bucket; the partial
+    numerators summed over the ranks."""
+    from graphtpu_torch.algorithms.lcc import sweep_bucket
 
     dev = mesh.device
-    indptr = torch.from_numpy(s_indptr).to(dev)
-    col = torch.from_numpy(s_dst).to(dev)
-    numerator = torch.zeros(n, dtype=torch.int64, device=dev)
+    indptr = torch.from_numpy(plan.s_indptr).to(dev)
+    col = torch.from_numpy(plan.s_dst).to(dev)
+    numerator = torch.zeros(plan.s_deg.shape[0], dtype=torch.int64, device=dev)
     for pad, c, o in buckets:
         if c.shape[0]:
-            _lcc_bucket_sweep(numerator, indptr, col, torch.from_numpy(c).to(dev),
-                              torch.from_numpy(o).to(dev), pad, search_iters)
+            sweep_bucket(numerator, indptr, col, plan, c, o, pad, search_iters)
     return all_reduce_sum(numerator).cpu().numpy()
 
 
@@ -275,28 +273,27 @@ def lcc_dist(sg: ShardedGraph, cfg=None) -> np.ndarray:
 
 
 def _lcc_dist_sweep(sg: ShardedGraph) -> np.ndarray:
-    """Distributed LCC by the membership sweep: each bucket's A-edges are
-    cut into D contiguous runs of ceil(count / (D * chunk)) * chunk edges,
-    the JAX package's split; coefficients float64 [n]."""
-    from graphtpu_torch.algorithms.lcc import _CHUNK, _bucket_bounds, prepare_lcc
+    """Distributed LCC by the membership sweep over the c-row plan
+    (``algorithms/lcc.py:sweep_plan``): each bucket's entries are cut into
+    D contiguous runs of whole c-rows, near equal in entries; coefficients
+    float64 [n]."""
+    from graphtpu_torch.algorithms.lcc import plan_buckets, search_iters_of, sweep_plan
     from graphtpu_torch.ops.triangles import coefficients
 
-    graph, d_count = sg.graph, sg.num_devices
-    s_indptr, s_dst, s_deg, c, o, dc = prepare_lcc(graph)
-    max_deg = int(s_deg.max()) if graph.n else 0
-    search_iters = max(1, int(np.ceil(np.log2(max(max_deg, 2) + 1))))
+    d_count = sg.num_devices
+    plan = sweep_plan(sg.graph)
     per_rank = [[] for _ in range(d_count)]
-    for pad in _bucket_bounds(max_deg):
-        lo_bound = 0 if pad == 16 else pad // 8
-        sel = (dc > lo_bound) & (dc <= pad) if pad > 16 else dc <= pad
-        cnt = int(sel.sum())
-        if cnt == 0:
-            continue
-        per_dev = -(-cnt // (d_count * _CHUNK)) * _CHUNK
-        flat_c, flat_o = c[sel], o[sel]
+    for pad, sel in plan_buckets(plan):
+        c, o = plan.c[sel], plan.o[sel]
+        # the c-row starts, and the end: each cut at the first at or past
+        # its share
+        bounds = np.append(np.flatnonzero(np.concatenate([[True], c[1:] != c[:-1]])),
+                           c.shape[0])
+        want = np.arange(1, d_count) * c.shape[0] // d_count
+        cuts = [0, *bounds[np.searchsorted(bounds, want)].tolist(), c.shape[0]]
         for d in range(d_count):
-            run = slice(d * per_dev, (d + 1) * per_dev)
-            per_rank[d].append((pad, flat_c[run], flat_o[run]))
-    num = sg.mesh.call(_lcc_body, [(s_indptr, s_dst, graph.n, search_iters, per_rank[d])
+            per_rank[d].append((pad, c[cuts[d]:cuts[d + 1]], o[cuts[d]:cuts[d + 1]]))
+    bare = plan._replace(c=plan.c[:0], o=plan.o[:0])  # the ranks take their entries alone
+    num = sg.mesh.call(_lcc_body, [(bare, search_iters_of(plan.s_deg), per_rank[d])
                                    for d in range(d_count)])
-    return coefficients(num, s_deg)
+    return coefficients(num, plan.s_deg)

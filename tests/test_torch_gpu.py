@@ -1806,6 +1806,43 @@ def test_frontier_compact_makes_no_host_read(cuda):
     assert torch.equal(b[0], pb[0]) and torch.equal(b[1], pb[1])
 
 
+@pytest.mark.parametrize("n", [1, 31, 33, 1000, 70_001])
+def test_frontier_compact_at_every_byte_offset(cuda, n):
+    """compact of a slice that starts at each byte offset 0-31 of a longer
+    mask (the lanes' 16-byte loads start below it and shift), at n that is
+    no multiple of 32, with k below and above the count."""
+    rng = np.random.default_rng(n)
+    full = torch.from_numpy(rng.random(n + 64) < 0.4).to(cuda)
+    for off in range(32):
+        view = full[off:off + n]
+        assert view.storage_offset() == off
+        for k in (max(int(view.sum()) // 2, 1), n + 3):
+            got, want = compact(view, k), compact_plain(view.cpu(), k)
+            assert torch.equal(got[0].cpu(), want[0]) and int(got[1]) == int(want[1]), (off, k)
+
+
+@pytest.mark.parametrize("case", ["one_value", "all_distinct", "slots_2_22"])
+def test_frontier_compact_stream_matches_plain_on_hard_streams(cuda, case):
+    """compact_stream's bitmap marks on a stream of one repeated value, one
+    of all distinct values, and 2^22 slots of hub-heavy values over n =
+    2^20, bit for bit against the plain version, twice the same bits."""
+    rng = np.random.default_rng(len(case))
+    n = 1 << 20
+    if case == "one_value":
+        vals = np.full(1 << 18, 12_345, dtype=np.int32)
+    elif case == "all_distinct":
+        vals = rng.permutation(n).astype(np.int32)
+    else:
+        vals = (n * rng.random(1 << 22) ** 4).astype(np.int32)  # low ids repeat most
+    active = rng.random(vals.shape[0]) < 0.9
+    tv, ta = torch.from_numpy(vals).to(cuda), torch.from_numpy(active).to(cuda)
+    for k in (1 << 16, 1 << 18):
+        want = compact_stream_plain(tv, ta, k, n)
+        got, again = compact_stream(tv, ta, k, n), compact_stream(tv, ta, k, n)
+        for a, a2, b in zip(got, again, want):
+            assert torch.equal(a, b) and torch.equal(a, a2), (case, k)
+
+
 # ------------------------------------------------- K7 sum_i64, max_i32 residual
 
 
@@ -1914,49 +1951,112 @@ def test_relax_min_i32_matches_plain(cuda, case):
 # ---------------------------------------------------------------- K15
 
 
-@pytest.mark.parametrize("directed", [True, False])
-@pytest.mark.parametrize("scale", [8, 11])
-def test_lcc_sweep_member_matches_plain(cuda, directed, scale):
-    """The sweep on the card against its plain version on the CPU, bucket
-    by bucket (numerators bit for bit) under every unit of threads an
-    A-edge the kernel takes (a warp, the default, up to a block), with one
-    launch per nonempty bucket, counted from the degrees."""
-    from graphtpu_torch.algorithms.lcc import _lcc_bucket_sweep, lcc_sweep_numerator, prepare_lcc
+def _k15_graph(kind, directed):
+    """An RMAT graph, or a star glued to a clique: a 300-clique whose
+    vertices also join a hub of 2,000 leaves, so the c-rows run long (a
+    clique vertex's row holds up to 300 o's: several items a tile) over
+    many tiles (d(c) = 300), against a hub row of 2,300 entries."""
+    from graphtpu_torch.core.graph import Graph
     from graphtpu_torch.utils.synth import rmat_graph
 
-    g = rmat_graph(scale, 16, directed=directed, seed=scale)
-    s_indptr, s_dst, s_deg, c, o, dc = prepare_lcc(g)
-    iters = max(1, int(np.ceil(np.log2(max(int(s_deg.max()), 2) + 1))))
+    if kind.startswith("rmat"):
+        return rmat_graph(int(kind[4:]), 16, directed=directed, seed=int(kind[4:]))
+    q, leaves = 300, 2000
+    a, b = np.triu_indices(q, 1)
+    hub = q
+    src = np.concatenate([a, np.full(q + leaves, hub)])
+    dst = np.concatenate([b, np.arange(q), np.arange(q + 1, q + 1 + leaves)])
+    if directed:  # each edge one way, chosen at random
+        flip = np.random.default_rng(5).random(src.shape[0]) < 0.5
+        src, dst = np.where(flip, dst, src), np.where(flip, src, dst)
+    n = q + 1 + leaves
+    return Graph.from_original_ids(np.arange(n), src, dst, None, directed, False)
+
+
+@pytest.mark.parametrize("directed", [True, False])
+@pytest.mark.parametrize("kind", ["rmat8", "rmat11", "star_clique"])
+def test_lcc_sweep_member_matches_plain(cuda, directed, kind):
+    """The c-row sweep on the card against its plain version on the CPU,
+    bucket by bucket (numerators bit for bit) under every unit of threads
+    an item the kernel takes (a warp, the path's, up to a block), each at 1
+    and 4 searches a lane in step; one launch per nonempty bucket,
+    counted."""
+    from graphtpu_torch.algorithms import lcc as L
+
+    g = _k15_graph(kind, directed)
+    plan = L.sweep_plan(g)
+    iters = L.search_iters_of(plan.s_deg)
     t = lambda a, dev: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
-    for lo, hi in ((0, 16), (16, 128), (128, 1024), (1024, 8192)):
-        sel = (dc > lo) & (dc <= hi)
-        if not sel.any():
-            continue
-        want = _lcc_bucket_sweep(torch.zeros(g.n, dtype=torch.int64), t(s_indptr, "cpu"),
-                                 t(s_dst, "cpu"), t(c[sel], "cpu"), t(o[sel], "cpu"), hi, iters)
-        for unit in (32, 64, 128, 256):
+    buckets = L.plan_buckets(plan)
+    for pad, sel in buckets:
+        c, o = plan.c[sel], plan.o[sel]
+        want = L._lcc_bucket_sweep(torch.zeros(g.n, dtype=torch.int64), t(plan.s_indptr, "cpu"),
+                                   t(plan.s_dst, "cpu"), t(c, "cpu"), t(o, "cpu"), pad, iters,
+                                   plan.weight)
+        items = t(L.sweep_items(c, plan.s_deg), cuda)
+        for kw in [{}] + [dict(unit=u, ilp=i) for u in (32, 64, 128, 256) for i in (1, 4)]:
             before = kernels.launch_counts["lcc_sweep_member"]
-            got = _lcc_bucket_sweep(torch.zeros(g.n, dtype=torch.int64, device=cuda),
-                                    t(s_indptr, cuda), t(s_dst, cuda), t(c[sel], cuda),
-                                    t(o[sel], cuda), hi, iters, unit)
+            got = L._lcc_bucket_sweep(torch.zeros(g.n, dtype=torch.int64, device=cuda),
+                                      t(plan.s_indptr, cuda), t(plan.s_dst, cuda), t(c, cuda),
+                                      t(o, cuda), pad, iters, plan.weight, items, **kw)
             assert kernels.launch_counts["lcc_sweep_member"] == before + 1
-            assert torch.equal(got.cpu(), want), (lo, hi, unit)
-    nonempty = sum(bool(((dc > lo) & (dc <= hi)).any()) for lo, hi in
-                   zip([0] + [16 * 8 ** i for i in range(6)], [16 * 8 ** i for i in range(7)]))
+            assert torch.equal(got.cpu(), want), (pad, kw)
     before = kernels.launch_counts["lcc_sweep_member"]
-    num, _ = lcc_sweep_numerator(g, cuda)
-    assert kernels.launch_counts["lcc_sweep_member"] == before + nonempty
-    np.testing.assert_array_equal(num, lcc_sweep_numerator(g, "cpu")[0])
+    num, _ = L.lcc_sweep_numerator(g, cuda)
+    assert kernels.launch_counts["lcc_sweep_member"] == before + len(buckets)
+    np.testing.assert_array_equal(num, L.lcc_sweep_numerator(g, "cpu")[0])
     assert num.max() > 0
+    if kind == "star_clique":  # many tiles, and rows cut into full items
+        items = L.sweep_items(plan.c, plan.s_deg)
+        tiles = np.unique(plan.c[items[:, 0]].astype(np.int64) << 32 | items[:, 2])
+        assert items[:, 2].max() >= 256 and tiles.shape[0] < items.shape[0]
 
 
-@pytest.mark.parametrize("unit", [16, 48, 512])
-def test_lcc_sweep_member_refuses_other_units(cuda, unit):
-    """A unit that is not a power of two from a warp to a block is refused
-    by the launch, not run."""
+def test_lcc_sweep_member_takes_a_list_in_any_order(cuda):
+    """Entries that are not grouped by c (prepare_lcc's A-edge lists, one
+    per A-edge) give the items of their runs: the same numerators. A launch
+    without items is refused."""
+    from graphtpu_torch.algorithms import lcc as L
+    from graphtpu_torch.utils.synth import rmat_graph
+
+    g = rmat_graph(9, 16, directed=False, seed=3)
+    s_indptr, s_dst, s_deg, c, o, dc = L.prepare_lcc(g)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+    got = torch.zeros(g.n, dtype=torch.int64, device=cuda)
+    for pad, sel in ((16, dc <= 16), (128, (dc > 16) & (dc <= 128)), (1024, dc > 128)):
+        L._lcc_bucket_sweep(got, t(s_indptr), t(s_dst), t(c[sel]), t(o[sel]), pad, 10, 1,
+                            t(L.sweep_items(c[sel], s_deg)))
+    np.testing.assert_array_equal(got.cpu().numpy(), L.lcc_sweep_numerator(g, "cpu")[0])
+    with pytest.raises(ValueError, match="items"):
+        L._lcc_bucket_sweep(got, t(s_indptr), t(s_dst), t(c), t(o), 1024, 10)
+
+
+def test_sweep_plan_checks_symmetry_on_the_card(cuda):
+    """The plan's symmetry check on the card gives the CPU's answer: an
+    undirected RMAT's stored edges, the same with one edge's reverse
+    dropped, and with one edge listed twice."""
+    from graphtpu_torch.algorithms.lcc import is_symmetric
+    from graphtpu_torch.utils.synth import rmat_graph
+
+    g = rmat_graph(10, 16, directed=False, seed=4)
+    keep = g.src != g.dst
+    u, w = g.src[keep], g.dst[keep]
+    back = np.flatnonzero((u == w[0]) & (w == u[0]))[0]
+    cases = {"stored": (u, w, True), "one_way": (np.delete(u, back), np.delete(w, back), False),
+             "doubled": (np.append(u, u[0]), np.append(w, w[0]), False)}
+    for name, (a, b, want) in cases.items():
+        assert is_symmetric(a, b, g.n, cuda) == is_symmetric(a, b, g.n) == want, name
+
+
+@pytest.mark.parametrize("unit,ilp", [(16, 1), (48, 1), (512, 1), (32, 2), (32, 8)])
+def test_lcc_sweep_member_refuses_other_units(cuda, unit, ilp):
+    """A unit that is not a power of two from a warp to a block, or a count
+    of searches in step other than 1 or 4, is refused by the launch, not
+    run."""
     from graphtpu_torch.algorithms.lcc import _lcc_bucket_sweep
 
     i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=cuda)  # noqa: E731
+    items = torch.tensor([[0, 1, 0]], dtype=torch.int32, device=cuda)
     with pytest.raises(RuntimeError, match="lcc_sweep_member"):
         _lcc_bucket_sweep(torch.zeros(2, dtype=torch.int64, device=cuda), i32([0, 1, 2]),
-                          i32([1, 0]), i32([0]), i32([1]), 16, 2, unit)
+                          i32([1, 0]), i32([0]), i32([1]), 16, 2, 1, items, unit, ilp=ilp)

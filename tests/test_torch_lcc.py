@@ -24,6 +24,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from graphtpu.algorithms.common import run_algorithm as j_run_algorithm
 from graphtpu.core.graph import Graph as JGraph
@@ -609,6 +611,142 @@ def test_sweep_pieces_match_jax():
                                  t(c[sel]), t(o[sel]), 16, iters)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert got.any()
+
+
+# ---------------- the sweep's c-row plan (K15) ----------------
+
+# the JAX sweep's arrays are padded to one shape, so each pad compiles once
+_PAD_N, _PAD_NNZ, _PAD_ITERS = 64, 1024, 10
+
+
+def _edge_case_graph(name, directed):
+    """Both packages' graph from one vertex and edge list (the file loaders'
+    relabel, deduplication and, undirected, both directions stored)."""
+    if name.startswith("rmat"):
+        jg = j_rmat_graph(5, 6, directed=directed, seed=3)
+        v, src, dst = jg.mapping, jg.mapping[jg.src], jg.mapping[jg.dst]
+    else:
+        v = np.arange(100, 100 + 12, dtype=np.int64)
+        src, dst = {
+            # self-loops, input edges listed twice and both ways, a pendant
+            # (degree 1) and isolated vertices (degree 0)
+            "loops_dups": ([0, 1, 2, 0, 1, 1, 2, 3, 3, 4, 5, 2, 6, 0, 0],
+                           [1, 2, 0, 0, 2, 0, 3, 0, 4, 5, 3, 2, 7, 1, 1]),
+            # a 5-clique and a 6-cycle: every endpoint ties in degree
+            "ties": ([0, 0, 0, 0, 1, 1, 1, 2, 2, 3, 5, 6, 7, 8, 9, 10],
+                     [1, 2, 3, 4, 2, 3, 4, 3, 4, 4, 6, 7, 8, 9, 10, 5]),
+            "edgeless": ([], []),
+        }[name]
+        src, dst = v[np.array(src, dtype=np.int64)], v[np.array(dst, dtype=np.int64)]
+    args = (v, np.asarray(src, dtype=np.int64), np.asarray(dst, dtype=np.int64), None,
+            directed, False)
+    return JGraph.from_original_ids(*args), Graph.from_original_ids(*args)
+
+
+def _jax_sweep_numerator_padded(jg):
+    """The JAX package's sweep numerators, bucket by bucket as its _lcc_sweep
+    runs them, with the CSR padded by isolated vertices and unused columns
+    to one shape (which adds no hit)."""
+    from graphtpu.algorithms import lcc as jlcc
+
+    s_indptr, s_dst, s_deg, c, o, dc = jlcc.prepare_lcc(jg)
+    assert jg.n <= _PAD_N and s_dst.shape[0] <= _PAD_NNZ and int(s_deg.max(initial=0)) < 1 << 9
+    indptr = np.full(_PAD_N + 1, s_indptr[-1], dtype=np.int32)
+    indptr[:jg.n + 1] = s_indptr
+    col = np.zeros(_PAD_NNZ, dtype=np.int32)
+    col[:s_dst.shape[0]] = s_dst
+    num = jnp.zeros((_PAD_N,), jnp.int32)
+    for pad in jlcc._bucket_bounds(int(s_deg.max(initial=0))):
+        sel = (dc > (0 if pad == 16 else pad // 8)) & (dc <= pad)
+        if not sel.any():
+            continue
+        cb, ob = np.full(jlcc._CHUNK, -1, np.int32), np.full(jlcc._CHUNK, -1, np.int32)
+        cb[:sel.sum()], ob[:sel.sum()] = c[sel], o[sel]
+        num = jlcc._lcc_bucket_sweep(num, jnp.asarray(indptr), jnp.asarray(col), jnp.asarray(cb),
+                                     jnp.asarray(ob), pad, _PAD_ITERS)
+    return np.asarray(num)[:jg.n].astype(np.int64)
+
+
+@pytest.mark.parametrize("directed", [True, False])
+@pytest.mark.parametrize("name", ["rmat", "loops_dups", "ties", "edgeless"])
+def test_sweep_plan_numerators_match_jax(name, directed):
+    """The c-row plan through K15's plain version gives the JAX sweep's
+    numerators bit for bit: small RMATs, self-loops with input edges listed
+    twice and both ways, degree ties, vertices of degree 0 and 1, and an
+    edgeless graph. An undirected plan keeps half the A-edges, weight 2."""
+    jg, tg = _edge_case_graph(name, directed)
+    plan = tlcc.sweep_plan(tg)
+    got, deg_s = tlcc.lcc_sweep_numerator(tg, "cpu")
+    np.testing.assert_array_equal(got, _jax_sweep_numerator_padded(jg))
+    a_edges = int((tg.src != tg.dst).sum())
+    assert plan.weight == (1 if directed else 2)
+    assert plan.c.shape[0] * plan.weight == a_edges
+    assert np.all(plan.c[1:] >= plan.c[:-1])  # runs of equal c, in ascending c
+    np.testing.assert_array_equal(deg_s, plan.s_deg)
+    if name in ("rmat", "loops_dups", "ties"):
+        assert got.max() > 0
+    if name == "ties" and not directed:
+        assert np.all(got[:5] == 12) and not got[5:11].any()
+
+
+def test_sweep_plan_numerators_match_jax_when_stored_one_way():
+    """An undirected graph built from one direction alone (the Graph
+    constructor stores the edges as given, so they are not symmetric) keeps
+    every A-edge, weight 1, grouped by c, and gives the JAX sweep's
+    numerators on the same arrays. A symmetric edge multiset passes the
+    check, this one does not."""
+    n = 6
+    src, dst = np.array([4, 0, 1, 0, 1, 2, 3]), np.array([5, 1, 2, 2, 3, 3, 4])
+    args = (n, src, dst, None, np.arange(n), False, False)
+    jg, tg = JGraph(*args), Graph(*args)
+    plan = tlcc.sweep_plan(tg)
+    assert plan.weight == 1 and plan.c.shape[0] == src.shape[0]
+    assert np.all(plan.c[1:] >= plan.c[:-1])
+    got = tlcc.lcc_sweep_numerator(tg, "cpu")[0]
+    np.testing.assert_array_equal(got, _jax_sweep_numerator_padded(jg))
+    assert got.max() > 0
+    assert not tlcc.is_symmetric(src, dst, n)
+    assert tlcc.is_symmetric(np.array([0, 1, 1, 2]), np.array([1, 0, 2, 1]), 3)
+
+
+def _item_cover(plan, c):
+    """(entry, neighbour position) pairs that K15's items of entries ``c``
+    cover, from the item rows alone, as the kernel reads them."""
+    items = tlcc.sweep_items(c, plan.s_deg)
+    seen = []
+    for e0, e1, xoff in items.tolist():
+        assert e0 < e1 and np.all(c[e0:e1] == c[e0])
+        d = int(plan.s_deg[c[e0]])
+        xr = min(32, d - xoff)
+        g = 1 << max(xr - 1, 0).bit_length()
+        assert 0 <= xoff < d and xoff % 32 == 0 and e1 - e0 <= (32 // g) * tlcc.K15_STEPS
+        seen += [(e, xoff + j) for e in range(e0, e1) for j in range(xr)]
+    return seen
+
+
+@settings(max_examples=60, deadline=None, derandomize=True, database=None)
+@given(n=st.integers(1, 40), directed=st.booleans(),
+       edges=st.lists(st.tuples(st.integers(0, 39), st.integers(0, 39)), max_size=120))
+def test_sweep_plan_entries_sum_to_the_a_edges(n, directed, edges):
+    """Property: the plan's entries (c, o), each counted weight times, are
+    prepare_lcc's A-edges as a multiset (undirected: as unordered pairs,
+    both directions of a pair making the same searches), and K15's items
+    cover every (entry, neighbour of c) once."""
+    from collections import Counter
+
+    e = np.array([(a % n, b % n) for a, b in edges], dtype=np.int64).reshape(-1, 2)
+    g = Graph.from_original_ids(np.arange(n), e[:, 0], e[:, 1], None, directed, False)
+    plan = tlcc.sweep_plan(g)
+    _, _, _, c, o, _ = tlcc.prepare_lcc(g)
+    key = (lambda a, b: (a, b)) if directed else (lambda a, b: (min(a, b), max(a, b)))
+    want = Counter(key(a, b) for a, b in zip(c.tolist(), o.tolist()))
+    got = Counter()
+    for a, b in zip(plan.c.tolist(), plan.o.tolist()):
+        got[key(a, b)] += plan.weight
+    assert got == want
+    assert np.all(plan.s_deg[plan.c] <= plan.s_deg[plan.o])
+    cover = _item_cover(plan, plan.c)
+    assert len(cover) == len(set(cover)) == int(plan.s_deg[plan.c].sum())
 
 
 def test_forced_spills_are_patched_exactly(monkeypatch):
