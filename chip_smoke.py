@@ -53,7 +53,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
    (CDLP auto and slab: K12 on the heavy rows and the tier steps, K7 on
    iteration 0's heavy rows; BFS auto: K13 in its bottom-up steps and K7
    on their residual rows; K14 on every adaptive path), PageRank under scan
-   must launch K7 in mode sum 20 times a run and nothing else, and LCC K7
+   must launch K7 in mode sum 20 times a run and nothing else (and the slab
+   arm 20 times a run, its heavy rows), and LCC K7
    in mode sum_i64 once a run.
    vreg_shuffle has no path in the system, and no LCC path launches
    edgehash_probe (K10 closes wedges by a search of the plan's closing CSR;
@@ -74,10 +75,13 @@ Run from the root of a checkout:  python3 chip_smoke.py
    library calls are yardsticks: the port never calls them. K7 is held and
    timed on the full pull CSRs (max_i32, min_plus float32) and on the WCC
    slab plan's heavy rows, and in mode sum (its own row in the JSON line) on
-   the benchmark graph's pull CSR in float32 and float64 (within 1e-5 and
-   1e-12 relative of the plain version's float64 row sums; a hub of 10^6
-   edges over many blocks, runs of empty rows and an edgeless CSR by hand),
-   against one CSR product (cuSPARSE); K5 at the CDLP tier and at BFS's top tier with a
+   the benchmark graph's pull CSR in float32 and float64 and on the
+   PageRank slab plan's heavy rows, each on its sliced pull (built and
+   timed there: its seconds and bytes print), within 1e-5 and 1e-12
+   relative of the plain version's float64 row sums (a hub of 10^6 edges
+   over many blocks, runs of empty rows and an edgeless CSR by hand),
+   beside the merge-path design mode sum ran on before, timed in the same
+   call, and one CSR product (cuSPARSE); K5 at the CDLP tier and at BFS's top tier with a
    frontier that fills it; both run twice on the same inputs and must give
    the same bits. K12 (segment_minmode) runs at the bench CDLP plan's heavy
    rows in gather mode (the labels after iteration 0) and in identity mode,
@@ -90,7 +94,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
    masks, BFS auto's 2^18-slot tier stream (all taken from runs) and BFS's
    top tier of 2^22 slots, under sync debug mode "error", with torch.sort
    and torch.unique as yardsticks; K7 max_i32 on BFS auto's residual test
-   and K8's int32 mode on a WCC active step's expansion. K9 runs
+   and K8's int32 mode on a WCC active step's expansion (its real-slot
+   count read on the card, under sync debug mode "error"). K9 runs
    at 2^22 probes drawn from the benchmark graph's wedge plan (half present
    pairs, half random ones), binned by partitions of the table sized from
    the card's L2 (three launches a call: histogram, scatter, probe; the
@@ -1842,7 +1847,8 @@ def phase_traversal_kernels(g, gw, device):
     from graphtpu_torch.ops.frontier import compact, expand, mask_status, relax_min, relax_min_plain
     from graphtpu_torch.ops.slab import result_buffer
     from graphtpu_torch.ops.spmv import (
-        CSR_ITEMS, PullCSR, csr_pull_reduce, csr_pull_reduce_plain, pull_csr, slab_spmv_min,
+        CSR_ITEMS, CSR_MODES, SLICE_RUN_EDGES, PullCSR, _csr_pull_reduce_launch,
+        build_pull_slices, csr_pull_reduce, csr_pull_reduce_plain, pull_csr, slab_spmv_min,
         slab_spmv_min_buckets, slab_spmv_min_plain,
     )
     from graphtpu_torch.utils.config import PlatformConfig
@@ -1995,56 +2001,75 @@ def phase_traversal_kernels(g, gw, device):
     )
 
     # K7 in mode sum: PageRank's scan arm over the benchmark graph's pull CSR
-    # (x like its contributions r / outdeg), float32 and float64, twice for
-    # the same bits, against the plain version and one CSR product
+    # (x like its contributions r / outdeg), float32 and float64, and the
+    # PageRank slab plan's heavy rows (what a slab pull launches), each on
+    # its sliced pull (built here as the paths build it, timed), twice for
+    # the same bits, against the plain version, the merge-path design that
+    # mode sum ran on before (still mode 4/5 of the library) and, on the full
+    # CSR and the heavy rows, one CSR product
     x32 = torch.rand(n, generator=hand_gen, device=device) / n
-    sum_err = 0.0
-    for xd, rtol in ((x32, F32_SUM_RTOL), (x32.double(), F64_SUM_RTOL)):
-        got = csr_pull_reduce("sum", xd, pull.src, pull.indptr)
-        want = csr_pull_reduce_plain("sum", xd, pull.src, pull.indptr)
-        err = (got.double() - want.double()).abs()
-        check(bool((err <= rtol * want.double().abs()).all()),
-              f"csr_pull_reduce sum {xd.dtype} on the benchmark graph differs beyond {rtol}")
-        check(torch.equal(got, csr_pull_reduce("sum", xd, pull.src, pull.indptr)),
-              f"csr_pull_reduce sum {xd.dtype}: two runs differ")
-        if xd.dtype == torch.float32:
-            sum_err = float(err.max())
-    ones = torch.sparse_csr_tensor(pull.indptr, pull.src, torch.ones(m7b, device=device),
-                                   size=(n, n))
-    y_lib = torch.mv(ones, x32)  # cuSPARSE's SpMV
-    check(torch.allclose(y_lib, csr_pull_reduce("sum", x32, pull.src, pull.indptr),
-                         rtol=F32_SUM_RTOL, atol=0), "the CSR product differs from K7 sum")
-    res["csr_pull_reduce_sum"] = dict(
-        max_abs_err=sum_err,
-        times=(cuda_ms(lambda: csr_pull_reduce("sum", x32, pull.src, pull.indptr)),
-               cuda_ms(lambda: csr_pull_reduce_plain("sum", x32, pull.src, pull.indptr))),
-        shape=f"sum float32 over the benchmark graph's {m7b} in-edges (one PageRank scan pull)",
-        # indptr, src, x, y; an add per edge
-        bytes=4 * (n + 1) + 4 * m7b + 8 * n, ops=m7b,
-        library=("torch.mv of a sparse CSR matrix of ones", lambda: torch.mv(ones, x32)),
-        other_shapes=[dict(
-            shape=f"sum float64 over the same {m7b} in-edges",
-            times=(cuda_ms(lambda: csr_pull_reduce("sum", x32.double(), pull.src, pull.indptr)),
-                   cuda_ms(lambda: csr_pull_reduce_plain("sum", x32.double(), pull.src,
-                                                         pull.indptr))),
-            bytes=4 * (n + 1) + 4 * m7b + 16 * n, ops=m7b)],
-    )
-    # and on the PageRank slab plan's heavy rows, what a slab pull launches
     pr_plan = _pull_plan_cached(g, torch.float32, device)
     hp = PullCSR(pr_plan.heavy_neigh, pr_plan.heavy_indptr)
     m7p, rows_p = int(hp.src.shape[0]), hp.indptr.shape[0] - 1
-    got = csr_pull_reduce("sum", x32, hp.src, hp.indptr)
-    check(k7_agrees("sum", got, csr_pull_reduce_plain("sum", x32, hp.src, hp.indptr)),
-          "csr_pull_reduce sum on PageRank's heavy rows differs")
-    check(torch.equal(got, csr_pull_reduce("sum", x32, hp.src, hp.indptr)),
-          "csr_pull_reduce sum on PageRank's heavy rows: two runs differ")
-    res["csr_pull_reduce_sum"]["other_shapes"].append(dict(
-        shape=(f"sum float32 over the PageRank slab plan's {rows_p} heavy rows, {m7p} edges "
-               f"(one slab pull's heavy rows)"),
-        times=(cuda_ms(lambda: csr_pull_reduce("sum", x32, hp.src, hp.indptr)),
-               cuda_ms(lambda: csr_pull_reduce_plain("sum", x32, hp.src, hp.indptr))),
-        # indptr, src, x (12.8M edges reach every value), y; an add per edge
-        bytes=4 * (rows_p + 1) + 4 * m7p + 4 * n + 4 * rows_p, ops=m7p))
+    sum_err, sum_shapes = 0.0, []
+    for what, csr, xd, rtol in (
+            (f"the benchmark graph's {m7b} in-edges (one PageRank scan pull)", pull, x32,
+             F32_SUM_RTOL),
+            (f"the same {m7b} in-edges", pull, x32.double(), F64_SUM_RTOL),
+            (f"the PageRank slab plan's {rows_p} heavy rows, {m7p} edges (one slab pull's "
+             f"heavy rows)", hp, x32, F32_SUM_RTOL)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sl = build_pull_slices(csr.src, csr.indptr, xd.element_size())
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        check(sl.runs * SLICE_RUN_EDGES <= sl.edges,
+              f"K7 sum over {what} would take the merge path: {sl.runs} runs in "
+              f"{sl.edges} edges")
+        rows = csr.indptr.shape[0] - 1
+        got = csr_pull_reduce("sum", xd, csr.src, csr.indptr, slices=sl)
+        want = csr_pull_reduce_plain("sum", xd, csr.src, csr.indptr)
+        err = (got.double() - want.double()).abs()
+        check(bool((err <= rtol * want.double().abs()).all()),
+              f"csr_pull_reduce sum {xd.dtype} over {what} differs beyond {rtol}")
+        check(torch.equal(got, csr_pull_reduce("sum", xd, csr.src, csr.indptr, slices=sl)),
+              f"csr_pull_reduce sum {xd.dtype} over {what}: two runs differ")
+        code = CSR_MODES["sum"][0][xd.dtype]
+        merge = lambda: _csr_pull_reduce_launch(code, xd.dtype, xd, csr.src,  # noqa: E731
+                                                csr.indptr, None)[0]
+        check(k7_agrees("sum", merge(), want), f"the merge-path sum over {what} differs")
+        sum_err = max(sum_err, float(err.max())) if xd.dtype == torch.float32 else sum_err
+        nseg, ntiles = sl.runs, sl.tile_slice.shape[0]
+        shape = dict(
+            shape=(f"sum {str(xd.dtype)[6:]} over {what}, on its sliced pull: "
+                   f"{sl.slice_edges.shape[0] - 1} slices of {sl.width}, {nseg} runs, "
+                   f"{sl.lid.shape[0]} stream entries, {ntiles} tiles, {sl.nbytes()} bytes "
+                   f"built in {build_s:.3f} s"),
+            times=(cuda_ms(lambda: csr_pull_reduce("sum", xd, csr.src, csr.indptr, slices=sl)),
+                   cuda_ms(lambda: csr_pull_reduce_plain("sum", xd, csr.src, csr.indptr))),
+            merge_path_ms=cuda_ms(merge)[0], layout_bytes=sl.nbytes(), layout_build_s=build_s,
+            # the layout's stream, heads and slots and the row offsets read once,
+            # x (every entry the edges reach) read, y written, and a partial per
+            # run written and read again (PullSlices.moved_bytes)
+            bytes=sl.moved_bytes(), ops=csr.src.shape[0])
+        if csr is hp or xd.dtype == torch.float32:
+            ones = torch.sparse_csr_tensor(csr.indptr, csr.src,
+                                           torch.ones(csr.src.shape[0], device=device),
+                                           size=(rows, n))
+            y_lib = torch.mv(ones, x32)  # cuSPARSE's SpMV
+            check(torch.allclose(y_lib, got, rtol=F32_SUM_RTOL, atol=0),
+                  f"the CSR product over {what} differs from K7 sum")
+            shape["library"] = ("torch.mv of a sparse CSR matrix of ones",
+                                lambda ones=ones: torch.mv(ones, x32))
+        print(f"kernel csr_pull_reduce_sum ({shape['shape']}): the merge-path design "
+              f"{shape['merge_path_ms']:.6f} ms in the same call", flush=True)
+        sum_shapes.append(shape)
+        del sl
+    first = sum_shapes.pop(0)
+    res["csr_pull_reduce_sum"] = dict(
+        max_abs_err=sum_err, times=first.pop("times"), shape=first.pop("shape"),
+        bytes=first.pop("bytes"), ops=first.pop("ops"), library=first.pop("library"),
+        other_shapes=sum_shapes, **first)
 
     # K8: the first tier step of SSSP from vertex 0, in float32 and float64
     cfg = PlatformConfig(device=str(device))
@@ -2123,8 +2148,13 @@ def phase_traversal_kernels(g, gw, device):
     ids_a, deg_a, ip_a, src_a, e_a = captured(
         wcc_mod, "expand", lambda: wcc_mod.wcc_adaptive_run(g, cfg))[-1][:5]
     wexp = expand(ids_a, deg_a, ip_a, src_a, e_a)
-    wslots = (lab1, wexp.row_ids, wexp.neigh, wexp.valid)
-    got = relax_min_i32(n, *wslots)
+    wslots = (lab1, wexp.row_ids, wexp.neigh, wexp.edge_count)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # the real-slot count stays on the card
+    try:
+        got = relax_min_i32(n, *wslots)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     check(torch.equal(got, relax_min_i32_plain(n, *wslots)),
           "push_relax_min_i32 on a WCC expansion differs from its plain version")
     check(torch.equal(got, relax_min_i32(n, *wslots)), "push_relax_min_i32: two runs differ")
@@ -2135,10 +2165,10 @@ def phase_traversal_kernels(g, gw, device):
                cuda_ms(lambda: relax_min_i32_plain(n, *wslots))),
         shape=(f"int32, WCC auto's active step: {int((ids_a < n).sum())} active rows, "
                f"{w_valid} edges in {e_a} slots, into {n} labels"),
-        # valid (bool) per slot; row_ids, neigh (int32) and a label per valid
+        # the real-slot count; row_ids, neigh (int32) and a label per real
         # slot (the kernel reads them there only); the INT32_INF vector
-        # written; a min per valid slot
-        bytes=e_a + 12 * w_valid + 4 * n, ops=w_valid,
+        # written; a min per real slot
+        bytes=4 + 12 * w_valid + 4 * n, ops=w_valid,
         library=None,  # no single call: a gather, two wheres and a scatter_reduce
     )
     return res
@@ -2970,6 +3000,10 @@ def main() -> int:
     check(scan == {"csr_pull_reduce_sum": RUNS_PER_PATH * PR_ITERS},
           f"pr-scan launched {scan} in {RUNS_PER_PATH} runs, expected K7 sum {PR_ITERS} a run "
           f"and nothing else")
+    heavy_sums = path_launches["pr"]["csr_pull_reduce_sum"]
+    check(heavy_sums == RUNS_PER_PATH * PR_ITERS,
+          f"pr (the slab arm) launched K7 sum {heavy_sums} times in {RUNS_PER_PATH} runs, "
+          f"expected {PR_ITERS} a run (its heavy rows)")
     k10 = path_launches["lcc"]["wedge_rowblock"]
     check(k10 == RUNS_PER_PATH * len(wplan.buckets),
           f"wedge_rowblock launched {k10} times in {RUNS_PER_PATH} lcc runs, expected one per "
@@ -3031,7 +3065,8 @@ def main() -> int:
          "library_ms": res[name]["library_ms"],
          "other_shapes": res[name].get("other_shapes", []),
          **{k: res[name][k] for k in ("buckets", "traffic_ms", "call_ms", "call_wall_ms",
-                                      "single_pass_ms", "ops_by_design", "work")
+                                      "single_pass_ms", "ops_by_design", "work",
+                                      "merge_path_ms", "layout_bytes", "layout_build_s")
             if k in res[name]}}
         for name in kernels.COUNTERS
     ], "empty_kernel_ms": empty_ms, "ingest": ingest, "bench": bench, "parallel": parallel,

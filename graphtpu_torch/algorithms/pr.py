@@ -11,7 +11,8 @@ for the dangling mass. ``pr-impl`` picks the pull: "auto"/"slab" a
 plus.second slab SpMV (kernel K3 over the buckets, K7 in mode sum over
 the heavy rows, ops/spmv.py), "scan"
 (or "segment", the JAX package's name) a segment sum over the pull CSR
-(kernel K7 in mode sum); spmv-impl=slab takes
+(kernel K7 in mode sum); on the card K7's sum runs on a sliced pull of its
+CSR, memoized on the Graph beside the CSR or plan; spmv-impl=slab takes
 the slab arm whatever pr-impl says, as in the JAX package (pr.py:105).
 """
 
@@ -25,7 +26,7 @@ from graphtpu_torch.core.graph import Graph
 from graphtpu_torch.core.semiring import PLUS_SECOND
 from graphtpu_torch.ops.slab import SlabPlan
 from graphtpu_torch.ops.spmv import (
-    PullCSR, build_pull_plan, csr_pull_reduce, pull_csr, slab_spmv,
+    PullCSR, PullSlices, build_pull_plan, csr_pull_reduce, memo_pull_slices, pull_csr, slab_spmv,
 )
 from graphtpu_torch.utils.config import AlgorithmParams, PlatformConfig
 
@@ -55,20 +56,40 @@ def _pr_loop(pull, out_deg: torch.Tensor, damping: torch.Tensor, n: int,
     return r
 
 
+def heavy_slices(plan: SlabPlan, dtype: torch.dtype, memo: dict | None = None,
+                 key=None) -> PullSlices | None:
+    """The sliced pull of a slab plan's heavy rows for K7's mode sum
+    (memoized in ``memo`` under ``key``); None without heavy rows or where
+    the kernel does not run."""
+    if plan.heavy_rows is None:
+        return None
+    return memo_pull_slices({} if memo is None else memo, key, plan.heavy_neigh,
+                            plan.heavy_indptr, dtype)
+
+
 def _pr_slab_kernel(plan: SlabPlan, out_deg: torch.Tensor, damping: torch.Tensor,
-                    n: int, num_iterations: int) -> torch.Tensor:
-    """The slab arm: each pull is one K3 launch over the plan's buckets."""
-    return _pr_loop(lambda x: slab_spmv(PLUS_SECOND, plan, x, n), out_deg, damping, n,
-                    num_iterations)
+                    n: int, num_iterations: int,
+                    slices: PullSlices | None = None) -> torch.Tensor:
+    """The slab arm: each pull is one K3 launch over the plan's buckets and
+    one K7 launch in mode sum over its heavy rows, on their sliced pull
+    ``slices`` (built here, once a call, where the caller has none)."""
+    if slices is None:
+        slices = heavy_slices(plan, damping.dtype)
+    return _pr_loop(lambda x: slab_spmv(PLUS_SECOND, plan, x, n, heavy_slices=slices), out_deg,
+                    damping, n, num_iterations)
 
 
 def _pr_kernel(csr: PullCSR, out_deg: torch.Tensor, damping: torch.Tensor, n: int,
-               num_iterations: int, r: torch.Tensor | None = None) -> torch.Tensor:
+               num_iterations: int, r: torch.Tensor | None = None,
+               slices: PullSlices | None = None) -> torch.Tensor:
     """The segment-sum arm (graphtpu/algorithms/pr.py:_pr_kernel): each
     pull is one K7 launch in mode sum over the pull CSR, the gather of
-    r / outdeg by source fused into the row sums."""
-    return _pr_loop(lambda x: csr_pull_reduce("sum", x, csr.src, csr.indptr), out_deg, damping,
-                    n, num_iterations, r)
+    r / outdeg by source fused into the row sums, on its sliced pull
+    ``slices`` (built here, once a call, where the caller has none)."""
+    if slices is None:
+        slices = memo_pull_slices({}, None, csr.src, csr.indptr, damping.dtype)
+    return _pr_loop(lambda x: csr_pull_reduce("sum", x, csr.src, csr.indptr, slices=slices),
+                    out_deg, damping, n, num_iterations, r)
 
 
 def _pull_plan_cached(graph: Graph, dtype: torch.dtype, device) -> SlabPlan:
@@ -97,8 +118,12 @@ def pr(graph: Graph, params: AlgorithmParams, cfg: PlatformConfig) -> AlgorithmR
     damping = torch.tensor(params.damping_factor, dtype=dtype, device=device)
     if cfg.pr_impl in ("auto", "slab") or cfg.spmv_impl == "slab":
         plan = _pull_plan_cached(graph, dtype, device)
-        ranks = _pr_slab_kernel(plan, out_deg, damping, graph.n, int(params.num_iterations))
+        slices = heavy_slices(plan, dtype, graph.memo, ("pr_heavy", str(device)))
+        ranks = _pr_slab_kernel(plan, out_deg, damping, graph.n, int(params.num_iterations),
+                                slices)
     else:
-        ranks = _pr_kernel(pull_csr(graph, device), out_deg, damping, graph.n,
-                           int(params.num_iterations))
+        csr = pull_csr(graph, device)
+        slices = memo_pull_slices(graph.memo, ("pull", str(device)), csr.src, csr.indptr, dtype)
+        ranks = _pr_kernel(csr, out_deg, damping, graph.n, int(params.num_iterations),
+                           slices=slices)
     return AlgorithmResult("pr", ranks.cpu().numpy(), iterations=params.num_iterations)

@@ -232,13 +232,15 @@ def cdlp_section(g, cfg, itermax: int, device, reps: int) -> dict:
 
 
 def pr_section(g, device, reps: int) -> dict:
-    from graphtpu_torch.algorithms.pr import _pr_slab_kernel
+    from graphtpu_torch.algorithms.pr import _pr_slab_kernel, heavy_slices
     from graphtpu_torch.ops.spmv import build_pull_plan
 
     out_deg = torch.from_numpy(g.out_degree.astype(np.int32)).to(device)
     damping = torch.tensor(0.85, dtype=torch.float32, device=device)
     plan = build_pull_plan(g, device=device, wdtype=np.float32, with_values=False)
-    _, t = timed(lambda: _pr_slab_kernel(plan, out_deg, damping, g.n, PR_ITERS), device, reps)
+    slices = heavy_slices(plan, torch.float32)
+    _, t = timed(lambda: _pr_slab_kernel(plan, out_deg, damping, g.n, PR_ITERS, slices), device,
+                 reps)
     roof = rl.roof_seconds(gathers=rl.plan_gather_count(plan) * PR_ITERS)
     return {"pr_nnz_per_s": g.nnz * PR_ITERS / t["s"], **_spread("pr_s", t),
             "pr_sol_pct": rl.sol_pct(t["s"], roof)}

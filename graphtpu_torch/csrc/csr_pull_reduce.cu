@@ -74,6 +74,47 @@
 // where the plain version sums in float64, so the two agree to the rounding
 // of the row's additions. IPT is odd, so that the threads' walks through
 // shared memory fall on distinct banks.
+//
+// Mode sum over float32 and float64 x also runs on a sliced pull (PageRank's
+// pull; ops/spmv.py PullSlices, built once per CSR and value size). The
+// merge-path walk above gathers x at random, one L2 sector a value (about
+// 200 G gathers/s), and spends as much again walking its items. The sliced
+// pull turns every gather into a read of shared memory and walks edges only:
+//   layout: x's index range is cut into slices of `width` entries (192 KB of
+//     values: 49,152 float32 or 24,576 float64). The edges are regrouped by
+//     slice, keeping the pull CSR's (row, src) order inside one, each with a
+//     16-bit slice-local id; a slice is padded to a whole group of 16 edges
+//     and one group closes the stream. Each (row, slice) run of edges (and
+//     each slice's pad) starts at a head bit; a run is numbered by the heads
+//     before it. Each slice's edges are cut into tiles of K7S_THREADS * 16
+//     edges, each with the count of heads before it, and a group's 32-bit
+//     head word holds its 16 head bits and the heads of its tile before it.
+//     The real runs listed row-major (a row's in slice order) give each row
+//     its partial sums;
+//   pass 1 (k7_reduce_sliced): one block an SM (its shared memory holds a
+//     slice), each over an equal run of tiles. A block copies a slice of x
+//     into shared memory when its next tile is of another slice (cp.async,
+//     16 bytes a copy). A thread takes a group of 16 edges: its ids in two
+//     16-byte loads and its head word, loaded one tile ahead while the
+//     current tile is reduced. It adds its values (shared-memory reads) into
+//     the parts between its heads, and each head but its first closes the
+//     run before it: its sum goes to part[run], in run order, so that a
+//     warp's stores fall on few sectors (stored in the rows' order instead,
+//     the scattered 4-byte stores cost more than all the rest of the pass).
+//     A segmented scan over the block's threads (shuffles, then the warps'
+//     totals, which every warp scans itself past the tile's one barrier)
+//     gives each thread the sum of the run it began in, which its first
+//     head closes. The run open at a tile's end is carried
+//     into the next tile, the one open at the block's end to k7_fixup,
+//     which adds it to part;
+//   pass 2 (k7_fold_slices): a thread a row adds its runs' partial sums in
+//     slice order into y (0 for a row without edges), gathered by the
+//     row-major list of runs.
+// The order of every addition is fixed by the layout and the grid, so two
+// runs give the same bits. The bytes a call must move: 2 B an edge, 4 B a
+// group's head word, a run's partial written and read and its place in the
+// row-major list, the row offsets, x and y. Where runs are short (more than
+// one in 8 edges) the merge path is faster, and ops/spmv.py takes it.
 #include "common.cuh"
 
 #include <limits>
@@ -264,10 +305,13 @@ k7_reduce(const int* __restrict__ indptr, const int* __restrict__ src,
 
 // A warp per block carry: the first carry of a row folds the run of carries
 // of that row into y, which the block the row ends in has written.
+// With ``slot`` the carries are of segments of a sliced pull and go to
+// y[slot[row]] (the partial sums).
 template <typename T, int OP>
 __global__ void k7_fixup(const int* __restrict__ carry_row,
                          const T* __restrict__ carry_val, T* __restrict__ y,
-                         long long n, long long nb, T neutral) {
+                         long long n, long long nb, T neutral,
+                         const int* __restrict__ slot) {
   const long long b = (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (b >= nb) return;  // the whole warp shares one carry
@@ -284,7 +328,10 @@ __global__ void k7_fixup(const int* __restrict__ carry_row,
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     v = fold<T, OP>(v, __shfl_xor_sync(full, v, off));
-  if (lane == 0) y[r] = fold<T, OP>(v, y[r]);
+  if (lane == 0) {
+    const long long at = slot ? slot[r] : r;
+    y[at] = fold<T, OP>(v, y[at]);
+  }
 }
 
 // The scratch of one call: start_row [nb + 1], carry_row [nb], then, at the
@@ -319,7 +366,7 @@ static int launch(const int* indptr, const int* src, const void* x,
       indptr, src, (const X*)x, (const T*)w, (T*)y, n, m, start_row, carry_row,
       carry_val, neutral, identity);
   k7_fixup<T, OP><<<gt_blocks(nb * 32, 256), 256, 0, s>>>(
-      carry_row, carry_val, (T*)y, n, nb, neutral);
+      carry_row, carry_val, (T*)y, n, nb, neutral, nullptr);
   return (int)cudaGetLastError();
 }
 
@@ -368,4 +415,296 @@ GT_EXPORT int gt_csr_pull_reduce(const int* indptr, const int* src,
                                                    scratch_bytes, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// ---------------------------------------------------------------------------
+// Mode sum on a sliced pull (the design is in the header above).
+
+// threads of a k7_reduce_sliced block (a measuring tool's own build may set
+// another, with layouts built to match); each takes a group of 16 edges, so
+// a tile holds K7S_TILE edges and at most as many runs (ops/spmv.py
+// SLICE_ITEMS)
+#ifndef K7S_THREADS
+#define K7S_THREADS 512
+#endif
+#define K7S_EPT 16
+#define K7S_TILE (K7S_THREADS * K7S_EPT)
+#define K7S_WARPS (K7S_THREADS / 32)
+// Probes. A build with K7S_PROBE set (tools/pull_sum_times.py's own library)
+// leaves one part of pass 1 out, so that the tool sees what it costs; its
+// sums are wrong. 1: the slice copies; 2: the gathers (a value is its id);
+// 4: the partial sums' bookkeeping and stores.
+#ifndef K7S_PROBE
+#define K7S_PROBE 0
+#endif
+
+// A tile's loads into registers, one tile ahead: the thread's group of ids
+// (two 16-byte loads) and its head word. A thread past the tile's groups
+// loads its last one, unpredicated, so that nothing waits on the loads
+// before the next tile uses them (the caller drops what it read).
+struct K7sRegs {
+  uint4 ids[2];
+  unsigned int head;
+};
+
+__device__ __forceinline__ void k7s_load(const uint4* __restrict__ lid,
+                                         const unsigned int* __restrict__ head, int e0,
+                                         int e1, K7sRegs& r) {
+  const int last = (e1 - e0) / K7S_EPT - 1;
+  const int g = e0 / K7S_EPT + ((int)threadIdx.x < last ? (int)threadIdx.x : last);
+  r.ids[0] = __ldcs(lid + 2 * g);
+  r.ids[1] = __ldcs(lid + 2 * g + 1);
+  r.head = __ldcs(head + g);
+}
+
+// x[slice * width, + width) (fewer in the last slice) into s_x, then a barrier.
+template <typename T>
+__device__ __forceinline__ void k7s_stage(T* s_x, const T* __restrict__ x, long long nx,
+                                          int slice, int width) {
+  const long long base = (long long)slice * width;
+  const long long left = nx - base;
+  const int cnt = (int)(left < 0 ? 0 : left < width ? left : width);
+  const T* src = x + base;
+  int done = K7S_PROBE == 1 ? cnt : 0;
+  if (K7S_PROBE != 1 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    constexpr int PER = 16 / sizeof(T);
+    const int n16 = cnt / PER;
+    const uint32_t dst = (uint32_t)__cvta_generic_to_shared(s_x);
+    for (int k = threadIdx.x; k < n16; k += K7S_THREADS)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst + 16 * k),
+                   "l"(src + PER * k)
+                   : "memory");
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    done = n16 * PER;
+  }
+  for (int k = done + threadIdx.x; k < cnt; k += K7S_THREADS) s_x[k] = __ldg(src + k);
+  __syncthreads();
+}
+
+// The segmented-scan element of a run of threads: whether it holds a head,
+// and the sum since its last head (all of it without one). a then b: b's sum
+// restarts at b's first head.
+template <typename T>
+struct K7sScan {
+  int f;
+  T v;
+};
+
+template <typename T>
+__device__ __forceinline__ K7sScan<T> k7s_then(const K7sScan<T>& a, const K7sScan<T>& b) {
+  return {a.f | b.f, b.f ? b.v : a.v + b.v};
+}
+
+template <typename T>
+__device__ __forceinline__ K7sScan<T> k7s_up(const K7sScan<T>& a, int off) {
+  const unsigned full = 0xffffffffu;
+  return {__shfl_up_sync(full, a.f, off), __shfl_up_sync(full, a.v, off)};
+}
+
+// A group's walk: its values added into the parts between its heads; the
+// k-th head (k >= 1) stores the run it closes at out[k], the first one leaves
+// its part in pre, for the scan. Selects and predicated stores: nothing for
+// a warp to diverge on.
+template <typename T>
+__device__ __forceinline__ void k7s_walk(const T (&v)[K7S_EPT], unsigned int hb, T* out,
+                                         T& acc, T& pre) {
+  int k = 0;
+#pragma unroll
+  for (int i = 0; i < K7S_EPT; ++i) {
+    const bool h = (hb >> i) & 1u;
+    pre = h && k == 0 ? acc : pre;
+    if (h && k != 0 && K7S_PROBE != 4) out[k] = acc;
+    k += h;
+    acc = (h ? T(0) : acc) + v[i];
+  }
+}
+
+// Pass 1: block b reduces tiles [b * ntiles / grid, (b + 1) * ntiles / grid).
+// Tile t holds edges [tile_edge[t], tile_edge[t + 1]) (whole groups) of slice
+// tile_slice[t], and runs tile_run[t] .. tile_run[t + 1] - 1 start in it; a
+// group's head word holds its 16 head bits and, above them, the heads of its
+// tile before it. part [runs]: each run's sum.
+template <typename T>
+__global__ void __launch_bounds__(K7S_THREADS, 1)
+k7_reduce_sliced(const uint4* __restrict__ lid, const unsigned int* __restrict__ head,
+                 const int* __restrict__ tile_edge, const int* __restrict__ tile_run,
+                 const int* __restrict__ tile_slice, int ntiles, int nseg,
+                 const T* __restrict__ x, long long nx, int width, T* __restrict__ part,
+                 int* __restrict__ carry_seg, T* __restrict__ carry_val) {
+  extern __shared__ __align__(16) unsigned char k7s_smem[];
+  T* s_x = reinterpret_cast<T*>(k7s_smem);
+  __shared__ int s_wf[2][K7S_WARPS];
+  __shared__ T s_wv[2][K7S_WARPS];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned full = 0xffffffffu;
+  const int t0 = (int)((long long)blockIdx.x * ntiles / gridDim.x);
+  const int t1 = (int)((long long)(blockIdx.x + 1) * ntiles / gridDim.x);
+  T carry = T(0);  // the sum of the run open at the end of the last tile
+  // tile t's edges, first run and slice; tile t + 1's edge end, run end, slice
+  int e0 = 0, e1 = 0, r0 = 0, sl = 0, ne1 = 0, nr0 = 0, nsl = 0;
+  K7sRegs reg;
+  if (t0 < t1) {
+    e0 = tile_edge[t0];
+    e1 = tile_edge[t0 + 1];
+    r0 = tile_run[t0];
+    sl = tile_slice[t0];
+    nr0 = tile_run[t0 + 1];
+    if (t0 + 1 < t1) {
+      ne1 = tile_edge[t0 + 2];
+      nsl = tile_slice[t0 + 1];
+    }
+    k7s_load(lid, head, e0, e1, reg);
+  }
+  int staged = -1;
+  for (int t = t0; t < t1; ++t) {
+    if (sl != staged) {
+      k7s_stage(s_x, x, nx, sl, width);  // ends in a barrier
+      staged = sl;
+    }
+    const bool has = tid * K7S_EPT < e1 - e0;
+    const unsigned int hw = has ? reg.head : 0u;
+    const unsigned int hb = hw & 0xffffu;
+    const int rb = r0 + (int)(hw >> 16);  // the run the group's first head starts
+    const unsigned int w[8] = {reg.ids[0].x, reg.ids[0].y, reg.ids[0].z, reg.ids[0].w,
+                               reg.ids[1].x, reg.ids[1].y, reg.ids[1].z, reg.ids[1].w};
+    // the next tile's loads are in flight while this one is reduced
+    const int pe1 = ne1, pr0 = nr0, psl = nsl;
+    if (t + 1 < t1) {
+      k7s_load(lid, head, e1, pe1, reg);
+      nr0 = tile_run[t + 2];
+      if (t + 2 < t1) {
+        ne1 = tile_edge[t + 3];
+        nsl = tile_slice[t + 2];
+      }
+    }
+    // the group's values (shared-memory reads) added into the parts between
+    // its heads (k7s_walk: each head but the first stores the run it closes)
+    T v[K7S_EPT];
+#pragma unroll
+    for (int i = 0; i < K7S_EPT; ++i) {
+      const unsigned int id = i & 1 ? w[i >> 1] >> 16 : w[i >> 1] & 0xffffu;
+      v[i] = K7S_PROBE == 2 ? T(id) : s_x[id];
+    }
+    T acc = T(0), pre = T(0);
+    k7s_walk(v, hb, part + (rb - 1), acc, pre);
+    // the block's exclusive scan of (holds a head, sum since it), seeded
+    // with the run carried in: the sum of the run the thread began in. The
+    // warps' totals go to one of two buffers by the tile's parity, and
+    // every warp scans them itself, past one barrier a tile (a buffer is
+    // written again two tiles later, past the next tile's barrier)
+    K7sScan<T> inc = {hb != 0u, has ? acc : T(0)};
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const K7sScan<T> up = k7s_up(inc, off);
+      if (lane >= off) inc = k7s_then(up, inc);
+    }
+    const int par = (t - t0) & 1;
+    if (lane == 31) {
+      s_wf[par][warp] = inc.f;
+      s_wv[par][warp] = inc.v;
+    }
+    __syncthreads();
+    {
+      const K7sScan<T> seed = {0, carry};
+      K7sScan<T> wt = lane < K7S_WARPS ? K7sScan<T>{s_wf[par][lane], s_wv[par][lane]}
+                                       : K7sScan<T>{0, T(0)};
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const K7sScan<T> up = k7s_up(wt, off);
+        if (lane >= off) wt = k7s_then(up, wt);
+      }
+      const int src = warp > 0 ? warp - 1 : 0;
+      const K7sScan<T> before = {__shfl_sync(full, wt.f, src), __shfl_sync(full, wt.v, src)};
+      const K7sScan<T> last = {__shfl_sync(full, wt.f, K7S_WARPS - 1),
+                               __shfl_sync(full, wt.v, K7S_WARPS - 1)};
+      const K7sScan<T> wx = warp == 0 ? seed : k7s_then(seed, before);
+      const K7sScan<T> lane_ex = k7s_up(inc, 1);
+      const K7sScan<T> ex = lane == 0 ? wx : k7s_then(wx, lane_ex);
+      carry = k7s_then(seed, last).v;  // the same in every thread
+      // the first head closes the run the thread began in
+      if (hb != 0u && rb > 0 && K7S_PROBE != 4) part[rb - 1] = ex.v + pre;
+    }
+    // a slice is copied in only past this tile's barrier, which every read
+    // of s_x precedes
+    e0 = e1;
+    r0 = pr0;
+    e1 = pe1;
+    sl = psl;
+  }
+  if (tid == 0) {
+    carry_seg[blockIdx.x] = t0 < t1 ? r0 - 1 : nseg;  // nseg: no open run
+    carry_val[blockIdx.x] = carry;
+  }
+}
+
+// Pass 2: y[r] = the sum of part[row_runs[k]] for k in [part_ptr[r],
+// part_ptr[r + 1]), in order.
+template <typename T>
+__global__ void k7_fold_slices(const int* __restrict__ part_ptr,
+                               const int* __restrict__ row_runs, const T* __restrict__ part,
+                               T* __restrict__ y, long long n) {
+  const long long r = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (r >= n) return;
+  const int a = part_ptr[r], b = part_ptr[r + 1];
+  T acc = T(0);
+  for (int k = a; k < b; ++k) acc += part[row_runs[k]];
+  y[r] = acc;
+}
+
+template <typename T>
+static int launch_sliced(const uint4* lid, const unsigned int* head, const int* row_runs,
+                         const int* part_ptr, const int* tile_edge, const int* tile_run,
+                         const int* tile_slice, long long ntiles, long long nseg, long long n,
+                         const T* x, long long nx, int width, int grid, T* part,
+                         void* scratch, long long scratch_bytes, T* y, cudaStream_t s) {
+  const long long val_off = (4LL * grid + 7) / 8 * 8;
+  const size_t smem = (size_t)width * sizeof(T);
+  if (width < 8 || width > 65536 || width % 8 || (ntiles > 0 && grid < 1) ||
+      grid > ntiles || (ntiles > 0 && (!x || !lid || !head || !part || !scratch ||
+                                       scratch_bytes < val_off + (long long)sizeof(T) * grid)))
+    return (int)cudaErrorInvalidValue;
+  if (ntiles > 0) {
+    const cudaError_t set = cudaFuncSetAttribute(
+        k7_reduce_sliced<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (set != cudaSuccess) return (int)set;
+    int* carry_seg = (int*)scratch;
+    T* carry_val = (T*)((char*)scratch + val_off);
+    k7_reduce_sliced<T><<<grid, K7S_THREADS, smem, s>>>(
+        lid, head, tile_edge, tile_run, tile_slice, (int)ntiles, (int)nseg, x, nx, width,
+        part, carry_seg, carry_val);
+    k7_fixup<T, K7_SUM><<<gt_blocks(32LL * grid, 256), 256, 0, s>>>(
+        carry_seg, carry_val, part, nseg, grid, T(0), nullptr);
+  }
+  k7_fold_slices<T><<<gt_blocks(n, 256), 256, 0, s>>>(part_ptr, row_runs, part, y, n);
+  return (int)cudaGetLastError();
+}
+
+// K7 in mode sum over a sliced pull (ops/spmv.py PullSlices): y [n] of x's
+// type (is_f64: double, else float); part [nseg] (a sum a run, pad runs
+// included) of it and scratch (grid carry runs, then at the next multiple of
+// 8 bytes grid carry values) uninitialised; lid 16-byte aligned; grid <=
+// ntiles blocks, each with width values of x in shared memory. items: the
+// layout's edges a tile, which must be this build's K7S_TILE.
+GT_EXPORT int gt_csr_pull_slices(const void* lid, const unsigned int* head,
+                                 const int* row_runs, const int* part_ptr,
+                                 const int* tile_edge, const int* tile_run,
+                                 const int* tile_slice, long long ntiles, long long nseg,
+                                 long long n, const void* x, long long nx, int width,
+                                 int items, int is_f64, int grid, void* part, void* scratch,
+                                 long long scratch_bytes, void* y, void* stream) {
+  if (n == 0) return (int)cudaGetLastError();
+  if (n < 0 || n > 0x7fffffffLL || nseg < 0 || nseg > 0x7fffffffLL || ntiles < 0 ||
+      ntiles > 0x7fffffffLL || nx < 0 || !part_ptr || !y || items != K7S_TILE ||
+      (reinterpret_cast<uintptr_t>(lid) & 15))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const uint4* ids = (const uint4*)lid;
+  if (is_f64)
+    return launch_sliced<double>(ids, head, row_runs, part_ptr, tile_edge, tile_run,
+                                 tile_slice, ntiles, nseg, n, (const double*)x, nx, width,
+                                 grid, (double*)part, scratch, scratch_bytes, (double*)y, s);
+  return launch_sliced<float>(ids, head, row_runs, part_ptr, tile_edge, tile_run, tile_slice,
+                              ntiles, nseg, n, (const float*)x, nx, width, grid,
+                              (float*)part, scratch, scratch_bytes, (float*)y, s);
 }

@@ -72,39 +72,50 @@ GT_EXPORT int gt_push_relax_min(const void* dist, const int* row_ids,
 }
 
 // K8's int32 mode, the distributed WCC's active step: for each slot e in
-// [0, e_cap) with valid[e],
+// [0, total) of an expansion of e_cap slots,
 //   out[neigh[e]] = min(out[neigh[e]], labels[row_ids[e] + row_offset])
 // where out starts at INT32_INF (the wrapper fills it) and a target at or past
 // n_out is dropped. Replaces the scatter-min of
 // graphtpu/parallel/adaptive_wcc.py:82-95 (`active_block`: a gather of the
 // owners' labels, then .at[targets].min into a vector of INT32_INF), which
 // the port ran as scatter_reduce_ amin. Int min is exact in any order, so the
-// atomics give the plain version's result bit for bit. Bound: as the float
-// mode's, launch- and latency-bound at a tier's 2^18 slots.
+// atomics give the plain version's result bit for bit.
+// Bound: the fill of out and, per real slot, row_ids, neigh and a label; an
+// active step has a few hundred real slots in 2^18, so launch-bound.
+// Design: K5's expansion fills its slots from 0 (valid = slot < total), and
+// total is the frontier's degree sum, already on the card: the kernel reads
+// it there (no host read, no valid mask) and walks [0, total) as one wave of
+// `grid` blocks (about two an SM, the wrapper's choice) in a grid-stride loop.
 __global__ void push_relax_min_i32_kernel(const int* __restrict__ labels,
                                           const int* __restrict__ row_ids,
                                           const int* __restrict__ neigh,
-                                          const bool* __restrict__ valid,
-                                          int* out, int e_cap, long long row_offset,
+                                          const int* __restrict__ total, int* out,
+                                          int e_cap, long long row_offset,
                                           long long n_out) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= e_cap || !valid[e]) return;
-  const int t = neigh[e];
-  if (t < 0 || (long long)t >= n_out) return;
-  const int cand = __ldg(labels + row_offset + row_ids[e]);
-  int* target = out + t;
-  if (cand < *(volatile int*)target) atomicMin(target, cand);
+  int real = *total;
+  if (real > e_cap) real = e_cap;
+  const int stride = gridDim.x * blockDim.x;
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < real; e += stride) {
+    const int t = neigh[e];
+    if (t < 0 || (long long)t >= n_out) continue;
+    const int cand = __ldg(labels + row_offset + row_ids[e]);
+    int* target = out + t;
+    if (cand < *(volatile int*)target) atomicMin(target, cand);
+  }
 }
 
+// total: a device int32, the count of real slots (the rest are pad).
 GT_EXPORT int gt_push_relax_min_i32(const int* labels, const int* row_ids,
-                                    const int* neigh, const bool* valid, int* out,
+                                    const int* neigh, const int* total, int* out,
                                     int e_cap, long long row_offset, long long n_out,
-                                    void* stream) {
-  if (e_cap < 0 || row_offset < 0 || n_out < 0) return (int)cudaErrorInvalidValue;
+                                    int grid, void* stream) {
+  if (e_cap < 0 || row_offset < 0 || n_out < 0 || grid < 1 || !total)
+    return (int)cudaErrorInvalidValue;
   if (e_cap == 0) return (int)cudaGetLastError();
   const int threads = 256;
-  push_relax_min_i32_kernel<<<gt_blocks(e_cap, threads), threads, 0,
-                              (cudaStream_t)stream>>>(labels, row_ids, neigh, valid,
-                                                      out, e_cap, row_offset, n_out);
+  const unsigned int blocks = gt_blocks(e_cap, threads);
+  push_relax_min_i32_kernel<<<blocks < (unsigned int)grid ? blocks : (unsigned int)grid,
+                              threads, 0, (cudaStream_t)stream>>>(
+      labels, row_ids, neigh, total, out, e_cap, row_offset, n_out);
   return (int)cudaGetLastError();
 }

@@ -267,7 +267,11 @@ def relax_min(dist: torch.Tensor, row_ids: torch.Tensor, neigh: torch.Tensor,
 def relax_min_i32_plain(n_out: int, labels, row_ids, neigh, valid, row_offset: int = 0):
     """K8's int32 mode, plain PyTorch: the JAX function's gather of the
     owners' labels and scatter-min into a vector of INT32_INF whose extra
-    slot n_out takes the invalid slots."""
+    slot n_out takes the invalid slots. ``valid`` is a bool mask of the
+    slots, or a 0-d int32 count of real slots (slots [0, valid) are real,
+    as in an expansion)."""
+    if valid.dtype != torch.bool:
+        valid = torch.arange(row_ids.shape[0], device=row_ids.device) < valid
     cand = torch.full((n_out + 1,), INT32_INF, dtype=torch.int32, device=labels.device)
     if not valid.numel():
         return cand[:n_out]
@@ -278,31 +282,32 @@ def relax_min_i32_plain(n_out: int, labels, row_ids, neigh, valid, row_offset: i
 
 
 def relax_min_i32(n_out: int, labels: torch.Tensor, row_ids: torch.Tensor,
-                  neigh: torch.Tensor, valid: torch.Tensor, row_offset: int = 0) -> torch.Tensor:
+                  neigh: torch.Tensor, total: torch.Tensor, row_offset: int = 0) -> torch.Tensor:
     """K8 wrapper, int32 mode: int32 [n_out] of INT32_INF lowered, for each
-    valid slot e of an expansion, to labels[row_ids[e] + row_offset] at
-    neigh[e] (in [0, n_out)). The distributed WCC's active step."""
+    real slot e of an expansion, to labels[row_ids[e] + row_offset] at
+    neigh[e] (in [0, n_out)). The real slots are [0, total): ``total`` is
+    the expansion's 0-d int32 edge count (``Expansion.edge_count``), read
+    on the device, never on the host. The distributed WCC's active step."""
     slots = (row_ids, neigh)
-    if labels.dtype != torch.int32 or any(t.dtype != torch.int32 for t in slots):
-        raise TypeError("relax_min_i32: labels, row_ids and neigh must be int32")
-    if valid.dtype != torch.bool:
-        raise TypeError("relax_min_i32: valid must be bool")
-    ts = (labels, valid) + slots
-    if any(t.dim() != 1 for t in ts) or any(t.shape != valid.shape for t in slots):
-        raise ValueError("relax_min_i32: 1-D inputs, the three slot tensors of one length")
+    if labels.dtype != torch.int32 or any(t.dtype != torch.int32 for t in slots + (total,)):
+        raise TypeError("relax_min_i32: labels, row_ids, neigh and total must be int32")
+    ts = (labels, total) + slots
+    if labels.dim() != 1 or total.dim() != 0 or any(t.dim() != 1 for t in slots) or \
+            row_ids.shape != neigh.shape:
+        raise ValueError("relax_min_i32: 1-D labels, row_ids and neigh of one length, a 0-d total")
     if any(t.device != labels.device for t in ts) or not all(t.is_contiguous() for t in ts):
         raise ValueError("relax_min_i32: inputs must be contiguous, on one device")
-    if n_out < 0 or row_offset < 0 or valid.shape[0] >= 1 << 31:
+    if n_out < 0 or row_offset < 0 or row_ids.shape[0] >= 1 << 31:
         raise ValueError(f"relax_min_i32: n_out {n_out}, row_offset {row_offset} or "
-                         f"{valid.shape[0]} slots out of range")
+                         f"{row_ids.shape[0]} slots out of range")
     if not kernels.use_kernel(labels):
-        return relax_min_i32_plain(n_out, labels, row_ids, neigh, valid, row_offset)
+        return relax_min_i32_plain(n_out, labels, row_ids, neigh, total, row_offset)
     out = torch.full((n_out,), INT32_INF, dtype=torch.int32, device=labels.device)
-    e_cap = valid.shape[0]
+    e_cap = row_ids.shape[0]
     if e_cap:
         kernels.launch("push_relax_min_i32", labels.device, labels.data_ptr(),
-                       row_ids.data_ptr(), neigh.data_ptr(), valid.data_ptr(), out.data_ptr(),
-                       e_cap, row_offset, n_out)
+                       row_ids.data_ptr(), neigh.data_ptr(), total.data_ptr(), out.data_ptr(),
+                       e_cap, row_offset, n_out, 2 * kernels.sm_count(labels.device))
     return out
 
 

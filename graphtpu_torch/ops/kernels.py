@@ -13,7 +13,8 @@ Each kernel has a wrapper beside its plain PyTorch version:
 ``ops/gather.py:gather_rows`` (K1), ``ops/minmode.py:slab_minmode`` (K2),
 ``ops/spmv.py:slab_spmv_sum`` (K3), ``ops/pallas_gather.py:vreg_shuffle``
 (K4), ``ops/frontier.py:frontier_expand`` (K5), ``ops/spmv.py:slab_spmv_min``
-(K6), ``ops/spmv.py:csr_pull_reduce`` (K7) and ``ops/frontier.py:relax_min``
+(K6), ``ops/spmv.py:csr_pull_reduce`` (K7; in mode sum on a sliced pull,
+C entry ``csr_pull_slices``) and ``ops/frontier.py:relax_min``
 (K8, kernel ``push_relax_min``), ``ops/edgehash.py:edgehash_probe`` (K9) and
 ``ops/triangles.py:wedge_rowblock`` (K10), ``core/spgemm.py:masked_spgemm_rows``
 (K11, kernel ``masked_spgemm``), ``ops/minmode.py:stream_minmode`` (K12, kernel
@@ -43,6 +44,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import fcntl
+import functools
 import hashlib
 import os
 import shutil
@@ -83,6 +85,11 @@ _SIGNATURES = {
     # indptr, src, x (null = the stored ids), w (null unless min_plus), y, n, m, mode,
     # items per block, scratch, scratch bytes, stream
     "gt_csr_pull_reduce": (_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _P, _I64, _P),
+    # K7's mode sum over a sliced pull (ops/spmv.py PullSlices): lid, head, row_runs,
+    # part_ptr, tile_edge, tile_run, tile_slice, tiles, runs, n, x, len(x), width, edges
+    # a tile, is_f64, grid, part, scratch, scratch bytes, y, stream
+    "gt_csr_pull_slices": (_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P, _I64, _I32, _I32,
+                           _I32, _I32, _P, _P, _I64, _P, _P),
     # dist, row_ids, neigh, gpos, valid, w, out, e_cap, is_f64, stream
     "gt_push_relax_min": (_P, _P, _P, _P, _P, _P, _P, _I32, _I32, _P),
     # table, rows, klo, khi, found, payload, p, stream
@@ -109,8 +116,9 @@ _SIGNATURES = {
        for k in ("warp", "grid")},
     # levels, n_levels, level, trunc, t, rows, row_offset, pdeg, claim, resid, stream
     "gt_bfs_trunc_probe": (_P, _I64, _I32, _P, _I32, _I64, _I64, _P, _P, _P, _P),
-    # labels, row_ids, neigh, valid, out, e_cap, row_offset, n_out, stream
-    "gt_push_relax_min_i32": (_P, _P, _P, _P, _P, _I32, _I64, _I64, _P),
+    # labels, row_ids, neigh, total (a device int32), out, e_cap, row_offset, n_out, grid,
+    # stream
+    "gt_push_relax_min_i32": (_P, _P, _P, _P, _P, _I32, _I64, _I64, _I32, _P),
     # mask, n, ids, k, count, scratch, scratch ints, stream
     "gt_frontier_compact": (_P, _I64, _P, _I64, _P, _P, _I64, _P),
     # vals, active, e, n, bitmap, ids, k, count, scratch, scratch ints, stream
@@ -158,6 +166,15 @@ def plain_torch():
 def use_kernel(t) -> bool:
     """True when a wrapper must launch its kernel for tensor ``t``."""
     return t.is_cuda and not _plain
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device: what a one-wave grid is
+    sized by."""
+    import torch
+
+    return torch.cuda.get_device_properties(torch.device(device)).multi_processor_count
 
 
 def _nvcc() -> str:

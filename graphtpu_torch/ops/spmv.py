@@ -12,7 +12,10 @@ straight into the step's result buffer. Other semirings run as torch ops.
 K7 (``csr_pull_reduce``) is also the dense steps' edge-stream reduction:
 per row of a pull CSR, the max or min of x over its in-edges, or the min of
 x + w (BFS, WCC and SSSP), and PageRank's segment-sum pull (``sum``, the
-pr-impl=scan arm).
+pr-impl=scan arm). On the card mode ``sum`` runs on a sliced pull
+(``PullSlices``: the edges regrouped by slices of x that fit a block's
+shared memory), built once per CSR and value size and memoized by the
+callers (``memo_pull_slices``).
 """
 
 from __future__ import annotations
@@ -232,8 +235,168 @@ def csr_pull_reduce_plain(mode: str, x, src, indptr, w=None) -> torch.Tensor:
     return pull_reduce(kind, terms, seg_ids, indptr, identity)
 
 
+# K7's mode sum on a sliced pull (csrc/csr_pull_reduce.cu k7_reduce_sliced):
+# the entries of x a slice holds, by the size of a value (192 KB of shared
+# memory, most of an SM's 227 KB), the edges of a group (a thread's, with
+# its head word) and of a tile (K7S_THREADS groups)
+SLICE_WIDTH = {4: 49152, 8: 24576}
+SLICE_GROUP = 16
+SLICE_ITEMS = 512 * SLICE_GROUP
+# mode sum takes the sliced pull where its layout holds at most one run in
+# SLICE_RUN_EDGES edges, else the merge path: on an H100 the bench graph's
+# pull took 0.19 ms sliced against 0.31 by the merge path in float32 (a run
+# in 11.3 edges), 0.31 against 0.39 in float64 (a run in 8.0), its rows of
+# 33-256 in-edges alone 0.073 against 0.059 (a run in 5.6) (PERF.md,
+# tools/pull_sum_times.py)
+SLICE_RUN_EDGES = 6
+
+
+class PullSlices(NamedTuple):
+    """A pull CSR's edges regrouped by slices of x for K7's mode sum, for
+    values of one size: slice s holds x[s * width, (s + 1) * width). The
+    stream holds each slice's edges in the CSR's (row, src) order, padded to
+    whole groups of ``SLICE_GROUP``, and one group after the last slice,
+    which closes the last run; each (row, slice) run of edges, and each
+    slice's pad, starts at a head."""
+
+    lid: torch.Tensor          # [M] int16, read as uint16: src - slice * width (pad: 0)
+    head: torch.Tensor         # [M / 16] int32: bit i of word g: edge 16 g + i is a head;
+    #                            bits 16-31: the heads of g's tile before g
+    row_runs: torch.Tensor     # [real runs] int32: the real runs, row-major (a row's in
+    #                            slice order); a run is numbered by the heads before it
+    part_ptr: torch.Tensor     # [n + 1] int32: row r's entries of row_runs
+    slice_edges: torch.Tensor  # [S + 1] int32: the stream's offset of each slice
+    tile_edge: torch.Tensor    # [T + 1] int32: the stream's offset of each tile
+    tile_run: torch.Tensor     # [T + 1] int32: the heads before each tile
+    tile_slice: torch.Tensor   # [T] int32: each tile's slice
+    width: int
+    itemsize: int              # bytes of the values it was built for
+    n_x: int                   # entries of x the edges read: max(src) + 1
+    edges: int                 # the CSR's edges
+    items: int                 # edges a tile: SLICE_ITEMS, the kernel's
+    runs: int                  # the stream's runs, pad runs included
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self[:8])
+
+    def moved_bytes(self) -> int:
+        """What a sum over it must move, each input read once and each
+        output written once: the stream's ids and heads, each run's partial
+        written and read, the row-major list of runs and the row offsets,
+        the entries of x the edges reach and y."""
+        rows = self.part_ptr.shape[0] - 1
+        return (2 * self.lid.shape[0] + 4 * self.head.shape[0] + 4 * self.row_runs.shape[0]
+                + 4 * (rows + 1) + self.itemsize * (2 * self.runs + self.n_x + rows))
+
+
+def build_pull_slices(src: torch.Tensor, indptr: torch.Tensor, itemsize: int,
+                      width: int | None = None, items: int = SLICE_ITEMS) -> PullSlices:
+    """The sliced layout of the pull CSR (src, indptr) for values of
+    ``itemsize`` bytes, on src's device: the stream, its heads, the real
+    runs row-major, and each slice's stream cut into tiles of ``items``
+    edges. ``width`` (x entries a slice, by default ``SLICE_WIDTH``) and
+    ``items`` other than the kernel's are for measuring other builds of
+    it."""
+    width = width or SLICE_WIDTH[itemsize]
+    if not 0 < width <= 1 << 16 or width % 8 or items % SLICE_GROUP or items > 1 << 16:
+        raise ValueError(f"build_pull_slices: width {width} not a multiple of 8 in (0, 2^16], "
+                         f"or {items} items a tile not whole groups up to 2^16")
+    dev = src.device
+    n, m, grp = indptr.shape[0] - 1, src.shape[0], SLICE_GROUP
+    i32, i64 = dict(dtype=torch.int32, device=dev), dict(dtype=torch.int64, device=dev)
+    row = torch.repeat_interleave(torch.arange(n, **i32), indptr.diff(), output_size=m)
+    sl = torch.div(src, width, rounding_mode="floor")
+    order = torch.sort(sl, stable=True).indices
+    sl, row, local = sl[order], row[order], src[order] - sl[order] * width
+    del order
+    n_x = int(src.max()) + 1 if m else 0
+    nslices = -(-n_x // width)
+    real_head = torch.ones(m, dtype=torch.bool, device=dev)
+    real_head[1:] = (sl[1:] != sl[:-1]) | (row[1:] != row[:-1])
+    # the stream: each slice padded to whole groups, the closing group in the last
+    count = torch.bincount(sl, minlength=nslices)
+    padded = (count + grp - 1) // grp * grp
+    if m:
+        padded[-1] += grp
+    start, real_start = torch.zeros(nslices + 1, **i64), torch.zeros(nslices + 1, **i64)
+    start[1:], real_start[1:] = torch.cumsum(padded, 0), torch.cumsum(count, 0)
+    total = int(start[-1])
+    pos = start[sl] + torch.arange(m, **i64) - real_start[sl]
+    lid = torch.zeros(total, dtype=torch.int16, device=dev)
+    lid[pos] = torch.where(local >= 1 << 15, local - (1 << 16), local).to(torch.int16)
+    heads = torch.zeros(total, dtype=torch.bool, device=dev)
+    heads[pos] = real_head
+    pad_at = start[:-1] + count
+    heads[pad_at[pad_at < start[1:]]] = True
+    heads_before = torch.zeros(total + 1, **i64)
+    heads_before[1:] = torch.cumsum(heads, 0)
+    # the real runs, slice by slice, then row-major
+    seg_row = row[real_head]
+    row_runs = heads_before[pos[real_head]][torch.sort(seg_row, stable=True).indices]
+    part_ptr = torch.zeros(n + 1, **i32)
+    part_ptr[1:] = torch.cumsum(torch.bincount(seg_row, minlength=n), 0)
+    # the tiles: each slice's stream cut every `items` edges (a handful of slices)
+    st = start.cpu().numpy()
+    tiles = [np.arange(st[s], st[s + 1], items) for s in range(nslices)]
+    tile_slice = np.concatenate([np.full(t.shape[0], s, np.int32) for s, t in enumerate(tiles)]
+                                + [np.zeros(0, np.int32)])
+    tile_edge = torch.from_numpy(np.concatenate(tiles + [np.array([total])])).to(dev)
+    tile_run = heads_before[tile_edge]
+    # a group's word: its heads, and above them its tile's heads before it
+    group = torch.arange(0, total, grp, **i64)
+    tile_of = torch.searchsorted(tile_edge, group, right=True) - 1
+    word = (heads.view(-1, grp).long() << torch.arange(grp, **i64)).sum(1)
+    word |= (heads_before[group] - tile_run[tile_of]) << grp
+    head = torch.where(word >= 1 << 31, word - (1 << 32), word).to(torch.int32)
+    return PullSlices(lid, head, row_runs.to(torch.int32), part_ptr, start.to(torch.int32),
+                      tile_edge.to(torch.int32), tile_run.to(torch.int32),
+                      torch.from_numpy(tile_slice).to(dev), width, itemsize, n_x, m, items,
+                      int(heads_before[-1]))
+
+
+def memo_pull_slices(memo: dict, key, src: torch.Tensor, indptr: torch.Tensor,
+                     dtype: torch.dtype) -> PullSlices | None:
+    """The sliced layout of (src, indptr) for x of ``dtype``, built once and
+    kept in ``memo`` (a Graph's memo, a rank's state) under a key made of
+    ``key``; None where ``csr_pull_reduce`` takes its plain version."""
+    if not kernels.use_kernel(src):
+        return None
+    k = ("pull_slices", key, str(dtype))
+    sl = memo.get(k)
+    if sl is None:
+        sl = memo[k] = build_pull_slices(src, indptr, torch.empty(0, dtype=dtype).element_size())
+    return sl
+
+
+def pull_slices_heads(sl: PullSlices) -> torch.Tensor:
+    """The stream's heads, one bool an edge."""
+    bits = torch.arange(SLICE_GROUP, device=sl.head.device)
+    return ((sl.head.long().unsqueeze(1) >> bits) & 1).reshape(-1).bool()
+
+
+def pull_slices_sum_plain(sl: PullSlices, x: torch.Tensor) -> torch.Tensor:
+    """The sliced pull's sum in plain PyTorch, as the kernel orders it: each
+    run's sum of x over its edges (slice base + local id), then each row's
+    runs' sums added in slice order."""
+    dev, total = x.device, sl.lid.shape[0]
+    n, nslices = sl.part_ptr.shape[0] - 1, sl.slice_edges.shape[0] - 1
+    run = torch.cumsum(pull_slices_heads(sl), 0) - 1
+    edge_slice = torch.repeat_interleave(torch.arange(nslices, device=dev),
+                                         sl.slice_edges.diff(), output_size=total)
+    src = edge_slice * sl.width + (sl.lid.long() & 0xFFFF)
+    sums = torch.zeros(sl.runs, dtype=x.dtype, device=dev).index_add_(0, run, x[src])
+    part = sums[sl.row_runs.long()]
+    count, first = sl.part_ptr.diff(), sl.part_ptr[:-1].long()
+    y = torch.zeros(n, dtype=x.dtype, device=dev)
+    for j in range(int(count.max()) if n else 0):
+        has = count > j
+        y[has] += part[first[has] + j]
+    return y
+
+
 def csr_pull_reduce(mode: str, x: torch.Tensor | None, src: torch.Tensor,
-                    indptr: torch.Tensor, w: torch.Tensor | None = None) -> torch.Tensor:
+                    indptr: torch.Tensor, w: torch.Tensor | None = None,
+                    slices: PullSlices | None = None) -> torch.Tensor:
     """K7 wrapper: y[v] over the in-edges e of v, [indptr[v], indptr[v+1])
     of the pull-ordered ``src`` (indptr[-1] = len(src)): ``max_i32`` max of
     x[src[e]] (0 for a row without edges), ``min_i32`` min of x[src[e]]
@@ -242,7 +405,10 @@ def csr_pull_reduce(mode: str, x: torch.Tensor | None, src: torch.Tensor,
     the exact int64 sum of int32 x[src[e]] (0). In the max_i32 and min_i32
     modes x None reads src[e] itself. All index tensors int32, contiguous.
     A launch in mode ``sum`` counts as ``csr_pull_reduce_sum``, in
-    ``sum_i64`` as ``csr_pull_reduce_sum_i64``."""
+    ``sum_i64`` as ``csr_pull_reduce_sum_i64``. On the card mode ``sum``
+    runs on ``slices``, the CSR's sliced layout for x's dtype, which it
+    builds first where the caller has none, unless its runs are short
+    (``SLICE_RUN_EDGES``): then on the merge path."""
     if mode not in CSR_MODES:
         raise ValueError(f"csr_pull_reduce: unknown mode {mode!r}")
     codes, _, _ = CSR_MODES[mode]
@@ -260,11 +426,54 @@ def csr_pull_reduce(mode: str, x: torch.Tensor | None, src: torch.Tensor,
         raise TypeError("csr_pull_reduce: 1-D tensors, with int32 src and indptr")
     if any(t.device != src.device for t in ts) or not all(t.is_contiguous() for t in ts):
         raise ValueError("csr_pull_reduce: inputs must be contiguous, on one device")
+    if slices is not None and mode != "sum":
+        raise ValueError(f"csr_pull_reduce: {mode} takes no slices")
     if not kernels.use_kernel(src):
         return csr_pull_reduce_plain(mode, x, src, indptr, w)
+    if mode == "sum":
+        if slices is None:
+            slices = build_pull_slices(src, indptr, x.element_size())
+        if slices.runs * SLICE_RUN_EDGES <= slices.edges:
+            return _pull_slices_launch(x, slices, indptr.shape[0] - 1, src.shape[0])
     out = torch.int64 if mode == "sum_i64" else dtype
     return _csr_pull_reduce_launch(codes[dtype], out, x, src, indptr, w,
                                    _CSR_COUNTERS.get(mode))[0]
+
+
+def _pull_slices_launch(x: torch.Tensor, sl: PullSlices, n: int, m: int) -> torch.Tensor:
+    """y [n] of one K7 launch in mode sum on the sliced pull ``sl`` (of a
+    CSR of n rows and m edges): a block an SM over its tiles."""
+    args, y, _ = pull_slices_args(x, sl, n, m)
+    if n:
+        kernels.launch("csr_pull_slices", x.device, *args, counter="csr_pull_reduce_sum")
+    return y
+
+
+def pull_slices_args(x: torch.Tensor, sl: PullSlices, n: int, m: int):
+    """(C arguments before the stream, y, keep) of a launch of
+    ``gt_csr_pull_slices`` on ``sl``: y and the scratch in ``keep`` are
+    allocated here and must outlive the launch (a measuring tool calls the
+    C entry of a build of its own with them)."""
+    ts = sl[:8]
+    if sl.itemsize != x.element_size() or sl.part_ptr.shape[0] != n + 1 or \
+            sl.edges != m or x.shape[0] < sl.n_x:
+        raise ValueError(f"csr_pull_reduce: slices built for {sl.part_ptr.shape[0] - 1} rows, "
+                         f"{sl.edges} edges, {sl.itemsize}-byte values and {sl.n_x} entries "
+                         f"of x; got {n}, {m}, {x.element_size()} and {x.shape[0]}")
+    if any(t.device != x.device for t in ts):
+        raise ValueError("csr_pull_reduce: slices must lie on x's device")
+    dev, ntiles = x.device, sl.tile_slice.shape[0]
+    grid = min(ntiles, kernels.sm_count(dev))
+    y = torch.empty(n, dtype=x.dtype, device=dev)
+    part = torch.empty(sl.runs, dtype=x.dtype, device=dev)
+    nbytes = (4 * grid + 7) // 8 * 8 + x.element_size() * grid
+    scratch = torch.empty(max(nbytes, 8), dtype=torch.uint8, device=dev)
+    args = (*(t.data_ptr() for t in (sl.lid, sl.head, sl.row_runs, sl.part_ptr, sl.tile_edge,
+                                     sl.tile_run, sl.tile_slice)),
+            ntiles, sl.runs, n, x.data_ptr(), x.shape[0], sl.width, sl.items,
+            int(x.dtype == torch.float64), grid, part.data_ptr(), scratch.data_ptr(), nbytes,
+            y.data_ptr())
+    return args, y, (part, scratch)
 
 
 def _csr_pull_reduce_launch(code: int, dtype, x, src, indptr, w, counter=None):
@@ -326,9 +535,11 @@ def _slab_min_kernels(semiring: Semiring, plan: SlabPlan, x: torch.Tensor) -> bo
             and plan.heavy_values is None and all(b.values is None for b in plan.slabs))
 
 
-def slab_spmv(semiring: Semiring, plan: SlabPlan, x: torch.Tensor, n: int) -> torch.Tensor:
+def slab_spmv(semiring: Semiring, plan: SlabPlan, x: torch.Tensor, n: int,
+              heavy_slices: PullSlices | None = None) -> torch.Tensor:
     """y[v] = (+)_{(u,v)} (w_uv * x[u]) over the slab plan; rows with no
-    edges get the monoid identity."""
+    edges get the monoid identity. ``heavy_slices``: the heavy rows' sliced
+    pull for K7's mode sum (built at the call where it is None)."""
     ident = semiring.add.identity(x.dtype)
     min_kernels = _slab_min_kernels(semiring, plan, x)
     sum_kernels = (semiring.add.name == "plus" and x.dtype in _K3_DTYPES
@@ -352,7 +563,8 @@ def slab_spmv(semiring: Semiring, plan: SlabPlan, x: torch.Tensor, n: int) -> to
     if plan.heavy_rows is not None and min_kernels:
         heavy = csr_pull_reduce("min_i32", x, plan.heavy_neigh, plan.heavy_indptr)
     elif plan.heavy_rows is not None and sum_kernels and plan.heavy_values is None:
-        heavy = csr_pull_reduce("sum", x, plan.heavy_neigh, plan.heavy_indptr)
+        heavy = csr_pull_reduce("sum", x, plan.heavy_neigh, plan.heavy_indptr,
+                                slices=heavy_slices)
     elif plan.heavy_rows is not None:
         hx = table_gather(x, plan.heavy_neigh)
         terms = semiring.mul(plan.heavy_values, hx) if plan.heavy_values is not None else hx

@@ -85,7 +85,7 @@ def _adaptive_loop(mesh: Mesh, key, n: int, r: int, k_cap: int, e_cap: int, full
     def active_step(labels, changed):
         ids_l, _ = compact(changed[my:my + r], k_cap)
         exp = expand(ids_l, pdeg, pi, pdst, e_cap)
-        cand = relax_min_i32(n_pad, labels, exp.row_ids, exp.neigh, exp.valid, my)
+        cand = relax_min_i32(n_pad, labels, exp.row_ids, exp.neigh, exp.edge_count, my)
         new = torch.minimum(labels, all_reduce_min(cand))
         return new, new < labels
 

@@ -40,7 +40,7 @@ import torch
 
 from graphtpu_torch.core.types import INT32_INF
 from graphtpu_torch.ops.gather import table_gather
-from graphtpu_torch.ops.spmv import csr_pull_reduce
+from graphtpu_torch.ops.spmv import csr_pull_reduce, memo_pull_slices
 from graphtpu_torch.parallel.mesh import Mesh, all_gather_rows, all_reduce_sum
 from graphtpu_torch.parallel.partition import ShardedCOO, ShardedGraph
 from graphtpu_torch.utils.logging import get_logger
@@ -54,12 +54,14 @@ _NAIVE = {
 }
 
 
-def _spmv_block(mode: str, shard: ShardedCOO, x: torch.Tensor) -> torch.Tensor:
+def _spmv_block(mode: str, shard: ShardedCOO, x: torch.Tensor, slices=None) -> torch.Tensor:
     """One rank's part of a pull SpMV, replicated again: K7 in ``mode`` over
-    the rank's CSR (its valid prefix), then the all-gather of the blocks."""
+    the rank's CSR (its valid prefix; in mode sum on its sliced pull
+    ``slices``), then the all-gather of the blocks."""
     c = shard.count
     w = shard.w[:c] if mode == "min_plus" else None
-    return all_gather_rows(csr_pull_reduce(mode, x, shard.src[:c], shard.indptr, w))
+    return all_gather_rows(csr_pull_reduce(mode, x, shard.src[:c], shard.indptr, w,
+                                           slices=slices))
 
 
 def _host(t: torch.Tensor, n: int) -> np.ndarray:
@@ -86,8 +88,10 @@ def _pr_body(mesh: Mesh, key, out_deg: np.ndarray, damping: float, n: int, iters
     safe_deg = torch.where(out_deg == 0, 1, out_deg).to(dt)
     inv_deg = torch.where(out_deg == 0, 0.0, 1.0 / safe_deg)
     r = torch.where(in_range, inv_n, 0.0).to(dt)
+    # the block's sliced pull, kept beside it on the rank
+    slices = memo_pull_slices(mesh.state, key, shard.src[:shard.count], shard.indptr, dt)
     for _ in range(iters):
-        pulled = _spmv_block("sum", shard, r * inv_deg)
+        pulled = _spmv_block("sum", shard, r * inv_deg, slices)
         dangling_mass = torch.where(is_dangling, r, 0.0).sum()
         r = torch.where(in_range, teleport + damping * (pulled + dangling_mass * inv_n), 0.0)
     return _host(r, n)

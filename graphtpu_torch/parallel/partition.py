@@ -135,8 +135,14 @@ def rank_part(tree, d: int):
 
 
 def _drop(mesh: Mesh, keys) -> None:
+    """Drop each key's state and what was derived from it (the sliced pulls
+    of ``ops/spmv.py:memo_pull_slices``, kept under ("pull_slices", key,
+    dtype))."""
     for k in keys:
         mesh.state.pop(k, None)
+        for d in [d for d in mesh.state if isinstance(d, tuple) and len(d) == 3
+                  and d[0] == "pull_slices" and d[1] == k]:
+            del mesh.state[d]
 
 
 class ShardedGraph:

@@ -188,14 +188,21 @@ def test_bfs_bottom_up_residuals_match_jax():
 def test_relax_min_i32_matches_jax_scatter_min(offset):
     """The distributed WCC's active-step scatter-min (the JAX package's
     gather of the owners' labels and .at[].min into INT32_INF with the
-    invalid slots dropped), on contended targets and a rank's row offset."""
+    invalid slots dropped), on contended targets and a rank's row offset.
+    The wrapper takes the expansion's real-slot count (its valid slots are
+    the prefix [0, total)); the plain version fed that count equals it fed
+    the mask."""
     rng = np.random.default_rng(offset)
     n_lab, n_out, e = 300, 120, 2000
     labels = rng.integers(0, n_lab, size=n_lab).astype(np.int32)
     row_ids = rng.integers(0, n_lab - offset, size=e).astype(np.int32)
     neigh = rng.integers(0, n_out, size=e).astype(np.int32)
-    valid = rng.random(e) < 0.6
-    got = tf.relax_min_i32(n_out, _t(labels), _t(row_ids), _t(neigh), _t(valid), offset)
+    total = 1200 + 17 * offset
+    valid = np.arange(e) < total
+    total_t = torch.tensor(total, dtype=torch.int32)
+    got = tf.relax_min_i32(n_out, _t(labels), _t(row_ids), _t(neigh), total_t, offset)
+    assert torch.equal(got, tf.relax_min_i32_plain(n_out, _t(labels), _t(row_ids), _t(neigh),
+                                                   _t(valid), offset))
     lab_u = j_table_gather(jnp.asarray(labels), jnp.where(valid, row_ids + offset, 0))
     want = (jnp.full((n_out,), INT32_INF, jnp.int32)
             .at[jnp.where(valid, neigh, n_out)]
@@ -203,7 +210,7 @@ def test_relax_min_i32_matches_jax_scatter_min(offset):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert got.dtype == torch.int32 and (got < INT32_INF).any()
     empty = tf.relax_min_i32(5, _t(labels), *(torch.zeros(0, dtype=torch.int32),) * 2,
-                             torch.zeros(0, dtype=torch.bool))
+                             torch.zeros((), dtype=torch.int32))
     assert torch.equal(empty, torch.full((5,), INT32_INF, dtype=torch.int32))
 
 

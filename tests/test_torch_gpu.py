@@ -31,8 +31,9 @@ from graphtpu_torch.ops.pallas_gather import vreg_shuffle, vreg_shuffle_plain
 from graphtpu_torch.ops.slab import build_slab_plan, result_buffer
 from graphtpu_torch.ops.triangles import ClosingCSR, wedge_rowblock
 from graphtpu_torch.ops.spmv import (
-    CSR_ITEMS, CSR_MODES, _csr_pull_reduce_launch, csr_pull_reduce, csr_pull_reduce_plain,
-    csr_scratch_layout, merge_path_starts, slab_spmv_min, slab_spmv_min_buckets,
+    CSR_ITEMS, CSR_MODES, SLICE_WIDTH, _csr_pull_reduce_launch, _pull_slices_launch,
+    build_pull_slices, csr_pull_reduce, csr_pull_reduce_plain, csr_scratch_layout,
+    merge_path_starts, slab_spmv_min, slab_spmv_min_buckets,
     slab_spmv_min_plain, slab_spmv_sum, slab_spmv_sum_buckets, slab_spmv_sum_plain,
 )
 
@@ -919,17 +920,29 @@ def test_lcc_oriented_on_the_card_matches_sweep_and_cpu(cuda, directed):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("case", ["random", "row_ends_on_border", "empty_run", "one_row",
-                                  "hubs_only", "single_empty_row", "edgeless"])
+                                  "hubs_only", "single_empty_row", "edgeless",
+                                  "hub_over_every_slice"])
 def test_csr_pull_reduce_sum_matches_plain(cuda, case, dtype):
     """K7 in mode sum (PageRank's scan arm) on a random CSR with empty rows
-    and a hub of 10^5 edges split over many blocks, and on the hand cases:
+    and a hub of 10^5 edges split over many blocks, on the hand cases, and
+    on a hub of 10^5 edges over every slice of an x of 3 W + 17 entries:
     within 1e-5 relative of the plain version's float64 row sums in float32
     (1e-12 in float64), twice with the same bits, counted as
-    csr_pull_reduce_sum."""
+    csr_pull_reduce_sum. Every case runs through the wrapper (the sliced
+    pull it builds, or the merge path where the runs are short), through
+    it on a sliced pull built beforehand (the same bits), and on the sliced
+    kernel itself, at the kernel's slice width and at 8,192 entries (more
+    slices and tiles)."""
     rng = np.random.default_rng(len(case) * 7 + dtype.itemsize)
     if case == "random":
         src, indptr = _pull_csr(rng, 20000, 100000)
         n_x = 20000
+    elif case == "hub_over_every_slice":
+        n_x = 3 * SLICE_WIDTH[dtype.itemsize] + 17
+        src, indptr = _pull_csr(rng, 5000, 100000)
+        src = torch.from_numpy(rng.integers(0, n_x, size=src.shape[0]).astype(np.int32))
+        src[indptr[2500]:indptr[2501]] = torch.from_numpy(
+            np.sort(rng.integers(0, n_x, size=100000)).astype(np.int32))
     else:
         deg = _k7_degrees(case, CSR_ITEMS[dtype.itemsize], rng)
         ip = np.zeros(deg.shape[0] + 1, dtype=np.int64)
@@ -952,6 +965,19 @@ def test_csr_pull_reduce_sum_matches_plain(cuda, case, dtype):
     rtol = 1e-5 if dtype == torch.float32 else 1e-12
     assert bool(((got.double() - want.double()).abs() <= rtol * want.double().abs()).all())
     assert bool((got[(indptr.diff() == 0)] == 0).all())
+    if case == "hub_over_every_slice":
+        assert int(src[indptr[2500]:indptr[2501]].max()) >= 3 * SLICE_WIDTH[dtype.itemsize]
+    built = build_pull_slices(src, indptr, dtype.itemsize)
+    assert torch.equal(csr_pull_reduce("sum", x, src, indptr, slices=built), got)
+    # the sliced kernel itself, whatever the rule picks for these runs, at
+    # the kernel's slice width and a narrower one
+    n, m = indptr.shape[0] - 1, src.shape[0]
+    for sl in (built, build_pull_slices(src, indptr, dtype.itemsize, 8192)):
+        got_s = _pull_slices_launch(x, sl, n, m)
+        assert torch.equal(got_s, _pull_slices_launch(x, sl, n, m))
+        assert bool(((got_s.double() - want.double()).abs()
+                     <= rtol * want.double().abs()).all())
+        assert bool((got_s[(indptr.diff() == 0)] == 0).all())
 
 
 def test_csr_pull_reduce_sum_refuses_a_null_x(cuda):
@@ -1919,28 +1945,36 @@ def test_residual_hits_match_the_cumsum_on_the_card(cuda, case):
 # ---------------------------------------------------------------- K8 int32
 
 
-@pytest.mark.parametrize("case", ["random", "all_pad", "equal_candidates", "rank_offset"])
-def test_relax_min_i32_matches_plain(cuda, case):
-    """K8's int32 mode: contended targets, a frontier of pad slots only,
-    one candidate for every slot, and a rank's row offset into the
-    replicated labels; one launch a call."""
+@pytest.mark.parametrize("total", [0, 1, 160, (1 << 17) + 3, 1 << 18, (1 << 18) + 5])
+@pytest.mark.parametrize("case", ["random", "equal_candidates", "rank_offset"])
+def test_relax_min_i32_matches_plain(cuda, case, total):
+    """K8's int32 mode at the active step's 2^18 slots, the real ones a
+    prefix [0, total) from none to all (a total past the slots counts as
+    all): contended targets, one candidate for every slot, and a rank's row
+    offset into the replicated labels; one launch a call, no host read of
+    the total (sync debug mode "error")."""
     rng = np.random.default_rng(len(case) + 40)
-    n_lab, n_out, e_cap = 50000, 20000, 1 << 16
+    n_lab, n_out, e_cap = 50000, 20000, 1 << 18
     labels = rng.integers(0, n_lab, size=n_lab).astype(np.int32)
     row_ids = rng.integers(0, 10000, size=e_cap).astype(np.int32)
     neigh = rng.integers(0, 300, size=e_cap).astype(np.int32)
-    valid = rng.random(e_cap) < 0.7
     offset = 0
-    if case == "all_pad":
-        valid[:] = False
-    elif case == "equal_candidates":
+    if case == "equal_candidates":
         row_ids[:] = 7
     elif case == "rank_offset":
         offset, neigh = 40000, rng.integers(0, n_out, size=e_cap).astype(np.int32)
-    tt = [torch.from_numpy(a) for a in (labels, row_ids, neigh, valid)]
-    want = relax_min_i32_plain(n_out, *tt, offset)
+    valid = np.arange(e_cap) < total
+    tt = [torch.from_numpy(a) for a in (labels, row_ids, neigh)]
+    total_t = torch.tensor(total, dtype=torch.int32)
+    want = relax_min_i32_plain(n_out, *tt, total_t, offset)
+    assert torch.equal(want, relax_min_i32_plain(n_out, *tt, torch.from_numpy(valid), offset))
+    args = [a.to(cuda) for a in tt + [total_t]]
     before = kernels.launch_counts["push_relax_min_i32"]
-    got = relax_min_i32(n_out, *(a.to(cuda) for a in tt), offset)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = relax_min_i32(n_out, *args, offset)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     assert kernels.launch_counts["push_relax_min_i32"] == before + 1
     assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
     hit = np.full(n_out, INT32_INF, dtype=np.int64)
