@@ -51,11 +51,12 @@ Run from the root of a checkout:  python3 chip_smoke.py
 4. Launch counts: each path runs with the counts set to 0 just before it
    and read just after; every kernel of a path must have launched in it
    (CDLP auto and slab: K12 on the heavy rows and the tier steps, K7 on
-   iteration 0's heavy rows; BFS auto: K13 in its bottom-up steps and K7
-   on their residual rows; K14 on every adaptive path), PageRank under scan
+   iteration 0's heavy rows; BFS auto: K13 in its bottom-up steps and K17
+   on their residual rows, once a bottom-up step, and no K7 without a dense
+   step; K14 on every adaptive path), PageRank under scan
    must launch K7 in mode sum 20 times a run and nothing else (and the slab
-   arm 20 times a run, its heavy rows), and LCC K7
-   in mode sum_i64 once a run.
+   arm 20 times a run, its heavy rows), and LCC K16 once a run and K7 in
+   mode sum_i64 never (the same over one NCCL rank, phase 8).
    vreg_shuffle has no path in the system, and no LCC path launches
    edgehash_probe (K10 closes wedges by a search of the plan's closing CSR;
    only K10's plain version probes the hash), and no algorithm calls
@@ -93,16 +94,24 @@ Run from the root of a checkout:  python3 chip_smoke.py
    plain version. K14 (frontier_compact) on CDLP auto's and BFS auto's
    masks, BFS auto's 2^18-slot tier stream (all taken from runs) and BFS's
    top tier of 2^22 slots, under sync debug mode "error", with torch.sort
-   and torch.unique as yardsticks; K7 max_i32 on BFS auto's residual test
-   and K8's int32 mode on a WCC active step's expansion (its real-slot
-   count read on the card, under sync debug mode "error"). K9 runs
+   and torch.unique as yardsticks; K17 (bfs_residual_claim) on BFS auto's
+   first residual test (under sync debug mode "error"), against its plain
+   version and against K7 max_i32 over the clamped row starts, the design
+   before it, timed beside it (the kernel alone and the whole test), with
+   torch.segment_reduce over pre-gathered hits as the yardstick; K8's int32
+   mode on a WCC active step's expansion (its real-slot count read on the
+   card, under sync debug mode "error"). K9 runs
    at 2^22 probes drawn from the benchmark graph's wedge plan (half present
    pairs, half random ones), binned by partitions of the table sized from
    the card's L2 (three launches a call: histogram, scatter, probe; the
    single pass over the caller's order is timed and held beside it), K10
    per bucket and over all buckets of that plan, both twice for the same
    bits (K10's bound counts merge steps: the wedges plus the out-list
-   entries its search reads); K7 sum_i64 on the plan's head credits; K15
+   entries its search reads); K16 (lcc_head_credits) on the plan's credits
+   (under sync debug mode "error"), against its plain version and against
+   K7 sum_i64 over the plan's head order plus the apex add, the design
+   before it, timed beside it (K7 alone and the whole aggregation), with an
+   index_add_ of pre-widened credits as the yardstick; K15
    (lcc_sweep_member) over the whole sweep of the benchmark graph's c-row
    plan (one entry per unordered pair, weight 2; its pairs, searches and
    atomics printed), timed, and against its plain version on the first
@@ -233,6 +242,8 @@ TRACE_KERNELS = {
     ("k13_probe_kernel",): ("bfs_trunc_probe",),
     ("k14_write",): ("frontier_compact",),  # K14's last launch: one a call
     ("lcc_sweep_kernel",): ("lcc_sweep_member",),
+    ("k16_head_credits_kernel",): ("lcc_head_credits",),
+    ("k17_claim_kernel",): ("bfs_residual_claim",),
 }
 # the device kernels of a sort (cub's radix, segmented and merge sorts, torch's
 # own small sorts), matched without regard to case (torch's radixSortKVInPlace):
@@ -632,7 +643,7 @@ PATHS = {
     "pr-scan": ("pr", {"pr_impl": "scan"}, ("csr_pull_reduce_sum",)),
     "bfs-auto": ("bfs", {"bfs_impl": "auto"},
                  ("gather_rows", "frontier_expand", "bfs_trunc_probe", "frontier_compact",
-                  "csr_pull_reduce")),
+                  "bfs_residual_claim")),
     "bfs-device": ("bfs", {"bfs_impl": "device"}, ("csr_pull_reduce",)),
     "bfs-hybrid": ("bfs", {"bfs_impl": "hybrid"}, ("csr_pull_reduce",)),
     "wcc-auto": ("wcc", {"wcc_impl": "auto"},
@@ -646,7 +657,7 @@ PATHS = {
     "sssp-delta": ("sssp", {"sssp_impl": "delta"},
                    ("csr_pull_reduce", "frontier_expand", "push_relax_min", "frontier_compact")),
     "sssp-hybrid": ("sssp", {"sssp_impl": "hybrid"}, ("csr_pull_reduce",)),
-    "lcc": ("lcc", {"lcc_impl": "auto"}, ("wedge_rowblock", "csr_pull_reduce_sum_i64")),
+    "lcc": ("lcc", {"lcc_impl": "auto"}, ("wedge_rowblock", "lcc_head_credits")),
 }
 # the plain path of LCC is one pass of K10's plain version over every bucket,
 # made once, in phase_lcc_kernels
@@ -1221,7 +1232,7 @@ PARALLEL_RUNS = {
                        ("slab_minmode", "segment_minmode", "csr_pull_reduce")),
     "bfs_adaptive_dist": ("bfs", {"bfs_impl": "adaptive"}, {"bfs_impl": "adaptive"},
                           ("frontier_expand", "gather_rows", "bfs_trunc_probe",
-                           "frontier_compact", "csr_pull_reduce")),
+                           "frontier_compact", "bfs_residual_claim")),
     "sssp_adaptive_dist": ("sssp", {"sssp_impl": "adaptive"}, {"sssp_impl": "adaptive"},
                            ("frontier_expand", "push_relax_min", "csr_pull_reduce",
                             "frontier_compact")),
@@ -1229,7 +1240,7 @@ PARALLEL_RUNS = {
                           ("slab_spmv_min", "frontier_expand", "frontier_compact",
                            "push_relax_min_i32")),
     "lcc_oriented_dist": ("lcc", {"lcc_impl": "auto"}, {"lcc_impl": "auto"},
-                          ("wedge_rowblock", "csr_pull_reduce_sum_i64")),
+                          ("wedge_rowblock", "lcc_head_credits")),
 }
 PARALLEL_LCC_SCALE = 14  # the sweep's graph: RMAT s14/ef16, as phase 3's oracle check
 
@@ -1381,6 +1392,10 @@ def phase_parallel(g, gw, device, smi, real_steps):
             check(np.array_equal(res.values, one.values),
                   f"parallel: {name} differs from the one-device {one_impl}")
         steps = _dist_steps(name, dispatch._sharded(gr, cfg, np.float32), cfg)
+        if name == "lcc_oriented_dist":
+            check(counts.get("lcc_head_credits", 0) == 1
+                  and counts.get("csr_pull_reduce_sum_i64", 0) == 0,
+                  f"parallel: {name} launched {counts}, expected K16 once and no K7 sum_i64")
         report[name] = {"s": secs[1], "first_s": secs[0], "one_device_s": one_s,
                         "launches": counts, "max_rel_err": err, "iterations": res.iterations}
         said = ""
@@ -1394,6 +1409,10 @@ def phase_parallel(g, gw, device, smi, real_steps):
                       f"parallel: {name} steps {steps} differ from the twin's or JAX's")
             if algo == "bfs":
                 check(steps[0] == bn == jax_steps[0], f"parallel: {name} levels {steps[0]}")
+                check(counts.get("bfs_residual_claim", 0) == steps[2]
+                      and (steps[3] or counts.get("csr_pull_reduce", 0) == 0),
+                      f"parallel: {name} launched {counts}, expected K17 once a bottom-up "
+                      f"step ({steps[2]}) and no K7 without a dense step")
         print(f"parallel {name} (1 NCCL rank, {smi}): {secs[1]:.6f} s warm ({secs[0]:.6f} s "
               f"with the host plans' build and install), one-device {one_impl} {one_s:.6f} s "
               f"warm; {'max relative error %.3e' % err if algo == 'pr' else 'equal bit for bit'}"
@@ -2114,34 +2133,63 @@ def phase_traversal_kernels(g, gw, device):
         library=None,  # no single call: two gathers, an add and a scatter-min
     )
 
-    # K7 max_i32 on BFS auto's residual test (the rows of a bottom-up step
-    # that the probe missed, their full in-lists expanded), taken from a run
+    # K17 on BFS auto's residual test (the rows of a bottom-up step that the
+    # probe missed, their full in-lists expanded), taken from a run, beside
+    # K7 max_i32 over the clamped row starts (the design before it)
     from graphtpu_torch.algorithms import bfs as bfs_mod
     from graphtpu_torch.algorithms import wcc as wcc_mod
     from graphtpu_torch.ops.frontier import (
-        relax_min_i32, relax_min_i32_plain, residual_hits, residual_indptr,
+        relax_min_i32, relax_min_i32_plain, residual_claim, residual_claim_plain,
+        residual_hits, residual_indptr,
     )
     from graphtpu_torch.tools.minmode_times import captured
 
-    fmask_pad, rexp, e_bu = captured(bfs_mod, "residual_hits",
-                                     lambda: bfs_mod.bfs_adaptive_run(g, 0, cfg))[0]
+    rargs = captured(bfs_mod, "residual_claim", lambda: bfs_mod.bfs_adaptive_run(g, 0, cfg))[0]
+    levels_r, level_r, rexp, e_bu, rids, pad = rargs
+    fmask_pad = torch.cat([(levels_r == level_r).to(torch.int32), levels_r.new_zeros(1)])
     r_ip = residual_indptr(rexp, e_bu)  # what residual_hits hands K7
-    got = csr_pull_reduce("max_i32", fmask_pad, rexp.neigh, r_ip)
-    check(torch.equal(got, csr_pull_reduce_plain("max_i32", fmask_pad, rexp.neigh, r_ip)),
+
+    def k17_earlier():  # the whole test before K17: mask, indptr, K7, where
+        fmask = torch.cat([(levels_r == level_r).to(torch.int32), levels_r.new_zeros(1)])
+        return torch.where(residual_hits(fmask, rexp, e_bu), rids, pad)
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # no host read in the launch
+    try:
+        got = residual_claim(*rargs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(torch.equal(got, residual_claim_plain(*rargs)),
+          "bfs_residual_claim on BFS's residual differs from its plain version")
+    check(torch.equal(got, residual_claim(*rargs)), "bfs_residual_claim: two runs differ")
+    check(torch.equal(got, k17_earlier()),
+          "bfs_residual_claim differs from K7 max_i32 over the clamped row starts")
+    k7_hits = csr_pull_reduce("max_i32", fmask_pad, rexp.neigh, r_ip)
+    check(torch.equal(k7_hits, csr_pull_reduce_plain("max_i32", fmask_pad, rexp.neigh, r_ip)),
           "csr_pull_reduce max_i32 on BFS's residual differs from its plain version")
-    check(torch.equal(got, csr_pull_reduce("max_i32", fmask_pad, rexp.neigh, r_ip)),
-          "csr_pull_reduce max_i32 on BFS's residual: two runs differ")
-    check(torch.equal(residual_hits(fmask_pad, rexp, e_bu), got[:-1] > 0),
-          "residual_hits is not K7 max_i32 over the clamped row starts")
-    k_bu, r_edges = r_ip.shape[0] - 2, int(rexp.edge_count)
-    res["csr_pull_reduce"]["other_shapes"].append(dict(
-        shape=(f"max_i32 on BFS auto's first bottom-up residual: {k_bu} row slots "
-               f"({int((rexp.seg_starts.diff() > 0).sum())} rows with edges, {r_edges} edges, "
-               f"{int(got[:-1].sum())} hit) in {e_bu} slots, and the closing segment"),
-        times=(cuda_ms(lambda: csr_pull_reduce("max_i32", fmask_pad, rexp.neigh, r_ip)),
-               cuda_ms(lambda: csr_pull_reduce_plain("max_i32", fmask_pad, rexp.neigh, r_ip))),
-        # indptr, src and a frontier flag per slot, y; a max per slot
-        bytes=4 * (k_bu + 2) + 8 * e_bu + 4 * (k_bu + 1), ops=e_bu))
+    k_bu, r_edges = rids.shape[0], int(rexp.edge_count)
+    r_rows = int((rexp.seg_starts.diff() > 0).sum())
+    claimed = int((got != pad).sum())
+    hits_pre = fmask_pad[rexp.neigh.long()].float()  # the yardstick's hits, gathered before
+    k7_ms = cuda_ms(lambda: csr_pull_reduce("max_i32", fmask_pad, rexp.neigh, r_ip))[0]
+    earlier = cuda_ms(k17_earlier)
+    res["bfs_residual_claim"] = dict(
+        max_abs_err=0.0,
+        times=(cuda_ms(lambda: residual_claim(*rargs)),
+               cuda_ms(lambda: residual_claim_plain(*rargs))),
+        shape=(f"BFS auto's first bottom-up residual (level {level_r}): {k_bu} row slots "
+               f"({r_rows} rows with edges, {r_edges} edges, {claimed} claimed) in {e_bu} "
+               f"slots; K7 max_i32's launch on it (the design before) {k7_ms:.6f} ms, the "
+               f"whole test before (mask, indptr, K7, where) {earlier[0]:.6f} ms of device "
+               f"time, {earlier[1]:.6f} ms of stream"),
+        earlier_ms=k7_ms, earlier_test_ms=earlier,
+        # the row starts, the rids and the claimed ids; per real edge its
+        # neighbour and that neighbour's level; a compare per real edge
+        bytes=4 * (k_bu + 1) + 8 * k_bu + 8 * r_edges, ops=r_edges,
+        library=("torch.segment_reduce max over the pre-gathered hits",
+                 lambda h=hits_pre, o=r_ip.long(): torch.segment_reduce(h, "max", offsets=o,
+                                                                        unsafe=True)),
+    )
 
     # K8's int32 mode on a WCC active step's expansion (from a WCC auto run,
     # expanded again with its owners), the labels after iteration 0
@@ -2176,7 +2224,7 @@ def phase_traversal_kernels(g, gw, device):
 
 def phase_lcc_kernels(g, wplan, real_wedges, lcc_values, device):
     """K9 and K10 against their plain versions on the benchmark graph's
-    wedge plan, K7 sum_i64 on its head credits and K15 over the sweep.
+    wedge plan, K16 and K7 sum_i64 on its head credits and K15 over the sweep.
     Returns their results, K9's and K15's launches in their own drives and
     the sum of the LCC numerators."""
     import numpy as np
@@ -2323,32 +2371,77 @@ def phase_lcc_kernels(g, wplan, real_wedges, lcc_values, device):
           f"{lcc_values.mean():.6f})", flush=True)
     del plain_credits
 
-    # K7 sum_i64 on the plan's head credits: the kernel credits of every
-    # bucket, gathered in head order and summed per head
+    # K16 on the plan's head credits (the kernel credits of every bucket, in
+    # slab order, with the centres' credits), beside K7 sum_i64 over the
+    # plan's head order (the design before it): the same int64 sums
     from graphtpu_torch.ops.spmv import csr_pull_reduce, csr_pull_reduce_plain
+    from graphtpu_torch.ops.triangles import lcc_head_credits, lcc_head_credits_plain
 
-    flat = torch.cat([edge_cred.reshape(-1) for _, edge_cred in kernel_credits])
-    del kernel_credits
+    slabs = [b.slab for b in wplan.buckets]
+    creds = [edge_cred for _, edge_cred in kernel_credits]
+    u_real = [u[:b.r_real] for b, (u, _) in zip(wplan.buckets, kernel_credits)]
+    apex = (u_real, wplan.bucket_rows)
+    flat = torch.cat([c.reshape(-1) for c in creds])
     heads = (flat, wplan.edge_pos, wplan.head_indptr)
-    got = csr_pull_reduce("sum_i64", *heads)
-    check(torch.equal(got, csr_pull_reduce_plain("sum_i64", *heads)),
+
+    def k16_earlier():  # the aggregation before K16: a cat, K7 sum_i64, the apex add
+        num = csr_pull_reduce("sum_i64", torch.cat([c.reshape(-1) for c in creds]),
+                              wplan.edge_pos, wplan.head_indptr)
+        num[wplan.bucket_rows] += torch.cat(u_real).long()
+        return num
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # no host read in the launch
+    try:
+        got = lcc_head_credits(g.n, slabs, creds, apex)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(torch.equal(got, lcc_head_credits_plain(g.n, slabs, creds, apex)),
+          "lcc_head_credits on the plan's credits differs from its plain version")
+    check(torch.equal(got, lcc_head_credits(g.n, slabs, creds, apex)),
+          "lcc_head_credits: two runs differ")
+    check(torch.equal(got, k16_earlier()),
+          "lcc_head_credits differs from K7 sum_i64 over the head order and the apex add")
+    k7_sums = csr_pull_reduce("sum_i64", *heads)
+    check(torch.equal(k7_sums, csr_pull_reduce_plain("sum_i64", *heads)),
           "csr_pull_reduce sum_i64 on the head credits differs from its plain version")
-    check(torch.equal(got, csr_pull_reduce("sum_i64", *heads)),
+    check(torch.equal(k7_sums, csr_pull_reduce("sum_i64", *heads)),
           "csr_pull_reduce sum_i64: two runs differ")
-    m_pos = int(wplan.edge_pos.shape[0])
+    m_pos, rows = int(wplan.edge_pos.shape[0]), int(wplan.bucket_rows.shape[0])
+    k7_times = (cuda_ms(lambda: csr_pull_reduce("sum_i64", *heads)),
+                cuda_ms(lambda: csr_pull_reduce_plain("sum_i64", *heads)))
     res["csr_pull_reduce_sum_i64"] = dict(
-        max_abs_err=0.0,
-        times=(cuda_ms(lambda: csr_pull_reduce("sum_i64", *heads)),
-               cuda_ms(lambda: csr_pull_reduce_plain("sum_i64", *heads))),
-        shape=(f"sum_i64, LCC's head sums on the benchmark graph's wedge plan: {m_pos} real "
-               f"slab entries' credits (of {flat.shape[0]} flat) into {g.n} heads "
-               f"(max {int(got.max())})"),
+        max_abs_err=0.0, times=k7_times,
+        shape=(f"sum_i64, LCC's head sums on the benchmark graph's wedge plan (the design "
+               f"K16 replaced; no path launches it): {m_pos} real slab entries' credits (of "
+               f"{flat.shape[0]} flat) into {g.n} heads (max {int(k7_sums.max())})"),
         # indptr, the positions and a credit per entry, the int64 sums; an
         # add per entry
         bytes=4 * (g.n + 1) + 8 * m_pos + 8 * g.n, ops=m_pos,
         library=None,  # none: torch's CSR products take no int32 values into int64
     )
-    del flat, heads, got
+    heads64 = torch.cat([torch.where(sl >= 0, sl, g.n).reshape(-1) for sl in slabs]).long()
+    cred64, acc = flat.long(), torch.zeros(g.n + 1, dtype=torch.int64, device=device)
+    earlier = cuda_ms(k16_earlier)
+    res["lcc_head_credits"] = dict(
+        max_abs_err=0.0,
+        times=(cuda_ms(lambda: lcc_head_credits(g.n, slabs, creds, apex)),
+               cuda_ms(lambda: lcc_head_credits_plain(g.n, slabs, creds, apex))),
+        shape=(f"LCC's head sums on the benchmark graph's wedge plan: {len(slabs)} buckets, "
+               f"{flat.shape[0]} slab entries ({m_pos} real, {int((flat != 0).sum())} nonzero "
+               f"credits) and {rows} apex rows into {g.n} heads (max {int(got.max())}; "
+               f"{kernels.query('lcc_head_credits_hubs')} hub heads in shared memory); K7 "
+               f"sum_i64 (the design before) {k7_times[0][0]:.6f} ms, the whole aggregation "
+               f"before (cat, K7, apex add) {earlier[0]:.6f} ms of device time, "
+               f"{earlier[1]:.6f} ms of stream"),
+        earlier_ms=k7_times[0][0], earlier_test_ms=earlier,
+        # each real entry's head and credit, each apex row's id (int64) and
+        # credit, the int64 sums written; an add per real entry and apex row
+        bytes=8 * m_pos + 12 * rows + 8 * g.n, ops=m_pos + rows,
+        library=("index_add_ of pre-widened int64 credits by head",
+                 lambda acc=acc, h=heads64, c=cred64: acc.index_add_(0, h, c)),
+    )
+    del flat, heads, got, k7_sums, heads64, cred64, acc
     res["lcc_sweep_member"], k15_launches = k15(g, kernel_num, device)
 
     def all_buckets():
@@ -2769,6 +2862,10 @@ SOURCES = {
     "lcc_sweep_member": ("graphtpu_torch/csrc/lcc_sweep.cu", "graphtpu/algorithms/lcc.py:79"),
     "csr_pull_reduce_sum_i64": ("graphtpu_torch/csrc/csr_pull_reduce.cu",
                                 "graphtpu/ops/triangles.py:621"),
+    "lcc_head_credits": ("graphtpu_torch/csrc/lcc_head_credits.cu",
+                         "graphtpu/ops/triangles.py:621"),
+    "bfs_residual_claim": ("graphtpu_torch/csrc/bfs_residual.cu",
+                           "graphtpu/algorithms/bfs.py:240"),
     "push_relax_min_i32": ("graphtpu_torch/csrc/push_relax.cu",
                            "graphtpu/parallel/adaptive_wcc.py:79"),
 }
@@ -3008,9 +3105,18 @@ def main() -> int:
     check(k10 == RUNS_PER_PATH * len(wplan.buckets),
           f"wedge_rowblock launched {k10} times in {RUNS_PER_PATH} lcc runs, expected one per "
           f"bucket ({len(wplan.buckets)})")
-    heads = path_launches["lcc"]["csr_pull_reduce_sum_i64"]
-    check(heads == RUNS_PER_PATH, f"csr_pull_reduce sum_i64 launched {heads} times in "
+    heads = path_launches["lcc"]["lcc_head_credits"]
+    check(heads == RUNS_PER_PATH, f"lcc_head_credits launched {heads} times in "
           f"{RUNS_PER_PATH} lcc runs, expected one a run (the head sums)")
+    check(path_launches["lcc"]["csr_pull_reduce_sum_i64"] == 0,
+          "the lcc path launched K7 sum_i64, the head sums' design before K16")
+    claims = path_launches["bfs-auto"]["bfs_residual_claim"]
+    bu_steps, dense_steps = JAX_STEPS["bfs"][2], JAX_STEPS["bfs"][3]
+    check(claims == RUNS_PER_PATH * bu_steps, f"bfs_residual_claim launched {claims} times in "
+          f"{RUNS_PER_PATH} bfs-auto runs, expected {bu_steps} a run (its bottom-up steps)")
+    check(dense_steps or path_launches["bfs-auto"]["csr_pull_reduce"] == 0,
+          "the bfs-auto path launched K7 in a run of no dense step: its residual test's "
+          "design before K17")
     launches = {name: sum(c[name] for c in path_launches.values()) for name in kernels.COUNTERS}
     launches["vreg_shuffle"] = phase_vreg_shuffle(device)
     print(f"peak device memory allocated {torch.cuda.max_memory_allocated(device) / 2**30:.3f} "
@@ -3066,7 +3172,8 @@ def main() -> int:
          "other_shapes": res[name].get("other_shapes", []),
          **{k: res[name][k] for k in ("buckets", "traffic_ms", "call_ms", "call_wall_ms",
                                       "single_pass_ms", "ops_by_design", "work",
-                                      "merge_path_ms", "layout_bytes", "layout_build_s")
+                                      "merge_path_ms", "layout_bytes", "layout_build_s",
+                                      "earlier_ms", "earlier_test_ms")
             if k in res[name]}}
         for name in kernels.COUNTERS
     ], "empty_kernel_ms": empty_ms, "ingest": ingest, "bench": bench, "parallel": parallel,

@@ -28,8 +28,9 @@ CUDA C++ for sm_90a under ``csrc/``, built at first use
 slab_spmv_sum, K4 vreg_shuffle, K5 frontier_expand, K6 slab_spmv_min, K7
 csr_pull_reduce, K8 push_relax_min, K9 edgehash_probe, K10 wedge_rowblock,
 K11 masked_spgemm, K12 segment_minmode, K13 bfs_trunc_probe, K14
-frontier_compact and K15 lcc_sweep_member; each wrapper takes its plain
-PyTorch version for a CPU tensor.
+frontier_compact, K15 lcc_sweep_member, K16 lcc_head_credits and K17
+bfs_residual_claim; each wrapper takes its plain PyTorch version for a CPU
+tensor.
 """
 
 __version__ = "0.1.0"

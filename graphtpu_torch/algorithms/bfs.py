@@ -12,7 +12,7 @@ edges (undirected); unreachable vertices serialize as int64 max
   its frontier, on the frontier engine (ops/frontier.py, kernels K1 and K5);
   frontiers above the top tier run a truncated bottom-up (its probe of the
   first in-neighbours on kernel K13, ``bfs_trunc_probe``, its residual rows'
-  test on K7); a bottom-up whose residual overflows its budgets, and only
+  test on K17, ``bfs_residual_claim``); a bottom-up whose residual overflows its budgets, and only
   then, a dense pull step. JAX runs the phases as nested while_loops in one
   program (``bfs-step-mode=phases``) or as one while_loop over a switch of
   the step bodies (``switch``); here both are the same host loop over
@@ -46,7 +46,7 @@ from graphtpu_torch.ops.frontier import (
     expand,
     frontier_deg_sum,
     mask_status,
-    residual_hits,
+    residual_claim,
 )
 from graphtpu_torch.ops.gather import table_gather
 from graphtpu_torch.ops.spmv import PullCSR, csr_pull_reduce, int32_tensor, pull_csr
@@ -166,10 +166,9 @@ def _bfs_adaptive_loop(prep: BfsPrep, source: int, n: int, t_trunc: int, tiers, 
         fe_r = frontier_deg_sum(rids, pull_deg_pad)
         ok = (rcnt <= k_bu) & (fe_r <= e_bu)
         exp = expand(rids, pull_deg_pad, pull.indptr, pull.src, e_bu, with_row_ids=False)
-        fmask_pad = torch.cat([(levels == level).to(torch.int32), levels.new_zeros(1)])
-        # segment-any per residual row (K7; a residual past e_bu is
+        # segment-any per residual row (K17; a residual past e_bu is
         # discarded by ok anyway)
-        claimed = torch.where(residual_hits(fmask_pad, exp, e_bu), rids, n)
+        claimed = residual_claim(levels, level, exp, e_bu, rids, n)
         updated = torch.where(claim_trunc, level + 1, levels)
         updated = torch.cat([updated, updated.new_zeros(1)]).index_fill_(
             0, claimed.long(), level + 1)[:n]

@@ -6,8 +6,11 @@ with n) plus its true count. ``compact`` turns a dense mask into one and
 ``compact_stream`` dedupes a stream of vertex ids back into one, both on
 kernel K14 (``frontier_compact``); ``expand`` lays the frontier's adjacency
 slices out in ``e_cap`` edge slots on kernel K5 (``frontier_expand``),
-``residual_hits`` says which rows of an expansion reach a marked vertex (K7
-``max_i32``), ``mask_status`` gives a mask's (count, edge-sum), the numbers
+``residual_claim`` is BFS's bottom-up residual test, the ids of the rows of
+an expansion that reach the current level, on kernel K17
+(``bfs_residual_claim``; ``residual_hits``, the same test on K7 ``max_i32``
+over a frontier mask, is what the tests and measuring scripts hold it
+against), ``mask_status`` gives a mask's (count, edge-sum), the numbers
 a caller needs to decide whether a frontier fits its capacities,
 ``relax_min`` is SSSP's push relaxation over an expansion on kernel K8
 (``push_relax_min``), ``relax_min_i32`` the distributed WCC's scatter-min on
@@ -25,7 +28,7 @@ import torch
 from graphtpu_torch.core.types import INT32_INF
 from graphtpu_torch.ops import kernels
 from graphtpu_torch.ops.gather import table_gather
-from graphtpu_torch.ops.spmv import csr_pull_reduce
+from graphtpu_torch.ops.spmv import csr_pull_reduce, csr_pull_reduce_plain
 
 # K14's scratch: one count per block of its grid (csrc/frontier_compact.cu
 # K14_MAX_BLOCKS)
@@ -201,9 +204,49 @@ def residual_hits(fmask_pad: torch.Tensor, exp: Expansion, e_cap: int) -> torch.
     slot ranges: the starts are clamped to e_cap, and one more segment
     closes the slots past the last row (pad slots, whose neighbour 0 may
     be marked) and is dropped. A row's range holds only valid slots, so
-    the two agree on every row, a cut one included."""
+    the two agree on every row, a cut one included. K17 took its place on
+    the paths (``residual_claim``)."""
     indptr = residual_indptr(exp, e_cap)
     return csr_pull_reduce("max_i32", fmask_pad, exp.neigh, indptr)[:-1] > 0
+
+
+def residual_claim_plain(levels: torch.Tensor, level: int, exp: Expansion, e_cap: int,
+                         rids: torch.Tensor, pad: int) -> torch.Tensor:
+    """K17's plain PyTorch version, the composite it replaced: the frontier
+    mask padded by one, K7's plain ``max_i32`` over the rows' clamped slot
+    ranges (``residual_indptr``), ``> 0`` and a where."""
+    fmask_pad = torch.cat([(levels == level).to(torch.int32), levels.new_zeros(1)])
+    hits = csr_pull_reduce_plain("max_i32", fmask_pad, exp.neigh, residual_indptr(exp, e_cap))
+    return torch.where(hits[:-1] > 0, rids, pad)
+
+
+def residual_claim(levels: torch.Tensor, level: int, exp: Expansion, e_cap: int,
+                   rids: torch.Tensor, pad: int) -> torch.Tensor:
+    """K17 wrapper, BFS's bottom-up residual test: int32 [K], ``rids[i]``
+    where row i of ``exp`` (the expansion of the K residual rows ``rids``
+    in ``e_cap`` slots) has a slot in [min(seg_starts[i], e_cap),
+    min(seg_starts[i + 1], e_cap)) whose neighbour v has ``levels[v] ==
+    level``, else ``pad`` (n on one device; the rank's row count in the
+    distributed BFS, whose ``levels`` are the replicated global ones). The
+    JAX package's ``claimed_ids``. One launch, no host read."""
+    ts = (levels, exp.neigh, exp.seg_starts, rids)
+    if any(t.dtype != torch.int32 or t.dim() != 1 for t in ts):
+        raise TypeError("residual_claim: levels, neigh, seg_starts and rids must be 1-D int32")
+    if any(t.device != levels.device for t in ts) or not all(t.is_contiguous() for t in ts):
+        raise ValueError("residual_claim: inputs must be contiguous, on one device")
+    k = rids.shape[0]
+    if exp.seg_starts.shape[0] != k + 1 or not 0 <= e_cap <= exp.neigh.shape[0]:
+        raise ValueError(f"residual_claim: {exp.seg_starts.shape[0]} row starts for {k} rows, "
+                         f"or e_cap {e_cap} past {exp.neigh.shape[0]} slots")
+    if not kernels.use_kernel(levels):
+        return residual_claim_plain(levels, level, exp, e_cap, rids, pad)
+    out = torch.empty(k, dtype=torch.int32, device=levels.device)
+    if k:
+        kernels.launch("bfs_residual_claim", levels.device, levels.data_ptr(), levels.shape[0],
+                       int(level), exp.neigh.data_ptr(), exp.seg_starts.data_ptr(),
+                       rids.data_ptr(), k, e_cap, int(pad), out.data_ptr(),
+                       8 * kernels.sm_count(levels.device))
+    return out
 
 
 def residual_indptr(exp: Expansion, e_cap: int) -> torch.Tensor:

@@ -20,8 +20,10 @@ C entry ``csr_pull_slices``) and ``ops/frontier.py:relax_min``
 (K11, kernel ``masked_spgemm``), ``ops/minmode.py:stream_minmode`` (K12, kernel
 ``segment_minmode``), ``ops/frontier.py:bfs_trunc_probe`` (K13),
 ``ops/frontier.py:compact`` and ``compact_stream`` (K14, kernel
-``frontier_compact``) and ``algorithms/lcc.py:_lcc_bucket_sweep`` (K15,
-kernel ``lcc_sweep_member``). A wrapper dispatches on
+``frontier_compact``), ``algorithms/lcc.py:_lcc_bucket_sweep`` (K15,
+kernel ``lcc_sweep_member``), ``ops/triangles.py:lcc_head_credits`` (K16) and
+``ops/frontier.py:residual_claim`` (K17, kernel ``bfs_residual_claim``). A
+wrapper dispatches on
 the device of its tensors: a CPU tensor takes the plain version, a CUDA
 tensor launches the kernel or raises. K2, K3 and K6 also take every bucket
 of a slab plan in one launch (``slab_minmode_buckets``,
@@ -30,13 +32,15 @@ algorithms call. Inside ``plain_torch()`` CUDA
 tensors take the plain version too, so the whole path can run as its own
 reference on the card. A wrapper adds one to ``launch_counts[name]`` for
 each launch (K7 in mode sum to ``launch_counts["csr_pull_reduce_sum"]``, in
-mode sum_i64 to ``"csr_pull_reduce_sum_i64"``, K8's int32 mode,
+mode sum_i64, which no path runs since K16 took LCC's head sums, to
+``"csr_pull_reduce_sum_i64"``, K8's int32 mode,
 ``ops/frontier.py:relax_min_i32``, to ``"push_relax_min_i32"``); K9, K11
 and K12 may launch more than once a call (K9: a histogram, a scatter, the
 probe and the unbin; K11: one launch per task list of its plan; K12: a warp
 per segment, then a persistent grid for the longer ones), and count each. A
 call of K14 is one count: its C entry runs a count and a write kernel (and
-in compact_stream, before them, a memset and the bitmap's marking).
+in compact_stream, before them, a memset and the bitmap's marking); so is
+a call of K16, whose C entry zeroes its output by a memset first.
 """
 
 from __future__ import annotations
@@ -64,7 +68,7 @@ KERNELS = (
     "gather_rows", "slab_minmode", "slab_spmv_sum", "vreg_shuffle", "frontier_expand",
     "slab_spmv_min", "csr_pull_reduce", "push_relax_min", "edgehash_probe", "wedge_rowblock",
     "masked_spgemm", "segment_minmode", "bfs_trunc_probe", "frontier_compact",
-    "lcc_sweep_member",
+    "lcc_sweep_member", "lcc_head_credits", "bfs_residual_claim",
 )
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -126,6 +130,10 @@ _SIGNATURES = {
     # indptr, col, c, o, items, n_items, weight, unit (threads an item), ilp
     # (searches a lane runs in step), numerator, stream
     "gt_lcc_sweep_member": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P, _P),
+    # buckets (ops/triangles.py HeadCreditBucket array), count, n, num, stream
+    "gt_lcc_head_credits": (_P, _I32, _I64, _P, _P),
+    # levels, n_levels, level, neigh, seg_starts, rids, k, e_cap, pad, out, grid, stream
+    "gt_bfs_residual_claim": (_P, _I64, _I32, _P, _P, _P, _I32, _I32, _I32, _P, _I32, _P),
     # stream: a kernel that returns at once (csrc/empty_kernel.cu)
     "gt_empty_kernel": (_P,),
 }
@@ -134,12 +142,15 @@ _SIGNATURES = {
 _QUERIES = {
     # h, m, long_len -> the ints of K12's scratch
     "gt_segment_minmode_scratch_ints": (_I32, _I64, _I32),
+    # -> the heads K16 sums in a block's shared memory (its build's K16_HUBS)
+    "gt_lcc_head_credits_hubs": (),
 }
 
 # a launch counter per kernel, and one for each of K7's sum modes (sum:
 # PageRank's scan arm and slab PageRank's heavy rows; sum_i64: LCC's credit
-# sums) and K8's int32 mode (the distributed WCC's active step), so that a
-# run shows which callers it went through
+# sums in head order, the design K16 replaced, which no path launches now)
+# and K8's int32 mode (the distributed WCC's active step), so that a run
+# shows which callers it went through
 COUNTERS = KERNELS + ("csr_pull_reduce_sum", "csr_pull_reduce_sum_i64", "push_relax_min_i32")
 launch_counts = dict.fromkeys(COUNTERS, 0)
 build_seconds = None  # seconds the last nvcc build took; None = not built here

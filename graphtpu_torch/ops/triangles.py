@@ -25,8 +25,13 @@ directed A-edges between distinct neighbours): each corner of a found
 triangle {u, x, y} is credited with the stored-direction multiplicity (1 or
 2) of its OPPOSITE edge: u gets mult(x, y) (the hash payload), x gets
 mult(u, y) (the j-leg), y gets mult(u, x) (the i-leg). The x and y credits
-are sums per (slot, row), that is per oriented edge; they reach the vertices
-by one gather in head order and one segment sum.
+are sums per (slot, row), that is per oriented edge; the head of slab entry
+(slot, row) is the entry itself, so ``lcc_head_credits`` (kernel K16,
+csrc/lcc_head_credits.cu) adds them to the vertices in slab order, with the
+centres' credits, in one launch. The plan keeps the JAX package's head order
+(``edge_pos``, ``head_indptr``): ``_aggregate_heads``, its gather and
+segment sum on K7 ``sum_i64``, is the formulation the tests hold K16's plain
+version against.
 
 Vertex ids are RELABELED by rank on the host, so that id order is rank
 order: every adjacency list is then sorted by id and by rank at once, and
@@ -36,7 +41,7 @@ orientation is "smaller id to larger id".
 from __future__ import annotations
 
 from pathlib import Path
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -482,21 +487,99 @@ def _aggregate_heads(edge_cred_flat, edge_pos, head_indptr):
     """The real slab entries' credits in head order summed per head, in
     int64: one K7 ``sum_i64`` over the heads' segments of ``edge_pos``,
     gathering the int32 credits (the JAX package's gather and prefix sum
-    differenced at the head starts)."""
+    differenced at the head starts). No path calls it since K16 took the
+    head sums: the tests and the measuring scripts hold K16 against it."""
     return csr_pull_reduce("sum_i64", edge_cred_flat, edge_pos, head_indptr)
+
+
+# buckets a K16 launch takes (K16_MAX_BUCKETS of csrc/lcc_head_credits.cu),
+# as many as a plan has (_WEDGE_BUCKET_K)
+K16_MAX_BUCKETS = 16
+
+
+def lcc_head_credits_plain(n: int, slabs, edge_creds, apex=None) -> torch.Tensor:
+    """K16's plain PyTorch version: one int64 index_add_ of the flat credit
+    slabs at their entries (pads sent to a spare slot n), then the apex
+    credits' index_add_ at their rows."""
+    dev = slabs[0].device if slabs else (apex[1].device if apex else "cpu")
+    num = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    if slabs:
+        heads = torch.cat([s.reshape(-1) for s in slabs])
+        num.index_add_(0, torch.where(heads >= 0, heads, n).long(),
+                       torch.cat([c.reshape(-1) for c in edge_creds]).long())
+    if apex is not None and len(apex[0]):
+        u_creds, rows = apex
+        num.index_add_(0, rows, torch.cat(list(u_creds)).long())
+    return num[:n]
+
+
+def lcc_head_credits(n: int, slabs: Sequence[torch.Tensor], edge_creds: Sequence[torch.Tensor],
+                     apex=None) -> torch.Tensor:
+    """K16 wrapper: the int64 [n] sums per head of LCC's credits. For every
+    bucket, ``slabs[k]`` [W, R] int32 holds each entry's head (ranked ids in
+    [0, n), -1 pad) and ``edge_creds[k]`` (the same shape) its credit;
+    ``num[slab[e]] += edge_cred[e]`` for every entry that is not pad. With
+    ``apex`` = (u_creds, rows): ``u_creds[k]`` the int32 credits of bucket
+    k's real rows and ``rows`` int64 [sum of their lengths] those rows'
+    ids, distinct or not, each credit is added at its row too. At most
+    K16_MAX_BUCKETS buckets on the card, in one launch."""
+    if len(slabs) != len(edge_creds) or (apex is not None and len(apex[0]) != len(slabs)):
+        raise ValueError("lcc_head_credits: one credit slab (and apex credits) per bucket")
+    ts = [*slabs, *edge_creds, *(apex[0] if apex is not None else ())]
+    if any(t.dtype != torch.int32 for t in ts) or (apex is not None
+                                                  and apex[1].dtype != torch.int64):
+        raise TypeError("lcc_head_credits: int32 slabs and credits, int64 apex rows")
+    if any(s.shape != c.shape for s, c in zip(slabs, edge_creds)):
+        raise ValueError("lcc_head_credits: each credit slab must have its slab's shape")
+    if apex is not None:
+        ts.append(apex[1])
+        if apex[1].dim() != 1 or any(u.dim() != 1 for u in apex[0]) or \
+                apex[1].shape[0] != sum(u.shape[0] for u in apex[0]):
+            raise ValueError("lcc_head_credits: 1-D apex credits, one row id for each")
+    if not ts:
+        return torch.zeros(n, dtype=torch.int64)
+    dev = ts[0].device
+    if any(t.device != dev or not t.is_contiguous() for t in ts) or n < 0:
+        raise ValueError("lcc_head_credits: contiguous inputs on one device, n >= 0")
+    if not kernels.use_kernel(ts[0]):
+        return lcc_head_credits_plain(n, slabs, edge_creds, apex)
+    if len(slabs) > K16_MAX_BUCKETS:
+        raise ValueError(f"lcc_head_credits: {len(slabs)} buckets, at most {K16_MAX_BUCKETS}")
+    num = torch.empty(n, dtype=torch.int64, device=dev)
+    table = head_credit_table(slabs, edge_creds, apex)
+    kernels.launch("lcc_head_credits", dev, table.ctypes.data, table.shape[0], n,
+                   num.data_ptr())
+    return num
+
+
+def head_credit_table(slabs, edge_creds, apex=None):
+    """K16's launch table (``lcc_head_credits``' arguments, checked there):
+    an int64 [buckets, 6] array of K16Bucket rows (csrc/lcc_head_credits.cu:
+    slab, credits, entries, apex credits, apex rows, apex count; pointers
+    into the tensors, which the caller keeps alive)."""
+    rows, off = [], 0
+    for k, (s, c) in enumerate(zip(slabs, edge_creds)):
+        u_ptr = rows_ptr = r = 0
+        if apex is not None:
+            u, r = apex[0][k], apex[0][k].shape[0]
+            u_ptr, rows_ptr = (u.data_ptr(), apex[1].data_ptr() + 8 * off) if r else (0, 0)
+            off += r
+        rows.append((s.data_ptr(), c.data_ptr(), s.numel(), u_ptr, rows_ptr, r))
+    return np.array(rows, dtype=np.uint64).reshape(-1, 6).view(np.int64)
 
 
 def numerator_from_credits(plan: WedgePlan, credits) -> np.ndarray:
     """Numerator per ORIGINAL vertex id from each bucket's (u_cred,
-    edge_cred): the centres' credits by row, the legs' credits gathered in
-    head order and summed per head, the spilled keys patched on the host."""
+    edge_cred): the legs' credits summed at their heads and the centres'
+    credits at their rows (K16, one launch), the spilled keys patched on
+    the host."""
     numerator_ranked = np.zeros(plan.n, dtype=np.int64)
     if plan.buckets:
-        flat = torch.cat([edge_cred.reshape(-1) for _, edge_cred in credits])
-        num = _aggregate_heads(flat, plan.edge_pos, plan.head_indptr)
         # a bucket's rows are distinct, and no row is in two buckets
-        num[plan.bucket_rows] += torch.cat(
-            [u_cred[:b.r_real] for b, (u_cred, _) in zip(plan.buckets, credits)]).long()
+        apex = ([u_cred[:b.r_real] for b, (u_cred, _) in zip(plan.buckets, credits)],
+                plan.bucket_rows)
+        num = lcc_head_credits(plan.n, [b.slab for b in plan.buckets],
+                               [edge_cred for _, edge_cred in credits], apex)
         numerator_ranked = num.cpu().numpy()
     _patch_spilled(plan, numerator_ranked)
     # ranked ids back to original ids

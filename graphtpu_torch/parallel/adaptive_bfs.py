@@ -11,8 +11,8 @@ working on its own rows.
 * truncated bottom-up, for heavy levels: each rank probes the first
   ``t_trunc`` in-neighbours of its unvisited rows against the replicated
   levels (kernel K13, ``bfs_trunc_probe``), checks the rows the probe
-  missed through its local pull CSR (K5, then K7 ``max_i32`` over the
-  rows' slots), and one all-gather replicates
+  missed through its local pull CSR (K5, then K17 ``bfs_residual_claim``
+  over the rows' slots), and one all-gather replicates
   the new levels; an all-reduced count of the ranks whose residual fits
   aborts the level everywhere when one does not;
 * dense pull, the fallback: K7 ``max_i32`` over the rank's pull block,
@@ -38,7 +38,7 @@ import torch
 from graphtpu_torch.algorithms.bfs import BFS_TRUNC
 from graphtpu_torch.core.types import INT32_INF
 from graphtpu_torch.ops.frontier import (
-    bfs_trunc_probe, compact, expand, frontier_deg_sum, mask_status, residual_hits,
+    bfs_trunc_probe, compact, expand, frontier_deg_sum, mask_status, residual_claim,
 )
 from graphtpu_torch.ops.gather import table_gather
 from graphtpu_torch.parallel.algorithms import _spmv_block
@@ -142,10 +142,9 @@ def _bfs_body(mesh: Mesh, key, coo_key, source: int, n: int, r: int, t_trunc: in
         # the level applies only where every rank's residual fits
         ok = all_reduce_sum(ok_l.to(torch.int32).reshape(1))[0] == mesh.size
         exp = expand(rids, qdeg, qi, qsrc, e_bu, with_row_ids=False)
-        fmask_pad = torch.cat([(levels == level).to(torch.int32), levels.new_zeros(1)])
-        # segment-any per residual row (K7; a residual past e_bu is
+        # segment-any per residual row (K17; a residual past e_bu is
         # discarded by ok anyway)
-        claimed = torch.where(residual_hits(fmask_pad, exp, e_bu), rids, r)
+        claimed = residual_claim(levels, level, exp, e_bu, rids, r)
         updated = torch.where(claim_trunc, level + 1, lv_local)
         updated = torch.cat([updated, updated.new_zeros(1)]).index_fill_(
             0, claimed.long(), level + 1)[:r]

@@ -11,12 +11,10 @@ its columns a rank runs kernel K10 (``wedge_rowblock``), which searches the
 replicated closing CSR; a CPU rank runs K10's plain version, which probes
 the replicated edge hash instead, so only a CPU rank holds the hash. The
 apex (u) credits of a bucket come back by one all-gather; the edge (x, y)
-credits are summed per head over the rank's own slab entries (a stable
-sort of the entries by head, padding as head n, the junk segment, done
-once at install; then one K7 ``sum_i64`` over the heads' segments, which
-gathers the credits in head order and sums them exactly in int64)
-and one all-reduce sums the ranks' numerators. The spilled keys are
-patched on the host, as on one device.
+credits are summed at their heads over the rank's own slab entries (kernel
+K16, ``lcc_head_credits``, in slab order and exactly in int64, its apex
+part off) and one all-reduce sums the ranks' numerators. The spilled keys
+are patched on the host, as on one device.
 
 Not ported: the square/pairs bucket (``_dist_wedge_bucket``), the
 ``GRAPHTPU_LCC_PROBE`` knob and the dispatch slicing of a bucket's columns
@@ -31,9 +29,8 @@ import numpy as np
 import torch
 
 from graphtpu_torch.ops.edgehash import EdgeHash
-from graphtpu_torch.ops.spmv import csr_pull_reduce
 from graphtpu_torch.ops.triangles import (
-    ClosingCSR, _patch_spilled, coefficients, wedge_plan, wedge_rowblock,
+    ClosingCSR, _patch_spilled, coefficients, lcc_head_credits, wedge_plan, wedge_rowblock,
 )
 from graphtpu_torch.parallel.mesh import Mesh, all_gather_rows, all_reduce_sum
 from graphtpu_torch.parallel.partition import _round_up
@@ -43,27 +40,22 @@ class RankWedges(NamedTuple):
     """One rank's columns of every bucket, and what closes and sums them."""
 
     buckets: tuple                # (slab [W, r_dev], mslab [W, r_dev], r_real, chunk_cols)
-    pos: torch.Tensor             # [sum W * r_dev] int32: flat entry positions in head order
-    hip: torch.Tensor             # [n + 2] int32: segment bounds by head (n: the padding)
     bucket_rows: torch.Tensor     # [sum R] int64 ranked centre ids, replicated
     closing: ClosingCSR           # replicated
     ehash: Optional[EdgeHash]     # replicated, on a CPU rank only
 
 
-def _install_wedges(mesh: Mesh, key, buckets, bucket_rows, closing, ehash_table, n: int) -> None:
+def _install_wedges(mesh: Mesh, key, buckets, bucket_rows, closing, ehash_table) -> None:
     """Per rank: keep its bucket columns and the replicated closing arrays
     (host arrays, or the plan's own tensors on the rank that built it) on
-    its device, with the head order of its slab entries."""
+    its device."""
     def dev(a):
         return torch.as_tensor(a).to(mesh.device).contiguous()
 
     bs = tuple((dev(s), dev(m), r_real, cc) for s, m, r_real, cc in buckets)
-    heads = torch.cat([torch.where(s >= 0, s, n).reshape(-1) for s, _, _, _ in bs])
-    heads_s, order = torch.sort(heads, stable=True)
-    hip = torch.searchsorted(heads_s, torch.arange(n + 2, dtype=heads_s.dtype, device=mesh.device))
     ehash = None if ehash_table is None else EdgeHash(dev(ehash_table), int(ehash_table.shape[0]))
-    mesh.state[key] = RankWedges(bs, order.to(torch.int32), hip.to(torch.int32), dev(bucket_rows),
-                                 ClosingCSR(*(dev(a) for a in closing)), ehash)
+    mesh.state[key] = RankWedges(bs, dev(bucket_rows), ClosingCSR(*(dev(a) for a in closing)),
+                                 ehash)
 
 
 def _rank_columns(a: torch.Tensor, d: int, r_dev: int, fill: int) -> torch.Tensor:
@@ -95,7 +87,7 @@ def _per_rank(plan, num_devices: int, here: int, cpu_ranks: bool) -> list:
                             b.chunk_cols))
         out.append((tuple(buckets), host(plan.bucket_rows, d),
                     tuple(host(t, d) for t in plan.closing),
-                    host(plan.ehash.table, d) if cpu_ranks else None, plan.n))
+                    host(plan.ehash.table, d) if cpu_ranks else None))
     return out
 
 
@@ -107,10 +99,8 @@ def _lcc_body(mesh: Mesh, key, n: int, id_bits: int) -> np.ndarray:
         u_cred, edge_cred = wedge_rowblock(slab, mslab, st.ehash, id_bits, chunk_cols,
                                            st.closing)
         apex.append(all_gather_rows(u_cred)[:r_real])
-        edge_creds.append(edge_cred.reshape(-1))
-    # segment n, the padding's, is dropped
-    num = csr_pull_reduce("sum_i64", torch.cat(edge_creds), st.pos, st.hip)[:n]
-    num = all_reduce_sum(num)
+        edge_creds.append(edge_cred)
+    num = all_reduce_sum(lcc_head_credits(n, [s for s, _, _, _ in st.buckets], edge_creds))
     # a bucket's rows are distinct, and no row is in two buckets
     num[st.bucket_rows] += torch.cat(apex).long()
     return num.cpu().numpy()

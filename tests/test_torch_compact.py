@@ -154,21 +154,21 @@ def test_bfs_bottom_up_residuals_match_jax():
     """One-device BFS from several sources with a probe of one in-neighbour
     and room for the residual rows, so that bottom-up steps claim rows
     through their full in-lists (held in the run by recording the residual
-    tests): levels, iterations and per-phase steps equal the JAX
+    tests, K17's plain version here): levels, iterations and per-phase steps equal the JAX
     package's."""
     jg = j_rmat_graph(9, 8, directed=True, seed=3)
     tg = _twin(jg)
     caps = dict(bfs_push_tiers="16,64", bfs_frontier_rows=8, bfs_trunc=1, bfs_bu_rows=256,
                 bfs_bu_edges=4096)
     hits = []
-    real = tbfs.residual_hits
+    real = tbfs.residual_claim
 
     def record(*args):
         out = real(*args)
-        hits.append(int(out.sum()))
+        hits.append(int((out != args[-1]).sum()))  # rows claimed, not pad
         return out
 
-    tbfs.residual_hits = record
+    tbfs.residual_claim = record
     try:
         for src in (0, 1, 5):
             jl, jn, js = jbfs.bfs_adaptive_run(jg, src, JConfig(**caps), with_stats=True)
@@ -177,7 +177,7 @@ def test_bfs_bottom_up_residuals_match_jax():
             np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
             assert (tn, ts) == (jn, js)
     finally:
-        tbfs.residual_hits = real
+        tbfs.residual_claim = real
     assert hits and max(hits) > 0, hits
 
 

@@ -19,7 +19,8 @@ from graphtpu_torch.ops.edgehash import (
 from graphtpu_torch.ops.frontier import (
     bfs_trunc_probe, bfs_trunc_probe_plain, compact, compact_plain, compact_stream,
     compact_stream_plain, expand, frontier_expand, frontier_expand_plain, relax_min,
-    relax_min_i32, relax_min_i32_plain, relax_min_plain, residual_hits,
+    relax_min_i32, relax_min_i32_plain, relax_min_plain, residual_claim, residual_claim_plain,
+    residual_hits,
 )
 from graphtpu_torch.ops.gather import gather_rows, gather_rows_plain
 from graphtpu_torch.core.types import INT32_INF
@@ -29,13 +30,17 @@ from graphtpu_torch.ops.minmode import (
 )
 from graphtpu_torch.ops.pallas_gather import vreg_shuffle, vreg_shuffle_plain
 from graphtpu_torch.ops.slab import build_slab_plan, result_buffer
-from graphtpu_torch.ops.triangles import ClosingCSR, wedge_rowblock
+from graphtpu_torch.ops.triangles import (
+    ClosingCSR, lcc_head_credits, lcc_head_credits_plain, wedge_rowblock,
+)
 from graphtpu_torch.ops.spmv import (
     CSR_ITEMS, CSR_MODES, SLICE_WIDTH, _csr_pull_reduce_launch, _pull_slices_launch,
     build_pull_slices, csr_pull_reduce, csr_pull_reduce_plain, csr_scratch_layout,
     merge_path_starts, slab_spmv_min, slab_spmv_min_buckets,
     slab_spmv_min_plain, slab_spmv_sum, slab_spmv_sum_buckets, slab_spmv_sum_plain,
 )
+
+from torch_dist_gather import residual_claims
 
 pytestmark = pytest.mark.gpu
 
@@ -1336,7 +1341,7 @@ def test_default_distributed_loops_on_one_nccl_rank(cuda, algo, tmp_path):
               "bfs": ("frontier_expand", "gather_rows", "frontier_compact"),
               "sssp": ("frontier_expand", "push_relax_min", "frontier_compact"),
               "wcc": ("slab_spmv_min",),
-              "lcc": ("wedge_rowblock", "csr_pull_reduce_sum_i64")}[algo]
+              "lcc": ("wedge_rowblock", "lcc_head_credits")}[algo]
     g = rmat_graph(12, 16, directed=True, weighted=algo == "sssp", seed=5)
     params = AlgorithmParams(source_vertex=0, damping_factor=0.85, num_iterations=10,
                              max_iterations=10)
@@ -1940,6 +1945,150 @@ def test_residual_hits_match_the_cumsum_on_the_card(cuda, case):
     assert case == "no_residual" or bool(got.any())
     if case == "cut":
         assert int(exp.edge_count) > e_cap
+
+
+# ------------------------------------------------- K16 head credits, K17 residual
+
+
+@pytest.mark.parametrize("case", ["hubs_near_2_31", "outside_window", "few_heads", "unaligned",
+                                  "edge_part_only", "all_pad"])
+def test_lcc_head_credits_matches_plain(cuda, case):
+    """K16 against its plain version: 16 buckets of LCC-like slabs (left
+    packed, -1 pad, heads drawn with RMAT-like skew to the top ids, where the
+    kernel's shared-memory window lies, or away from it), credits near 2^31
+    so that hub sums pass 2^32, apex credits on the real rows (off in one
+    case), slabs 4 bytes off a 16-byte boundary; two runs give the same
+    bits, one launch counted a call, none read back to the host."""
+    rng = np.random.default_rng(len(case) + 160)
+    n = 1 << 18
+    hubs = kernels.query("lcc_head_credits_hubs")
+    assert 0 < hubs < n // 4
+    slabs, creds, us, rows, off = [], [], [], [], 0
+    order = rng.permutation(n)
+    for w, r in [(3, 40000)] + [(4 + 6 * j, 3000 + 997 * j) for j in range(15)]:
+        deg = rng.integers(0, w + 1, size=r)
+        if case == "few_heads":
+            heads = rng.integers(n - 40, n, size=(w, r))
+        elif case == "outside_window":
+            heads = rng.integers(0, n - hubs, size=(w, r))
+        else:  # most entries on the top ids, the rest anywhere
+            top = n - 1 - (rng.pareto(1.2, size=(w, r)) * 50).astype(np.int64)
+            heads = np.where(rng.random((w, r)) < 0.7, np.maximum(top, 0),
+                             rng.integers(0, n, size=(w, r)))
+        slab = np.where(np.arange(w)[:, None] < deg[None, :], heads, -1)
+        if case == "all_pad":
+            slab[:] = -1
+        hi = (1 << 31) - 1 if case == "hubs_near_2_31" else 8
+        cred = np.where(slab >= 0, rng.integers(0, hi, size=(w, r)), 0)
+        if case == "unaligned":
+            buf = torch.zeros(2 * w * r + 1, dtype=torch.int32, device=cuda)
+            s_t = buf[1:w * r + 1].view(w, r)
+            c_t = buf[w * r + 1:].view(w, r)
+            s_t.copy_(torch.from_numpy(slab.astype(np.int32)))
+            c_t.copy_(torch.from_numpy(cred.astype(np.int32)))
+        else:
+            s_t = torch.from_numpy(slab.astype(np.int32)).to(cuda)
+            c_t = torch.from_numpy(cred.astype(np.int32)).to(cuda)
+        slabs.append(s_t)
+        creds.append(c_t)
+        r_real = int(r * 0.9)
+        us.append(torch.from_numpy(rng.integers(0, hi, size=r_real).astype(np.int32)).to(cuda))
+        rows.append(order[off:off + r_real])
+        off += r_real
+    apex = None if case == "edge_part_only" else (
+        us, torch.from_numpy(np.concatenate(rows).astype(np.int64)).to(cuda))
+    before = kernels.launch_counts["lcc_head_credits"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = lcc_head_credits(n, slabs, creds, apex)
+        again = lcc_head_credits(n, slabs, creds, apex)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert kernels.launch_counts["lcc_head_credits"] == before + 2
+    want = lcc_head_credits_plain(n, slabs, creds, apex)
+    assert got.dtype == torch.int64 and torch.equal(got, again) and torch.equal(got, want)
+    if case == "hubs_near_2_31":
+        assert int(got.max()) > 1 << 32
+    if case == "all_pad" and apex is not None:
+        assert int(got.count_nonzero()) <= off
+
+
+@pytest.mark.parametrize("case", ["fits", "cut", "no_residual"])
+def test_residual_claim_matches_plain_on_the_card(cuda, case):
+    """K17 against its plain version (the frontier mask, K7's plain max_i32
+    over the clamped row starts, a where) on a random expansion whose edges
+    fit the slots, are cut by them, or are none; the pad slots' neighbour 0
+    is at the level; one launch a call, two calls the same bits, no host
+    read."""
+    rng = np.random.default_rng(len(case) + 170)
+    n, k, e_cap = 30000, 4096, 1 << 16
+    deg = rng.integers(0, 40, size=n).astype(np.int32)
+    deg_pad = np.concatenate([deg, [0]]).astype(np.int32)
+    ip = np.concatenate([[0], np.cumsum(deg_pad)]).astype(np.int32)
+    neigh = rng.integers(0, n, size=int(ip[-2])).astype(np.int32)
+    cnt = {"fits": 1000, "cut": 4000, "no_residual": 0}[case]
+    ids = np.full(k, n, dtype=np.int32)
+    ids[:cnt] = np.sort(rng.choice(n, size=cnt, replace=False))
+    levels = rng.choice([0, 1, 2, INT32_INF], size=n, p=[0.02, 0.03, 0.1, 0.85])
+    levels = levels.astype(np.int32)
+    levels[0] = 1
+    t = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
+    exp = expand(t(ids), t(deg_pad), t(ip), t(neigh), e_cap, with_row_ids=False)
+    lv, rids = t(levels), t(ids)
+    before = kernels.launch_counts["bfs_residual_claim"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = residual_claim(lv, 1, exp, e_cap, rids, n)
+        again = residual_claim(lv, 1, exp, e_cap, rids, n)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert kernels.launch_counts["bfs_residual_claim"] == before + 2
+    want = residual_claim_plain(lv, 1, exp, e_cap, rids, n)
+    fmask = torch.cat([(lv == 1).to(torch.int32), lv.new_zeros(1)])
+    assert torch.equal(want, torch.where(residual_hits(fmask, exp, e_cap), rids, n))
+    assert got.dtype == torch.int32 and got.shape == (k,)
+    assert torch.equal(got, again) and torch.equal(got, want)
+    assert (case == "no_residual") == (not bool((got != n).any()))
+    if case == "cut":
+        assert int(exp.edge_count) > e_cap
+
+
+def test_residual_claim_on_one_nccl_rank(cuda):
+    """K17 in the distributed BFS's per-rank form over a one-rank NCCL group
+    (the replicated levels, the rank's pull CSR as adaptive_bfs installs
+    it, the pad r) against its plain version on the same inputs."""
+    from graphtpu_torch.algorithms.bfs import BFS_TRUNC
+    from graphtpu_torch.parallel.adaptive_bfs import bfs_adaptive_dist
+    from graphtpu_torch.parallel.mesh import close_mesh, make_mesh
+    from graphtpu_torch.parallel.partition import ShardedGraph
+    from graphtpu_torch.utils.synth import rmat_graph
+
+    g = rmat_graph(12, 16, directed=True, seed=5)
+    close_mesh()
+    mesh = make_mesh(1, "cuda")
+    assert (mesh.size, mesh.backend) == (1, "nccl")
+    try:
+        sg = ShardedGraph(g, mesh)
+        bfs_adaptive_dist(sg, 0)
+        key = (sg.key, f"bfs-adaptive-{BFS_TRUNC}")
+        r = sg.rows_per_dev
+        rng = np.random.default_rng(17)
+        levels = rng.choice([0, 1, INT32_INF], size=r, p=[0.1, 0.1, 0.8]).astype(np.int32)
+        rids = np.full(1 << 12, r, dtype=np.int32)
+        rids[:2000] = np.sort(rng.choice(r, size=2000, replace=False))
+        for e_cap in (1 << 16, 1 << 10):
+            before = kernels.launch_counts["bfs_residual_claim"]
+            got = mesh.call(residual_claims, [(key, levels, 1, rids, e_cap)])
+            assert kernels.launch_counts["bfs_residual_claim"] == before + 1
+            with kernels.plain_torch():
+                want = mesh.call(residual_claims, [(key, levels, 1, rids, e_cap)])
+            np.testing.assert_array_equal(got, want)
+            assert (got != r).any()
+        sg.release()
+    finally:
+        close_mesh()
 
 
 # ---------------------------------------------------------------- K8 int32

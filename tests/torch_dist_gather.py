@@ -9,11 +9,13 @@ puts tests/ on the workers' PYTHONPATH while the test module runs. This
 module imports nothing of JAX, so a worker stays as light as the port.
 
 A test module takes both with ``from torch_dist_gather import gather,
-tests_on_worker_path  # noqa: F401``."""
+tests_on_worker_path  # noqa: F401``. ``residual_claims`` runs BFS's
+residual test on every rank's installed pull CSR, for the tests of K17."""
 
 import os
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -66,3 +68,19 @@ def gather_at(sg, key, *path) -> tuple:
     """What the ranks of ``sg``'s mesh hold at ``path`` under ``key``, as
     [D, ...] host arrays."""
     return sg.mesh.call(gather_tensors, [(key, path)] * sg.num_devices)
+
+
+def residual_claims(mesh: Mesh, key, levels, level: int, rids, e_cap: int) -> np.ndarray:
+    """Per rank: the distributed BFS's residual test (``residual_claim``, its
+    plain version on a CPU rank) of the rank's residual rows ``rids`` (local
+    ids, padded with the rank's row count r) over the pull CSR the rank holds
+    under ``key`` (adaptive_bfs's install), against the replicated
+    ``levels``, the pad r; all-gathered to a [D, k] host array."""
+    from graphtpu_torch.ops.frontier import expand, residual_claim
+
+    (_, (qi, qdeg, qsrc), _), _ = mesh.state[key]
+    lv = torch.as_tensor(levels).to(mesh.device)
+    ids = torch.as_tensor(rids).to(mesh.device)
+    exp = expand(ids, qdeg, qi, qsrc, e_cap, with_row_ids=False)
+    got = residual_claim(lv, level, exp, e_cap, ids, qdeg.shape[0] - 1)
+    return all_gather_rows(got).reshape(mesh.size, -1).cpu().numpy()
