@@ -63,7 +63,34 @@ Run from the root of a checkout:  python3 chip_smoke.py
    masked_spgemm (the GraphBLAS surface): each has its own phase, and its
    count is that phase's. Every profiler trace's count of each hand
    kernel is held against the wrappers' launch counts, and a trace that
-   lost records is taken again.
+   lost records is taken again. CDLP auto's loop is one CUDA graph, whose
+   build counts nothing and whose runs launch nothing from Python: its
+   kernels' executions are the records of its trace (4b), each kernel of
+   the path at least once, and its counts in the JSON line are those
+   records times the path's runs.
+   K18 (frontier_starts) runs in every expand: on CDLP, BFS, WCC and SSSP
+   auto, WCC adaptive, SSSP delta and the adaptive loops over ranks.
+4b. CDLP auto's loop as one CUDA graph on the bench graph (10
+   iterations): built cold (capture seconds), then a warm run up to its end
+   under sync debug mode "error" with the library's graph calls counted:
+   no host read before its one read of the control words, one graph
+   launch, no kernel launched from Python; labels, iterations and
+   steps equal to the host loop's under plain_torch() and labels to
+   cdlp-slab's. Its trace is taken last of all phases, in a child process,
+   by graphtpu_torch/tools/cdlp_loop_times.py (a trace of the graph in
+   this process, or in a child before this process's own traces, made
+   those traces lose records): one device-to-host copy and one graph
+   launch, only hand kernels, copies, memsets and iteration 0's arange, no
+   sort, a record of every kernel of the path (taken again, up to
+   GRAPH_TRACE_TRIES children, while one falls short of the captured
+   launches times the step counts ctl reports, and never above them); its
+   records a run print, median, busy ms and idle share beside the parent's
+   (PARENT_CDLP_AUTO), then every device record of a run. Phase 3 profiles
+   every path but CDLP auto. K18, K19
+   (cdlp_tier_apply), K20 (cdlp_route and its status entry) and K14's
+   row-flag mode against their plain versions at the loop's first tier
+   step, taken from its steps called from the host (K18's yardstick:
+   torch.cumsum of the pre-gathered lengths).
 5. Each kernel against its plain PyTorch version at the path's shapes and
    on small hand-made cases, with both device times (profiler) and stream
    spans (CUDA events). Beside each time stands the kernel's bound: the
@@ -198,6 +225,7 @@ card's name and power limit, one JSON line of per-kernel results, and
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import os
 import subprocess
@@ -240,10 +268,14 @@ TRACE_KERNELS = {
     ("k11_warp_kernel", "k11_block_kernel"): ("masked_spgemm",),
     ("k12_warp_kernel", "k12_grid_kernel"): ("segment_minmode",),
     ("k13_probe_kernel",): ("bfs_trunc_probe",),
-    ("k14_write",): ("frontier_compact",),  # K14's last launch: one a call
+    ("k14_write",): ("frontier_compact", "frontier_compact_rows"),  # K14's last: one a call
     ("lcc_sweep_kernel",): ("lcc_sweep_member",),
     ("k16_head_credits_kernel",): ("lcc_head_credits",),
     ("k17_claim_kernel",): ("bfs_residual_claim",),
+    ("k18_starts_kernel",): ("frontier_starts",),
+    ("k19_apply_kernel",): ("cdlp_tier_apply",),
+    ("k20_route_kernel",): ("cdlp_route",),
+    ("k20_status_kernel",): ("cdlp_route_status",),
 }
 # the device kernels of a sort (cub's radix, segmented and merge sorts, torch's
 # own small sorts), matched without regard to case (torch's radixSortKVInPlace):
@@ -251,8 +283,20 @@ TRACE_KERNELS = {
 SORT_KERNELS = ("radixsort", "segmentedsort", "mergesort", "sortkeyvalueinplace",
                 "bitonicsort")
 NO_SORT_PATHS = ("cdlp-auto", "bfs-auto", "wcc-auto", "sssp-auto", "lcc")
+# paths whose loop is one CUDA graph: traced only in a child process
+# (phase_cdlp_loop), since in this process, once the profiler has traced such
+# a graph, later traces of other paths lost their first records (on an H100
+# with CUDA 12.9, driver 13.0 and torch 2.11: every one of five traces in a
+# row, in two runs)
+GRAPH_PATHS = ("cdlp-auto",)
 TRACE_KERNELS_OF = {name: pats for pats, names in TRACE_KERNELS.items() for name in names}
 TRACE_TRIES = 5  # traces taken before a kernel count that stays wrong fails the run
+# the CDLP graph's trace records by counter, K14's calls told apart by their
+# kernels: the mask mode writes without a bitmap (k14_write<false>), each
+# stream mode marks one first (k14_mark<false>: a valid mask, <true>: row flags)
+GRAPH_TRACE_OF = {**TRACE_KERNELS_OF, "frontier_compact": ("k14_write<false>", "k14_mark<false>"),
+                  "frontier_compact_rows": ("k14_mark<true>",)}
+GRAPH_TRACE_TRIES = 3  # child traces of the CDLP graph taken while a record falls short
 PR_RTOL = 1e-4        # the validator's EPSILON (graphtpu/harness/validator.py:40)
 F32_SUM_RTOL = 1e-5   # float32 sums in another order than torch's
 F64_SUM_RTOL = 1e-12  # float64 sums in another order
@@ -636,26 +680,31 @@ def timed_run(algo, g, params, cfg, reps=RUNS_PER_PATH - 1):
 PATHS = {
     "cdlp-auto": ("cdlp", {"cdlp_impl": "auto"},
                   ("gather_rows", "slab_minmode", "frontier_expand", "segment_minmode",
-                   "csr_pull_reduce", "frontier_compact")),
+                   "csr_pull_reduce", "frontier_compact", "frontier_starts", "cdlp_tier_apply",
+                   "cdlp_route", "cdlp_route_status", "frontier_compact_rows")),
     "cdlp-slab": ("cdlp", {"cdlp_impl": "slab"},
                   ("gather_rows", "slab_minmode", "segment_minmode", "csr_pull_reduce")),
     "pr": ("pr", {}, ("gather_rows", "slab_spmv_sum", "csr_pull_reduce_sum")),
     "pr-scan": ("pr", {"pr_impl": "scan"}, ("csr_pull_reduce_sum",)),
     "bfs-auto": ("bfs", {"bfs_impl": "auto"},
                  ("gather_rows", "frontier_expand", "bfs_trunc_probe", "frontier_compact",
-                  "bfs_residual_claim")),
+                  "bfs_residual_claim", "frontier_starts")),
     "bfs-device": ("bfs", {"bfs_impl": "device"}, ("csr_pull_reduce",)),
     "bfs-hybrid": ("bfs", {"bfs_impl": "hybrid"}, ("csr_pull_reduce",)),
     "wcc-auto": ("wcc", {"wcc_impl": "auto"},
-                 ("slab_spmv_min", "frontier_expand", "csr_pull_reduce", "frontier_compact")),
+                 ("slab_spmv_min", "frontier_expand", "csr_pull_reduce", "frontier_compact",
+                  "frontier_starts")),
     "wcc-adaptive": ("wcc", {"wcc_impl": "adaptive"},
-                     ("csr_pull_reduce", "frontier_expand", "frontier_compact")),
+                     ("csr_pull_reduce", "frontier_expand", "frontier_compact",
+                      "frontier_starts")),
     "wcc-device": ("wcc", {"wcc_impl": "device"}, ("csr_pull_reduce",)),
     "sssp-auto": ("sssp", {"sssp_impl": "auto"},
-                  ("csr_pull_reduce", "frontier_expand", "push_relax_min", "frontier_compact")),
+                  ("csr_pull_reduce", "frontier_expand", "push_relax_min", "frontier_compact",
+                   "frontier_starts")),
     "sssp-device": ("sssp", {"sssp_impl": "device"}, ("csr_pull_reduce",)),
     "sssp-delta": ("sssp", {"sssp_impl": "delta"},
-                   ("csr_pull_reduce", "frontier_expand", "push_relax_min", "frontier_compact")),
+                   ("csr_pull_reduce", "frontier_expand", "push_relax_min", "frontier_compact",
+                    "frontier_starts")),
     "sssp-hybrid": ("sssp", {"sssp_impl": "hybrid"}, ("csr_pull_reduce",)),
     "lcc": ("lcc", {"lcc_impl": "auto"}, ("wedge_rowblock", "lcc_head_credits")),
 }
@@ -815,8 +864,11 @@ def phase_real_size(device):
                   f"{sorted(secs)[len(secs) // 2]:.6f} s = "
                   + _rate(algo, res, secs, g, gw, inc_nnz), flush=True)
         if label == "kernel":
-            # what follows compares and profiles: it does not count
+            # what follows compares and profiles: it does not count. CDLP auto's
+            # loop is a CUDA graph, traced in a process of its own (phase 4b)
             for name, (algo, _, _) in PATHS.items():
+                if name in GRAPH_PATHS:
+                    continue
                 wall, dev_ms, top, ranges, names = profile_run(
                     lambda: run_algorithm(algo, graph_of[algo], params[algo], cfgs[name]))
                 if name in NO_SORT_PATHS:
@@ -1232,13 +1284,13 @@ PARALLEL_RUNS = {
                        ("slab_minmode", "segment_minmode", "csr_pull_reduce")),
     "bfs_adaptive_dist": ("bfs", {"bfs_impl": "adaptive"}, {"bfs_impl": "adaptive"},
                           ("frontier_expand", "gather_rows", "bfs_trunc_probe",
-                           "frontier_compact", "bfs_residual_claim")),
+                           "frontier_compact", "bfs_residual_claim", "frontier_starts")),
     "sssp_adaptive_dist": ("sssp", {"sssp_impl": "adaptive"}, {"sssp_impl": "adaptive"},
                            ("frontier_expand", "push_relax_min", "csr_pull_reduce",
-                            "frontier_compact")),
+                            "frontier_compact", "frontier_starts")),
     "wcc_adaptive_dist": ("wcc", {"wcc_impl": "auto"}, {"wcc_impl": "auto"},
                           ("slab_spmv_min", "frontier_expand", "frontier_compact",
-                           "push_relax_min_i32")),
+                           "push_relax_min_i32", "frontier_starts")),
     "lcc_oriented_dist": ("lcc", {"lcc_impl": "auto"}, {"lcc_impl": "auto"},
                           ("wedge_rowblock", "lcc_head_credits")),
 }
@@ -1695,6 +1747,305 @@ def phase_kernels(g, prep, pr_plan, device):
     return res
 
 
+# CDLP auto at the tree before its loop became a graph (53ea22d, a host loop:
+# one read a step), on the bench graph at 10 iterations:
+# graphtpu_torch/tools/cdlp_loop_times.py --root, two runs in each of two
+# calls beside this tree's, NVIDIA H100 80GB HBM3, 700.00 W (PERF.md
+# section 6)
+PARENT_CDLP_AUTO = ("median 9.519-17.955 ms, device busy 2.817-2.826 ms, idle share "
+                    "0.774-0.877 (profiled run), 12 host reads, 347 Python-issued launches")
+
+
+def phase_cdlp_loop(g, prep, device):
+    """CDLP auto's loop as one CUDA graph on the bench graph (docstring, 4b):
+    the graph built cold (its capture seconds), then warm runs, each one
+    graph launch and one host read, against the host loop under
+    plain_torch() and against cdlp-slab (its trace: phase_cdlp_trace, the
+    last phase). Then K18, K19, K20 (route and status) and K14's row-flag
+    mode against their plain versions at the loop's shapes, taken from its
+    steps called from the host."""
+    import numpy as np
+    import torch
+
+    from graphtpu_torch.algorithms.cdlp import build_incidence
+    from graphtpu_torch.ops import active as A
+    from graphtpu_torch.ops import kernels
+    from graphtpu_torch.ops.frontier import (
+        compact_rows_into, compact_rows_plain, expand, frontier_starts, frontier_starts_plain,
+    )
+    from graphtpu_torch.ops.minmode import cdlp_slab_run, cdlp_step, stream_minmode
+    from graphtpu_torch.utils.config import PlatformConfig
+
+    n = g.n
+    cfg = PlatformConfig(device=str(device))
+    centers, neigh = build_incidence(g)
+    deg = np.bincount(centers, minlength=n).astype(np.int32)
+    tiers = A.cdlp_tiers(cfg.cdlp_frontier_rows, cfg.cdlp_frontier_edges, int(deg.sum()), cfg)
+
+    def run():
+        return A.cdlp_adaptive_device_run(g, centers, neigh, deg, CDLP_ITERS, cfg, prep,
+                                          with_stats=True)
+
+    prep.loops.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    A._loop_graph(prep, n, tiers, g.directed)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    labels, it, stats = run()
+    with kernels.plain_torch():
+        p_labels, p_it, p_stats = run()
+        p_run = dict(A.last_run)
+    slab, slab_it = cdlp_slab_run(g, centers, neigh, deg, CDLP_ITERS, cfg)
+    check(torch.equal(labels, p_labels), "cdlp-auto graph labels differ from the host loop's")
+    check((it, stats) == (p_it, p_stats), f"cdlp-auto graph (it, steps) {it}, {stats} differ "
+          f"from the host loop's {p_it}, {p_stats}")
+    check(torch.equal(labels, slab) and it == slab_it, "cdlp-auto graph labels differ from slab")
+    # a warm run, measured up to its end: under sync debug mode "error" (a
+    # host read there raises), the library's graph launches and the kernels
+    # launched from Python counted; then its one read of ctl
+    graph_calls, graph_call = [], kernels.graph_call
+
+    def counted_graph_call(name, *a):
+        graph_calls.append(name)
+        return graph_call(name, *a)
+
+    kernels.reset_launch_counts()
+    kernels.graph_call = counted_graph_call
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        w_labels, w_ctl, graph, reads = A._launch_loop(prep, n, CDLP_ITERS, g.directed, tiers)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        kernels.graph_call = graph_call
+    w_ctl = w_ctl.tolist()
+    graph.account(w_ctl)
+    launches = graph_calls.count("graph_launch")
+    launched = {k: v for k, v in kernels.launch_counts.items() if v}
+    inferred = {k: v for k, v in kernels.replayed_counts.items() if v}
+    check(launches == 1 and reads == 0, f"a warm cdlp-auto run made {launches} graph launches "
+          f"and {reads} reads of a condition, not 1 and 0")
+    check(not launched, f"a warm cdlp-auto run launched kernels from Python: {launched}")
+    check(torch.equal(w_labels, labels) and (w_ctl[A.CTL_IT], w_ctl[A.CTL_NF])
+          == (it, stats["full_steps"]), "a warm cdlp-auto run differs from the first")
+    warm = {"derives": w_ctl[A.CTL_DERIVES], "outer_iterations": w_ctl[A.CTL_OUTERS]}
+    print(f"cdlp loop graph (bench graph, {CDLP_ITERS} iterations): captured and built in "
+          f"{build_s:.3f} s; {it} iterations, full {stats['full_steps']}, active "
+          f"{stats['active_steps']}; {warm}; labels = the host loop's (plain, "
+          f"{p_run['condition_reads']} conditions read from ctl, then ctl) = cdlp-slab's; a "
+          f"warm run: no host read up to its end (sync debug mode \"error\"), then one, "
+          f"{launches} graph launch, no kernel launched from Python; captured launches x "
+          f"the step counts ctl reports: {inferred} (its trace: phase_cdlp_trace)", flush=True)
+    secs = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        secs.append(time.perf_counter() - t0)
+    med = sorted(secs)[2]
+    print(f"cdlp loop: warm runs {', '.join(f'{s * 1e3:.3f}' for s in secs)} ms, median "
+          f"{med * 1e3:.3f} ms (the trace: phase_cdlp_trace, last)", flush=True)
+
+    # the kernels at the loop's shapes: its steps from the host, up to the
+    # first tier step
+    st = A._loop_state(prep, n, tiers, handles=False)
+    st.itermax[0] = CDLP_ITERS
+    A._step_init(prep, st, g.directed)
+    before = st.labels.clone()
+    new = cdlp_step(before, prep.plan)
+    cond = lambda c: bool(st.ctl[A.CTL_COND + c])  # noqa: E731
+    while cond(A.COND_OUTER) and not cond(A.COND_TIER):  # the host loop's outer iterations
+        while cond(A.COND_FULL):
+            A._step_full(prep, st)
+        if cond(A.COND_DERIVE):
+            A._step_derive(prep, st)
+        A._step_boundary(prep, st)
+    check(cond(A.COND_TIER), "the run never reached a tier step")
+    k_i, e_i = tiers[0]
+    ids = st.ids[:k_i]
+    real = int(st.ctl[A.CTL_ACNT])
+    exp = expand(ids, prep.deg_pad, prep.indptr_pad, prep.neigh, e_i, with_row_ids=False)
+    edges = int(exp.edge_count)
+    winners = stream_minmode(st.labels, exp.rows_local, exp.neigh, exp.seg_starts)
+    res = {}
+    starts = frontier_starts(ids, prep.deg_pad)
+    check(torch.equal(starts, frontier_starts_plain(ids, prep.deg_pad)),
+          "frontier_starts differs from plain")
+    check(torch.equal(starts, frontier_starts(ids, prep.deg_pad)), "frontier_starts: two runs")
+    lens = prep.deg_pad[ids.long()]
+    res["frontier_starts"] = dict(
+        max_abs_err=0.0, times=(cuda_ms(lambda: frontier_starts(ids, prep.deg_pad)),
+                                cuda_ms(lambda: frontier_starts_plain(ids, prep.deg_pad))),
+        shape=f"CDLP auto's first tier step: {k_i} ids ({real} real, {edges} edges)",
+        bytes=4 * k_i + 4 * real + 4 * (k_i + 1), ops=k_i,  # ids, real degrees, starts
+        library=("torch.cumsum of pre-gathered lengths",
+                 lambda: torch.cumsum(lens, 0, dtype=torch.int32)))
+
+    buf0 = st.labels_buf.clone()
+    outs = []
+    for plain in (False, True):
+        buf, flags = buf0.clone(), torch.zeros(k_i, dtype=torch.bool, device=device)
+        ch = torch.zeros((), dtype=torch.int32, device=device)
+        (A.cdlp_tier_apply_plain if plain else A.cdlp_tier_apply)(buf, ids, winners, flags, ch)
+        outs.append((buf[:n], flags, ch))
+    check(all(torch.equal(a, b) for a, b in zip(*outs)), "cdlp_tier_apply differs from plain")
+    flags = outs[0][1]
+    changed = int(flags.sum())
+    buf, ch = buf0.clone(), torch.zeros((), dtype=torch.int32, device=device)
+    rowbuf = torch.zeros(k_i, dtype=torch.bool, device=device)
+    res["cdlp_tier_apply"] = dict(
+        max_abs_err=0.0,
+        # the kernel from the same labels each call (a restore copy before it,
+        # not counted); the plain version's work does not depend on them
+        times=(cuda_ms(lambda: (buf.copy_(buf0), A.cdlp_tier_apply(buf, ids, winners, rowbuf,
+                                                                    ch)),
+                       only=("k19_apply_kernel", "Memset")),
+               cuda_ms(lambda: A.cdlp_tier_apply_plain(buf, ids, winners, rowbuf, ch))),
+        shape=f"the tier step's update: {k_i} rows ({real} real, {changed} changed)",
+        # ids, winners, the real rows' labels, the changed ones' writes, flags
+        bytes=8 * k_i + 4 * real + 4 * changed + k_i + 4, ops=real, library=None)
+
+    outs = []
+    k_max, e_max = tiers[-1]
+    for plain in (False, True):
+        lab, mask = before.clone(), torch.zeros(n, dtype=torch.bool, device=device)
+        ctl = torch.zeros(A.ctl_words(len(tiers)), dtype=torch.int32, device=device)
+        (A.cdlp_status_plain if plain else A.cdlp_status)(lab, new, prep.deg_pad, mask, ctl,
+                                                          k_max, e_max)
+        outs.append((lab, mask, ctl))
+    check(all(torch.equal(a, b) for a, b in zip(*outs)), "cdlp_status differs from plain")
+    n_changed = int(outs[0][2][A.CTL_MCNT])
+    lab, mask = before.clone(), torch.zeros(n, dtype=torch.bool, device=device)
+    ctl = torch.zeros(A.ctl_words(len(tiers)), dtype=torch.int32, device=device)
+    res["cdlp_route_status"] = dict(
+        max_abs_err=0.0,
+        times=(cuda_ms(lambda: (lab.copy_(before), A.cdlp_status(
+            lab, new, prep.deg_pad, mask, ctl, k_max, e_max)),
+            only=("k20_status_kernel", "Memset")),
+               cuda_ms(lambda: A.cdlp_status_plain(lab, new, prep.deg_pad, mask, ctl, k_max,
+                                                   e_max))),
+        shape=f"iteration 1's full-step status: {n} vertices, {n_changed} changed",
+        # both label vectors, the mask, the changed ones' degrees and writes
+        bytes=9 * n + 8 * n_changed, ops=n, library=None)
+
+    itermax = st.itermax
+    ctl0 = st.ctl.clone()
+    outs = []
+    for plain in (False, True):
+        c = ctl0.clone()
+        (A.cdlp_route_plain if plain else A.cdlp_route)(c, st.tiers, A.STAGE_TIER, itermax)
+        outs.append(c)
+    check(torch.equal(*outs), "cdlp_route differs from plain")
+    c = ctl0.clone()
+    res["cdlp_route"] = dict(
+        max_abs_err=0.0,
+        times=(cuda_ms(lambda: A.cdlp_route(c, st.tiers, A.STAGE_TIER, itermax)),
+               cuda_ms(lambda: A.cdlp_route_plain(c, st.tiers, A.STAGE_TIER, itermax))),
+        shape=f"a tier step's routing: {A.ctl_words(len(tiers))} control words, "
+              f"{len(tiers)} tier", bytes=8 * A.ctl_words(len(tiers)) + 8 * len(tiers),
+        ops=4 * len(tiers), library=None)
+
+    outs = []
+    for plain in (False, True):
+        o = torch.empty(k_max, dtype=torch.int32, device=device)
+        s = torch.empty(2, dtype=torch.int32, device=device)
+        (compact_rows_plain if plain else compact_rows_into)(exp, flags, n, prep.deg_pad, o, s)
+        outs.append((o, s))
+    check(all(torch.equal(a, b) for a, b in zip(*outs)), "compact_rows_into differs from plain")
+    nxt = int(outs[0][1][0])
+    o, s = torch.empty(k_max, dtype=torch.int32, device=device), torch.empty(2, dtype=torch.int32,
+                                                                            device=device)
+    active_slots = int((flags[exp.rows_local.long()] & exp.valid).sum())
+    res["frontier_compact_rows"] = dict(
+        max_abs_err=0.0,
+        times=(cuda_ms(lambda: compact_rows_into(exp, flags, n, prep.deg_pad, o, s)),
+               cuda_ms(lambda: compact_rows_plain(exp, flags, n, prep.deg_pad, o, s))),
+        shape=(f"the tier step's next active set: {edges} real slots of {e_i}, "
+               f"{active_slots} of changed rows, {nxt} distinct of n = {n}, k = {k_max}"),
+        # the real slots' rows, their flags and the active ones' values, the
+        # bitmap written and read, the ids, their degrees, the status
+        bytes=4 * edges + k_i + 4 * active_slots + 2 * ((n + 31) // 32) * 4 + 8 * k_max + 8,
+        ops=edges, library=None)
+    print(f"cdlp loop kernels: K18, K19, K20 (route and status) and K14's row-flag mode = "
+          f"plain at the first tier step ({k_i} ids, {real} real, {edges} edges, {changed} "
+          f"rows changed, {nxt} next)", flush=True)
+    return res, {"build_s": build_s, "median_ms": med * 1e3,
+                 "graph_launches": launches,
+                 "labels_sha256":
+                     hashlib.sha256(labels.cpu().numpy().tobytes()).hexdigest()[:16],
+                 "iterations": it}
+
+
+def phase_cdlp_trace(loop):
+    """The trace of a warm CDLP auto run (its loop one CUDA graph), taken by
+    graphtpu_torch/tools/cdlp_loop_times.py in a child process, last of all
+    phases: on an H100 (CUDA 12.9, driver 13.0, torch 2.11), once a child
+    had traced the graph, the traces this process took after it lost
+    records (K11, K16 and the loop's kernels fell back to their stream
+    spans), and once this process had traced the graph, its later traces of
+    other paths did (GRAPH_PATHS).
+    The child's run must be ``loop``'s (phase_cdlp_loop) and make one
+    device-to-host copy and one graph launch; its trace must hold only hand
+    kernels, copies, memsets and iteration 0's arange, no sort, a record of
+    every kernel the cdlp-auto path needs (PATHS) and, by kernel, no more
+    records than the captured launches times the step counts ctl reports.
+    The graph's runs launch nothing from Python, so these records are the
+    path's launch counts: a child is run again, up to GRAPH_TRACE_TRIES,
+    while a kernel's records fall short of that count (the profiler now
+    and then drops some of a graph's). Returns the trace's numbers and the
+    records a run by counter."""
+    needed = PATHS["cdlp-auto"][2]
+    for attempt in range(1, GRAPH_TRACE_TRIES + 1):
+        child = subprocess.run(
+            [sys.executable, str(ROOT / "graphtpu_torch" / "tools" / "cdlp_loop_times.py")],
+            capture_output=True, text=True, timeout=600, cwd=str(ROOT))
+        check(child.returncode == 0, f"tools/cdlp_loop_times.py failed: {child.stderr[-2000:]}")
+        traced = json.loads(child.stdout.strip().splitlines()[-1])
+        records, inferred = traced["records"], traced["replayed"]
+        per_run = {name: sum(c for k, (c, _) in records.items() if any(p in k for p in pats))
+                   for name, pats in GRAPH_TRACE_OF.items()
+                   if name in needed or inferred.get(name)}
+        short = {name: (c, inferred.get(name, 0)) for name, c in per_run.items()
+                 if c < inferred.get(name, 0)}
+        if not short:
+            break
+        print(f"cdlp loop trace {attempt}: records short of the step counts (records, "
+              f"captured launches x steps): {short}", flush=True)
+    check(traced["labels_sha256"] == loop["labels_sha256"]
+          and traced["iterations"] == loop["iterations"],
+          "the child's cdlp-auto run differs from phase_cdlp_loop's")
+    check((traced["host_reads"], traced["graph_launches"]) == (1, 1),
+          f"the child's warm run made {traced['host_reads']} device-to-host copies and "
+          f"{traced['graph_launches']} graph launches")
+    allowed = ("gather_", "minmode_", "frontier_expand_kernel", "k7_", "k12_", "k14_",
+               "k18_", "k19_", "k20_", "memcpy", "memset", "arange", "empty_kernel")
+    other = [k for k in records if not any(a in k.lower() for a in allowed)]
+    check(not other, f"the cdlp-auto graph's trace holds torch-op kernels: {other}")
+    sorts = [k for k in records if any(p in k.lower() for p in SORT_KERNELS)]
+    check(not sorts, f"the cdlp-auto trace holds sort kernels: {sorts}")
+    for name in needed:
+        check(per_run[name] > 0, f"kernel {name} has no record in the cdlp-auto graph's trace")
+    for name, c in per_run.items():
+        check(c <= inferred.get(name, 0), f"{name}: {c} records in the cdlp-auto trace, above "
+              f"its captured launches x steps {inferred.get(name, 0)}")
+    busy, wall = traced["busy_ms"], traced["profiled_wall_ms"]
+    print(f"launches on path cdlp-auto, the records of a warm run's trace (child, "
+          f"tools/cdlp_loop_times.py, try {attempt}): {per_run}; "
+          + (f"short of captured launches x steps: {short}" if short
+             else "each equal to its captured launches x steps"), flush=True)
+    print(f"cdlp loop trace: cold run (graph built) {traced['cold_s']:.3f} s, median "
+          f"{traced['median_ms']:.3f} ms, {traced['python_launches']} Python-issued launches, "
+          f"{traced['host_reads']} host read; profiled run wall {wall:.3f} ms, device busy "
+          f"{busy:.3f} ms, idle share {1 - busy / wall:.3f}, "
+          f"{1 - busy / traced['median_ms']:.3f} of the median; parent 53ea22d, same graph, "
+          f"the same tool, H100 80GB HBM3 700 W: {PARENT_CDLP_AUTO}", flush=True)
+    for k, (c, ms) in sorted(records.items(), key=lambda kv: -kv[1][1]):
+        print(f"cdlp loop device record: {k[:64]} x{c} {ms:.6f} ms", flush=True)
+    out = {k: traced[k] for k in ("cold_s", "median_ms", "profiled_wall_ms", "busy_ms",
+                                  "idle_share", "python_launches", "host_reads")}
+    return out, per_run
+
+
 def k14(g, top_args, e_top, k_top, device):
     """K14 (frontier_compact) at the shapes of the adaptive paths, each
     taken from a run: compact on CDLP auto's fullest changed mask and BFS
@@ -1704,22 +2055,27 @@ def k14(g, top_args, e_top, k_top, device):
     plain version, twice, and its calls run under sync debug mode "error"
     (no host read). The library yardstick is one torch.sort (compact) or
     torch.unique (compact_stream) of the same masked key."""
+    import numpy as np
     import torch
 
     from graphtpu_torch.algorithms import bfs as bfs_mod
-    from graphtpu_torch.algorithms.common import run_algorithm
+    from graphtpu_torch.algorithms.cdlp import build_incidence
     from graphtpu_torch.ops import active as active_mod
     from graphtpu_torch.ops.frontier import (
         compact, compact_plain, compact_stream, compact_stream_plain, frontier_expand,
     )
-    from graphtpu_torch.tools.minmode_times import captured
-    from graphtpu_torch.utils.config import AlgorithmParams, PlatformConfig
+    from graphtpu_torch.tools.minmode_times import captured, cdlp_auto_eager
+    from graphtpu_torch.utils.config import PlatformConfig
 
     n = g.n
     cfg = PlatformConfig(device=str(device))
-    masks = captured(active_mod, "compact", lambda: run_algorithm(
-        "cdlp", g, AlgorithmParams(max_iterations=CDLP_ITERS),
-        PlatformConfig(device=str(device), cdlp_impl="auto")))
+    # CDLP auto's loop is one CUDA graph: its steps, called one by one from
+    # the host, show the masks its derives compact
+    centers, neigh = build_incidence(g)
+    deg = np.bincount(centers, minlength=n)
+    prep = active_mod.prepare_cdlp_adaptive(g, centers, neigh, deg, cfg)
+    masks = captured(active_mod, "compact", lambda: cdlp_auto_eager(
+        active_mod, g, centers, neigh, deg, cfg, prep))
     bfs_calls = {}
 
     def bfs_run():
@@ -2868,6 +3224,12 @@ SOURCES = {
                            "graphtpu/algorithms/bfs.py:240"),
     "push_relax_min_i32": ("graphtpu_torch/csrc/push_relax.cu",
                            "graphtpu/parallel/adaptive_wcc.py:79"),
+    "frontier_starts": ("graphtpu_torch/csrc/frontier_starts.cu", "graphtpu/ops/frontier.py:118"),
+    "cdlp_tier_apply": ("graphtpu_torch/csrc/cdlp_loop.cu", "graphtpu/ops/active.py:194"),
+    "cdlp_route": ("graphtpu_torch/csrc/cdlp_loop.cu", "graphtpu/ops/active.py:144"),
+    "cdlp_route_status": ("graphtpu_torch/csrc/cdlp_loop.cu", "graphtpu/ops/active.py:154"),
+    "frontier_compact_rows": ("graphtpu_torch/csrc/frontier_compact.cu",
+                              "graphtpu/ops/active.py:202"),
 }
 
 
@@ -3088,6 +3450,10 @@ def main() -> int:
         phase_real_size(device)
     for path, (_, _, needed) in PATHS.items():
         per_run = {k: v / RUNS_PER_PATH for k, v in path_launches[path].items() if v}
+        if path in GRAPH_PATHS:  # its kernels' executions: the trace (phase_cdlp_trace)
+            print(f"launches from Python on path {path} ({RUNS_PER_PATH} runs; the graph's "
+                  f"build not counted): {per_run}", flush=True)
+            continue
         print(f"launches on path {path} ({RUNS_PER_PATH} runs): {path_launches[path]}; per run: "
               f"{per_run}", flush=True)
         for name in needed:
@@ -3123,6 +3489,10 @@ def main() -> int:
           f"GiB", flush=True)
     res = phase_kernels(g, prep, pr_plan, device)
     res.update(phase_traversal_kernels(g, gw, device))
+    t0 = time.perf_counter()
+    loop_res, cdlp_loop = phase_cdlp_loop(g, prep, device)
+    res.update(loop_res)
+    print(f"cdlp loop phase: {time.perf_counter() - t0:.3f} s", flush=True)
     lcc_res, launches["edgehash_probe"], launches["lcc_sweep_member"], num_sum = \
         phase_lcc_kernels(g, wplan, real_wedges, lcc_values, device)
     res.update(lcc_res)
@@ -3162,6 +3532,13 @@ def main() -> int:
     t0 = time.perf_counter()
     scaling = phase_scaling(smi)
     print(f"scaling phase: {time.perf_counter() - t0:.3f} s", flush=True)
+    t0 = time.perf_counter()
+    cdlp_loop["trace"], graph_records = phase_cdlp_trace(cdlp_loop)
+    # phase 3's cdlp-auto runs executed the graph RUNS_PER_PATH times on one
+    # input: each run's executions are the trace's records of one such run
+    for name, c in graph_records.items():
+        launches[name] += RUNS_PER_PATH * c
+    print(f"cdlp trace phase: {time.perf_counter() - t0:.3f} s", flush=True)
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": launches[name],
@@ -3170,13 +3547,17 @@ def main() -> int:
          "bound_by": res[name]["bound_by"], "bytes": res[name]["bytes"],
          "library_ms": res[name]["library_ms"],
          "other_shapes": res[name].get("other_shapes", []),
+         **({"cdlp_graph_records_per_run": graph_records[name]}
+            if graph_records.get(name) else {}),
          **{k: res[name][k] for k in ("buckets", "traffic_ms", "call_ms", "call_wall_ms",
                                       "single_pass_ms", "ops_by_design", "work",
                                       "merge_path_ms", "layout_bytes", "layout_build_s",
                                       "earlier_ms", "earlier_test_ms")
             if k in res[name]}}
         for name in kernels.COUNTERS
-    ], "empty_kernel_ms": empty_ms, "ingest": ingest, "bench": bench, "parallel": parallel,
+    ], "empty_kernel_ms": empty_ms, "cdlp_loop": {k: v for k, v in cdlp_loop.items()
+                                                    if k != "labels_sha256"},
+       "ingest": ingest, "bench": bench, "parallel": parallel,
        "checkpoint": ckpt, "scaling": scaling}
     print(f"chip_smoke total: {time.perf_counter() - t_start:.3f} s", flush=True)
     print(smi)

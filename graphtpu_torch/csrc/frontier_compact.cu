@@ -3,7 +3,11 @@
 // count as a 0-d int32 on the device:
 //   compact(mask [n] bool, k):             the ids v with mask[v];
 //   compact_stream(vals [e], active [e], k, n): the distinct values vals[j]
-//                                          with active[j] and vals[j] in [0, n).
+//                                          with active[j] and vals[j] in [0, n);
+//   its row-flag mode (CDLP's tier step): slot j is active when j < edge_count
+//     and rowflag[rows_local[j]], the rows of an expansion whose label changed.
+// Either stream entry can also add deg_pad[id] of every id it writes into a
+// status word (frontier_deg_sum: the degree sum of the ids, pad ids read 0).
 //
 // Replaces graphtpu/ops/frontier.py:85 `compact` (a sort of where(mask, id,
 // n), then a slice) and :145 `compact_stream` (a sort of where(active, vals,
@@ -43,6 +47,12 @@
 // from the shapes alone and nothing is read back to the host. A block takes
 // whole steps of K14_THREADS words, as many steps as keep the grid at
 // K14_MAX_BLOCKS blocks or fewer.
+// The row-flag mode ports graphtpu/ops/active.py:202-207 (the e-wide ch_edge
+// mask, built in the port by four torch ops) and the degree sum
+// graphtpu/ops/frontier.py:166-170 (a K1 gather and a sum): k14_mark reads a
+// slot's row flag in place of a mask byte, and k14_write adds the degrees of
+// the ids it writes, summed over the block, by one atomic a block into the
+// status word, which k14_count's block 0 zeroes first.
 #include "common.cuh"
 
 #define K14_THREADS 256
@@ -111,8 +121,10 @@ __device__ __forceinline__ long long k14_block_sum(long long v, long long* s_red
 template <bool BITMAP>
 __global__ void __launch_bounds__(K14_THREADS)
 k14_count(const unsigned char* __restrict__ mask, int mis, const unsigned int* __restrict__ bits,
-          long long n, long long nwords, long long steps, int* __restrict__ counts) {
+          long long n, long long nwords, long long steps, int* __restrict__ counts,
+          int* __restrict__ deg_sum) {
   __shared__ long long s_red[K14_THREADS / 32];
+  if (deg_sum && blockIdx.x == 0 && threadIdx.x == 0) *deg_sum = 0;  // k14_write adds to it
   long long c = 0;
   for (long long s = 0; s < steps; ++s) {
     const long long base = ((long long)blockIdx.x * steps + s) * K14_THREADS;
@@ -127,7 +139,8 @@ template <bool BITMAP>
 __global__ void __launch_bounds__(K14_THREADS)
 k14_write(const unsigned char* __restrict__ mask, int mis, const unsigned int* __restrict__ bits,
           long long n, long long nwords, long long steps, const int* __restrict__ counts,
-          int nb, int* __restrict__ ids, long long k, int* __restrict__ count_out) {
+          int nb, int* __restrict__ ids, long long k, int* __restrict__ count_out,
+          const int* __restrict__ deg_pad, int* __restrict__ deg_sum) {
   __shared__ long long s_red[K14_THREADS / 32];
   __shared__ int s_scan[K14_THREADS / 32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -147,6 +160,7 @@ k14_write(const unsigned char* __restrict__ mask, int mis, const unsigned int* _
   for (long long q = total + (long long)blockIdx.x * K14_THREADS + threadIdx.x; q < k;
        q += (long long)gridDim.x * K14_THREADS)
     ids[q] = (int)n;
+  long long degs = 0;  // the degrees of the ids this thread writes
   for (long long s = 0; s < steps && base < k; ++s) {
     const long long step_base = ((long long)blockIdx.x * steps + s) * K14_THREADS;
     if (step_base >= nwords) break;  // block-uniform
@@ -174,20 +188,38 @@ k14_write(const unsigned char* __restrict__ mask, int mis, const unsigned int* _
     const long long first_id = (step_base + threadIdx.x) * 32;
     while (word && pos < k) {
       const int bit = __ffs(word) - 1;
-      ids[pos++] = (int)(first_id + bit);
+      const int id = (int)(first_id + bit);
+      ids[pos++] = id;
+      if (deg_sum) degs += __ldg(deg_pad + id);
       word &= word - 1;
     }
     base += step_total;
   }
+  if (deg_sum) {  // block-uniform; the sum wraps mod 2^32 as an int32 sum does
+    const long long t = k14_block_sum(degs, s_red);
+    if (threadIdx.x == 0 && t)
+      atomicAdd(reinterpret_cast<unsigned int*>(deg_sum), (unsigned int)t);
+  }
 }
 
 // Marks value v = vals[j] of every active slot j with v in [0, n) into the
-// bitmap (see the header).
+// bitmap (see the header). ROWS: slot j is active when j < *edge_count and
+// rowflag[rows_local[j]] (the row-flag mode); else when active[j].
+template <bool ROWS>
 __global__ void __launch_bounds__(K14_THREADS)
-k14_mark(const int* __restrict__ vals, const bool* __restrict__ active, long long e,
-         long long n, unsigned int* __restrict__ bits) {
+k14_mark(const int* __restrict__ vals, const bool* __restrict__ active,
+         const int* __restrict__ rows_local, const bool* __restrict__ rowflag,
+         const int* __restrict__ edge_count, long long e, long long n,
+         unsigned int* __restrict__ bits) {
   const long long j = (long long)blockIdx.x * K14_THREADS + threadIdx.x;
-  if (j >= e || !__ldcs(reinterpret_cast<const unsigned char*>(active) + j)) return;
+  if (j >= e) return;
+  if (ROWS) {
+    if (j >= (long long)__ldg(edge_count)) return;
+    const int r = __ldcs(rows_local + j);
+    if (!__ldg(reinterpret_cast<const unsigned char*>(rowflag) + r)) return;
+  } else if (!__ldcs(reinterpret_cast<const unsigned char*>(active) + j)) {
+    return;
+  }
   const int v = __ldcs(vals + j);
   if (v < 0 || (long long)v >= n) return;
   const unsigned int bit = 1u << (v & 31);
@@ -198,8 +230,8 @@ k14_mark(const int* __restrict__ vals, const bool* __restrict__ active, long lon
 // The scratch of a call: counts [K14_MAX_BLOCKS] int32.
 template <bool BITMAP>
 static int k14_compact_words(const unsigned char* mask, const unsigned int* bits, long long n,
-                             int* ids, long long k, int* count_out, int* counts,
-                             long long scratch_ints, cudaStream_t s) {
+                             int* ids, long long k, int* count_out, const int* deg_pad,
+                             int* deg_sum, int* counts, long long scratch_ints, cudaStream_t s) {
   const long long nwords = (n + 31) / 32;
   const long long steps = k14_steps(nwords);
   const long long nb_ll = nwords ? (nwords + steps * K14_THREADS - 1) / (steps * K14_THREADS) : 1;
@@ -207,9 +239,10 @@ static int k14_compact_words(const unsigned char* mask, const unsigned int* bits
   const int nb = (int)nb_ll;
   const int mis = (int)((uintptr_t)mask & 15);
   const unsigned char* base = mask - mis;  // 16-byte aligned
-  k14_count<BITMAP><<<nb, K14_THREADS, 0, s>>>(base, mis, bits, n, nwords, steps, counts);
+  k14_count<BITMAP><<<nb, K14_THREADS, 0, s>>>(base, mis, bits, n, nwords, steps, counts,
+                                               deg_sum);
   k14_write<BITMAP><<<nb, K14_THREADS, 0, s>>>(base, mis, bits, n, nwords, steps, counts, nb,
-                                               ids, k, count_out);
+                                               ids, k, count_out, deg_pad, deg_sum);
   return (int)cudaGetLastError();
 }
 
@@ -220,16 +253,22 @@ GT_EXPORT int gt_frontier_compact(const bool* mask, long long n, int* ids, long 
   if (n < 0 || n > 0x7fffffffLL || k < 0 || !count_out || !scratch)
     return (int)cudaErrorInvalidValue;
   return k14_compact_words<false>((const unsigned char*)mask, nullptr, n, ids, k, count_out,
-                                  scratch, scratch_ints, (cudaStream_t)stream);
+                                  nullptr, nullptr, scratch, scratch_ints, (cudaStream_t)stream);
 }
 
-// vals [e] int32 and active [e] bool; bits: ceil(n / 32) words of scratch,
-// zeroed here; ids, count_out and scratch as above.
-GT_EXPORT int gt_frontier_compact_stream(const int* vals, const bool* active, long long e,
+// vals [e] int32; the active slots: active [e] bool, or with rows the
+// row-flag mode's rows_local [e] int32, rowflag (bool, one a row) and
+// edge_count (a device int32); bits: ceil(n / 32) words of scratch, zeroed
+// here; ids, count_out and scratch as above; deg_sum (null: none) takes the
+// sum of deg_pad over the ids written.
+GT_EXPORT int gt_frontier_compact_stream(const int* vals, const bool* active,
+                                         const int* rows_local, const bool* rowflag,
+                                         const int* edge_count, int rows, long long e,
                                          long long n, unsigned int* bits, int* ids, long long k,
-                                         int* count_out, int* scratch, long long scratch_ints,
-                                         void* stream) {
-  if (n < 0 || n > 0x7fffffffLL || e < 0 || k < 0 || !count_out || !scratch || !bits)
+                                         int* count_out, const int* deg_pad, int* deg_sum,
+                                         int* scratch, long long scratch_ints, void* stream) {
+  if (n < 0 || n > 0x7fffffffLL || e < 0 || k < 0 || !count_out || !scratch || !bits ||
+      (rows && !edge_count) || (deg_sum && !deg_pad))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const long long nwords = (n + 31) / 32;
@@ -237,7 +276,15 @@ GT_EXPORT int gt_frontier_compact_stream(const int* vals, const bool* active, lo
     const cudaError_t z = cudaMemsetAsync(bits, 0, 4 * nwords, s);
     if (z != cudaSuccess) return (int)z;
   }
-  if (e && n)
-    k14_mark<<<gt_blocks(e, K14_THREADS), K14_THREADS, 0, s>>>(vals, active, e, n, bits);
-  return k14_compact_words<true>(nullptr, bits, n, ids, k, count_out, scratch, scratch_ints, s);
+  if (e && n) {
+    const unsigned int g = gt_blocks(e, K14_THREADS);
+    if (!rows)
+      k14_mark<false><<<g, K14_THREADS, 0, s>>>(vals, active, nullptr, nullptr, nullptr, e, n,
+                                                 bits);
+    else
+      k14_mark<true><<<g, K14_THREADS, 0, s>>>(vals, nullptr, rows_local, rowflag, edge_count,
+                                                e, n, bits);
+  }
+  return k14_compact_words<true>(nullptr, bits, n, ids, k, count_out, deg_pad, deg_sum, scratch,
+                                 scratch_ints, s);
 }

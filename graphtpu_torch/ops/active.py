@@ -13,11 +13,24 @@ Two entry points, each with the JAX package's results:
 * ``cdlp_adaptive_device_run`` (cdlp-impl auto/adaptive) routes each
   step between a full slab step and the smallest active tier whose
   (rows, edges) budget holds the next active set, on the frontier engine
-  (ops/frontier.py, kernel K5). JAX runs it as one while_loop program; here
-  the same phases are a host loop over device tensors with one small
-  device-to-host read per step (the packed status), plus one at each
-  phase boundary. The routing, and so the counts of full and active steps,
-  is the JAX kernel's, step for step.
+  (ops/frontier.py). JAX runs it as one while_loop program
+  (``_cdlp_adaptive_kernel``); so does the port. The loop state lives on
+  the device (``LoopState``: the labels, the changed mask, the active ids
+  and a small int32 control vector ``ctl``), and the loop is a set of step
+  functions that issue only hand-kernel launches and read nothing back: the
+  first iteration, the full step, the boundary's derive and routing, and
+  one tier step per tier. Each step ends with kernel K20's route
+  (``cdlp_route``), which updates the loop counters and writes every loop
+  condition into ``ctl``. On a card those steps are captured once per
+  (prep, tiers, directedness) into one CUDA graph whose conditional nodes
+  are the JAX kernel's loops (``_LoopGraph``: an outer WHILE, the full
+  phase's WHILE, derive under an IF, one WHILE per tier); a run is one
+  graph launch and one read of ``ctl`` at its end. On the CPU, and on a
+  card inside ``kernels.plain_torch()``, a host loop of the same shape reads
+  the conditions from ``ctl`` and calls the same step functions (each
+  wrapper then takes its plain version): the reference the graph is held
+  against. The routing, and so the counts of full and active steps, is the
+  JAX kernel's, step for step.
 * ``cdlp_adaptive_run`` (adaptive-host, and auto under iteration timing)
   decides on the host from the changed ids, slicing the incidence with
   numpy, by the ``cdlp_active_threshold`` share of the incidence.
@@ -25,20 +38,17 @@ Two entry points, each with the JAX package's results:
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import ctypes
+import functools
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
 from graphtpu_torch.core.types import INT32_INF
-from graphtpu_torch.ops.frontier import (
-    compact,
-    compact_stream,
-    expand,
-    frontier_deg_sum,
-    mask_status,
-)
+from graphtpu_torch.ops import kernels
+from graphtpu_torch.ops.frontier import compact, compact_rows_into, compact_stream_into, expand
 from graphtpu_torch.ops.gather import table_gather
 from graphtpu_torch.ops.minmode import (
     _iter0_minmode,
@@ -50,9 +60,30 @@ from graphtpu_torch.ops.minmode import (
 from graphtpu_torch.ops.slab import SlabPlan
 from graphtpu_torch.ops.spmv import int32_tensor
 
+# The control words of the device loop (int32, csrc/cdlp_loop.cu CTL_*): the
+# JAX kernel's routing state (acnt, ae, ch, it, nf), itermax, the last full
+# step's changed count and their degree sum, the derives and the outer
+# iterations run; from CTL_COND the conditions (outer, full, derive, then one
+# a tier), then the tier steps run, one count a tier.
+CTL_ACNT, CTL_AE, CTL_CH, CTL_IT, CTL_NF, CTL_ITERMAX, CTL_MCNT, CTL_MES = range(8)
+CTL_DERIVES, CTL_OUTERS, CTL_COND = 8, 9, 10
+COND_OUTER, COND_FULL, COND_DERIVE, COND_TIER = range(4)
+# K20 route's stages: after the first iteration, a full step, a derive, at
+# the boundary, and after a step of tier i (STAGE_TIER + i)
+STAGE_INIT, STAGE_FULL, STAGE_DERIVE, STAGE_BOUNDARY, STAGE_TIER = range(5)
+
 # the routing's active-count sentinels, as in the JAX kernel
 STAY_FULL = INT32_INF  # the changed mask exceeds the largest tier
 DERIVE = -1            # the changed mask fits: derive the active set at the boundary
+
+
+# how the last cdlp_adaptive_device_run went (its docstring)
+last_run: dict = {}
+
+
+def ctl_words(t: int) -> int:
+    """Words of ``ctl`` for t tiers."""
+    return CTL_COND + COND_TIER + 2 * t
 
 
 def _first_iteration(plan: SlabPlan, labels0: torch.Tensor, directed: bool) -> torch.Tensor:
@@ -92,6 +123,7 @@ class AdaptivePrep(NamedTuple):
     deg_pad: torch.Tensor     # [n+1] int32, deg_pad[n] == 0
     indptr_pad: torch.Tensor  # [n+1] int32
     neigh: torch.Tensor       # [m] int32 incidence neighbours, center-sorted
+    loops: dict               # the device loop's CUDA graphs, by (tiers, directed)
 
 
 def prepare_cdlp_adaptive(graph, centers, neigh, deg, cfg) -> AdaptivePrep:
@@ -108,7 +140,7 @@ def prepare_cdlp_adaptive(graph, centers, neigh, deg, cfg) -> AdaptivePrep:
         prep = AdaptivePrep(
             memoized_cdlp_plan(graph, centers, neigh, deg, buckets, device),
             int32_tensor(np.concatenate([deg, [0]]), device), int32_tensor(indptr, device),
-            int32_tensor(neigh, device),
+            int32_tensor(neigh, device), {},
         )
         graph.memo[key] = prep
     return prep
@@ -132,100 +164,437 @@ def cdlp_tiers(k_cap: int, e_cap: int, m_inc: int, cfg=None) -> tuple:
     return tuple((min(max(k_cap, e // 16), 1 << 18), e) for e in edge_tiers)
 
 
-def _adaptive_loop(prep: AdaptivePrep, n: int, itermax: int, directed: bool, tiers):
-    """The JAX kernel's phases as a host loop. Returns (labels, iterations,
-    full steps); iteration 0 counts as a full step."""
-    plan, deg_pad, indptr_pad, neigh = prep
-    deg_n = deg_pad[:-1]
-    k_max, e_max = tiers[-1]
-    full = len(tiers)
+def cdlp_status_plain(labels, new, deg_pad, mask, ctl, k_max: int, e_max: int) -> None:
+    """K20's status entry, plain PyTorch: the JAX kernel's changed mask,
+    ``mask_status`` (count, degree sum) and ``fits_mask``, then labels := new."""
+    torch.ne(labels, new, out=mask)
+    cnt = mask.sum()
+    es = torch.where(mask, deg_pad[:labels.shape[0]], 0).sum()
+    ctl[CTL_ACNT] = torch.where((cnt <= k_max) & (es <= e_max), DERIVE, STAY_FULL)
+    ctl[CTL_CH] = cnt > 0
+    ctl[CTL_MCNT] = cnt.clamp(max=INT32_INF)
+    ctl[CTL_MES] = es.clamp(max=INT32_INF)
+    labels.copy_(new)
 
-    def chosen(acnt, ae):
-        """The smallest tier whose budgets hold the active set, else full."""
-        for i, (k_i, e_i) in enumerate(tiers):
-            if 0 <= acnt <= k_i and ae <= e_i:
-                return i
-        return full
 
-    def status(labels, new):
-        """Changed mask and routing of a full step, from one device read."""
-        mask = new != labels
-        cnt, ce = mask_status(mask, deg_n).tolist()
-        return mask, DERIVE if cnt <= k_max and ce <= e_max else STAY_FULL, cnt > 0
+def cdlp_status(labels, new, deg_pad, mask, ctl, k_max: int, e_max: int) -> None:
+    """K20 wrapper, a full step's status: ``mask`` [n] := new != labels,
+    ``labels`` [n] := new, and in ``ctl`` the routing's acnt (DERIVE when
+    the changed vertices' count and degree sum fit (k_max, e_max), the
+    largest tier, else STAY_FULL), ch (any changed) and the count and degree
+    sum (clamped to int32). ``deg_pad`` [n+1] int32. One pass on the card
+    (counted as ``cdlp_route_status``), nothing read back."""
+    n = labels.shape[0]
+    ts = (labels, new, deg_pad, ctl)
+    if any(t.dtype != torch.int32 or t.dim() != 1 for t in ts) or mask.dtype != torch.bool:
+        raise TypeError("cdlp_status: labels, new, deg_pad and ctl must be 1-D int32, mask bool")
+    if new.shape[0] != n or mask.shape != new.shape or deg_pad.shape[0] < n:
+        raise ValueError("cdlp_status: labels, new and mask of one length, deg_pad no shorter")
+    if any(t.device != labels.device for t in ts + (mask,)) or \
+            not all(t.is_contiguous() for t in ts + (mask,)):
+        raise ValueError("cdlp_status: inputs must be contiguous, on one device")
+    if not kernels.use_kernel(labels):
+        cdlp_status_plain(labels, new, deg_pad, mask, ctl, k_max, e_max)
+        return
+    acc = torch.empty(3, dtype=torch.int64, device=labels.device)
+    kernels.launch("cdlp_route_status", labels.device, labels.data_ptr(), new.data_ptr(), n,
+                   deg_pad.data_ptr(), mask.data_ptr(), acc.data_ptr(), ctl.data_ptr(), k_max,
+                   e_max, 8 * kernels.sm_count(labels.device))
 
-    def derive(mask):
-        """Active set = union of the changed vertices' incidence lists, at
-        the largest tier's sizes; the mask is known to fit them."""
-        ids, _ = compact(mask, k_max)
-        exp = expand(ids, deg_pad, indptr_pad, neigh, e_max, with_row_ids=False)
-        nxt_ids, nxt_cnt = compact_stream(exp.neigh, exp.valid, k_max, n)
-        cnt, ne = torch.stack([nxt_cnt, frontier_deg_sum(nxt_ids, deg_pad)]).tolist()
-        return nxt_ids, cnt, ne
 
-    def tier_step(labels, ids, k_i, e_i):
-        ids_i = ids[:k_i]  # ascending, pad = n
-        exp = expand(ids_i, deg_pad, indptr_pad, neigh, e_i, with_row_ids=False)
-        # the pad slots lie past seg_starts[k_i] and join no segment (the JAX
-        # kernel gives them a segment k_i of their own and drops its result)
-        centers = torch.where(exp.valid, exp.rows_local, k_i)
-        winners = stream_minmode(labels, centers, exp.neigh, exp.seg_starts)
-        valid_row = ids_i < n
-        old = table_gather(labels, torch.where(valid_row, ids_i, 0))
-        changed_row = valid_row & (winners != old)
-        # slot n of the [n+1] buffer takes the writes of unchanged and pad rows
-        new = torch.cat([labels, labels.new_zeros(1)])
-        new.index_copy_(0, torch.where(changed_row, ids_i, n).long(),
-                        torch.where(changed_row, winners, 0))
-        # next active set: the neighbours of the rows that changed, from
-        # this step's own expansion
-        ch_edge = exp.valid & (table_gather(changed_row.to(torch.int32), exp.rows_local) == 1)
-        nxt_ids, nxt_cnt = compact_stream(exp.neigh, ch_edge, k_max, n)
-        cnt, ne, ch = torch.stack([
-            nxt_cnt, frontier_deg_sum(nxt_ids, deg_pad), changed_row.any().to(torch.int32)
-        ]).tolist()
-        return new[:n], nxt_ids, cnt, ne, bool(ch)
+def _chosen(ctl, tiers):
+    """The smallest tier whose budgets hold (acnt, ae), else T (full), as
+    a 0-d tensor: the JAX kernel's ``chosen``."""
+    t = tiers.shape[0]
+    acnt, ae = ctl[CTL_ACNT], ctl[CTL_AE]
+    fits = (acnt >= 0) & (acnt <= tiers[:, 0]) & (ae <= tiers[:, 1])
+    return torch.where(fits, torch.arange(t, device=ctl.device), t).min()
+
+
+def cdlp_route_plain(ctl, tiers, stage: int, itermax) -> None:
+    """K20's route, plain PyTorch (see ``cdlp_route``)."""
+    t = tiers.shape[0]
+    cond, tier_steps = ctl[CTL_COND:CTL_COND + COND_TIER + t], ctl[CTL_COND + COND_TIER + t:]
+    if stage == STAGE_INIT:
+        ctl[CTL_ITERMAX] = itermax[0]
+        ctl[CTL_AE], ctl[CTL_IT], ctl[CTL_NF], ctl[CTL_DERIVES], ctl[CTL_OUTERS] = 0, 1, 1, 0, 0
+        tier_steps.zero_()
+    elif stage == STAGE_FULL:
+        ctl[CTL_IT:CTL_NF + 1] += 1
+    elif stage == STAGE_DERIVE:
+        ctl[CTL_DERIVES] += 1
+    elif stage == STAGE_BOUNDARY:
+        # forward progress: an exact active set past every tier goes back to full
+        ctl[CTL_OUTERS] += 1
+        ctl[CTL_ACNT] = torch.where(_chosen(ctl, tiers) == t, STAY_FULL, ctl[CTL_ACNT])
+    else:
+        ctl[CTL_IT] += 1
+        tier_steps[stage - STAGE_TIER] += 1
+    live = (ctl[CTL_CH] != 0) & (ctl[CTL_IT] < ctl[CTL_ITERMAX])
+    cond[COND_OUTER] = live
+    cond[COND_FULL] = live & (ctl[CTL_ACNT] == STAY_FULL)
+    cond[COND_DERIVE] = live & (ctl[CTL_ACNT] == DERIVE)
+    cond[COND_TIER:] = live & (_chosen(ctl, tiers) == torch.arange(t, device=ctl.device))
+
+
+def cdlp_route(ctl, tiers, stage: int, itermax, handles=None) -> None:
+    """K20 wrapper, the loop's routing after a step of kind ``stage``
+    (STAGE_*): at STAGE_INIT it sets itermax (read from ``itermax``, an
+    int32 [1] host tensor, pinned on a card, which the kernel reads) and
+    it = nf = 1; a full step adds one to it and nf, a tier step to it and
+    its tier's count; the boundary sends an active set that no tier holds
+    back to full. Then it writes every condition into ``ctl`` (outer, full,
+    derive and one a tier; ``tiers`` [T, 2] int32 on the device) and, given
+    the graph's ``handles`` (int64 [3 + T] on the device), into the
+    graph's conditional nodes. One thread, one launch."""
+    t = tiers.shape[0]
+    if ctl.dtype != torch.int32 or tiers.dtype != torch.int32 or ctl.shape[0] != ctl_words(t):
+        raise TypeError(f"cdlp_route: ctl must be int32 [{ctl_words(t)}], tiers int32 [T, 2]")
+    if not STAGE_INIT <= stage < STAGE_TIER + t or itermax.device.type != "cpu":
+        raise ValueError(f"cdlp_route: stage {stage} for {t} tiers, or itermax not on the host")
+    if not kernels.use_kernel(ctl):
+        cdlp_route_plain(ctl, tiers, stage, itermax)
+        return
+    if not itermax.is_pinned():
+        raise ValueError("cdlp_route: on a card itermax must be pinned, the kernel reads it")
+    kernels.launch("cdlp_route", ctl.device, ctl.data_ptr(), tiers.data_ptr(), t, stage,
+                   itermax.data_ptr(), None if handles is None else handles.data_ptr())
+
+
+def cdlp_tier_apply_plain(labels_buf, ids, winners, rowflag, ch) -> None:
+    """K19's plain PyTorch version, the JAX kernel's formulation: valid rows,
+    old labels, changed rows, a scatter whose unchanged and pad rows write
+    the spare slot n, the flags and their any."""
+    n = labels_buf.shape[0] - 1
+    valid = ids < n
+    old = table_gather(labels_buf[:n], torch.where(valid, ids, 0))
+    changed = valid & (winners != old)
+    labels_buf.index_copy_(0, torch.where(changed, ids, n).long(), torch.where(changed, winners, 0))
+    rowflag.copy_(changed)
+    ch.copy_(changed.any())
+
+
+def cdlp_tier_apply(labels_buf, ids, winners, rowflag, ch) -> None:
+    """K19 wrapper, a tier step's update: for each row r, when ids[r] < n
+    and winners[r] != labels[ids[r]], labels[ids[r]] := winners[r] in place
+    and rowflag[r] is set; ``ch`` (an int32 0-d view of ``ctl``) := any row
+    changed. ``labels_buf`` is [n+1] int32 (the labels, then a spare slot
+    that only the plain version writes), ``ids`` and ``winners`` [k] int32,
+    ``rowflag`` [k] bool. One launch, nothing read back."""
+    ts = (labels_buf, ids, winners)
+    if any(t.dtype != torch.int32 or t.dim() != 1 for t in ts) or rowflag.dtype != torch.bool \
+            or ch.dtype != torch.int32 or ch.dim() != 0:
+        raise TypeError("cdlp_tier_apply: 1-D int32 labels_buf, ids and winners, bool rowflag, "
+                        "a 0-d int32 ch")
+    k = ids.shape[0]
+    if winners.shape[0] != k or rowflag.shape != ids.shape or labels_buf.shape[0] < 1:
+        raise ValueError("cdlp_tier_apply: ids, winners and rowflag of one length")
+    if any(t.device != ids.device for t in ts + (rowflag, ch)) or \
+            not all(t.is_contiguous() for t in ts + (rowflag,)):
+        raise ValueError("cdlp_tier_apply: inputs must be contiguous, on one device")
+    if not kernels.use_kernel(ids):
+        cdlp_tier_apply_plain(labels_buf, ids, winners, rowflag, ch)
+        return
+    kernels.launch("cdlp_tier_apply", ids.device, labels_buf.data_ptr(), labels_buf.shape[0] - 1,
+                   ids.data_ptr(), winners.data_ptr(), k, rowflag.data_ptr(), ch.data_ptr())
+
+
+class LoopState(NamedTuple):
+    """The device loop's state, allocated once (per graph on a card)."""
+
+    labels_buf: torch.Tensor  # [n+1] int32: the labels, then K19's plain spare slot
+    mask: torch.Tensor        # [n] bool: the last full step's changed vertices
+    ids: torch.Tensor         # [k_max] int32: the active set, ascending, padded with n
+    rowflag: torch.Tensor     # [k_max] bool: the rows a tier step changed
+    ctl: torch.Tensor         # [ctl_words(T)] int32 control words (CTL_*)
+    tiers: torch.Tensor       # [T, 2] int32 (rows, edges) budgets, on the device
+    itermax: torch.Tensor     # [1] int32 on the host, pinned on a card
+    handles: Optional[torch.Tensor]  # [3 + T] int64 conditional handles, or None
+    budgets: tuple            # the tiers as Python ints
+
+    @property
+    def labels(self) -> torch.Tensor:
+        return self.labels_buf[:self.mask.shape[0]]
+
+
+def _loop_state(prep: AdaptivePrep, n: int, budgets: tuple, handles: bool) -> LoopState:
+    dev = prep.deg_pad.device
+    k_max, t = budgets[-1][0], len(budgets)
+    i32 = dict(dtype=torch.int32, device=dev)
+    return LoopState(
+        torch.zeros(n + 1, **i32), torch.zeros(n, dtype=torch.bool, device=dev),
+        torch.full((k_max,), n, **i32), torch.zeros(k_max, dtype=torch.bool, device=dev),
+        torch.zeros(ctl_words(t), **i32), torch.tensor(budgets, **i32),
+        torch.zeros(1, dtype=torch.int32, pin_memory=dev.type == "cuda"),
+        torch.zeros(COND_TIER + t, dtype=torch.int64, device=dev) if handles else None, budgets,
+    )
+
+
+# The step functions: hand-kernel launches only, no host read. Each ends
+# with K20's route, which leaves every loop condition in ctl.
+
+def _route(st: LoopState, stage: int) -> None:
+    cdlp_route(st.ctl, st.tiers, stage, st.itermax, st.handles)
+
+
+def _status(prep: AdaptivePrep, st: LoopState, new: torch.Tensor) -> None:
+    k_max, e_max = st.budgets[-1]
+    cdlp_status(st.labels, new, prep.deg_pad, st.mask, st.ctl, k_max, e_max)
+
+
+def _step_init(prep: AdaptivePrep, st: LoopState, directed: bool) -> None:
+    """Iteration 0 from labels = ids, then its status: it = nf = 1."""
+    labels = st.labels
+    torch.arange(labels.shape[0], dtype=torch.int32, device=labels.device, out=labels)
+    _status(prep, st, _first_iteration(prep.plan, labels, directed))
+    _route(st, STAGE_INIT)
+
+
+def _step_full(prep: AdaptivePrep, st: LoopState) -> None:
+    """A full slab step over every vertex."""
+    _status(prep, st, cdlp_step(st.labels, prep.plan))
+    _route(st, STAGE_FULL)
+
+
+def _step_derive(prep: AdaptivePrep, st: LoopState) -> None:
+    """The active set, the union of the last full step's changed vertices'
+    incidence lists, at the largest tier's sizes (the mask fits them), with
+    its count and degree sum: the JAX kernel's derive, adopted."""
+    k_max, e_max = st.budgets[-1]
+    ids, _ = compact(st.mask, k_max)
+    exp = expand(ids, prep.deg_pad, prep.indptr_pad, prep.neigh, e_max, with_row_ids=False)
+    compact_stream_into(exp.neigh, exp.valid, st.mask.shape[0], prep.deg_pad, st.ids,
+                        st.ctl[CTL_ACNT:CTL_AE + 1])
+    _route(st, STAGE_DERIVE)
+
+
+def _step_boundary(prep: AdaptivePrep, st: LoopState) -> None:
+    """The phase boundary's forward-progress rule and the tiers' conditions."""
+    _route(st, STAGE_BOUNDARY)
+
+
+def _step_tier(prep: AdaptivePrep, st: LoopState, i: int) -> None:
+    """A step of tier i over the active ids: their min-mode, the labels'
+    update, and the next active set (the neighbours of the rows that
+    changed, from this step's own expansion) with its count and degree sum."""
+    k_i, e_i = st.budgets[i]
+    n = st.mask.shape[0]
+    ids_i = st.ids[:k_i]
+    exp = expand(ids_i, prep.deg_pad, prep.indptr_pad, prep.neigh, e_i, with_row_ids=False)
+    winners = stream_minmode(st.labels, None, exp.neigh, exp.seg_starts)
+    rowflag = st.rowflag[:k_i]
+    cdlp_tier_apply(st.labels_buf, ids_i, winners, rowflag, st.ctl[CTL_CH])
+    compact_rows_into(exp, rowflag, n, prep.deg_pad, st.ids, st.ctl[CTL_ACNT:CTL_AE + 1])
+    _route(st, STAGE_TIER + i)
+
+
+def _steps(prep: AdaptivePrep, st: LoopState, directed: bool):
+    """(name, step) of every step kind, in the graph's order."""
+    return ([("init", functools.partial(_step_init, prep, st, directed)),
+             ("full", functools.partial(_step_full, prep, st)),
+             ("derive", functools.partial(_step_derive, prep, st)),
+             ("boundary", functools.partial(_step_boundary, prep, st))]
+            + [(f"tier{i}", functools.partial(_step_tier, prep, st, i))
+               for i in range(len(st.budgets))])
+
+
+def _host_loop(prep: AdaptivePrep, st: LoopState, directed: bool) -> int:
+    """The JAX kernel's nested loops on the host, each condition read from
+    ctl. Returns the number of conditions read."""
+    steps = dict(_steps(prep, st, directed))
+    reads = 0
+
+    def cond(j):
+        nonlocal reads
+        reads += 1
+        return bool(st.ctl[CTL_COND + j])
 
     # each step kind runs in a named profiler range, so a trace splits the
     # wall time (host included) between them
-    labels = torch.arange(n, dtype=torch.int32, device=deg_pad.device)
-    if itermax < 1:
-        return labels, 0, 0
     with record_function("cdlp.full_step"):
-        new = _first_iteration(plan, labels, directed)
-        mask, acnt, ch = status(labels, new)
-    labels, ids, ae, it, nf = new, None, 0, 1, 1
-    while ch and it < itermax:
-        while ch and it < itermax and acnt == STAY_FULL:
+        steps["init"]()
+    while cond(COND_OUTER):
+        while cond(COND_FULL):
             with record_function("cdlp.full_step"):
-                new = cdlp_step(labels, plan)
-                mask, acnt, ch = status(labels, new)
-            labels, it, nf = new, it + 1, nf + 1
-        if not (ch and it < itermax):
-            break
-        if acnt == DERIVE:  # a full step asked for its active set
+                steps["full"]()
+        if cond(COND_DERIVE):
             with record_function("cdlp.derive"):
-                ids, acnt, ae = derive(mask)
-        if chosen(acnt, ae) == full:  # the exact set exceeds every tier
-            acnt = STAY_FULL
-        for i, (k_i, e_i) in enumerate(tiers):
-            while ch and it < itermax and chosen(acnt, ae) == i:
+                steps["derive"]()
+        steps["boundary"]()
+        for i in range(len(st.budgets)):
+            while cond(COND_TIER + i):
                 with record_function("cdlp.tier_step"):
-                    labels, ids, acnt, ae, ch = tier_step(labels, ids, k_i, e_i)
-                it += 1
-    return labels, it, nf
+                    steps[f"tier{i}"]()
+    return reads
+
+
+class _LoopGraph:
+    """The device loop as one CUDA graph, for one prep, tier ladder and
+    directedness. Built at the first run: each step runs once eagerly (which
+    loads the kernels; the handles are not passed, so nothing needs a graph
+    yet), then is captured by torch into a graph of its own (one private
+    memory pool for all, kept alive here), and the captures are nested under
+    conditional nodes shaped like the JAX kernel's loops:
+
+        init -> WHILE outer { WHILE full {full}; IF derive {derive};
+                              boundary; WHILE tier 0 {tier0}; ... } -> copy
+
+    A run writes itermax into pinned host memory (the first step's K20 reads
+    it), points the closing copy at a fresh labels tensor and launches the
+    graph: one launch, nothing read back. The build counts nothing in
+    ``kernels.launch_counts`` (its eager pass and captures are taken back
+    out) and a run launches nothing from Python, so the graph's executions
+    of each kernel are read from a trace of a run. ``captured`` holds each
+    step's launches at its capture; ``account`` adds them times the step
+    counts ctl reports to ``kernels.replayed_counts``: an inference, which a
+    trace checks."""
+
+    def __init__(self, prep: AdaptivePrep, n: int, budgets: tuple, directed: bool):
+        self.n, self.st = n, _loop_state(prep, n, budgets, handles=True)
+        self.graphs, self.captured = {}, {}
+        self.root = self.exec = None
+        steps = _steps(prep, self.st, directed)
+        self.st.itermax[0] = 1
+        counts = dict(kernels.launch_counts)
+        with torch.cuda.device(prep.deg_pad.device):
+            for _, step in _steps(prep, self.st._replace(handles=None), directed):
+                step()  # eager: the library and each kernel's module load outside any capture
+            pool = torch.cuda.graph_pool_handle()
+            for name, step in steps:
+                before = dict(kernels.launch_counts)
+                self.graphs[name] = torch.cuda.CUDAGraph(keep_graph=True)
+                with torch.cuda.graph(self.graphs[name], pool=pool):
+                    step()
+                self.captured[name] = {k: c - before[k] for k, c in kernels.launch_counts.items()
+                                       if c != before[k]}
+            kernels.launch_counts.update(counts)
+            self._assemble(len(budgets))
+
+    def _assemble(self, t: int) -> None:
+        P, ref = ctypes.c_void_p, ctypes.byref
+        g = lambda name: P(self.graphs[name].raw_cuda_graph())  # noqa: E731
+
+        def node(fn, *args):
+            out = P()
+            kernels.graph_call(fn, *args, ref(out))
+            return out
+
+        def conditional(graph, after, is_while, step=None):
+            """(handle, node, body) of a new conditional node; ``step``'s
+            capture is its body."""
+            h, body = ctypes.c_ulonglong(), P()
+            nd = node("graph_add_conditional", graph, after, int(is_while), ref(h), ref(body))
+            if step is not None:
+                node("graph_add_child", body, None, g(step))
+            return h.value, nd, body
+
+        self.root = P()
+        kernels.graph_call("graph_new", ref(self.root))
+        init = node("graph_add_child", self.root, None, g("init"))
+        h_outer, outer, body = conditional(self.root, init, True)
+        h_full, last, _ = conditional(body, None, True, "full")
+        h_derive, last, _ = conditional(body, last, False, "derive")
+        last = node("graph_add_child", body, last, g("boundary"))
+        h_tiers = []
+        for i in range(t):
+            h, last, _ = conditional(body, last, True, f"tier{i}")
+            h_tiers.append(h)
+        # the closing copy of the labels; each run points it at its own output
+        self.copy_bytes, self.copy = 4 * self.n, None
+        self.out0 = torch.empty_like(self.st.labels)  # the copy's target until a run sets it
+        if self.n:
+            self.copy = node("graph_add_copy", self.root, outer, self.out0.data_ptr(),
+                             self.st.labels.data_ptr(), self.copy_bytes)
+        self.exec = P()
+        kernels.graph_call("graph_instantiate", self.root, ref(self.exec))
+        handles = [h_outer, h_full, h_derive] + h_tiers
+        self.st.handles.copy_(torch.tensor([h - (1 << 64) if h >= 1 << 63 else h
+                                            for h in handles], dtype=torch.int64))
+
+    def launch(self, itermax: int) -> torch.Tensor:
+        """One run: the labels, on the card, once the stream gets there."""
+        labels = self.st.labels
+        out = torch.empty_like(labels)
+        self.st.itermax[0] = itermax
+        if self.copy is not None:
+            kernels.graph_call("graph_set_copy", self.exec, self.copy, out.data_ptr(),
+                               labels.data_ptr(), self.copy_bytes)
+        with torch.cuda.device(labels.device):
+            stream = torch.cuda.current_stream(labels.device).cuda_stream
+        with record_function("cdlp.graph"):
+            kernels.graph_call("graph_launch", self.exec, kernels.ctypes.c_void_p(stream))
+        return out
+
+    def account(self, ctl: list) -> None:
+        """Adds each step's captured launches times its executions that ctl
+        reports to ``kernels.replayed_counts``."""
+        t = len(self.st.budgets)
+        runs = {"init": 1, "full": ctl[CTL_NF] - 1, "derive": ctl[CTL_DERIVES],
+                "boundary": ctl[CTL_OUTERS]}
+        runs.update((f"tier{i}", ctl[CTL_COND + COND_TIER + t + i]) for i in range(t))
+        for name, counts in self.captured.items():
+            for k, c in counts.items():
+                kernels.replayed_counts[k] += c * runs[name]
+
+    def __del__(self):
+        try:
+            if self.root is not None:
+                kernels.graph_call("graph_free", self.root, self.exec)
+        except Exception:  # noqa: BLE001 - no raise under garbage collection
+            pass
+
+
+def _loop_graph(prep: AdaptivePrep, n: int, budgets: tuple, directed: bool) -> _LoopGraph:
+    """The memoized graph of the device loop for this prep."""
+    key = (budgets, bool(directed))
+    if key not in prep.loops:
+        prep.loops[key] = _LoopGraph(prep, n, budgets, directed)
+    return prep.loops[key]
+
+
+def _launch_loop(prep: AdaptivePrep, n: int, itermax: int, directed: bool, budgets: tuple):
+    """The device loop's run up to its last step, nothing read back on a
+    card: (labels, ctl, the graph or None, the host loop's reads of ctl).
+    On a card one graph launch; on the CPU, or inside
+    ``kernels.plain_torch()``, the host loop."""
+    itermax = min(itermax, INT32_INF)
+    if kernels.use_kernel(prep.deg_pad):
+        loop = _loop_graph(prep, n, budgets, directed)
+        return loop.launch(itermax), loop.st.ctl, loop, 0
+    st = _loop_state(prep, n, budgets, handles=False)
+    st.itermax[0] = itermax
+    reads = _host_loop(prep, st, directed)
+    return st.labels, st.ctl, None, reads
 
 
 def cdlp_adaptive_device_run(graph, centers, neigh, deg, itermax, cfg,
                              prep: AdaptivePrep | None = None, with_stats: bool = False):
     """CDLP with frontier-tier active steps. Returns (labels on cfg.device,
     iterations), and with ``with_stats`` also a dict of full_steps,
-    active_steps, e_cap and k_cap."""
+    active_steps, e_cap and k_cap (the JAX entry's). How the run went is
+    left in ``last_run``: its derives, outer iterations and tier steps by
+    tier (from ctl), its driver ("graph" or "host loop") and the host
+    loop's reads of a condition in ctl (0 under the graph, whose conditional
+    nodes read them on the device). Either ends with one read of ctl."""
     if prep is None:
         prep = prepare_cdlp_adaptive(graph, centers, neigh, deg, cfg)
     k_cap = int(cfg.cdlp_frontier_rows or 1 << 16)
     e_cap = int(cfg.cdlp_frontier_edges or 1 << 18)
     tiers = cdlp_tiers(k_cap, e_cap, int(np.asarray(deg).sum()), cfg)
-    labels, it, nf = _adaptive_loop(prep, graph.n, int(itermax), graph.directed, tiers)
+    itermax, loop, reads = int(itermax), None, 0
+    if itermax < 1:
+        labels = torch.arange(graph.n, dtype=torch.int32, device=prep.deg_pad.device)
+        ctl = [0] * ctl_words(len(tiers))
+    else:
+        labels, ctl_t, loop, reads = _launch_loop(prep, graph.n, itermax, graph.directed, tiers)
+        ctl = ctl_t.tolist()  # the run's last host read
+        if loop is not None:
+            loop.account(ctl)
+    it, nf = ctl[CTL_IT], ctl[CTL_NF]
+    last_run.clear()
+    last_run.update(derives=ctl[CTL_DERIVES], outer_iterations=ctl[CTL_OUTERS],
+                    tier_steps=ctl[CTL_COND + COND_TIER + len(tiers):],
+                    driver="host loop" if loop is None else "graph", condition_reads=reads)
     if with_stats:
         stats = {"full_steps": nf, "active_steps": it - nf, "e_cap": e_cap, "k_cap": k_cap}
         return labels, it, stats

@@ -4,8 +4,11 @@
 A frontier is a fixed-capacity id buffer ``ids [K]`` (ascending, padded
 with n) plus its true count. ``compact`` turns a dense mask into one and
 ``compact_stream`` dedupes a stream of vertex ids back into one, both on
-kernel K14 (``frontier_compact``); ``expand`` lays the frontier's adjacency
-slices out in ``e_cap`` edge slots on kernel K5 (``frontier_expand``),
+kernel K14 (``frontier_compact``; ``compact_stream_into`` and
+``compact_rows_into`` write into given buffers with the ids' degree sum, the
+latter in K14's row-flag mode); ``expand`` lays the frontier's adjacency
+slices out in ``e_cap`` edge slots on kernel K5 (``frontier_expand``), after
+the row starts of kernel K18 (``frontier_starts``),
 ``residual_claim`` is BFS's bottom-up residual test, the ids of the rows of
 an expansion that reach the current level, on kernel K17
 (``bfs_residual_claim``; ``residual_hits``, the same test on K7 ``max_i32``
@@ -147,6 +150,37 @@ def frontier_expand(ids, starts, indptr_pad, neigh, e_cap: int, with_row_ids=Tru
     return rows_local, row_ids, gpos, nb, valid
 
 
+def frontier_starts_plain(ids: torch.Tensor, deg_pad: torch.Tensor) -> torch.Tensor:
+    """K18's plain PyTorch version, the JAX function's formulation: a
+    gather of the degrees, their int32 cumsum and a leading 0."""
+    lens = table_gather(deg_pad, ids)
+    return torch.cat([lens.new_zeros(1), torch.cumsum(lens, 0, dtype=torch.int32)])
+
+
+def frontier_starts(ids: torch.Tensor, deg_pad: torch.Tensor) -> torch.Tensor:
+    """K18 wrapper: int32 [K+1] row starts of the expansion of ``ids``
+    [K] (int32, ids in [0, len(deg_pad))): starts[0] = 0 and starts[i+1] =
+    starts[i] + deg_pad[ids[i]], as int32 sums (they wrap as the JAX
+    cumsum's do). starts[K] is the edge count. One launch (after a memset
+    of its scratch), no host read."""
+    if ids.dtype != torch.int32 or deg_pad.dtype != torch.int32 or ids.dim() != 1 or \
+            deg_pad.dim() != 1:
+        raise TypeError("frontier_starts: ids and deg_pad must be 1-D int32")
+    if ids.device != deg_pad.device or not (ids.is_contiguous() and deg_pad.is_contiguous()):
+        raise ValueError("frontier_starts: ids and deg_pad must be contiguous, on one device")
+    if ids.shape[0] >= (1 << 31) - 1:
+        raise ValueError(f"frontier_starts: {ids.shape[0]} ids are too many")
+    if not kernels.use_kernel(ids):
+        return frontier_starts_plain(ids, deg_pad)
+    k = ids.shape[0]
+    starts = torch.empty(k + 1, dtype=torch.int32, device=ids.device)
+    words = kernels.query("frontier_starts_scratch_words", k)
+    scratch = torch.empty(words, dtype=torch.int64, device=ids.device)
+    kernels.launch("frontier_starts", ids.device, ids.data_ptr(), k, deg_pad.data_ptr(),
+                   deg_pad.shape[0], starts.data_ptr(), scratch.data_ptr(), words)
+    return starts
+
+
 def expand(ids: torch.Tensor, deg_pad: torch.Tensor, indptr_pad: torch.Tensor,
            neigh: torch.Tensor, e_cap: int, with_row_ids: bool = True) -> Expansion:
     """Concatenate the adjacency slices of ``ids`` into [e_cap] slots.
@@ -154,9 +188,8 @@ def expand(ids: torch.Tensor, deg_pad: torch.Tensor, indptr_pad: torch.Tensor,
     ``deg_pad``/``indptr_pad`` are [n+1] with deg_pad[n] == 0, so the pad
     id n reads as an empty slice. Edges past e_cap are cut: callers check
     ``edge_count <= e_cap`` first. A pad slot belongs to the last nonempty
-    row (row 0 when there is none)."""
-    lens = table_gather(deg_pad, ids)
-    starts = torch.cat([lens.new_zeros(1), torch.cumsum(lens, 0, dtype=torch.int32)])
+    row (row 0 when there is none). Two launches on the card: K18, K5."""
+    starts = frontier_starts(ids, deg_pad)
     rows_local, row_ids, gpos, nb, valid = frontier_expand(
         ids, starts, indptr_pad, neigh, e_cap, with_row_ids
     )
@@ -173,26 +206,102 @@ def compact_stream_plain(vals: torch.Tensor, active: torch.Tensor, k: int, n: in
     return _fit(ids, k, n), first.sum(dtype=torch.int32)
 
 
+def _check_stream(name, vals, active, k, n) -> None:
+    if vals.dtype != torch.int32 or active.dtype != torch.bool:
+        raise TypeError(f"{name}: vals must be int32, active bool")
+    if vals.dim() != 1 or vals.shape != active.shape or active.device != vals.device:
+        raise ValueError(f"{name}: vals and active must be 1-D, of one length and device")
+    if not (vals.is_contiguous() and active.is_contiguous()) or k < 0 or not 0 <= n < 1 << 31:
+        raise ValueError(f"{name}: contiguous inputs, k >= 0 and n in [0, 2^31) (k {k}, n {n})")
+
+
+def _k14_stream(counter, vals, active, rows, n, ids, count, deg_pad, deg_sum) -> None:
+    """K14's stream entry on the card: ``active`` a bool mask, or None and
+    ``rows`` (rows_local, rowflag, edge_count) for the row-flag mode;
+    ``deg_sum`` (with ``deg_pad``) or None."""
+    scratch = torch.empty(K14_MAX_BLOCKS, dtype=torch.int32, device=vals.device)
+    bitmap = torch.empty(max((n + 31) // 32, 1), dtype=torch.int32, device=vals.device)
+    rows_local, rowflag, edge_count = rows if rows is not None else (None, None, None)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    kernels.launch("frontier_compact_stream", vals.device, vals.data_ptr(), ptr(active),
+                   ptr(rows_local), ptr(rowflag), ptr(edge_count), int(rows is not None),
+                   vals.shape[0], n, bitmap.data_ptr(), ids.data_ptr(), ids.shape[0],
+                   count.data_ptr(), ptr(deg_pad), ptr(deg_sum), scratch.data_ptr(),
+                   K14_MAX_BLOCKS, counter=counter)
+
+
+def _check_into(name, deg_pad, ids, status, device) -> None:
+    ts = (deg_pad, ids, status)
+    if any(t.dtype != torch.int32 or t.dim() != 1 for t in ts) or status.shape[0] != 2:
+        raise TypeError(f"{name}: deg_pad, ids and status [2] must be 1-D int32")
+    if any(t.device != device for t in ts) or not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{name}: deg_pad, ids and status must be contiguous, on one device")
+
+
+def compact_stream_into(vals: torch.Tensor, active: torch.Tensor, n: int,
+                        deg_pad: torch.Tensor, ids: torch.Tensor, status: torch.Tensor) -> None:
+    """``compact_stream`` into given buffers: ``ids`` [k] takes the ids,
+    ``status`` int32 [2] the true count and the degree sum of the ids
+    written (``frontier_deg_sum``; pad ids read deg_pad[n] == 0). One K14
+    call on the card, nothing read back."""
+    _check_stream("compact_stream_into", vals, active, ids.shape[0], n)
+    _check_into("compact_stream_into", deg_pad, ids, status, vals.device)
+    if not kernels.use_kernel(vals):
+        out, count = compact_stream_plain(vals, active, ids.shape[0], n)
+        _put_status(ids, status, out, count, deg_pad)
+        return
+    _k14_stream("frontier_compact", vals, active, None, n, ids, status[0:1], deg_pad,
+                status[1:2])
+
+
+def _put_status(ids, status, out, count, deg_pad) -> None:
+    ids.copy_(out)
+    status.copy_(torch.stack([count, frontier_deg_sum(out, deg_pad)]))
+
+
+def compact_rows_plain(exp: Expansion, rowflag: torch.Tensor, n: int, deg_pad: torch.Tensor,
+                       ids: torch.Tensor, status: torch.Tensor) -> None:
+    """K14's row-flag mode, plain PyTorch: the JAX kernel's ch_edge mask
+    (valid slots whose row's flag is set, a gather of the flags by
+    rows_local), ``compact_stream_plain`` over it and ``frontier_deg_sum``."""
+    ch_edge = exp.valid & (table_gather(rowflag.to(torch.int32), exp.rows_local) == 1)
+    out, count = compact_stream_plain(exp.neigh, ch_edge, ids.shape[0], n)
+    _put_status(ids, status, out, count, deg_pad)
+
+
+def compact_rows_into(exp: Expansion, rowflag: torch.Tensor, n: int, deg_pad: torch.Tensor,
+                      ids: torch.Tensor, status: torch.Tensor) -> None:
+    """K14 wrapper, row-flag mode: the distinct neighbours ``exp.neigh[j]``
+    of the slots j < ``exp.edge_count`` whose row ``exp.rows_local[j]`` has
+    ``rowflag`` set (bool, one a frontier row), into ``ids`` [k] (ascending,
+    padded with n, cut at k), with ``status`` int32 [2] = (true count,
+    degree sum of the ids written). CDLP's next active set after a tier
+    step: the neighbours of the rows that changed. One call, no host read."""
+    _check_stream("compact_rows_into", exp.neigh, exp.valid, ids.shape[0], n)
+    _check_into("compact_rows_into", deg_pad, ids, status, exp.neigh.device)
+    if rowflag.dtype != torch.bool or rowflag.dim() != 1 or not rowflag.is_contiguous() or \
+            rowflag.device != exp.neigh.device:
+        raise TypeError("compact_rows_into: rowflag must be a contiguous 1-D bool tensor")
+    if not kernels.use_kernel(exp.neigh):
+        compact_rows_plain(exp, rowflag, n, deg_pad, ids, status)
+        return
+    _k14_stream("frontier_compact_rows", exp.neigh, None,
+                (exp.rows_local, rowflag, exp.edge_count), n, ids, status[0:1], deg_pad,
+                status[1:2])
+
+
 def compact_stream(vals: torch.Tensor, active: torch.Tensor, k: int, n: int):
     """K14 wrapper: the distinct active values of a stream -> (ids [k]
     ascending, padded with n, true count as a 0-d int32). ``vals`` [e] int32
     holds ids in [0, n] (n, the pad id, is never taken), ``active`` [e]
     bool. On the card the values mark a bitmap of n bits, which dedupes and
     orders them without a sort."""
-    if vals.dtype != torch.int32 or active.dtype != torch.bool:
-        raise TypeError("compact_stream: vals must be int32, active bool")
-    if vals.dim() != 1 or vals.shape != active.shape or active.device != vals.device:
-        raise ValueError("compact_stream: vals and active must be 1-D, of one length and device")
-    if not (vals.is_contiguous() and active.is_contiguous()) or k < 0 or not 0 <= n < 1 << 31:
-        raise ValueError(f"compact_stream: contiguous inputs, k >= 0 and n in [0, 2^31) "
-                         f"(k {k}, n {n})")
+    _check_stream("compact_stream", vals, active, k, n)
     if not kernels.use_kernel(vals):
         return compact_stream_plain(vals, active, k, n)
-    ids, count, scratch = _k14_outputs(k, vals.device)
-    bitmap = torch.empty(max((n + 31) // 32, 1), dtype=torch.int32, device=vals.device)
-    kernels.launch("frontier_compact_stream", vals.device, vals.data_ptr(), active.data_ptr(),
-                   vals.shape[0], n, bitmap.data_ptr(), ids.data_ptr(), k, count.data_ptr(),
-                   scratch.data_ptr(), K14_MAX_BLOCKS, counter="frontier_compact")
+    ids = torch.empty(k, dtype=torch.int32, device=vals.device)
+    count = torch.empty((), dtype=torch.int32, device=vals.device)
+    _k14_stream("frontier_compact", vals, active, None, n, ids, count, None, None)
     return ids, count
 
 

@@ -22,7 +22,10 @@ C entry ``csr_pull_slices``) and ``ops/frontier.py:relax_min``
 ``ops/frontier.py:compact`` and ``compact_stream`` (K14, kernel
 ``frontier_compact``), ``algorithms/lcc.py:_lcc_bucket_sweep`` (K15,
 kernel ``lcc_sweep_member``), ``ops/triangles.py:lcc_head_credits`` (K16) and
-``ops/frontier.py:residual_claim`` (K17, kernel ``bfs_residual_claim``). A
+``ops/frontier.py:residual_claim`` (K17, kernel ``bfs_residual_claim``),
+``ops/frontier.py:frontier_starts`` (K18), ``ops/active.py:cdlp_tier_apply``
+(K19) and ``ops/active.py:cdlp_route`` and ``cdlp_status`` (K20, kernel
+``cdlp_route``, the full step's status counted as ``cdlp_route_status``). A
 wrapper dispatches on
 the device of its tensors: a CPU tensor takes the plain version, a CUDA
 tensor launches the kernel or raises. K2, K3 and K6 also take every bucket
@@ -34,13 +37,24 @@ reference on the card. A wrapper adds one to ``launch_counts[name]`` for
 each launch (K7 in mode sum to ``launch_counts["csr_pull_reduce_sum"]``, in
 mode sum_i64, which no path runs since K16 took LCC's head sums, to
 ``"csr_pull_reduce_sum_i64"``, K8's int32 mode,
-``ops/frontier.py:relax_min_i32``, to ``"push_relax_min_i32"``); K9, K11
+``ops/frontier.py:relax_min_i32``, to ``"push_relax_min_i32"``, K14's
+row-flag mode, ``ops/frontier.py:compact_rows_into``, to
+``"frontier_compact_rows"``); K9, K11
 and K12 may launch more than once a call (K9: a histogram, a scatter, the
 probe and the unbin; K11: one launch per task list of its plan; K12: a warp
 per segment, then a persistent grid for the longer ones), and count each. A
 call of K14 is one count: its C entry runs a count and a write kernel (and
 in compact_stream, before them, a memset and the bitmap's marking); so is
-a call of K16, whose C entry zeroes its output by a memset first.
+a call of K16, whose C entry zeroes its output by a memset first, and of
+K19 and K20's status, which zero a status word or their scratch the same way.
+A launch captured into a CUDA graph counts once, at its capture
+(``torch.cuda.graph``), and its replays not at all. The CDLP loop's graph
+(ops/active.py) takes its build's counts back out: its runs launch nothing
+from Python, and a trace of a run shows what it executed.
+``replayed_counts`` holds that graph's captured launches times the step
+counts its control words report, an inference the trace is held against.
+``graph_call`` runs the host functions that assemble and launch that graph
+(``_GRAPH``).
 """
 
 from __future__ import annotations
@@ -68,7 +82,8 @@ KERNELS = (
     "gather_rows", "slab_minmode", "slab_spmv_sum", "vreg_shuffle", "frontier_expand",
     "slab_spmv_min", "csr_pull_reduce", "push_relax_min", "edgehash_probe", "wedge_rowblock",
     "masked_spgemm", "segment_minmode", "bfs_trunc_probe", "frontier_compact",
-    "lcc_sweep_member", "lcc_head_credits", "bfs_residual_claim",
+    "lcc_sweep_member", "lcc_head_credits", "bfs_residual_claim", "frontier_starts",
+    "cdlp_tier_apply", "cdlp_route",
 )
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -125,8 +140,11 @@ _SIGNATURES = {
     "gt_push_relax_min_i32": (_P, _P, _P, _P, _P, _I32, _I64, _I64, _I32, _P),
     # mask, n, ids, k, count, scratch, scratch ints, stream
     "gt_frontier_compact": (_P, _I64, _P, _I64, _P, _P, _I64, _P),
-    # vals, active, e, n, bitmap, ids, k, count, scratch, scratch ints, stream
-    "gt_frontier_compact_stream": (_P, _P, _I64, _I64, _P, _P, _I64, _P, _P, _I64, _P),
+    # vals, active, rows_local, rowflag, edge_count, rows (1: the row-flag mode, which reads
+    # the three before it in place of active), e, n, bitmap, ids, k, count, deg_pad,
+    # deg_sum (null: none), scratch, scratch ints, stream
+    "gt_frontier_compact_stream": (_P, _P, _P, _P, _P, _I32, _I64, _I64, _P, _P, _I64, _P, _P,
+                                   _P, _P, _I64, _P),
     # indptr, col, c, o, items, n_items, weight, unit (threads an item), ilp
     # (searches a lane runs in step), numerator, stream
     "gt_lcc_sweep_member": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P, _P),
@@ -134,8 +152,34 @@ _SIGNATURES = {
     "gt_lcc_head_credits": (_P, _I32, _I64, _P, _P),
     # levels, n_levels, level, neigh, seg_starts, rids, k, e_cap, pad, out, grid, stream
     "gt_bfs_residual_claim": (_P, _I64, _I32, _P, _P, _P, _I32, _I32, _I32, _P, _I32, _P),
+    # ids, k, deg_pad, n_pad, starts, scratch, scratch words (uint64), stream
+    "gt_frontier_starts": (_P, _I64, _P, _I64, _P, _P, _I64, _P),
+    # labels, n, ids, winners, k, rowflag, ch, stream
+    "gt_cdlp_tier_apply": (_P, _I64, _P, _P, _I64, _P, _P, _P),
+    # labels, next, n, deg, mask, scratch, ctl, k_max, e_max, grid, stream
+    "gt_cdlp_route_status": (_P, _P, _I64, _P, _P, _P, _P, _I64, _I64, _I32, _P),
+    # ctl, tiers, t, stage, itermax (pinned host int32), handles (null outside a graph), stream
+    "gt_cdlp_route": (_P, _P, _I32, _I32, _P, _P, _P),
     # stream: a kernel that returns at once (csrc/empty_kernel.cu)
     "gt_empty_kernel": (_P,),
+}
+
+# host functions that assemble, instantiate and launch a CUDA graph
+# (csrc/cdlp_loop.cu), each returning a cudaError_t
+_PP, _PH = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_ulonglong)
+_GRAPH = {
+    "gt_graph_new": (_PP,),
+    # graph, after (null: no dependency), child, node out
+    "gt_graph_add_child": (_P, _P, _P, _PP),
+    # graph, after, is_while, handle out, body out, node out
+    "gt_graph_add_conditional": (_P, _P, _I32, _PH, _PP, _PP),
+    # graph, after, dst, src, bytes, node out
+    "gt_graph_add_copy": (_P, _P, _P, _P, _I64, _PP),
+    "gt_graph_instantiate": (_P, _PP),
+    # exec, copy node, dst, src, bytes
+    "gt_graph_set_copy": (_P, _P, _P, _P, _I64),
+    "gt_graph_launch": (_P, _P),
+    "gt_graph_free": (_P, _P),
 }
 
 # host functions that size a launch's scratch, returning a count
@@ -144,6 +188,8 @@ _QUERIES = {
     "gt_segment_minmode_scratch_ints": (_I32, _I64, _I32),
     # -> the heads K16 sums in a block's shared memory (its build's K16_HUBS)
     "gt_lcc_head_credits_hubs": (),
+    # k -> the uint64 words of K18's scratch (a ticket and a status word a tile)
+    "gt_frontier_starts_scratch_words": (_I64,),
 }
 
 # a launch counter per kernel, and one for each of K7's sum modes (sum:
@@ -151,8 +197,12 @@ _QUERIES = {
 # sums in head order, the design K16 replaced, which no path launches now)
 # and K8's int32 mode (the distributed WCC's active step), so that a run
 # shows which callers it went through
-COUNTERS = KERNELS + ("csr_pull_reduce_sum", "csr_pull_reduce_sum_i64", "push_relax_min_i32")
+COUNTERS = KERNELS + ("csr_pull_reduce_sum", "csr_pull_reduce_sum_i64", "push_relax_min_i32",
+                      "frontier_compact_rows", "cdlp_route_status")
 launch_counts = dict.fromkeys(COUNTERS, 0)
+# a captured graph's launches as inferred by its driver: each step's captured
+# launches times the executions of the step that its control words report
+replayed_counts = dict.fromkeys(COUNTERS, 0)
 build_seconds = None  # seconds the last nvcc build took; None = not built here
 _libs = {}
 _plain = False
@@ -161,6 +211,7 @@ _plain = False
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+        replayed_counts[k] = 0
 
 
 @contextlib.contextmanager
@@ -261,7 +312,7 @@ def library(defines=()) -> ctypes.CDLL:
     defines = tuple(defines)
     if defines not in _libs:
         lib = ctypes.CDLL(str(build(defines)))
-        for name, argtypes in _SIGNATURES.items():
+        for name, argtypes in (_SIGNATURES | _GRAPH).items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -294,6 +345,16 @@ def launch(name: str, device, *args, counter: str | None = None) -> None:
     Python ints)."""
     _call(name, device, *args)
     launch_counts[counter or name] += 1
+
+
+def graph_call(name: str, *args) -> None:
+    """A graph host function of the library (``_GRAPH``); raise if it
+    failed."""
+    lib = library()
+    rc = getattr(lib, "gt_" + name)(*args)
+    if rc != 0:
+        raise RuntimeError(f"CUDA graph call {name} failed: error {rc} "
+                           f"({lib.gt_error_string(rc).decode()})")
 
 
 def query(name: str, *args) -> int:

@@ -204,15 +204,15 @@ def stream_minmode_plain(labels, centers, neigh, indptr, identity=False):
 
 def _check_stream(labels, centers, neigh, indptr, identity) -> None:
     for name, t in (("centers", centers), ("neigh", neigh), ("indptr", indptr)):
-        if t.dtype != torch.int32 or t.dim() != 1:
+        if t is not None and (t.dtype != torch.int32 or t.dim() != 1):
             raise TypeError(f"stream_minmode: {name} must be a 1-D int32 tensor")
-    if centers.shape != neigh.shape or indptr.shape[0] < 1:
+    if (centers is not None and centers.shape != neigh.shape) or indptr.shape[0] < 1:
         raise ValueError("stream_minmode: need centers and neigh of one length and H+1 >= 1 "
                          "indptr entries")
     if not identity and (labels is None or labels.dtype != torch.int32 or labels.dim() != 1):
         raise TypeError("stream_minmode: gather mode needs 1-D int32 labels")
     on = [neigh, indptr] + ([] if identity else [labels])
-    if any(t.device != neigh.device for t in on + [centers]):
+    if any(t.device != neigh.device for t in on + ([] if centers is None else [centers])):
         raise ValueError("stream_minmode: inputs must lie on one device")
     if kernels.use_kernel(neigh):
         if not all(t.is_contiguous() for t in on):
@@ -263,13 +263,26 @@ def stream_minmode(labels, centers, neigh, indptr, identity=False):
     version reads: in every caller it is ``repeat_interleave(arange(H),
     diff(indptr))`` followed by H for each entry past ``indptr[-1]``, so
     the kernel, which takes the segments from ``indptr``, computes the same
-    function. Pads as in ``stream_minmode_plain``. On a CUDA tensor no
-    value is read back to the host; a stream of m entries with m + m/2 >=
-    2^31 raises there (K12's indices are int32)."""
+    function; None makes the plain version build them so from ``indptr``
+    (CDLP auto's tier step passes None). Pads as in
+    ``stream_minmode_plain``. On a CUDA tensor no value is read back to the
+    host; a stream of m entries with m + m/2 >= 2^31 raises there (K12's
+    indices are int32)."""
     _check_stream(labels, centers, neigh, indptr, identity)
     if not kernels.use_kernel(neigh):
+        if centers is None:
+            centers = _centers_of(indptr, neigh.shape[0])
         return stream_minmode_plain(labels, centers, neigh, indptr, identity)
     return _k12_launch(labels, neigh, indptr, identity)[0]
+
+
+def _centers_of(indptr, m: int):
+    """The segment id of each of m entries under the starts ``indptr``
+    [H+1], H for an entry outside [indptr[0], indptr[-1])."""
+    h = indptr.shape[0] - 1
+    pos = torch.arange(m, dtype=indptr.dtype, device=indptr.device)
+    seg = torch.searchsorted(indptr, pos, right=True, out_int32=True) - 1
+    return torch.where((seg < 0) | (pos >= indptr[-1]), h, seg)
 
 
 def _heavy_minmode(labels, plan: SlabPlan):

@@ -38,6 +38,7 @@ bench_graph = runpy.run_path(str(_tools / "lcc_sweep_times.py"))["bench_graph"]
 
 def shapes(g, device):
     """name -> ("mask", (mask, k)) or ("stream", (vals, active, k, n))."""
+    import numpy as np
     import torch
 
     from graphtpu_torch.algorithms import bfs as bfs_mod
@@ -52,10 +53,31 @@ def shapes(g, device):
     cfg = PlatformConfig(device=str(device))
     calls = {}
 
-    def cdlp_run():
-        calls["cdlp_stream"] = captured(active_mod, "compact_stream", lambda: run_algorithm(
-            "cdlp", g, AlgorithmParams(max_iterations=CDLP_ITERS),
-            PlatformConfig(device=str(device), cdlp_impl="auto")))
+    def cdlp_auto():
+        return run_algorithm("cdlp", g, AlgorithmParams(max_iterations=CDLP_ITERS),
+                             PlatformConfig(device=str(device), cdlp_impl="auto"))
+
+    if hasattr(active_mod, "compact_rows_into"):
+        # the loop is one CUDA graph: its steps, called from the host, show
+        # the tier steps' streams (K14's row-flag mode) as the stream of
+        # compact_stream over the rows' flags
+        from graphtpu_torch.algorithms.cdlp import build_incidence
+        from graphtpu_torch.tools.minmode_times import cdlp_auto_eager
+
+        centers, neigh = build_incidence(g)
+        deg = np.bincount(centers, minlength=n)
+        cfg_a = PlatformConfig(device=str(device))
+        prep = active_mod.prepare_cdlp_adaptive(g, centers, neigh, deg, cfg_a)
+
+        def cdlp_run():
+            rows = captured(active_mod, "compact_rows_into", lambda: cdlp_auto_eager(
+                active_mod, g, centers, neigh, deg, cfg_a, prep))
+            calls["cdlp_stream"] = [
+                (exp.neigh, exp.valid & rowflag[exp.rows_local.long()], ids.shape[0], n_)
+                for exp, rowflag, n_, _, ids, _ in rows]
+    else:
+        def cdlp_run():
+            calls["cdlp_stream"] = captured(active_mod, "compact_stream", cdlp_auto)
 
     masks = captured(active_mod, "compact", cdlp_run)
     calls["wcc_stream"] = captured(wcc_mod, "compact_stream", lambda: run_algorithm(

@@ -71,6 +71,21 @@ def captured(owner, attr, fn):
     return calls
 
 
+def cdlp_auto_eager(active, g, centers, neigh, deg, cfg, prep, itermax=CDLP_ITERS):
+    """CDLP auto's run as the step functions called one by one from the host
+    (the loop's host driver, each wrapper launching its kernel), where the
+    checkout runs the loop as one CUDA graph, whose replays call no Python
+    function for ``captured`` to see; else the run itself."""
+    if not hasattr(active, "_host_loop"):
+        return active.cdlp_adaptive_device_run(g, centers, neigh, deg, itermax, cfg, prep=prep)
+    tiers = active.cdlp_tiers(int(cfg.cdlp_frontier_rows or 1 << 16),
+                              int(cfg.cdlp_frontier_edges or 1 << 18), int(deg.sum()), cfg)
+    st = active._loop_state(prep, g.n, tiers, handles=False)
+    st.itermax[0] = itermax
+    active._host_loop(prep, st, g.directed)
+    return st.labels, int(st.ctl[active.CTL_IT])
+
+
 def k12_shapes(g, device, prep=None, lab1=None):
     """name -> (labels, centers, neigh, indptr, identity) of K12's calls on
     the CDLP paths of graph g (undirected): see the module docstring.
@@ -93,9 +108,16 @@ def k12_shapes(g, device, prep=None, lab1=None):
     if lab1 is None:
         lab1 = _iter0_minmode(plan, torch.arange(g.n, dtype=torch.int32, device=device))
     heavy = (plan.heavy_centers, plan.heavy_neigh, plan.heavy_indptr)
-    tiers = captured(active, "stream_minmode", lambda: active.cdlp_adaptive_device_run(
-        g, centers, neigh, deg, CDLP_ITERS, cfg, prep=prep))
-    t_labels, *tier = max(tiers, key=lambda a: int(a[3][-1]))  # the most real entries
+    tiers = captured(active, "stream_minmode", lambda: cdlp_auto_eager(
+        active, g, centers, neigh, deg, cfg, prep))
+    t_labels, t_centers, t_neigh, t_indptr = max(tiers, key=lambda a: int(a[3][-1]))
+    if t_centers is None:  # the tier step on the card builds no centres: K12 reads none
+        h, m, real = t_indptr.shape[0] - 1, t_neigh.shape[0], int(t_indptr[-1])
+        t_centers = torch.cat([
+            torch.repeat_interleave(torch.arange(h, dtype=torch.int32, device=device),
+                                    torch.diff(t_indptr), output_size=real),
+            torch.full((m - real,), h, dtype=torch.int32, device=device)])
+    tier = (t_centers, t_neigh, t_indptr)
     indptr = np.zeros(g.n + 1, dtype=np.int64)
     np.cumsum(deg, out=indptr[1:])
     i32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)  # noqa: E731

@@ -2243,3 +2243,236 @@ def test_lcc_sweep_member_refuses_other_units(cuda, unit, ilp):
     with pytest.raises(RuntimeError, match="lcc_sweep_member"):
         _lcc_bucket_sweep(torch.zeros(2, dtype=torch.int64, device=cuda), i32([0, 1, 2]),
                           i32([1, 0]), i32([0]), i32([1]), 16, 2, 1, items, unit, ilp=ilp)
+
+
+@pytest.mark.parametrize("k", [1, 2, 1023, 1024, 16385, 1 << 16, 1 << 18, 300_001])
+def test_frontier_starts_matches_plain(cuda, k):
+    """K18 against its plain version: ascending ids padded with n (degree
+    0), ids past the table read degree 0 as K1 gives, one launch; degrees
+    whose sum passes 2^31 wrap as the int32 cumsum does."""
+    from graphtpu_torch.ops.frontier import frontier_starts, frontier_starts_plain
+
+    rng = np.random.default_rng(k)
+    n = 1 << 20
+    deg_pad = np.concatenate([rng.integers(0, 200, size=n), [0]]).astype(np.int32)
+    ids = np.sort(rng.integers(0, n, size=k)).astype(np.int32)
+    ids[k - k // 4:] = n  # the pad
+    for table in (deg_pad, np.full(n + 1, 1 << 20, dtype=np.int32)):
+        table[n] = 0
+        td, ti = torch.from_numpy(table), torch.from_numpy(ids)
+        before = kernels.launch_counts["frontier_starts"]
+        got = frontier_starts(ti.to(cuda), td.to(cuda))
+        assert kernels.launch_counts["frontier_starts"] == before + 1
+        assert torch.equal(got.cpu(), frontier_starts_plain(ti, td))
+
+
+def _expansion(cuda, rng, n, k, e_cap, count):
+    from graphtpu_torch.ops.frontier import expand
+
+    deg = rng.integers(0, 40, size=n)
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(deg, out=indptr[1:])
+    neigh = rng.integers(0, n, size=int(indptr[-1])).astype(np.int32)
+    ids = np.full(k, n, dtype=np.int32)
+    ids[:count] = np.sort(rng.choice(n, size=count, replace=False))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(cuda)  # noqa: E731
+    deg_pad = t(np.concatenate([deg, [0]]))
+    return expand(t(ids), deg_pad, t(indptr), t(neigh), e_cap, with_row_ids=False), deg_pad
+
+
+@pytest.mark.parametrize("share", [0.0, 0.05, 0.5, 1.0])
+@pytest.mark.parametrize("k_out", [16, 4096, 1 << 16])
+def test_frontier_compact_rows_matches_plain(cuda, share, k_out):
+    """K14's row-flag mode and the valid-mask mode's degree sum against
+    their plain versions on random expansions (a cut expansion included):
+    ids, count and degree sum bit for bit, one launch a call each."""
+    from graphtpu_torch.ops.frontier import (
+        compact_rows_into, compact_rows_plain, compact_stream_into,
+    )
+
+    rng = np.random.default_rng(int(share * 100) + k_out)
+    n = 100_000
+    for k, e_cap, count in ((4096, 1 << 18, 3000), (1 << 16, 1 << 16, 20_000)):
+        exp, deg_pad = _expansion(cuda, rng, n, k, e_cap, count)
+        flags = torch.from_numpy(rng.random(k) < share).to(cuda)
+        out, status = (torch.empty(k_out, dtype=torch.int32, device=cuda),
+                       torch.full((2,), -1, dtype=torch.int32, device=cuda))
+        before = dict(kernels.launch_counts)
+        compact_rows_into(exp, flags, n, deg_pad, out, status)
+        assert kernels.launch_counts["frontier_compact_rows"] == \
+            before["frontier_compact_rows"] + 1
+        cpu = lambda e: type(e)(*(None if f is None else f.cpu() for f in e))  # noqa: E731
+        p_out, p_status = torch.empty(k_out, dtype=torch.int32), torch.empty(2, dtype=torch.int32)
+        compact_rows_plain(cpu(exp), flags.cpu(), n, deg_pad.cpu(), p_out, p_status)
+        assert torch.equal(out.cpu(), p_out) and torch.equal(status.cpu(), p_status)
+        compact_stream_into(exp.neigh, exp.valid, n, deg_pad, out, status)
+        assert kernels.launch_counts["frontier_compact"] == before["frontier_compact"] + 1
+        p_out, p_status = p_out.to(cuda), p_status.to(cuda)
+        with kernels.plain_torch():
+            compact_stream_into(exp.neigh, exp.valid, n, deg_pad, p_out, p_status)
+        assert torch.equal(out, p_out) and torch.equal(status, p_status)
+
+
+@pytest.mark.parametrize("share", [0.0, 0.3, 1.0])
+def test_cdlp_tier_apply_and_status_match_plain(cuda, share):
+    """K19 (labels in place, row flags, any) and K20's status (mask,
+    labels, acnt, ch, count and degree sum) against their plain versions."""
+    from graphtpu_torch.ops import active as A
+
+    rng = np.random.default_rng(int(share * 10))
+    n, k = 1 << 20, 1 << 16
+    labels = rng.integers(0, n, size=n + 1).astype(np.int32)
+    ids = np.full(k, n, dtype=np.int32)
+    ids[:50_000] = np.sort(rng.choice(n, size=50_000, replace=False))
+    winners = np.where(rng.random(k) < share, rng.integers(0, n, size=k),
+                       labels[np.minimum(ids, n - 1)]).astype(np.int32)
+    bufs = {}
+    for dev in ("cpu", cuda):
+        t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        buf, flags = t(labels.copy()), torch.zeros(k, dtype=torch.bool, device=dev)
+        ctl = torch.zeros(A.ctl_words(1), dtype=torch.int32, device=dev)
+        A.cdlp_tier_apply(buf, t(ids), t(winners), flags, ctl[A.CTL_CH])
+        bufs[str(dev)[:4]] = (buf[:n].cpu(), flags.cpu(), ctl.cpu())
+    (b0, f0, c0), (b1, f1, c1) = bufs["cpu"], bufs["cuda"]
+    assert torch.equal(b0, b1) and torch.equal(f0, f1) and int(c0[A.CTL_CH]) == int(c1[A.CTL_CH])
+    deg_pad = np.concatenate([rng.integers(0, 100, size=n), [0]]).astype(np.int32)
+    new = np.where(rng.random(n) < share * 0.01, rng.integers(0, n, size=n),
+                   labels[:n]).astype(np.int32)
+    for k_max, e_max in ((1 << 16, 1 << 18), (1 << 18, 1 << 30)):
+        got = []
+        for dev in ("cpu", cuda):
+            t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+            lab, mask = t(labels[:n].copy()), torch.zeros(n, dtype=torch.bool, device=dev)
+            ctl = torch.zeros(A.ctl_words(1), dtype=torch.int32, device=dev)
+            A.cdlp_status(lab, t(new), t(deg_pad), mask, ctl, k_max, e_max)
+            got.append((lab.cpu(), mask.cpu(), ctl.cpu()))
+        assert all(torch.equal(a, b) for a, b in zip(*got))
+
+
+def test_cdlp_route_matches_plain(cuda):
+    """K20's route at every stage over a grid of control words, the
+    sentinels included, against its plain version."""
+    from graphtpu_torch.ops import active as A
+
+    tiers = ((16, 64), (64, 256), (128, 4096))
+    t = len(tiers)
+    rng = np.random.default_rng(0)
+    itermax = torch.tensor([7], dtype=torch.int32).pin_memory()
+    words = [-1, 0, 1, 15, 16, 17, 64, 65, 128, 256, 4096, 4097, INT32_INF]
+    for stage in range(A.STAGE_TIER + t):
+        for _ in range(40):
+            ctl = torch.from_numpy(rng.choice(words, size=A.ctl_words(t)).astype(np.int32))
+            ctl[A.CTL_CH] = int(rng.integers(0, 2))
+            ctl[A.CTL_IT], ctl[A.CTL_ITERMAX] = int(rng.integers(0, 9)), 7
+            tiers_c = torch.tensor(tiers, dtype=torch.int32)
+            want = ctl.clone()
+            A.cdlp_route(want, tiers_c, stage, itermax)
+            got = ctl.to(cuda)
+            A.cdlp_route(got, tiers_c.to(cuda), stage, itermax)
+            assert torch.equal(got.cpu(), want), stage
+
+
+def _cdlp_inputs(scale, directed, seed=5):
+    from graphtpu_torch.algorithms.cdlp import build_incidence
+    from graphtpu_torch.utils.synth import rmat_graph
+
+    g = rmat_graph(scale, 16, directed=directed, seed=seed)
+    centers, neigh = build_incidence(g)
+    return g, centers, neigh, np.bincount(centers, minlength=g.n).astype(np.int32)
+
+
+def test_captured_tier_step_replays_like_the_plain_step(cuda):
+    """A tier step captured into a CUDA graph, replayed 50 times from the
+    same state, gives the plain step's labels, ids and control words every
+    time: the per-call state of K12 and K14 (work queues, counters, the
+    bitmap) is reset inside the captured body."""
+    from graphtpu_torch.ops import active as A
+    from graphtpu_torch.utils.config import PlatformConfig
+
+    g, centers, neigh, deg = _cdlp_inputs(13, False)
+    cfg = PlatformConfig(device="cuda", cdlp_frontier_rows=1 << 12, cdlp_frontier_edges=1 << 16)
+    prep = A.prepare_cdlp_adaptive(g, centers, neigh, deg, cfg)
+    tiers = A.cdlp_tiers(1 << 12, 1 << 16, int(deg.sum()), cfg)
+    st = A._loop_state(prep, g.n, tiers, handles=False)
+    st.itermax[0] = 10
+    A._step_init(prep, st, g.directed)
+    A._step_full(prep, st)
+    A._step_full(prep, st)
+    A._step_derive(prep, st)
+    saved = [t.clone() for t in (st.labels_buf, st.ids, st.ctl, st.rowflag)]
+    with kernels.plain_torch():
+        A._step_tier(prep, st, 0)
+    want = [t.clone() for t in (st.labels, st.ids, st.ctl)]
+    assert not torch.equal(want[0], saved[0][:g.n]), "the tier step changed no label"
+
+    def restore():
+        for t, s in zip((st.labels_buf, st.ids, st.ctl, st.rowflag), saved):
+            t.copy_(s)
+
+    restore()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        A._step_tier(prep, st, 0)
+    for _ in range(50):
+        restore()
+        graph.replay()
+        got = (st.labels, st.ids, st.ctl)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("scale, directed, caps", [
+    (12, False, {}), (13, True, {"cdlp_frontier_rows": 256, "cdlp_frontier_edges": 4096}),
+    (14, False, {"cdlp_tiers": "4096,16384,65536"}), (14, True, {})])
+def test_cdlp_graph_run_matches_host_run(cuda, scale, directed, caps, monkeypatch):
+    """The CDLP loop as one CUDA graph (cold: built and launched; warm:
+    launched, at other itermax values) against the host loop under
+    plain_torch() on the card: labels, iterations and steps; one graph
+    launch a run, counted where it is called, and none of the loop's own
+    kernels counted from Python (the build takes its counts back out)."""
+    from graphtpu_torch.ops import active as A
+    from graphtpu_torch.utils.config import PlatformConfig
+
+    g, centers, neigh, deg = _cdlp_inputs(scale, directed)
+    cfg = PlatformConfig(device="cuda", **caps)
+    graph_calls = []
+    call = kernels.graph_call
+    monkeypatch.setattr(kernels, "graph_call",
+                        lambda name, *a: (graph_calls.append(name), call(name, *a))[1])
+    own = ("frontier_starts", "cdlp_tier_apply", "cdlp_route", "cdlp_route_status",
+           "frontier_compact_rows")
+    for itermax in (10, 1, 4, 30):
+        kernels.reset_launch_counts()
+        graph_calls.clear()
+        lab, it, stats = A.cdlp_adaptive_device_run(g, centers, neigh, deg, itermax, cfg,
+                                                    with_stats=True)
+        run = dict(A.last_run)
+        assert run["driver"] == "graph" and graph_calls.count("graph_launch") == 1
+        assert not any(kernels.launch_counts[k] for k in own), kernels.launch_counts
+        assert kernels.replayed_counts["cdlp_route"] >= 1
+        with kernels.plain_torch():
+            p_lab, p_it, p_stats = A.cdlp_adaptive_device_run(g, centers, neigh, deg, itermax,
+                                                              cfg, with_stats=True)
+        assert torch.equal(lab, p_lab) and (it, stats) == (p_it, p_stats), itermax
+        loop_keys = ("derives", "outer_iterations", "tier_steps")
+        assert {k: run[k] for k in loop_keys} == {k: A.last_run[k] for k in loop_keys}
+
+
+def test_cdlp_graph_run_makes_no_host_read_but_its_last(cuda):
+    """A warm run under sync debug mode "error": the launch waits for
+    nothing; only the read of the control words at its end syncs."""
+    from graphtpu_torch.ops import active as A
+    from graphtpu_torch.utils.config import PlatformConfig
+
+    g, centers, neigh, deg = _cdlp_inputs(12, False)
+    cfg = PlatformConfig(device="cuda")
+    prep = A.prepare_cdlp_adaptive(g, centers, neigh, deg, cfg)
+    tiers = A.cdlp_tiers(1 << 16, 1 << 18, int(deg.sum()), cfg)
+    want = A.cdlp_adaptive_device_run(g, centers, neigh, deg, 10, cfg, prep)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        labels, ctl, loop, reads = A._launch_loop(prep, g.n, 10, g.directed, tiers)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert loop is not None and reads == 0
+    assert torch.equal(labels, want[0]) and int(ctl[A.CTL_IT]) == want[1]
