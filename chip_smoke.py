@@ -77,7 +77,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
    launch, no kernel launched from Python; labels, iterations and
    steps equal to the host loop's under plain_torch() and labels to
    cdlp-slab's. Its trace is taken last of all phases, in a child process,
-   by graphtpu_torch/tools/cdlp_loop_times.py (a trace of the graph in
+   by graphtpu_torch/tools/loop_times.py (a trace of the graph in
    this process, or in a child before this process's own traces, made
    those traces lose records): one device-to-host copy and one graph
    launch, only hand kernels, copies, memsets and iteration 0's arange, no
@@ -86,11 +86,26 @@ Run from the root of a checkout:  python3 chip_smoke.py
    launches times the step counts ctl reports, and never above them); its
    records a run print, median, busy ms and idle share beside the parent's
    (PARENT_CDLP_AUTO), then every device record of a run. Phase 3 profiles
-   every path but CDLP auto. K18, K19
+   every path but the graph paths (GRAPH_PATHS). K18, K19
    (cdlp_tier_apply), K20 (cdlp_route and its status entry) and K14's
    row-flag mode against their plain versions at the loop's first tier
-   step, taken from its steps called from the host (K18's yardstick:
-   torch.cumsum of the pre-gathered lengths).
+   step, taken from its steps called from the host (K18's library column:
+   none, a gather, a cumsum and a concatenate).
+4c. The device loops of WCC auto and adaptive on the bench graph and of
+   SSSP auto from vertex 0 on the SSSP graph, each one CUDA graph, checked
+   as CDLP auto's in 4b: built cold, equal to the host loop under
+   plain_torch() (labels and distances bit for bit, every step count), a
+   warm run under sync debug mode "error" with one graph launch and no
+   kernel launched from Python, and the trace of each in a child process
+   by graphtpu_torch/tools/loop_times.py, last: one device-to-host copy and
+   one graph launch, only hand kernels, copies and memsets, no sort, a
+   record of every kernel the path needs, each kernel's records equal to
+   its captured launches times its steps. K21 (wcc_jump), K20's status in
+   its jump mode and K19's min mode at WCC auto's first full step and
+   active step, K22 (sssp_apply) at SSSP auto's first full round (its mask
+   mode at a tier round) and K8's in-place mode at its first tier round,
+   each against its plain version, taken from the steps called from the
+   host.
 5. Each kernel against its plain PyTorch version at the path's shapes and
    on small hand-made cases, with both device times (profiler) and stream
    spans (CUDA events). Beside each time stands the kernel's bound: the
@@ -273,9 +288,12 @@ TRACE_KERNELS = {
     ("k16_head_credits_kernel",): ("lcc_head_credits",),
     ("k17_claim_kernel",): ("bfs_residual_claim",),
     ("k18_starts_kernel",): ("frontier_starts",),
-    ("k19_apply_kernel",): ("cdlp_tier_apply",),
+    ("k19_apply_kernel",): ("cdlp_tier_apply", "cdlp_tier_apply_min"),
     ("k20_route_kernel",): ("cdlp_route",),
-    ("k20_status_kernel",): ("cdlp_route_status",),
+    ("k20_status_kernel",): ("cdlp_route_status", "cdlp_route_status_jump"),
+    ("k21_jump_kernel",): ("wcc_jump",),
+    ("k22_apply_kernel",): ("sssp_apply",),
+    ("push_relax_inplace_kernel",): ("push_relax_min_inplace",),
 }
 # the device kernels of a sort (cub's radix, segmented and merge sorts, torch's
 # own small sorts), matched without regard to case (torch's radixSortKVInPlace):
@@ -283,20 +301,37 @@ TRACE_KERNELS = {
 SORT_KERNELS = ("radixsort", "segmentedsort", "mergesort", "sortkeyvalueinplace",
                 "bitonicsort")
 NO_SORT_PATHS = ("cdlp-auto", "bfs-auto", "wcc-auto", "sssp-auto", "lcc")
-# paths whose loop is one CUDA graph: traced only in a child process
-# (phase_cdlp_loop), since in this process, once the profiler has traced such
-# a graph, later traces of other paths lost their first records (on an H100
-# with CUDA 12.9, driver 13.0 and torch 2.11: every one of five traces in a
-# row, in two runs)
-GRAPH_PATHS = ("cdlp-auto",)
+# paths whose loop is one CUDA graph: traced only in a child process each
+# (phase_loop_trace), since in this process, once the profiler has traced
+# such a graph, later traces of other paths lost their first records (on an
+# H100 with CUDA 12.9, driver 13.0 and torch 2.11: every one of five traces
+# in a row, in two runs)
+GRAPH_PATHS = ("cdlp-auto", "wcc-auto", "wcc-adaptive", "sssp-auto")
 TRACE_KERNELS_OF = {name: pats for pats, names in TRACE_KERNELS.items() for name in names}
 TRACE_TRIES = 5  # traces taken before a kernel count that stays wrong fails the run
-# the CDLP graph's trace records by counter, K14's calls told apart by their
-# kernels: the mask mode writes without a bitmap (k14_write<false>), each
-# stream mode marks one first (k14_mark<false>: a valid mask, <true>: row flags)
+# the loop graphs' trace records by counter, the modes of K14, K19 and K20
+# told apart by their kernels: K14's mask mode writes without a bitmap
+# (k14_write<false>), each stream mode marks one first (k14_mark<false>: a
+# valid mask, <true>: row flags); K19 and K20's status are templates on
+# their min and jump modes
 GRAPH_TRACE_OF = {**TRACE_KERNELS_OF, "frontier_compact": ("k14_write<false>", "k14_mark<false>"),
-                  "frontier_compact_rows": ("k14_mark<true>",)}
-GRAPH_TRACE_TRIES = 3  # child traces of the CDLP graph taken while a record falls short
+                  "frontier_compact_rows": ("k14_mark<true>",),
+                  "cdlp_tier_apply": ("k19_apply_kernel<false>",),
+                  "cdlp_tier_apply_min": ("k19_apply_kernel<true>",),
+                  "cdlp_route_status": ("k20_status_kernel<false>",),
+                  "cdlp_route_status_jump": ("k20_status_kernel<true>",)}
+# the device kernels a loop graph's trace may hold besides copies, memsets
+# and the empty kernel, by path
+GRAPH_KERNELS = {
+    "cdlp-auto": ("gather_", "minmode_", "frontier_expand_kernel", "k7_", "k12_", "k14_",
+                  "k18_", "k19_", "k20_", "arange"),
+    "wcc-auto": ("gather_", "slab_spmv_kernel", "frontier_expand_kernel", "k7_", "k14_", "k18_",
+                 "k19_", "k20_", "k21_"),
+    "wcc-adaptive": ("frontier_expand_kernel", "k7_", "k14_", "k18_", "k19_", "k20_", "k21_"),
+    "sssp-auto": ("k7_", "frontier_expand_kernel", "k8_snapshot", "push_relax_inplace", "k14_",
+                  "k18_", "k22_"),
+}
+GRAPH_TRACE_TRIES = 3  # child traces of a loop graph taken while a record falls short
 PR_RTOL = 1e-4        # the validator's EPSILON (graphtpu/harness/validator.py:40)
 F32_SUM_RTOL = 1e-5   # float32 sums in another order than torch's
 F64_SUM_RTOL = 1e-12  # float64 sums in another order
@@ -692,15 +727,17 @@ PATHS = {
     "bfs-device": ("bfs", {"bfs_impl": "device"}, ("csr_pull_reduce",)),
     "bfs-hybrid": ("bfs", {"bfs_impl": "hybrid"}, ("csr_pull_reduce",)),
     "wcc-auto": ("wcc", {"wcc_impl": "auto"},
-                 ("slab_spmv_min", "frontier_expand", "csr_pull_reduce", "frontier_compact",
-                  "frontier_starts")),
+                 ("gather_rows", "slab_spmv_min", "frontier_expand", "csr_pull_reduce",
+                  "frontier_compact", "frontier_starts", "wcc_jump", "cdlp_route",
+                  "cdlp_route_status_jump", "cdlp_tier_apply_min", "frontier_compact_rows")),
     "wcc-adaptive": ("wcc", {"wcc_impl": "adaptive"},
                      ("csr_pull_reduce", "frontier_expand", "frontier_compact",
-                      "frontier_starts")),
+                      "frontier_starts", "wcc_jump", "cdlp_route", "cdlp_route_status_jump",
+                      "cdlp_tier_apply_min", "frontier_compact_rows")),
     "wcc-device": ("wcc", {"wcc_impl": "device"}, ("csr_pull_reduce",)),
     "sssp-auto": ("sssp", {"sssp_impl": "auto"},
-                  ("csr_pull_reduce", "frontier_expand", "push_relax_min", "frontier_compact",
-                   "frontier_starts")),
+                  ("csr_pull_reduce", "frontier_expand", "push_relax_min_inplace",
+                   "frontier_compact", "frontier_starts", "sssp_apply")),
     "sssp-device": ("sssp", {"sssp_impl": "device"}, ("csr_pull_reduce",)),
     "sssp-delta": ("sssp", {"sssp_impl": "delta"},
                    ("csr_pull_reduce", "frontier_expand", "push_relax_min", "frontier_compact",
@@ -914,7 +951,9 @@ def phase_real_size(device):
             for name in ("wcc-auto", "wcc-adaptive"):
                 kernels.reset_launch_counts()
                 wcc[name] = wcc_adaptive_run(g, cfgs[name], with_stats=True)[1:]
-                wcc_k7[name] = kernels.launch_counts.get("csr_pull_reduce", 0)
+                # the loop is one CUDA graph: its launches are captured
+                # launches times the step counts its control words report
+                wcc_k7[name] = kernels.replayed_counts["csr_pull_reduce"]
             _, sn, sst = sssp_adaptive_run(gw, 0, cfgs["sssp-auto"], torch.float32,
                                            with_stats=True)
             _, dn, dst = sssp_delta_run(gw, 0, cfgs["sssp-delta"], torch.float32,
@@ -1835,7 +1874,7 @@ def phase_cdlp_loop(g, prep, device):
           f"{p_run['condition_reads']} conditions read from ctl, then ctl) = cdlp-slab's; a "
           f"warm run: no host read up to its end (sync debug mode \"error\"), then one, "
           f"{launches} graph launch, no kernel launched from Python; captured launches x "
-          f"the step counts ctl reports: {inferred} (its trace: phase_cdlp_trace)", flush=True)
+          f"the step counts ctl reports: {inferred} (its trace: phase_loop_trace)", flush=True)
     secs = []
     for _ in range(5):
         torch.cuda.synchronize()
@@ -1844,7 +1883,7 @@ def phase_cdlp_loop(g, prep, device):
         secs.append(time.perf_counter() - t0)
     med = sorted(secs)[2]
     print(f"cdlp loop: warm runs {', '.join(f'{s * 1e3:.3f}' for s in secs)} ms, median "
-          f"{med * 1e3:.3f} ms (the trace: phase_cdlp_trace, last)", flush=True)
+          f"{med * 1e3:.3f} ms (the trace: phase_loop_trace, last)", flush=True)
 
     # the kernels at the loop's shapes: its steps from the host, up to the
     # first tier step
@@ -1872,14 +1911,12 @@ def phase_cdlp_loop(g, prep, device):
     check(torch.equal(starts, frontier_starts_plain(ids, prep.deg_pad)),
           "frontier_starts differs from plain")
     check(torch.equal(starts, frontier_starts(ids, prep.deg_pad)), "frontier_starts: two runs")
-    lens = prep.deg_pad[ids.long()]
     res["frontier_starts"] = dict(
         max_abs_err=0.0, times=(cuda_ms(lambda: frontier_starts(ids, prep.deg_pad)),
                                 cuda_ms(lambda: frontier_starts_plain(ids, prep.deg_pad))),
         shape=f"CDLP auto's first tier step: {k_i} ids ({real} real, {edges} edges)",
         bytes=4 * k_i + 4 * real + 4 * (k_i + 1), ops=k_i,  # ids, real degrees, starts
-        library=("torch.cumsum of pre-gathered lengths",
-                 lambda: torch.cumsum(lens, 0, dtype=torch.int32)))
+        library=None)  # no single call: a gather, a cumsum and a concatenate
 
     buf0 = st.labels_buf.clone()
     outs = []
@@ -1971,35 +2008,36 @@ def phase_cdlp_loop(g, prep, device):
           f"rows changed, {nxt} next)", flush=True)
     return res, {"build_s": build_s, "median_ms": med * 1e3,
                  "graph_launches": launches,
-                 "labels_sha256":
+                 "result_sha256":
                      hashlib.sha256(labels.cpu().numpy().tobytes()).hexdigest()[:16],
                  "iterations": it}
 
 
-def phase_cdlp_trace(loop):
-    """The trace of a warm CDLP auto run (its loop one CUDA graph), taken by
-    graphtpu_torch/tools/cdlp_loop_times.py in a child process, last of all
-    phases: on an H100 (CUDA 12.9, driver 13.0, torch 2.11), once a child
+def phase_loop_trace(path, loop):
+    """The trace of a warm run of a graph path (its loop one CUDA graph),
+    taken by graphtpu_torch/tools/loop_times.py in a child process, last of
+    all phases: on an H100 (CUDA 12.9, driver 13.0, torch 2.11), once a child
     had traced the graph, the traces this process took after it lost
     records (K11, K16 and the loop's kernels fell back to their stream
     spans), and once this process had traced the graph, its later traces of
     other paths did (GRAPH_PATHS).
-    The child's run must be ``loop``'s (phase_cdlp_loop) and make one
-    device-to-host copy and one graph launch; its trace must hold only hand
-    kernels, copies, memsets and iteration 0's arange, no sort, a record of
-    every kernel the cdlp-auto path needs (PATHS) and, by kernel, no more
-    records than the captured launches times the step counts ctl reports.
-    The graph's runs launch nothing from Python, so these records are the
-    path's launch counts: a child is run again, up to GRAPH_TRACE_TRIES,
-    while a kernel's records fall short of that count (the profiler now
-    and then drops some of a graph's). Returns the trace's numbers and the
-    records a run by counter."""
-    needed = PATHS["cdlp-auto"][2]
+    The child's run must be ``loop``'s (phase_cdlp_loop, phase_loops) and
+    make one device-to-host copy and one graph launch; its trace must hold
+    only the path's hand kernels (GRAPH_KERNELS), copies and memsets, no
+    sort, a record of every kernel the path needs (PATHS) and, by kernel,
+    no more records than the captured launches times the step counts the
+    control words report. The graph's runs launch nothing from Python, so
+    these records are the path's launch counts: a child is run again, up to
+    GRAPH_TRACE_TRIES, while a kernel's records fall short of that count
+    (the profiler now and then drops some of a graph's). Returns the
+    trace's numbers and the records a run by counter."""
+    needed = PATHS[path][2]
+    tool = ROOT / "graphtpu_torch" / "tools" / "loop_times.py"
     for attempt in range(1, GRAPH_TRACE_TRIES + 1):
-        child = subprocess.run(
-            [sys.executable, str(ROOT / "graphtpu_torch" / "tools" / "cdlp_loop_times.py")],
-            capture_output=True, text=True, timeout=600, cwd=str(ROOT))
-        check(child.returncode == 0, f"tools/cdlp_loop_times.py failed: {child.stderr[-2000:]}")
+        child = subprocess.run([sys.executable, str(tool), "--path", path],
+                               capture_output=True, text=True, timeout=600, cwd=str(ROOT))
+        check(child.returncode == 0, f"tools/loop_times.py --path {path} failed: "
+              f"{child.stderr[-2000:]}")
         traced = json.loads(child.stdout.strip().splitlines()[-1])
         records, inferred = traced["records"], traced["replayed"]
         per_run = {name: sum(c for k, (c, _) in records.items() if any(p in k for p in pats))
@@ -2009,41 +2047,327 @@ def phase_cdlp_trace(loop):
                  if c < inferred.get(name, 0)}
         if not short:
             break
-        print(f"cdlp loop trace {attempt}: records short of the step counts (records, "
+        print(f"{path} loop trace {attempt}: records short of the step counts (records, "
               f"captured launches x steps): {short}", flush=True)
-    check(traced["labels_sha256"] == loop["labels_sha256"]
+    check(traced["result_sha256"] == loop["result_sha256"]
           and traced["iterations"] == loop["iterations"],
-          "the child's cdlp-auto run differs from phase_cdlp_loop's")
+          f"the child's {path} run differs from this process's")
     check((traced["host_reads"], traced["graph_launches"]) == (1, 1),
-          f"the child's warm run made {traced['host_reads']} device-to-host copies and "
+          f"the child's warm {path} run made {traced['host_reads']} device-to-host copies and "
           f"{traced['graph_launches']} graph launches")
-    allowed = ("gather_", "minmode_", "frontier_expand_kernel", "k7_", "k12_", "k14_",
-               "k18_", "k19_", "k20_", "memcpy", "memset", "arange", "empty_kernel")
+    allowed = GRAPH_KERNELS[path] + ("memcpy", "memset", "empty_kernel")
     other = [k for k in records if not any(a in k.lower() for a in allowed)]
-    check(not other, f"the cdlp-auto graph's trace holds torch-op kernels: {other}")
+    check(not other, f"the {path} graph's trace holds torch-op kernels: {other}")
     sorts = [k for k in records if any(p in k.lower() for p in SORT_KERNELS)]
-    check(not sorts, f"the cdlp-auto trace holds sort kernels: {sorts}")
+    check(not sorts, f"the {path} trace holds sort kernels: {sorts}")
     for name in needed:
-        check(per_run[name] > 0, f"kernel {name} has no record in the cdlp-auto graph's trace")
+        check(per_run[name] > 0, f"kernel {name} has no record in the {path} graph's trace")
     for name, c in per_run.items():
-        check(c <= inferred.get(name, 0), f"{name}: {c} records in the cdlp-auto trace, above "
+        check(c <= inferred.get(name, 0), f"{name}: {c} records in the {path} trace, above "
               f"its captured launches x steps {inferred.get(name, 0)}")
     busy, wall = traced["busy_ms"], traced["profiled_wall_ms"]
-    print(f"launches on path cdlp-auto, the records of a warm run's trace (child, "
-          f"tools/cdlp_loop_times.py, try {attempt}): {per_run}; "
+    print(f"launches on path {path}, the records of a warm run's trace (child, "
+          f"tools/loop_times.py, try {attempt}): {per_run}; "
           + (f"short of captured launches x steps: {short}" if short
              else "each equal to its captured launches x steps"), flush=True)
-    print(f"cdlp loop trace: cold run (graph built) {traced['cold_s']:.3f} s, median "
+    print(f"{path} loop trace: cold run (graph built) {traced['cold_s']:.3f} s, median "
           f"{traced['median_ms']:.3f} ms, {traced['python_launches']} Python-issued launches, "
           f"{traced['host_reads']} host read; profiled run wall {wall:.3f} ms, device busy "
           f"{busy:.3f} ms, idle share {1 - busy / wall:.3f}, "
-          f"{1 - busy / traced['median_ms']:.3f} of the median; parent 53ea22d, same graph, "
-          f"the same tool, H100 80GB HBM3 700 W: {PARENT_CDLP_AUTO}", flush=True)
+          f"{1 - busy / traced['median_ms']:.3f} of the median"
+          + (f"; parent 53ea22d, same graph, the same tool, H100 80GB HBM3 700 W: "
+             f"{PARENT_CDLP_AUTO}" if path == "cdlp-auto" else ""), flush=True)
     for k, (c, ms) in sorted(records.items(), key=lambda kv: -kv[1][1]):
-        print(f"cdlp loop device record: {k[:64]} x{c} {ms:.6f} ms", flush=True)
+        print(f"{path} loop device record: {k[:64]} x{c} {ms:.6f} ms", flush=True)
     out = {k: traced[k] for k in ("cold_s", "median_ms", "profiled_wall_ms", "busy_ms",
                                   "idle_share", "python_launches", "host_reads")}
     return out, per_run
+
+
+def wcc_labels_after_iteration_0(g, device):
+    """The WCC labels after iteration 0 on the slab plan: the loop's first
+    step called from the host (g undirected)."""
+    import functools
+
+    from graphtpu_torch.algorithms import wcc as W
+
+    prep, plan = W.wcc_prep(g, device), W.wcc_slab_plan(g, device)
+    st = W._loop_state(prep, plan, g.n, ((1 << 16, 1 << 18),), handles=False)
+    st.itermax[0] = g.n
+    W._step_init(prep, st, functools.partial(W._neigh_min_slab, plan, st))
+    return st.labels.clone()
+
+
+# the graph paths of phase_loops
+LOOP_PATHS = ("wcc-auto", "wcc-adaptive", "sssp-auto")
+
+
+def phase_loops(g, gw, device):
+    """The device loops of WCC auto and adaptive on the bench graph and of
+    SSSP auto from vertex 0 on the SSSP graph, each one CUDA graph
+    (docstring, 4c): built cold (capture seconds), then a warm run up to its
+    end under sync debug mode "error" with the library's graph calls
+    counted, against the host loop under plain_torch(), and warm runs timed
+    (their traces: phase_loop_trace, last). Then K21, K20's jump mode,
+    K19's min mode, K22 and K8's in-place mode against their plain versions
+    at the loops' shapes, taken from their steps called from the host."""
+    import functools
+
+    import torch
+
+    from graphtpu_torch.algorithms import sssp as S
+    from graphtpu_torch.algorithms import wcc as W
+    from graphtpu_torch.ops import active as A
+    from graphtpu_torch.ops import kernels
+    from graphtpu_torch.ops.frontier import expand, relax_min_into, relax_min_into_plain
+    from graphtpu_torch.ops.spmv import csr_pull_reduce
+    from graphtpu_torch.utils.config import PlatformConfig
+
+    f32 = torch.float32
+    cfgs = {"wcc-auto": PlatformConfig(device=str(device), wcc_impl="auto"),
+            "wcc-adaptive": PlatformConfig(device=str(device), wcc_impl="adaptive"),
+            "sssp-auto": PlatformConfig(device=str(device))}
+    sym = g.symmetrized()
+    wprep = W.wcc_prep(sym, device)
+    sprep = S.sssp_prep(gw, f32, device)
+    s_tiers = tuple((int(k), int(e)) for k, e in S.sssp_tiers(1 << 16, 1 << 18, cfgs["sssp-auto"]))
+    w_budgets = ((1 << 16, 1 << 18),)
+
+    def run(path):
+        """(result, iterations, step counts) of one run."""
+        if path == "sssp-auto":
+            out, it, st = S.sssp_adaptive_run(gw, 0, cfgs[path], f32, with_stats=True)
+            return out, it, (st["full_steps"], st["active_steps"], st["tier_steps"])
+        out, it, st = W.wcc_adaptive_run(g, cfgs[path], with_stats=True)
+        return out, it, (st["full_steps"], st["active_steps"], W.last_run["derives"],
+                         W.last_run["outer_iterations"])
+
+    def launch(path):
+        """One warm run up to its last step: (result, ctl, graph, reads)."""
+        if path == "sssp-auto":
+            return S._launch_loop(gw, sprep, 0, s_tiers)
+        plan = W.wcc_slab_plan(sym, device) if path == "wcc-auto" else None
+        return W._launch_loop(sym, wprep, plan, w_budgets)
+
+    info = {}
+    graph_call = kernels.graph_call
+    for path in LOOP_PATHS:
+        memo = gw.memo if path == "sssp-auto" else sym.memo
+        for key in [k for k in memo if k[0] in ("wcc_loop", "sssp_loop")]:
+            del memo[key]  # the first run below builds the graph
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, it, steps = run(path)  # cold: the graph's build
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        with kernels.plain_torch():
+            p_out, p_it, p_steps = run(path)
+            p_reads = (S if path == "sssp-auto" else W).last_run["condition_reads"]
+        check(torch.equal(out, p_out), f"{path} graph result differs from the host loop's")
+        check((it, steps) == (p_it, p_steps), f"{path} graph (it, steps) {it}, {steps} differ "
+              f"from the host loop's {p_it}, {p_steps}")
+        graph_calls = []
+
+        def counted_graph_call(name, *a):
+            graph_calls.append(name)
+            return graph_call(name, *a)
+
+        kernels.reset_launch_counts()
+        kernels.graph_call = counted_graph_call
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            w_out, w_ctl, graph, reads = launch(path)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            kernels.graph_call = graph_call
+        w_ctl = w_ctl.tolist()
+        launches = graph_calls.count("graph_launch")
+        launched = {k: v for k, v in kernels.launch_counts.items() if v}
+        check(launches == 1 and reads == 0, f"a warm {path} run made {launches} graph launches "
+              f"and {reads} reads of a condition, not 1 and 0")
+        check(not launched, f"a warm {path} run launched kernels from Python: {launched}")
+        w_it = w_ctl[S.SCTL_IT] if path == "sssp-auto" else w_ctl[A.CTL_IT]
+        check(torch.equal(w_out, out) and w_it == it, f"a warm {path} run differs from the first")
+        secs = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(path)
+            secs.append(time.perf_counter() - t0)
+        med = sorted(secs)[2]
+        print(f"{path} loop graph: captured and built in {build_s:.3f} s (the cold run); {it} "
+              f"iterations, full {steps[0]}, active {steps[1]} ({steps[2:]}); result = the host "
+              f"loop's (plain, {p_reads} conditions read, then the control words); a warm run: "
+              f"no host read up to its end (sync debug mode \"error\"), then one, {launches} "
+              f"graph launch, no kernel launched from Python; warm runs "
+              f"{', '.join(f'{x * 1e3:.3f}' for x in secs)} ms, median {med * 1e3:.3f} ms",
+              flush=True)
+        info[path] = {"build_s": build_s, "median_ms": med * 1e3, "graph_launches": launches,
+                      "iterations": it, "result_sha256":
+                          hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16]}
+
+    res, n = {}, g.n
+    # WCC auto's kernels: iteration 1's full step (K21, K20's jump mode),
+    # then the first active step (K19's min mode), its steps from the host
+    plan = W.wcc_slab_plan(sym, device)
+    st = W._loop_state(wprep, plan, n, w_budgets, handles=False)
+    st.itermax[0] = n
+    steps = dict(W._steps(wprep, plan, st))
+    steps["init"]()
+    lab1 = st.labels.clone()
+    neigh_min = W._neigh_min_slab(plan, st, lab1)
+    jumped = torch.empty(n, dtype=torch.int32, device=device)
+    W.wcc_jump(lab1, neigh_min, jumped)
+    check(torch.equal(jumped, W.wcc_jump_plain(lab1, neigh_min)), "wcc_jump differs from plain")
+    res["wcc_jump"] = dict(
+        max_abs_err=0.0,
+        times=(cuda_ms(lambda: W.wcc_jump(lab1, neigh_min, jumped)),
+               cuda_ms(lambda: W.wcc_jump_plain(lab1, neigh_min))),
+        shape=f"WCC auto's iteration 1: {n} vertices", bytes=12 * n, ops=2 * n, library=None)
+    k_cap, e_cap = w_budgets[0]
+    outs = []
+    for plain in (False, True):
+        lab, mask = lab1.clone(), torch.zeros(n, dtype=torch.bool, device=device)
+        ctl = torch.zeros(A.ctl_words(1), dtype=torch.int32, device=device)
+        (A.cdlp_status_plain if plain else A.cdlp_status)(lab, jumped, wprep.deg_pad, mask, ctl,
+                                                          k_cap, e_cap, jump=True)
+        outs.append((lab, mask, ctl))
+    check(all(torch.equal(a, b) for a, b in zip(*outs)), "cdlp_status jump mode differs")
+    n_changed = int(outs[0][2][A.CTL_MCNT])
+    lab, mask = lab1.clone(), torch.zeros(n, dtype=torch.bool, device=device)
+    ctl = torch.zeros(A.ctl_words(1), dtype=torch.int32, device=device)
+    res["cdlp_route_status_jump"] = dict(
+        max_abs_err=0.0,
+        times=(cuda_ms(lambda: (lab.copy_(lab1), A.cdlp_status(
+            lab, jumped, wprep.deg_pad, mask, ctl, k_cap, e_cap, jump=True)),
+            only=("k20_status_kernel", "Memset")),
+               cuda_ms(lambda: A.cdlp_status_plain(lab, jumped, wprep.deg_pad, mask, ctl, k_cap,
+                                                   e_cap, jump=True))),
+        shape=f"WCC auto's iteration 1 status: {n} vertices, {n_changed} changed",
+        # labels and the first jump read, the mask written, the changed ones'
+        # degrees and writes (the jump's reads at next[next[v]] are of the
+        # same input)
+        bytes=9 * n + 8 * n_changed, ops=2 * n, library=None)
+    cond = lambda c: bool(st.ctl[A.CTL_COND + c])  # noqa: E731
+    while cond(A.COND_OUTER) and not cond(A.COND_TIER):
+        while cond(A.COND_FULL):
+            steps["full"]()
+        if cond(A.COND_DERIVE):
+            steps["derive"]()
+        steps["boundary"]()
+    check(cond(A.COND_TIER), "the WCC run never reached an active step")
+    real = int(st.ctl[A.CTL_ACNT])
+    exp = expand(st.ids, wprep.deg_pad, wprep.pull.indptr, wprep.pull.src, e_cap,
+                 with_row_ids=False, starts=st.starts[:k_cap + 1])
+    mins = csr_pull_reduce("min_i32", st.labels, exp.neigh, st.starts)[:k_cap]
+    buf0 = st.labels_buf.clone()
+    outs = []
+    for plain in (False, True):
+        buf, flags = buf0.clone(), torch.zeros(k_cap, dtype=torch.bool, device=device)
+        ch = torch.zeros((), dtype=torch.int32, device=device)
+        (A.cdlp_tier_apply_plain if plain else A.cdlp_tier_apply)(buf, st.ids, mins, flags, ch,
+                                                                  mode="min")
+        outs.append((buf[:n], flags, ch))
+    check(all(torch.equal(a, b) for a, b in zip(*outs)), "cdlp_tier_apply min mode differs")
+    changed = int(outs[0][1].sum())
+    buf, ch = buf0.clone(), torch.zeros((), dtype=torch.int32, device=device)
+    rowbuf = torch.zeros(k_cap, dtype=torch.bool, device=device)
+    res["cdlp_tier_apply_min"] = dict(
+        max_abs_err=0.0,
+        times=(cuda_ms(lambda: (buf.copy_(buf0), A.cdlp_tier_apply(
+            buf, st.ids, mins, rowbuf, ch, mode="min")), only=("k19_apply_kernel",)),
+               cuda_ms(lambda: A.cdlp_tier_apply_plain(buf, st.ids, mins, rowbuf, ch,
+                                                       mode="min"))),
+        shape=(f"WCC auto's active step: {k_cap} rows ({real} real, {changed} changed), "
+               f"{int(exp.edge_count)} edges"),
+        # ids, mins, the real rows' labels, the changed ones' writes, flags, ch
+        bytes=8 * k_cap + 4 * real + 4 * changed + k_cap + 4, ops=real, library=None)
+
+    # SSSP auto's kernels: the first full round (K22) and the first tier
+    # round (K8's in-place mode, K22's mask mode), its steps from the host
+    t = len(s_tiers)
+    st = S._loop_state(sprep, gw.n, s_tiers, handles=False)
+    st.source[0] = 0
+    steps = dict(S._steps(sprep, st))
+    steps["init"]()
+    scond = lambda j: bool(st.ctl[S.SCTL_COND + j])  # noqa: E731
+    full_args = tier_args = None
+    while scond(0) and (full_args is None or tier_args is None):
+        phase = next(j for j in range(t + 1) if scond(1 + j))
+        if phase == t and full_args is None:
+            full_args = (st.dist.clone(), st.mask.clone(), st.ctl.clone(), csr_pull_reduce(
+                "min_plus", st.dist, sprep.pull.src, sprep.pull.indptr, sprep.pull_w))
+        if phase < t and tier_args is None:
+            k_i, e_i = s_tiers[phase]
+            ids = st.ids[:k_i].clone()
+            tier_args = (phase, st.dist.clone(), ids, expand(
+                ids, sprep.deg_pad, sprep.push_indptr, sprep.push_dst, e_i, with_row_ids=False),
+                int(st.ctl[S.SCTL_ACNT]))
+        steps["full" if phase == t else f"tier{phase}"]()
+    check(full_args is not None and tier_args is not None,
+          "the SSSP run lacked a full or a tier round")
+    d0, m0, c0, relaxed = full_args
+    gn = gw.n
+    outs = []
+    for plain in (False, True):
+        d, m, c = d0.clone(), m0.clone(), c0.clone()
+        (S.sssp_apply_plain if plain else S.sssp_apply)(
+            d, relaxed, m, sprep.deg_pad, st.source, c, st.tiers, S.STAGE_FULL, gn)
+        outs.append((d, m, c))
+    check(all(torch.equal(a, b) for a, b in zip(*outs)), "sssp_apply (full) differs from plain")
+    f_changed = int(outs[0][2][S.SCTL_ACNT])
+    d, m, c = d0.clone(), m0.clone(), c0.clone()
+    phase, td0, ids, texp, t_real = tier_args
+    edges = int(texp.edge_count)
+    outs = []
+    for plain in (False, True):
+        dd, mm = td0.clone(), torch.zeros(gn, dtype=torch.bool, device=device)
+        (relax_min_into_plain if plain else relax_min_into)(dd, ids, texp, sprep.push_w, mm)
+        outs.append((dd, mm))
+    check(all(torch.equal(a, b) for a, b in zip(*outs)), "relax_min_into differs from plain")
+    lowered = int(outs[0][1].sum())
+    tmask = outs[0][1]
+    mc = c0.clone()
+    outs = []
+    for plain in (False, True):
+        cc = c0.clone()
+        (S.sssp_apply_plain if plain else S.sssp_apply)(
+            td0.clone(), None, tmask.clone(), sprep.deg_pad, st.source, cc, st.tiers,
+            S.STAGE_TIER + phase, gn)
+        outs.append(cc)
+    check(torch.equal(*outs), "sssp_apply (mask mode) differs from plain")
+    res["sssp_apply"] = dict(
+        max_abs_err=0.0,
+        times=(cuda_ms(lambda: S.sssp_apply(d, relaxed, m, sprep.deg_pad, st.source, c, st.tiers,
+                                            S.STAGE_FULL, gn)),
+               cuda_ms(lambda: S.sssp_apply_plain(d, relaxed, m, sprep.deg_pad, st.source, c,
+                                                  st.tiers, S.STAGE_FULL, gn))),
+        shape=f"float32, SSSP auto's first full round: {gn} vertices, {f_changed} changed",
+        # dist and relaxed read, the mask written, the changed ones' dist
+        # writes and degrees; a compare a vertex
+        bytes=9 * gn + 8 * f_changed, ops=gn, library=None,
+        other_shapes=[dict(
+            shape=f"mask mode, after the tier-{phase} round: {gn} vertices, {lowered} changed",
+            times=(cuda_ms(lambda: S.sssp_apply(td0, None, tmask, sprep.deg_pad, st.source, mc,
+                                                st.tiers, S.STAGE_TIER + phase, gn)), None),
+            bytes=gn + 4 * lowered, ops=gn)])
+    dd, mm = td0.clone(), torch.zeros(gn, dtype=torch.bool, device=device)
+    res["push_relax_min_inplace"] = dict(
+        max_abs_err=0.0,
+        times=(cuda_ms(lambda: (dd.copy_(td0), relax_min_into(dd, ids, texp, sprep.push_w, mm)),
+                       only=("k8_snapshot", "push_relax_inplace", "Memset")),
+               cuda_ms(lambda: relax_min_into_plain(dd, ids, texp, sprep.push_w, mm))),
+        shape=(f"float32, SSSP auto's first tier round (tier {phase}): {ids.shape[0]} rows "
+               f"({t_real} real), {edges} edges in {texp.neigh.shape[0]} slots, {lowered} "
+               f"lowered"),
+        # the mask's memset; per real row its id and distance; per real slot
+        # rows_local, neigh, gpos, a weight and the target's distance; the
+        # lowered targets' distance and mark
+        bytes=gn + 8 * t_real + 20 * edges + 5 * lowered, ops=2 * edges, library=None)
+    print(f"loop kernels: K21, K20's jump mode and K19's min mode = plain at WCC auto's shapes; "
+          f"K22 (full and mask mode) and K8's in-place mode = plain at SSSP auto's ({edges} "
+          f"edges in the tier-{phase} round, {lowered} lowered)", flush=True)
+    return res, info
 
 
 def k14(g, top_args, e_top, k_top, device):
@@ -2217,7 +2541,8 @@ def phase_traversal_kernels(g, gw, device):
 
     from graphtpu_torch.algorithms.pr import _pull_plan_cached
     from graphtpu_torch.algorithms.sssp import _initial, _sssp_dense_step, sssp_prep, sssp_tiers
-    from graphtpu_torch.algorithms.wcc import _wcc_slab_steps, wcc_slab_plan
+    from graphtpu_torch.algorithms import wcc as wcc_loop
+    from graphtpu_torch.ops import kernels
     from graphtpu_torch.core.types import INT32_INF
     from graphtpu_torch.ops.frontier import compact, expand, mask_status, relax_min, relax_min_plain
     from graphtpu_torch.ops.slab import result_buffer
@@ -2232,8 +2557,8 @@ def phase_traversal_kernels(g, gw, device):
 
     # K6: every bucket of the WCC plan in both modes, with the labels after
     # iteration 0; then hand-made slabs (a column of pad only, ids past n)
-    plan = wcc_slab_plan(g, device)
-    lab1, _ = _wcc_slab_steps(plan, n)[1]()
+    plan = wcc_loop.wcc_slab_plan(g, device)
+    lab1 = wcc_labels_after_iteration_0(g, device)
     for b in plan.slabs:
         for x in (lab1, None):
             check(torch.equal(slab_spmv_min(b.slab, x, n), slab_spmv_min_plain(b.slab, x, n)),
@@ -2549,8 +2874,9 @@ def phase_traversal_kernels(g, gw, device):
 
     # K8's int32 mode on a WCC active step's expansion (from a WCC auto run,
     # expanded again with its owners), the labels after iteration 0
-    ids_a, deg_a, ip_a, src_a, e_a = captured(
-        wcc_mod, "expand", lambda: wcc_mod.wcc_adaptive_run(g, cfg))[-1][:5]
+    with kernels.plain_torch():  # the host loop, which calls expand from Python
+        ids_a, deg_a, ip_a, src_a, e_a = captured(
+            wcc_mod, "expand", lambda: wcc_mod.wcc_adaptive_run(g, cfg))[-1][:5]
     wexp = expand(ids_a, deg_a, ip_a, src_a, e_a)
     wslots = (lab1, wexp.row_ids, wexp.neigh, wexp.edge_count)
     torch.cuda.synchronize()
@@ -3230,6 +3556,13 @@ SOURCES = {
     "cdlp_route_status": ("graphtpu_torch/csrc/cdlp_loop.cu", "graphtpu/ops/active.py:154"),
     "frontier_compact_rows": ("graphtpu_torch/csrc/frontier_compact.cu",
                               "graphtpu/ops/active.py:202"),
+    "wcc_jump": ("graphtpu_torch/csrc/wcc_loop.cu", "graphtpu/algorithms/wcc.py:202"),
+    "cdlp_route_status_jump": ("graphtpu_torch/csrc/cdlp_loop.cu",
+                               "graphtpu/algorithms/wcc.py:202"),
+    "cdlp_tier_apply_min": ("graphtpu_torch/csrc/cdlp_loop.cu", "graphtpu/algorithms/wcc.py:123"),
+    "sssp_apply": ("graphtpu_torch/csrc/sssp_loop.cu", "graphtpu/algorithms/sssp.py:113"),
+    "push_relax_min_inplace": ("graphtpu_torch/csrc/push_relax.cu",
+                               "graphtpu/algorithms/sssp.py:140"),
 }
 
 
@@ -3450,7 +3783,7 @@ def main() -> int:
         phase_real_size(device)
     for path, (_, _, needed) in PATHS.items():
         per_run = {k: v / RUNS_PER_PATH for k, v in path_launches[path].items() if v}
-        if path in GRAPH_PATHS:  # its kernels' executions: the trace (phase_cdlp_trace)
+        if path in GRAPH_PATHS:  # its kernels' executions: the trace (phase_loop_trace)
             print(f"launches from Python on path {path} ({RUNS_PER_PATH} runs; the graph's "
                   f"build not counted): {per_run}", flush=True)
             continue
@@ -3493,6 +3826,11 @@ def main() -> int:
     loop_res, cdlp_loop = phase_cdlp_loop(g, prep, device)
     res.update(loop_res)
     print(f"cdlp loop phase: {time.perf_counter() - t0:.3f} s", flush=True)
+    t0 = time.perf_counter()
+    loop_res, loops = phase_loops(g, gw, device)
+    res.update(loop_res)
+    loops["cdlp-auto"] = cdlp_loop
+    print(f"wcc and sssp loop phase: {time.perf_counter() - t0:.3f} s", flush=True)
     lcc_res, launches["edgehash_probe"], launches["lcc_sweep_member"], num_sum = \
         phase_lcc_kernels(g, wplan, real_wedges, lcc_values, device)
     res.update(lcc_res)
@@ -3532,13 +3870,15 @@ def main() -> int:
     t0 = time.perf_counter()
     scaling = phase_scaling(smi)
     print(f"scaling phase: {time.perf_counter() - t0:.3f} s", flush=True)
-    t0 = time.perf_counter()
-    cdlp_loop["trace"], graph_records = phase_cdlp_trace(cdlp_loop)
-    # phase 3's cdlp-auto runs executed the graph RUNS_PER_PATH times on one
-    # input: each run's executions are the trace's records of one such run
-    for name, c in graph_records.items():
-        launches[name] += RUNS_PER_PATH * c
-    print(f"cdlp trace phase: {time.perf_counter() - t0:.3f} s", flush=True)
+    graph_records = {}
+    for path in GRAPH_PATHS:
+        t0 = time.perf_counter()
+        loops[path]["trace"], graph_records[path] = phase_loop_trace(path, loops[path])
+        # phase 3's runs of the path executed its graph RUNS_PER_PATH times on
+        # one input: each run's executions are the trace's records of one run
+        for name, c in graph_records[path].items():
+            launches[name] += RUNS_PER_PATH * c
+        print(f"{path} trace phase: {time.perf_counter() - t0:.3f} s", flush=True)
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": launches[name],
@@ -3547,16 +3887,18 @@ def main() -> int:
          "bound_by": res[name]["bound_by"], "bytes": res[name]["bytes"],
          "library_ms": res[name]["library_ms"],
          "other_shapes": res[name].get("other_shapes", []),
-         **({"cdlp_graph_records_per_run": graph_records[name]}
-            if graph_records.get(name) else {}),
+         **({"graph_records_per_run": {path: r[name] for path, r in graph_records.items()
+                                        if r.get(name)}}
+            if any(r.get(name) for r in graph_records.values()) else {}),
          **{k: res[name][k] for k in ("buckets", "traffic_ms", "call_ms", "call_wall_ms",
                                       "single_pass_ms", "ops_by_design", "work",
                                       "merge_path_ms", "layout_bytes", "layout_build_s",
                                       "earlier_ms", "earlier_test_ms")
             if k in res[name]}}
         for name in kernels.COUNTERS
-    ], "empty_kernel_ms": empty_ms, "cdlp_loop": {k: v for k, v in cdlp_loop.items()
-                                                    if k != "labels_sha256"},
+    ], "empty_kernel_ms": empty_ms,
+       "loops": {path: {k: v for k, v in info.items() if k != "result_sha256"}
+                 for path, info in loops.items()},
        "ingest": ingest, "bench": bench, "parallel": parallel,
        "checkpoint": ckpt, "scaling": scaling}
     print(f"chip_smoke total: {time.perf_counter() - t_start:.3f} s", flush=True)

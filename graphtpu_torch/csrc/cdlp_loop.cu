@@ -1,16 +1,20 @@
-// The device loop of CDLP auto (ops/active.py): kernels K19 and K20 and the
-// host functions that assemble the loop's CUDA graph.
+// The device loop's kernels K19 and K20, shared by the loops of CDLP auto
+// (ops/active.py) and WCC auto and adaptive (algorithms/wcc.py); the host
+// functions that assemble a loop's CUDA graph are in device_loop.cu.
 //
 // Ports graphtpu/ops/active.py:102-296 `_cdlp_adaptive_kernel`, which runs
 // the whole itermax run as one compiled program (nested while_loops, no host
-// traffic between iterations). The port captures each step (the first
-// iteration, a full step, the boundary derive, the boundary's routing, one
-// tier step per tier) as a CUDA graph and nests them under conditional nodes
-// shaped like the JAX kernel's loops: an outer WHILE holding the full phase's
-// WHILE, derive under an IF, the boundary and one WHILE per tier. The loop
-// state lives on the device in a small int32 control vector ctl (layout:
-// ops/active.py, CTL_*), and K20's route writes every loop condition into it
-// and, inside the graph, into the conditional nodes' handles.
+// traffic between iterations), and graphtpu/algorithms/wcc.py:63-185
+// `_wcc_adaptive_loop`, whose nest has the same shape (a full phase, a
+// derive, an active phase of one tier). The port captures each step (the
+// first iteration, a full step, the boundary derive, the boundary's routing,
+// one tier step per tier) as a CUDA graph and nests them under conditional
+// nodes shaped like the JAX kernels' loops: an outer WHILE holding the full
+// phase's WHILE, derive under an IF, the boundary and one WHILE per tier.
+// The loop state lives on the device in a small int32 control vector ctl
+// (layout: ops/active.py, CTL_*), and K20's route writes every loop
+// condition into it and, inside the graph, into the conditional nodes'
+// handles.
 //
 // K19 cdlp_tier_apply ports active.py:194-199 (valid_row, old, changed_row,
 // labels.at[...].set) and the any() of :209: for each row r of a tier step,
@@ -18,8 +22,17 @@
 // writes labels[id] = winners[r] in place (the winners are complete before it
 // launches and the ids are distinct, so this equals JAX's functional update);
 // rowflag[r] says whether it changed, for K14's row-flag mode, and *ch is 1
-// if any row changed (the entry zeroes it first, by a memset on the stream).
-// Bound: bytes, 13 bytes a row (k = 2^16: 0.26 us); a call costs its launch.
+// if any row changed. Its min mode is WCC's active-step update
+// (graphtpu/algorithms/wcc.py:123-129: winners = min(old, mins), changed =
+// winners < old): a row changes when winners[r] < labels[id]. Bound: bytes,
+// 13 bytes a row (k = 2^16: 0.26 us); a call costs its launch. Design: one
+// thread a row, 1,024 rows a block (k = 2^16: 64 blocks); ids ascend and
+// are padded with n, so a block whose first id is pad reads nothing more
+// and only clears its flags. *ch is written by the last block to finish,
+// from one 64-bit device word that each block adds to once (1, plus 2^32
+// when one of its rows changed; one atomic carries both, so no fence is
+// needed) and that the last block resets: the entry needs no memset, so a
+// call is one kernel node in a graph.
 //
 // K20 cdlp_route, two entries:
 // * status (a full step's, active.py:154-161, :175-178, and
@@ -28,8 +41,12 @@
 //   changed vertices and sums their degrees (64-bit atomics, one a block, into
 //   a scratch the entry zeroes first); the last block to finish sets
 //   ctl[ACNT] to -1 (the changed set fits the largest tier: derive at the
-//   boundary) or INT32_MAX (stay full), ctl[CH] and the count and edge sum.
-//   Bound: bytes, 10 bytes a vertex read or written (n = 2^20: 3.1 us).
+//   boundary) or INT32_MAX (stay full), ctl[CH] and the count and edge sum,
+//   each saturated at INT32_MAX. Its jump mode is WCC's full step after K21
+//   (graphtpu/algorithms/wcc.py:202-207, :94-96): next holds the first
+//   pointer jump, and the pass takes min(next[v], next[next[v]]), the second
+//   jump, as the new label. Bound: bytes, 10 bytes a vertex read or written
+//   (n = 2^20: 3.1 us), the jump's reads at next[next[v]] on top.
 // * route (one thread): the stage's update of the loop state (active.py:222,
 //   :209 it and nf; :279-287 the boundary's forward-progress rule; the
 //   derive's adoption is its writing ctl directly), then every condition:
@@ -40,7 +57,10 @@
 //   a handle array is given (inside the graph), passed to its conditional
 //   node by cudaGraphSetConditional. The handles are read from a device
 //   array, written once the graph is built, so a step is captured before
-//   its handles exist. Bound: a launch.
+//   its handles exist. WCC's loop takes the same stages with one tier, its
+//   (rows, edges) capacities, and itermax = n: the JAX conditions changed &
+//   it < n & !ok (full), ok (active) are live with acnt at STAY_FULL, and
+//   live with the one tier chosen. Bound: a launch.
 #include "common.cuh"
 
 // ctl words: ops/active.py CTL_* names the same slots
@@ -66,42 +86,58 @@
 #define STAGE_BOUNDARY 3
 #define STAGE_TIER 4  // tier i is stage STAGE_TIER + i
 
-#define K19_THREADS 256
+#define K19_THREADS 1024
 #define K20_THREADS 256
 
+// K19's blocks done (low 32 bits) and blocks with a changed row (high 32
+// bits): zero between launches (the last block of each launch resets it)
+__device__ unsigned long long k19_state = 0;
+
+template <bool MIN>
 __global__ void __launch_bounds__(K19_THREADS)
 k19_apply_kernel(int* __restrict__ labels, long long n, const int* __restrict__ ids,
                  const int* __restrict__ winners, long long k, bool* __restrict__ rowflag,
                  int* __restrict__ ch) {
-  const long long r = (long long)blockIdx.x * K19_THREADS + threadIdx.x;
+  const long long r0 = (long long)blockIdx.x * K19_THREADS, r = r0 + threadIdx.x;
   int changed = 0;
-  if (r < k) {
+  if (r0 < k && (long long)ids[r0] < n && r < k) {  // a block of pad ids reads no more
     const int id = ids[r];
     if (id >= 0 && (long long)id < n) {
-      const int w = winners[r];
-      changed = w != labels[id];
+      const int w = winners[r], old = labels[id];
+      changed = MIN ? w < old : w != old;
       if (changed) labels[id] = w;
     }
-    rowflag[r] = changed;
   }
-  if (__syncthreads_or(changed) && threadIdx.x == 0) *ch = 1;
+  if (r < k) rowflag[r] = changed;
+  const int any = __syncthreads_or(changed);
+  if (threadIdx.x == 0) {
+    const unsigned long long mine = 1ull + (any ? 1ull << 32 : 0ull);
+    const unsigned long long before = atomicAdd(&k19_state, mine);
+    if ((unsigned int)before == gridDim.x - 1) {  // the last block: every other add is in before
+      *ch = ((before + mine) >> 32) != 0;
+      atomicExch(&k19_state, 0ull);
+    }
+  }
 }
 
 // labels [n] int32 (written in place), ids and winners [k] int32, rowflag [k]
-// bool, ch one int32 (zeroed here, then 1 if a row changed).
+// bool, ch one int32 (1 if a row changed, else 0). is_min: the min mode.
 GT_EXPORT int gt_cdlp_tier_apply(int* labels, long long n, const int* ids, const int* winners,
-                                 long long k, bool* rowflag, int* ch, void* stream) {
+                                 long long k, bool* rowflag, int* ch, int is_min, void* stream) {
   if (n < 0 || k < 0 || !ch) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const cudaError_t z = cudaMemsetAsync(ch, 0, sizeof(int), s);
-  if (z != cudaSuccess) return (int)z;
-  if (k)
-    k19_apply_kernel<<<gt_blocks(k, K19_THREADS), K19_THREADS, 0, s>>>(labels, n, ids, winners,
-                                                                      k, rowflag, ch);
+  const unsigned int blocks = k ? gt_blocks(k, K19_THREADS) : 1;  // k = 0: one block writes ch
+  if (is_min)
+    k19_apply_kernel<true><<<blocks, K19_THREADS, 0, s>>>(labels, n, ids, winners, k, rowflag,
+                                                         ch);
+  else
+    k19_apply_kernel<false><<<blocks, K19_THREADS, 0, s>>>(labels, n, ids, winners, k, rowflag,
+                                                          ch);
   return (int)cudaGetLastError();
 }
 
 // acc: [0] changed count, [1] their degree sum, [2] (low word) blocks done.
+template <bool JUMP>
 __global__ void __launch_bounds__(K20_THREADS)
 k20_status_kernel(int* __restrict__ labels, const int* __restrict__ next, long long n,
                   const int* __restrict__ deg, bool* __restrict__ mask,
@@ -113,7 +149,9 @@ k20_status_kernel(int* __restrict__ labels, const int* __restrict__ next, long l
   unsigned long long c = 0, e = 0;
   for (long long v = (long long)blockIdx.x * K20_THREADS + threadIdx.x; v < n;
        v += (long long)gridDim.x * K20_THREADS) {
-    const int a = labels[v], b = __ldcs(next + v);
+    int b = __ldcs(next + v);
+    if (JUMP) b = min(b, __ldg(next + b));  // the second pointer jump
+    const int a = labels[v];
     const bool m = a != b;
     mask[v] = m;
     if (m) {
@@ -151,16 +189,23 @@ k20_status_kernel(int* __restrict__ labels, const int* __restrict__ next, long l
 
 // labels [n] int32 (set to next), next [n] int32, deg [>= n] int32, mask [n]
 // bool, acc: 3 uint64 of scratch (zeroed here), ctl the loop's control words.
+// jump: next holds ids in [0, n), and the new labels are min(next[v],
+// next[next[v]]).
 GT_EXPORT int gt_cdlp_route_status(int* labels, const int* next, long long n, const int* deg,
                                    bool* mask, unsigned long long* acc, int* ctl, long long k_max,
-                                   long long e_max, int grid, void* stream) {
+                                   long long e_max, int jump, int grid, void* stream) {
   if (n < 0 || !acc || !ctl || grid < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const cudaError_t z = cudaMemsetAsync(acc, 0, 3 * sizeof(unsigned long long), s);
   if (z != cudaSuccess) return (int)z;
   const long long want = (n + K20_THREADS - 1) / K20_THREADS;
   const int g = (int)(want < grid ? (want ? want : 1) : grid);
-  k20_status_kernel<<<g, K20_THREADS, 0, s>>>(labels, next, n, deg, mask, acc, ctl, k_max, e_max);
+  if (jump)
+    k20_status_kernel<true><<<g, K20_THREADS, 0, s>>>(labels, next, n, deg, mask, acc, ctl, k_max,
+                                                      e_max);
+  else
+    k20_status_kernel<false><<<g, K20_THREADS, 0, s>>>(labels, next, n, deg, mask, acc, ctl,
+                                                       k_max, e_max);
   return (int)cudaGetLastError();
 }
 
@@ -220,82 +265,4 @@ GT_EXPORT int gt_cdlp_route(int* ctl, const int* tiers, int t, int stage, const 
     return (int)cudaErrorInvalidValue;
   k20_route_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(ctl, tiers, t, stage, itermax, handles);
   return (int)cudaGetLastError();
-}
-
-// The graph's assembly: each returns a cudaError_t as an int. Nodes are
-// chained: each depends on `after` (null: none) in the same graph.
-
-GT_EXPORT int gt_graph_new(void** graph) {
-  return (int)cudaGraphCreate(reinterpret_cast<cudaGraph_t*>(graph), 0);
-}
-
-// A child-graph node running a copy of `child`.
-GT_EXPORT int gt_graph_add_child(void* graph, void* after, void* child, void** node) {
-  cudaGraphNode_t dep = (cudaGraphNode_t)after;
-  return (int)cudaGraphAddChildGraphNode(reinterpret_cast<cudaGraphNode_t*>(node),
-                                         (cudaGraph_t)graph, dep ? &dep : nullptr, dep ? 1 : 0,
-                                         (cudaGraph_t)child);
-}
-
-// A WHILE (is_while) or IF node with a new conditional handle of `graph`;
-// its body graph, owned by the node, comes back in *body.
-GT_EXPORT int gt_graph_add_conditional(void* graph, void* after, int is_while,
-                                       unsigned long long* handle, void** body, void** node) {
-  cudaGraphConditionalHandle h;
-  cudaError_t e = cudaGraphConditionalHandleCreate(&h, (cudaGraph_t)graph, 0, 0);
-  if (e != cudaSuccess) return (int)e;
-  cudaGraphNodeParams p = {};
-  p.type = cudaGraphNodeTypeConditional;
-  p.conditional.handle = h;
-  p.conditional.type = is_while ? cudaGraphCondTypeWhile : cudaGraphCondTypeIf;
-  p.conditional.size = 1;
-  cudaGraphNode_t dep = (cudaGraphNode_t)after;
-#if CUDART_VERSION >= 13000
-  e = cudaGraphAddNode(reinterpret_cast<cudaGraphNode_t*>(node), (cudaGraph_t)graph,
-                       dep ? &dep : nullptr, nullptr, dep ? 1 : 0, &p);
-#else
-  e = cudaGraphAddNode(reinterpret_cast<cudaGraphNode_t*>(node), (cudaGraph_t)graph,
-                       dep ? &dep : nullptr, dep ? 1 : 0, &p);
-#endif
-  if (e != cudaSuccess) return (int)e;
-  *handle = (unsigned long long)h;
-  *body = (void*)p.conditional.phGraph_out[0];
-  return 0;
-}
-
-// A device-to-device copy node of `bytes` bytes.
-GT_EXPORT int gt_graph_add_copy(void* graph, void* after, void* dst, const void* src,
-                                long long bytes, void** node) {
-  cudaGraphNode_t dep = (cudaGraphNode_t)after;
-  return (int)cudaGraphAddMemcpyNode1D(reinterpret_cast<cudaGraphNode_t*>(node),
-                                       (cudaGraph_t)graph, dep ? &dep : nullptr, dep ? 1 : 0, dst,
-                                       src, (size_t)bytes, cudaMemcpyDeviceToDevice);
-}
-
-GT_EXPORT int gt_graph_instantiate(void* graph, void** exec) {
-  return (int)cudaGraphInstantiate(reinterpret_cast<cudaGraphExec_t*>(exec), (cudaGraph_t)graph,
-                                   0);
-}
-
-// Points a copy node of the instantiated graph at another destination.
-GT_EXPORT int gt_graph_set_copy(void* exec, void* node, void* dst, const void* src,
-                                long long bytes) {
-  return (int)cudaGraphExecMemcpyNodeSetParams1D((cudaGraphExec_t)exec, (cudaGraphNode_t)node,
-                                                 dst, src, (size_t)bytes,
-                                                 cudaMemcpyDeviceToDevice);
-}
-
-GT_EXPORT int gt_graph_launch(void* exec, void* stream) {
-  return (int)cudaGraphLaunch((cudaGraphExec_t)exec, (cudaStream_t)stream);
-}
-
-// Frees an instantiated graph and the graph it came from (either may be null).
-GT_EXPORT int gt_graph_free(void* graph, void* exec) {
-  cudaError_t e = cudaSuccess;
-  if (exec) e = cudaGraphExecDestroy((cudaGraphExec_t)exec);
-  if (graph) {
-    const cudaError_t f = cudaGraphDestroy((cudaGraph_t)graph);
-    if (e == cudaSuccess) e = f;
-  }
-  return (int)e;
 }

@@ -23,14 +23,17 @@ Two entry points, each with the JAX package's results:
   (``cdlp_route``), which updates the loop counters and writes every loop
   condition into ``ctl``. On a card those steps are captured once per
   (prep, tiers, directedness) into one CUDA graph whose conditional nodes
-  are the JAX kernel's loops (``_LoopGraph``: an outer WHILE, the full
-  phase's WHILE, derive under an IF, one WHILE per tier); a run is one
-  graph launch and one read of ``ctl`` at its end. On the CPU, and on a
-  card inside ``kernels.plain_torch()``, a host loop of the same shape reads
-  the conditions from ``ctl`` and calls the same step functions (each
-  wrapper then takes its plain version): the reference the graph is held
-  against. The routing, and so the counts of full and active steps, is the
-  JAX kernel's, step for step.
+  are the JAX kernel's loops (``_LoopGraph`` on ops/device_loop.py, nest
+  ``loop_nest``: an outer WHILE, the full phase's WHILE, derive under an
+  IF, one WHILE per tier); a run is one graph launch and one read of
+  ``ctl`` at its end. On the CPU, and on a card inside
+  ``kernels.plain_torch()``, a host loop of the same nest
+  (``device_loop.run_host``) reads the conditions from ``ctl`` and calls the
+  same step functions (each wrapper then takes its plain version): the
+  reference the graph is held against. The routing, and so the counts of
+  full and active steps, is the JAX kernel's, step for step. WCC's device
+  loop (algorithms/wcc.py) has the same nest, control words and route with
+  one tier.
 * ``cdlp_adaptive_run`` (adaptive-host, and auto under iteration timing)
   decides on the host from the changed ids, slicing the incidence with
   numpy, by the ``cdlp_active_threshold`` share of the incidence.
@@ -38,16 +41,14 @@ Two entry points, each with the JAX package's results:
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from graphtpu_torch.core.types import INT32_INF
-from graphtpu_torch.ops import kernels
+from graphtpu_torch.ops import device_loop, kernels
 from graphtpu_torch.ops.frontier import compact, compact_rows_into, compact_stream_into, expand
 from graphtpu_torch.ops.gather import table_gather
 from graphtpu_torch.ops.minmode import (
@@ -164,9 +165,14 @@ def cdlp_tiers(k_cap: int, e_cap: int, m_inc: int, cfg=None) -> tuple:
     return tuple((min(max(k_cap, e // 16), 1 << 18), e) for e in edge_tiers)
 
 
-def cdlp_status_plain(labels, new, deg_pad, mask, ctl, k_max: int, e_max: int) -> None:
+def cdlp_status_plain(labels, new, deg_pad, mask, ctl, k_max: int, e_max: int,
+                      jump: bool = False) -> None:
     """K20's status entry, plain PyTorch: the JAX kernel's changed mask,
-    ``mask_status`` (count, degree sum) and ``fits_mask``, then labels := new."""
+    ``mask_status`` (count, degree sum) and ``fits_mask``, then labels :=
+    new; in the jump mode new is first min(new, new[new]), WCC's second
+    pointer jump."""
+    if jump:
+        new = torch.minimum(new, table_gather(new, new))
     torch.ne(labels, new, out=mask)
     cnt = mask.sum()
     es = torch.where(mask, deg_pad[:labels.shape[0]], 0).sum()
@@ -177,13 +183,17 @@ def cdlp_status_plain(labels, new, deg_pad, mask, ctl, k_max: int, e_max: int) -
     labels.copy_(new)
 
 
-def cdlp_status(labels, new, deg_pad, mask, ctl, k_max: int, e_max: int) -> None:
+def cdlp_status(labels, new, deg_pad, mask, ctl, k_max: int, e_max: int,
+                jump: bool = False) -> None:
     """K20 wrapper, a full step's status: ``mask`` [n] := new != labels,
     ``labels`` [n] := new, and in ``ctl`` the routing's acnt (DERIVE when
     the changed vertices' count and degree sum fit (k_max, e_max), the
     largest tier, else STAY_FULL), ch (any changed) and the count and degree
-    sum (clamped to int32). ``deg_pad`` [n+1] int32. One pass on the card
-    (counted as ``cdlp_route_status``), nothing read back."""
+    sum (clamped to int32). ``deg_pad`` [n+1] int32. With ``jump`` (WCC's
+    full step; ``new`` holds ids in [0, n), K21's first jump) the new labels
+    are min(new, new[new]). One pass on the card (counted as
+    ``cdlp_route_status``, in the jump mode ``cdlp_route_status_jump``),
+    nothing read back."""
     n = labels.shape[0]
     ts = (labels, new, deg_pad, ctl)
     if any(t.dtype != torch.int32 or t.dim() != 1 for t in ts) or mask.dtype != torch.bool:
@@ -194,12 +204,13 @@ def cdlp_status(labels, new, deg_pad, mask, ctl, k_max: int, e_max: int) -> None
             not all(t.is_contiguous() for t in ts + (mask,)):
         raise ValueError("cdlp_status: inputs must be contiguous, on one device")
     if not kernels.use_kernel(labels):
-        cdlp_status_plain(labels, new, deg_pad, mask, ctl, k_max, e_max)
+        cdlp_status_plain(labels, new, deg_pad, mask, ctl, k_max, e_max, jump)
         return
     acc = torch.empty(3, dtype=torch.int64, device=labels.device)
     kernels.launch("cdlp_route_status", labels.device, labels.data_ptr(), new.data_ptr(), n,
                    deg_pad.data_ptr(), mask.data_ptr(), acc.data_ptr(), ctl.data_ptr(), k_max,
-                   e_max, 8 * kernels.sm_count(labels.device))
+                   e_max, 1 if jump else 0, 8 * kernels.sm_count(labels.device),
+                   counter="cdlp_route_status_jump" if jump else None)
 
 
 def _chosen(ctl, tiers):
@@ -261,26 +272,36 @@ def cdlp_route(ctl, tiers, stage: int, itermax, handles=None) -> None:
                    itermax.data_ptr(), None if handles is None else handles.data_ptr())
 
 
-def cdlp_tier_apply_plain(labels_buf, ids, winners, rowflag, ch) -> None:
-    """K19's plain PyTorch version, the JAX kernel's formulation: valid rows,
-    old labels, changed rows, a scatter whose unchanged and pad rows write
-    the spare slot n, the flags and their any."""
+def cdlp_tier_apply_plain(labels_buf, ids, winners, rowflag, ch, mode: str = "set") -> None:
+    """K19's plain PyTorch version, the JAX kernels' formulation: valid
+    rows, old labels, changed rows (winners != old; in mode "min", WCC's,
+    winners = min(old, winners) and winners < old), a scatter whose
+    unchanged and pad rows write the spare slot n, the flags and their any."""
     n = labels_buf.shape[0] - 1
     valid = ids < n
     old = table_gather(labels_buf[:n], torch.where(valid, ids, 0))
-    changed = valid & (winners != old)
+    if mode == "min":
+        winners = torch.minimum(old, winners)
+        changed = valid & (winners < old)
+    else:
+        changed = valid & (winners != old)
     labels_buf.index_copy_(0, torch.where(changed, ids, n).long(), torch.where(changed, winners, 0))
     rowflag.copy_(changed)
     ch.copy_(changed.any())
 
 
-def cdlp_tier_apply(labels_buf, ids, winners, rowflag, ch) -> None:
+def cdlp_tier_apply(labels_buf, ids, winners, rowflag, ch, mode: str = "set") -> None:
     """K19 wrapper, a tier step's update: for each row r, when ids[r] < n
-    and winners[r] != labels[ids[r]], labels[ids[r]] := winners[r] in place
+    and winners[r] != labels[ids[r]] (mode "min", WCC's active step:
+    winners[r] < labels[ids[r]]), labels[ids[r]] := winners[r] in place
     and rowflag[r] is set; ``ch`` (an int32 0-d view of ``ctl``) := any row
     changed. ``labels_buf`` is [n+1] int32 (the labels, then a spare slot
-    that only the plain version writes), ``ids`` and ``winners`` [k] int32,
-    ``rowflag`` [k] bool. One launch, nothing read back."""
+    that only the plain version writes), ``ids`` [k] int32 (ascending,
+    padded with n) and ``winners`` [k] int32, ``rowflag`` [k] bool. One
+    launch (mode "min" counted as ``cdlp_tier_apply_min``), nothing read
+    back."""
+    if mode not in ("set", "min"):
+        raise ValueError(f"cdlp_tier_apply: unknown mode {mode!r}")
     ts = (labels_buf, ids, winners)
     if any(t.dtype != torch.int32 or t.dim() != 1 for t in ts) or rowflag.dtype != torch.bool \
             or ch.dtype != torch.int32 or ch.dim() != 0:
@@ -293,10 +314,12 @@ def cdlp_tier_apply(labels_buf, ids, winners, rowflag, ch) -> None:
             not all(t.is_contiguous() for t in ts + (rowflag,)):
         raise ValueError("cdlp_tier_apply: inputs must be contiguous, on one device")
     if not kernels.use_kernel(ids):
-        cdlp_tier_apply_plain(labels_buf, ids, winners, rowflag, ch)
+        cdlp_tier_apply_plain(labels_buf, ids, winners, rowflag, ch, mode)
         return
+    is_min = mode == "min"
     kernels.launch("cdlp_tier_apply", ids.device, labels_buf.data_ptr(), labels_buf.shape[0] - 1,
-                   ids.data_ptr(), winners.data_ptr(), k, rowflag.data_ptr(), ch.data_ptr())
+                   ids.data_ptr(), winners.data_ptr(), k, rowflag.data_ptr(), ch.data_ptr(),
+                   1 if is_min else 0, counter="cdlp_tier_apply_min" if is_min else None)
 
 
 class LoopState(NamedTuple):
@@ -398,150 +421,62 @@ def _steps(prep: AdaptivePrep, st: LoopState, directed: bool):
                for i in range(len(st.budgets))])
 
 
+def loop_nest(t: int) -> tuple:
+    """The JAX kernel's nested loops over the steps of ``_steps`` (t tiers),
+    conditions indexed from CTL_COND: init, then WHILE outer { WHILE full
+    {full}; IF derive {derive}; boundary; WHILE tier i {tier i} ... }."""
+    return ("init", ("while", COND_OUTER, (
+        ("while", COND_FULL, ("full",)), ("if", COND_DERIVE, ("derive",)), "boundary",
+        *(("while", COND_TIER + i, (f"tier{i}",)) for i in range(t)))))
+
+
+def loop_runs(ctl: list, t: int) -> dict:
+    """Each step's executions in a run, from the run's control words."""
+    runs = {"init": 1, "full": ctl[CTL_NF] - 1, "derive": ctl[CTL_DERIVES],
+            "boundary": ctl[CTL_OUTERS]}
+    runs.update((f"tier{i}", ctl[CTL_COND + COND_TIER + t + i]) for i in range(t))
+    return runs
+
+
 def _host_loop(prep: AdaptivePrep, st: LoopState, directed: bool) -> int:
     """The JAX kernel's nested loops on the host, each condition read from
-    ctl. Returns the number of conditions read."""
-    steps = dict(_steps(prep, st, directed))
-    reads = 0
-
-    def cond(j):
-        nonlocal reads
-        reads += 1
-        return bool(st.ctl[CTL_COND + j])
-
-    # each step kind runs in a named profiler range, so a trace splits the
-    # wall time (host included) between them
-    with record_function("cdlp.full_step"):
-        steps["init"]()
-    while cond(COND_OUTER):
-        while cond(COND_FULL):
-            with record_function("cdlp.full_step"):
-                steps["full"]()
-        if cond(COND_DERIVE):
-            with record_function("cdlp.derive"):
-                steps["derive"]()
-        steps["boundary"]()
-        for i in range(len(st.budgets)):
-            while cond(COND_TIER + i):
-                with record_function("cdlp.tier_step"):
-                    steps[f"tier{i}"]()
-    return reads
+    ctl, each step kind in a named profiler range (so a trace splits the wall
+    time, host included, between them). Returns the number of conditions
+    read."""
+    t = len(st.budgets)
+    ranges = {"init": "cdlp.full_step", "full": "cdlp.full_step", "derive": "cdlp.derive",
+              **{f"tier{i}": "cdlp.tier_step" for i in range(t)}}
+    return device_loop.run_host(loop_nest(t), dict(_steps(prep, st, directed)),
+                                lambda j: bool(st.ctl[CTL_COND + j]), ranges)
 
 
-class _LoopGraph:
-    """The device loop as one CUDA graph, for one prep, tier ladder and
-    directedness. Built at the first run: each step runs once eagerly (which
-    loads the kernels; the handles are not passed, so nothing needs a graph
-    yet), then is captured by torch into a graph of its own (one private
-    memory pool for all, kept alive here), and the captures are nested under
-    conditional nodes shaped like the JAX kernel's loops:
+class _LoopGraph(device_loop.LoopGraph):
+    """The device loop as one CUDA graph (ops/device_loop.py), for one prep,
+    tier ladder and directedness:
 
         init -> WHILE outer { WHILE full {full}; IF derive {derive};
                               boundary; WHILE tier 0 {tier0}; ... } -> copy
 
     A run writes itermax into pinned host memory (the first step's K20 reads
-    it), points the closing copy at a fresh labels tensor and launches the
-    graph: one launch, nothing read back. The build counts nothing in
-    ``kernels.launch_counts`` (its eager pass and captures are taken back
-    out) and a run launches nothing from Python, so the graph's executions
-    of each kernel are read from a trace of a run. ``captured`` holds each
-    step's launches at its capture; ``account`` adds them times the step
-    counts ctl reports to ``kernels.replayed_counts``: an inference, which a
-    trace checks."""
+    it) and launches the graph; ``account`` takes the step counts from a
+    run's ctl."""
 
     def __init__(self, prep: AdaptivePrep, n: int, budgets: tuple, directed: bool):
         self.n, self.st = n, _loop_state(prep, n, budgets, handles=True)
-        self.graphs, self.captured = {}, {}
-        self.root = self.exec = None
-        steps = _steps(prep, self.st, directed)
         self.st.itermax[0] = 1
-        counts = dict(kernels.launch_counts)
-        with torch.cuda.device(prep.deg_pad.device):
-            for _, step in _steps(prep, self.st._replace(handles=None), directed):
-                step()  # eager: the library and each kernel's module load outside any capture
-            pool = torch.cuda.graph_pool_handle()
-            for name, step in steps:
-                before = dict(kernels.launch_counts)
-                self.graphs[name] = torch.cuda.CUDAGraph(keep_graph=True)
-                with torch.cuda.graph(self.graphs[name], pool=pool):
-                    step()
-                self.captured[name] = {k: c - before[k] for k, c in kernels.launch_counts.items()
-                                       if c != before[k]}
-            kernels.launch_counts.update(counts)
-            self._assemble(len(budgets))
-
-    def _assemble(self, t: int) -> None:
-        P, ref = ctypes.c_void_p, ctypes.byref
-        g = lambda name: P(self.graphs[name].raw_cuda_graph())  # noqa: E731
-
-        def node(fn, *args):
-            out = P()
-            kernels.graph_call(fn, *args, ref(out))
-            return out
-
-        def conditional(graph, after, is_while, step=None):
-            """(handle, node, body) of a new conditional node; ``step``'s
-            capture is its body."""
-            h, body = ctypes.c_ulonglong(), P()
-            nd = node("graph_add_conditional", graph, after, int(is_while), ref(h), ref(body))
-            if step is not None:
-                node("graph_add_child", body, None, g(step))
-            return h.value, nd, body
-
-        self.root = P()
-        kernels.graph_call("graph_new", ref(self.root))
-        init = node("graph_add_child", self.root, None, g("init"))
-        h_outer, outer, body = conditional(self.root, init, True)
-        h_full, last, _ = conditional(body, None, True, "full")
-        h_derive, last, _ = conditional(body, last, False, "derive")
-        last = node("graph_add_child", body, last, g("boundary"))
-        h_tiers = []
-        for i in range(t):
-            h, last, _ = conditional(body, last, True, f"tier{i}")
-            h_tiers.append(h)
-        # the closing copy of the labels; each run points it at its own output
-        self.copy_bytes, self.copy = 4 * self.n, None
-        self.out0 = torch.empty_like(self.st.labels)  # the copy's target until a run sets it
-        if self.n:
-            self.copy = node("graph_add_copy", self.root, outer, self.out0.data_ptr(),
-                             self.st.labels.data_ptr(), self.copy_bytes)
-        self.exec = P()
-        kernels.graph_call("graph_instantiate", self.root, ref(self.exec))
-        handles = [h_outer, h_full, h_derive] + h_tiers
-        self.st.handles.copy_(torch.tensor([h - (1 << 64) if h >= 1 << 63 else h
-                                            for h in handles], dtype=torch.int64))
+        eager = [step for _, step in _steps(prep, self.st._replace(handles=None), directed)]
+        super().__init__(prep.deg_pad.device, _steps(prep, self.st, directed), eager,
+                         loop_nest(len(budgets)), self.st.handles, self.st.labels)
 
     def launch(self, itermax: int) -> torch.Tensor:
         """One run: the labels, on the card, once the stream gets there."""
-        labels = self.st.labels
-        out = torch.empty_like(labels)
         self.st.itermax[0] = itermax
-        if self.copy is not None:
-            kernels.graph_call("graph_set_copy", self.exec, self.copy, out.data_ptr(),
-                               labels.data_ptr(), self.copy_bytes)
-        with torch.cuda.device(labels.device):
-            stream = torch.cuda.current_stream(labels.device).cuda_stream
-        with record_function("cdlp.graph"):
-            kernels.graph_call("graph_launch", self.exec, kernels.ctypes.c_void_p(stream))
-        return out
+        return super().launch("cdlp.graph")
 
     def account(self, ctl: list) -> None:
         """Adds each step's captured launches times its executions that ctl
         reports to ``kernels.replayed_counts``."""
-        t = len(self.st.budgets)
-        runs = {"init": 1, "full": ctl[CTL_NF] - 1, "derive": ctl[CTL_DERIVES],
-                "boundary": ctl[CTL_OUTERS]}
-        runs.update((f"tier{i}", ctl[CTL_COND + COND_TIER + t + i]) for i in range(t))
-        for name, counts in self.captured.items():
-            for k, c in counts.items():
-                kernels.replayed_counts[k] += c * runs[name]
-
-    def __del__(self):
-        try:
-            if self.root is not None:
-                kernels.graph_call("graph_free", self.root, self.exec)
-        except Exception:  # noqa: BLE001 - no raise under garbage collection
-            pass
+        super().account(loop_runs(ctl, len(self.st.budgets)))
 
 
 def _loop_graph(prep: AdaptivePrep, n: int, budgets: tuple, directed: bool) -> _LoopGraph:

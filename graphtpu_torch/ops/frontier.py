@@ -16,7 +16,8 @@ over a frontier mask, is what the tests and measuring scripts hold it
 against), ``mask_status`` gives a mask's (count, edge-sum), the numbers
 a caller needs to decide whether a frontier fits its capacities,
 ``relax_min`` is SSSP's push relaxation over an expansion on kernel K8
-(``push_relax_min``), ``relax_min_i32`` the distributed WCC's scatter-min on
+(``push_relax_min``; ``relax_min_into`` its in-place mode, which marks the
+vertices it lowered), ``relax_min_i32`` the distributed WCC's scatter-min on
 K8's int32 mode, and ``bfs_trunc_probe`` is BFS's truncated bottom-up probe
 on kernel K13. Every function returns the JAX function's values, pad slots
 included, and never reads a value back to the host.
@@ -69,18 +70,25 @@ def _k14_outputs(k: int, device):
             torch.empty(K14_MAX_BLOCKS, dtype=torch.int32, device=device))
 
 
-def compact(mask: torch.Tensor, k: int):
+def compact(mask: torch.Tensor, k: int, out: torch.Tensor | None = None):
     """K14 wrapper: dense bool mask [n] -> (ids [k] ascending, padded with
     n, count as a 0-d int32). Ids past k are cut; the count is the true
-    one. ``mask`` is 1-D and contiguous (a slice of a longer mask is)."""
+    one. ``mask`` is 1-D and contiguous (a slice of a longer mask is).
+    ``out``: a contiguous int32 [k] on the mask's device that takes the ids
+    (and is returned), as a device loop's state does."""
     if mask.dtype != torch.bool or mask.dim() != 1 or not mask.is_contiguous():
         raise TypeError("compact: mask must be a contiguous 1-D bool tensor")
     if k < 0:
         raise ValueError(f"compact: k {k} < 0")
+    if out is not None and (out.dtype != torch.int32 or out.shape != (k,) or
+                            out.device != mask.device or not out.is_contiguous()):
+        raise ValueError(f"compact: out must be a contiguous int32 [{k}] on the mask's device")
     if not kernels.use_kernel(mask):
-        return compact_plain(mask, k)
+        ids, count = compact_plain(mask, k)
+        return (ids, count) if out is None else (out.copy_(ids), count)
     n = mask.shape[0]
-    ids, count, scratch = _k14_outputs(k, mask.device)
+    ids, count, scratch = _k14_outputs(k if out is None else 0, mask.device)
+    ids = ids if out is None else out
     kernels.launch("frontier_compact", mask.device, mask.data_ptr(), n, ids.data_ptr(), k,
                    count.data_ptr(), scratch.data_ptr(), K14_MAX_BLOCKS)
     return ids, count
@@ -157,23 +165,30 @@ def frontier_starts_plain(ids: torch.Tensor, deg_pad: torch.Tensor) -> torch.Ten
     return torch.cat([lens.new_zeros(1), torch.cumsum(lens, 0, dtype=torch.int32)])
 
 
-def frontier_starts(ids: torch.Tensor, deg_pad: torch.Tensor) -> torch.Tensor:
+def frontier_starts(ids: torch.Tensor, deg_pad: torch.Tensor,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
     """K18 wrapper: int32 [K+1] row starts of the expansion of ``ids``
     [K] (int32, ids in [0, len(deg_pad))): starts[0] = 0 and starts[i+1] =
     starts[i] + deg_pad[ids[i]], as int32 sums (they wrap as the JAX
-    cumsum's do). starts[K] is the edge count. One launch (after a memset
-    of its scratch), no host read."""
+    cumsum's do). starts[K] is the edge count. ``out``: a contiguous int32
+    [K+1] on the ids' device that takes them (and is returned). One launch
+    (after a memset of its scratch), no host read."""
     if ids.dtype != torch.int32 or deg_pad.dtype != torch.int32 or ids.dim() != 1 or \
             deg_pad.dim() != 1:
         raise TypeError("frontier_starts: ids and deg_pad must be 1-D int32")
     if ids.device != deg_pad.device or not (ids.is_contiguous() and deg_pad.is_contiguous()):
         raise ValueError("frontier_starts: ids and deg_pad must be contiguous, on one device")
-    if ids.shape[0] >= (1 << 31) - 1:
-        raise ValueError(f"frontier_starts: {ids.shape[0]} ids are too many")
-    if not kernels.use_kernel(ids):
-        return frontier_starts_plain(ids, deg_pad)
     k = ids.shape[0]
-    starts = torch.empty(k + 1, dtype=torch.int32, device=ids.device)
+    if k >= (1 << 31) - 1:
+        raise ValueError(f"frontier_starts: {k} ids are too many")
+    if out is not None and (out.dtype != torch.int32 or out.shape != (k + 1,) or
+                            out.device != ids.device or not out.is_contiguous()):
+        raise ValueError(f"frontier_starts: out must be a contiguous int32 [{k + 1}] on the "
+                         "ids' device")
+    if not kernels.use_kernel(ids):
+        starts = frontier_starts_plain(ids, deg_pad)
+        return starts if out is None else out.copy_(starts)
+    starts = torch.empty(k + 1, dtype=torch.int32, device=ids.device) if out is None else out
     words = kernels.query("frontier_starts_scratch_words", k)
     scratch = torch.empty(words, dtype=torch.int64, device=ids.device)
     kernels.launch("frontier_starts", ids.device, ids.data_ptr(), k, deg_pad.data_ptr(),
@@ -182,14 +197,17 @@ def frontier_starts(ids: torch.Tensor, deg_pad: torch.Tensor) -> torch.Tensor:
 
 
 def expand(ids: torch.Tensor, deg_pad: torch.Tensor, indptr_pad: torch.Tensor,
-           neigh: torch.Tensor, e_cap: int, with_row_ids: bool = True) -> Expansion:
+           neigh: torch.Tensor, e_cap: int, with_row_ids: bool = True,
+           starts: torch.Tensor | None = None) -> Expansion:
     """Concatenate the adjacency slices of ``ids`` into [e_cap] slots.
 
     ``deg_pad``/``indptr_pad`` are [n+1] with deg_pad[n] == 0, so the pad
     id n reads as an empty slice. Edges past e_cap are cut: callers check
     ``edge_count <= e_cap`` first. A pad slot belongs to the last nonempty
-    row (row 0 when there is none). Two launches on the card: K18, K5."""
-    starts = frontier_starts(ids, deg_pad)
+    row (row 0 when there is none). ``starts``: an int32 [K+1] buffer that
+    takes the row starts (``frontier_starts``'s ``out``). Two launches on
+    the card: K18, K5."""
+    starts = frontier_starts(ids, deg_pad, starts)
     rows_local, row_ids, gpos, nb, valid = frontier_expand(
         ids, starts, indptr_pad, neigh, e_cap, with_row_ids
     )
@@ -414,6 +432,52 @@ def relax_min(dist: torch.Tensor, row_ids: torch.Tensor, neigh: torch.Tensor,
             e_cap, int(dist.dtype == torch.float64),
         )
     return out
+
+
+def relax_min_into_plain(dist, ids, exp: Expansion, w, mask) -> None:
+    """K8's in-place mode, plain PyTorch: the JAX round's formulation (the
+    owners' ids gathered by rows_local, ``relax_min_plain`` into a new
+    vector), then ``mask`` := new < dist and dist := new."""
+    new = relax_min_plain(dist, table_gather(ids, exp.rows_local), exp.neigh, exp.gpos,
+                          exp.valid, w)
+    torch.lt(new, dist, out=mask)
+    dist.copy_(new)
+
+
+def relax_min_into(dist: torch.Tensor, ids: torch.Tensor, exp: Expansion, w: torch.Tensor,
+                   mask: torch.Tensor) -> None:
+    """K8 wrapper, in-place mode (SSSP auto's tier round): for each real
+    slot e of ``exp``, the expansion of the frontier ``ids`` [k] (ascending,
+    padded with n), dist[neigh[e]] is lowered in place to
+    dist[ids[rows_local[e]]] + w[gpos[e]], the owner's distance as it was
+    before the call, where that is smaller; ``mask`` [n] bool := the
+    vertices lowered (JAX's ``new < dist``). ``dist`` and ``w`` float32 or
+    float64 of one dtype. One call (a memset of the mask, a snapshot of the
+    frontier's distances, the relaxation over the real slots, whose count is
+    read on the card), nothing read back."""
+    if dist.dtype not in (torch.float32, torch.float64) or w.dtype != dist.dtype:
+        raise TypeError(f"relax_min_into: dist and w must share a float dtype, got {dist.dtype}, "
+                        f"{w.dtype}")
+    slots = (exp.rows_local, exp.neigh, exp.gpos)
+    if ids.dtype != torch.int32 or any(t.dtype != torch.int32 for t in slots) or \
+            mask.dtype != torch.bool or exp.edge_count.dtype != torch.int32:
+        raise TypeError("relax_min_into: int32 ids and expansion, bool mask")
+    ts = (dist, ids, w, mask) + slots
+    if any(t.dim() != 1 for t in ts) or mask.shape != dist.shape or \
+            any(t.shape != exp.neigh.shape for t in slots):
+        raise ValueError("relax_min_into: 1-D inputs, mask as long as dist, slots of one length")
+    if any(t.device != dist.device for t in ts) or not all(t.is_contiguous() for t in ts):
+        raise ValueError("relax_min_into: inputs must be contiguous, on one device")
+    if not kernels.use_kernel(dist):
+        relax_min_into_plain(dist, ids, exp, w, mask)
+        return
+    k, n, e_cap = ids.shape[0], dist.shape[0], exp.neigh.shape[0]
+    du = torch.empty(k, dtype=dist.dtype, device=dist.device)
+    kernels.launch("push_relax_min_inplace", dist.device, dist.data_ptr(), ids.data_ptr(), k, n,
+                   du.data_ptr(), exp.rows_local.data_ptr(), exp.neigh.data_ptr(),
+                   exp.gpos.data_ptr(), w.data_ptr(), exp.edge_count.data_ptr(), e_cap,
+                   mask.data_ptr(), 1 if dist.dtype == torch.float64 else 0,
+                   2 * kernels.sm_count(dist.device))
 
 
 def relax_min_i32_plain(n_out: int, labels, row_ids, neigh, valid, row_offset: int = 0):

@@ -24,9 +24,12 @@ C entry ``csr_pull_slices``) and ``ops/frontier.py:relax_min``
 kernel ``lcc_sweep_member``), ``ops/triangles.py:lcc_head_credits`` (K16) and
 ``ops/frontier.py:residual_claim`` (K17, kernel ``bfs_residual_claim``),
 ``ops/frontier.py:frontier_starts`` (K18), ``ops/active.py:cdlp_tier_apply``
-(K19) and ``ops/active.py:cdlp_route`` and ``cdlp_status`` (K20, kernel
-``cdlp_route``, the full step's status counted as ``cdlp_route_status``). A
-wrapper dispatches on
+(K19; its min mode, WCC's active step, counted as ``cdlp_tier_apply_min``),
+``ops/active.py:cdlp_route`` and ``cdlp_status`` (K20, kernel
+``cdlp_route``, the full step's status counted as ``cdlp_route_status``, its
+jump mode, WCC's full step, as ``cdlp_route_status_jump``),
+``algorithms/wcc.py:wcc_jump`` (K21) and ``algorithms/sssp.py:sssp_apply``
+(K22). A wrapper dispatches on
 the device of its tensors: a CPU tensor takes the plain version, a CUDA
 tensor launches the kernel or raises. K2, K3 and K6 also take every bucket
 of a slab plan in one launch (``slab_minmode_buckets``,
@@ -37,7 +40,8 @@ reference on the card. A wrapper adds one to ``launch_counts[name]`` for
 each launch (K7 in mode sum to ``launch_counts["csr_pull_reduce_sum"]``, in
 mode sum_i64, which no path runs since K16 took LCC's head sums, to
 ``"csr_pull_reduce_sum_i64"``, K8's int32 mode,
-``ops/frontier.py:relax_min_i32``, to ``"push_relax_min_i32"``, K14's
+``ops/frontier.py:relax_min_i32``, to ``"push_relax_min_i32"``, its in-place
+mode, ``ops/frontier.py:relax_min_into``, to ``"push_relax_min_inplace"``, K14's
 row-flag mode, ``ops/frontier.py:compact_rows_into``, to
 ``"frontier_compact_rows"``); K9, K11
 and K12 may launch more than once a call (K9: a histogram, a scatter, the
@@ -45,16 +49,17 @@ probe and the unbin; K11: one launch per task list of its plan; K12: a warp
 per segment, then a persistent grid for the longer ones), and count each. A
 call of K14 is one count: its C entry runs a count and a write kernel (and
 in compact_stream, before them, a memset and the bitmap's marking); so is
-a call of K16, whose C entry zeroes its output by a memset first, and of
-K19 and K20's status, which zero a status word or their scratch the same way.
+a call of K16, whose C entry zeroes its output by a memset first, of K20's
+status and K22, which zero their scratch the same way, and of K8's in-place
+mode (a memset of the mask, a snapshot kernel and the relaxation).
 A launch captured into a CUDA graph counts once, at its capture
-(``torch.cuda.graph``), and its replays not at all. The CDLP loop's graph
-(ops/active.py) takes its build's counts back out: its runs launch nothing
-from Python, and a trace of a run shows what it executed.
-``replayed_counts`` holds that graph's captured launches times the step
-counts its control words report, an inference the trace is held against.
-``graph_call`` runs the host functions that assemble and launch that graph
-(``_GRAPH``).
+(``torch.cuda.graph``), and its replays not at all. The device loops' graphs
+(ops/device_loop.py: CDLP auto, WCC auto and adaptive, SSSP auto) take their
+build's counts back out: their runs launch nothing from Python, and a trace
+of a run shows what it executed. ``replayed_counts`` holds such a graph's
+captured launches times the step counts its control words report, an
+inference the trace is held against. ``graph_call`` runs the host functions
+that assemble and launch those graphs (``_GRAPH``).
 """
 
 from __future__ import annotations
@@ -83,7 +88,7 @@ KERNELS = (
     "slab_spmv_min", "csr_pull_reduce", "push_relax_min", "edgehash_probe", "wedge_rowblock",
     "masked_spgemm", "segment_minmode", "bfs_trunc_probe", "frontier_compact",
     "lcc_sweep_member", "lcc_head_credits", "bfs_residual_claim", "frontier_starts",
-    "cdlp_tier_apply", "cdlp_route",
+    "cdlp_tier_apply", "cdlp_route", "wcc_jump", "sssp_apply",
 )
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -154,18 +159,29 @@ _SIGNATURES = {
     "gt_bfs_residual_claim": (_P, _I64, _I32, _P, _P, _P, _I32, _I32, _I32, _P, _I32, _P),
     # ids, k, deg_pad, n_pad, starts, scratch, scratch words (uint64), stream
     "gt_frontier_starts": (_P, _I64, _P, _I64, _P, _P, _I64, _P),
-    # labels, n, ids, winners, k, rowflag, ch, stream
-    "gt_cdlp_tier_apply": (_P, _I64, _P, _P, _I64, _P, _P, _P),
-    # labels, next, n, deg, mask, scratch, ctl, k_max, e_max, grid, stream
-    "gt_cdlp_route_status": (_P, _P, _I64, _P, _P, _P, _P, _I64, _I64, _I32, _P),
+    # labels, n, ids, winners, k, rowflag, ch, is_min, stream
+    "gt_cdlp_tier_apply": (_P, _I64, _P, _P, _I64, _P, _P, _I32, _P),
+    # labels, next, n, deg, mask, scratch, ctl, k_max, e_max, jump, grid, stream
+    "gt_cdlp_route_status": (_P, _P, _I64, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _P),
     # ctl, tiers, t, stage, itermax (pinned host int32), handles (null outside a graph), stream
     "gt_cdlp_route": (_P, _P, _I32, _I32, _P, _P, _P),
+    # labels, neigh_min, out, n, stream
+    "gt_wcc_jump": (_P, _P, _P, _I64, _P),
+    # dist, relaxed (null but at the full stage), mask, n, deg, source (pinned host int32),
+    # scratch, ctl, tiers, t, stage, itermax, is_f64, handles (null outside a graph), grid,
+    # stream
+    "gt_sssp_apply": (_P, _P, _P, _I64, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _P, _I32,
+                      _P),
+    # dist, ids, k, n, du (scratch), rows_local, neigh, gpos, w, total (a device int32),
+    # e_cap, mask, is_f64, grid, stream
+    "gt_push_relax_min_inplace": (_P, _P, _I64, _I64, _P, _P, _P, _P, _P, _P, _I32, _P, _I32,
+                                  _I32, _P),
     # stream: a kernel that returns at once (csrc/empty_kernel.cu)
     "gt_empty_kernel": (_P,),
 }
 
 # host functions that assemble, instantiate and launch a CUDA graph
-# (csrc/cdlp_loop.cu), each returning a cudaError_t
+# (csrc/device_loop.cu), each returning a cudaError_t
 _PP, _PH = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_ulonglong)
 _GRAPH = {
     "gt_graph_new": (_PP,),
@@ -194,11 +210,14 @@ _QUERIES = {
 
 # a launch counter per kernel, and one for each of K7's sum modes (sum:
 # PageRank's scan arm and slab PageRank's heavy rows; sum_i64: LCC's credit
-# sums in head order, the design K16 replaced, which no path launches now)
-# and K8's int32 mode (the distributed WCC's active step), so that a run
-# shows which callers it went through
+# sums in head order, the design K16 replaced, which no path launches now),
+# K8's int32 mode (the distributed WCC's active step) and in-place mode (SSSP
+# auto's tier rounds), K14's row-flag mode, K19's min mode (WCC's active
+# step) and K20's status entry and its jump mode (WCC's full step), so that
+# a run shows which callers it went through
 COUNTERS = KERNELS + ("csr_pull_reduce_sum", "csr_pull_reduce_sum_i64", "push_relax_min_i32",
-                      "frontier_compact_rows", "cdlp_route_status")
+                      "frontier_compact_rows", "cdlp_route_status", "cdlp_tier_apply_min",
+                      "cdlp_route_status_jump", "push_relax_min_inplace")
 launch_counts = dict.fromkeys(COUNTERS, 0)
 # a captured graph's launches as inferred by its driver: each step's captured
 # launches times the executions of the step that its control words report

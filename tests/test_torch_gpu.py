@@ -2476,3 +2476,321 @@ def test_cdlp_graph_run_makes_no_host_read_but_its_last(cuda):
         torch.cuda.set_sync_debug_mode("default")
     assert loop is not None and reads == 0
     assert torch.equal(labels, want[0]) and int(ctl[A.CTL_IT]) == want[1]
+
+
+@pytest.mark.parametrize("n", [1, 1000, (1 << 20) + 7])
+def test_wcc_jump_and_jump_status_match_plain(cuda, n):
+    """K21 (the first pointer jump) and K20's status in its jump mode (the
+    second jump, mask, labels, acnt, ch, count and degree sum) against their
+    plain versions, on labels that point at smaller ids."""
+    from graphtpu_torch.algorithms import wcc as W
+    from graphtpu_torch.ops import active as A
+
+    rng = np.random.default_rng(n % 97)
+    labels = np.minimum(np.arange(n), rng.integers(0, n, size=n)).astype(np.int32)
+    labels = labels[labels]
+    neigh_min = np.where(rng.random(n) < 0.3, rng.integers(0, n, size=n),
+                         INT32_INF).astype(np.int32)
+    deg_pad = np.concatenate([rng.integers(0, 50, size=n), [0]]).astype(np.int32)
+    got = []
+    for dev in ("cpu", cuda):
+        t = lambda a: torch.tensor(a, device=dev)  # noqa: E731 - a copy
+        jumped = torch.empty(n, dtype=torch.int32, device=dev)
+        before = kernels.launch_counts["wcc_jump"]
+        W.wcc_jump(t(labels), t(neigh_min), jumped)
+        lab, mask = t(labels.copy()), torch.zeros(n, dtype=torch.bool, device=dev)
+        ctl = torch.zeros(A.ctl_words(1), dtype=torch.int32, device=dev)
+        A.cdlp_status(lab, jumped, t(deg_pad), mask, ctl, 1 << 16, 1 << 18, jump=True)
+        if dev != "cpu":
+            assert kernels.launch_counts["wcc_jump"] == before + 1
+        got.append((jumped.cpu(), lab.cpu(), mask.cpu(), ctl.cpu()))
+    assert all(torch.equal(a, b) for a, b in zip(*got))
+
+
+@pytest.mark.parametrize("k", [0, 1, 300, 1 << 16])
+def test_cdlp_tier_apply_min_mode_matches_plain(cuda, k):
+    """K19's min mode against its plain version, called again and again on
+    one control word (its any is written by the last block, with no memset:
+    a call that changes nothing after one that did must give 0)."""
+    from graphtpu_torch.ops import active as A
+
+    rng = np.random.default_rng(k)
+    n = 1 << 20
+    labels = rng.integers(0, n, size=n + 1).astype(np.int32)
+    ids = np.full(k, n, dtype=np.int32)
+    real = k * 3 // 4
+    ids[:real] = np.sort(rng.choice(n, size=real, replace=False))
+    for share in (0.5, 0.0, 1.0, 0.0):
+        old = labels[np.minimum(ids, n - 1)]
+        mins = np.where(rng.random(k) < share, old - rng.integers(1, 5, size=k),
+                        old + rng.integers(0, 5, size=k)).astype(np.int32)
+        out = []
+        for dev in ("cpu", cuda):
+            t = lambda a: torch.tensor(a, device=dev)  # noqa: E731 - a copy
+            buf, flags = t(labels.copy()), torch.zeros(k, dtype=torch.bool, device=dev)
+            ch = torch.full((), 7, dtype=torch.int32, device=dev)
+            A.cdlp_tier_apply(buf, t(ids), t(mins), flags, ch, mode="min")
+            out.append((buf[:n].cpu(), flags.cpu(), ch.cpu()))  # slot n: the plain one's spare
+        assert all(torch.equal(a, b) for a, b in zip(*out)), share
+        labels[:n] = out[0][0].numpy()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sssp_apply_matches_plain(cuda, dtype):
+    """K22 at every stage (iteration 0 from a pinned source, a full round,
+    a tier round's mask) against its plain version: dist, mask and every
+    control word."""
+    from graphtpu_torch.algorithms import sssp as S
+
+    rng = np.random.default_rng(3)
+    n = (1 << 20) + 5
+    tiers = torch.tensor([(1 << 13, 1 << 15), (1 << 16, 1 << 18)], dtype=torch.int32)
+    deg_pad = np.concatenate([rng.integers(0, 40, size=n), [0]]).astype(np.int32)
+    dist = (rng.random(n) * 9).astype(np.float64)
+    dist[rng.random(n) < 0.4] = np.inf
+    for stage, share in ((S.STAGE_INIT, 0), (S.STAGE_FULL, 0.001), (S.STAGE_FULL, 0.2),
+                         (S.STAGE_TIER + 1, 0.01), (S.STAGE_TIER, 0.0)):
+        relaxed = np.where(rng.random(n) < share, dist - 0.5, dist + 1)
+        mask = rng.random(n) < share
+        got = []
+        for dev in ("cpu", cuda):
+            t = lambda a: torch.tensor(a, device=dev)  # noqa: E731 - a copy
+            d, m = t(dist).to(dtype), t(mask)
+            ctl = torch.zeros(S.ctl_words(2), dtype=torch.int32, device=dev)
+            ctl[S.SCTL_IT], ctl[S.SCTL_ITERMAX] = 3, n
+            source = torch.tensor([12345], dtype=torch.int32).pin_memory()
+            S.sssp_apply(d, t(relaxed).to(dtype) if stage == S.STAGE_FULL else None, m,
+                         t(deg_pad), source, ctl, tiers.to(dev), stage, n)
+            got.append((d.cpu(), m.cpu(), ctl.cpu()))
+        assert all(torch.equal(a, b) for a, b in zip(*got)), (stage, share)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("count", [0, 1, 2000, 1 << 13])
+def test_relax_min_into_matches_plain(cuda, dtype, count):
+    """K8's in-place mode against its plain version on a frontier whose
+    vertices are also targets of the same round: dist and the mask."""
+    from graphtpu_torch.ops.frontier import relax_min_into, relax_min_into_plain
+
+    rng = np.random.default_rng(count)
+    n, k, e_cap = 1 << 16, 1 << 13, 1 << 17
+    deg = rng.integers(0, 12, size=n)
+    indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    ids = np.full(k, n, dtype=np.int32)
+    ids[:count] = np.sort(rng.choice(n, size=count, replace=False))
+    dst = rng.integers(0, n, size=int(indptr[-1])).astype(np.int32)
+    if count:
+        dst[::4] = ids[rng.integers(0, count, size=dst[::4].shape[0])]
+    w = rng.random(int(indptr[-1])) * 3
+    dist = rng.random(n) * 20
+    dist[rng.random(n) < 0.3] = np.inf
+    deg_pad = np.concatenate([deg, [0]]).astype(np.int32)
+    got = []
+    for dev in ("cpu", cuda):
+        t = lambda a: torch.tensor(a, device=dev)  # noqa: E731 - a copy
+        exp = expand(t(ids), t(deg_pad), t(indptr), t(dst), e_cap, with_row_ids=False)
+        d, m = t(dist).to(dtype), torch.ones(n, dtype=torch.bool, device=dev)
+        (relax_min_into if dev != "cpu" else relax_min_into_plain)(
+            d, t(ids), exp, t(w).to(dtype), m)
+        got.append((d.cpu(), m.cpu()))
+    assert all(torch.equal(a, b) for a, b in zip(*got))
+
+
+def _wcc_graph(scale, directed, seed=5):
+    from graphtpu_torch.utils.synth import rmat_graph
+
+    return rmat_graph(scale, 8, directed=directed, seed=seed)
+
+
+@pytest.mark.parametrize("scale, directed, impl, caps", [
+    (12, False, "auto", {}), (13, True, "adaptive", {}),
+    (14, False, "auto", {"wcc_frontier_rows": 256, "wcc_frontier_edges": 4096}),
+    (14, True, "adaptive", {"wcc_frontier_rows": 64, "wcc_frontier_edges": 1024}),
+    ("walk", False, "auto", {"wcc_frontier_rows": 16, "wcc_frontier_edges": 512}),
+    ("walk", False, "adaptive", {"wcc_frontier_rows": 16, "wcc_frontier_edges": 512})])
+def test_wcc_graph_run_matches_host_run(cuda, scale, directed, impl, caps, monkeypatch):
+    """The WCC loop as one CUDA graph (cold: built and launched; warm:
+    launched again) against the host loop under plain_torch() on the card:
+    labels, iterations and steps; one graph launch a run, counted where it
+    is called, and none of the loop's own kernels counted from Python."""
+    from graphtpu_torch.algorithms import wcc as W
+    from graphtpu_torch.utils.config import PlatformConfig
+
+    g = _wcc_walk_graph() if scale == "walk" else _wcc_graph(scale, directed)
+    cfg = PlatformConfig(device="cuda", wcc_impl=impl, **caps)
+    graph_calls = []
+    call = kernels.graph_call
+    monkeypatch.setattr(kernels, "graph_call",
+                        lambda name, *a: (graph_calls.append(name), call(name, *a))[1])
+    own = ("wcc_jump", "cdlp_route", "cdlp_route_status_jump", "cdlp_tier_apply_min",
+           "frontier_starts")
+    for _ in range(3):
+        kernels.reset_launch_counts()
+        graph_calls.clear()
+        lab, it, stats = W.wcc_adaptive_run(g, cfg, with_stats=True)
+        run = dict(W.last_run)
+        assert run["driver"] == "graph" and graph_calls.count("graph_launch") == 1
+        assert not any(kernels.launch_counts[k] for k in own), kernels.launch_counts
+        assert kernels.replayed_counts["wcc_jump"] == stats["full_steps"]
+        with kernels.plain_torch():
+            p_lab, p_it, p_stats = W.wcc_adaptive_run(g, cfg, with_stats=True)
+        assert torch.equal(lab, p_lab) and (it, stats) == (p_it, p_stats)
+        assert {k: run[k] for k in ("derives", "outer_iterations")} == \
+            {k: W.last_run[k] for k in ("derives", "outer_iterations")}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("tiers", ["", "64,1024,16384"])
+def test_sssp_graph_run_matches_host_run(cuda, dtype, tiers, monkeypatch):
+    """The SSSP loop as one CUDA graph against the host loop under
+    plain_torch() on the card, from several sources (the source is read
+    from pinned memory, so one graph serves all): distances bit for bit,
+    rounds and rounds by phase; one graph launch a run."""
+    from graphtpu_torch.algorithms import sssp as S
+    from graphtpu_torch.utils.config import PlatformConfig
+    from graphtpu_torch.utils.synth import rmat_graph
+
+    g = rmat_graph(14, 8, directed=True, weighted=True, seed=3)
+    cfg = PlatformConfig(device="cuda", sssp_tiers=tiers)
+    graph_calls = []
+    call = kernels.graph_call
+    monkeypatch.setattr(kernels, "graph_call",
+                        lambda name, *a: (graph_calls.append(name), call(name, *a))[1])
+    for src in (0, 5, 77, 0):
+        kernels.reset_launch_counts()
+        graph_calls.clear()
+        dist, it, stats = S.sssp_adaptive_run(g, src, cfg, dtype, with_stats=True)
+        assert S.last_run["driver"] == "graph" and graph_calls.count("graph_launch") == 1
+        assert not kernels.launch_counts["sssp_apply"]
+        assert kernels.replayed_counts["sssp_apply"] == it + 1
+        with kernels.plain_torch():
+            p_dist, p_it, p_stats = S.sssp_adaptive_run(g, src, cfg, dtype, with_stats=True)
+        assert torch.equal(dist, p_dist) and (it, stats) == (p_it, p_stats), src
+
+
+def _wcc_walk_graph():
+    """An undirected RMAT s12 graph and a path of 40 vertices from its
+    component's smallest id into a hub of 100 leaves (the smallest id but
+    one a leaf): the smallest label walks the path in active steps, one hop
+    a step, each step changing a label."""
+    from graphtpu_torch.core.graph import Graph
+
+    rmat = _wcc_graph(12, False)
+    rng = np.random.default_rng(12)
+    m, d = 40, 100
+    ids = rmat.n + np.concatenate([[0], 2 + rng.permutation(m + d - 1)])
+    leaves = np.concatenate([[rmat.n + 1], ids[m + 1:]])[:d]
+    s2 = np.concatenate([ids[:m - 1], [ids[m - 1]], np.full(d, ids[m])])
+    t2 = np.concatenate([ids[1:m], [ids[m]], leaves])
+    src = np.concatenate([rmat.src, s2, t2])
+    dst = np.concatenate([rmat.dst, t2, s2])
+    order = np.lexsort((dst, src))
+    n = rmat.n + m + 1 + d
+    return Graph.from_arrays(n, src[order], dst[order], None, np.arange(n, dtype=np.uint64),
+                             False, False)
+
+
+def test_captured_wcc_active_step_replays_like_the_plain_step(cuda):
+    """A WCC active step captured into a CUDA graph, replayed 50 times from
+    the same state, gives the plain step's labels, ids and control words
+    every time (K19's any, written by its last block, included)."""
+    from graphtpu_torch.algorithms import wcc as W
+    from graphtpu_torch.ops import active as A
+
+    g = _wcc_walk_graph()
+    prep = W.wcc_prep(g, "cuda")
+    st = W._loop_state(prep, None, g.n, ((16, 512),), handles=False)
+    st.itermax[0] = g.n
+    steps = dict(W._steps(prep, None, st))
+    cond = lambda c: bool(st.ctl[A.CTL_COND + c])  # noqa: E731
+    steps["init"]()
+    while cond(A.COND_OUTER) and not cond(A.COND_TIER):  # the host loop up to an active step
+        while cond(A.COND_FULL):
+            steps["full"]()
+        if cond(A.COND_DERIVE):
+            steps["derive"]()
+        steps["boundary"]()
+    assert cond(A.COND_TIER), "the run reached no active step"
+    bufs = (st.labels_buf, st.ids, st.ctl, st.rowflag)
+    saved = [t.clone() for t in bufs]
+    with kernels.plain_torch():
+        W._step_active(prep, st)
+    want = [t.clone() for t in (st.labels, st.ids, st.ctl)]
+    assert int(want[2][A.CTL_CH]) == 1, "the active step changed no label"
+
+    def restore():
+        for t, s in zip(bufs, saved):
+            t.copy_(s)
+
+    restore()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        W._step_active(prep, st)
+    for _ in range(50):
+        restore()
+        graph.replay()
+        assert all(torch.equal(a, b) for a, b in zip((st.labels, st.ids, st.ctl), want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_captured_sssp_tier_step_replays_like_the_plain_step(cuda, dtype):
+    """An SSSP tier round captured into a CUDA graph, replayed 50 times from
+    the same state, gives the plain round's distances, mask, ids and
+    control words every time."""
+    from graphtpu_torch.algorithms import sssp as S
+    from graphtpu_torch.utils.synth import rmat_graph
+
+    g = rmat_graph(14, 8, directed=False, weighted=True, seed=2)
+    prep = S.sssp_prep(g, dtype, "cuda")
+    st = S._loop_state(prep, g.n, ((1 << 12, 1 << 16),), handles=False)
+    st.source[0] = 0
+    S._step_init(prep, st)
+    S._step_tier(prep, st, 0)
+    bufs = (st.dist, st.mask, st.ids, st.ctl)
+    saved = [t.clone() for t in bufs]
+    with kernels.plain_torch():
+        S._step_tier(prep, st, 0)
+    want = [t.clone() for t in bufs]
+
+    def restore():
+        for t, s in zip(bufs, saved):
+            t.copy_(s)
+
+    restore()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        S._step_tier(prep, st, 0)
+    for _ in range(50):
+        restore()
+        graph.replay()
+        assert all(torch.equal(a, b) for a, b in zip(bufs, want))
+
+
+def test_wcc_and_sssp_graph_runs_make_no_host_read_but_their_last(cuda):
+    """Warm runs under sync debug mode "error": the launch waits for nothing;
+    only the read of the control words at their end syncs."""
+    from graphtpu_torch.algorithms import sssp as S
+    from graphtpu_torch.algorithms import wcc as W
+    from graphtpu_torch.ops import active as A
+    from graphtpu_torch.utils.config import PlatformConfig
+    from graphtpu_torch.utils.synth import rmat_graph
+
+    g = _wcc_graph(13, False)
+    cfg = PlatformConfig(device="cuda")
+    want = W.wcc_adaptive_run(g, cfg)
+    sym = g.symmetrized()
+    prep, plan = W.wcc_prep(sym, "cuda"), W.wcc_slab_plan(sym, "cuda")
+    gw = rmat_graph(13, 8, directed=False, weighted=True, seed=1)
+    s_want = S.sssp_adaptive_run(gw, 0, cfg)
+    s_prep = S.sssp_prep(gw, torch.float32, "cuda")
+    tiers = S.sssp_tiers(1 << 16, 1 << 18, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        labels, ctl, loop, reads = W._launch_loop(sym, prep, plan, ((1 << 16, 1 << 18),))
+        dist, s_ctl, s_loop, s_reads = S._launch_loop(gw, s_prep, 0, tiers)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert loop is not None and reads == 0 and s_loop is not None and s_reads == 0
+    assert torch.equal(labels, want[0]) and int(ctl[A.CTL_IT]) == want[1]
+    assert torch.equal(dist, s_want[0]) and int(s_ctl[S.SCTL_IT]) == s_want[1]
