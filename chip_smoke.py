@@ -51,9 +51,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
 4. Launch counts: each path runs with the counts set to 0 just before it
    and read just after; every kernel of a path must have launched in it
    (CDLP auto and slab: K12 on the heavy rows and the tier steps, K7 on
-   iteration 0's heavy rows; BFS auto: K13 in its bottom-up steps and K17
-   on their residual rows, once a bottom-up step, and no K7 without a dense
-   step; K14 on every adaptive path), PageRank under scan
+   iteration 0's heavy rows; BFS auto, from its graph's trace: K13 in its
+   bottom-up steps and K17 on their residual rows, once a bottom-up step,
+   and no K7 without a dense step; K14 on every adaptive path), PageRank
+   under scan
    must launch K7 in mode sum 20 times a run and nothing else (and the slab
    arm 20 times a run, its heavy rows), and LCC K16 once a run and K7 in
    mode sum_i64 never (the same over one NCCL rank, phase 8).
@@ -106,6 +107,13 @@ Run from the root of a checkout:  python3 chip_smoke.py
    mode at a tier round) and K8's in-place mode at its first tier round,
    each against its plain version, taken from the steps called from the
    host.
+4d. BFS auto's and bfs-impl=device's loops on the bench graph from vertex
+   0, each one CUDA graph, checked as in 4c (levels bit for bit, levels
+   done and every step count against the host loop under plain_torch(),
+   BFS auto's steps against the JAX package's, traced last in a child
+   each); K23 (bfs_apply) at BFS auto's init, first tier step and first
+   bottom-up step and at bfs-impl=device's first dense step, each against
+   its plain version, taken from the steps called from the host.
 5. Each kernel against its plain PyTorch version at the path's shapes and
    on small hand-made cases, with both device times (profiler) and stream
    spans (CUDA events). Beside each time stands the kernel's bound: the
@@ -132,12 +140,16 @@ Run from the root of a checkout:  python3 chip_smoke.py
    over the whole incidence (cdlp-impl=sort's call) and on vertex 0's
    segment alone, each call's work items (its classes, bins and the
    fallback's bins) printed; K13 (bfs_trunc_probe) at BFS auto's first
-   bottom-up step (taken from a run); each twice, bit for bit against its
-   plain version. K14 (frontier_compact) on CDLP auto's and BFS auto's
-   masks, BFS auto's 2^18-slot tier stream (all taken from runs) and BFS's
-   top tier of 2^22 slots, under sync debug mode "error", with torch.sort
-   and torch.unique as yardsticks; K17 (bfs_residual_claim) on BFS auto's
-   first residual test (under sync debug mode "error"), against its plain
+   bottom-up step (taken from its steps called from the host), with the
+   level as an int and read on the card (its device-level mode, the
+   path's); each twice, bit for bit against its plain version. K14
+   (frontier_compact) on CDLP auto's and BFS auto's masks, BFS auto's
+   2^18-slot tier stream (all taken from runs) and BFS's top tier of 2^22
+   slots, under sync debug mode "error", with torch.sort and torch.unique
+   as yardsticks, and its level and unvisited modes (BFS auto's own calls)
+   on that frontier and that stream; K17 (bfs_residual_claim) on BFS auto's
+   first residual test (under sync debug mode "error"; with the level as an
+   int, and read on the card: its device-level mode), against its plain
    version and against K7 max_i32 over the clamped row starts, the design
    before it, timed beside it (the kernel alone and the whole test), with
    torch.segment_reduce over pre-gathered hits as the yardstick; K8's int32
@@ -282,11 +294,13 @@ TRACE_KERNELS = {
     ("wedge_rowblock_kernel",): ("wedge_rowblock",),
     ("k11_warp_kernel", "k11_block_kernel"): ("masked_spgemm",),
     ("k12_warp_kernel", "k12_grid_kernel"): ("segment_minmode",),
-    ("k13_probe_kernel",): ("bfs_trunc_probe",),
-    ("k14_write",): ("frontier_compact", "frontier_compact_rows"),  # K14's last: one a call
+    ("k13_probe_kernel",): ("bfs_trunc_probe", "bfs_trunc_probe_at"),
+    # K14's last: one a call
+    ("k14_write",): ("frontier_compact", "frontier_compact_rows", "frontier_compact_level",
+                     "frontier_compact_unvisited"),
     ("lcc_sweep_kernel",): ("lcc_sweep_member",),
     ("k16_head_credits_kernel",): ("lcc_head_credits",),
-    ("k17_claim_kernel",): ("bfs_residual_claim",),
+    ("k17_claim_kernel",): ("bfs_residual_claim", "bfs_residual_claim_at"),
     ("k18_starts_kernel",): ("frontier_starts",),
     ("k19_apply_kernel",): ("cdlp_tier_apply", "cdlp_tier_apply_min"),
     ("k20_route_kernel",): ("cdlp_route",),
@@ -294,6 +308,7 @@ TRACE_KERNELS = {
     ("k21_jump_kernel",): ("wcc_jump",),
     ("k22_apply_kernel",): ("sssp_apply",),
     ("push_relax_inplace_kernel",): ("push_relax_min_inplace",),
+    ("k23_apply_kernel",): ("bfs_apply",),
 }
 # the device kernels of a sort (cub's radix, segmented and merge sorts, torch's
 # own small sorts), matched without regard to case (torch's radixSortKVInPlace):
@@ -306,16 +321,23 @@ NO_SORT_PATHS = ("cdlp-auto", "bfs-auto", "wcc-auto", "sssp-auto", "lcc")
 # such a graph, later traces of other paths lost their first records (on an
 # H100 with CUDA 12.9, driver 13.0 and torch 2.11: every one of five traces
 # in a row, in two runs)
-GRAPH_PATHS = ("cdlp-auto", "wcc-auto", "wcc-adaptive", "sssp-auto")
+GRAPH_PATHS = ("cdlp-auto", "wcc-auto", "wcc-adaptive", "sssp-auto", "bfs-auto", "bfs-device")
 TRACE_KERNELS_OF = {name: pats for pats, names in TRACE_KERNELS.items() for name in names}
 TRACE_TRIES = 5  # traces taken before a kernel count that stays wrong fails the run
-# the loop graphs' trace records by counter, the modes of K14, K19 and K20
-# told apart by their kernels: K14's mask mode writes without a bitmap
-# (k14_write<false>), each stream mode marks one first (k14_mark<false>: a
-# valid mask, <true>: row flags); K19 and K20's status are templates on
-# their min and jump modes
-GRAPH_TRACE_OF = {**TRACE_KERNELS_OF, "frontier_compact": ("k14_write<false>", "k14_mark<false>"),
-                  "frontier_compact_rows": ("k14_mark<true>",),
+# the loop graphs' trace records by counter, the modes of K13, K14, K17, K19
+# and K20 told apart by their kernels: K14's mask mode writes from a mask
+# (k14_write<0>), its level mode from the levels (k14_write<2>), each stream
+# mode marks a bitmap first (k14_mark<0>: a valid mask, <1>: row flags, <2>:
+# unvisited neighbours); K13 and K17 are templates on their device-level
+# mode, K19 and K20's status on their min and jump modes
+GRAPH_TRACE_OF = {**TRACE_KERNELS_OF, "frontier_compact": ("k14_write<0>", "k14_mark<0>"),
+                  "frontier_compact_rows": ("k14_mark<1>",),
+                  "frontier_compact_level": ("k14_write<2>",),
+                  "frontier_compact_unvisited": ("k14_mark<2>",),
+                  "bfs_trunc_probe": ("k13_probe_kernel<false>",),
+                  "bfs_trunc_probe_at": ("k13_probe_kernel<true>",),
+                  "bfs_residual_claim": ("k17_claim_kernel<false>",),
+                  "bfs_residual_claim_at": ("k17_claim_kernel<true>",),
                   "cdlp_tier_apply": ("k19_apply_kernel<false>",),
                   "cdlp_tier_apply_min": ("k19_apply_kernel<true>",),
                   "cdlp_route_status": ("k20_status_kernel<false>",),
@@ -330,6 +352,8 @@ GRAPH_KERNELS = {
     "wcc-adaptive": ("frontier_expand_kernel", "k7_", "k14_", "k18_", "k19_", "k20_", "k21_"),
     "sssp-auto": ("k7_", "frontier_expand_kernel", "k8_snapshot", "push_relax_inplace", "k14_",
                   "k18_", "k22_"),
+    "bfs-auto": ("frontier_expand_kernel", "k7_", "k13_", "k14_", "k17_", "k18_", "k23_"),
+    "bfs-device": ("k7_", "k23_"),
 }
 GRAPH_TRACE_TRIES = 3  # child traces of a loop graph taken while a record falls short
 PR_RTOL = 1e-4        # the validator's EPSILON (graphtpu/harness/validator.py:40)
@@ -722,9 +746,10 @@ PATHS = {
     "pr": ("pr", {}, ("gather_rows", "slab_spmv_sum", "csr_pull_reduce_sum")),
     "pr-scan": ("pr", {"pr_impl": "scan"}, ("csr_pull_reduce_sum",)),
     "bfs-auto": ("bfs", {"bfs_impl": "auto"},
-                 ("gather_rows", "frontier_expand", "bfs_trunc_probe", "frontier_compact",
-                  "bfs_residual_claim", "frontier_starts")),
-    "bfs-device": ("bfs", {"bfs_impl": "device"}, ("csr_pull_reduce",)),
+                 ("frontier_expand", "bfs_trunc_probe_at", "frontier_compact",
+                  "bfs_residual_claim_at", "frontier_starts", "bfs_apply",
+                  "frontier_compact_level", "frontier_compact_unvisited")),
+    "bfs-device": ("bfs", {"bfs_impl": "device"}, ("csr_pull_reduce", "bfs_apply")),
     "bfs-hybrid": ("bfs", {"bfs_impl": "hybrid"}, ("csr_pull_reduce",)),
     "wcc-auto": ("wcc", {"wcc_impl": "auto"},
                  ("gather_rows", "slab_spmv_min", "frontier_expand", "csr_pull_reduce",
@@ -922,7 +947,7 @@ def phase_real_size(device):
     f32 = torch.float32
     loops = {
         "bfs-auto": lambda: bfs_adaptive_run(g, 0, cfgs["bfs-auto"]),
-        "bfs-device": lambda: _bfs_kernel(pull_csr(g, device), 0, g.n),
+        "bfs-device": lambda: _bfs_kernel(g, 0, device),
         "wcc-auto": lambda: wcc_adaptive_run(g, cfgs["wcc-auto"]),
         "wcc-adaptive": lambda: wcc_adaptive_run(g, cfgs["wcc-adaptive"]),
         "wcc-device": lambda: _wcc_kernel(pull_csr(g, device), g.n),
@@ -2030,7 +2055,8 @@ def phase_loop_trace(path, loop):
     these records are the path's launch counts: a child is run again, up to
     GRAPH_TRACE_TRIES, while a kernel's records fall short of that count
     (the profiler now and then drops some of a graph's). Returns the
-    trace's numbers and the records a run by counter."""
+    trace's numbers, the records a run by counter and the trace's records
+    by device kernel."""
     needed = PATHS[path][2]
     tool = ROOT / "graphtpu_torch" / "tools" / "loop_times.py"
     for attempt in range(1, GRAPH_TRACE_TRIES + 1):
@@ -2081,7 +2107,7 @@ def phase_loop_trace(path, loop):
         print(f"{path} loop device record: {k[:64]} x{c} {ms:.6f} ms", flush=True)
     out = {k: traced[k] for k in ("cold_s", "median_ms", "profiled_wall_ms", "busy_ms",
                                   "idle_share", "python_launches", "host_reads")}
-    return out, per_run
+    return out, per_run, records
 
 
 def wcc_labels_after_iteration_0(g, device):
@@ -2098,6 +2124,74 @@ def wcc_labels_after_iteration_0(g, device):
     return st.labels.clone()
 
 
+def check_loop_graph(path, memo, kinds, run, launch, mod, it_word, describe):
+    """One graph path's checks (docstring, 4c and 4d): its graph dropped from
+    ``memo`` (keys whose first word is in ``kinds``) and built by a cold
+    ``run()`` ((result, iterations, step counts)), equal to the host loop
+    under plain_torch() (``mod.last_run`` gives the conditions it read), then
+    a warm ``launch()`` ((result, ctl, graph, reads)) under sync debug mode
+    "error" with the library's graph calls counted (one graph launch, no
+    read of a condition, no kernel launched from Python; ``ctl[it_word]``
+    the iterations), then five warm runs timed. Returns the path's
+    numbers for phase_loop_trace."""
+    import torch
+
+    from graphtpu_torch.ops import kernels
+
+    for key in [k for k in memo if k[0] in kinds]:
+        del memo[key]  # the first run below builds the graph
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, it, steps = run()  # cold: the graph's build
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    with kernels.plain_torch():
+        p_out, p_it, p_steps = run()
+        p_reads = mod.last_run["condition_reads"]
+    check(torch.equal(out, p_out), f"{path} graph result differs from the host loop's")
+    check((it, steps) == (p_it, p_steps), f"{path} graph (it, steps) {it}, {steps} differ "
+          f"from the host loop's {p_it}, {p_steps}")
+    graph_calls = []
+    graph_call = kernels.graph_call
+
+    def counted_graph_call(name, *a):
+        graph_calls.append(name)
+        return graph_call(name, *a)
+
+    kernels.reset_launch_counts()
+    kernels.graph_call = counted_graph_call
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        w_out, w_ctl, graph, reads = launch()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        kernels.graph_call = graph_call
+    w_ctl = w_ctl.tolist()
+    launches = graph_calls.count("graph_launch")
+    launched = {k: v for k, v in kernels.launch_counts.items() if v}
+    check(launches == 1 and reads == 0, f"a warm {path} run made {launches} graph launches "
+          f"and {reads} reads of a condition, not 1 and 0")
+    check(not launched, f"a warm {path} run launched kernels from Python: {launched}")
+    check(torch.equal(w_out, out) and w_ctl[it_word] == it,
+          f"a warm {path} run differs from the first")
+    secs = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        secs.append(time.perf_counter() - t0)
+    med = sorted(secs)[2]
+    print(f"{path} loop graph: captured and built in {build_s:.3f} s (the cold run); "
+          f"{describe(it, steps)}; result = the host loop's (plain, {p_reads} conditions read, "
+          f"then the control words); a warm run: no host read up to its end (sync debug mode "
+          f"\"error\"), then one, {launches} graph launch, no kernel launched from Python; warm "
+          f"runs {', '.join(f'{x * 1e3:.3f}' for x in secs)} ms, median {med * 1e3:.3f} ms",
+          flush=True)
+    return {"build_s": build_s, "median_ms": med * 1e3, "graph_launches": launches,
+            "iterations": it, "result_sha256":
+                hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16]}
+
+
 # the graph paths of phase_loops
 LOOP_PATHS = ("wcc-auto", "wcc-adaptive", "sssp-auto")
 
@@ -2111,14 +2205,11 @@ def phase_loops(g, gw, device):
     (their traces: phase_loop_trace, last). Then K21, K20's jump mode,
     K19's min mode, K22 and K8's in-place mode against their plain versions
     at the loops' shapes, taken from their steps called from the host."""
-    import functools
-
     import torch
 
     from graphtpu_torch.algorithms import sssp as S
     from graphtpu_torch.algorithms import wcc as W
     from graphtpu_torch.ops import active as A
-    from graphtpu_torch.ops import kernels
     from graphtpu_torch.ops.frontier import expand, relax_min_into, relax_min_into_plain
     from graphtpu_torch.ops.spmv import csr_pull_reduce
     from graphtpu_torch.utils.config import PlatformConfig
@@ -2150,61 +2241,15 @@ def phase_loops(g, gw, device):
         return W._launch_loop(sym, wprep, plan, w_budgets)
 
     info = {}
-    graph_call = kernels.graph_call
     for path in LOOP_PATHS:
         memo = gw.memo if path == "sssp-auto" else sym.memo
-        for key in [k for k in memo if k[0] in ("wcc_loop", "sssp_loop")]:
-            del memo[key]  # the first run below builds the graph
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out, it, steps = run(path)  # cold: the graph's build
-        torch.cuda.synchronize()
-        build_s = time.perf_counter() - t0
-        with kernels.plain_torch():
-            p_out, p_it, p_steps = run(path)
-            p_reads = (S if path == "sssp-auto" else W).last_run["condition_reads"]
-        check(torch.equal(out, p_out), f"{path} graph result differs from the host loop's")
-        check((it, steps) == (p_it, p_steps), f"{path} graph (it, steps) {it}, {steps} differ "
-              f"from the host loop's {p_it}, {p_steps}")
-        graph_calls = []
-
-        def counted_graph_call(name, *a):
-            graph_calls.append(name)
-            return graph_call(name, *a)
-
-        kernels.reset_launch_counts()
-        kernels.graph_call = counted_graph_call
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            w_out, w_ctl, graph, reads = launch(path)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-            kernels.graph_call = graph_call
-        w_ctl = w_ctl.tolist()
-        launches = graph_calls.count("graph_launch")
-        launched = {k: v for k, v in kernels.launch_counts.items() if v}
-        check(launches == 1 and reads == 0, f"a warm {path} run made {launches} graph launches "
-              f"and {reads} reads of a condition, not 1 and 0")
-        check(not launched, f"a warm {path} run launched kernels from Python: {launched}")
-        w_it = w_ctl[S.SCTL_IT] if path == "sssp-auto" else w_ctl[A.CTL_IT]
-        check(torch.equal(w_out, out) and w_it == it, f"a warm {path} run differs from the first")
-        secs = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            run(path)
-            secs.append(time.perf_counter() - t0)
-        med = sorted(secs)[2]
-        print(f"{path} loop graph: captured and built in {build_s:.3f} s (the cold run); {it} "
-              f"iterations, full {steps[0]}, active {steps[1]} ({steps[2:]}); result = the host "
-              f"loop's (plain, {p_reads} conditions read, then the control words); a warm run: "
-              f"no host read up to its end (sync debug mode \"error\"), then one, {launches} "
-              f"graph launch, no kernel launched from Python; warm runs "
-              f"{', '.join(f'{x * 1e3:.3f}' for x in secs)} ms, median {med * 1e3:.3f} ms",
-              flush=True)
-        info[path] = {"build_s": build_s, "median_ms": med * 1e3, "graph_launches": launches,
-                      "iterations": it, "result_sha256":
-                          hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16]}
+        mod = S if path == "sssp-auto" else W
+        info[path] = check_loop_graph(
+            path, memo, ("wcc_loop", "sssp_loop"), lambda path=path: run(path),
+            lambda path=path: launch(path), mod,
+            S.SCTL_IT if path == "sssp-auto" else A.CTL_IT,
+            lambda it, steps: (f"{it} iterations, full {steps[0]}, active {steps[1]} "
+                               f"({steps[2:]})"))
 
     res, n = {}, g.n
     # WCC auto's kernels: iteration 1's full step (K21, K20's jump mode),
@@ -2370,31 +2415,154 @@ def phase_loops(g, gw, device):
     return res, info
 
 
+# the graph paths of phase_bfs_loops
+BFS_LOOP_PATHS = ("bfs-auto", "bfs-device")
+
+
+def phase_bfs_loops(g, device):
+    """BFS auto's and bfs-impl=device's loops on the bench graph from vertex
+    0, each one CUDA graph (docstring, 4d): built cold (capture seconds),
+    equal to the host loop under plain_torch() (levels bit for bit, levels
+    done and every step count), a warm run up to its end under sync debug
+    mode "error" with the library's graph calls counted, and warm runs
+    timed (their traces: phase_loop_trace, last). Then K23 (bfs_apply) at
+    each stage against its plain version: BFS auto's init, first tier step
+    and first bottom-up step and bfs-impl=device's first dense step, their
+    arguments taken from the steps called from the host."""
+    import torch
+
+    from graphtpu_torch.algorithms import bfs as B
+    from graphtpu_torch.tools.minmode_times import bfs_eager
+    from graphtpu_torch.utils.config import PlatformConfig
+
+    cfg = PlatformConfig(device=str(device))
+    dense_cfg = PlatformConfig(device=str(device), bfs_impl="device")
+    specs = {"bfs-auto": B._auto_loop(g, cfg)[1], "bfs-device": B._dense_loop(g, device)}
+
+    def run(path):
+        """(levels, levels done, step counts) of one run."""
+        if path == "bfs-auto":
+            out, it, st = B.bfs_adaptive_run(g, 0, cfg, with_stats=True)
+            return out, it, (st["tier_steps"], st["bu_steps"], st["dense_steps"])
+        out, it = B._bfs_kernel(g, 0, device)
+        return out, it, ()
+
+    info = {path: check_loop_graph(
+        path, g.memo, (specs[path].key[0],), lambda path=path: run(path),
+        lambda path=path: B._launch_loop(g, specs[path], 0),
+        B, B.BCTL_LEVEL, lambda it, steps: f"{it} levels, steps {steps}")
+        for path in BFS_LOOP_PATHS}
+
+    # K23's calls in the host loops, their arguments kept (the source in
+    # pinned memory, as the kernel reads it)
+    calls = []
+    real = B.bfs_apply
+
+    def keep(*a, **kw):
+        copy = lambda x: x.clone() if hasattr(x, "clone") else x  # noqa: E731
+        calls.append(([copy(x) for x in a], {k: copy(v) for k, v in kw.items()}))
+        return real(*a, **kw)
+
+    B.bfs_apply = keep
+    try:
+        bfs_eager(B, g, 0, cfg)
+        bfs_eager(B, g, 0, dense_cfg)
+    finally:
+        B.bfs_apply = real
+    n = g.n
+    first = {}
+    for a, kw in calls:
+        kw["source"] = kw["source"].pin_memory()
+        stage = a[4]
+        kind = ("init" if stage == B.STAGE_INIT else "bottom-up" if stage == B.STAGE_BU else
+                "dense" if stage == B.STAGE_DENSE else "tier")
+        first.setdefault(kind, (a, kw))
+    check(set(first) == {"init", "tier", "bottom-up", "dense"},
+          f"the BFS host loops reached K23's stages {sorted(first)} only")
+
+    def state(a):
+        return [x.clone() if torch.is_tensor(x) else x for x in a]
+
+    rows = {}
+    for kind, (a, kw) in first.items():
+        outs = []
+        for plain in (False, True):
+            args = state(a)
+            (B.bfs_apply_plain if plain else B.bfs_apply)(*args, **(
+                {k: v for k, v in kw.items() if k != "handles"} if plain else kw))
+            outs.append(args[:3])  # levels, fmask, ctl
+        check(all(torch.equal(x, y) for x, y in zip(*outs)),
+              f"bfs_apply ({kind}) differs from its plain version")
+        ctl_in, ctl_out = a[2], outs[0][2]
+        new = int(ctl_out[B.BCTL_CNT]) if kind != "init" else 1
+        k = 0 if kw.get("ids") is None else kw["ids"].shape[0]
+        t = a[3].shape[0]
+        # what each stage must move: init writes levels and the dense
+        # frontier; a tier step reads its ids and status and writes the new
+        # frontier's levels; the bottom-up reads the claims, the claimed ids
+        # and the status, and writes the new frontier's levels, reading their
+        # degrees; the dense step reads the levels and the reach, writes the
+        # frontier and the new levels, reading their degrees where it is
+        # given them (BFS auto's nest; bfs-impl=device's is not)
+        deg = 4 if kw.get("deg_pad") is not None else 0
+        nbytes = {"init": 8 * n, "tier": 4 * k + 8 + 4 * new,
+                  "bottom-up": n + 4 * k + 8 + (4 + deg) * new,
+                  "dense": 12 * n + (4 + deg) * new}[kind]
+        ops = k if kind == "tier" else n
+        bufs = state(a)
+
+        def call(a=a, kw=kw, bufs=bufs):
+            for x, y in zip(bufs[:3], a[:3]):
+                x.copy_(y)
+            B.bfs_apply(*bufs, **kw)
+
+        def call_plain(a=a, kw=kw, bufs=bufs):
+            B.bfs_apply_plain(*bufs, **{k: v for k, v in kw.items() if k != "handles"})
+
+        rows[kind] = dict(
+            times=(cuda_ms(call, only=("k23_apply_kernel", "Memset")), cuda_ms(call_plain)),
+            shape=(f"{'bfs-impl=device' if t == 0 else 'BFS auto'}'s first {kind} "
+                   f"{'stage' if kind == 'init' else 'step'}: {n} vertices"
+                   + (f", {k} ids" if k else "") + f", level {int(ctl_in[B.BCTL_LEVEL])}, "
+                   f"{new} in the new frontier"),
+            bytes=nbytes, ops=ops)
+        print(f"bfs_apply = plain at {rows[kind]['shape']}", flush=True)
+    main = rows.pop("bottom-up")
+    res = {"bfs_apply": dict(max_abs_err=0.0, library=None,  # none: JAX's step ends are many ops
+                             other_shapes=list(rows.values()), **main)}
+    return res, info
+
+
 def k14(g, top_args, e_top, k_top, device):
     """K14 (frontier_compact) at the shapes of the adaptive paths, each
     taken from a run: compact on CDLP auto's fullest changed mask and BFS
-    auto's fullest level mask (n = 2^20), compact_stream on BFS auto's
+    auto's fullest tier frontier (n = 2^20), compact_stream on BFS auto's
     widest tier stream (2^18 slots) and on BFS's top push tier filled by a
-    random frontier (2^22 slots). Each is held bit for bit against its
-    plain version, twice, and its calls run under sync debug mode "error"
-    (no host read). The library yardstick is one torch.sort (compact) or
-    torch.unique (compact_stream) of the same masked key."""
+    random frontier (2^22 slots); then K14's level and unvisited modes, BFS
+    auto's own calls, on that frontier (the levels and the level) and that
+    stream (the expansion and the levels). Each is held bit for bit against
+    its plain version, twice, and its calls run under sync debug mode
+    "error" (no host read). The library yardstick is one torch.sort
+    (compact) or torch.unique (compact_stream) of the same masked key; the
+    two BFS modes have none (no one call takes the levels)."""
     import numpy as np
     import torch
 
     from graphtpu_torch.algorithms import bfs as bfs_mod
     from graphtpu_torch.algorithms.cdlp import build_incidence
+    from graphtpu_torch.core.types import INT32_INF
     from graphtpu_torch.ops import active as active_mod
     from graphtpu_torch.ops.frontier import (
-        compact, compact_plain, compact_stream, compact_stream_plain, frontier_expand,
+        compact, compact_level_into, compact_level_plain, compact_plain, compact_stream,
+        compact_stream_plain, compact_unvisited_into, compact_unvisited_plain, frontier_expand,
     )
-    from graphtpu_torch.tools.minmode_times import captured, cdlp_auto_eager
+    from graphtpu_torch.tools.minmode_times import bfs_eager, captured, cdlp_auto_eager
     from graphtpu_torch.utils.config import PlatformConfig
 
     n = g.n
     cfg = PlatformConfig(device=str(device))
-    # CDLP auto's loop is one CUDA graph: its steps, called one by one from
-    # the host, show the masks its derives compact
+    # CDLP auto's and BFS auto's loops are CUDA graphs: their steps, called
+    # one by one from the host, show the masks and streams they compact
     centers, neigh = build_incidence(g)
     deg = np.bincount(centers, minlength=n)
     prep = active_mod.prepare_cdlp_adaptive(g, centers, neigh, deg, cfg)
@@ -2403,19 +2571,25 @@ def k14(g, top_args, e_top, k_top, device):
     bfs_calls = {}
 
     def bfs_run():
-        bfs_calls["compact_stream"] = captured(
-            bfs_mod, "compact_stream", lambda: bfs_mod.bfs_adaptive_run(g, 0, cfg))
+        bfs_calls["unvisited"] = captured(bfs_mod, "compact_unvisited_into",
+                                          lambda: bfs_eager(bfs_mod, g, 0, cfg))
 
-    bfs_calls["compact"] = captured(bfs_mod, "compact", bfs_run)
+    bfs_calls["level"] = captured(bfs_mod, "compact_level_into", bfs_run)
     fullest = lambda calls: max(calls, key=lambda c: int(c[0].sum()))  # noqa: E731
     cdlp_mask, cdlp_k = fullest(masks)[:2]
-    bfs_mask, bfs_k = fullest(bfs_calls["compact"])[:2]
-    vals, active, s_k, s_n = max(bfs_calls["compact_stream"], key=lambda c: c[0].shape[0])
+    lv_levels, lv_level, lv_ids, _ = max(bfs_calls["level"],
+                                         key=lambda c: int((c[0] == c[1]).sum()))
+    bfs_mask, bfs_k = lv_levels == lv_level, lv_ids.shape[0]
+    u_exp, u_levels, _, u_deg, u_ids, _ = max(bfs_calls["unvisited"],
+                                              key=lambda c: c[0].neigh.shape[0])
+    vals = u_exp.neigh
+    active = u_exp.valid & (u_levels[vals.long()] == INT32_INF)
+    s_k = u_ids.shape[0]
     _, _, _, top_neigh, top_valid = frontier_expand(*top_args, e_top, False)
     shapes = {
         "cdlp": ("mask", (cdlp_mask, cdlp_k)),
         "bfs": ("mask", (bfs_mask, bfs_k)),
-        "bfs-stream": ("stream", (vals, active, s_k, s_n)),
+        "bfs-stream": ("stream", (vals, active, s_k, n)),
         "bfs-top-stream": ("stream", (top_neigh, top_valid, k_top, n)),
     }
     idx = torch.arange(n, dtype=torch.int32, device=device)
@@ -2453,8 +2627,64 @@ def k14(g, top_args, e_top, k_top, device):
         print(f"frontier_compact = plain, twice the same bits, no host read, at {shape}",
               flush=True)
     main = rows.pop("cdlp")
-    return {"frontier_compact": dict(max_abs_err=0.0, other_shapes=list(rows.values()),
-                                     **main)}
+    res = {"frontier_compact": dict(max_abs_err=0.0, other_shapes=list(rows.values()), **main)}
+
+    # the level mode on BFS auto's fullest tier frontier, the unvisited mode
+    # on its widest tier stream, into buffers as the loop's steps write them
+    ids, cnt = torch.empty_like(lv_ids), torch.empty(1, dtype=torch.int32, device=device)
+    uids, status = torch.empty_like(u_ids), torch.empty(2, dtype=torch.int32, device=device)
+
+    def level_call():
+        compact_level_into(lv_levels, lv_level, ids, cnt)
+        return ids.clone(), cnt.clone()
+
+    def unvisited_call():
+        compact_unvisited_into(u_exp, u_levels, n, u_deg, uids, status)
+        return uids.clone(), status.clone()
+
+    def unvisited_plain():
+        compact_unvisited_plain(u_exp, u_levels, n, u_deg, uids, status)
+        return uids.clone(), status.clone()
+
+    for name, call, plain in (("frontier_compact_level", level_call,
+                               lambda: compact_level_plain(lv_levels, lv_level, bfs_k)),
+                              ("frontier_compact_unvisited", unvisited_call, unvisited_plain)):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got, again = call(), call()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        want = plain()
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1].reshape(-1),
+                                                           want[1].reshape(-1)),
+              f"{name} differs from its plain version")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)), f"{name}: two runs differ")
+    level_count, real = int(cnt[0]), int(u_exp.edge_count)
+    e = vals.shape[0]
+    res["frontier_compact_level"] = dict(
+        max_abs_err=0.0, library=None,  # none: no one call compacts levels == level
+        times=(cuda_ms(lambda: compact_level_into(lv_levels, lv_level, ids, cnt)),
+               cuda_ms(lambda: compact_level_plain(lv_levels, lv_level, bfs_k))),
+        shape=(f"BFS auto's fullest tier frontier: levels == {int(lv_level)} over {n} vertices, "
+               f"{level_count} set, k = {bfs_k}"),
+        # the levels and the level, the ids and the count; a compare per vertex
+        bytes=4 * n + 4 + 4 * bfs_k + 4, ops=n)
+    res["frontier_compact_unvisited"] = dict(
+        max_abs_err=0.0, library=None,  # none: no one call filters by the levels
+        times=(cuda_ms(lambda: compact_unvisited_into(u_exp, u_levels, n, u_deg, uids, status)),
+               cuda_ms(lambda: compact_unvisited_plain(u_exp, u_levels, n, u_deg, uids,
+                                                       status))),
+        shape=(f"BFS auto's widest tier stream: {e} slots, {real} real, {int(active.sum())} "
+               f"unvisited, {int(status[0])} distinct of n = {n}, k = {s_k}"),
+        # the real slots' neighbours and their levels, the edge count, the
+        # ids and the status (count, degree sum) with the ids' degrees; a
+        # test and a mark per real slot
+        bytes=8 * real + 4 + 4 * s_k + 8 + 4 * min(int(status[0]), s_k), ops=real)
+    print(f"frontier_compact_level and _unvisited = plain, twice the same bits, no host read "
+          f"({res['frontier_compact_level']['shape']}; "
+          f"{res['frontier_compact_unvisited']['shape']})", flush=True)
+    return res
 
 
 def k12_k13(g, prep, lab1, bprep, device):
@@ -2473,12 +2703,11 @@ def k12_k13(g, prep, lab1, bprep, device):
     import torch
 
     from graphtpu_torch.algorithms import bfs as bfs_mod
-    from graphtpu_torch.algorithms.bfs import bfs_adaptive_run
     from graphtpu_torch.ops.frontier import bfs_trunc_probe, bfs_trunc_probe_plain
     from graphtpu_torch.ops.minmode import (
         _k12_launch, k12_work, stream_minmode, stream_minmode_plain,
     )
-    from graphtpu_torch.tools.minmode_times import captured, k12_shapes, shape_bytes
+    from graphtpu_torch.tools.minmode_times import bfs_eager, captured, k12_shapes, shape_bytes
     from graphtpu_torch.utils.config import PlatformConfig
 
     n = g.n
@@ -2510,28 +2739,36 @@ def k12_k13(g, prep, lab1, bprep, device):
     k12 = dict(max_abs_err=0.0, library=None,  # none: a sort, a run-length pass, a scatter-max
                other_shapes=list(times.values()), **main)
 
+    # BFS auto's loop is a CUDA graph: its steps called from the host show
+    # its first bottom-up step's probe, the level a tensor on the card (the
+    # device-level mode, the path's); the scalar form (the distributed BFS's)
+    # is timed on the same inputs
     t_trunc = bfs_mod.BFS_TRUNC
-    (levels, level, trunc, pdeg, t), *_ = captured(
-        bfs_mod, "bfs_trunc_probe", lambda: bfs_adaptive_run(g, 0, cfg))
+    (levels, level_at, trunc, pdeg, t), *_ = captured(
+        bfs_mod, "bfs_trunc_probe", lambda: bfs_eager(bfs_mod, g, 0, cfg))
     check((trunc.shape[0], t) == (t_trunc * n, t_trunc), "bfs_trunc_probe: not BFS's shape")
-    got = bfs_trunc_probe(levels, level, trunc, pdeg, t)
-    again = bfs_trunc_probe(levels, level, trunc, pdeg, t)
-    want = bfs_trunc_probe_plain(levels, level, trunc, pdeg, t)
-    for a, a2, b, name in zip(got, again, want, ("claim", "resid")):
-        check(torch.equal(a, b), f"bfs_trunc_probe {name} differs from its plain version")
-        check(torch.equal(a, a2), f"bfs_trunc_probe {name}: two runs differ")
-    frontier = int((levels == level).sum())
-    k13 = dict(
-        max_abs_err=0.0, library=None,  # none: a gather, an any over t, two masks
-        times=(cuda_ms(lambda: bfs_trunc_probe(levels, level, trunc, pdeg, t)),
-               cuda_ms(lambda: bfs_trunc_probe_plain(levels, level, trunc, pdeg, t))),
-        shape=(f"BFS auto's first bottom-up step: n = {n}, t = {t}, level {level}, frontier "
-               f"{frontier}, {int(got[0].sum())} claimed, {int(got[1].sum())} residual"),
-        # levels once, the table, pdeg; two bool masks; a compare per probe
-        bytes=4 * n + 4 * t * n + 4 * n + 2 * n, ops=t * n,
-    )
-    print(f"bfs_trunc_probe = plain, twice the same bits ({k13['shape']})", flush=True)
-    return {"segment_minmode": k12, "bfs_trunc_probe": k13}
+    level = int(level_at)
+    out = {"segment_minmode": k12}
+    for name, lv in (("bfs_trunc_probe", level), ("bfs_trunc_probe_at", level_at)):
+        got = bfs_trunc_probe(levels, lv, trunc, pdeg, t)
+        again = bfs_trunc_probe(levels, lv, trunc, pdeg, t)
+        want = bfs_trunc_probe_plain(levels, lv, trunc, pdeg, t)
+        for a, a2, b, mask in zip(got, again, want, ("claim", "resid")):
+            check(torch.equal(a, b), f"{name} {mask} differs from its plain version")
+            check(torch.equal(a, a2), f"{name} {mask}: two runs differ")
+        frontier = int((levels == level).sum())
+        out[name] = dict(
+            max_abs_err=0.0, library=None,  # none: a gather, an any over t, two masks
+            times=(cuda_ms(lambda lv=lv: bfs_trunc_probe(levels, lv, trunc, pdeg, t)),
+                   cuda_ms(lambda lv=lv: bfs_trunc_probe_plain(levels, lv, trunc, pdeg, t))),
+            shape=(f"BFS auto's first bottom-up step: n = {n}, t = {t}, level {level}"
+                   f"{' read on the card' if lv is level_at else ''}, frontier {frontier}, "
+                   f"{int(got[0].sum())} claimed, {int(got[1].sum())} residual"),
+            # levels once, the table, pdeg; two bool masks; a compare per probe
+            bytes=4 * n + 4 * t * n + 4 * n + 2 * n + 4 * (lv is level_at), ops=t * n,
+        )
+        print(f"{name} = plain, twice the same bits ({out[name]['shape']})", flush=True)
+    return out
 
 
 def phase_traversal_kernels(g, gw, device):
@@ -2823,10 +3060,15 @@ def phase_traversal_kernels(g, gw, device):
         relax_min_i32, relax_min_i32_plain, residual_claim, residual_claim_plain,
         residual_hits, residual_indptr,
     )
-    from graphtpu_torch.tools.minmode_times import captured
+    from graphtpu_torch.tools.minmode_times import bfs_eager, captured
 
-    rargs = captured(bfs_mod, "residual_claim", lambda: bfs_mod.bfs_adaptive_run(g, 0, cfg))[0]
-    levels_r, level_r, rexp, e_bu, rids, pad = rargs
+    # from BFS auto's steps called from the host (its loop is a CUDA graph):
+    # the path's call reads the level on the card (rargs_at); the scalar
+    # form, the distributed BFS's, is the K17 row
+    rargs_at = captured(bfs_mod, "residual_claim", lambda: bfs_eager(bfs_mod, g, 0, cfg))[0]
+    levels_r, level_at, rexp, e_bu, rids, pad = rargs_at
+    level_r = int(level_at)
+    rargs = (levels_r, level_r, rexp, e_bu, rids, pad)
     fmask_pad = torch.cat([(levels_r == level_r).to(torch.int32), levels_r.new_zeros(1)])
     r_ip = residual_indptr(rexp, e_bu)  # what residual_hits hands K7
 
@@ -2871,6 +3113,20 @@ def phase_traversal_kernels(g, gw, device):
                  lambda h=hits_pre, o=r_ip.long(): torch.segment_reduce(h, "max", offsets=o,
                                                                         unsafe=True)),
     )
+    got_at = residual_claim(*rargs_at)
+    check(torch.equal(got_at, got) and torch.equal(got_at, residual_claim_plain(*rargs_at)),
+          "bfs_residual_claim with the level read on the card differs from the scalar form or "
+          "from its plain version")
+    check(torch.equal(got_at, residual_claim(*rargs_at)),
+          "bfs_residual_claim (level on the card): two runs differ")
+    res["bfs_residual_claim_at"] = dict(
+        max_abs_err=0.0, library=None,  # the yardstick above takes no levels
+        times=(cuda_ms(lambda: residual_claim(*rargs_at)),
+               cuda_ms(lambda: residual_claim_plain(*rargs_at))),
+        shape=(f"BFS auto's first bottom-up residual (level {level_r}, read on the card): "
+               f"{k_bu} row slots ({r_rows} rows with edges, {r_edges} edges, {claimed} "
+               f"claimed) in {e_bu} slots"),
+        bytes=4 * (k_bu + 1) + 8 * k_bu + 8 * r_edges + 4, ops=r_edges)
 
     # K8's int32 mode on a WCC active step's expansion (from a WCC auto run,
     # expanded again with its owners), the labels after iteration 0
@@ -3563,6 +3819,15 @@ SOURCES = {
     "sssp_apply": ("graphtpu_torch/csrc/sssp_loop.cu", "graphtpu/algorithms/sssp.py:113"),
     "push_relax_min_inplace": ("graphtpu_torch/csrc/push_relax.cu",
                                "graphtpu/algorithms/sssp.py:140"),
+    "bfs_apply": ("graphtpu_torch/csrc/bfs_loop.cu", "graphtpu/algorithms/bfs.py:198"),
+    "frontier_compact_level": ("graphtpu_torch/csrc/frontier_compact.cu",
+                               "graphtpu/algorithms/bfs.py:185"),
+    "frontier_compact_unvisited": ("graphtpu_torch/csrc/frontier_compact.cu",
+                                   "graphtpu/algorithms/bfs.py:187"),
+    "bfs_trunc_probe_at": ("graphtpu_torch/csrc/bfs_trunc_probe.cu",
+                           "graphtpu/algorithms/bfs.py:225"),
+    "bfs_residual_claim_at": ("graphtpu_torch/csrc/bfs_residual.cu",
+                              "graphtpu/algorithms/bfs.py:236"),
 }
 
 
@@ -3809,13 +4074,6 @@ def main() -> int:
           f"{RUNS_PER_PATH} lcc runs, expected one a run (the head sums)")
     check(path_launches["lcc"]["csr_pull_reduce_sum_i64"] == 0,
           "the lcc path launched K7 sum_i64, the head sums' design before K16")
-    claims = path_launches["bfs-auto"]["bfs_residual_claim"]
-    bu_steps, dense_steps = JAX_STEPS["bfs"][2], JAX_STEPS["bfs"][3]
-    check(claims == RUNS_PER_PATH * bu_steps, f"bfs_residual_claim launched {claims} times in "
-          f"{RUNS_PER_PATH} bfs-auto runs, expected {bu_steps} a run (its bottom-up steps)")
-    check(dense_steps or path_launches["bfs-auto"]["csr_pull_reduce"] == 0,
-          "the bfs-auto path launched K7 in a run of no dense step: its residual test's "
-          "design before K17")
     launches = {name: sum(c[name] for c in path_launches.values()) for name in kernels.COUNTERS}
     launches["vreg_shuffle"] = phase_vreg_shuffle(device)
     print(f"peak device memory allocated {torch.cuda.max_memory_allocated(device) / 2**30:.3f} "
@@ -3831,6 +4089,11 @@ def main() -> int:
     res.update(loop_res)
     loops["cdlp-auto"] = cdlp_loop
     print(f"wcc and sssp loop phase: {time.perf_counter() - t0:.3f} s", flush=True)
+    t0 = time.perf_counter()
+    loop_res, bfs_loops = phase_bfs_loops(g, device)
+    res.update(loop_res)
+    loops.update(bfs_loops)
+    print(f"bfs loop phase: {time.perf_counter() - t0:.3f} s", flush=True)
     lcc_res, launches["edgehash_probe"], launches["lcc_sweep_member"], num_sum = \
         phase_lcc_kernels(g, wplan, real_wedges, lcc_values, device)
     res.update(lcc_res)
@@ -3870,15 +4133,27 @@ def main() -> int:
     t0 = time.perf_counter()
     scaling = phase_scaling(smi)
     print(f"scaling phase: {time.perf_counter() - t0:.3f} s", flush=True)
-    graph_records = {}
+    graph_records, trace_records = {}, {}
     for path in GRAPH_PATHS:
         t0 = time.perf_counter()
-        loops[path]["trace"], graph_records[path] = phase_loop_trace(path, loops[path])
+        loops[path]["trace"], graph_records[path], trace_records[path] = phase_loop_trace(
+            path, loops[path])
         # phase 3's runs of the path executed its graph RUNS_PER_PATH times on
         # one input: each run's executions are the trace's records of one run
         for name, c in graph_records[path].items():
             launches[name] += RUNS_PER_PATH * c
         print(f"{path} trace phase: {time.perf_counter() - t0:.3f} s", flush=True)
+    # BFS auto from vertex 0: K13 and K17 once a bottom-up step, and no K7 in
+    # a run of no dense step (K7 max_i32 was the residual test before K17)
+    bu_steps, dense_steps = JAX_STEPS["bfs"][2], JAX_STEPS["bfs"][3]
+    rec = graph_records["bfs-auto"]
+    check(rec["bfs_residual_claim_at"] == rec["bfs_trunc_probe_at"] == bu_steps,
+          f"bfs-auto's trace holds {rec['bfs_trunc_probe_at']} K13 and "
+          f"{rec['bfs_residual_claim_at']} K17 records a run, expected {bu_steps} each (its "
+          f"bottom-up steps)")
+    k7 = sum(c for k, (c, _) in trace_records["bfs-auto"].items() if "k7_" in k)
+    check(dense_steps or k7 == 0, f"bfs-auto's trace holds {k7} K7 records in a run of no "
+          f"dense step")
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": launches[name],

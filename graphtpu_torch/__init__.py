@@ -30,10 +30,10 @@ csr_pull_reduce, K8 push_relax_min, K9 edgehash_probe, K10 wedge_rowblock,
 K11 masked_spgemm, K12 segment_minmode, K13 bfs_trunc_probe, K14
 frontier_compact, K15 lcc_sweep_member, K16 lcc_head_credits, K17
 bfs_residual_claim, K18 frontier_starts, K19 cdlp_tier_apply, K20
-cdlp_route, K21 wcc_jump and K22 sssp_apply; each wrapper takes its plain
-PyTorch version for a CPU tensor. On a card the adaptive loops of CDLP, WCC
-and SSSP each run as one CUDA graph with conditional nodes
-(``ops/device_loop.py``).
+cdlp_route, K21 wcc_jump, K22 sssp_apply and K23 bfs_apply; each wrapper
+takes its plain PyTorch version for a CPU tensor. On a card the adaptive
+loops of CDLP, WCC, SSSP and BFS, and BFS's dense loop, each run as one CUDA
+graph with conditional nodes (``ops/device_loop.py``).
 """
 
 __version__ = "0.1.0"

@@ -9,19 +9,29 @@ edges (undirected); unreachable vertices serialize as int64 max
 
 * "auto" / "adaptive": direction-optimizing BFS (``bfs_adaptive_run``).
   Each level runs the smallest push tier whose (rows, edges) budget holds
-  its frontier, on the frontier engine (ops/frontier.py, kernels K1 and K5);
-  frontiers above the top tier run a truncated bottom-up (its probe of the
-  first in-neighbours on kernel K13, ``bfs_trunc_probe``, its residual rows'
-  test on K17, ``bfs_residual_claim``); a bottom-up whose residual overflows its budgets, and only
-  then, a dense pull step. JAX runs the phases as nested while_loops in one
-  program (``bfs-step-mode=phases``) or as one while_loop over a switch of
-  the step bodies (``switch``); here both are the same host loop over
-  device tensors, which runs the step of the chosen phase, with one small
-  device-to-host read per step. The step sequence, and so every phase
-  counter, is the JAX kernel's under either mode. Frontiers are compacted
-  on kernel K14.
-* "device": dense pull steps only (``_bfs_kernel``), each one kernel K7
-  launch over every edge.
+  its frontier, on the frontier engine (ops/frontier.py: the frontier
+  compacted by K14's level mode, expanded by K18 and K5, its unvisited
+  neighbours deduped by K14's unvisited mode); frontiers above the top tier
+  run a truncated bottom-up (its probe of the first in-neighbours on kernel
+  K13, ``bfs_trunc_probe``, the residual rows compacted by K14 and tested
+  on K17, ``bfs_residual_claim``); a bottom-up whose residual overflows its
+  budgets, and only then, a dense pull step (K7 max_i32). Every step ends
+  with K23 (``bfs_apply``), which updates the levels, counts the new
+  frontier and its out-degrees and routes the next step (the JAX kernel's
+  ``applied``/``ok``, status, ``chosen``, conditions and counters). JAX runs
+  the phases as nested while_loops in one program (``bfs-step-mode=phases``)
+  or as one while_loop over a switch of the step bodies (``switch``); here
+  both run the phases' nest (``loop_nest``), whose state lives in
+  preallocated buffers and a control vector, and whose steps are
+  hand-kernel launches that read nothing back (the level the kernels test
+  against is read on the card): on a card one CUDA graph with while nodes
+  (ops/device_loop.py) and one read of the control words after it, on the
+  CPU and inside ``kernels.plain_torch()`` the host loop of the same nest.
+  The step sequence, and so every phase counter, is the JAX kernel's under
+  either mode.
+* "device": dense pull steps only (``_bfs_kernel``), each one K7 launch over
+  every edge and K23, as a second nest of the same dense step
+  (``DENSE_NEST``): one CUDA graph on a card.
 * "hybrid": levels whose frontier's out-edges are at most
   ``bfs_active_threshold`` of the edges expand on the host over the push
   CSR (numpy); heavier levels run dense pull steps on K7 until the
@@ -30,7 +40,8 @@ edges (undirected); unreachable vertices serialize as int64 max
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import functools
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -39,16 +50,16 @@ from torch.profiler import record_function
 from graphtpu_torch.algorithms.common import AlgorithmResult, register
 from graphtpu_torch.core.graph import Graph, frontier_edge_positions
 from graphtpu_torch.core.types import INT32_INF, UNREACHABLE
+from graphtpu_torch.ops import device_loop, kernels
 from graphtpu_torch.ops.frontier import (
     bfs_trunc_probe,
-    compact,
-    compact_stream,
+    compact_into,
+    compact_level_into,
+    compact_unvisited_into,
     expand,
-    frontier_deg_sum,
     mask_status,
     residual_claim,
 )
-from graphtpu_torch.ops.gather import table_gather
 from graphtpu_torch.ops.spmv import PullCSR, csr_pull_reduce, int32_tensor, pull_csr
 from graphtpu_torch.utils.config import AlgorithmParams, PlatformConfig
 
@@ -68,23 +79,6 @@ def _bfs_dense_step(levels, frontier, level: int, csr: PullCSR):
     new_frontier = torch.where(levels == INT32_INF, reached, 0)
     levels = torch.where(new_frontier == 1, level + 1, levels)
     return levels, new_frontier
-
-
-def _bfs_kernel(csr: PullCSR, source: int, n: int):
-    """Dense steps until the frontier is empty: (int32 levels with
-    INT32_INF unreachable, steps including the last, empty one)."""
-    dev = csr.src.device
-    levels = torch.full((n,), INT32_INF, dtype=torch.int32, device=dev)
-    levels[source] = 0
-    frontier = torch.zeros(n, dtype=torch.int32, device=dev)
-    frontier[source] = 1
-    level, nonempty = 0, True
-    while nonempty and level < n:
-        with record_function("bfs.dense"):
-            levels, frontier = _bfs_dense_step(levels, frontier, level, csr)
-            nonempty = bool((frontier == 1).any())
-        level += 1
-    return levels, level
 
 
 class BfsPrep(NamedTuple):
@@ -125,116 +119,385 @@ def bfs_adaptive_prep(graph: Graph, t_trunc: int, device) -> BfsPrep:
     return prep
 
 
-def _bfs_adaptive_loop(prep: BfsPrep, source: int, n: int, t_trunc: int, tiers, k_bu: int,
-                       e_bu: int):
-    """The JAX kernel's phases as one host loop: at every step, the step of
-    phase ``chosen = max(first_fit(cnt, fe), min_tier)`` (index T is
-    bottom-up, T+1 dense), as its nested while_loops run it. Returns (int32
-    levels, levels done, per-phase step counts); aborted steps count."""
-    (pull, deg_pad, push_indptr, push_dst, pull_deg_pad, trunc_tbl) = prep
-    deg_n, pdeg_n = deg_pad[:-1], pull_deg_pad[:-1]
-    T = len(tiers)
-    BU, DENSE = T, T + 1
-    counts = [0] * (T + 2)
+# The control words of the device loops (int32, csrc/bfs_loop.cu BCTL_*): the
+# frontier's count and out-degree sum (cnt, fe), the level, min_tier (the
+# lowest phase a level may take after an abort) and the levels' limit (n);
+# from BCTL_COND the conditions (outer, one a tier, bottom-up, dense), then the
+# steps run by phase (one a tier, bottom-up, dense), aborted steps included.
+BCTL_CNT, BCTL_FE, BCTL_LEVEL, BCTL_MINTIER, BCTL_LEVELMAX, BCTL_COND = range(6)
+# K23's stages: the source's init, after a bottom-up step, after a dense
+# step, after a step of tier i (STAGE_TIER + i)
+STAGE_INIT, STAGE_BU, STAGE_DENSE, STAGE_TIER = range(4)
+# bfs-impl=device's nest: init, then dense steps while the frontier is live
+DENSE_NEST = ("init", ("while", 0, ("dense",)))
+RANGES = {"bu": "bfs.bottom_up", "dense": "bfs.dense"}  # the steps' profiler ranges
 
-    def status(levels, level):
-        return mask_status(levels == level, deg_n)
 
-    def tier_step(i, levels, level, cnt, fe):
-        k, e = tiers[i]
-        ids, _ = compact(levels == level, k)
-        exp = expand(ids, deg_pad, push_indptr, push_dst, e, with_row_ids=False)
-        unvisited = exp.valid & (table_gather(levels, exp.neigh) == INT32_INF)
-        # the deduped new frontier; if it overflows the tier's rows the
-        # level is aborted (levels unchanged) and escalates one tier up
-        ids2, cnt2 = compact_stream(exp.neigh, unvisited, k, n)
-        cnt2, fe2 = torch.stack([cnt2, frontier_deg_sum(ids2, deg_pad)]).tolist()
-        if cnt2 > k:
-            return levels, level, cnt, fe, i + 1
-        # slot n of the [n+1] buffer takes the pad ids
-        levels = torch.cat([levels, levels.new_zeros(1)]).index_fill_(
-            0, ids2.long(), level + 1)[:n]
-        return levels, level + 1, cnt2, fe2, 0
+def ctl_words(t: int) -> int:
+    """Words of ``ctl`` for t tiers."""
+    return BCTL_COND + (t + 3) + (t + 2)
 
-    def bu_step(levels, level, cnt, fe):
-        # truncated bottom-up: unvisited rows whose first t_trunc
-        # in-neighbours hit the frontier are claimed; rows with more
-        # in-edges that the probe missed get their full lists checked
-        # through the frontier engine, unless that residual overflows
-        claim_trunc, resid_mask = bfs_trunc_probe(levels, level, trunc_tbl, pdeg_n, t_trunc)
-        rids, rcnt = compact(resid_mask, k_bu)
-        fe_r = frontier_deg_sum(rids, pull_deg_pad)
-        ok = (rcnt <= k_bu) & (fe_r <= e_bu)
-        exp = expand(rids, pull_deg_pad, pull.indptr, pull.src, e_bu, with_row_ids=False)
-        # segment-any per residual row (K17; a residual past e_bu is
-        # discarded by ok anyway)
-        claimed = residual_claim(levels, level, exp, e_bu, rids, n)
-        updated = torch.where(claim_trunc, level + 1, levels)
-        updated = torch.cat([updated, updated.new_zeros(1)]).index_fill_(
-            0, claimed.long(), level + 1)[:n]
-        # selected on the device, so that one read brings ok and the status
-        levels = torch.where(ok, updated, levels)
-        ok, ncnt, nfe = torch.cat([ok.reshape(1).long(), status(levels, level + 1)]).tolist()
-        if ok:
-            return levels, level + 1, ncnt, nfe, 0
-        return levels, level, cnt, fe, DENSE
 
-    def dense_step(levels, level, cnt, fe):
-        # the frontier is the set of vertices at the current level
-        levels, _ = _bfs_dense_step(levels, (levels == level).to(torch.int32), level, pull)
-        ncnt, nfe = status(levels, level + 1).tolist()
-        return levels, level + 1, ncnt, nfe, 0
+def loop_nest(t: int) -> tuple:
+    """The JAX kernel's phases (its ``phases`` mode) over the steps of
+    ``_steps`` (t tiers), conditions indexed from BCTL_COND: init, then WHILE
+    outer { WHILE tier 0 {tier0}; ...; WHILE bottom-up {bu}; WHILE dense
+    {dense} }."""
+    return ("init", ("while", 0, (*(("while", 1 + i, (f"tier{i}",)) for i in range(t)),
+                                  ("while", t + 1, ("bu",)), ("while", t + 2, ("dense",)))))
 
-    def first_fit(cnt, fe):
-        for i, (k_i, e_i) in enumerate(tiers):
-            if cnt <= k_i and fe <= e_i:
-                return i
-        return BU
 
-    levels = torch.full((n,), INT32_INF, dtype=torch.int32, device=deg_pad.device)
-    levels[source] = 0
-    cnt, fe = status(levels, 0).tolist()
-    level, min_tier = 0, 0
-    while cnt > 0 and level < n:
-        phase = max(first_fit(cnt, fe), min_tier)
-        counts[phase] += 1
-        if phase < T:
-            with record_function("bfs.tier_step"):
-                levels, level, cnt, fe, min_tier = tier_step(phase, levels, level, cnt, fe)
-        elif phase == BU:
-            with record_function("bfs.bottom_up"):
-                levels, level, cnt, fe, min_tier = bu_step(levels, level, cnt, fe)
-        else:
-            with record_function("bfs.dense"):
-                levels, level, cnt, fe, min_tier = dense_step(levels, level, cnt, fe)
-    return levels, level, counts
+def loop_runs(ctl: list, t: int) -> dict:
+    """Each step's executions in a run, from the run's control words."""
+    counts = ctl[BCTL_COND + t + 3:]
+    return {"init": 1, "bu": counts[t], "dense": counts[t + 1],
+            **{f"tier{i}": counts[i] for i in range(t)}}
+
+
+def bfs_apply_plain(levels, fmask, ctl, tiers, stage: int, itermax: int, reached=None,
+                    claim=None, ids=None, stat=None, deg_pad=None, source=None, k_bu: int = 0,
+                    e_bu: int = 0) -> None:
+    """K23's plain PyTorch version, the JAX kernels' formulation: the
+    stage's levels (the source's; a tier step's scatter under ``applied``;
+    the bottom-up's claims and scatter under ``ok``; the dense step's where),
+    ``mask_status`` of the new frontier, then ``chosen``, the phase loops'
+    conditions and counters."""
+    n, t, dev = levels.shape[0], tiers.shape[0], levels.device
+    cond, counts = ctl[BCTL_COND:BCTL_COND + t + 3], ctl[BCTL_COND + t + 3:]
+    level = ctl[BCTL_LEVEL].clone()
+    nxt = level + 1
+
+    def status(lv):
+        mask = levels == lv
+        if deg_pad is None:
+            return mask.sum(), torch.zeros((), dtype=torch.int64, device=dev)
+        return tuple(mask_status(mask, deg_pad[:n]))
+
+    def scatter(base, at):  # base.at[at].set(level + 1, mode="drop"), pad ids n
+        return torch.cat([base, base.new_zeros(1)]).index_fill_(0, at.long(), nxt)[:n]
+
+    if stage == STAGE_INIT:
+        src = source.to(dev).long()
+        levels.fill_(INT32_INF).index_fill_(0, src, 0)
+        fmask.zero_().index_fill_(0, src, 1)
+        cnt, fe = status(0)
+        ctl[BCTL_LEVEL], ctl[BCTL_MINTIER], ctl[BCTL_LEVELMAX] = 0, 0, itermax
+        counts.zero_()
+    elif stage >= STAGE_TIER:
+        i = stage - STAGE_TIER
+        applied = stat[0] <= ids.shape[0]
+        levels.copy_(torch.where(applied, scatter(levels, ids), levels))
+        cnt = torch.where(applied, stat[0], ctl[BCTL_CNT])
+        fe = torch.where(applied, stat[1], ctl[BCTL_FE])
+        ctl[BCTL_MINTIER] = torch.where(applied, 0, i + 1)
+        ctl[BCTL_LEVEL] = level + applied.to(torch.int32)
+        counts[i] += 1
+    elif stage == STAGE_BU:
+        ok = (stat[0] <= k_bu) & (stat[1] <= e_bu)
+        fmask.copy_(torch.where(ok, fmask, (levels == level).to(torch.int32)))
+        levels.copy_(torch.where(ok, scatter(torch.where(claim, nxt, levels), ids), levels))
+        ncnt, nfe = status(nxt)
+        cnt = torch.where(ok, ncnt, ctl[BCTL_CNT])
+        fe = torch.where(ok, nfe, ctl[BCTL_FE])
+        ctl[BCTL_MINTIER] = torch.where(ok, 0, t + 1)
+        ctl[BCTL_LEVEL] = level + ok.to(torch.int32)
+        counts[t] += 1
+    else:
+        new_frontier = torch.where(levels == INT32_INF, reached, 0)
+        levels.copy_(torch.where(new_frontier == 1, nxt, levels))
+        fmask.copy_((new_frontier == 1).to(torch.int32))
+        cnt, fe = status(nxt)
+        ctl[BCTL_MINTIER], ctl[BCTL_LEVEL] = 0, nxt
+        counts[t + 1] += 1
+    ctl[BCTL_CNT], ctl[BCTL_FE] = cnt, fe
+    cnt, fe = ctl[BCTL_CNT], ctl[BCTL_FE]
+    outer = (cnt > 0) & (ctl[BCTL_LEVEL] < ctl[BCTL_LEVELMAX])
+    fits = (cnt <= tiers[:, 0]) & (fe <= tiers[:, 1])
+    first_fit = torch.cat([torch.where(fits, torch.arange(t, device=dev), t),
+                           torch.full((1,), t, device=dev)]).min()
+    chosen = torch.maximum(first_fit, ctl[BCTL_MINTIER])
+    cond[0] = outer
+    cond[1:] = outer & (chosen == torch.arange(t + 2, device=dev))
+
+
+def bfs_apply(levels, fmask, ctl, tiers, stage: int, itermax: int, reached=None, claim=None,
+              ids=None, stat=None, deg_pad=None, source=None, k_bu: int = 0, e_bu: int = 0,
+              handles=None) -> None:
+    """K23 wrapper, every BFS device-loop step's update, status and routing:
+    at STAGE_INIT levels := INT32_INF but 0 at the source (``source``, an
+    int32 [1] host tensor, pinned on a card, which the kernel reads) and the
+    dense frontier ``fmask`` (int32 [n]) the source alone; after a step of
+    tier i (STAGE_TIER + i) the new frontier ``ids`` [k_i] (padded with n;
+    its length is the tier's rows k_i) gets level + 1 where its count
+    ``stat[0]`` is at most k_i, else the level escalates a tier; after a bottom-up step (STAGE_BU) the ``claim`` mask
+    (bool [n]) and the claimed ``ids`` get level + 1 where the residual's
+    count and edge sum (``stat``) fit ``k_bu`` and ``e_bu``, else the level
+    goes dense and ``fmask`` := levels == level; after a dense step
+    (STAGE_DENSE) the unvisited vertices with ``reached`` (int32 [n]) == 1
+    get level + 1 and are the new ``fmask``. Then in ``ctl`` the frontier's
+    count and out-degree sum (``deg_pad`` [n+1] int32; None: sums of 0), the
+    level, min_tier, the steps run by phase and every condition: outer =
+    count > 0 and level < itermax; phase j = outer and chosen == j, chosen
+    = max(first_fit, min_tier) over ``tiers`` ([T, 2] int32 (rows, edges)
+    budgets on the device), bottom-up T and dense T + 1; and, given the
+    graph's ``handles`` (int64, the nest's first conditions), into the
+    graph's conditional nodes. One launch, nothing read back."""
+    n, t = levels.shape[0], tiers.shape[0]
+    opt = (reached, ids, stat, deg_pad)
+    if any(x.dtype != torch.int32 for x in (levels, fmask, ctl, tiers) + opt if x is not None) \
+            or (claim is not None and claim.dtype != torch.bool):
+        raise TypeError("bfs_apply: int32 levels, fmask, ctl, tiers, reached, ids, stat, "
+                        "deg_pad and a bool claim")
+    need = {STAGE_INIT: (source,), STAGE_BU: (claim, ids, stat),
+            STAGE_DENSE: (reached,)}.get(stage, (ids, stat))
+    if not STAGE_INIT <= stage < STAGE_TIER + t or any(x is None for x in need) or \
+            fmask.shape != (n,) or ctl.shape != (ctl_words(t),) or tiers.shape != (t, 2) or \
+            any(x is not None and x.shape != (n,) for x in (reached, claim)) or \
+            (stat is not None and stat.shape != (2,)) or \
+            (deg_pad is not None and deg_pad.shape[0] < n) or \
+            (source is not None and source.device.type != "cpu"):
+        raise ValueError(f"bfs_apply: shapes, the inputs of stage {stage} for {t} tiers, or "
+                         "source not on the host")
+    ts = [x for x in (levels, fmask, ctl, tiers, claim) + opt if x is not None]
+    if any(x.device != levels.device for x in ts) or not all(x.is_contiguous() for x in ts):
+        raise ValueError("bfs_apply: inputs must be contiguous, on one device")
+    if not kernels.use_kernel(levels):
+        bfs_apply_plain(levels, fmask, ctl, tiers, stage, itermax, reached, claim, ids, stat,
+                        deg_pad, source, k_bu, e_bu)
+        return
+    if source is not None and not source.is_pinned():
+        raise ValueError("bfs_apply: on a card source must be pinned, the kernel reads it")
+    acc = torch.empty(3, dtype=torch.int64, device=levels.device)
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    kernels.launch("bfs_apply", levels.device, levels.data_ptr(), n, fmask.data_ptr(),
+                   ptr(reached), ptr(claim), ptr(ids), 0 if ids is None else ids.shape[0],
+                   ptr(stat), ptr(deg_pad), ptr(source), acc.data_ptr(), ctl.data_ptr(),
+                   tiers.data_ptr() if t else None, t, stage, k_bu, e_bu, itermax,
+                   ptr(handles), 0 if handles is None else handles.shape[0],
+                   8 * kernels.sm_count(levels.device))
+
+
+class LoopState(NamedTuple):
+    """A BFS device loop's state, allocated once (per graph, device and
+    ladder on a card). The dense nest (bfs-impl=device) has no tier or
+    bottom-up buffers."""
+
+    levels: torch.Tensor          # [n] int32
+    fmask: torch.Tensor           # [n] int32: the dense step's frontier
+    ids: Optional[torch.Tensor]   # [k_max] int32: a tier step's frontier, padded with n
+    ids2: Optional[torch.Tensor]  # [k_max] int32: its new frontier
+    starts: Optional[torch.Tensor]  # [max(k_max, k_bu) + 1] int32: an expansion's row starts
+    rids: Optional[torch.Tensor]  # [k_bu] int32: the bottom-up's residual rows
+    stat: torch.Tensor            # [3] int32: a step's K14 count and degree sum, then a count
+    ctl: torch.Tensor             # [ctl_words(T)] int32 control words (BCTL_*)
+    tiers: torch.Tensor           # [T, 2] int32 (rows, edges) budgets, on the device
+    source: torch.Tensor          # [1] int32 on the host, pinned on a card
+    handles: Optional[torch.Tensor]  # int64 conditional handles, or None
+    budgets: tuple                # the tiers as Python ints
+    k_bu: int
+    e_bu: int
+
+
+def _loop_state(device, n: int, budgets: tuple, k_bu: int, e_bu: int, nest,
+                handles: bool) -> LoopState:
+    dev = torch.device(device)
+    i32 = dict(dtype=torch.int32, device=dev)
+    t = len(budgets)
+    k_max = max((k for k, _ in budgets), default=0)
+    buf = lambda k: torch.full((k,), n, **i32) if t else None  # noqa: E731
+    return LoopState(
+        torch.zeros(n, **i32), torch.zeros(n, **i32), buf(k_max), buf(k_max),
+        buf(max(k_max, k_bu) + 1), buf(k_bu), torch.zeros(3, **i32),
+        torch.zeros(ctl_words(t), **i32), torch.tensor(budgets, **i32).reshape(t, 2),
+        torch.zeros(1, dtype=torch.int32, pin_memory=dev.type == "cuda"),
+        torch.zeros(device_loop.conditions(nest), dtype=torch.int64, device=dev)
+        if handles else None, budgets, k_bu, e_bu,
+    )
+
+
+# The step functions: hand-kernel launches and memsets only, no host read.
+# Each ends with K23, which updates the levels and routes the next step; the
+# level the kernels test against is read on the card, from ctl.
+
+def _apply(st: LoopState, stage: int, deg_pad, **kw) -> None:
+    bfs_apply(st.levels, st.fmask, st.ctl, st.tiers, stage, min(st.levels.shape[0], INT32_INF),
+              deg_pad=deg_pad, source=st.source, k_bu=st.k_bu, e_bu=st.e_bu, handles=st.handles,
+              **kw)
+
+
+def _level(st: LoopState) -> torch.Tensor:
+    return st.ctl[BCTL_LEVEL:BCTL_LEVEL + 1]
+
+
+def _step_init(deg_pad, st: LoopState) -> None:
+    """The source's level: count 1, level 0."""
+    _apply(st, STAGE_INIT, deg_pad)
+
+
+def _step_tier(prep: BfsPrep, st: LoopState, i: int) -> None:
+    """A push step of tier i: the frontier (K14's level mode) expanded over
+    its out-edges in e_i slots (K18, K5), its unvisited neighbours deduped
+    into the new frontier (K14's unvisited mode), then K23."""
+    k, e = st.budgets[i]
+    n, ids, ids2 = st.levels.shape[0], st.ids[:k], st.ids2[:k]
+    compact_level_into(st.levels, _level(st), ids, st.stat[2:])
+    exp = expand(ids, prep.deg_pad, prep.push_indptr, prep.push_dst, e, with_row_ids=False,
+                 starts=st.starts[:k + 1])
+    compact_unvisited_into(exp, st.levels, n, prep.deg_pad, ids2, st.stat[:2])
+    _apply(st, STAGE_TIER + i, prep.deg_pad, ids=ids2, stat=st.stat[:2])
+
+
+def _step_bu(prep: BfsPrep, st: LoopState) -> None:
+    """A truncated bottom-up step: unvisited rows whose first t_trunc
+    in-neighbours hit the frontier are claimed (K13); the rows with more
+    in-edges that the probe missed (K14, with their in-degree sum) get their
+    full in-lists checked (K18, K5, K17), unless that residual overflows its
+    budgets; then K23."""
+    n = st.levels.shape[0]
+    pdeg_n = prep.pull_deg_pad[:-1]
+    claim, resid = bfs_trunc_probe(st.levels, _level(st), prep.trunc_tbl, pdeg_n,
+                                   prep.trunc_tbl.shape[0] // max(n, 1))
+    compact_into(resid, prep.pull_deg_pad, st.rids, st.stat[:2])
+    exp = expand(st.rids, prep.pull_deg_pad, prep.pull.indptr, prep.pull.src, st.e_bu,
+                 with_row_ids=False, starts=st.starts[:st.k_bu + 1])
+    claimed = residual_claim(st.levels, _level(st), exp, st.e_bu, st.rids, n)
+    _apply(st, STAGE_BU, prep.deg_pad, claim=claim, ids=claimed, stat=st.stat[:2])
+
+
+def _step_dense(pull: PullCSR, deg_pad, st: LoopState) -> None:
+    """A dense pull step: the frontier's reach over every in-edge (K7
+    max_i32 over ``fmask``), then K23."""
+    reached = csr_pull_reduce("max_i32", st.fmask, pull.src, pull.indptr)
+    _apply(st, STAGE_DENSE, deg_pad, reached=reached)
+
+
+def _steps(prep: BfsPrep, st: LoopState):
+    """(name, step) of every step kind of BFS auto, in the graph's order."""
+    return ([("init", functools.partial(_step_init, prep.deg_pad, st))]
+            + [(f"tier{i}", functools.partial(_step_tier, prep, st, i))
+               for i in range(len(st.budgets))]
+            + [("bu", functools.partial(_step_bu, prep, st)),
+               ("dense", functools.partial(_step_dense, prep.pull, prep.deg_pad, st))])
+
+
+def _dense_steps(pull: PullCSR, st: LoopState):
+    """(name, step) of bfs-impl=device's loop: the JAX kernel's one
+    while_loop of dense steps, whose status needs no degree sum."""
+    return [("init", functools.partial(_step_init, None, st)),
+            ("dense", functools.partial(_step_dense, pull, None, st))]
+
+
+class _LoopGraph(device_loop.LoopGraph):
+    """A BFS device loop as one CUDA graph: ``nest`` over ``steps_of``'s steps
+    -> copy of the levels. A run writes the source into pinned host memory
+    (init's K23 reads it) and launches the graph."""
+
+    def __init__(self, st: LoopState, steps_of, nest):
+        self.st = st
+        eager = [step for _, step in steps_of(st._replace(handles=None))]
+        super().__init__(st.levels.device, steps_of(st), eager, nest, st.handles, st.levels)
+
+
+class _Loop(NamedTuple):
+    """A BFS device loop's set-up: its graph's key in the Graph's memo, a
+    tensor on its device, its LoopState given whether it has handles, its
+    steps given a state (``_steps`` or ``_dense_steps``) and its nest."""
+
+    key: tuple
+    on: torch.Tensor
+    state: Callable
+    steps_of: Callable
+    nest: tuple
+
+
+def _auto_loop(graph: Graph, cfg: PlatformConfig):
+    """BFS auto's loop under ``cfg``: ((t_trunc, tiers, k_bu, e_bu), _Loop)."""
+    ladder = t_trunc, tiers, k_bu, e_bu = bfs_ladder(graph.n, cfg)
+    prep = bfs_adaptive_prep(graph, t_trunc, cfg.device)
+    nest = loop_nest(len(tiers))
+    return ladder, _Loop(
+        ("bfs_loop", str(torch.device(cfg.device)), t_trunc, tiers, k_bu, e_bu), prep.deg_pad,
+        lambda handles: _loop_state(cfg.device, graph.n, tiers, k_bu, e_bu, nest, handles),
+        functools.partial(_steps, prep), nest)
+
+
+def _dense_loop(graph: Graph, device) -> _Loop:
+    """bfs-impl=device's loop (``DENSE_NEST``)."""
+    pull = pull_csr(graph, device)
+    return _Loop(("bfs_dense_loop", str(torch.device(device))), pull.indptr,
+                 lambda handles: _loop_state(device, graph.n, (), 0, 0, DENSE_NEST, handles),
+                 functools.partial(_dense_steps, pull), DENSE_NEST)
+
+
+def _launch_loop(graph: Graph, spec: _Loop, source: int):
+    """A device loop's run up to its last step, nothing read back on a card:
+    (levels, ctl, the graph or None, the host loop's reads of ctl). On a card
+    (the device of ``spec.on``) one graph launch (the graph memoized on
+    ``graph`` under ``spec.key``); on the CPU, or inside
+    ``kernels.plain_torch()``, the host loop of the same nest."""
+    if kernels.use_kernel(spec.on):
+        loop = graph.memo.get(spec.key)
+        if loop is None:
+            loop = graph.memo[spec.key] = _LoopGraph(spec.state(True), spec.steps_of, spec.nest)
+        loop.st.source[0] = source
+        return loop.launch("bfs.graph"), loop.st.ctl, loop, 0
+    st, reads = _walk(spec, source)
+    return st.levels, st.ctl, None, reads
+
+
+def _walk(spec: _Loop, source: int):
+    """The host loop of ``spec``'s nest from ``source``, on a new state with
+    no handles, each wrapper launching its kernel on a card: (the state, the
+    conditions read)."""
+    st = spec.state(False)
+    st.source[0] = source
+    ranges = {**RANGES, **{f"tier{i}": "bfs.tier_step" for i in range(len(st.budgets))}}
+    reads = device_loop.run_host(spec.nest, dict(spec.steps_of(st)),
+                                 lambda j: bool(st.ctl[BCTL_COND + j]), ranges)
+    return st, reads
+
+
+# how the last bfs_adaptive_run or _bfs_kernel went: its driver ("graph" or
+# "host loop") and the host loop's reads of a condition in ctl
+last_run: dict = {}
+
+
+def _finish_run(loop, ctl: list, t: int, reads: int) -> None:
+    if loop is not None:
+        loop.account(loop_runs(ctl, t))
+    last_run.clear()
+    last_run.update(driver="host loop" if loop is None else "graph", condition_reads=reads)
+
+
+def _bfs_kernel(graph: Graph, source: int, device):
+    """bfs-impl=device: dense steps (K7, K23) until the frontier is empty, as
+    one device loop (``DENSE_NEST``): (int32 levels with INT32_INF
+    unreachable, steps including the last, empty one)."""
+    levels, ctl_t, loop, reads = _launch_loop(graph, _dense_loop(graph, device), source)
+    ctl = ctl_t.tolist()  # the run's one read
+    _finish_run(loop, ctl, 0, reads)
+    return levels, ctl[BCTL_LEVEL]
 
 
 STEP_MODES = ("phases", "switch")
 
 
 def _step_mode(cfg) -> None:
-    """Both of the JAX package's step modes run the one host loop: each
-    step is the chosen phase's, which is what the switch's body computes
-    (the JAX package's own test holds the two modes equal, counters and
-    all)."""
+    """Both of the JAX package's step modes run the one nest of phases
+    (``loop_nest``): its step sequence is a function of the state alone,
+    which is what the switch's body computes too (the JAX package's own test
+    holds the two modes equal, counters and all)."""
     mode = cfg.bfs_step_mode or "phases"
     if mode not in STEP_MODES:
         raise ValueError(f"unknown bfs-step-mode {mode!r}; expected {'|'.join(STEP_MODES)}")
 
 
-def bfs_adaptive_run(graph: Graph, src_dense: int, cfg: Optional[PlatformConfig] = None,
-                     with_stats: bool = False):
-    """Direction-optimizing BFS. Returns (int32 levels on cfg.device with
-    INT32_INF unreachable, iterations), and with ``with_stats`` also the
-    JAX package's dict of per-phase step counts."""
-    cfg = cfg or PlatformConfig()
-    _step_mode(cfg)
-    n = graph.n
+def bfs_ladder(n: int, cfg: PlatformConfig):
+    """(t_trunc, tiers, k_bu, e_bu) of BFS auto under ``cfg``: the probe
+    depth, the ascending (rows, edges) push tiers (rows capped on their own,
+    since only push steps size buffers by rows) and the bottom-up's
+    residual budgets, as the JAX package reads them."""
     t_trunc = int(cfg.bfs_trunc or BFS_TRUNC)
-    prep = bfs_adaptive_prep(graph, t_trunc, cfg.device)
-    # ascending (rows, edges) push tiers; rows are capped on their own,
-    # since only push steps size buffers by rows
     if cfg.bfs_push_tiers:
         edge_tiers = sorted({int(t) for t in str(cfg.bfs_push_tiers).split(",") if t})
     else:
@@ -242,9 +505,23 @@ def bfs_adaptive_run(graph: Graph, src_dense: int, cfg: Optional[PlatformConfig]
         edge_tiers = [t for t in (1 << 16, 1 << 18, 1 << 20) if t < e_cap] + [e_cap]
     k_cap = int(cfg.bfs_frontier_rows or 1 << 18)
     tiers = tuple((min(k_cap, e, n), e) for e in edge_tiers)
-    k_bu = int(cfg.bfs_bu_rows or 1 << 15)
-    e_bu = int(cfg.bfs_bu_edges or 1 << 18)
-    levels, niter, c = _bfs_adaptive_loop(prep, src_dense, n, t_trunc, tiers, k_bu, e_bu)
+    return t_trunc, tiers, int(cfg.bfs_bu_rows or 1 << 15), int(cfg.bfs_bu_edges or 1 << 18)
+
+
+def bfs_adaptive_run(graph: Graph, src_dense: int, cfg: Optional[PlatformConfig] = None,
+                     with_stats: bool = False):
+    """Direction-optimizing BFS. Returns (int32 levels on cfg.device with
+    INT32_INF unreachable, iterations), and with ``with_stats`` also the
+    JAX package's dict of per-phase step counts, read from the control
+    words in one read after the run; ``last_run`` says how it went."""
+    cfg = cfg or PlatformConfig()
+    _step_mode(cfg)
+    (t_trunc, tiers, k_bu, e_bu), spec = _auto_loop(graph, cfg)
+    levels, ctl_t, loop, reads = _launch_loop(graph, spec, src_dense)
+    ctl = ctl_t.tolist()  # the run's one read
+    t = len(tiers)
+    _finish_run(loop, ctl, t, reads)
+    niter, c = ctl[BCTL_LEVEL], ctl[BCTL_COND + t + 3:]
     if with_stats:
         stats = {
             "tier_steps": {int(e): c[i] for i, (_, e) in enumerate(tiers)},
@@ -320,7 +597,7 @@ def bfs(graph: Graph, params: AlgorithmParams, cfg: PlatformConfig) -> Algorithm
         levels, niter = bfs_hybrid_run(graph, src_dense, cfg)
     else:
         if impl in ("device", "dense"):
-            levels, niter = _bfs_kernel(pull_csr(graph, cfg.device), src_dense, graph.n)
+            levels, niter = _bfs_kernel(graph, src_dense, cfg.device)
         else:
             levels, niter = bfs_adaptive_run(graph, src_dense, cfg)
         levels = levels.cpu().numpy()

@@ -26,17 +26,25 @@
 // tests them against level and stops at its first hit (a ballot over the
 // warp). A row past the expansion's real slots has an empty range and
 // costs its two starts. The group's first lane writes the row's id or pad.
+// Every lane of a warp takes every pass's ballot, a lane whose row is done
+// or out of range included (a ballot that some lanes skipped hung the card).
+//
+// Device-level mode (AT): the level is read from a device word (level_at),
+// as K13's, so that one launch captured into BFS auto's CUDA graph serves
+// every level.
 #include "common.cuh"
 
 #define K17_THREADS 256
 #define K17_LANES 8  // lanes a row
 #define K17_ROWS (K17_THREADS / K17_LANES)
 
+template <bool AT>
 __global__ void __launch_bounds__(K17_THREADS)
 k17_claim_kernel(const int* __restrict__ levels, long long n_levels, int level,
-                 const int* __restrict__ neigh, const int* __restrict__ seg_starts,
-                 const int* __restrict__ rids, int k, int e_cap, int pad,
-                 int* __restrict__ out) {
+                 const int* __restrict__ level_at, const int* __restrict__ neigh,
+                 const int* __restrict__ seg_starts, const int* __restrict__ rids, int k,
+                 int e_cap, int pad, int* __restrict__ out) {
+  if (AT) level = __ldg(level_at);  // every lane, before any branch
   const int lane = threadIdx.x & 31;
   const int sub = lane & (K17_LANES - 1);
   const int shift = lane - sub;  // the group's first lane in the warp
@@ -65,16 +73,23 @@ k17_claim_kernel(const int* __restrict__ levels, long long n_levels, int level,
 }
 
 // levels [n_levels], neigh [e_cap or more], seg_starts [k + 1], rids and out
-// [k], all int32; grid: the blocks of one wave (the wrapper's choice).
+// [k], all int32; the level is `level`, or where level_at is not null the
+// int32 it points to on the device; grid: the blocks of one wave (the
+// wrapper's choice).
 GT_EXPORT int gt_bfs_residual_claim(const int* levels, long long n_levels, int level,
-                                    const int* neigh, const int* seg_starts, const int* rids,
-                                    int k, int e_cap, int pad, int* out, int grid,
-                                    void* stream) {
+                                    const int* level_at, const int* neigh,
+                                    const int* seg_starts, const int* rids, int k, int e_cap,
+                                    int pad, int* out, int grid, void* stream) {
   if (k < 0 || e_cap < 0 || n_levels < 0 || grid < 1) return (int)cudaErrorInvalidValue;
   if (k == 0) return (int)cudaGetLastError();
   const unsigned int blocks = gt_blocks(k, K17_ROWS);
-  k17_claim_kernel<<<blocks < (unsigned int)grid ? blocks : (unsigned int)grid, K17_THREADS, 0,
-                     (cudaStream_t)stream>>>(levels, n_levels, level, neigh, seg_starts, rids,
-                                              k, e_cap, pad, out);
+  const unsigned int g = blocks < (unsigned int)grid ? blocks : (unsigned int)grid;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (level_at)
+    k17_claim_kernel<true><<<g, K17_THREADS, 0, s>>>(levels, n_levels, level, level_at, neigh,
+                                                     seg_starts, rids, k, e_cap, pad, out);
+  else
+    k17_claim_kernel<false><<<g, K17_THREADS, 0, s>>>(levels, n_levels, level, nullptr, neigh,
+                                                      seg_starts, rids, k, e_cap, pad, out);
   return (int)cudaGetLastError();
 }

@@ -24,17 +24,24 @@
 // Design: one thread per row, rows along the lanes, so the table's t rows
 // and pdeg are read coalesced; the t level gathers of a row do not wait on
 // each other.
+//
+// Device-level mode (AT): the level is read from a device word (level_at),
+// not taken as a launch argument, so that one launch captured into BFS
+// auto's CUDA graph (algorithms/bfs.py) serves every level: the graph's
+// control words hold the level, which the step before wrote.
 #include "common.cuh"
 
 #define K13_THREADS 256
 
+template <bool AT>
 __global__ void __launch_bounds__(K13_THREADS)
 k13_probe_kernel(const int* __restrict__ levels, long long n_levels, int level,
-                 const int* __restrict__ trunc, int t, long long r,
-                 long long row_offset, const int* __restrict__ pdeg,
+                 const int* __restrict__ level_at, const int* __restrict__ trunc, int t,
+                 long long r, long long row_offset, const int* __restrict__ pdeg,
                  bool* __restrict__ claim, bool* __restrict__ resid) {
   const long long v = (long long)blockIdx.x * K13_THREADS + threadIdx.x;
   if (v >= r) return;
+  if (AT) level = __ldg(level_at);
   bool hit = false;
   for (int j = 0; j < t; ++j) {  // no early exit: the t loads are independent
     const int u = trunc[j * r + v];
@@ -46,17 +53,24 @@ k13_probe_kernel(const int* __restrict__ levels, long long n_levels, int level,
 }
 
 // levels [n_levels], trunc [t * r], pdeg [r], claim and resid [r] (bool);
-// rows row_offset .. row_offset + r of levels are the rows' own levels.
+// rows row_offset .. row_offset + r of levels are the rows' own levels. The
+// level is `level`, or where level_at is not null the int32 it points to on
+// the device (device-level mode).
 GT_EXPORT int gt_bfs_trunc_probe(const int* levels, long long n_levels,
-                                 int level, const int* trunc, int t,
-                                 long long r, long long row_offset,
+                                 int level, const int* level_at, const int* trunc,
+                                 int t, long long r, long long row_offset,
                                  const int* pdeg, bool* claim, bool* resid,
                                  void* stream) {
   if (t < 1 || r < 0 || row_offset < 0 || row_offset + r > n_levels)
     return (int)cudaErrorInvalidValue;
   if (r == 0) return (int)cudaGetLastError();
-  k13_probe_kernel<<<gt_blocks(r, K13_THREADS), K13_THREADS, 0,
-                     (cudaStream_t)stream>>>(levels, n_levels, level, trunc, t,
-                                             r, row_offset, pdeg, claim, resid);
+  const unsigned int g = gt_blocks(r, K13_THREADS);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (level_at)
+    k13_probe_kernel<true><<<g, K13_THREADS, 0, s>>>(levels, n_levels, level, level_at, trunc,
+                                                     t, r, row_offset, pdeg, claim, resid);
+  else
+    k13_probe_kernel<false><<<g, K13_THREADS, 0, s>>>(levels, n_levels, level, nullptr, trunc,
+                                                      t, r, row_offset, pdeg, claim, resid);
   return (int)cudaGetLastError();
 }

@@ -53,7 +53,28 @@
 // slot's row flag in place of a mask byte, and k14_write adds the degrees of
 // the ids it writes, summed over the block, by one atomic a block into the
 // status word, which k14_count's block 0 zeroes first.
+// BFS auto's device loop (algorithms/bfs.py) adds two modes, so that its
+// steps hold no torch op:
+// * the level mode compacts the frontier `levels == level`
+//   (graphtpu/algorithms/bfs.py:185, a compare and the sort of compact) with
+//   the level read from a device word: a warp builds its 32 words by 32
+//   ballots over 32 consecutive levels each, every load coalesced;
+// * the unvisited mode marks the expansion's slots j < edge_count whose
+//   neighbour v has levels[v] == INT32_INF (bfs.py:187-189, a gather, two
+//   compares and an and over the e slots), read on the card.
+// The mask entry can also write the degree sum of the ids (the bottom-up's
+// residual rows and their in-degrees, bfs.py:231-232).
 #include "common.cuh"
+
+// where a compaction's words come from
+#define K14_SRC_MASK 0    // a bool mask
+#define K14_SRC_BITMAP 1  // the stream entries' bitmap
+#define K14_SRC_LEVELS 2  // the int32 levels equal to a level read on the card
+
+// which slots of a stream are marked
+#define K14_MARK_ACTIVE 0     // active[j]
+#define K14_MARK_ROWS 1       // j < *edge_count && rowflag[rows_local[j]]
+#define K14_MARK_UNVISITED 2  // j < *edge_count && levels[vals[j]] == INT32_INF
 
 #define K14_THREADS 256
 #define K14_MAX_BLOCKS 1024
@@ -83,18 +104,42 @@ __device__ __forceinline__ unsigned int k14_chunk(const unsigned char* __restric
   return k14_pack16(__ldg(reinterpret_cast<const uint4*>(base + at)));
 }
 
+// Where a compaction reads its words: a mask's bytes, the bitmap, or the
+// levels with the level they are tested against.
+struct K14Src {
+  const unsigned char* base;  // a mask's bytes, from the 16-byte boundary below its start
+  int mis;                    // the mask's start past base
+  const unsigned int* bits;
+  const int* levels;
+  int level;
+};
+
 // Word w of the frontier, for the thread that owns it (word index
 // step_base + threadIdx.x). A mask's bytes start `mis` bytes past the aligned
 // `base`: the thread reads the two chunks of aligned word w, takes the first
-// chunk of aligned word w + 1 from the next lane, and shifts. Bits past n and
-// words past nwords are 0. Every lane of the warp must call.
-template <bool BITMAP>
-__device__ __forceinline__ unsigned int k14_word(const unsigned char* __restrict__ base, int mis,
-                                                 const unsigned int* __restrict__ bits,
-                                                 long long n, long long nwords,
+// chunk of aligned word w + 1 from the next lane, and shifts. The levels: the
+// warp's 32 words, one ballot each over 32 consecutive levels. Bits past n
+// and words past nwords are 0. Every lane of the warp must call.
+template <int SRC>
+__device__ __forceinline__ unsigned int k14_word(const K14Src& src, long long n, long long nwords,
                                                  long long step_base) {
   const long long w = step_base + threadIdx.x;
-  if (BITMAP) return w < nwords ? bits[w] : 0u;
+  if (SRC == K14_SRC_BITMAP) return w < nwords ? src.bits[w] : 0u;
+  if (SRC == K14_SRC_LEVELS) {
+    const int lane = threadIdx.x & 31;
+    const long long first = 32 * (w - lane);  // the warp's first vertex
+    unsigned int word = 0u;
+#pragma unroll 4
+    for (int j = 0; j < 32; ++j) {
+      const long long v = first + 32 * j + lane;
+      const unsigned int b =
+          __ballot_sync(0xffffffffu, v < n && __ldg(src.levels + v) == src.level);
+      if (lane == j) word = b;
+    }
+    return word;
+  }
+  const unsigned char* __restrict__ base = src.base;
+  const int mis = src.mis;
   const long long end = mis + n, at = 32 * w;
   const unsigned int lo = k14_chunk(base, at, end) | k14_chunk(base, at + 16, end) << 16;
   unsigned int next = __shfl_down_sync(0xffffffffu, lo, 1);
@@ -118,36 +163,43 @@ __device__ __forceinline__ long long k14_block_sum(long long v, long long* s_red
   return t;
 }
 
-template <bool BITMAP>
+// The level a K14Src of the levels tests against, read on the card.
+__device__ __forceinline__ K14Src k14_src(K14Src src, const int* __restrict__ level_at) {
+  if (level_at) src.level = __ldg(level_at);
+  return src;
+}
+
+template <int SRC>
 __global__ void __launch_bounds__(K14_THREADS)
-k14_count(const unsigned char* __restrict__ mask, int mis, const unsigned int* __restrict__ bits,
-          long long n, long long nwords, long long steps, int* __restrict__ counts,
-          int* __restrict__ deg_sum) {
+k14_count(K14Src src0, const int* __restrict__ level_at, long long n, long long nwords,
+          long long steps, int* __restrict__ counts, int* __restrict__ deg_sum) {
   __shared__ long long s_red[K14_THREADS / 32];
   if (deg_sum && blockIdx.x == 0 && threadIdx.x == 0) *deg_sum = 0;  // k14_write adds to it
+  const K14Src src = k14_src(src0, level_at);
   long long c = 0;
   for (long long s = 0; s < steps; ++s) {
     const long long base = ((long long)blockIdx.x * steps + s) * K14_THREADS;
     if (base >= nwords) break;  // block-uniform
-    c += __popc(k14_word<BITMAP>(mask, mis, bits, n, nwords, base));
+    c += __popc(k14_word<SRC>(src, n, nwords, base));
   }
   const long long total = k14_block_sum(c, s_red);
   if (threadIdx.x == 0) counts[blockIdx.x] = (int)total;
 }
 
-template <bool BITMAP>
+template <int SRC>
 __global__ void __launch_bounds__(K14_THREADS)
-k14_write(const unsigned char* __restrict__ mask, int mis, const unsigned int* __restrict__ bits,
-          long long n, long long nwords, long long steps, const int* __restrict__ counts,
-          int nb, int* __restrict__ ids, long long k, int* __restrict__ count_out,
-          const int* __restrict__ deg_pad, int* __restrict__ deg_sum) {
+k14_write(K14Src src0, const int* __restrict__ level_at, long long n, long long nwords,
+          long long steps, const int* __restrict__ counts, int nb, int* __restrict__ ids,
+          long long k, int* __restrict__ count_out, const int* __restrict__ deg_pad,
+          int* __restrict__ deg_sum) {
   __shared__ long long s_red[K14_THREADS / 32];
   __shared__ int s_scan[K14_THREADS / 32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const K14Src src = k14_src(src0, level_at);
   // the first step's word, read while the counts are read
   const long long first_base = (long long)blockIdx.x * steps * K14_THREADS;
   const unsigned int first_word =
-      first_base < nwords ? k14_word<BITMAP>(mask, mis, bits, n, nwords, first_base) : 0u;
+      first_base < nwords ? k14_word<SRC>(src, n, nwords, first_base) : 0u;
   // this block's offset (the counts of the blocks before it) and the total
   long long before = 0, after = 0;
   for (int b = threadIdx.x; b < nb; b += K14_THREADS) {
@@ -164,8 +216,7 @@ k14_write(const unsigned char* __restrict__ mask, int mis, const unsigned int* _
   for (long long s = 0; s < steps && base < k; ++s) {
     const long long step_base = ((long long)blockIdx.x * steps + s) * K14_THREADS;
     if (step_base >= nwords) break;  // block-uniform
-    unsigned int word =
-        s == 0 ? first_word : k14_word<BITMAP>(mask, mis, bits, n, nwords, step_base);
+    unsigned int word = s == 0 ? first_word : k14_word<SRC>(src, n, nwords, step_base);
     // exclusive scan of the words' popcounts over the block
     const int c = __popc(word);
     int incl = c;
@@ -203,47 +254,56 @@ k14_write(const unsigned char* __restrict__ mask, int mis, const unsigned int* _
 }
 
 // Marks value v = vals[j] of every active slot j with v in [0, n) into the
-// bitmap (see the header). ROWS: slot j is active when j < *edge_count and
-// rowflag[rows_local[j]] (the row-flag mode); else when active[j].
-template <bool ROWS>
+// bitmap (see the header). MARK: which slots are active (K14_MARK_*): active[j]; j <
+// *edge_count and rowflag[rows_local[j]] (the row-flag mode); j < *edge_count
+// and levels[v] == INT32_INF (the unvisited mode).
+template <int MARK>
 __global__ void __launch_bounds__(K14_THREADS)
 k14_mark(const int* __restrict__ vals, const bool* __restrict__ active,
          const int* __restrict__ rows_local, const bool* __restrict__ rowflag,
-         const int* __restrict__ edge_count, long long e, long long n,
-         unsigned int* __restrict__ bits) {
+         const int* __restrict__ edge_count, const int* __restrict__ levels, long long e,
+         long long n, unsigned int* __restrict__ bits) {
   const long long j = (long long)blockIdx.x * K14_THREADS + threadIdx.x;
   if (j >= e) return;
-  if (ROWS) {
+  if (MARK != K14_MARK_ACTIVE) {
     if (j >= (long long)__ldg(edge_count)) return;
-    const int r = __ldcs(rows_local + j);
-    if (!__ldg(reinterpret_cast<const unsigned char*>(rowflag) + r)) return;
+    if (MARK == K14_MARK_ROWS) {
+      const int r = __ldcs(rows_local + j);
+      if (!__ldg(reinterpret_cast<const unsigned char*>(rowflag) + r)) return;
+    }
   } else if (!__ldcs(reinterpret_cast<const unsigned char*>(active) + j)) {
     return;
   }
   const int v = __ldcs(vals + j);
   if (v < 0 || (long long)v >= n) return;
+  if (MARK == K14_MARK_UNVISITED && __ldg(levels + v) != GT_INT32_INF) return;
   const unsigned int bit = 1u << (v & 31);
   unsigned int* word = bits + (v >> 5);
   if (!(__ldca(word) & bit)) atomicOr(word, bit);
 }
 
 // The scratch of a call: counts [K14_MAX_BLOCKS] int32.
-template <bool BITMAP>
-static int k14_compact_words(const unsigned char* mask, const unsigned int* bits, long long n,
-                             int* ids, long long k, int* count_out, const int* deg_pad,
-                             int* deg_sum, int* counts, long long scratch_ints, cudaStream_t s) {
+template <int SRC>
+static int k14_compact_words(const K14Src& src, const int* level_at, long long n, int* ids,
+                             long long k, int* count_out, const int* deg_pad, int* deg_sum,
+                             int* counts, long long scratch_ints, cudaStream_t s) {
   const long long nwords = (n + 31) / 32;
   const long long steps = k14_steps(nwords);
   const long long nb_ll = nwords ? (nwords + steps * K14_THREADS - 1) / (steps * K14_THREADS) : 1;
   if (nb_ll > K14_MAX_BLOCKS || scratch_ints < nb_ll) return (int)cudaErrorInvalidValue;
   const int nb = (int)nb_ll;
-  const int mis = (int)((uintptr_t)mask & 15);
-  const unsigned char* base = mask - mis;  // 16-byte aligned
-  k14_count<BITMAP><<<nb, K14_THREADS, 0, s>>>(base, mis, bits, n, nwords, steps, counts,
-                                               deg_sum);
-  k14_write<BITMAP><<<nb, K14_THREADS, 0, s>>>(base, mis, bits, n, nwords, steps, counts, nb,
-                                               ids, k, count_out, deg_pad, deg_sum);
+  k14_count<SRC><<<nb, K14_THREADS, 0, s>>>(src, level_at, n, nwords, steps, counts, deg_sum);
+  k14_write<SRC><<<nb, K14_THREADS, 0, s>>>(src, level_at, n, nwords, steps, counts, nb, ids, k,
+                                            count_out, deg_pad, deg_sum);
   return (int)cudaGetLastError();
+}
+
+// A mask's source: its bytes from the 16-byte boundary below its start.
+static K14Src k14_mask_src(const bool* mask) {
+  K14Src src = {};
+  src.mis = (int)((uintptr_t)mask & 15);
+  src.base = (const unsigned char*)mask - src.mis;
+  return src;
 }
 
 // mask [n] bool; ids [k] int32; count_out 0-d int32; scratch [scratch_ints] int32.
@@ -252,23 +312,50 @@ GT_EXPORT int gt_frontier_compact(const bool* mask, long long n, int* ids, long 
                                   void* stream) {
   if (n < 0 || n > 0x7fffffffLL || k < 0 || !count_out || !scratch)
     return (int)cudaErrorInvalidValue;
-  return k14_compact_words<false>((const unsigned char*)mask, nullptr, n, ids, k, count_out,
-                                  nullptr, nullptr, scratch, scratch_ints, (cudaStream_t)stream);
+  return k14_compact_words<K14_SRC_MASK>(k14_mask_src(mask), nullptr, n, ids, k, count_out,
+                                         nullptr, nullptr, scratch, scratch_ints,
+                                         (cudaStream_t)stream);
 }
 
-// vals [e] int32; the active slots: active [e] bool, or with rows the
+// The device loop's compactions into its buffers: the v with mask[v] (mask
+// [n] bool), or where levels is not null the v with levels[v] == *level_at
+// (levels [n] int32, level_at an int32 on the card); ids [k] int32;
+// count_out an int32 on the card; deg_sum (null: none) takes the sum of
+// deg_pad over the ids written; scratch as above.
+GT_EXPORT int gt_frontier_compact_into(const bool* mask, const int* levels, const int* level_at,
+                                       long long n, int* ids, long long k, int* count_out,
+                                       const int* deg_pad, int* deg_sum, int* scratch,
+                                       long long scratch_ints, void* stream) {
+  if (n < 0 || n > 0x7fffffffLL || k < 0 || !count_out || !scratch || (deg_sum && !deg_pad) ||
+      (levels ? !level_at : !mask))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (!levels)
+    return k14_compact_words<K14_SRC_MASK>(k14_mask_src(mask), nullptr, n, ids, k, count_out,
+                                           deg_pad, deg_sum, scratch, scratch_ints, s);
+  K14Src src = {};
+  src.levels = levels;
+  return k14_compact_words<K14_SRC_LEVELS>(src, level_at, n, ids, k, count_out, deg_pad, deg_sum,
+                                           scratch, scratch_ints, s);
+}
+
+// vals [e] int32; the active slots (mode, K14_MARK_*): active [e] bool; the
 // row-flag mode's rows_local [e] int32, rowflag (bool, one a row) and
-// edge_count (a device int32); bits: ceil(n / 32) words of scratch, zeroed
-// here; ids, count_out and scratch as above; deg_sum (null: none) takes the
-// sum of deg_pad over the ids written.
+// edge_count (a device int32); the unvisited mode's edge_count and levels
+// [n] int32; bits: ceil(n / 32) words of scratch, zeroed here; ids,
+// count_out and scratch as above; deg_sum (null: none) takes the sum of
+// deg_pad over the ids written.
 GT_EXPORT int gt_frontier_compact_stream(const int* vals, const bool* active,
                                          const int* rows_local, const bool* rowflag,
-                                         const int* edge_count, int rows, long long e,
-                                         long long n, unsigned int* bits, int* ids, long long k,
-                                         int* count_out, const int* deg_pad, int* deg_sum,
-                                         int* scratch, long long scratch_ints, void* stream) {
+                                         const int* edge_count, const int* levels, int mode,
+                                         long long e, long long n, unsigned int* bits, int* ids,
+                                         long long k, int* count_out, const int* deg_pad,
+                                         int* deg_sum, int* scratch, long long scratch_ints,
+                                         void* stream) {
   if (n < 0 || n > 0x7fffffffLL || e < 0 || k < 0 || !count_out || !scratch || !bits ||
-      (rows && !edge_count) || (deg_sum && !deg_pad))
+      mode < K14_MARK_ACTIVE || mode > K14_MARK_UNVISITED ||
+      (mode != K14_MARK_ACTIVE && !edge_count) || (mode == K14_MARK_UNVISITED && !levels) ||
+      (deg_sum && !deg_pad))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const long long nwords = (n + 31) / 32;
@@ -278,13 +365,18 @@ GT_EXPORT int gt_frontier_compact_stream(const int* vals, const bool* active,
   }
   if (e && n) {
     const unsigned int g = gt_blocks(e, K14_THREADS);
-    if (!rows)
-      k14_mark<false><<<g, K14_THREADS, 0, s>>>(vals, active, nullptr, nullptr, nullptr, e, n,
-                                                 bits);
+    if (mode == K14_MARK_ACTIVE)
+      k14_mark<K14_MARK_ACTIVE><<<g, K14_THREADS, 0, s>>>(vals, active, nullptr, nullptr,
+                                                           nullptr, nullptr, e, n, bits);
+    else if (mode == K14_MARK_ROWS)
+      k14_mark<K14_MARK_ROWS><<<g, K14_THREADS, 0, s>>>(vals, nullptr, rows_local, rowflag,
+                                                         edge_count, nullptr, e, n, bits);
     else
-      k14_mark<true><<<g, K14_THREADS, 0, s>>>(vals, nullptr, rows_local, rowflag, edge_count,
-                                                e, n, bits);
+      k14_mark<K14_MARK_UNVISITED><<<g, K14_THREADS, 0, s>>>(vals, nullptr, nullptr, nullptr,
+                                                              edge_count, levels, e, n, bits);
   }
-  return k14_compact_words<true>(nullptr, bits, n, ids, k, count_out, deg_pad, deg_sum, scratch,
-                                 scratch_ints, s);
+  K14Src src = {};
+  src.bits = bits;
+  return k14_compact_words<K14_SRC_BITMAP>(src, nullptr, n, ids, k, count_out, deg_pad, deg_sum,
+                                           scratch, scratch_ints, s);
 }

@@ -1,7 +1,8 @@
 """A loop of step functions run as one CUDA graph with conditional nodes, or
 as a host loop over the same steps: the single-dispatch design of the JAX
 package's nested ``lax.while_loop`` kernels (``_cdlp_adaptive_kernel``,
-``_wcc_adaptive_loop``, ``_sssp_adaptive_kernel``).
+``_wcc_adaptive_loop``, ``_sssp_adaptive_kernel``, ``_bfs_adaptive_kernel``
+and ``_bfs_kernel``).
 
 A loop keeps its state on the device, in preallocated buffers and a small
 int32 control vector whose words hold the loop's conditions, and is a set of
@@ -33,7 +34,11 @@ where j indexes the conditions and body is a nest; each j appears once.
   ``kernels.replayed_counts``: an inference, which a trace checks.
 
 On a card a build or a launch that fails raises; nothing falls back to the
-host loop.
+host loop. A ``LoopGraph`` that the garbage collector frees while a capture
+is under way (a step's Python calls may trigger a collection) would end that
+capture by destroying its graphs (a global-mode capture allows no such
+call): its graphs are kept in ``_deferred`` and freed at the next build or
+launch.
 """
 
 from __future__ import annotations
@@ -45,6 +50,9 @@ import torch
 from torch.profiler import record_function
 
 from graphtpu_torch.ops import kernels
+
+# (root, exec, step graphs) of loop graphs collected during a capture
+_deferred: list = []
 
 
 def run_host(nest, steps: dict, cond: Callable[[int], bool], ranges: dict | None = None) -> int:
@@ -106,6 +114,7 @@ class LoopGraph:
         self.root = self.exec = self.copy = None
         self.out_src = out_src
         counts = dict(kernels.launch_counts)
+        _free_deferred()
         with torch.cuda.device(device):
             for step in eager:
                 step()
@@ -163,6 +172,7 @@ class LoopGraph:
     def launch(self, range_name: str = "loop.graph") -> torch.Tensor:
         """One run: the result (a copy of ``out_src``), on the card, once the
         stream gets there."""
+        _free_deferred()
         out = torch.empty_like(self.out_src)
         if self.copy is not None:
             kernels.graph_call("graph_set_copy", self.exec, self.copy, out.data_ptr(),
@@ -182,7 +192,17 @@ class LoopGraph:
 
     def __del__(self):
         try:
-            if self.root is not None:
+            if torch.cuda.is_current_stream_capturing():
+                _deferred.append((self.root, self.exec, self.graphs))
+            elif self.root is not None:
                 kernels.graph_call("graph_free", self.root, self.exec)
         except Exception:  # noqa: BLE001 - no raise under garbage collection
             pass
+
+
+def _free_deferred() -> None:
+    """Frees the graphs of loop graphs collected during a capture."""
+    while _deferred:
+        root, exec_, _ = _deferred.pop()
+        if root is not None:
+            kernels.graph_call("graph_free", root, exec_)

@@ -4,9 +4,12 @@
 A frontier is a fixed-capacity id buffer ``ids [K]`` (ascending, padded
 with n) plus its true count. ``compact`` turns a dense mask into one and
 ``compact_stream`` dedupes a stream of vertex ids back into one, both on
-kernel K14 (``frontier_compact``; ``compact_stream_into`` and
-``compact_rows_into`` write into given buffers with the ids' degree sum, the
-latter in K14's row-flag mode); ``expand`` lays the frontier's adjacency
+kernel K14 (``frontier_compact``; ``compact_into``, ``compact_stream_into``
+and ``compact_rows_into`` write into given buffers with the ids' degree sum,
+the last in K14's row-flag mode; ``compact_level_into`` compacts the vertices
+at a level read on the card and ``compact_unvisited_into`` an expansion's
+unvisited neighbours, K14's level and unvisited modes, which BFS auto's
+device loop runs); ``expand`` lays the frontier's adjacency
 slices out in ``e_cap`` edge slots on kernel K5 (``frontier_expand``), after
 the row starts of kernel K18 (``frontier_starts``),
 ``residual_claim`` is BFS's bottom-up residual test, the ids of the rows of
@@ -19,8 +22,11 @@ a caller needs to decide whether a frontier fits its capacities,
 (``push_relax_min``; ``relax_min_into`` its in-place mode, which marks the
 vertices it lowered), ``relax_min_i32`` the distributed WCC's scatter-min on
 K8's int32 mode, and ``bfs_trunc_probe`` is BFS's truncated bottom-up probe
-on kernel K13. Every function returns the JAX function's values, pad slots
-included, and never reads a value back to the host.
+on kernel K13. K13 and K17 take the level as an int, or as a one-element
+int32 tensor on the card that the kernel reads there (their device-level
+mode: one captured launch serves every level of a device loop). Every
+function returns the JAX function's values, pad slots included, and never
+reads a value back to the host.
 """
 
 from __future__ import annotations
@@ -233,18 +239,28 @@ def _check_stream(name, vals, active, k, n) -> None:
         raise ValueError(f"{name}: contiguous inputs, k >= 0 and n in [0, 2^31) (k {k}, n {n})")
 
 
-def _k14_stream(counter, vals, active, rows, n, ids, count, deg_pad, deg_sum) -> None:
+# K14's stream entry's modes (csrc/frontier_compact.cu K14_MARK_*)
+K14_ACTIVE, K14_ROWS, K14_UNVISITED = range(3)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _k14_stream(counter, vals, active, rows, n, ids, count, deg_pad, deg_sum,
+                levels=None) -> None:
     """K14's stream entry on the card: ``active`` a bool mask, or None and
-    ``rows`` (rows_local, rowflag, edge_count) for the row-flag mode;
+    ``rows`` (rows_local, rowflag, edge_count) for the row-flag mode, or
+    ``rows`` (None, None, edge_count) and ``levels`` for the unvisited mode;
     ``deg_sum`` (with ``deg_pad``) or None."""
     scratch = torch.empty(K14_MAX_BLOCKS, dtype=torch.int32, device=vals.device)
     bitmap = torch.empty(max((n + 31) // 32, 1), dtype=torch.int32, device=vals.device)
     rows_local, rowflag, edge_count = rows if rows is not None else (None, None, None)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    kernels.launch("frontier_compact_stream", vals.device, vals.data_ptr(), ptr(active),
-                   ptr(rows_local), ptr(rowflag), ptr(edge_count), int(rows is not None),
+    mode = K14_ACTIVE if rows is None else K14_ROWS if levels is None else K14_UNVISITED
+    kernels.launch("frontier_compact_stream", vals.device, vals.data_ptr(), _ptr(active),
+                   _ptr(rows_local), _ptr(rowflag), _ptr(edge_count), _ptr(levels), mode,
                    vals.shape[0], n, bitmap.data_ptr(), ids.data_ptr(), ids.shape[0],
-                   count.data_ptr(), ptr(deg_pad), ptr(deg_sum), scratch.data_ptr(),
+                   count.data_ptr(), _ptr(deg_pad), _ptr(deg_sum), scratch.data_ptr(),
                    K14_MAX_BLOCKS, counter=counter)
 
 
@@ -275,6 +291,97 @@ def compact_stream_into(vals: torch.Tensor, active: torch.Tensor, n: int,
 def _put_status(ids, status, out, count, deg_pad) -> None:
     ids.copy_(out)
     status.copy_(torch.stack([count, frontier_deg_sum(out, deg_pad)]))
+
+
+def compact_into(mask: torch.Tensor, deg_pad: torch.Tensor, ids: torch.Tensor,
+                 status: torch.Tensor) -> None:
+    """``compact`` into given buffers: ``ids`` [k] takes the ids, ``status``
+    int32 [2] the true count and the degree sum of the ids written
+    (``frontier_deg_sum``). BFS's bottom-up residual rows and their
+    in-degree sum. One K14 call on the card, nothing read back."""
+    if mask.dtype != torch.bool or mask.dim() != 1 or not mask.is_contiguous():
+        raise TypeError("compact_into: mask must be a contiguous 1-D bool tensor")
+    _check_into("compact_into", deg_pad, ids, status, mask.device)
+    if not kernels.use_kernel(mask):
+        out, count = compact_plain(mask, ids.shape[0])
+        _put_status(ids, status, out, count, deg_pad)
+        return
+    scratch = torch.empty(K14_MAX_BLOCKS, dtype=torch.int32, device=mask.device)
+    kernels.launch("frontier_compact_into", mask.device, mask.data_ptr(), None, None,
+                   mask.shape[0], ids.data_ptr(), ids.shape[0], status.data_ptr(),
+                   deg_pad.data_ptr(), status[1:].data_ptr(), scratch.data_ptr(),
+                   K14_MAX_BLOCKS, counter="frontier_compact")
+
+
+def _check_level(name, levels, level) -> None:
+    """``level``: a one-element int32 tensor on the levels' device."""
+    if not isinstance(level, torch.Tensor) or level.dtype != torch.int32 or \
+            level.numel() != 1 or level.device != levels.device:
+        raise TypeError(f"{name}: level must be a one-element int32 tensor on the levels' "
+                        "device")
+
+
+def compact_level_plain(levels: torch.Tensor, level: torch.Tensor, k: int):
+    """K14's level mode, plain PyTorch: the JAX kernel's ``compact(levels
+    == level, k)``."""
+    return compact_plain(levels == level, k)
+
+
+def compact_level_into(levels: torch.Tensor, level: torch.Tensor, ids: torch.Tensor,
+                       count: torch.Tensor) -> None:
+    """K14 wrapper, level mode: the vertices v with ``levels[v] == level``
+    (``levels`` int32 [n]; ``level`` a one-element int32 tensor, read on the
+    card) into ``ids`` [k] (ascending, padded with n, cut at k), their true
+    count into ``count`` (a one-element int32 tensor). BFS's frontier at the
+    start of a tier step. One call, no host read."""
+    _check_level("compact_level_into", levels, level)
+    ts = (levels, ids, count)
+    if any(t.dtype != torch.int32 or t.dim() != 1 for t in ts) or count.shape != (1,):
+        raise TypeError("compact_level_into: levels, ids and count [1] must be 1-D int32")
+    if any(t.device != levels.device for t in ts) or not all(t.is_contiguous() for t in ts):
+        raise ValueError("compact_level_into: inputs must be contiguous, on one device")
+    if not kernels.use_kernel(levels):
+        out, c = compact_level_plain(levels, level, ids.shape[0])
+        ids.copy_(out)
+        count.copy_(c.reshape(1))
+        return
+    scratch = torch.empty(K14_MAX_BLOCKS, dtype=torch.int32, device=levels.device)
+    kernels.launch("frontier_compact_into", levels.device, None, levels.data_ptr(),
+                   level.data_ptr(), levels.shape[0], ids.data_ptr(), ids.shape[0],
+                   count.data_ptr(), None, None, scratch.data_ptr(), K14_MAX_BLOCKS,
+                   counter="frontier_compact_level")
+
+
+def compact_unvisited_plain(exp: Expansion, levels: torch.Tensor, n: int,
+                            deg_pad: torch.Tensor, ids: torch.Tensor,
+                            status: torch.Tensor) -> None:
+    """K14's unvisited mode, plain PyTorch: the JAX tier step's ``unvisited =
+    valid & (table_gather(levels, neigh) == INT32_INF)``, ``compact_stream``
+    over it and ``frontier_deg_sum``."""
+    unvisited = exp.valid & (table_gather(levels, exp.neigh) == INT32_INF)
+    out, count = compact_stream_plain(exp.neigh, unvisited, ids.shape[0], n)
+    _put_status(ids, status, out, count, deg_pad)
+
+
+def compact_unvisited_into(exp: Expansion, levels: torch.Tensor, n: int,
+                           deg_pad: torch.Tensor, ids: torch.Tensor,
+                           status: torch.Tensor) -> None:
+    """K14 wrapper, unvisited mode: the distinct neighbours ``exp.neigh[j]``
+    of the slots j < ``exp.edge_count`` with ``levels[neigh[j]] ==
+    INT32_INF`` (``levels`` int32 [n]), into ``ids`` [k] (ascending, padded
+    with n, cut at k), with ``status`` int32 [2] = (true count, degree sum
+    of the ids written). BFS's new frontier after a tier step's expansion.
+    One call, no host read."""
+    _check_stream("compact_unvisited_into", exp.neigh, exp.valid, ids.shape[0], n)
+    _check_into("compact_unvisited_into", deg_pad, ids, status, exp.neigh.device)
+    if levels.dtype != torch.int32 or levels.shape != (n,) or not levels.is_contiguous() or \
+            levels.device != exp.neigh.device:
+        raise TypeError(f"compact_unvisited_into: levels must be a contiguous int32 [{n}]")
+    if not kernels.use_kernel(exp.neigh):
+        compact_unvisited_plain(exp, levels, n, deg_pad, ids, status)
+        return
+    _k14_stream("frontier_compact_unvisited", exp.neigh, None, (None, None, exp.edge_count), n,
+                ids, status[0:1], deg_pad, status[1:2], levels=levels)
 
 
 def compact_rows_plain(exp: Expansion, rowflag: torch.Tensor, n: int, deg_pad: torch.Tensor,
@@ -337,17 +444,18 @@ def residual_hits(fmask_pad: torch.Tensor, exp: Expansion, e_cap: int) -> torch.
     return csr_pull_reduce("max_i32", fmask_pad, exp.neigh, indptr)[:-1] > 0
 
 
-def residual_claim_plain(levels: torch.Tensor, level: int, exp: Expansion, e_cap: int,
+def residual_claim_plain(levels: torch.Tensor, level, exp: Expansion, e_cap: int,
                          rids: torch.Tensor, pad: int) -> torch.Tensor:
     """K17's plain PyTorch version, the composite it replaced: the frontier
     mask padded by one, K7's plain ``max_i32`` over the rows' clamped slot
-    ranges (``residual_indptr``), ``> 0`` and a where."""
+    ranges (``residual_indptr``), ``> 0`` and a where. ``level`` an int or a
+    one-element tensor."""
     fmask_pad = torch.cat([(levels == level).to(torch.int32), levels.new_zeros(1)])
     hits = csr_pull_reduce_plain("max_i32", fmask_pad, exp.neigh, residual_indptr(exp, e_cap))
     return torch.where(hits[:-1] > 0, rids, pad)
 
 
-def residual_claim(levels: torch.Tensor, level: int, exp: Expansion, e_cap: int,
+def residual_claim(levels: torch.Tensor, level, exp: Expansion, e_cap: int,
                    rids: torch.Tensor, pad: int) -> torch.Tensor:
     """K17 wrapper, BFS's bottom-up residual test: int32 [K], ``rids[i]``
     where row i of ``exp`` (the expansion of the K residual rows ``rids``
@@ -355,8 +463,14 @@ def residual_claim(levels: torch.Tensor, level: int, exp: Expansion, e_cap: int,
     min(seg_starts[i + 1], e_cap)) whose neighbour v has ``levels[v] ==
     level``, else ``pad`` (n on one device; the rank's row count in the
     distributed BFS, whose ``levels`` are the replicated global ones). The
-    JAX package's ``claimed_ids``. One launch, no host read."""
+    JAX package's ``claimed_ids``. ``level``: an int, or a one-element int32
+    tensor on the levels' device that the kernel reads there (the
+    device-level mode, counted as ``bfs_residual_claim_at``). One launch, no
+    host read."""
     ts = (levels, exp.neigh, exp.seg_starts, rids)
+    at = isinstance(level, torch.Tensor)
+    if at:
+        _check_level("residual_claim", levels, level)
     if any(t.dtype != torch.int32 or t.dim() != 1 for t in ts):
         raise TypeError("residual_claim: levels, neigh, seg_starts and rids must be 1-D int32")
     if any(t.device != levels.device for t in ts) or not all(t.is_contiguous() for t in ts):
@@ -370,9 +484,10 @@ def residual_claim(levels: torch.Tensor, level: int, exp: Expansion, e_cap: int,
     out = torch.empty(k, dtype=torch.int32, device=levels.device)
     if k:
         kernels.launch("bfs_residual_claim", levels.device, levels.data_ptr(), levels.shape[0],
-                       int(level), exp.neigh.data_ptr(), exp.seg_starts.data_ptr(),
-                       rids.data_ptr(), k, e_cap, int(pad), out.data_ptr(),
-                       8 * kernels.sm_count(levels.device))
+                       0 if at else int(level), level.data_ptr() if at else None,
+                       exp.neigh.data_ptr(), exp.seg_starts.data_ptr(), rids.data_ptr(), k,
+                       e_cap, int(pad), out.data_ptr(), 8 * kernels.sm_count(levels.device),
+                       counter="bfs_residual_claim_at" if at else None)
     return out
 
 
@@ -527,10 +642,11 @@ def relax_min_i32(n_out: int, labels: torch.Tensor, row_ids: torch.Tensor,
     return out
 
 
-def bfs_trunc_probe_plain(levels, level: int, trunc, pdeg, t: int, row_offset: int = 0):
+def bfs_trunc_probe_plain(levels, level, trunc, pdeg, t: int, row_offset: int = 0):
     """K13's plain PyTorch version: a gather of the levels at the table's
     ids (an id outside [0, len(levels)) is no hit), an any over the t
-    table rows, and the two masks."""
+    table rows, and the two masks. ``level`` an int or a one-element
+    tensor."""
     r, n = pdeg.shape[0], levels.shape[0]
     ok = (trunc >= 0) & (trunc < n)
     hit = ok & (levels.index_select(0, torch.where(ok, trunc, 0)) == level)
@@ -539,7 +655,7 @@ def bfs_trunc_probe_plain(levels, level: int, trunc, pdeg, t: int, row_offset: i
     return unvisited & hit, unvisited & (pdeg > t) & ~hit
 
 
-def bfs_trunc_probe(levels: torch.Tensor, level: int, trunc: torch.Tensor,
+def bfs_trunc_probe(levels: torch.Tensor, level, trunc: torch.Tensor,
                     pdeg: torch.Tensor, t: int, row_offset: int = 0):
     """K13 wrapper: the truncated bottom-up probe of BFS over r =
     len(pdeg) rows. Row v hits when one of its first ``t`` in-neighbours,
@@ -548,8 +664,14 @@ def bfs_trunc_probe(levels: torch.Tensor, level: int, trunc: torch.Tensor,
     INT32_INF. Returns bool [r] masks (claim: unvisited and hit; resid:
     unvisited, not hit and ``pdeg[v] > t``, the rows whose full in-lists
     must be checked). ``levels`` (the frontier's source, replicated in the
-    distributed BFS), ``trunc`` [t * r] and ``pdeg`` are int32."""
+    distributed BFS), ``trunc`` [t * r] and ``pdeg`` are int32. ``level``:
+    an int, or a one-element int32 tensor on the levels' device that the
+    kernel reads there (the device-level mode, counted as
+    ``bfs_trunc_probe_at``)."""
     ts = (levels, trunc, pdeg)
+    at = isinstance(level, torch.Tensor)
+    if at:
+        _check_level("bfs_trunc_probe", levels, level)
     if any(x.dtype != torch.int32 or x.dim() != 1 for x in ts):
         raise TypeError("bfs_trunc_probe: levels, trunc and pdeg must be 1-D int32")
     if any(x.device != levels.device for x in ts) or not all(x.is_contiguous() for x in ts):
@@ -563,9 +685,10 @@ def bfs_trunc_probe(levels: torch.Tensor, level: int, trunc: torch.Tensor,
     claim = torch.empty(r, dtype=torch.bool, device=levels.device)
     resid = torch.empty(r, dtype=torch.bool, device=levels.device)
     if r:
-        kernels.launch("bfs_trunc_probe", levels.device, levels.data_ptr(), n, int(level),
+        kernels.launch("bfs_trunc_probe", levels.device, levels.data_ptr(), n,
+                       0 if at else int(level), level.data_ptr() if at else None,
                        trunc.data_ptr(), t, r, row_offset, pdeg.data_ptr(), claim.data_ptr(),
-                       resid.data_ptr())
+                       resid.data_ptr(), counter="bfs_trunc_probe_at" if at else None)
     return claim, resid
 
 

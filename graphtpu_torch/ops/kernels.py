@@ -28,8 +28,8 @@ kernel ``lcc_sweep_member``), ``ops/triangles.py:lcc_head_credits`` (K16) and
 ``ops/active.py:cdlp_route`` and ``cdlp_status`` (K20, kernel
 ``cdlp_route``, the full step's status counted as ``cdlp_route_status``, its
 jump mode, WCC's full step, as ``cdlp_route_status_jump``),
-``algorithms/wcc.py:wcc_jump`` (K21) and ``algorithms/sssp.py:sssp_apply``
-(K22). A wrapper dispatches on
+``algorithms/wcc.py:wcc_jump`` (K21), ``algorithms/sssp.py:sssp_apply``
+(K22) and ``algorithms/bfs.py:bfs_apply`` (K23). A wrapper dispatches on
 the device of its tensors: a CPU tensor takes the plain version, a CUDA
 tensor launches the kernel or raises. K2, K3 and K6 also take every bucket
 of a slab plan in one launch (``slab_minmode_buckets``,
@@ -43,18 +43,23 @@ mode sum_i64, which no path runs since K16 took LCC's head sums, to
 ``ops/frontier.py:relax_min_i32``, to ``"push_relax_min_i32"``, its in-place
 mode, ``ops/frontier.py:relax_min_into``, to ``"push_relax_min_inplace"``, K14's
 row-flag mode, ``ops/frontier.py:compact_rows_into``, to
-``"frontier_compact_rows"``); K9, K11
+``"frontier_compact_rows"``, its level mode, ``compact_level_into``, to
+``"frontier_compact_level"``, its unvisited mode, ``compact_unvisited_into``,
+to ``"frontier_compact_unvisited"``, and the device-level modes of K13 and
+K17, a level read on the card, to ``"bfs_trunc_probe_at"`` and
+``"bfs_residual_claim_at"``); K9, K11
 and K12 may launch more than once a call (K9: a histogram, a scatter, the
 probe and the unbin; K11: one launch per task list of its plan; K12: a warp
 per segment, then a persistent grid for the longer ones), and count each. A
 call of K14 is one count: its C entry runs a count and a write kernel (and
 in compact_stream, before them, a memset and the bitmap's marking); so is
 a call of K16, whose C entry zeroes its output by a memset first, of K20's
-status and K22, which zero their scratch the same way, and of K8's in-place
+status, K22 and K23, which zero their scratch the same way, and of K8's in-place
 mode (a memset of the mask, a snapshot kernel and the relaxation).
 A launch captured into a CUDA graph counts once, at its capture
 (``torch.cuda.graph``), and its replays not at all. The device loops' graphs
-(ops/device_loop.py: CDLP auto, WCC auto and adaptive, SSSP auto) take their
+(ops/device_loop.py: CDLP auto, WCC auto and adaptive, SSSP auto, BFS auto and
+device) take their
 build's counts back out: their runs launch nothing from Python, and a trace
 of a run shows what it executed. ``replayed_counts`` holds such a graph's
 captured launches times the step counts its control words report, an
@@ -88,7 +93,7 @@ KERNELS = (
     "slab_spmv_min", "csr_pull_reduce", "push_relax_min", "edgehash_probe", "wedge_rowblock",
     "masked_spgemm", "segment_minmode", "bfs_trunc_probe", "frontier_compact",
     "lcc_sweep_member", "lcc_head_credits", "bfs_residual_claim", "frontier_starts",
-    "cdlp_tier_apply", "cdlp_route", "wcc_jump", "sssp_apply",
+    "cdlp_tier_apply", "cdlp_route", "wcc_jump", "sssp_apply", "bfs_apply",
 )
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -138,25 +143,31 @@ _SIGNATURES = {
     # out, scratch, scratch ints, med_len, long_len, stream
     **{f"gt_segment_minmode_{k}": (_P, _P, _P, _I32, _I64, _I64, _P, _P, _I64, _I32, _I32, _P)
        for k in ("warp", "grid")},
-    # levels, n_levels, level, trunc, t, rows, row_offset, pdeg, claim, resid, stream
-    "gt_bfs_trunc_probe": (_P, _I64, _I32, _P, _I32, _I64, _I64, _P, _P, _P, _P),
+    # levels, n_levels, level, level_at (null: level), trunc, t, rows, row_offset, pdeg,
+    # claim, resid, stream
+    "gt_bfs_trunc_probe": (_P, _I64, _I32, _P, _P, _I32, _I64, _I64, _P, _P, _P, _P),
     # labels, row_ids, neigh, total (a device int32), out, e_cap, row_offset, n_out, grid,
     # stream
     "gt_push_relax_min_i32": (_P, _P, _P, _P, _P, _I32, _I64, _I64, _I32, _P),
     # mask, n, ids, k, count, scratch, scratch ints, stream
     "gt_frontier_compact": (_P, _I64, _P, _I64, _P, _P, _I64, _P),
-    # vals, active, rows_local, rowflag, edge_count, rows (1: the row-flag mode, which reads
-    # the three before it in place of active), e, n, bitmap, ids, k, count, deg_pad,
-    # deg_sum (null: none), scratch, scratch ints, stream
-    "gt_frontier_compact_stream": (_P, _P, _P, _P, _P, _I32, _I64, _I64, _P, _P, _I64, _P, _P,
-                                   _P, _P, _I64, _P),
+    # mask, levels (null: the mask mode), level_at, n, ids, k, count, deg_pad, deg_sum (null:
+    # none), scratch, scratch ints, stream
+    "gt_frontier_compact_into": (_P, _P, _P, _I64, _P, _I64, _P, _P, _P, _P, _I64, _P),
+    # vals, active, rows_local, rowflag, edge_count, levels, mode (0: active; 1: the row-flag
+    # mode, which reads rows_local, rowflag and edge_count in place of active; 2: the
+    # unvisited mode, edge_count and levels), e, n, bitmap, ids, k, count, deg_pad, deg_sum
+    # (null: none), scratch, scratch ints, stream
+    "gt_frontier_compact_stream": (_P, _P, _P, _P, _P, _P, _I32, _I64, _I64, _P, _P, _I64, _P,
+                                   _P, _P, _P, _I64, _P),
     # indptr, col, c, o, items, n_items, weight, unit (threads an item), ilp
     # (searches a lane runs in step), numerator, stream
     "gt_lcc_sweep_member": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P, _P),
     # buckets (ops/triangles.py HeadCreditBucket array), count, n, num, stream
     "gt_lcc_head_credits": (_P, _I32, _I64, _P, _P),
-    # levels, n_levels, level, neigh, seg_starts, rids, k, e_cap, pad, out, grid, stream
-    "gt_bfs_residual_claim": (_P, _I64, _I32, _P, _P, _P, _I32, _I32, _I32, _P, _I32, _P),
+    # levels, n_levels, level, level_at (null: level), neigh, seg_starts, rids, k, e_cap, pad,
+    # out, grid, stream
+    "gt_bfs_residual_claim": (_P, _I64, _I32, _P, _P, _P, _P, _I32, _I32, _I32, _P, _I32, _P),
     # ids, k, deg_pad, n_pad, starts, scratch, scratch words (uint64), stream
     "gt_frontier_starts": (_P, _I64, _P, _I64, _P, _P, _I64, _P),
     # labels, n, ids, winners, k, rowflag, ch, is_min, stream
@@ -176,6 +187,11 @@ _SIGNATURES = {
     # e_cap, mask, is_f64, grid, stream
     "gt_push_relax_min_inplace": (_P, _P, _I64, _I64, _P, _P, _P, _P, _P, _P, _I32, _P, _I32,
                                   _I32, _P),
+    # levels, n, fmask, reached, claim, ids, k, stat, deg (null: sums of 0), source (pinned
+    # host int32), scratch, ctl, tiers, t, stage, k_bu, e_bu, itermax, handles (null outside
+    # a graph), handles set, grid, stream
+    "gt_bfs_apply": (_P, _I64, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32,
+                     _I32, _I32, _P, _I32, _I32, _P),
     # stream: a kernel that returns at once (csrc/empty_kernel.cu)
     "gt_empty_kernel": (_P,),
 }
@@ -213,11 +229,13 @@ _QUERIES = {
 # sums in head order, the design K16 replaced, which no path launches now),
 # K8's int32 mode (the distributed WCC's active step) and in-place mode (SSSP
 # auto's tier rounds), K14's row-flag mode, K19's min mode (WCC's active
-# step) and K20's status entry and its jump mode (WCC's full step), so that
-# a run shows which callers it went through
+# step), K20's status entry and its jump mode (WCC's full step), and BFS's
+# device loop's modes: K14's level and unvisited modes, K13 and K17 with the
+# level read on the card, so that a run shows which callers it went through
 COUNTERS = KERNELS + ("csr_pull_reduce_sum", "csr_pull_reduce_sum_i64", "push_relax_min_i32",
                       "frontier_compact_rows", "cdlp_route_status", "cdlp_tier_apply_min",
-                      "cdlp_route_status_jump", "push_relax_min_inplace")
+                      "cdlp_route_status_jump", "push_relax_min_inplace", "frontier_compact_level",
+                      "frontier_compact_unvisited", "bfs_trunc_probe_at", "bfs_residual_claim_at")
 launch_counts = dict.fromkeys(COUNTERS, 0)
 # a captured graph's launches as inferred by its driver: each step's captured
 # launches times the executions of the step that its control words report

@@ -16,7 +16,8 @@ device ms of a call (``tools/trace_times.py``) beside the plain version's,
 every result checked equal to the plain version bit for bit.
 
 ``--root`` names the checkout whose ``graphtpu_torch`` is timed (this one by
-default).
+default): one whose BFS auto and CDLP auto loops are CUDA graphs, or one
+from before either was (each loop's branch reads which).
 """
 
 from __future__ import annotations
@@ -83,11 +84,27 @@ def shapes(g, device):
     calls["wcc_stream"] = captured(wcc_mod, "compact_stream", lambda: run_algorithm(
         "wcc", g, AlgorithmParams(), PlatformConfig(device=str(device), wcc_impl="auto")))
 
-    def bfs_run():
-        calls["stream"] = captured(bfs_mod, "compact_stream",
-                                   lambda: bfs_mod.bfs_adaptive_run(g, 0, cfg))
+    if hasattr(bfs_mod, "_walk"):
+        # the loop is one CUDA graph: its steps, called from the host, show
+        # the tier steps' frontiers (K14's level mode) and new frontiers (its
+        # unvisited mode), taken as the mask and the stream they compact
+        from graphtpu_torch.core.types import INT32_INF
+        from graphtpu_torch.tools.minmode_times import bfs_eager
 
-    calls["mask"] = captured(bfs_mod, "compact", bfs_run)
+        def bfs_run():
+            calls["stream"] = [
+                (exp.neigh, exp.valid & (levels[exp.neigh.long()] == INT32_INF), ids.shape[0], n_)
+                for exp, levels, n_, _, ids, _ in captured(
+                    bfs_mod, "compact_unvisited_into", lambda: bfs_eager(bfs_mod, g, 0, cfg))]
+
+        calls["mask"] = [(levels == level, ids.shape[0]) for levels, level, ids, _ in
+                         captured(bfs_mod, "compact_level_into", bfs_run)]
+    else:
+        def bfs_run():
+            calls["stream"] = captured(bfs_mod, "compact_stream",
+                                       lambda: bfs_mod.bfs_adaptive_run(g, 0, cfg))
+
+        calls["mask"] = captured(bfs_mod, "compact", bfs_run)
     fullest = lambda cs: max(cs, key=lambda c: int(c[0].sum()))  # noqa: E731
     cdlp_mask, cdlp_k = fullest(masks)[:2]
     bfs_mask, bfs_k = fullest(calls["mask"])[:2]

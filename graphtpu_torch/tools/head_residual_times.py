@@ -34,13 +34,15 @@ copies) a call makes:
 
 Every new result is held bit for bit against the old one. ``--root`` names
 another checkout whose ``graphtpu_torch`` is timed instead (one without K16
-or K17 is timed on its K7 designs alone), so that two versions run in one
-call on one card. ``--out`` also writes the table to a file.
+or K17 is timed on its K7 designs alone; one whose BFS auto is a host loop
+has its run's calls taken), so that two versions run in one call on one
+card. ``--out`` also writes the table to a file.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import runpy
 import subprocess
 import sys
@@ -198,7 +200,13 @@ def main() -> int:
     # ---- K17: BFS auto's bottom-up residual tests from vertex 0
     cfg = PlatformConfig(device=str(device))
     if has_k17:
-        calls = captured(bfs_mod, "residual_claim", lambda: bfs_mod.bfs_adaptive_run(g, 0, cfg))
+        if hasattr(bfs_mod, "_walk"):  # the loop is one CUDA graph: its steps, from the host
+            from graphtpu_torch.tools.minmode_times import bfs_eager
+
+            run = functools.partial(bfs_eager, bfs_mod)
+        else:
+            run = bfs_mod.bfs_adaptive_run
+        calls = captured(bfs_mod, "residual_claim", lambda: run(g, 0, cfg))
     else:
         calls = []
         lines.append("k17: not in this checkout (its residual test runs K7 on the path)")
@@ -213,7 +221,7 @@ def main() -> int:
             raise SystemExit("head_residual_times: K17 differs from K7's residual test")
         fmask = torch.cat([(levels == level).to(torch.int32), levels.new_zeros(1)])
         ip = frontier.residual_indptr(exp, e_cap)
-        lines.append(f"k17: bottom-up step {i} (level {level}): {rids.shape[0]} row slots, "
+        lines.append(f"k17: bottom-up step {i} (level {int(level)}): {rids.shape[0]} row slots, "
                      f"{int((exp.seg_starts.diff() > 0).sum())} rows with edges, "
                      f"{int(exp.edge_count)} edges in {e_cap} slots, "
                      f"{int((got != pad).sum())} claimed")

@@ -3,16 +3,17 @@
 issued from Python, device busy time and idle share, cold and warm wall
 time.
 
-    python3 graphtpu_torch/tools/loop_times.py --path {cdlp-auto,wcc-auto,wcc-adaptive,sssp-auto}
-        [--root CHECKOUT] [--tag NAME] [--reps 5] [--out FILE]
+    python3 graphtpu_torch/tools/loop_times.py --path {cdlp-auto,wcc-auto,wcc-adaptive,sssp-auto,
+        bfs-auto,bfs-device} [--root CHECKOUT] [--tag NAME] [--reps 5] [--out FILE]
 
 Takes the benchmark graph (RMAT scale 20, edge factor 32, undirected, seed
-42) for CDLP and WCC, the SSSP benchmark graph (RMAT scale 20, edge factor
-16, weighted, undirected, seed 42) for SSSP, both cached under
+42) for CDLP, WCC and BFS, the SSSP benchmark graph (RMAT scale 20, edge
+factor 16, weighted, undirected, seed 42) for SSSP, both cached under
 intermediate/ of the checkout that holds this script, and runs the path's
 loop at its defaults, as the bench does: ``cdlp_adaptive_device_run`` (10
 iterations), ``wcc_adaptive_run`` (wcc-impl auto or adaptive),
-``sssp_adaptive_run`` (from vertex 0, float32). Once cold (where the loop
+``sssp_adaptive_run`` (from vertex 0, float32), ``bfs_adaptive_run`` and
+bfs-impl=device's ``_bfs_kernel`` (from vertex 0). Once cold (where the loop
 is a CUDA graph, the graph's build; the path's prep is built and timed
 before), then ``--reps`` warm runs whose wall ms (the final read of the
 step counts included) give the median, then warm runs under the profiler,
@@ -56,9 +57,11 @@ HERE = Path(__file__).resolve().parents[2]
 GRAPHS = {"cdlp-auto": ("bench-rmat-s20-ef32", 20, 32, False),
           "wcc-auto": ("bench-rmat-s20-ef32", 20, 32, False),
           "wcc-adaptive": ("bench-rmat-s20-ef32", 20, 32, False),
-          "sssp-auto": ("bench-rmat-s20-ef16-w", 20, 16, True)}
+          "sssp-auto": ("bench-rmat-s20-ef16-w", 20, 16, True),
+          "bfs-auto": ("bench-rmat-s20-ef32", 20, 32, False),
+          "bfs-device": ("bench-rmat-s20-ef32", 20, 32, False)}
 ITERMAX = 10  # CDLP's iterations
-RANGES = ("cdlp.", "wcc.", "sssp.", "loop.")  # the loops' named profiler ranges
+RANGES = ("cdlp.", "wcc.", "sssp.", "bfs.", "loop.")  # the loops' named profiler ranges
 TRACES = 3  # profiled warm runs; the one that kept the most device records is read
 # the CUDA runtime and driver calls that put work on a stream
 ENQUEUE = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpyAsync", "cudaMemsetAsync",
@@ -86,6 +89,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("loop_times: needs a CUDA card")
     sys.path.insert(0, str(Path(args.root).resolve()))
+    from graphtpu_torch.algorithms import bfs as bfs_mod
     from graphtpu_torch.algorithms import sssp as sssp_mod
     from graphtpu_torch.algorithms import wcc as wcc_mod
     from graphtpu_torch.algorithms.cdlp import build_incidence
@@ -106,7 +110,8 @@ def main() -> int:
         print(s, flush=True)
         lines.append(s)
 
-    mod = {"cdlp": active, "wcc": wcc_mod, "sssp": sssp_mod}[args.path.split("-")[0]]
+    mod = {"cdlp": active, "wcc": wcc_mod, "sssp": sssp_mod,
+           "bfs": bfs_mod}[args.path.split("-")[0]]
     graph_loop = hasattr(mod, "_LoopGraph")
     say(f"card: {smi}; torch {torch.__version__}; version {args.tag} ({args.root}; loop "
         f"{'one CUDA graph' if graph_loop else 'a host loop'}); path {args.path}; graph {name} "
@@ -171,11 +176,25 @@ def main() -> int:
 
         def run():
             return wcc_mod.wcc_adaptive_run(g, cfg, with_stats=True)
-    else:
+    elif mod is sssp_mod:
         sssp_mod.sssp_prep(g, torch.float32, cfg.device)
 
         def run():
             return sssp_mod.sssp_adaptive_run(g, 0, cfg, torch.float32, with_stats=True)
+    elif args.path == "bfs-auto":
+        bfs_mod.bfs_adaptive_prep(g, bfs_mod.BFS_TRUNC, cfg.device)
+
+        def run():
+            return bfs_mod.bfs_adaptive_run(g, 0, cfg, with_stats=True)
+    else:
+        from graphtpu_torch.ops.spmv import pull_csr
+
+        pull = pull_csr(g, cfg.device)
+
+        def run():  # a checkout whose dense loop is the host loop takes the pull CSR
+            if graph_loop:
+                return (*bfs_mod._bfs_kernel(g, 0, cfg.device), {})
+            return (*bfs_mod._bfs_kernel(pull, 0, g.n), {})
     torch.cuda.synchronize()
     prep_s = time.perf_counter() - t0
 
@@ -183,7 +202,8 @@ def main() -> int:
     result, it, stats = run()
     cold_s = time.perf_counter() - t0
     digest = hashlib.sha256(result.cpu().numpy().tobytes()).hexdigest()[:16]
-    steps = {k: stats[k] for k in ("full_steps", "active_steps", "tier_steps") if k in stats}
+    steps = {k: stats[k] for k in ("full_steps", "active_steps", "tier_steps", "bu_steps",
+                                   "dense_steps") if k in stats}
     say(f"prep {prep_s:.3f} s; cold run (the graph's build where there is one) {cold_s:.3f} s; "
         f"{it} iterations, {steps}; result sha256 {digest}")
     walls = []

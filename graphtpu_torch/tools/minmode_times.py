@@ -50,15 +50,26 @@ CLASS_UNITS = (("warp", 512, 4096), ("block", 32, 4096), ("bins", 32, 32))
 device_ms = runpy.run_path(str(Path(__file__).with_name("trace_times.py")))["device_ms"]
 
 
+def _kept(a):
+    """A copy of a call's argument as it is now: a tensor cloned, and each
+    tensor of a NamedTuple (an expansion, whose row starts may be a view of
+    a loop's buffer that a later step writes again)."""
+    if hasattr(a, "clone"):
+        return a.clone()
+    if isinstance(a, tuple) and hasattr(a, "_fields"):
+        return type(a)(*(_kept(x) for x in a))
+    return a
+
+
 def captured(owner, attr, fn):
     """Run fn() with ``owner.attr`` replaced by a wrapper that keeps the
-    positional arguments of each call (tensors cloned); returns them, and
-    raises if there was none."""
+    positional arguments of each call (tensors cloned, also inside a
+    NamedTuple); returns them, and raises if there was none."""
     calls = []
     real = getattr(owner, attr)
 
     def keep(*args, **kwargs):
-        calls.append(tuple(a.clone() if hasattr(a, "clone") else a for a in args))
+        calls.append(tuple(_kept(a) for a in args))
         return real(*args, **kwargs)
 
     setattr(owner, attr, keep)
@@ -84,6 +95,20 @@ def cdlp_auto_eager(active, g, centers, neigh, deg, cfg, prep, itermax=CDLP_ITER
     st.itermax[0] = itermax
     active._host_loop(prep, st, g.directed)
     return st.labels, int(st.ctl[active.CTL_IT])
+
+
+def bfs_eager(bfs_mod, g, source, cfg):
+    """BFS auto's run (bfs-impl=device's where cfg.bfs_impl is device or
+    dense) as its steps called one by one from the host (the loop's host
+    walk, each wrapper launching its kernel), for a checkout that runs the
+    loop as one CUDA graph, whose replays call no Python function for
+    ``captured`` to see: (levels, control words)."""
+    if cfg.bfs_impl in ("device", "dense"):
+        spec = bfs_mod._dense_loop(g, cfg.device)
+    else:
+        spec = bfs_mod._auto_loop(g, cfg)[1]
+    st, _ = bfs_mod._walk(spec, source)
+    return st.levels, st.ctl
 
 
 def k12_shapes(g, device, prep=None, lab1=None):

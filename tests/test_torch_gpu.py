@@ -2794,3 +2794,319 @@ def test_wcc_and_sssp_graph_runs_make_no_host_read_but_their_last(cuda):
     assert loop is not None and reads == 0 and s_loop is not None and s_reads == 0
     assert torch.equal(labels, want[0]) and int(ctl[A.CTL_IT]) == want[1]
     assert torch.equal(dist, s_want[0]) and int(s_ctl[S.SCTL_IT]) == s_want[1]
+
+
+# ------------------------------------------------- BFS's device loops (K23)
+
+
+def _bfs_state(rng, n, level):
+    """Levels of a BFS at ``level`` (about half the vertices reached) and
+    out-degrees [n+1]."""
+    levels = np.where(rng.random(n) < 0.5, rng.integers(0, level + 1, size=n),
+                      INT32_INF).astype(np.int32)
+    return levels, np.concatenate([rng.integers(0, 40, size=n), [0]]).astype(np.int32)
+
+
+def test_bfs_apply_matches_plain(cuda):
+    """K23 at every stage (the source from pinned memory, a tier step applied
+    and aborted, a bottom-up ok and aborted on rows and on edges, a dense
+    step, the dense nest without degrees) against its plain version at n =
+    2^20 + 5: levels, the dense frontier and every control word."""
+    from graphtpu_torch.algorithms import bfs as B
+
+    rng = np.random.default_rng(5)
+    n, level, k_bu, e_bu = (1 << 20) + 5, 3, 1 << 15, 1 << 18
+    budgets = ((1 << 16, 1 << 16), (1 << 18, 1 << 18), (1 << 18, 1 << 22))
+    levels, deg_pad = _bfs_state(rng, n, level)
+    unvis = np.flatnonzero(levels == INT32_INF)
+    fmask = (rng.random(n) < 0.1).astype(np.int32)
+    cases = [("init", B.STAGE_INIT, {})]
+    for i, over in ((0, 0), (1, 0), (1, 5), (2, 1)):
+        k = budgets[i][0]
+        ids = np.full(k, n, dtype=np.int32)
+        take = np.sort(rng.choice(unvis, size=k - 100 * (i + 1), replace=False))
+        ids[:take.shape[0]] = take
+        cnt = take.shape[0] + over * k
+        cases.append((f"tier{i}+{over}", B.STAGE_TIER + i,
+                      dict(ids=ids, stat=np.array([cnt, int(deg_pad[ids].sum())], np.int32))))
+    claim = np.zeros(n, bool)
+    claim[unvis[::7]] = True
+    claimed = np.full(k_bu, n, dtype=np.int32)
+    rest = np.setdiff1d(unvis, unvis[::7])
+    claimed[:3000] = rest[:3000]
+    for rcnt, fe_r in ((3000, 12000), (k_bu + 1, 100), (3000, e_bu + 1)):
+        cases.append((f"bu {rcnt} {fe_r}", B.STAGE_BU,
+                      dict(claim=claim, ids=claimed, stat=np.array([rcnt, fe_r], np.int32))))
+    cases.append(("dense", B.STAGE_DENSE, dict(reached=(rng.random(n) < 0.2).astype(np.int32))))
+    for what, stage, kw in cases + [("dense nest", B.STAGE_DENSE, dict(cases[-1][2], no_deg=1))]:
+        got = []
+        for dev in ("cpu", cuda):
+            t = lambda a: torch.tensor(a, device=dev)  # noqa: E731 - a copy
+            tiers = torch.zeros((0, 2), dtype=torch.int32) if "no_deg" in kw else \
+                torch.tensor(budgets, dtype=torch.int32)
+            ctl = torch.zeros(B.ctl_words(tiers.shape[0]), dtype=torch.int32, device=dev)
+            ctl[:B.BCTL_COND] = t([7, 99, level, 1, n])
+            lev, fm = t(levels), t(fmask)
+            args = {k: t(v) for k, v in kw.items() if k != "no_deg"}
+            source = torch.tensor([12345], dtype=torch.int32).pin_memory()
+            B.bfs_apply(lev, fm, ctl, tiers.to(dev), stage, n,
+                        deg_pad=None if "no_deg" in kw else t(deg_pad), source=source,
+                        k_bu=k_bu, e_bu=e_bu, **args)
+            got.append((lev.cpu(), fm.cpu(), ctl.cpu()))
+        assert all(torch.equal(a, b) for a, b in zip(*got)), what
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 1000, 300007, (1 << 20) + 3])
+def test_frontier_compact_level_and_into_match_plain(cuda, n):
+    """K14's level mode (the level read on the card) and the mask entry with
+    its degree sum against their plain versions: ids cut below the count,
+    exact and padded; one launch a call, each under its own counter."""
+    from graphtpu_torch.ops.frontier import compact_into, compact_level_into
+
+    rng = np.random.default_rng(n)
+    levels = np.where(rng.random(n) < 0.5, rng.integers(0, 4, size=n), INT32_INF).astype(np.int32)
+    deg_pad = np.concatenate([rng.integers(0, 40, size=n), [0]]).astype(np.int32)
+    mask = rng.random(n) < 0.2
+    for level in (0, 2, 9):
+        cnt = int((levels == level).sum())
+        for k in sorted({1, max(cnt - 1, 1), max(cnt, 1), cnt + 5}):
+            got = []
+            for dev in ("cpu", cuda):
+                t = lambda a: torch.tensor(a, device=dev)  # noqa: E731 - a copy
+                ids = torch.full((k,), -1, dtype=torch.int32, device=dev)
+                count = torch.full((1,), -1, dtype=torch.int32, device=dev)
+                before = dict(kernels.launch_counts)
+                compact_level_into(t(levels), t([level]).to(torch.int32), ids, count)
+                if dev != "cpu":
+                    assert kernels.launch_counts["frontier_compact_level"] == \
+                        before["frontier_compact_level"] + 1
+                out, status = torch.full((k,), -1, dtype=torch.int32, device=dev), \
+                    torch.full((2,), -1, dtype=torch.int32, device=dev)
+                compact_into(t(mask), t(deg_pad), out, status)
+                if dev != "cpu":
+                    assert kernels.launch_counts["frontier_compact"] == \
+                        before["frontier_compact"] + 1
+                got.append([x.cpu() for x in (ids, count, out, status)])
+            assert all(torch.equal(a, b) for a, b in zip(*got)), (level, k)
+            assert int(got[0][1]) == cnt
+
+
+@pytest.mark.parametrize("k_out", [16, 4096, 1 << 18])
+def test_frontier_compact_unvisited_matches_plain(cuda, k_out):
+    """K14's unvisited mode against its plain version on random expansions
+    (a cut one included): ids, count and degree sum bit for bit, one
+    launch a call."""
+    from graphtpu_torch.ops.frontier import compact_unvisited_into, compact_unvisited_plain
+
+    rng = np.random.default_rng(k_out)
+    n = 100_000
+    levels = np.where(rng.random(n) < 0.6, 1, INT32_INF).astype(np.int32)
+    for k, e_cap, count in ((4096, 1 << 18, 3000), (1 << 16, 1 << 16, 20_000)):
+        exp, deg_pad = _expansion(cuda, rng, n, k, e_cap, count)
+        got = []
+        for plain in (False, True):
+            out = torch.full((k_out,), -1, dtype=torch.int32, device=cuda)
+            status = torch.full((2,), -1, dtype=torch.int32, device=cuda)
+            before = kernels.launch_counts["frontier_compact_unvisited"]
+            (compact_unvisited_plain if plain else compact_unvisited_into)(
+                exp, torch.from_numpy(levels).to(cuda), n, deg_pad, out, status)
+            assert kernels.launch_counts["frontier_compact_unvisited"] == before + (not plain)
+            got.append((out.cpu(), status.cpu()))
+        assert all(torch.equal(a, b) for a, b in zip(*got)), (k, e_cap)
+
+
+def test_trunc_probe_and_residual_claim_read_the_level_on_the_card(cuda):
+    """K13 and K17 given the level as a one-element tensor on the card (their
+    device-level modes) against their scalar forms and plain versions, each
+    counted under its own name."""
+    from graphtpu_torch.ops.frontier import expand
+
+    rng = np.random.default_rng(13)
+    n, t, level, k, e_cap = 100003, 2, 3, 1 << 12, 1 << 16
+    levels, deg_pad = _bfs_state(rng, n, 4)
+    trunc = rng.integers(0, n + 1, size=t * n).astype(np.int32)
+    pdeg = rng.integers(0, 6, size=n).astype(np.int32)
+    tt = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+    lev, at = tt(levels), tt(np.array([level], np.int32))
+    before = dict(kernels.launch_counts)
+    got = bfs_trunc_probe(lev, at, tt(trunc), tt(pdeg), t)
+    assert kernels.launch_counts["bfs_trunc_probe_at"] == before["bfs_trunc_probe_at"] + 1
+    want = bfs_trunc_probe(lev, level, tt(trunc), tt(pdeg), t)
+    plain = bfs_trunc_probe_plain(lev.cpu(), at.cpu(), tt(trunc).cpu(), tt(pdeg).cpu(), t)
+    assert all(torch.equal(a, b) and torch.equal(a.cpu(), c) for a, b, c in zip(got, want, plain))
+    indptr = np.concatenate([[0], np.cumsum(deg_pad[:-1])]).astype(np.int32)
+    neigh = rng.integers(0, n, size=int(indptr[-1])).astype(np.int32)
+    rids = np.full(k, n, dtype=np.int32)
+    rids[:3000] = np.sort(rng.choice(n, size=3000, replace=False))
+    exp = expand(tt(rids), tt(deg_pad), tt(indptr), tt(neigh), e_cap, with_row_ids=False)
+    before = dict(kernels.launch_counts)
+    claimed = residual_claim(lev, at, exp, e_cap, tt(rids), n)
+    assert kernels.launch_counts["bfs_residual_claim_at"] == before["bfs_residual_claim_at"] + 1
+    assert torch.equal(claimed, residual_claim(lev, level, exp, e_cap, tt(rids), n))
+    assert torch.equal(claimed, residual_claim_plain(lev, at, exp, e_cap, tt(rids), n))
+
+
+def _bfs_graph(scale, directed, seed=4):
+    from graphtpu_torch.utils.synth import rmat_graph
+
+    return rmat_graph(scale, 8, directed=directed, seed=seed)
+
+
+# (scale, directed, caps): the defaults; rows capped at 64 (tier aborts climb
+# through the 2^18, 2^20 and 2^22 tiers' captures to bottom-up); small edge
+# tiers and bottom-up budgets (aborted bottom-ups, dense steps)
+BFS_GRAPH_CASES = [
+    (13, False, {}), (14, True, {"bfs_frontier_rows": 64}),
+    (14, False, {"bfs_frontier_rows": 64}),
+    (12, True, {"bfs_push_tiers": "64,512,4096", "bfs_frontier_rows": 32, "bfs_bu_rows": 16,
+                "bfs_bu_edges": 256}),
+    (12, False, {"bfs_push_tiers": "64,512", "bfs_frontier_rows": 64, "bfs_bu_rows": 64,
+                 "bfs_bu_edges": 1024, "bfs_trunc": 1}),
+]
+
+
+@pytest.mark.parametrize("case", range(len(BFS_GRAPH_CASES)))
+def test_bfs_graph_run_matches_host_run(cuda, case, monkeypatch):
+    """BFS auto as one CUDA graph (cold: built and launched; warm: launched
+    again) against the host loop under plain_torch() on the card, from
+    several sources (one graph serves all: the source is read from pinned
+    memory): levels bit for bit, levels done and every step count; one
+    graph launch a run, none of the loop's kernels counted from Python, K23
+    once a step and once more at init. Then bfs-impl=device's graph the
+    same way."""
+    from graphtpu_torch.algorithms import bfs as B
+    from graphtpu_torch.utils.config import PlatformConfig
+
+    scale, directed, caps = BFS_GRAPH_CASES[case]
+    g = _bfs_graph(scale, directed)
+    cfg = PlatformConfig(device="cuda", **caps)
+    graph_calls = []
+    call = kernels.graph_call
+    monkeypatch.setattr(kernels, "graph_call",
+                        lambda name, *a: (graph_calls.append(name), call(name, *a))[1])
+    own = ("bfs_apply", "frontier_compact_level", "frontier_compact_unvisited",
+           "bfs_trunc_probe_at", "bfs_residual_claim_at", "frontier_starts")
+    seen = np.zeros(3, dtype=np.int64)  # tier, bottom-up, dense steps
+    tier_seen = {e: 0 for _, e in B.bfs_ladder(g.n, cfg)[1]}  # steps by edge budget
+    for src in (0, 5, 77, 0):
+        kernels.reset_launch_counts()
+        graph_calls.clear()
+        lev, it, stats = B.bfs_adaptive_run(g, src, cfg, with_stats=True)
+        assert B.last_run["driver"] == "graph" and graph_calls.count("graph_launch") == 1
+        assert not any(kernels.launch_counts[k] for k in own), kernels.launch_counts
+        steps = sum(stats["tier_steps"].values()) + stats["bu_steps"] + stats["dense_steps"]
+        assert kernels.replayed_counts["bfs_apply"] == steps + 1
+        assert kernels.replayed_counts["bfs_trunc_probe_at"] == stats["bu_steps"]
+        seen += [steps - stats["bu_steps"] - stats["dense_steps"], stats["bu_steps"],
+                 stats["dense_steps"]]
+        for e, c in stats["tier_steps"].items():
+            tier_seen[e] += c
+        with kernels.plain_torch():
+            p_lev, p_it, p_stats = B.bfs_adaptive_run(g, src, cfg, with_stats=True)
+        assert torch.equal(lev, p_lev) and (it, stats) == (p_it, p_stats), src
+        kernels.reset_launch_counts()
+        d_lev, d_it = B._bfs_kernel(g, src, "cuda")
+        assert B.last_run["driver"] == "graph"
+        assert kernels.replayed_counts["csr_pull_reduce"] == d_it
+        with kernels.plain_torch():
+            p_lev, p_it = B._bfs_kernel(g, src, "cuda")
+        assert torch.equal(d_lev, p_lev) and d_it == p_it and torch.equal(d_lev, lev), src
+    assert seen[0] > 0, seen
+    if caps == {"bfs_frontier_rows": 64}:  # tier aborts reach the top tiers' captures
+        assert tier_seen[1 << 20] > 0 and tier_seen[1 << 22] > 0, tier_seen
+    if case == 3:
+        assert seen[1] > 0 and seen[2] > 0, seen
+
+
+def test_captured_bfs_steps_replay_like_the_plain_steps(cuda):
+    """A BFS tier step, bottom-up step and dense step, each captured into a
+    CUDA graph and replayed 20 times from the same state, give the plain
+    step's levels, frontier, ids and control words every time."""
+    import functools
+
+    from graphtpu_torch.algorithms import bfs as B
+
+    g = _bfs_graph(13, False, seed=2)
+    t_trunc, budgets, k_bu, e_bu = 2, ((1 << 12, 1 << 16),), 1 << 12, 1 << 16
+    prep = B.bfs_adaptive_prep(g, t_trunc, "cuda")
+    st = B._loop_state("cuda", g.n, budgets, k_bu, e_bu, B.loop_nest(1), handles=False)
+    st.source[0] = 0
+    B._step_init(prep.deg_pad, st)
+    B._step_tier(prep, st, 0)  # level 1
+    bufs = (st.levels, st.fmask, st.ids, st.ids2, st.rids, st.stat, st.ctl)
+    saved = [x.clone() for x in bufs]
+
+    def restore():
+        for x, s in zip(bufs, saved):
+            x.copy_(s)
+
+    for step in (functools.partial(B._step_tier, prep, st, 0),
+                 functools.partial(B._step_bu, prep, st),
+                 functools.partial(B._step_dense, prep.pull, prep.deg_pad, st)):
+        restore()
+        with kernels.plain_torch():
+            step()
+        want = [x.clone() for x in bufs]
+        restore()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            step()
+        for _ in range(20):
+            restore()
+            graph.replay()
+            assert all(torch.equal(a, b) for a, b in zip(bufs, want)), step.func.__name__
+
+
+def test_bfs_graph_runs_make_no_host_read_but_their_last(cuda):
+    """Warm runs of BFS auto's and bfs-impl=device's graphs under sync debug
+    mode "error": the launch waits for nothing; only the read of the control
+    words at their end syncs."""
+    from graphtpu_torch.algorithms import bfs as B
+    from graphtpu_torch.utils.config import PlatformConfig
+
+    g = _bfs_graph(13, False)
+    cfg = PlatformConfig(device="cuda")
+    want = B.bfs_adaptive_run(g, 0, cfg)  # cold: each graph built and memoized on g
+    d_want = B._bfs_kernel(g, 0, "cuda")
+    spec, d_spec = B._auto_loop(g, cfg)[1], B._dense_loop(g, "cuda")
+    loop, d_loop = g.memo[spec.key], g.memo[d_spec.key]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:  # warm: the memoized graphs, so no state is made
+        lev, ctl, got, reads = B._launch_loop(g, spec, 0)
+        d_lev, d_ctl, d_got, d_reads = B._launch_loop(g, d_spec, 0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert got is loop and d_got is d_loop and reads == d_reads == 0
+    assert torch.equal(lev, want[0]) and int(ctl[B.BCTL_LEVEL]) == want[1]
+    assert torch.equal(d_lev, d_want[0]) and int(d_ctl[B.BCTL_LEVEL]) == d_want[1]
+
+
+def test_loop_graph_freed_during_a_capture_leaves_it_valid(cuda):
+    """A loop graph freed while another graph is being captured (here its
+    last reference dropped inside the capture; in a run, a garbage
+    collection that a step's Python calls trigger) leaves that capture
+    valid: its graphs are freed at the next build of a loop graph."""
+    import gc
+
+    from graphtpu_torch.algorithms import bfs as B
+    from graphtpu_torch.ops import device_loop
+
+    g = _bfs_graph(10, False)
+    want = B._bfs_kernel(g, 0, "cuda")  # bfs-impl=device's graph, memoized on g
+    root = g.memo[("bfs_dense_loop", "cuda")].root.value
+    gc.collect()  # loop graphs of earlier tests freed now, outside the capture
+    x = torch.arange(1000, dtype=torch.int32, device="cuda")
+    y = torch.empty_like(x)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        torch.add(x, 1, out=y)
+        g.memo.clear()  # the loop graph's last reference
+        gc.collect()
+        torch.mul(y, 2, out=y)
+    assert [r.value for r, _, _ in device_loop._deferred] == [root]
+    graph.replay()
+    assert torch.equal(y, (x + 1) * 2)
+    lev, it = B._bfs_kernel(_bfs_graph(10, False), 0, "cuda")
+    assert not device_loop._deferred
+    assert torch.equal(lev, want[0]) and it == want[1]

@@ -88,7 +88,7 @@ def test_bfs_hybrid_matches_jax(graphs, threshold):
         np.testing.assert_array_equal(tl, np.asarray(jl))
         assert tn == jn
     # and the dense kernel (bfs-impl=device) from the last source
-    dense, dn = tbfs._bfs_kernel(tbfs.pull_csr(tg, "cpu"), src, tg.n)
+    dense, dn = tbfs._bfs_kernel(tg, src, "cpu")
     np.testing.assert_array_equal(tl, dense.numpy())
     assert tn == dn
 

@@ -197,7 +197,7 @@ def test_port_imports_no_jax_graphtpu_or_pandas():
 def test_package_docstring_names_what_the_port_holds():
     """The package's docstring names the six algorithms, the harness, the
     ingest, the GraphBLAS surface, the sharded checkpoints, the scaling
-    mode and every hand kernel K1-K22 by name."""
+    mode and every hand kernel K1-K23 by name."""
     import graphtpu_torch
     from graphtpu_torch.ops import kernels
 
