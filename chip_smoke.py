@@ -26,7 +26,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
    undirected, seed 42) and the SSSP benchmark graph (RMAT scale 20, edge
    factor 16, weighted, undirected, seed 42), both cached under
    intermediate/. Each path runs through run_algorithm on the kernels, then
-   as plain PyTorch on the card: CDLP under auto and slab (itermax 10),
+   as plain PyTorch on the card: CDLP under auto, slab and sort (itermax 10),
    PageRank (20 iterations, d = 0.85) under auto (the slab arm, K3) and
    scan (the segment-sum arm, K7 in mode sum), BFS from vertex 0 under auto,
    device and hybrid, WCC under auto, adaptive and device, SSSP from vertex 0
@@ -34,8 +34,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
    levels and rounds, K7 sweeps for the heavy ones). LCC runs under auto on
    the benchmark graph: the
    wedge plan's prep is timed cold and from the oriented cache, its counts
-   print, and the plain path is one pass of K10's plain version over every
-   bucket (phase 5), whose numerators must equal the kernel path's; on two
+   print, and K10's plain version runs on the first rows of every bucket
+   (phase 5), whose credits must equal the kernel's; on two
    RMAT scale-14 graphs (directed, undirected) oriented must equal sweep,
    and on the benchmark graph the sweep's numerators (K15, phase 5) must
    equal the oriented ones.
@@ -114,6 +114,19 @@ Run from the root of a checkout:  python3 chip_smoke.py
    each); K23 (bfs_apply) at BFS auto's init, first tier step and first
    bottom-up step and at bfs-impl=device's first dense step, each against
    its plain version, taken from the steps called from the host.
+4e. The one-WHILE fixed-point loops (slab and sort CDLP and WCC device on
+   the bench graph, SSSP device on the SSSP graph) and delta-stepping (on
+   the SSSP graph at delta 2.5, at 0.3, at 0.3 with capacities that force
+   both dense fallbacks, and on a 1024 x 1024 torus), each one CUDA graph,
+   checked as in 4c (results bit for bit, iterations and every counter
+   against the host loop under plain_torch(); the counts the JAX package's
+   records hold print beside; the five default paths traced last in a
+   child each, whose warm run must make one graph launch, one host read
+   and two Python-issued enqueues); K24 (sssp_delta_route: its advance and
+   a route), K14's bucket mode (the heavy and light derives), K8's settle
+   mode (the first light step) and K25 (fixed_point_route: compare mode at
+   slab CDLP's iteration 1, with the degrees at sort CDLP's first step,
+   flag mode), each against its plain version at these loops' shapes.
 5. Each kernel against its plain PyTorch version at the path's shapes and
    on small hand-made cases, with both device times (profiler) and stream
    spans (CUDA events). Beside each time stands the kernel's bound: the
@@ -180,8 +193,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
    at the benchmark graph's size, C<U> = U.U under plus.pair over its
    degree-oriented structure (30.3M mask entries), whose sum must be the
    triangle count that the LCC numerators give (their sum / 6), held bit
-   for bit against one pass of the plain version in chunks of the mask (the
-   whole slab does not fit in device memory); its launch count is this
+   for bit against one pass of the plain version, in chunks, on the entries
+   of the first tasks of each of its plan's task lists (K11_PLAIN_SHARE of
+   each: every launch kind), the kernel timed on them as one call beside
+   the whole call; its launch count is this
    call's and must be the number its plan states (one per task list: warp
    rows, block rows, column windows). K11's time is its launches alone;
    a whole call's device time and wall time (planning on the card
@@ -229,9 +244,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
    build and install) and the twin's; shard-checkpoints is off there, so
    that every call builds its plans. Then a 2-rank gloo mesh's start is
    timed and dryrun_multichip(2) runs over it on the CPU.
-9. The sharded checkpoints (shard-checkpoints) on RMAT s18/ef32 (CKPT_GRAPH,
-   a quarter of the bench graph: its four compressed saves of 134 MB took
-   185-231 s of the script's time limit at full size) over one NCCL rank, with a temporary intermediate directory: PageRank, CDLP and
+9. The sharded checkpoints (shard-checkpoints) on RMAT s17/ef32 (CKPT_GRAPH,
+   an eighth of the bench graph: its four compressed saves of 134 MB took
+   185-231 s of the script's time limit at full size, 45 s at s18) over one NCCL rank, with a temporary intermediate directory: PageRank, CDLP and
    WCC under their defaults (their slab plans pr-pull, cdlp-incidence,
    wcc-slab) and BFS under dense (the pull partition), each on a fresh
    sharded graph twice: built and saved, then restored with every builder
@@ -265,7 +280,7 @@ ROOT = Path(__file__).resolve().parent
 FIXTURES = ROOT / "tests" / "fixtures" / "graphs"
 INTERMEDIATE = ROOT / "intermediate"
 BENCH_GRAPH = "bench-rmat-s20-ef32"
-CKPT_GRAPH = ("bench-rmat-s18-ef32", 18, 32)  # the checkpoint phase's graph (docstring, 9)
+CKPT_GRAPH = ("bench-rmat-s17-ef32", 17, 32)  # the checkpoint phase's graph (docstring, 9)
 SSSP_GRAPH = "bench-rmat-s20-ef16-w"
 CDLP_ITERS, PR_ITERS, DAMPING = 10, 20, 0.85
 # the JAX package's step counts on the same graphs from vertex 0, default
@@ -297,7 +312,7 @@ TRACE_KERNELS = {
     ("k13_probe_kernel",): ("bfs_trunc_probe", "bfs_trunc_probe_at"),
     # K14's last: one a call
     ("k14_write",): ("frontier_compact", "frontier_compact_rows", "frontier_compact_level",
-                     "frontier_compact_unvisited"),
+                     "frontier_compact_unvisited", "frontier_compact_bucket"),
     ("lcc_sweep_kernel",): ("lcc_sweep_member",),
     ("k16_head_credits_kernel",): ("lcc_head_credits",),
     ("k17_claim_kernel",): ("bfs_residual_claim", "bfs_residual_claim_at"),
@@ -309,6 +324,10 @@ TRACE_KERNELS = {
     ("k22_apply_kernel",): ("sssp_apply",),
     ("push_relax_inplace_kernel",): ("push_relax_min_inplace",),
     ("k23_apply_kernel",): ("bfs_apply",),
+    ("k24_pass_kernel", "k24_route_kernel"): ("sssp_delta_route",),
+    ("k25_compare_kernel", "k25_route_kernel"): ("fixed_point_route",),
+    # K8's settle mode: its clearing snapshot, one a call
+    ("k8_settle_clear_kernel",): ("push_relax_min_settle",),
 }
 # the device kernels of a sort (cub's radix, segmented and merge sorts, torch's
 # own small sorts), matched without regard to case (torch's radixSortKVInPlace):
@@ -321,19 +340,22 @@ NO_SORT_PATHS = ("cdlp-auto", "bfs-auto", "wcc-auto", "sssp-auto", "lcc")
 # such a graph, later traces of other paths lost their first records (on an
 # H100 with CUDA 12.9, driver 13.0 and torch 2.11: every one of five traces
 # in a row, in two runs)
-GRAPH_PATHS = ("cdlp-auto", "wcc-auto", "wcc-adaptive", "sssp-auto", "bfs-auto", "bfs-device")
+GRAPH_PATHS = ("cdlp-auto", "wcc-auto", "wcc-adaptive", "sssp-auto", "bfs-auto", "bfs-device",
+               "cdlp-slab", "cdlp-sort", "wcc-device", "sssp-device", "sssp-delta")
 TRACE_KERNELS_OF = {name: pats for pats, names in TRACE_KERNELS.items() for name in names}
 TRACE_TRIES = 5  # traces taken before a kernel count that stays wrong fails the run
 # the loop graphs' trace records by counter, the modes of K13, K14, K17, K19
 # and K20 told apart by their kernels: K14's mask mode writes from a mask
 # (k14_write<0>), its level mode from the levels (k14_write<2>), each stream
 # mode marks a bitmap first (k14_mark<0>: a valid mask, <1>: row flags, <2>:
-# unvisited neighbours); K13 and K17 are templates on their device-level
+# unvisited neighbours), its bucket mode from the distances (k14_write<3>
+# float32, <4> float64); K13 and K17 are templates on their device-level
 # mode, K19 and K20's status on their min and jump modes
 GRAPH_TRACE_OF = {**TRACE_KERNELS_OF, "frontier_compact": ("k14_write<0>", "k14_mark<0>"),
                   "frontier_compact_rows": ("k14_mark<1>",),
                   "frontier_compact_level": ("k14_write<2>",),
                   "frontier_compact_unvisited": ("k14_mark<2>",),
+                  "frontier_compact_bucket": ("k14_write<3>", "k14_write<4>"),
                   "bfs_trunc_probe": ("k13_probe_kernel<false>",),
                   "bfs_trunc_probe_at": ("k13_probe_kernel<true>",),
                   "bfs_residual_claim": ("k17_claim_kernel<false>",),
@@ -354,6 +376,12 @@ GRAPH_KERNELS = {
                   "k18_", "k22_"),
     "bfs-auto": ("frontier_expand_kernel", "k7_", "k13_", "k14_", "k17_", "k18_", "k23_"),
     "bfs-device": ("k7_", "k23_"),
+    "cdlp-slab": ("gather_", "minmode_", "k7_", "k12_", "k25_"),
+    "cdlp-sort": ("k12_", "k25_"),
+    "wcc-device": ("k7_", "k20_", "k21_", "k25_"),
+    "sssp-device": ("k7_", "k22_", "k25_"),
+    "sssp-delta": ("k7_", "k22_", "k24_", "k14_", "k18_", "frontier_expand_kernel",
+                   "k8_settle_clear", "push_relax_settle"),
 }
 GRAPH_TRACE_TRIES = 3  # child traces of a loop graph taken while a record falls short
 PR_RTOL = 1e-4        # the validator's EPSILON (graphtpu/harness/validator.py:40)
@@ -742,7 +770,9 @@ PATHS = {
                    "csr_pull_reduce", "frontier_compact", "frontier_starts", "cdlp_tier_apply",
                    "cdlp_route", "cdlp_route_status", "frontier_compact_rows")),
     "cdlp-slab": ("cdlp", {"cdlp_impl": "slab"},
-                  ("gather_rows", "slab_minmode", "segment_minmode", "csr_pull_reduce")),
+                  ("gather_rows", "slab_minmode", "segment_minmode", "csr_pull_reduce",
+                   "fixed_point_route")),
+    "cdlp-sort": ("cdlp", {"cdlp_impl": "sort"}, ("segment_minmode", "fixed_point_route")),
     "pr": ("pr", {}, ("gather_rows", "slab_spmv_sum", "csr_pull_reduce_sum")),
     "pr-scan": ("pr", {"pr_impl": "scan"}, ("csr_pull_reduce_sum",)),
     "bfs-auto": ("bfs", {"bfs_impl": "auto"},
@@ -759,19 +789,23 @@ PATHS = {
                      ("csr_pull_reduce", "frontier_expand", "frontier_compact",
                       "frontier_starts", "wcc_jump", "cdlp_route", "cdlp_route_status_jump",
                       "cdlp_tier_apply_min", "frontier_compact_rows")),
-    "wcc-device": ("wcc", {"wcc_impl": "device"}, ("csr_pull_reduce",)),
+    "wcc-device": ("wcc", {"wcc_impl": "device"},
+                   ("csr_pull_reduce", "wcc_jump", "cdlp_route_status_jump",
+                    "fixed_point_route")),
     "sssp-auto": ("sssp", {"sssp_impl": "auto"},
                   ("csr_pull_reduce", "frontier_expand", "push_relax_min_inplace",
                    "frontier_compact", "frontier_starts", "sssp_apply")),
-    "sssp-device": ("sssp", {"sssp_impl": "device"}, ("csr_pull_reduce",)),
+    "sssp-device": ("sssp", {"sssp_impl": "device"},
+                    ("csr_pull_reduce", "sssp_apply", "fixed_point_route")),
     "sssp-delta": ("sssp", {"sssp_impl": "delta"},
-                   ("csr_pull_reduce", "frontier_expand", "push_relax_min", "frontier_compact",
-                    "frontier_starts")),
+                   ("csr_pull_reduce", "frontier_expand", "push_relax_min_settle",
+                    "frontier_compact_bucket", "frontier_starts", "sssp_apply",
+                    "sssp_delta_route")),
     "sssp-hybrid": ("sssp", {"sssp_impl": "hybrid"}, ("csr_pull_reduce",)),
     "lcc": ("lcc", {"lcc_impl": "auto"}, ("wedge_rowblock", "lcc_head_credits")),
 }
-# the plain path of LCC is one pass of K10's plain version over every bucket,
-# made once, in phase_lcc_kernels
+# LCC's plain version is K10's on the first rows of every bucket, in
+# phase_lcc_kernels
 NO_PLAIN_RUN = ("lcc",)
 
 
@@ -865,12 +899,11 @@ def phase_real_size(device):
     from graphtpu_torch.algorithms.common import run_algorithm
     from graphtpu_torch.algorithms.pr import _pull_plan_cached
     from graphtpu_torch.algorithms.sssp import (
-        _sssp_kernel, sssp_adaptive_run, sssp_delta_run, sssp_prep,
+        sssp_adaptive_run, sssp_delta_run, sssp_device_run,
     )
-    from graphtpu_torch.algorithms.wcc import _wcc_kernel, wcc_adaptive_run, wcc_slab_plan
+    from graphtpu_torch.algorithms.wcc import wcc_adaptive_run, wcc_device_run, wcc_slab_plan
     from graphtpu_torch.ops import kernels
     from graphtpu_torch.ops.active import cdlp_adaptive_device_run, prepare_cdlp_adaptive
-    from graphtpu_torch.ops.spmv import pull_csr
     from graphtpu_torch.utils.config import AlgorithmParams, PlatformConfig
     from graphtpu_torch.utils.synth import rmat_graph
 
@@ -950,9 +983,10 @@ def phase_real_size(device):
         "bfs-device": lambda: _bfs_kernel(g, 0, device),
         "wcc-auto": lambda: wcc_adaptive_run(g, cfgs["wcc-auto"]),
         "wcc-adaptive": lambda: wcc_adaptive_run(g, cfgs["wcc-adaptive"]),
-        "wcc-device": lambda: _wcc_kernel(pull_csr(g, device), g.n),
+        "wcc-device": lambda: wcc_device_run(g, cfgs["wcc-device"]),
         "sssp-auto": lambda: sssp_adaptive_run(gw, 0, cfgs["sssp-auto"], f32),
-        "sssp-device": lambda: _sssp_kernel(sssp_prep(gw, f32, device), 0, gw.n, f32),
+        "sssp-device": lambda: sssp_device_run(gw, 0, cfgs["sssp-device"], f32),
+        "sssp-delta": lambda: sssp_delta_run(gw, 0, cfgs["sssp-delta"], f32),
     }
     for name, loop in loops.items():
         secs = []
@@ -1035,6 +1069,11 @@ def phase_real_size(device):
     check(steps["kernel"] == steps["plain"], "phase counts differ, kernel vs plain")
 
     auto, slab, pcd = out["kernel", "cdlp-auto"], out["kernel", "cdlp-slab"], out["plain", "cdlp-auto"]
+    for name in ("cdlp-sort",):
+        for label in ("kernel", "plain"):
+            check(np.array_equal(out[label, name].values, auto.values)
+                  and out[label, name].iterations == auto.iterations,
+                  f"cdlp labels or iterations differ: {label} {name} vs kernel cdlp-auto")
     kpr, ppr = out["kernel", "pr"], out["plain", "pr"]
     check(auto.values.shape == (g.n,), "cdlp output shape")
     check(bool(((auto.values >= 0) & (auto.values < g.n)).all()), "cdlp labels out of range")
@@ -1057,7 +1096,7 @@ def phase_real_size(device):
     rel_arms = float(np.max(np.abs(kscan.values.astype(np.float64) - kpr.values)
                             / np.abs(kpr.values)))
     check(rel_arms <= PR_RTOL, f"pr-scan vs pr (slab) max relative error {rel_arms} > {PR_RTOL}")
-    print(f"real size: cdlp labels identical, adaptive vs slab vs plain ({auto.iterations} "
+    print(f"real size: cdlp labels identical, adaptive vs slab vs sort vs plain ({auto.iterations} "
           f"iterations, {len(np.unique(auto.values))} communities); pr max relative error "
           f"{rel:.3e}, rank mass {mass:.9f}; pr-scan max relative error {rel_scan:.3e} vs its "
           f"plain path, {rel_arms:.3e} vs the slab arm", flush=True)
@@ -1126,14 +1165,14 @@ def _median(xs):
 
 # load_graph runs a graph on the native arm; the bench phase times the
 # benchmark graph's native parse and relabel (one warm-up, BENCH_REPS runs)
-INGEST_NATIVE_RUNS = {BENCH_GRAPH: 1, SSSP_GRAPH: 3}
+INGEST_NATIVE_RUNS = {BENCH_GRAPH: 1, SSSP_GRAPH: 1}
 
 
 def phase_ingest(g, gw, smi):
     """The text ingest at real size: both RMAT graphs written as .v/.e text,
-    loaded back through load_graph on the native arm (the weighted graph 3
-    runs; the benchmark graph once, as the bench phase times its native
-    parse and relabel) and, for the benchmark graph, once on the numpy arm
+    loaded back through load_graph on the native arm (once each; the bench
+    phase times the benchmark graph's native parse and relabel again) and,
+    for the benchmark graph, once on the numpy arm
     with parse and relabel apart;
     every Graph must equal the RMAT one bit for bit. Then the device sort
     (which a Graph takes where a card is visible) of the benchmark graph's
@@ -1398,8 +1437,10 @@ def _sort_twin_against_oracle(g, one, one_s, one_counts, smi):
     from graphtpu_torch.ops import kernels
     from graphtpu_torch.utils.config import AlgorithmParams, PlatformConfig
 
-    check(one_counts.get("segment_minmode", 0) > 0,
-          f"parallel: the one-device sort launched no segment_minmode: {one_counts}")
+    # the one-device sort is one CUDA graph: K12's executions are its captured
+    # launches times the iterations its control words report
+    k12_runs = kernels.replayed_counts["segment_minmode"]
+    check(k12_runs > 0, f"parallel: the one-device sort ran no segment_minmode: {one_counts}")
     centers, neigh = build_incidence(g)
     deg = np.bincount(centers, minlength=g.n).astype(np.int32)
     args = [torch.from_numpy(a).cuda() for a in (centers, neigh, deg)]
@@ -1416,8 +1457,8 @@ def _sort_twin_against_oracle(g, one, one_s, one_counts, smi):
                                              cdlp_impl="sort"))
     check(np.array_equal(plain.values, one.values) and plain.iterations == one.iterations,
           "parallel: the one-device sort differs from its plain version")
-    print(f"cdlp-impl=sort on one device ({smi}): {one_s:.6f} s warm on K12 "
-          f"({one_counts.get('segment_minmode', 0)} segment_minmode launches), the torch-op "
+    print(f"cdlp-impl=sort on one device ({smi}): {one_s:.6f} s warm on K12, one CUDA graph "
+          f"({k12_runs} segment_minmode executions inferred), the torch-op "
           f"oracle {oracle_s:.6f} s warm in this call (3.83-3.86 s on an H100 80GB HBM3 at "
           f"700 W when it was the route); equal bit for bit to the oracle and to "
           f"plain_torch(), {it} iterations",
@@ -2078,9 +2119,10 @@ def phase_loop_trace(path, loop):
     check(traced["result_sha256"] == loop["result_sha256"]
           and traced["iterations"] == loop["iterations"],
           f"the child's {path} run differs from this process's")
-    check((traced["host_reads"], traced["graph_launches"]) == (1, 1),
-          f"the child's warm {path} run made {traced['host_reads']} device-to-host copies and "
-          f"{traced['graph_launches']} graph launches")
+    check((traced["host_reads"], traced["graph_launches"], traced["python_launches"]) == (1, 1, 2),
+          f"the child's warm {path} run made {traced['host_reads']} device-to-host copies, "
+          f"{traced['graph_launches']} graph launches and {traced['python_launches']} "
+          f"Python-issued enqueues, not 1, 1 and 2 (the launch and the read)")
     allowed = GRAPH_KERNELS[path] + ("memcpy", "memset", "empty_kernel")
     other = [k for k in records if not any(a in k.lower() for a in allowed)]
     check(not other, f"the {path} graph's trace holds torch-op kernels: {other}")
@@ -2412,6 +2454,325 @@ def phase_loops(g, gw, device):
     print(f"loop kernels: K21, K20's jump mode and K19's min mode = plain at WCC auto's shapes; "
           f"K22 (full and mask mode) and K8's in-place mode = plain at SSSP auto's ({edges} "
           f"edges in the tier-{phase} round, {lowered} lowered)", flush=True)
+    return res, info
+
+
+# the graph paths of phase_fixed_loops, and delta-stepping's further settings
+# on the SSSP graph (name -> config keys) and on a torus of TORUS_SIDE^2
+# vertices (grid_graph, seed 0: the high-diameter case, many buckets)
+FIXED_LOOP_PATHS = ("cdlp-slab", "cdlp-sort", "wcc-device", "sssp-device", "sssp-delta")
+DELTA_SETTINGS = {"sssp-delta 0.3": {"sssp_delta": 0.3},
+                  "sssp-delta tiny caps": {"sssp_delta": 0.3, "sssp_frontier_rows": 64,
+                                           "sssp_frontier_edges": 1024},
+                  "sssp-delta torus": {}}
+TORUS_SIDE = 1024
+# the JAX package's counts on the same graphs, where the records hold them
+# (BENCH_r05.json: cdlp_iters; sssp_rounds, the Bellman-Ford rounds that the
+# adaptive kernel counts round for round as _sssp_kernel does)
+JAX_FIXED_STEPS = {"cdlp-slab": CDLP_ITERS, "cdlp-sort": CDLP_ITERS, "sssp-device": 9}
+
+
+def phase_fixed_loops(g, gw, device):
+    """The fixed-point loops (slab and sort CDLP, WCC device on the bench
+    graph; SSSP device from vertex 0 on the SSSP graph) and delta-stepping
+    (there, at its default delta 2.5, at 0.3, at 0.3 with capacities of 64
+    rows and 1,024 edges, which force both dense fallbacks, and on a
+    1024 x 1024 torus at 2.5), each one CUDA graph (docstring, 4e): built
+    cold, equal to the host loop under plain_torch() (results bit for bit,
+    iterations and every counter), a warm run up to its end under sync
+    debug mode "error" with the library's graph calls counted, warm runs
+    timed (the five paths' traces: phase_loop_trace, last). Then K24 (its
+    advance and a route stage), K25 (compare mode, with the degrees, flag
+    mode), K8's settle mode and K14's bucket mode against their plain
+    versions, at the shapes of these runs: the loops' steps called from the
+    host with the kernels."""
+    import numpy as np
+    import torch
+
+    from graphtpu_torch.algorithms import cdlp as C
+    from graphtpu_torch.algorithms import sssp as S
+    from graphtpu_torch.algorithms import wcc as W
+    from graphtpu_torch.ops import device_loop
+    from graphtpu_torch.ops import fixed_point as F
+    from graphtpu_torch.ops import minmode as M
+    from graphtpu_torch.ops.frontier import (
+        compact_bucket_into, compact_bucket_plain, expand, relax_min_settle,
+        relax_min_settle_plain,
+    )
+    from graphtpu_torch.utils.config import PlatformConfig
+    from graphtpu_torch.utils.synth import grid_graph
+
+    f32 = torch.float32
+    cfg = PlatformConfig(device=str(device))
+    t0 = time.perf_counter()
+    torus = grid_graph(TORUS_SIDE, torus=True, seed=0)
+    print(f"torus {TORUS_SIDE} x {TORUS_SIDE}: n={torus.n}, {torus.nnz} stored edges, made in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    centers, neigh = C.build_incidence(g)
+    deg = np.bincount(centers, minlength=g.n).astype(np.int32)
+    sym = g.symmetrized()
+    plan = M.memoized_cdlp_plan(g, centers, neigh, deg, None, device)
+    csr = C.incidence_csr(g, centers, neigh, deg, device)
+    sprep = S.sssp_prep(gw, f32, device)
+    delta_cfgs = {"sssp-delta": cfg, **{name: PlatformConfig(device=str(device), **over)
+                                        for name, over in DELTA_SETTINGS.items()}}
+
+    def delta_graph(path):
+        return torus if path == "sssp-delta torus" else gw
+
+    def run(path):
+        """(result, iterations, step counts) of one run."""
+        if path == "cdlp-slab":
+            return (*M.cdlp_slab_run(g, centers, neigh, deg, CDLP_ITERS, cfg), ())
+        if path == "cdlp-sort":
+            return (*C.cdlp_sort_run(g, centers, neigh, deg, CDLP_ITERS, 0, device), ())
+        if path == "wcc-device":
+            return (*W.wcc_device_run(g, cfg), ())
+        if path == "sssp-device":
+            return (*S.sssp_device_run(gw, 0, cfg, f32), ())
+        out, it, st = S.sssp_delta_run(delta_graph(path), 0, delta_cfgs[path], f32,
+                                       with_stats=True)
+        return out, it, tuple(st[k] for k in S.DELTA_COUNTS)
+
+    def launch(path):
+        """One warm run up to its last step: (result, ctl, graph, reads)."""
+        if path == "cdlp-slab":
+            return M._launch_slab(g, plan, None, CDLP_ITERS)
+        if path == "cdlp-sort":
+            return C._launch_sort(g, csr, CDLP_ITERS, 0)
+        if path == "wcc-device":
+            return W._launch_device(sym, W.wcc_prep(sym, device))
+        if path == "sssp-device":
+            return S._launch_device(sprep, 0, gw.n, f32, gw.memo)
+        dg, dcfg = delta_graph(path), delta_cfgs[path]
+        light, heavy = S.sssp_delta_prep(dg, float(dcfg.sssp_delta or 2.5), f32, device)
+        return S._launch_delta(dg, S.sssp_prep(dg, f32, device), light, heavy, 0,
+                               float(dcfg.sssp_delta or 2.5),
+                               int(dcfg.sssp_frontier_rows or 1 << 16),
+                               int(dcfg.sssp_frontier_edges or 1 << 18))
+
+    where = {"cdlp-slab": (g.memo, ("cdlp_slab_loop",), M, F.FCTL_IT),
+             "cdlp-sort": (g.memo, ("cdlp_sort_loop",), C, F.FCTL_IT),
+             "wcc-device": (sym.memo, ("wcc_device_loop",), W, F.FCTL_IT),
+             "sssp-device": (gw.memo, ("sssp_device_loop",), S, F.FCTL_IT)}
+
+    def describe(path):
+        def said(it, steps):
+            jax = JAX_FIXED_STEPS.get(path)
+            if steps:
+                text = f"{it} steps: " + ", ".join(
+                    f"{k} {c}" for k, c in zip(S.DELTA_COUNTS, steps))
+            else:
+                text = f"{it} iterations"
+            if jax is None:
+                return text + " (the JAX package's counts at this size are not recorded; the " \
+                    "CPU tests hold them equal at small sizes)"
+            check(it == jax, f"{path}: {it} iterations, the JAX package's {jax}")
+            return text + f" (JAX package, same graph: {jax}: equal)"
+        return said
+
+    info, settings = {}, {}
+    for path in FIXED_LOOP_PATHS + tuple(DELTA_SETTINGS):
+        memo, kinds, mod, it_word = where.get(
+            path, (delta_graph(path).memo, ("sssp_delta_loop",), S, S.DCTL_IT))
+        t0 = time.perf_counter()
+        got = check_loop_graph(path, memo, kinds, lambda path=path: run(path),
+                               lambda path=path: launch(path), mod, it_word, describe(path))
+        (info if path in FIXED_LOOP_PATHS else settings)[path] = got
+        if path in DELTA_SETTINGS:
+            _, _, steps = run(path)
+            got["steps"] = dict(zip(S.DELTA_COUNTS, steps))
+            if "tiny" in path:
+                check(got["steps"]["light_dense"] > 0 and got["steps"]["heavy_dense"] > 0,
+                      f"{path}: the dense fallbacks did not run: {got['steps']}")
+            if "0.3" in path:
+                light, heavy = S.sssp_delta_prep(gw, 0.3, f32, device)
+                check(light.dst.numel() and heavy.dst.numel(),
+                      f"{path}: a weight class without edges")
+            if "torus" in path:
+                check(got["steps"]["buckets"] > TORUS_SIDE // 20,
+                      f"{path}: {got['steps']['buckets']} buckets")
+        print(f"{path} phase: {time.perf_counter() - t0:.3f} s", flush=True)
+    for path in DELTA_SETTINGS:
+        d0 = run("sssp-delta")[0] if "torus" not in path else None
+        if d0 is not None:  # the same fixed point as the default delta and the dense sweeps
+            check(torch.equal(run(path)[0], d0) and torch.equal(d0, run("sssp-device")[0]),
+                  f"{path}: distances differ from sssp-delta's or sssp-device's")
+    info["sssp-delta"]["settings"] = settings
+
+    res = {}
+    # delta-stepping's steps called from the host with the kernels (SSSP
+    # graph, delta 2.5): the state before the first light step and before
+    # the first advance
+    k_cap, e_cap, inv = 1 << 16, 1 << 18, float(torch.tensor(1.0 / 2.5, dtype=f32))
+    light, heavy = S.sssp_delta_prep(gw, 2.5, f32, device)
+    st = S._delta_state(sprep, gw.n, k_cap, handles=False)
+    st.source[0] = 0
+    before = {}
+    steps = dict(S._delta_steps(sprep, light, heavy, st, inv, k_cap, e_cap))
+
+    def kept(name, fn):
+        def step():
+            if name not in before:
+                before[name] = (st.dist.clone(), st.changed.clone(), st.ctl.clone(),
+                                st.ids.clone())
+            fn()
+        return step
+
+    device_loop.run_host(S.DELTA_NEST, {k: kept(k, f) for k, f in steps.items()},
+                         lambda j: bool(st.ctl[S.DCTL_COND + j]))
+    check(torch.equal(st.dist, run("sssp-delta")[0]), "the host walk with the kernels differs")
+    gn = gw.n
+    limit = 4 * gn
+
+    # K24: the advance after bucket 0, and a route stage
+    d0, c0, ctl0, _ = before["advance"]
+    outs = []
+    for plain in (False, True):
+        d, c, ctl = d0.clone(), c0.clone(), ctl0.clone()
+        (S.sssp_delta_route_plain if plain else S.sssp_delta_route)(
+            d, c, st.source, ctl, S.DSTAGE_ADVANCE, inv, limit, k_cap, e_cap)
+        outs.append((d, c, ctl))
+    check(all(torch.equal(a, b) for a, b in zip(*outs)), "sssp_delta_route (advance) differs")
+    k_next = int(outs[0][2][S.DCTL_K])
+    r_ctl = ctl0.clone()
+    outs = []
+    for plain in (False, True):
+        ctl = ctl0.clone()
+        (S.sssp_delta_route_plain if plain else S.sssp_delta_route)(
+            d0, c0, st.source, ctl, S.DSTAGE_DERIVE_HEAVY, inv, limit, k_cap, e_cap)
+        outs.append(ctl)
+    check(torch.equal(*outs), "sssp_delta_route (derive_heavy) differs")
+    res["sssp_delta_route"] = dict(
+        max_abs_err=0.0,
+        times=(cuda_ms(lambda: (r_ctl.copy_(ctl0), S.sssp_delta_route(
+            d0, c0, st.source, r_ctl, S.DSTAGE_ADVANCE, inv, limit, k_cap, e_cap)),
+            only=("k24_", "Memset")),
+               cuda_ms(lambda: S.sssp_delta_route_plain(d0, c0, st.source, r_ctl,
+                                                        S.DSTAGE_ADVANCE, inv, limit, k_cap,
+                                                        e_cap))),
+        shape=f"float32, advance after bucket 0 of SSSP delta: {gn} distances, next bucket "
+              f"{k_next}",
+        # the distances read once, the control words read and written
+        bytes=4 * gn + 2 * 4 * S.DCTL_WORDS, ops=gn, library=None,
+        other_shapes=[dict(
+            shape="a route stage (derive_heavy): the control words only, one thread",
+            times=(cuda_ms(lambda: S.sssp_delta_route(d0, c0, st.source, r_ctl,
+                                                      S.DSTAGE_DERIVE_HEAVY, inv, limit, k_cap,
+                                                      e_cap)), None),
+            bytes=2 * 4 * S.DCTL_WORDS, ops=1)])
+
+    # K14's bucket mode: the first heavy derive (bucket 0 after its light
+    # phase), and the light derive (with the changed marks) at that state
+    d0, c0, ctl0, _ = before["derive_heavy"]
+    k_at = ctl0[S.DCTL_K:S.DCTL_K + 1].clone()
+    counts = []
+    for mask, cls in ((None, heavy), (c0, light)):
+        outs = []
+        for plain in (False, True):
+            ids = torch.empty(k_cap, dtype=torch.int32, device=device)
+            status = torch.zeros(2, dtype=torch.int32, device=device)
+            (compact_bucket_plain if plain else compact_bucket_into)(d0, inv, k_at, mask,
+                                                                     cls.deg_pad, ids, status)
+            outs.append((ids, status))
+        check(all(torch.equal(a, b) for a, b in zip(*outs)), "compact_bucket_into differs")
+        counts.append(int(outs[0][1][0]))
+    ids, status = torch.empty(k_cap, dtype=torch.int32, device=device), \
+        torch.zeros(2, dtype=torch.int32, device=device)
+    bucket0 = int(k_at)
+    res["frontier_compact_bucket"] = dict(
+        max_abs_err=0.0,
+        times=(cuda_ms(lambda: compact_bucket_into(d0, inv, k_at, None, heavy.deg_pad, ids,
+                                                   status)),
+               cuda_ms(lambda: compact_bucket_plain(d0, inv, k_at, None, heavy.deg_pad, ids,
+                                                    status))),
+        shape=f"float32, SSSP delta's first heavy derive (bucket {bucket0}): {gn} distances, "
+              f"{counts[0]} in the bucket, k = {k_cap}",
+        # the distances read once; the ids written, their degrees, the status
+        bytes=4 * gn + 8 * min(counts[0], k_cap) + 8, ops=gn, library=None,
+        other_shapes=[dict(
+            shape=f"the light derive at that state (changed marks read): {counts[1]} in it",
+            times=(cuda_ms(lambda: compact_bucket_into(d0, inv, k_at, c0, light.deg_pad, ids,
+                                                       status)), None),
+            bytes=5 * gn + 8 * min(counts[1], k_cap) + 8, ops=gn)])
+
+    # K8's settle mode: the first light step (the source's light out-edges)
+    d0, c0, _, ids0 = before["light"]
+    exp = expand(ids0, light.deg_pad, light.indptr, light.dst, e_cap, with_row_ids=False)
+    edges, rows = int(exp.edge_count), int((ids0 < gn).sum())
+    outs = []
+    for plain in (False, True):
+        d, c = d0.clone(), c0.clone()
+        (relax_min_settle_plain if plain else relax_min_settle)(d, ids0, exp, light.w, c)
+        outs.append((d, c))
+    check(all(torch.equal(a, b) for a, b in zip(*outs)), "relax_min_settle differs")
+    lowered = int((outs[0][0] < d0).sum())
+    d, c = d0.clone(), c0.clone()
+    res["push_relax_min_settle"] = dict(
+        max_abs_err=0.0,
+        times=(cuda_ms(lambda: (d.copy_(d0), relax_min_settle(d, ids0, exp, light.w, c)),
+                       only=("k8_settle_clear", "push_relax_settle")),
+               cuda_ms(lambda: relax_min_settle_plain(d, ids0, exp, light.w, c))),
+        shape=f"float32, SSSP delta's first light step: {ids0.shape[0]} rows ({rows} real), "
+              f"{edges} edges in {exp.neigh.shape[0]} slots, {lowered} lowered",
+        # per real row its id, distance and mark; per real slot rows_local,
+        # neigh, gpos, a weight and the target's distance; the lowered
+        # targets' distance and mark
+        bytes=9 * rows + 20 * edges + 5 * lowered, ops=2 * edges, library=None)
+
+    # K25: slab CDLP's iteration 1 (compare mode), sort CDLP's first step
+    # (with the degrees), SSSP device's round (flag mode)
+    iota = torch.arange(g.n, dtype=torch.int32, device=device)
+    lab1 = M._iter0_minmode(plan, iota)
+    new1 = M.cdlp_step(lab1, plan)
+    fp = F.control(device, False)
+    fp.params[0] = CDLP_ITERS
+    outs = []
+    for plain in (False, True):
+        o, ctl = lab1.clone(), F.control(device, False)
+        ctl.ctl.copy_(torch.tensor([1, CDLP_ITERS, 0, 1, 1], dtype=torch.int32))
+        (F.fixed_point_route_plain if plain else F.fixed_point_route)(
+            ctl, F.STAGE_STEP, old=o, new=new1)
+        outs.append((o, ctl.ctl))
+    check(all(torch.equal(a, b) for a, b in zip(*outs)), "fixed_point_route differs")
+    changed = int((new1 != lab1).sum())
+    c_nb, c_neigh, c_ip, c_deg = csr
+    new_s = M.stream_minmode(iota, c_nb, c_neigh, c_ip)
+    outs = []
+    for plain in (False, True):
+        o, ctl = iota.clone(), F.control(device, False)
+        (F.fixed_point_route_plain if plain else F.fixed_point_route)(
+            ctl, F.STAGE_STEP, old=o, new=new_s, deg=c_deg)
+        outs.append((o, ctl.ctl))
+    check(all(torch.equal(a, b) for a, b in zip(*outs)), "fixed_point_route (degrees) differs")
+    s_changed = int((outs[0][0] != iota).sum())
+    flag = torch.ones((), dtype=torch.int32, device=device)
+    o = lab1.clone()
+    fp.ctl.copy_(torch.tensor([1, CDLP_ITERS, 0, 1, 1], dtype=torch.int32))
+    res["fixed_point_route"] = dict(
+        max_abs_err=0.0,
+        times=(cuda_ms(lambda: (o.copy_(lab1), F.fixed_point_route(fp, F.STAGE_STEP, old=o,
+                                                                    new=new1)),
+                       only=("k25_", "Memset")),
+               cuda_ms(lambda: F.fixed_point_route_plain(fp, F.STAGE_STEP, old=o, new=new1))),
+        shape=f"compare mode, slab CDLP's iteration 1: {g.n} labels, {changed} changed",
+        # old and new read, the changed labels written, the control words
+        bytes=8 * g.n + 4 * changed + 2 * 4 * F.FCTL_WORDS, ops=g.n, library=None,
+        other_shapes=[
+            dict(shape=f"with the degrees, sort CDLP's first step: {g.n} labels, {s_changed} "
+                       f"changed",
+                 times=(cuda_ms(lambda: (o.copy_(iota), F.fixed_point_route(
+                     fp, F.STAGE_STEP, old=o, new=new_s, deg=c_deg)), only=("k25_", "Memset")),
+                        None),
+                 bytes=12 * g.n + 4 * s_changed + 2 * 4 * F.FCTL_WORDS, ops=g.n),
+            dict(shape="flag mode (SSSP and WCC device): one word read, one thread",
+                 times=(cuda_ms(lambda: F.fixed_point_route(fp, F.STAGE_STEP, flag=flag)),
+                        None),
+                 bytes=4 + 2 * 4 * F.FCTL_WORDS, ops=1)])
+    print(f"fixed-point and delta kernels: K24 (advance to bucket {k_next}, a route), K14's "
+          f"bucket mode ({counts} in bucket {bucket0}), K8's settle mode ({edges} edges, {lowered} "
+          f"lowered) and K25 (compare, degrees, flag) = plain at these loops' shapes",
+          flush=True)
     return res, info
 
 
@@ -3252,62 +3613,77 @@ def phase_lcc_kernels(g, wplan, real_wedges, lcc_values, device):
                  lambda h=h: torch.index_select(eh.table, 0, h)),
     )
 
-    # K10, bucket by bucket: kernel against plain, bit for bit, twice; the
-    # plain pass is made once, timed with CUDA events, and its credits give
-    # the plain path's numerators. The kernel searches the closing CSR; the
-    # plain version probes the edge hash.
+    # K10, bucket by bucket: the kernel twice, bit for bit; against the plain
+    # version, bit for bit, on the first rows of each bucket (K10_PLAIN_SHARE
+    # of them, at least one: every bucket is a launch shape of its own), the
+    # plain pass made once, timed with CUDA events beside the kernel on the
+    # same rows. The whole numerators stay held by K15's sweep (k15). The
+    # kernel searches the closing CSR; the plain version probes the edge
+    # hash.
     closing = wplan.closing
     keys = closing_keys(wplan, device)
     check(torch.equal(keys >> id_bits, torch.repeat_interleave(
         torch.arange(g.n, device=device), closing.indptr.diff().long()))
           and torch.equal(keys & ((1 << id_bits) - 1), closing.ids.long()),
           "the closing CSR is not the hash's keys")
-    buckets = []
-    kernel_credits, plain_credits = [], []
+    buckets, subsets = [], []
+    kernel_credits = []
     real_entries = reads = 0
+    sub_entries = sub_wedges = sub_reads = sub_rows = 0
     print(f"card before the K10 timings: {card_state()}", flush=True)
     for b in wplan.buckets:
         args = (b.slab, b.mslab, eh, id_bits, b.chunk_cols, closing)
         got = wedge_rowblock(*args)
         again = wedge_rowblock(*args)
+        w, r_pad = b.slab.shape
+        # the plain version's rows: the first of the bucket, as one row block
+        r_sub = max(1, min(b.chunk_cols, int(r_pad * K10_PLAIN_SHARE)))
+        sub = (b.slab[:, :r_sub].contiguous(), b.mslab[:, :r_sub].contiguous(), eh, id_bits,
+               r_sub, closing)
+        got_sub = wedge_rowblock(*sub)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         with kernels.plain_torch():
             start.record()
-            want = wedge_rowblock(*args)
+            want = wedge_rowblock(*sub)
             end.record()
         torch.cuda.synchronize()
-        w, r_pad = b.slab.shape
         what = f"wedge_rowblock bucket W={w} R_pad={r_pad}"
-        for name, a, a2, c in zip(("u_cred", "edge_cred"), got, again, want):
-            check(torch.equal(a, c), f"{what} {name} differs from its plain version")
+        for name, a, a2, a_sub, c in zip(("u_cred", "edge_cred"), got, again, got_sub, want):
+            check(torch.equal(a_sub, c), f"{what} {name} differs from its plain version on its "
+                  f"first {r_sub} rows")
+            check(torch.equal(a[..., :r_sub], a_sub), f"{what} {name}: the first {r_sub} rows "
+                  f"alone differ from the whole bucket's")
             check(torch.equal(a, a2), f"{what} {name}: two runs differ")
         check(not bool(got[0][b.r_real:].any()), f"{what}: credits in pad rows")
         kernel_credits.append(got)
-        plain_credits.append(want)
         entries, wedges, b_reads = wedge_work(b.slab, keys, id_bits)
         real_entries += entries
         reads += b_reads
+        s_entries, s_wedges, s_reads = wedge_work(sub[0], keys, id_bits)
+        sub_entries, sub_wedges, sub_reads = (sub_entries + s_entries, sub_wedges + s_wedges,
+                                              sub_reads + s_reads)
+        sub_rows += min(r_sub, b.r_real)
+        subsets.append(sub)
         k_ms = cuda_ms(lambda: wedge_rowblock(*args), reps=3)[0]
         buckets.append(dict(W=w, R_pad=r_pad, rows=b.r_real, real_wedges=wedges,
-                            list_reads=b_reads, ms=k_ms, plain_ms=start.elapsed_time(end)))
+                            list_reads=b_reads, ms=k_ms, plain_rows=r_sub,
+                            plain_wedges=s_wedges, plain_ms=start.elapsed_time(end)))
         print(f"kernel wedge_rowblock bucket W={w} R_pad={r_pad} ({b.r_real} rows, {wedges} "
               f"real wedges, {b_reads} out-list entries read): device {k_ms:.6f} ms "
               f"({wedges / k_ms / 1e6:.3f} G searches/s, {b_reads * 4 / 1e9:.3f} GB of lists "
-              f"read, {b_reads * 4 / k_ms / 1e6:.3f} GB/s) vs plain "
-              f"{buckets[-1]['plain_ms']:.3f} ms", flush=True)
+              f"read, {b_reads * 4 / k_ms / 1e6:.3f} GB/s); plain on its first {r_sub} rows "
+              f"({s_wedges} wedges) {buckets[-1]['plain_ms']:.3f} ms", flush=True)
     check(sum(bk["real_wedges"] for bk in buckets) == real_wedges, "real wedges by bucket")
     kernel_num = numerator_from_credits(wplan, kernel_credits)
-    plain_num = numerator_from_credits(wplan, plain_credits)
-    check(np.array_equal(kernel_num, plain_num), "lcc numerators differ, kernel vs plain path")
     check(np.array_equal(coefficients(kernel_num, wplan.deg_s), lcc_values),
           "the lcc path's coefficients are not those of these numerators")
     check(np.array_equal(lcc_oriented_numerator(wplan), kernel_num),
           "lcc numerators: two runs differ")
     num_sum = int(kernel_num.sum())
-    print(f"real size: lcc numerators identical, kernel path vs plain path (sum {num_sum}, "
+    print(f"real size: lcc numerators of the kernel path (sum {num_sum}, "
           f"{int((kernel_num > 0).sum())} vertices in a triangle; mean coefficient "
-          f"{lcc_values.mean():.6f})", flush=True)
-    del plain_credits
+          f"{lcc_values.mean():.6f}); each bucket's first rows equal to the plain version's "
+          f"({sub_wedges} wedges)", flush=True)
 
     # K16 on the plan's head credits (the kernel credits of every bucket, in
     # slab order, with the centres' credits), beside K7 sum_i64 over the
@@ -3386,6 +3762,10 @@ def phase_lcc_kernels(g, wplan, real_wedges, lcc_values, device):
         for b in wplan.buckets:
             wedge_rowblock(b.slab, b.mslab, eh, id_bits, b.chunk_cols, closing)
 
+    def first_rows():
+        for sub in subsets:
+            wedge_rowblock(*sub)
+
     plain_ms = sum(bk["plain_ms"] for bk in buckets)
     # read once: the real slab and mslab entries, the closing CSR (ids and
     # multiplicities of every list, the indptr); written once: u_cred per
@@ -3393,28 +3773,39 @@ def phase_lcc_kernels(g, wplan, real_wedges, lcc_values, device):
     rows = sum(b.r_real for b in wplan.buckets)
     small = real_entries * 8 + rows * 4 + real_entries * 4
     nbytes = small + closing.ids.numel() * 5 + closing.indptr.numel() * 4
+    sub_bytes = sub_entries * 12 + sub_rows * 4 + closing.ids.numel() * 5 + \
+        closing.indptr.numel() * 4
     k10_times = cuda_ms(all_buckets, reps=3)
     print(f"card after the K10 timings: {card_state()}", flush=True)
     res["wedge_rowblock"] = dict(
         max_abs_err=0.0,
-        times=(k10_times, (plain_ms, plain_ms)),
-        shape=(f"all {len(wplan.buckets)} buckets of the benchmark graph's wedge plan (one LCC "
-               f"run's wedge work): {real_wedges} real wedges, {real_entries} slab entries, "
-               f"{rows} rows, {reads} out-list entries read, closing CSR of "
-               f"{closing.ids.numel()} heads; plain version: one pass, CUDA events"),
+        times=(cuda_ms(first_rows, reps=3), (plain_ms, plain_ms)),
+        shape=(f"the first rows of each of the {len(wplan.buckets)} buckets of the benchmark "
+               f"graph's wedge plan (a share {K10_PLAIN_SHARE} of each, at least one, at most "
+               f"its row block): {sub_wedges} real wedges, {sub_entries} slab entries, "
+               f"{sub_rows} rows, {sub_reads} out-list entries read; plain version: one pass, "
+               f"CUDA events"),
         # merge steps: intersecting each entry's later entries (a) with out(x)
         # up to the row's largest id (b) takes a + b steps, summed: the
         # wedges plus the list entries read
-        bytes=nbytes, ops=real_wedges + reads,
+        bytes=sub_bytes, ops=sub_wedges + sub_reads,
         library=None,  # no single call: pair enumeration, a search, three scatter-adds
         buckets=buckets,
-        traffic=(reads * 4 + small,
+        other_shapes=[dict(
+            shape=(f"all {len(wplan.buckets)} buckets (one LCC run's wedge work): "
+                   f"{real_wedges} real wedges, {real_entries} slab entries, {rows} rows, "
+                   f"{reads} out-list entries read, closing CSR of {closing.ids.numel()} "
+                   f"heads"),
+            times=(k10_times, None), bytes=nbytes, ops=real_wedges + reads)],
+        traffic=(sub_reads * 4 + sub_entries * 12 + sub_rows * 4,
                  "each out-list entry read from device memory for every entry that reads it"),
     )
     return res, k9_launches, k15_launches, num_sum
 
 
 K15_PREFIX = 1 << 16  # plan entries of each bucket in K15's plain pass at the bench size
+# the share of each wedge bucket's rows (the first ones) in K10's plain pass
+K10_PLAIN_SHARE = 1 / 16
 
 
 def k15(g, oriented_num, device):
@@ -3547,6 +3938,32 @@ def plan_summary(plan):
             f"{'regrouped by row' if plan.idx is not None else 'in row order'}")
 
 
+K11_PLAIN_SHARE = 1 / 16  # of each task list's mask entries, in K11's plain pass at the bench size
+
+
+def k11_plain_entries(plan):
+    """The mask entries of the first tasks of each of ``plan``'s task lists
+    (warp rows, block rows, column windows), K11_PLAIN_SHARE of each list's
+    entries and at least one task (the windows of whole rows): int64
+    positions, ascending. Every launch a call makes is held against the
+    plain version on them."""
+    import numpy as np
+
+    parts = []
+    for tasks, idx in ((plan.warp_tasks, plan.idx), (plan.block_tasks, plan.idx),
+                       (plan.win_tasks, plan.win_idx)):
+        t = tasks.cpu().numpy().astype(np.int64)
+        if not t.shape[0]:
+            continue
+        sizes = t[:, 2] - t[:, 1]
+        take = int(np.searchsorted(np.cumsum(sizes), sizes.sum() * K11_PLAIN_SHARE)) + 1
+        if tasks is plan.win_tasks:  # whole rows, so that they are windowed again
+            take = int(np.nonzero(t[:, 0] == t[min(take, t.shape[0]) - 1, 0])[0][-1]) + 1
+        pos = np.concatenate([np.arange(lo, hi) for lo, hi in t[:take, 1:3]])
+        parts.append(pos if idx is None else idx.cpu().numpy()[pos].astype(np.int64))
+    return np.unique(np.concatenate(parts))
+
+
 def plain_in_chunks(semiring, a, b, rows_h, cols_h):
     """K11's plain version over the mask in chunks of at most SPGEMM_SLOTS
     padded slab slots (the whole slab does not fit in device memory at the
@@ -3576,7 +3993,8 @@ def phase_spgemm(g, num_sum, device):
     stored CSR with values (rows longer than A's), the mask = every stored
     edge. (b) One call at the bench graph's size: C<U> = U.U under plus.pair,
     whose sum over the mask is the triangle count, a sixth of the LCC
-    numerators' sum; against one pass of its plain version in chunks.
+    numerators' sum; on the entries of its plan's first tasks of each kind
+    (``k11_plain_entries``) against one pass of its plain version in chunks.
     Returns K11's result and its launches in (b)."""
     import numpy as np
     import torch
@@ -3659,6 +4077,7 @@ def phase_spgemm(g, num_sum, device):
     plan = plan_masked_spgemm(u, u, rows, cols)
     check(plan.idx is None, "U's entries are sorted by row: the plan should keep their order")
     print(f"masked_spgemm plan on {BENCH_GRAPH} (mask: U): {plan_summary(plan)}", flush=True)
+    sel = k11_plain_entries(plan)
     del plan
     kernels.reset_launch_counts()
     torch.cuda.synchronize()
@@ -3689,15 +4108,30 @@ def phase_spgemm(g, num_sum, device):
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     call_wall_ms = sorted(walls)[1]
-    # the plain pass last: profiler traces taken after it lost records
+    # the plain version's entries: the first tasks of each of the plan's task
+    # lists (K11_PLAIN_SHARE of each list's mask entries), the kernel timed on
+    # them as one call; the plain pass last: profiler traces taken after it
+    # lost records
+    sel_t = torch.from_numpy(sel).to(device)
+    s_rows, s_cols = rows[sel_t], cols[sel_t]
+    s_got = masked_spgemm_rows(PLUS_PAIR, u, u, s_rows, s_cols)
+    check(torch.equal(s_got, got[sel_t]), "masked_spgemm on the plain pass's entries alone "
+          "differs from the whole call's")
+    s_launches = plan_masked_spgemm(u, u, s_rows, s_cols).launches
+    check(s_launches == launches, f"the plain pass's entries take {s_launches} of K11's "
+          f"{launches} launch kinds")
+    s_times = cuda_ms(lambda: masked_spgemm_rows(PLUS_PAIR, u, u, s_rows, s_cols), reps=3,
+                      only=TRACE_KERNELS_OF["masked_spgemm"])
+    s_terms, s_steps, s_reads = spgemm_work(u, u, s_rows)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    rows_h, cols_h = rows.cpu().numpy(), cols.cpu().numpy()
+    rows_h, cols_h = s_rows.cpu().numpy(), s_cols.cpu().numpy()
     start.record()
     want, chunks = plain_in_chunks(PLUS_PAIR, u, u, rows_h, cols_h)
     end.record()
     torch.cuda.synchronize()
     plain_ms = start.elapsed_time(end)
-    check(torch.equal(got, want), "masked_spgemm differs from its plain version at the bench size")
+    check(torch.equal(s_got, want), "masked_spgemm differs from its plain version at the bench "
+          "size")
     del want
     torch.cuda.empty_cache()
     print(f"masked_spgemm C<U> = U.U (plus.pair) on {BENCH_GRAPH}: {m} mask entries, {terms} "
@@ -3705,24 +4139,30 @@ def phase_spgemm(g, num_sum, device):
           f"and as many lookups (this design's: {2 * reads}); first call {one_call:.3f} s, "
           f"{launches} launches; a call {call_ms:.6f} ms of device time (planning included), "
           f"{call_wall_ms:.3f} ms of wall time; sum {triangles} triangles = the LCC numerators' "
-          f"{num_sum} / 6; identical to one pass of the plain version in {chunks} chunks "
-          f"({plain_ms:.3f} ms)", flush=True)
+          f"{num_sum} / 6; on its plan's first tasks ({sel.size} mask entries) identical to "
+          f"one pass of the plain version in {chunks} chunks ({plain_ms:.3f} ms)", flush=True)
     res = dict(
         max_abs_err=0.0,
-        times=(k11_times, (plain_ms, plain_ms)),
-        shape=(f"C<U> = U.U plus.pair over the bench graph's degree-oriented structure: {m} "
-               f"mask entries, {terms} terms, {steps} search steps, {reads} row-wise reads; "
-               f"K11's {launches} launches alone; plain version: one pass in {chunks} chunks, "
-               f"CUDA events"),
+        times=(s_times, (plain_ms, plain_ms)),
+        shape=(f"C<U> = U.U plus.pair over the bench graph's degree-oriented structure, on the "
+               f"first tasks of each of its plan's task lists ({K11_PLAIN_SHARE} of each "
+               f"list's entries): {sel.size} mask entries, {s_terms} terms, {s_steps} search "
+               f"steps, {s_reads} row-wise reads; K11's {s_launches} launches alone; plain "
+               f"version: one pass in {chunks} chunks, CUDA events"),
         call_ms=call_ms, call_wall_ms=call_wall_ms,
         # read once: the mask (rows, cols), U's indptr and columns (A and B
         # are one CSR); written once: a float32 per mask entry. Operations:
         # the lesser of the two designs' counts, the search steps of one
         # search per term or a read and a lookup per row-wise B entry
-        bytes=m * 12 + u.indptr.numel() * 4 + u.col.numel() * 4, ops=min(steps, 2 * reads),
-        ops_by_design={"search per term": steps, "row-wise read and lookup": 2 * reads},
+        bytes=sel.size * 12 + u.indptr.numel() * 4 + u.col.numel() * 4,
+        ops=min(s_steps, 2 * s_reads),
+        ops_by_design={"search per term": s_steps, "row-wise read and lookup": 2 * s_reads},
         library=None,  # none: torch has no masked SpGEMM (sampled_addmm takes dense factors)
-        other_shapes=[small_shape],
+        other_shapes=[dict(
+            shape=(f"the whole C<U> = U.U: {m} mask entries, {terms} terms, {steps} search "
+                   f"steps, {reads} row-wise reads; K11's {launches} launches alone"),
+            times=(k11_times, None), bytes=m * 12 + u.indptr.numel() * 4 + u.col.numel() * 4,
+            ops=min(steps, 2 * reads)), small_shape],
     )
     return {"masked_spgemm": res}, launches
 
@@ -3828,6 +4268,12 @@ SOURCES = {
                            "graphtpu/algorithms/bfs.py:225"),
     "bfs_residual_claim_at": ("graphtpu_torch/csrc/bfs_residual.cu",
                               "graphtpu/algorithms/bfs.py:236"),
+    "sssp_delta_route": ("graphtpu_torch/csrc/sssp_delta.cu", "graphtpu/algorithms/sssp.py:211"),
+    "fixed_point_route": ("graphtpu_torch/csrc/fixed_point.cu", "graphtpu/algorithms/sssp.py:38"),
+    "frontier_compact_bucket": ("graphtpu_torch/csrc/frontier_compact.cu",
+                                "graphtpu/algorithms/sssp.py:258"),
+    "push_relax_min_settle": ("graphtpu_torch/csrc/push_relax.cu",
+                              "graphtpu/algorithms/sssp.py:249"),
 }
 
 
@@ -4040,12 +4486,17 @@ def main() -> int:
              else "already built")
     print(f"native ingest library: {native.library_path().name} {built}", flush=True)
 
+    t0 = time.perf_counter()
     phase_goldens(device)
+    print(f"goldens phase: {time.perf_counter() - t0:.3f} s", flush=True)
     t0 = time.perf_counter()
     phase_harness(device)
     print(f"harness phase: {time.perf_counter() - t0:.3f} s", flush=True)
+    t0 = time.perf_counter()
     g, gw, prep, pr_plan, (wplan, real_wedges, lcc_values), path_launches, real_steps = \
         phase_real_size(device)
+    print(f"real-size phase (both graphs made or loaded): {time.perf_counter() - t0:.3f} s",
+          flush=True)
     for path, (_, _, needed) in PATHS.items():
         per_run = {k: v / RUNS_PER_PATH for k, v in path_launches[path].items() if v}
         if path in GRAPH_PATHS:  # its kernels' executions: the trace (phase_loop_trace)
@@ -4078,8 +4529,10 @@ def main() -> int:
     launches["vreg_shuffle"] = phase_vreg_shuffle(device)
     print(f"peak device memory allocated {torch.cuda.max_memory_allocated(device) / 2**30:.3f} "
           f"GiB", flush=True)
+    t0 = time.perf_counter()
     res = phase_kernels(g, prep, pr_plan, device)
     res.update(phase_traversal_kernels(g, gw, device))
+    print(f"kernel phase: {time.perf_counter() - t0:.3f} s", flush=True)
     t0 = time.perf_counter()
     loop_res, cdlp_loop = phase_cdlp_loop(g, prep, device)
     res.update(loop_res)
@@ -4094,14 +4547,23 @@ def main() -> int:
     res.update(loop_res)
     loops.update(bfs_loops)
     print(f"bfs loop phase: {time.perf_counter() - t0:.3f} s", flush=True)
+    t0 = time.perf_counter()
+    loop_res, fixed_loops = phase_fixed_loops(g, gw, device)
+    res.update(loop_res)
+    loops.update(fixed_loops)
+    print(f"fixed-point and delta loop phase: {time.perf_counter() - t0:.3f} s", flush=True)
+    t0 = time.perf_counter()
     lcc_res, launches["edgehash_probe"], launches["lcc_sweep_member"], num_sum = \
         phase_lcc_kernels(g, wplan, real_wedges, lcc_values, device)
     res.update(lcc_res)
+    print(f"lcc kernel phase: {time.perf_counter() - t0:.3f} s", flush=True)
+    t0 = time.perf_counter()
     empty_ms = cuda_ms(lambda: kernels.launch_empty(device), reps=100, empty_kernel=True)[0]
     print(f"kernel that returns at once (one block of one thread): device {empty_ms:.6f} ms, "
           f"the floor under the launch-sized rows", flush=True)
     for name, r in res.items():
         report_kernel(name, r, empty_ms)
+    print(f"kernel report phase: {time.perf_counter() - t0:.3f} s", flush=True)
     # after the other kernels' timings: in a run where K11's phase came
     # first, every profiler trace taken after its chunked plain pass lost
     # records
@@ -4124,6 +4586,10 @@ def main() -> int:
     # count is that warm run's
     launches["push_relax_min_i32"] = parallel["wcc_adaptive_dist"]["launches"].get(
         "push_relax_min_i32", 0)
+    # K8's copy mode likewise runs on the distributed SSSP's active steps only
+    # (delta-stepping's steps are its settle mode)
+    launches["push_relax_min"] = parallel["sssp_adaptive_dist"]["launches"].get(
+        "push_relax_min", 0)
     print(f"parallel phase: {time.perf_counter() - t0:.3f} s", flush=True)
     t0 = time.perf_counter()
     gc, _ = load_graph(*CKPT_GRAPH, weighted=False)

@@ -30,10 +30,14 @@ csr_pull_reduce, K8 push_relax_min, K9 edgehash_probe, K10 wedge_rowblock,
 K11 masked_spgemm, K12 segment_minmode, K13 bfs_trunc_probe, K14
 frontier_compact, K15 lcc_sweep_member, K16 lcc_head_credits, K17
 bfs_residual_claim, K18 frontier_starts, K19 cdlp_tier_apply, K20
-cdlp_route, K21 wcc_jump, K22 sssp_apply and K23 bfs_apply; each wrapper
-takes its plain PyTorch version for a CPU tensor. On a card the adaptive
-loops of CDLP, WCC, SSSP and BFS, and BFS's dense loop, each run as one CUDA
-graph with conditional nodes (``ops/device_loop.py``).
+cdlp_route, K21 wcc_jump, K22 sssp_apply, K23 bfs_apply, K24
+sssp_delta_route and K25 fixed_point_route; each wrapper takes its plain
+PyTorch version for a CPU tensor. On a card every single-device loop but
+the host designs (the hybrids, iteration timing) runs as one CUDA graph
+with conditional nodes: the adaptive loops of CDLP, WCC, SSSP and BFS,
+BFS's dense loop and delta-stepping (``ops/device_loop.py``), and the
+fixed-point loops of slab and sort CDLP and of WCC's and SSSP's device
+impls (``ops/fixed_point.py``).
 """
 
 __version__ = "0.1.0"

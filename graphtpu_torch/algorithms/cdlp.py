@@ -15,10 +15,14 @@ kernel K2 alone (ops/minmode.py); "sort" takes each vertex's min-mode over
 its whole incidence row on kernel K12 (``stream_minmode``), the function
 the reference computes by a global sort and run-length scan
 (LAGraph_cdlp.c:286-323), which ``_cdlp_sort_kernel`` keeps in torch ops as
-the oracle.
+the oracle. Slab and sort are each one fixed-point device loop
+(ops/fixed_point.py, the JAX package's ``_cdlp_slab_kernel`` and
+``_cdlp_sort_kernel``): on a card one CUDA graph and one read.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -26,6 +30,7 @@ import torch
 from graphtpu_torch.algorithms.common import AlgorithmResult, register
 from graphtpu_torch.core.graph import Graph
 from graphtpu_torch.core.types import INT32_INF
+from graphtpu_torch.ops import fixed_point
 from graphtpu_torch.utils.config import AlgorithmParams, PlatformConfig
 
 IMPLS = ("auto", "adaptive", "adaptive-host", "slab", "sort")
@@ -105,24 +110,73 @@ def incidence_csr(graph: Graph, centers, neigh, deg, device):
     return csr
 
 
+class SortState(NamedTuple):
+    """Sort CDLP's loop state, allocated once (per graph and device on a card)."""
+
+    labels: torch.Tensor  # [n] int32
+    iota: torch.Tensor    # [n] int32: the identity labels the loop starts from
+    fp: fixed_point.Control
+
+
+def _sort_steps(csr, st: SortState):
+    """(name, step) of sort CDLP's loop: init (the identity labels, a copy)
+    and a step: each vertex's min-mode over its incidence row on K12, then
+    K25 takes it where the vertex has a neighbour (``has_neighbors``),
+    compares it with the old label and routes."""
+    from graphtpu_torch.ops import minmode
+
+    c, nb, indptr, d = csr
+
+    def init():
+        st.labels.copy_(st.iota)
+        fixed_point.fixed_point_route(st.fp, fixed_point.STAGE_INIT)
+
+    def step():
+        new = minmode.stream_minmode(st.labels, c, nb, indptr)
+        fixed_point.fixed_point_route(st.fp, fixed_point.STAGE_STEP, old=st.labels, new=new,
+                                      deg=d)
+
+    return [("init", init), ("step", step)]
+
+
+# how the last cdlp_sort_run went: its driver ("graph" or "host loop") and
+# the host loop's reads of the condition
+last_run: dict = {}
+
+
+def _launch_sort(graph: Graph, csr, itermax: int, skip_checks: int):
+    """Sort CDLP's loop run up to its last step (``fixed_point.launch``), the
+    graph memoized on ``graph`` by device: (labels, ctl, the graph or None,
+    the host loop's reads)."""
+    n, device = graph.n, csr[2].device
+
+    def make_state(handles):
+        i32 = dict(dtype=torch.int32, device=device)
+        return SortState(torch.zeros(n, **i32), torch.arange(n, **i32),
+                         fixed_point.control(device, handles))
+
+    return fixed_point.launch(
+        csr[2], graph.memo, ("cdlp_sort_loop", str(device)), make_state,
+        lambda st: _sort_steps(csr, st), lambda st: st.labels, int(itermax), int(skip_checks),
+        ranges={"step": "cdlp.sort_step"}, range_name="cdlp.graph")
+
+
 def cdlp_sort_run(graph: Graph, centers, neigh, deg, itermax: int, skip_checks: int, device):
     """cdlp-impl=sort: per iteration, each vertex's min-mode over its
     incidence row on K12 (its plain version on the CPU and under
     ``kernels.plain_torch()``); vertices without neighbours keep their
-    label. The first ``skip_checks`` iterations count as changed, without
-    the read (as ``_cdlp_sort_kernel``); after them, one device read an
-    iteration. Returns (labels on ``device``, iterations)."""
-    from graphtpu_torch.ops.minmode import stream_minmode
-
-    c, nb, indptr, d = incidence_csr(graph, centers, neigh, deg, device)
-    has_neighbors = d > 0
-    labels = torch.arange(graph.n, dtype=torch.int32, device=device)
-    it, changed = 0, True
-    while changed and it < itermax:
-        new = torch.where(has_neighbors, stream_minmode(labels, c, nb, indptr), labels)
-        changed = it < skip_checks or bool((new != labels).any())
-        labels, it = new, it + 1
-    return labels, it
+    label. The first ``skip_checks`` iterations count as changed (as
+    ``_cdlp_sort_kernel``). One device loop: on a card one CUDA graph,
+    memoized on the Graph, and one read of the control words. Returns
+    (labels on ``device``, iterations)."""
+    csr = incidence_csr(graph, centers, neigh, deg, device)
+    labels, ctl_t, loop, reads = _launch_sort(graph, csr, itermax, skip_checks)
+    ctl = ctl_t.tolist()  # the run's one read
+    if loop is not None:
+        loop.account(fixed_point.runs(ctl))
+    last_run.clear()
+    last_run.update(driver="host loop" if loop is None else "graph", condition_reads=reads)
+    return labels, ctl[fixed_point.FCTL_IT]
 
 
 def _resolve_impl(cfg: PlatformConfig) -> str:

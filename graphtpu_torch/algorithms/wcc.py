@@ -15,7 +15,9 @@ over its neighbours' labels and its own, then jumps pointers twice
   mode), then active-set steps on the frontier engine once the changed
   rows fit its capacities (``_wcc_adaptive_loop``);
 * "adaptive": the same, with full steps on the edge stream (kernel K7);
-* "device": full steps on K7 only, to the fixed point.
+* "device": full steps on K7 only, to the fixed point (``wcc_device_run``):
+  each K7 ``min_i32``, K21 and K20's jump mode, then K25 (ops/fixed_point.py)
+  routes the one WHILE; on a card one CUDA graph.
 
 The adaptive phases, one while_loop program in JAX (``_wcc_adaptive_loop``),
 are a device loop here with the nest, control words and route of CDLP auto's
@@ -42,13 +44,12 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from graphtpu_torch.algorithms.common import AlgorithmResult, register
 from graphtpu_torch.core.graph import Graph
 from graphtpu_torch.core.types import INT32_INF
 from graphtpu_torch.ops import active as A
-from graphtpu_torch.ops import device_loop, kernels
+from graphtpu_torch.ops import device_loop, fixed_point, kernels
 from graphtpu_torch.ops.frontier import compact, compact_rows_into, compact_stream_into, expand
 from graphtpu_torch.ops.gather import table_gather
 from graphtpu_torch.ops.slab import SlabPlan, assemble, result_buffer
@@ -61,28 +62,6 @@ from graphtpu_torch.utils.roofline import plan_gather_count
 # "dense" is the JAX package's name of the dense kernel on one device:
 # it runs as "device"
 IMPLS = ("auto", "slab", "adaptive", "device", "dense")
-
-
-def _finish(labels: torch.Tensor, neigh_min: torch.Tensor):
-    """min with the neighbours' minimum, then two pointer jumps: (new
-    labels, changed mask)."""
-    new = torch.minimum(labels, neigh_min)
-    new = torch.minimum(new, table_gather(new, new))
-    new = torch.minimum(new, table_gather(new, new))
-    return new, new != labels
-
-
-def _wcc_kernel(csr: PullCSR, n: int):
-    """Full edge-stream steps (K7) to the fixed point: (labels, steps)."""
-    labels = torch.arange(n, dtype=torch.int32, device=csr.src.device)
-    changed, it = True, 0
-    while changed and it < n:
-        with record_function("wcc.full_step"):
-            neigh_min = csr_pull_reduce("min_i32", labels, csr.src, csr.indptr)
-            labels, mask = _finish(labels, neigh_min)
-            changed = bool(mask.any())
-        it += 1
-    return labels, it
 
 
 class WccPrep(NamedTuple):
@@ -115,6 +94,75 @@ def wcc_jump(labels: torch.Tensor, neigh_min: torch.Tensor, out: torch.Tensor) -
         return
     kernels.launch("wcc_jump", labels.device, labels.data_ptr(), neigh_min.data_ptr(),
                    out.data_ptr(), labels.shape[0])
+
+
+class DeviceState(NamedTuple):
+    """wcc-impl=device's loop state, allocated once (per graph on a card)."""
+
+    labels: torch.Tensor  # [n] int32
+    jumped: torch.Tensor  # [n] int32: K21's first pointer jump
+    mask: torch.Tensor    # [n] bool: the step's changed vertices (K20's)
+    iota: torch.Tensor    # [n] int32: the identity labels the loop starts from
+    wctl: torch.Tensor    # [A.ctl_words(1)] int32: K20's status words, its ch
+    fp: fixed_point.Control
+
+
+def _device_state(prep: WccPrep, n: int, handles: bool) -> DeviceState:
+    dev = prep.deg_pad.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    return DeviceState(torch.zeros(n, **i32), torch.zeros(n, **i32),
+                       torch.zeros(n, dtype=torch.bool, device=dev), torch.arange(n, **i32),
+                       torch.zeros(A.ctl_words(1), **i32), fixed_point.control(dev, handles))
+
+
+def _device_steps(prep: WccPrep, st: DeviceState):
+    """(name, step) of the full-step loop: init (the identity labels, a
+    copy) and a full step over the edge stream: each vertex's minimum
+    neighbour label (K7 ``min_i32``), K21's first jump, K20's jump mode (the
+    second jump, the changed mask, labels := new), whose ch K25 reads."""
+
+    def init():
+        st.labels.copy_(st.iota)
+        fixed_point.fixed_point_route(st.fp, fixed_point.STAGE_INIT)
+
+    def step():
+        neigh_min = csr_pull_reduce("min_i32", st.labels, prep.pull.src, prep.pull.indptr)
+        wcc_jump(st.labels, neigh_min, st.jumped)
+        A.cdlp_status(st.labels, st.jumped, prep.deg_pad, st.mask, st.wctl, 0, 0, jump=True)
+        fixed_point.fixed_point_route(st.fp, fixed_point.STAGE_STEP, flag=st.wctl[A.CTL_CH])
+
+    return [("init", init), ("step", step)]
+
+
+def _launch_device(sym: Graph, prep: WccPrep):
+    """The full-step loop's run up to its last step (``fixed_point.launch``):
+    (labels, ctl, the graph or None, the host loop's reads)."""
+    n = sym.n
+    return fixed_point.launch(
+        prep.deg_pad, sym.memo, ("wcc_device_loop", str(prep.deg_pad.device)),
+        lambda handles: _device_state(prep, n, handles), lambda st: _device_steps(prep, st),
+        lambda st: st.labels, min(n, INT32_INF), ranges={"step": "wcc.full_step"},
+        range_name="wcc.graph")
+
+
+def wcc_device_run(graph: Graph, cfg: PlatformConfig):
+    """wcc-impl=device: full edge-stream steps to the fixed point (the JAX
+    kernel's ``while changed and it < n``), (labels on cfg.device, steps).
+    On a card one CUDA graph memoized on the symmetrized graph and one read
+    of the control words; on the CPU and inside ``kernels.plain_torch()`` the
+    host loop of the same nest (``last_run`` says which ran)."""
+    sym = graph.symmetrized()
+    prep = wcc_prep(sym, cfg.device)
+    n = sym.n
+    if n == 0:
+        return prep.deg_pad[:0].clone(), 0
+    labels, ctl_t, loop, reads = _launch_device(sym, prep)
+    ctl = ctl_t.tolist()  # the run's one read
+    if loop is not None:
+        loop.account(fixed_point.runs(ctl))
+    last_run.clear()
+    last_run.update(driver="host loop" if loop is None else "graph", condition_reads=reads)
+    return labels, ctl[fixed_point.FCTL_IT]
 
 
 class LoopState(NamedTuple):
@@ -359,8 +407,7 @@ def wcc(graph: Graph, params: AlgorithmParams, cfg: PlatformConfig) -> Algorithm
     if cfg.wcc_impl not in IMPLS:
         raise ValueError(f"unknown wcc-impl {cfg.wcc_impl!r}; expected {'|'.join(IMPLS)}")
     if cfg.wcc_impl in ("device", "dense"):
-        sym = graph.symmetrized()
-        labels, niter = _wcc_kernel(pull_csr(sym, cfg.device), sym.n)
+        labels, niter = wcc_device_run(graph, cfg)
     else:
         labels, niter = wcc_adaptive_run(graph, cfg)
     comp = graph.mapping[labels.cpu().numpy()]

@@ -281,10 +281,6 @@ def sssp_rungs(gw, cfg, device, reps: int, label: str) -> list:
     dense."""
     from graphtpu_torch.algorithms import sssp as sssp_mod
 
-    def dense_run(gg, src, c):
-        return sssp_mod._sssp_kernel(sssp_mod.sssp_prep(gg, torch.float32, c.device), src, gg.n,
-                                     torch.float32)
-
     def rung(run_fn, stats_capable=False):
         def thunk():
             if stats_capable:
@@ -305,7 +301,7 @@ def sssp_rungs(gw, cfg, device, reps: int, label: str) -> list:
 
     return [("adaptive", rung(sssp_mod.sssp_adaptive_run, stats_capable=True)),
             ("delta", rung(sssp_mod.sssp_delta_run)),
-            ("dense", rung(dense_run))]
+            ("dense", rung(sssp_mod.sssp_device_run))]
 
 
 def lcc_section(g, cache_dir: str, device, reps: int) -> dict:

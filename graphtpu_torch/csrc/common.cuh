@@ -12,6 +12,22 @@
 
 #define GT_EXPORT extern "C" __attribute__((visibility("default")))
 
+// Delta-stepping's bucket of a distance, graphtpu/algorithms/sssp.py:242-247:
+// floor(d * inv_delta) in the run's type (inv_delta = 1 / delta rounded to it
+// on the host), INT32_INF where that reaches 2^31 - 1 rounded to the type
+// (2147483648.0f in float32) or is infinite. The product is rounded once
+// (__fmul_rn / __dmul_rn), so no contraction or fast-math flag moves a
+// bucket. K14's bucket mode and K24 both call it.
+__device__ __forceinline__ int gt_delta_bucket(float d, float inv) {
+  const float b = floorf(__fmul_rn(d, inv));
+  return b >= 2147483648.0f ? GT_INT32_INF : (int)b;
+}
+
+__device__ __forceinline__ int gt_delta_bucket(double d, double inv) {
+  const double b = floor(__dmul_rn(d, inv));
+  return b >= 2147483647.0 ? GT_INT32_INF : (int)b;
+}
+
 static inline unsigned int gt_blocks(long long work, int per_block) {
   return (unsigned int)((work + per_block - 1) / per_block);
 }

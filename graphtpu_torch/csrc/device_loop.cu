@@ -4,9 +4,11 @@
 // conditional WHILE and IF nodes shaped like the JAX package's nested
 // lax.while_loops, then a device-to-device copy of the result. The loop
 // drivers of CDLP auto (ops/active.py), WCC auto and adaptive
-// (algorithms/wcc.py), SSSP auto (algorithms/sssp.py) and BFS auto and
-// device (algorithms/bfs.py) build their graphs here; each loop's route kernel sets the conditions from the device by
-// cudaGraphSetConditional. No kernel: these run on the host only.
+// (algorithms/wcc.py), SSSP auto and delta (algorithms/sssp.py), BFS auto
+// and device (algorithms/bfs.py) and the fixed-point loops
+// (ops/fixed_point.py) build their graphs here; each loop's route kernel
+// sets the conditions from the device by cudaGraphSetConditional. No
+// kernel: these run on the host only.
 #include "common.cuh"
 
 // The graph's assembly: each returns a cudaError_t as an int. Nodes are

@@ -64,12 +64,21 @@
 //   compares and an and over the e slots), read on the card.
 // The mask entry can also write the degree sum of the ids (the bottom-up's
 // residual rows and their in-degrees, bfs.py:231-232).
+// Delta-stepping's device loop (algorithms/sssp.py) adds the bucket mode: the
+// vertices whose distance lies in bucket k (read from a device word), and in
+// the light derive also marked in the changed mask (graphtpu/algorithms/
+// sssp.py:258-261 and :294-297: bucket(dist) == k, an and, and the sort of
+// compact), with their degree sum in the class's deg_pad (JAX's fe, which
+// equals the written ids' sum whenever the count fits k). A warp builds its
+// 32 words by ballots over 32 consecutive distances each, as the level mode.
 #include "common.cuh"
 
 // where a compaction's words come from
 #define K14_SRC_MASK 0    // a bool mask
 #define K14_SRC_BITMAP 1  // the stream entries' bitmap
 #define K14_SRC_LEVELS 2  // the int32 levels equal to a level read on the card
+#define K14_SRC_BUCKET32 3  // float32 distances in the bucket read on the card
+#define K14_SRC_BUCKET64 4  // float64 distances, the same
 
 // which slots of a stream are marked
 #define K14_MARK_ACTIVE 0     // active[j]
@@ -111,7 +120,10 @@ struct K14Src {
   int mis;                    // the mask's start past base
   const unsigned int* bits;
   const int* levels;
-  int level;
+  int level;              // the level, or the bucket
+  const void* dist;       // the bucket mode's distances
+  const bool* bmask;      // the bucket mode's changed mask (null: every vertex)
+  double inv;             // the bucket mode's 1 / delta (rounded to float in float32)
 };
 
 // Word w of the frontier, for the thread that owns it (word index
@@ -125,6 +137,25 @@ __device__ __forceinline__ unsigned int k14_word(const K14Src& src, long long n,
                                                  long long step_base) {
   const long long w = step_base + threadIdx.x;
   if (SRC == K14_SRC_BITMAP) return w < nwords ? src.bits[w] : 0u;
+  if (SRC == K14_SRC_BUCKET32 || SRC == K14_SRC_BUCKET64) {
+    const int lane = threadIdx.x & 31;
+    const long long first = 32 * (w - lane);  // the warp's first vertex
+    unsigned int word = 0u;
+#pragma unroll 4
+    for (int j = 0; j < 32; ++j) {
+      const long long v = first + 32 * j + lane;
+      bool hit = v < n && (!src.bmask || src.bmask[v]);
+      if (hit) {
+        if (SRC == K14_SRC_BUCKET32)
+          hit = gt_delta_bucket(__ldg((const float*)src.dist + v), (float)src.inv) == src.level;
+        else
+          hit = gt_delta_bucket(__ldg((const double*)src.dist + v), src.inv) == src.level;
+      }
+      const unsigned int b = __ballot_sync(0xffffffffu, hit);
+      if (lane == j) word = b;
+    }
+    return word;
+  }
   if (SRC == K14_SRC_LEVELS) {
     const int lane = threadIdx.x & 31;
     const long long first = 32 * (w - lane);  // the warp's first vertex
@@ -379,4 +410,28 @@ GT_EXPORT int gt_frontier_compact_stream(const int* vals, const bool* active,
   src.bits = bits;
   return k14_compact_words<K14_SRC_BITMAP>(src, nullptr, n, ids, k, count_out, deg_pad, deg_sum,
                                            scratch, scratch_ints, s);
+}
+
+// The bucket mode: the v with bucket(dist[v]) == *k_at (gt_delta_bucket;
+// dist [n] float32 or float64 by is_f64, inv_delta = 1 / delta in the run's
+// type) and, where mask is not null, mask[v]; ids, count_out, deg_pad,
+// deg_sum and scratch as in gt_frontier_compact_into.
+GT_EXPORT int gt_frontier_compact_bucket(const void* dist, int is_f64, double inv_delta,
+                                         const bool* mask, const int* k_at, long long n,
+                                         int* ids, long long k, int* count_out,
+                                         const int* deg_pad, int* deg_sum, int* scratch,
+                                         long long scratch_ints, void* stream) {
+  if (n < 0 || n > 0x7fffffffLL || k < 0 || !dist || !k_at || !count_out || !scratch ||
+      (deg_sum && !deg_pad))
+    return (int)cudaErrorInvalidValue;
+  K14Src src = {};
+  src.dist = dist;
+  src.bmask = mask;
+  src.inv = inv_delta;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (is_f64)
+    return k14_compact_words<K14_SRC_BUCKET64>(src, k_at, n, ids, k, count_out, deg_pad, deg_sum,
+                                               scratch, scratch_ints, s);
+  return k14_compact_words<K14_SRC_BUCKET32>(src, k_at, n, ids, k, count_out, deg_pad, deg_sum,
+                                             scratch, scratch_ints, s);
 }

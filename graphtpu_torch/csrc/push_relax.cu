@@ -159,24 +159,47 @@ __device__ __forceinline__ double atomic_min_old(double* addr, double v) {
       (unsigned long long*)addr, (unsigned long long)__double_as_longlong(v)));
 }
 
+// du (null: none) takes the frontier's distances; clear (null: none) has the
+// frontier's entries set to 0 (the settle mode's first half).
 template <typename T>
-__global__ void k8_snapshot_kernel(const T* __restrict__ dist, const int* __restrict__ ids,
-                                   long long k, long long n, T* __restrict__ du) {
+__device__ __forceinline__ void k8_snapshot(const T* __restrict__ dist,
+                                            const int* __restrict__ ids, long long k,
+                                            long long n, T* __restrict__ du,
+                                            bool* __restrict__ clear) {
   const long long r0 = (long long)blockIdx.x * blockDim.x, r = r0 + threadIdx.x;
   if (r0 >= k || (long long)ids[r0] >= n) return;  // a block of pad ids
   if (r < k) {
     const int id = ids[r];
-    if (id >= 0 && (long long)id < n) du[r] = dist[id];
+    if (id >= 0 && (long long)id < n) {
+      if (du) du[r] = dist[id];
+      if (clear) clear[id] = false;
+    }
   }
 }
 
 template <typename T>
-__global__ void push_relax_inplace_kernel(T* dist, const T* __restrict__ du,
-                                          const int* __restrict__ rows_local,
-                                          const int* __restrict__ neigh,
-                                          const int* __restrict__ gpos,
-                                          const T* __restrict__ w, const int* __restrict__ total,
-                                          int e_cap, bool* __restrict__ mask) {
+__global__ void k8_snapshot_kernel(const T* __restrict__ dist, const int* __restrict__ ids,
+                                   long long k, long long n, T* __restrict__ du) {
+  k8_snapshot<T>(dist, ids, k, n, du, nullptr);
+}
+
+// The settle mode's own kernels (names of their own, so that a trace tells
+// the two modes apart): the snapshot that clears, then the relaxation.
+template <typename T>
+__global__ void k8_settle_clear_kernel(const T* __restrict__ dist, const int* __restrict__ ids,
+                                       long long k, long long n, T* __restrict__ du,
+                                       bool* __restrict__ clear) {
+  k8_snapshot<T>(dist, ids, k, n, du, clear);
+}
+
+template <typename T>
+__device__ __forceinline__ void k8_relax_inplace(T* dist, const T* __restrict__ du,
+                                                 const int* __restrict__ rows_local,
+                                                 const int* __restrict__ neigh,
+                                                 const int* __restrict__ gpos,
+                                                 const T* __restrict__ w,
+                                                 const int* __restrict__ total, int e_cap,
+                                                 bool* __restrict__ mask) {
   int real = *total;
   if (real > e_cap) real = e_cap;
   const int stride = gridDim.x * blockDim.x;
@@ -189,15 +212,43 @@ __global__ void push_relax_inplace_kernel(T* dist, const T* __restrict__ du,
 }
 
 template <typename T>
+__global__ void push_relax_inplace_kernel(T* dist, const T* __restrict__ du,
+                                          const int* __restrict__ rows_local,
+                                          const int* __restrict__ neigh,
+                                          const int* __restrict__ gpos,
+                                          const T* __restrict__ w, const int* __restrict__ total,
+                                          int e_cap, bool* __restrict__ mask) {
+  k8_relax_inplace<T>(dist, du, rows_local, neigh, gpos, w, total, e_cap, mask);
+}
+
+template <typename T>
+__global__ void push_relax_settle_kernel(T* dist, const T* __restrict__ du,
+                                         const int* __restrict__ rows_local,
+                                         const int* __restrict__ neigh,
+                                         const int* __restrict__ gpos,
+                                         const T* __restrict__ w, const int* __restrict__ total,
+                                         int e_cap, bool* __restrict__ mask) {
+  k8_relax_inplace<T>(dist, du, rows_local, neigh, gpos, w, total, e_cap, mask);
+}
+
+template <typename T>
 static void k8_inplace(void* dist, const int* ids, long long k, long long n, void* du,
                        const int* rows_local, const int* neigh, const int* gpos, const void* w,
-                       const int* total, int e_cap, bool* mask, unsigned int grid,
+                       const int* total, int e_cap, bool* mask, bool settle, unsigned int grid,
                        cudaStream_t s) {
   const int threads = 256;
-  if (k)
+  T* snap = e_cap ? (T*)du : nullptr;
+  if (k && settle)
+    k8_settle_clear_kernel<T><<<gt_blocks(k, threads), threads, 0, s>>>((const T*)dist, ids, k,
+                                                                         n, snap, mask);
+  else if (k)
     k8_snapshot_kernel<T><<<gt_blocks(k, threads), threads, 0, s>>>((const T*)dist, ids, k, n,
-                                                                     (T*)du);
-  if (e_cap)
+                                                                     snap);
+  if (e_cap && settle)
+    push_relax_settle_kernel<T><<<grid, threads, 0, s>>>((T*)dist, (const T*)du, rows_local,
+                                                         neigh, gpos, (const T*)w, total, e_cap,
+                                                         mask);
+  else if (e_cap)
     push_relax_inplace_kernel<T><<<grid, threads, 0, s>>>((T*)dist, (const T*)du, rows_local,
                                                           neigh, gpos, (const T*)w, total,
                                                           e_cap, mask);
@@ -222,8 +273,43 @@ GT_EXPORT int gt_push_relax_min_inplace(void* dist, const int* ids, long long k,
   const unsigned int blocks = e_cap ? gt_blocks(e_cap, 256) : 1;
   const unsigned int g = blocks < (unsigned int)grid ? blocks : (unsigned int)grid;
   if (is_f64)
-    k8_inplace<double>(dist, ids, k, n, du, rows_local, neigh, gpos, w, total, e_cap, mask, g, s);
+    k8_inplace<double>(dist, ids, k, n, du, rows_local, neigh, gpos, w, total, e_cap, mask,
+                       false, g, s);
   else
-    k8_inplace<float>(dist, ids, k, n, du, rows_local, neigh, gpos, w, total, e_cap, mask, g, s);
+    k8_inplace<float>(dist, ids, k, n, du, rows_local, neigh, gpos, w, total, e_cap, mask,
+                      false, g, s);
+  return (int)cudaGetLastError();
+}
+
+// K8's settle mode, delta-stepping's frontier step (algorithms/sssp.py): the
+// in-place mode's relaxation, but the mask is the loop's changed set, kept
+// across steps: the frontier's own entries are cleared first (by the snapshot
+// kernel, which takes the frontier's distances in the same pass), then the
+// relaxation marks the vertices it lowered. Replaces
+// graphtpu/algorithms/sssp.py:249-256 and :277 / :321 (relax_frontier's two
+// gathers and scatter-min into a new vector, `new < dist`, and
+// `changed.at[ids].set(False, mode="drop") | improved`), which the port ran
+// as K8 into a copy of dist, a compare, a cat, an index_fill_ and an or.
+// Clear before mark gives JAX's order: a frontier vertex lowered in the
+// step stays marked. e_cap 0 is a class without edges: the frontier's
+// entries are cleared and nothing is relaxed (du, rows_local, neigh, gpos, w
+// and total may be null). Bound: per frontier row its id, distance and
+// mark; per real slot as the in-place mode; launch-sized at a delta step.
+GT_EXPORT int gt_push_relax_min_settle(void* dist, const int* ids, long long k, long long n,
+                                       void* du, const int* rows_local, const int* neigh,
+                                       const int* gpos, const void* w, const int* total,
+                                       int e_cap, bool* mask, int is_f64, int grid,
+                                       void* stream) {
+  if (k < 0 || n < 0 || e_cap < 0 || grid < 1 || !mask || (e_cap && (!total || !du)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const unsigned int blocks = e_cap ? gt_blocks(e_cap, 256) : 1;
+  const unsigned int g = blocks < (unsigned int)grid ? blocks : (unsigned int)grid;
+  if (is_f64)
+    k8_inplace<double>(dist, ids, k, n, du, rows_local, neigh, gpos, w, total, e_cap, mask,
+                       true, g, s);
+  else
+    k8_inplace<float>(dist, ids, k, n, du, rows_local, neigh, gpos, w, total, e_cap, mask,
+                      true, g, s);
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,10 @@
 """A loop of step functions run as one CUDA graph with conditional nodes, or
 as a host loop over the same steps: the single-dispatch design of the JAX
 package's nested ``lax.while_loop`` kernels (``_cdlp_adaptive_kernel``,
-``_wcc_adaptive_loop``, ``_sssp_adaptive_kernel``, ``_bfs_adaptive_kernel``
-and ``_bfs_kernel``).
+``_wcc_adaptive_loop``, ``_sssp_adaptive_kernel``, ``_bfs_adaptive_kernel``,
+``_bfs_kernel`` and ``_sssp_delta_kernel``; ops/fixed_point.py builds the
+one-WHILE loops, ``_sssp_kernel``, ``_wcc_kernel``, ``_cdlp_slab_kernel``
+and ``_cdlp_sort_kernel``, on it).
 
 A loop keeps its state on the device, in preallocated buffers and a small
 int32 control vector whose words hold the loop's conditions, and is a set of

@@ -20,7 +20,10 @@ against), ``mask_status`` gives a mask's (count, edge-sum), the numbers
 a caller needs to decide whether a frontier fits its capacities,
 ``relax_min`` is SSSP's push relaxation over an expansion on kernel K8
 (``push_relax_min``; ``relax_min_into`` its in-place mode, which marks the
-vertices it lowered), ``relax_min_i32`` the distributed WCC's scatter-min on
+vertices it lowered; ``relax_min_settle`` its settle mode, delta-stepping's
+step, which also clears the frontier's own marks first, and
+``compact_bucket_into`` K14's bucket mode, delta-stepping's derive of the
+vertices in a bucket read on the card), ``relax_min_i32`` the distributed WCC's scatter-min on
 K8's int32 mode, and ``bfs_trunc_probe`` is BFS's truncated bottom-up probe
 on kernel K13. K13 and K17 take the level as an int, or as a one-element
 int32 tensor on the card that the kernel reads there (their device-level
@@ -352,6 +355,58 @@ def compact_level_into(levels: torch.Tensor, level: torch.Tensor, ids: torch.Ten
                    counter="frontier_compact_level")
 
 
+def delta_bucket_plain(dist: torch.Tensor, inv_delta: float) -> torch.Tensor:
+    """Delta-stepping's bucket of each distance, the JAX kernel's
+    ``bucket`` (graphtpu/algorithms/sssp.py:242-247): floor(dist *
+    inv_delta) in dist's dtype, with inv_delta (1 / delta) rounded to it,
+    and INT32_INF where that reaches 2^31 - 1 rounded to the dtype, or is
+    infinite. int32."""
+    inv = torch.tensor(inv_delta, dtype=dist.dtype, device=dist.device)
+    b = torch.floor(dist * inv)
+    over = b >= torch.tensor(2**31 - 1, dtype=dist.dtype, device=dist.device)
+    return torch.where(over, INT32_INF, torch.where(over, 0, b).to(torch.int32))
+
+
+def compact_bucket_plain(dist, inv_delta: float, k_at, mask, deg_pad, ids, status) -> None:
+    """K14's bucket mode, plain PyTorch: the JAX kernel's derive,
+    ``compact(bucket(dist) == k (& mask), k_cap)`` and the degree sum."""
+    hit = delta_bucket_plain(dist, inv_delta) == k_at
+    if mask is not None:
+        hit &= mask
+    out, count = compact_plain(hit, ids.shape[0])
+    _put_status(ids, status, out, count, deg_pad)
+
+
+def compact_bucket_into(dist: torch.Tensor, inv_delta: float, k_at: torch.Tensor,
+                        mask: torch.Tensor | None, deg_pad: torch.Tensor, ids: torch.Tensor,
+                        status: torch.Tensor) -> None:
+    """K14 wrapper, bucket mode: the vertices v whose distance lies in bucket
+    ``k_at`` (a one-element int32 tensor, read on the card; the bucket is
+    ``delta_bucket_plain``'s, computed the same way on the card) and, where
+    ``mask`` (bool [n]) is given, are marked in it, into ``ids`` [k]
+    (ascending, padded with n, cut at k), with ``status`` int32 [2] = (true
+    count, degree sum in ``deg_pad`` of the ids written). Delta-stepping's
+    light (with the changed mask) and heavy derives. ``dist`` float32 or
+    float64 [n]. One call, no host read."""
+    _check_level("compact_bucket_into", dist, k_at)
+    _check_into("compact_bucket_into", deg_pad, ids, status, dist.device)
+    if dist.dtype not in (torch.float32, torch.float64) or dist.dim() != 1 or \
+            not dist.is_contiguous():
+        raise TypeError("compact_bucket_into: dist must be a contiguous 1-D float tensor")
+    if mask is not None and (mask.dtype != torch.bool or mask.shape != dist.shape or
+                             mask.device != dist.device or not mask.is_contiguous()):
+        raise TypeError("compact_bucket_into: mask must be a contiguous bool tensor like dist")
+    if not kernels.use_kernel(dist):
+        compact_bucket_plain(dist, inv_delta, k_at, mask, deg_pad, ids, status)
+        return
+    scratch = torch.empty(K14_MAX_BLOCKS, dtype=torch.int32, device=dist.device)
+    kernels.launch("frontier_compact_bucket", dist.device, dist.data_ptr(),
+                   1 if dist.dtype == torch.float64 else 0, float(inv_delta), _ptr(mask),
+                   k_at.data_ptr(), dist.shape[0], ids.data_ptr(), ids.shape[0],
+                   status.data_ptr(), deg_pad.data_ptr(), status[1:].data_ptr(),
+                   scratch.data_ptr(), K14_MAX_BLOCKS)
+
+
 def compact_unvisited_plain(exp: Expansion, levels: torch.Tensor, n: int,
                             deg_pad: torch.Tensor, ids: torch.Tensor,
                             status: torch.Tensor) -> None:
@@ -593,6 +648,63 @@ def relax_min_into(dist: torch.Tensor, ids: torch.Tensor, exp: Expansion, w: tor
                    exp.gpos.data_ptr(), w.data_ptr(), exp.edge_count.data_ptr(), e_cap,
                    mask.data_ptr(), 1 if dist.dtype == torch.float64 else 0,
                    2 * kernels.sm_count(dist.device))
+
+
+def relax_min_settle_plain(dist, ids, exp: Expansion | None, w, changed) -> None:
+    """K8's settle mode, plain PyTorch: the JAX step's formulation,
+    ``relax_min_plain`` into a new vector, then ``changed.at[ids].set(False,
+    mode="drop") | (new < dist)`` and dist := new; ``exp`` None relaxes
+    nothing (a class without edges)."""
+    n = dist.shape[0]
+    pad = torch.cat([changed, changed.new_zeros(1)])
+    cleared = pad.index_fill_(0, ids.long(), False)[:n]
+    if exp is None:
+        changed.copy_(cleared)
+        return
+    new = relax_min_plain(dist, table_gather(ids, exp.rows_local), exp.neigh, exp.gpos,
+                          exp.valid, w)
+    changed.copy_(cleared | (new < dist))
+    dist.copy_(new)
+
+
+def relax_min_settle(dist: torch.Tensor, ids: torch.Tensor, exp: Expansion | None,
+                     w: torch.Tensor, changed: torch.Tensor) -> None:
+    """K8 wrapper, settle mode (delta-stepping's frontier step): the changed
+    marks of the frontier ``ids`` [k] (ascending, padded with n; pad ids
+    dropped) are cleared, then, as ``relax_min_into``, each real slot of
+    ``exp`` (the frontier's expansion) lowers dist[neigh] in place to the
+    owner's distance before the call plus w[gpos], and marks each vertex it
+    lowered in ``changed`` [n] bool. ``exp`` None (a weight class without
+    edges) only clears. One call (a snapshot that clears, then the
+    relaxation), nothing read back."""
+    if dist.dtype not in (torch.float32, torch.float64) or w.dtype != dist.dtype:
+        raise TypeError(f"relax_min_settle: dist and w must share a float dtype, got "
+                        f"{dist.dtype}, {w.dtype}")
+    if ids.dtype != torch.int32 or changed.dtype != torch.bool or changed.shape != dist.shape:
+        raise TypeError("relax_min_settle: int32 ids, a bool changed mask like dist")
+    ts = (dist, ids, w, changed) + (() if exp is None else
+                                    (exp.rows_local, exp.neigh, exp.gpos, exp.edge_count))
+    if any(t.device != dist.device for t in ts) or not all(t.is_contiguous() for t in ts):
+        raise ValueError("relax_min_settle: inputs must be contiguous, on one device")
+    if exp is not None and (any(t.dtype != torch.int32 or t.shape != exp.neigh.shape
+                                for t in (exp.rows_local, exp.gpos)) or
+                            exp.neigh.dtype != torch.int32):
+        raise TypeError("relax_min_settle: an int32 expansion, slots of one length")
+    if not kernels.use_kernel(dist):
+        relax_min_settle_plain(dist, ids, exp, w, changed)
+        return
+    k, n = ids.shape[0], dist.shape[0]
+    if exp is None:
+        kernels.launch("push_relax_min_settle", dist.device, dist.data_ptr(), ids.data_ptr(), k,
+                       n, None, None, None, None, None, None, 0, changed.data_ptr(),
+                       1 if dist.dtype == torch.float64 else 0, 1)
+        return
+    du = torch.empty(k, dtype=dist.dtype, device=dist.device)
+    kernels.launch("push_relax_min_settle", dist.device, dist.data_ptr(), ids.data_ptr(), k, n,
+                   du.data_ptr(), exp.rows_local.data_ptr(), exp.neigh.data_ptr(),
+                   exp.gpos.data_ptr(), w.data_ptr(), exp.edge_count.data_ptr(),
+                   exp.neigh.shape[0], changed.data_ptr(),
+                   1 if dist.dtype == torch.float64 else 0, 2 * kernels.sm_count(dist.device))
 
 
 def relax_min_i32_plain(n_out: int, labels, row_ids, neigh, valid, row_offset: int = 0):

@@ -29,7 +29,9 @@ kernel ``lcc_sweep_member``), ``ops/triangles.py:lcc_head_credits`` (K16) and
 ``cdlp_route``, the full step's status counted as ``cdlp_route_status``, its
 jump mode, WCC's full step, as ``cdlp_route_status_jump``),
 ``algorithms/wcc.py:wcc_jump`` (K21), ``algorithms/sssp.py:sssp_apply``
-(K22) and ``algorithms/bfs.py:bfs_apply`` (K23). A wrapper dispatches on
+(K22), ``algorithms/bfs.py:bfs_apply`` (K23),
+``algorithms/sssp.py:sssp_delta_route`` (K24) and
+``ops/fixed_point.py:fixed_point_route`` (K25). A wrapper dispatches on
 the device of its tensors: a CPU tensor takes the plain version, a CUDA
 tensor launches the kernel or raises. K2, K3 and K6 also take every bucket
 of a slab plan in one launch (``slab_minmode_buckets``,
@@ -45,7 +47,9 @@ mode, ``ops/frontier.py:relax_min_into``, to ``"push_relax_min_inplace"``, K14's
 row-flag mode, ``ops/frontier.py:compact_rows_into``, to
 ``"frontier_compact_rows"``, its level mode, ``compact_level_into``, to
 ``"frontier_compact_level"``, its unvisited mode, ``compact_unvisited_into``,
-to ``"frontier_compact_unvisited"``, and the device-level modes of K13 and
+to ``"frontier_compact_unvisited"``, its bucket mode, ``compact_bucket_into``, to
+``"frontier_compact_bucket"``, K8's settle mode, ``relax_min_settle``, to
+``"push_relax_min_settle"``, and the device-level modes of K13 and
 K17, a level read on the card, to ``"bfs_trunc_probe_at"`` and
 ``"bfs_residual_claim_at"``); K9, K11
 and K12 may launch more than once a call (K9: a histogram, a scatter, the
@@ -54,12 +58,13 @@ per segment, then a persistent grid for the longer ones), and count each. A
 call of K14 is one count: its C entry runs a count and a write kernel (and
 in compact_stream, before them, a memset and the bitmap's marking); so is
 a call of K16, whose C entry zeroes its output by a memset first, of K20's
-status, K22 and K23, which zero their scratch the same way, and of K8's in-place
-mode (a memset of the mask, a snapshot kernel and the relaxation).
+status, K22, K23, K24 and K25, which zero their scratch the same way, and of K8's
+in-place and settle modes (a memset of the mask or a clear of the frontier's
+marks, a snapshot kernel and the relaxation).
 A launch captured into a CUDA graph counts once, at its capture
 (``torch.cuda.graph``), and its replays not at all. The device loops' graphs
-(ops/device_loop.py: CDLP auto, WCC auto and adaptive, SSSP auto, BFS auto and
-device) take their
+(ops/device_loop.py: CDLP auto and slab, WCC auto, adaptive and device, SSSP
+auto, device and delta, BFS auto and device, sort CDLP) take their
 build's counts back out: their runs launch nothing from Python, and a trace
 of a run shows what it executed. ``replayed_counts`` holds such a graph's
 captured launches times the step counts its control words report, an
@@ -93,7 +98,8 @@ KERNELS = (
     "slab_spmv_min", "csr_pull_reduce", "push_relax_min", "edgehash_probe", "wedge_rowblock",
     "masked_spgemm", "segment_minmode", "bfs_trunc_probe", "frontier_compact",
     "lcc_sweep_member", "lcc_head_credits", "bfs_residual_claim", "frontier_starts",
-    "cdlp_tier_apply", "cdlp_route", "wcc_jump", "sssp_apply", "bfs_apply",
+    "cdlp_tier_apply", "cdlp_route", "wcc_jump", "sssp_apply", "bfs_apply", "sssp_delta_route",
+    "fixed_point_route",
 )
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -192,6 +198,21 @@ _SIGNATURES = {
     # a graph), handles set, grid, stream
     "gt_bfs_apply": (_P, _I64, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32,
                      _I32, _I32, _P, _I32, _I32, _P),
+    # dist, ids, k, n, du (scratch), rows_local, neigh, gpos, w, total (a device int32), e_cap
+    # (0: no expansion, the frontier's marks cleared only), mask, is_f64, grid, stream
+    "gt_push_relax_min_settle": (_P, _P, _I64, _I64, _P, _P, _P, _P, _P, _P, _I32, _P, _I32,
+                                 _I32, _P),
+    # dist, is_f64, inv_delta, mask (null: none), k_at, n, ids, k, count, deg_pad, deg_sum,
+    # scratch, scratch ints, stream
+    "gt_frontier_compact_bucket": (_P, _I32, ctypes.c_double, _P, _P, _I64, _P, _I64, _P, _P, _P,
+                                   _P, _I64, _P),
+    # dist, mask, n, inv_delta, source (pinned host int32), scratch, ctl, stage, limit, k_cap,
+    # e_cap, is_f64, handles (null outside a graph), grid, stream
+    "gt_sssp_delta_route": (_P, _P, _I64, ctypes.c_double, _P, _P, _P, _I32, _I32, _I32, _I32,
+                            _I32, _P, _I32, _P),
+    # old, new (null: the flag mode), deg (null: none), n, flag_at, scratch, ctl, params
+    # (pinned host int32 [2]), stage, start, handles (null outside a graph), grid, stream
+    "gt_fixed_point_route": (_P, _P, _P, _I64, _P, _P, _P, _P, _I32, _I32, _P, _I32, _P),
     # stream: a kernel that returns at once (csrc/empty_kernel.cu)
     "gt_empty_kernel": (_P,),
 }
@@ -231,11 +252,13 @@ _QUERIES = {
 # auto's tier rounds), K14's row-flag mode, K19's min mode (WCC's active
 # step), K20's status entry and its jump mode (WCC's full step), and BFS's
 # device loop's modes: K14's level and unvisited modes, K13 and K17 with the
-# level read on the card, so that a run shows which callers it went through
+# level read on the card; and delta-stepping's: K14's bucket mode and K8's
+# settle mode, so that a run shows which callers it went through
 COUNTERS = KERNELS + ("csr_pull_reduce_sum", "csr_pull_reduce_sum_i64", "push_relax_min_i32",
                       "frontier_compact_rows", "cdlp_route_status", "cdlp_tier_apply_min",
                       "cdlp_route_status_jump", "push_relax_min_inplace", "frontier_compact_level",
-                      "frontier_compact_unvisited", "bfs_trunc_probe_at", "bfs_residual_claim_at")
+                      "frontier_compact_unvisited", "bfs_trunc_probe_at", "bfs_residual_claim_at",
+                      "frontier_compact_bucket", "push_relax_min_settle")
 launch_counts = dict.fromkeys(COUNTERS, 0)
 # a captured graph's launches as inferred by its driver: each step's captured
 # launches times the executions of the step that its control words report

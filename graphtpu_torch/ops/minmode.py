@@ -18,18 +18,23 @@ inverse permutation assembles the result.
 Iteration 0 needs no label gather, since labels are the vertex ids: on
 duplicate-free incidence (undirected graphs) the mode is the minimum
 neighbour id (K2 "min", and K7 ``min_i32`` over the heavy rows); otherwise
-K2 and K12 run on the stored ids ("identity"). The iteration loop runs on
-the host with one device read per iteration, and stops at a fixed point
-(LAGraph_cdlp.c:328-332).
+K2 and K12 run on the stored ids ("identity"). The iterations stop at a
+fixed point (LAGraph_cdlp.c:328-332) or at itermax: iteration 0 and the
+WHILE of ``cdlp_step``, the JAX package's ``_cdlp_slab_kernel``, as one
+fixed-point device loop (ops/fixed_point.py, K25 comparing the labels), on
+a card one CUDA graph; under iteration timing the host steps each
+iteration, as the JAX package does.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from graphtpu_torch.core.types import INT32_INF
-from graphtpu_torch.ops import kernels
+from graphtpu_torch.ops import fixed_point, kernels
 from graphtpu_torch.ops.gather import table_gather
 from graphtpu_torch.ops.spmv import csr_pull_reduce
 from graphtpu_torch.ops.slab import (
@@ -339,33 +344,97 @@ def memoized_cdlp_plan(graph, centers, neigh, deg, buckets, device) -> SlabPlan:
     return plan
 
 
+class SlabState(NamedTuple):
+    """Slab CDLP's loop state, allocated once (per plan on a card)."""
+
+    labels: torch.Tensor  # [n] int32
+    iota: torch.Tensor    # [n] int32: the identity labels iteration 0 reads
+    fp: fixed_point.Control
+
+
+def _slab_steps(plan: SlabPlan, directed: bool, st: SlabState):
+    """(name, step) of slab CDLP's loop: init (iteration 0, gather-free: the
+    stored-id mode on directed incidence, the minimum id otherwise, copied
+    into the labels; it = 1) and a step (``cdlp_step``, then K25 compares the
+    new labels with the old and takes them)."""
+
+    def init():
+        st.labels.copy_(_iter0_mode(plan, st.iota) if directed else _iter0_minmode(plan, st.iota))
+        fixed_point.fixed_point_route(st.fp, fixed_point.STAGE_INIT, start=1)
+
+    def step():
+        new = cdlp_step(st.labels, plan)
+        fixed_point.fixed_point_route(st.fp, fixed_point.STAGE_STEP, old=st.labels, new=new)
+
+    return [("init", init), ("step", step)]
+
+
+# how the last cdlp_slab_run went: its driver ("graph", "host loop" or
+# "iteration timing") and the host loop's reads of the condition
+last_run: dict = {}
+
+
+def _launch_slab(graph, plan: SlabPlan, buckets, itermax: int):
+    """Slab CDLP's loop run up to its last step (``fixed_point.launch``), the
+    graph memoized on ``graph`` by buckets, device and directedness:
+    (labels, ctl, the graph or None, the host loop's reads)."""
+    n, device, directed = graph.n, plan.inv_perm.device, bool(graph.directed)
+
+    def make_state(handles):
+        i32 = dict(dtype=torch.int32, device=device)
+        return SlabState(torch.zeros(n, **i32), torch.arange(n, **i32),
+                         fixed_point.control(device, handles))
+
+    return fixed_point.launch(
+        plan.inv_perm, graph.memo, ("cdlp_slab_loop", buckets, str(device), directed),
+        make_state, lambda st: _slab_steps(plan, directed, st), lambda st: st.labels,
+        int(itermax), ranges={"step": "cdlp.slab_step"}, range_name="cdlp.graph")
+
+
 def cdlp_slab_run(graph, centers, neigh, deg, itermax, cfg):
     """Run CDLP on the slab plan; returns (labels on cfg.device, iterations).
 
     Iteration 0 runs gather-free (min on undirected graphs, whose
     incidence has no duplicates; the stored-id mode otherwise) and is
     taken as a change, as in the JAX kernel; later iterations stop at a
-    fixed point or at ``itermax``."""
-    from graphtpu_torch.utils.timers import IterationTimer
-
+    fixed point or at ``itermax``. One device loop (on a card one CUDA
+    graph, memoized on the Graph, and one read of the control words), or
+    under iteration timing the host stepping each iteration."""
     device = torch.device(cfg.device)
     buckets = tuple(cfg.slab_buckets) if cfg.slab_buckets else None
     plan = memoized_cdlp_plan(graph, centers, neigh, deg, buckets, device)
-    labels = torch.arange(graph.n, dtype=torch.int32, device=device)
-    # per-iteration timing synchronizes the device, so it runs only on request
-    timer = IterationTimer() if cfg.iteration_timing else None
+    last_run.clear()
+    if cfg.iteration_timing:
+        last_run.update(driver="iteration timing", condition_reads=0)
+        return _cdlp_slab_timed(graph, plan, itermax)
+    if itermax < 1:
+        return torch.arange(graph.n, dtype=torch.int32, device=device), 0
+    labels, ctl_t, loop, reads = _launch_slab(graph, plan, buckets, itermax)
+    ctl = ctl_t.tolist()  # the run's one read
+    if loop is not None:
+        loop.account(fixed_point.runs(ctl, start=1))
+    last_run.update(driver="host loop" if loop is None else "graph", condition_reads=reads)
+    return labels, ctl[fixed_point.FCTL_IT]
+
+
+def _cdlp_slab_timed(graph, plan: SlabPlan, itermax):
+    """Slab CDLP stepped from the host with a timer per iteration (which
+    synchronizes the device): one read per iteration, as the JAX package's
+    iteration-timing loop."""
+    from graphtpu_torch.utils.timers import IterationTimer
+
+    labels = torch.arange(graph.n, dtype=torch.int32, device=plan.inv_perm.device)
+    timer = IterationTimer()
     it = 0
     while it < itermax:
-        if timer:
-            timer.start()
+        timer.start()
         if it == 0:
             new = _iter0_mode(plan, labels) if graph.directed else _iter0_minmode(plan, labels)
             changed = True
         else:
             new = cdlp_step(labels, plan)
-            changed = bool((new != labels).any())  # the one device read per iteration
-        if timer:
-            timer.stop(f"cdlp iteration {it}", new)
+            changed = bool((new != labels).any())
+        timer.stop(f"cdlp iteration {it}", new)
         labels, it = new, it + 1
         if not changed:
             break

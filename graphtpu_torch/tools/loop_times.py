@@ -3,17 +3,20 @@
 issued from Python, device busy time and idle share, cold and warm wall
 time.
 
-    python3 graphtpu_torch/tools/loop_times.py --path {cdlp-auto,wcc-auto,wcc-adaptive,sssp-auto,
-        bfs-auto,bfs-device} [--root CHECKOUT] [--tag NAME] [--reps 5] [--out FILE]
+    python3 graphtpu_torch/tools/loop_times.py --path {cdlp-auto,cdlp-slab,cdlp-sort,wcc-auto,
+        wcc-adaptive,wcc-device,sssp-auto,sssp-device,sssp-delta,bfs-auto,bfs-device}
+        [--root CHECKOUT] [--tag NAME] [--reps 5] [--out FILE]
 
 Takes the benchmark graph (RMAT scale 20, edge factor 32, undirected, seed
 42) for CDLP, WCC and BFS, the SSSP benchmark graph (RMAT scale 20, edge
 factor 16, weighted, undirected, seed 42) for SSSP, both cached under
 intermediate/ of the checkout that holds this script, and runs the path's
-loop at its defaults, as the bench does: ``cdlp_adaptive_device_run`` (10
-iterations), ``wcc_adaptive_run`` (wcc-impl auto or adaptive),
-``sssp_adaptive_run`` (from vertex 0, float32), ``bfs_adaptive_run`` and
-bfs-impl=device's ``_bfs_kernel`` (from vertex 0). Once cold (where the loop
+loop at its defaults, as the bench does: ``cdlp_adaptive_device_run``,
+``cdlp_slab_run`` and ``cdlp_sort_run`` (10 iterations), ``wcc_adaptive_run``
+(wcc-impl auto or adaptive) and wcc-impl=device's run, ``sssp_adaptive_run``,
+sssp-impl=device's run and ``sssp_delta_run`` (from vertex 0, float32),
+``bfs_adaptive_run`` and bfs-impl=device's ``_bfs_kernel`` (from vertex 0).
+Once cold (where the loop
 is a CUDA graph, the graph's build; the path's prep is built and timed
 before), then ``--reps`` warm runs whose wall ms (the final read of the
 step counts included) give the median, then warm runs under the profiler,
@@ -54,12 +57,10 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[2]
 # path -> (graph name, scale, edge factor, weighted)
-GRAPHS = {"cdlp-auto": ("bench-rmat-s20-ef32", 20, 32, False),
-          "wcc-auto": ("bench-rmat-s20-ef32", 20, 32, False),
-          "wcc-adaptive": ("bench-rmat-s20-ef32", 20, 32, False),
-          "sssp-auto": ("bench-rmat-s20-ef16-w", 20, 16, True),
-          "bfs-auto": ("bench-rmat-s20-ef32", 20, 32, False),
-          "bfs-device": ("bench-rmat-s20-ef32", 20, 32, False)}
+BENCH, SSSP = ("bench-rmat-s20-ef32", 20, 32, False), ("bench-rmat-s20-ef16-w", 20, 16, True)
+GRAPHS = {"cdlp-auto": BENCH, "cdlp-slab": BENCH, "cdlp-sort": BENCH, "wcc-auto": BENCH,
+          "wcc-adaptive": BENCH, "wcc-device": BENCH, "sssp-auto": SSSP, "sssp-device": SSSP,
+          "sssp-delta": SSSP, "bfs-auto": BENCH, "bfs-device": BENCH}
 ITERMAX = 10  # CDLP's iterations
 RANGES = ("cdlp.", "wcc.", "sssp.", "bfs.", "loop.")  # the loops' named profiler ranges
 TRACES = 3  # profiled warm runs; the one that kept the most device records is read
@@ -90,11 +91,12 @@ def main() -> int:
         raise SystemExit("loop_times: needs a CUDA card")
     sys.path.insert(0, str(Path(args.root).resolve()))
     from graphtpu_torch.algorithms import bfs as bfs_mod
+    from graphtpu_torch.algorithms import cdlp as cdlp_mod
     from graphtpu_torch.algorithms import sssp as sssp_mod
     from graphtpu_torch.algorithms import wcc as wcc_mod
     from graphtpu_torch.algorithms.cdlp import build_incidence
     from graphtpu_torch.bench import load_or_make
-    from graphtpu_torch.ops import active, kernels
+    from graphtpu_torch.ops import active, kernels, minmode
     from graphtpu_torch.utils.config import PlatformConfig
 
     smi = subprocess.run(
@@ -110,12 +112,20 @@ def main() -> int:
         print(s, flush=True)
         lines.append(s)
 
-    mod = {"cdlp": active, "wcc": wcc_mod, "sssp": sssp_mod,
-           "bfs": bfs_mod}[args.path.split("-")[0]]
-    graph_loop = hasattr(mod, "_LoopGraph")
+    algo, impl = args.path.split("-")
+    mod = {"cdlp-slab": minmode, "cdlp-sort": cdlp_mod}.get(args.path) or \
+        {"cdlp": active, "wcc": wcc_mod, "sssp": sssp_mod, "bfs": bfs_mod}[algo]
+    # whether this checkout runs the path as one CUDA graph (an older one may
+    # run it as a host loop)
+    graph_loop = {"cdlp-slab": hasattr(minmode, "_launch_slab"),
+                  "cdlp-sort": hasattr(cdlp_mod, "_launch_sort"),
+                  "wcc-device": hasattr(wcc_mod, "wcc_device_run"),
+                  "sssp-device": hasattr(sssp_mod, "sssp_device_run"),
+                  "sssp-delta": hasattr(sssp_mod, "_DeltaGraph")}.get(
+                      args.path, hasattr(mod, "_LoopGraph"))
     say(f"card: {smi}; torch {torch.__version__}; version {args.tag} ({args.root}; loop "
         f"{'one CUDA graph' if graph_loop else 'a host loop'}); path {args.path}; graph {name} "
-        f"(n={g.n}, {g.nnz} stored edges)" + (f", itermax {ITERMAX}" if mod is active else ""))
+        f"(n={g.n}, {g.nnz} stored edges)" + (f", itermax {ITERMAX}" if algo == "cdlp" else ""))
 
     # the library's entries called from Python, and graph launches, counted
     calls = {"entries": 0, "graph_launches": 0}
@@ -158,16 +168,51 @@ def main() -> int:
         f"launches on the host ({enqueues(prof)} enqueueing calls for one empty kernel)")
 
     t0 = time.perf_counter()
-    cfg = PlatformConfig(device="cuda:0", wcc_impl=args.path.split("-")[1] if mod is wcc_mod
-                         else "auto")
-    if mod is active:
+    cfg = PlatformConfig(device="cuda:0", wcc_impl=impl if algo == "wcc" else "auto")
+    f32 = torch.float32
+    if algo == "cdlp":
         centers, neigh = build_incidence(g)
         deg = np.bincount(centers, minlength=g.n).astype(np.int32)
+    if mod is active:
         prep = active.prepare_cdlp_adaptive(g, centers, neigh, deg, cfg)
 
         def run():
             return active.cdlp_adaptive_device_run(g, centers, neigh, deg, ITERMAX, cfg, prep,
                                                    with_stats=True)
+    elif args.path == "cdlp-slab":
+        minmode.memoized_cdlp_plan(g, centers, neigh, deg, None, torch.device(cfg.device))
+
+        def run():
+            return (*minmode.cdlp_slab_run(g, centers, neigh, deg, ITERMAX, cfg), {})
+    elif args.path == "cdlp-sort":
+        cdlp_mod.incidence_csr(g, centers, neigh, deg, torch.device(cfg.device))
+
+        def run():
+            return (*cdlp_mod.cdlp_sort_run(g, centers, neigh, deg, ITERMAX, 0,
+                                            torch.device(cfg.device)), {})
+    elif args.path == "wcc-device":
+        from graphtpu_torch.ops.spmv import pull_csr
+
+        sym = g.symmetrized()
+        pull = pull_csr(sym, cfg.device)
+
+        def run():
+            if graph_loop:
+                return (*wcc_mod.wcc_device_run(g, cfg), {})
+            return (*wcc_mod._wcc_kernel(pull, sym.n), {})
+    elif args.path == "sssp-device":
+        sprep = sssp_mod.sssp_prep(g, f32, cfg.device)
+
+        def run():
+            if graph_loop:
+                return (*sssp_mod.sssp_device_run(g, 0, cfg, f32), {})
+            return (*sssp_mod._sssp_kernel(sprep, 0, g.n, f32), {})
+    elif args.path == "sssp-delta":
+        sssp_mod.sssp_prep(g, f32, cfg.device)
+        sssp_mod.sssp_delta_prep(g, 2.5, f32, cfg.device)
+
+        def run():
+            return sssp_mod.sssp_delta_run(g, 0, cfg, f32, with_stats=True)
     elif mod is wcc_mod:
         sym = g.symmetrized()
         wcc_mod.wcc_prep(sym, cfg.device)
@@ -203,7 +248,8 @@ def main() -> int:
     cold_s = time.perf_counter() - t0
     digest = hashlib.sha256(result.cpu().numpy().tobytes()).hexdigest()[:16]
     steps = {k: stats[k] for k in ("full_steps", "active_steps", "tier_steps", "bu_steps",
-                                   "dense_steps") if k in stats}
+                                   "dense_steps", "buckets", "light_active", "light_dense",
+                                   "heavy_active", "heavy_dense") if k in stats}
     say(f"prep {prep_s:.3f} s; cold run (the graph's build where there is one) {cold_s:.3f} s; "
         f"{it} iterations, {steps}; result sha256 {digest}")
     walls = []

@@ -3110,3 +3110,280 @@ def test_loop_graph_freed_during_a_capture_leaves_it_valid(cuda):
     lev, it = B._bfs_kernel(_bfs_graph(10, False), 0, "cuda")
     assert not device_loop._deferred
     assert torch.equal(lev, want[0]) and it == want[1]
+
+
+# ------------------- delta-stepping's device loop (K24, K8's settle mode, K14's bucket mode)
+# ------------------- and the fixed-point loops (K25)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 33, 1000, 300007, (1 << 20) + 3])
+def test_frontier_compact_bucket_matches_plain(cuda, dtype, n):
+    """K14's bucket mode (the bucket read on the card, with and without the
+    changed mask, the degree sum) against its plain version: ids, count and
+    sum; distances on bucket borders, infinite and past int32's buckets."""
+    from graphtpu_torch.ops.frontier import compact_bucket_into, compact_bucket_plain
+
+    rng = np.random.default_rng(n)
+    delta = 0.3
+    inv = float(torch.tensor(1.0 / delta, dtype=dtype))
+    dist = (rng.random(n) * 6).astype(np.float64)
+    dist[rng.random(n) < 0.2] = np.inf
+    on = rng.random(n) < 0.1  # on a bucket's border
+    dist[on] = rng.integers(0, 20, size=int(on.sum())) * delta
+    dist[rng.random(n) < 0.01] = 2.0**40
+    mask = rng.random(n) < 0.5
+    deg_pad = np.concatenate([rng.integers(0, 30, size=n), [0]]).astype(np.int32)
+    for k_bucket in (0, 3, 10, 100):
+        for k in (1, 1 << 10, 1 << 16):
+            for use_mask in (False, True):
+                got = []
+                for dev in ("cpu", cuda):
+                    t = lambda a: torch.tensor(a, device=dev)  # noqa: E731 - a copy
+                    ids = torch.full((k,), -1, dtype=torch.int32, device=dev)
+                    status = torch.zeros(2, dtype=torch.int32, device=dev)
+                    k_at = torch.tensor([k_bucket], dtype=torch.int32, device=dev)
+                    (compact_bucket_into if dev != "cpu" else compact_bucket_plain)(
+                        t(dist).to(dtype), inv, k_at, t(mask) if use_mask else None,
+                        t(deg_pad), ids, status)
+                    got.append((ids.cpu(), status.cpu()))
+                assert all(torch.equal(a, b) for a, b in zip(*got)), (k_bucket, k, use_mask)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("count", [0, 1, 2000, 1 << 13])
+def test_relax_min_settle_matches_plain(cuda, dtype, count):
+    """K8's settle mode against its plain version on a frontier whose
+    vertices are also targets of the same step, and without an expansion
+    (a weight class without edges): dist and the changed mask."""
+    from graphtpu_torch.ops.frontier import relax_min_settle, relax_min_settle_plain
+
+    rng = np.random.default_rng(count + 1)
+    n, k, e_cap = 1 << 16, 1 << 13, 1 << 17
+    deg = rng.integers(0, 12, size=n)
+    indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    ids = np.full(k, n, dtype=np.int32)
+    ids[:count] = np.sort(rng.choice(n, size=count, replace=False))
+    dst = rng.integers(0, n, size=int(indptr[-1])).astype(np.int32)
+    if count:
+        dst[::4] = ids[rng.integers(0, count, size=dst[::4].shape[0])]
+    w = rng.random(int(indptr[-1])) * 3
+    dist = rng.random(n) * 20
+    dist[rng.random(n) < 0.3] = np.inf
+    changed = rng.random(n) < 0.5
+    deg_pad = np.concatenate([deg, [0]]).astype(np.int32)
+    for with_exp in (True, False):
+        got = []
+        for dev in ("cpu", cuda):
+            t = lambda a: torch.tensor(a, device=dev)  # noqa: E731 - a copy
+            exp = expand(t(ids), t(deg_pad), t(indptr), t(dst), e_cap, with_row_ids=False) \
+                if with_exp else None
+            d, ch = t(dist).to(dtype), t(changed)
+            (relax_min_settle if dev != "cpu" else relax_min_settle_plain)(
+                d, t(ids), exp, t(w).to(dtype), ch)
+            got.append((d.cpu(), ch.cpu()))
+        assert all(torch.equal(a, b) for a, b in zip(*got)), with_exp
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sssp_delta_route_matches_plain(cuda, dtype):
+    """K24 at every stage (init from a pinned source, the derives' routes at
+    and past the capacities and the step limit, the steps' counts, the
+    advance over 2^20 + 5 distances with infinite ones and ones past int32's
+    buckets) against its plain version: dist, changed and every word."""
+    from graphtpu_torch.algorithms import sssp as S
+
+    rng = np.random.default_rng(7)
+    n, k_cap, e_cap = (1 << 20) + 5, 1 << 10, 1 << 14
+    inv = float(torch.tensor(1.0 / 0.3, dtype=dtype))
+    dist = rng.random(n) * 50
+    dist[rng.random(n) < 0.3] = np.inf
+    dist[rng.random(n) < 0.001] = 2.0**40
+    changed = rng.random(n) < 0.3
+    words = [(3, 5, 40, 100, 2000), (3, 5, 40, 0, 0), (3, 40, 40, 100, 200),
+             (3, 5, 40, k_cap + 1, 10), (3, 5, 40, 10, e_cap + 1), (160, 5, 40, 0, 0),
+             (int(np.floor(50 * inv)), 7, 40, 1, 1)]
+    for stage in range(S.DSTAGE_ADVANCE + 1):
+        for word in (words[:1] if stage == S.DSTAGE_INIT else words):
+            got = []
+            for dev in ("cpu", cuda):
+                t = lambda a: torch.tensor(a, device=dev)  # noqa: E731 - a copy
+                d, ch = t(dist).to(dtype), t(changed)
+                ctl = torch.full((S.DCTL_WORDS,), 9, dtype=torch.int32, device=dev)
+                ctl[:5] = t(list(word)).to(torch.int32)
+                source = torch.tensor([12345], dtype=torch.int32).pin_memory()
+                S.sssp_delta_route(d, ch, source, ctl, stage, inv, 4 * n, k_cap, e_cap)
+                got.append((d.cpu(), ch.cpu(), ctl.cpu()))
+            assert all(torch.equal(a, b) for a, b in zip(*got)), (stage, word)
+
+
+def test_fixed_point_route_matches_plain(cuda):
+    """K25 in its compare mode (with and without the degrees), its flag mode
+    and at init (limit and skip from pinned memory) against its plain
+    version: the labels and every control word."""
+    from graphtpu_torch.ops import fixed_point as F
+
+    rng = np.random.default_rng(9)
+    n = (1 << 20) + 7
+    old = rng.integers(0, n, size=n).astype(np.int32)
+    deg = (rng.random(n) < 0.8).astype(np.int32)
+    cases = [(share, use_deg, word) for share in (0.0, 1e-6, 0.3) for use_deg in (False, True)
+             for word in ((0, 10, 0), (9, 10, 0), (1, 10, 3))]
+    for share, use_deg, word in cases + [("flag", c, (2, 10, 0)) for c in (0, 4)] + [
+            ("init", s, (0, 0, 0)) for s in (0, 1)]:
+        if not isinstance(share, str):
+            new = np.where(rng.random(n) < share, rng.integers(0, n, size=n), old)
+        got = []
+        for dev in ("cpu", cuda):
+            t = lambda a: torch.tensor(a, device=dev)  # noqa: E731 - a copy
+            fp = F.control(dev, False)
+            fp.ctl[:3] = t(list(word)).to(torch.int32)
+            fp.params[0], fp.params[1] = 10, 2
+            o = t(old)
+            if share == "init":
+                F.fixed_point_route(fp, F.STAGE_INIT, start=use_deg)
+            elif share == "flag":
+                F.fixed_point_route(fp, F.STAGE_STEP, flag=t([use_deg]).to(torch.int32)[0])
+            else:
+                F.fixed_point_route(fp, F.STAGE_STEP, old=o, new=t(new).to(torch.int32),
+                                    deg=t(deg) if use_deg else None)
+            got.append((o.cpu(), fp.ctl.cpu()))
+        assert all(torch.equal(a, b) for a, b in zip(*got)), (share, use_deg, word)
+
+
+def _count_graph_calls(monkeypatch):
+    graph_calls = []
+    call = kernels.graph_call
+    monkeypatch.setattr(kernels, "graph_call",
+                        lambda name, *a: (graph_calls.append(name), call(name, *a))[1])
+    return graph_calls
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["2.5", "0.3", "tiny", "torus"])
+def test_delta_graph_run_matches_host_run(cuda, dtype, case, monkeypatch):
+    """Delta-stepping as one CUDA graph against the host loop under
+    plain_torch() on the card, from several sources (read from pinned
+    memory): distances bit for bit, steps and every counter; one graph
+    launch a run and none of the loop's own kernels counted from Python;
+    at delta 2.5 the heavy class is empty, at 0.3 both hold edges, tiny
+    capacities force both dense fallbacks, and a torus walks many buckets."""
+    from graphtpu_torch.algorithms import sssp as S
+    from graphtpu_torch.utils.config import PlatformConfig
+    from graphtpu_torch.utils.synth import grid_graph, rmat_graph
+
+    if case == "torus":
+        g, over = grid_graph(64, torus=True, seed=2), {"sssp_delta": 0.4}
+    else:
+        g = rmat_graph(13, 8, directed=True, weighted=True, seed=3)
+        over = {"2.5": {"sssp_delta": 2.5}, "0.3": {"sssp_delta": 0.3},
+                "tiny": {"sssp_delta": 0.3, "sssp_frontier_rows": 8,
+                         "sssp_frontier_edges": 64}}[case]
+    cfg = PlatformConfig(device="cuda", **over)
+    graph_calls = _count_graph_calls(monkeypatch)
+    own = ("sssp_delta_route", "frontier_compact_bucket", "push_relax_min_settle",
+           "frontier_starts", "sssp_apply")
+    for src in (0, 5, 77, 0):
+        kernels.reset_launch_counts()
+        graph_calls.clear()
+        dist, it, stats = S.sssp_delta_run(g, src, cfg, dtype, with_stats=True)
+        assert S.last_run["driver"] == "graph" and graph_calls.count("graph_launch") == 1
+        assert not any(kernels.launch_counts[k] for k in own), kernels.launch_counts
+        runs = S.delta_runs([0] * S.DCTL_COUNTS + [stats[k] for k in S.DELTA_COUNTS])
+        assert kernels.replayed_counts["sssp_delta_route"] == sum(runs.values())
+        with kernels.plain_torch():
+            p_dist, p_it, p_stats = S.sssp_delta_run(g, src, cfg, dtype, with_stats=True)
+        assert torch.equal(dist, p_dist) and (it, stats) == (p_it, p_stats), src
+    if case == "tiny":
+        assert stats["light_dense"] and stats["heavy_dense"]
+    if case == "torus":
+        assert stats["buckets"] > 20
+
+
+@pytest.mark.parametrize("path", ["sssp-device", "wcc-device", "cdlp-slab-directed",
+                                  "cdlp-slab-undirected", "cdlp-sort", "cdlp-sort-skip"])
+def test_fixed_point_graph_runs_match_host_run(cuda, path, monkeypatch):
+    """sssp-impl=device, wcc-impl=device, slab and sort CDLP as one CUDA
+    graph each against the host loop under plain_torch() on the card:
+    results and iterations; one graph launch a run, K25 counted from
+    Python never."""
+    from graphtpu_torch.algorithms import cdlp as C
+    from graphtpu_torch.algorithms import sssp as S
+    from graphtpu_torch.algorithms import wcc as W
+    from graphtpu_torch.ops import minmode as M
+    from graphtpu_torch.utils.config import PlatformConfig
+    from graphtpu_torch.utils.synth import rmat_graph
+
+    cfg = PlatformConfig(device="cuda")
+    if path == "sssp-device":
+        g = rmat_graph(13, 8, directed=True, weighted=True, seed=4)
+        runs = [(S, lambda src=src: S.sssp_device_run(g, src, cfg)) for src in (0, 9, 0)]
+    elif path == "wcc-device":
+        g = rmat_graph(13, 4, directed=True, seed=5)
+        runs = [(W, lambda: W.wcc_device_run(g, cfg))] * 2
+    else:
+        g = rmat_graph(12, 8, directed=path != "cdlp-slab-undirected", seed=6)
+        centers, neigh = C.build_incidence(g)
+        deg = np.bincount(centers, minlength=g.n).astype(np.int32)
+        if path.startswith("cdlp-slab"):
+            runs = [(M, lambda it=it: M.cdlp_slab_run(g, centers, neigh, deg, it, cfg))
+                    for it in (10, 3, 1, 10)]
+        else:
+            skip = 2 if path == "cdlp-sort-skip" else 0
+            runs = [(C, lambda it=it: C.cdlp_sort_run(g, centers, neigh, deg, it, skip, "cuda"))
+                    for it in (10, 4, 10)]
+    graph_calls = _count_graph_calls(monkeypatch)
+    for mod, run in runs:
+        kernels.reset_launch_counts()
+        graph_calls.clear()
+        out, it = run()
+        assert mod.last_run["driver"] == "graph" and graph_calls.count("graph_launch") == 1
+        assert not kernels.launch_counts["fixed_point_route"], kernels.launch_counts
+        assert kernels.replayed_counts["fixed_point_route"] == it + 1 - path.startswith(
+            "cdlp-slab")
+        with kernels.plain_torch():
+            p_out, p_it = run()
+        assert mod.last_run["driver"] == "host loop"
+        assert torch.equal(out, p_out) and it == p_it
+
+
+def test_new_graph_runs_make_no_host_read_but_their_last(cuda):
+    """Warm runs of the delta, device, slab and sort loops under sync debug
+    mode "error": the launch waits for nothing; only the read of the
+    control words at their end syncs."""
+    from graphtpu_torch.algorithms import cdlp as C
+    from graphtpu_torch.algorithms import sssp as S
+    from graphtpu_torch.algorithms import wcc as W
+    from graphtpu_torch.ops import fixed_point as F
+    from graphtpu_torch.ops import minmode as M
+    from graphtpu_torch.utils.config import PlatformConfig
+    from graphtpu_torch.utils.synth import rmat_graph
+
+    cfg = PlatformConfig(device="cuda", sssp_delta=0.3)
+    gw = rmat_graph(12, 8, directed=False, weighted=True, seed=1)
+    g = rmat_graph(12, 8, directed=True, seed=2)
+    centers, neigh = C.build_incidence(g)
+    deg = np.bincount(centers, minlength=g.n).astype(np.int32)
+    want = {"delta": S.sssp_delta_run(gw, 0, cfg), "device": S.sssp_device_run(gw, 0, cfg),
+            "wcc": W.wcc_device_run(g, cfg),
+            "slab": M.cdlp_slab_run(g, centers, neigh, deg, 10, cfg),
+            "sort": C.cdlp_sort_run(g, centers, neigh, deg, 10, 0, "cuda")}
+    prep = S.sssp_prep(gw, torch.float32, "cuda")
+    light, heavy = S.sssp_delta_prep(gw, 0.3, torch.float32, "cuda")
+    sym = g.symmetrized()
+    plan = M.memoized_cdlp_plan(g, centers, neigh, deg, None, torch.device("cuda"))
+    csr = C.incidence_csr(g, centers, neigh, deg, torch.device("cuda"))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = {"delta": S._launch_delta(gw, prep, light, heavy, 0, 0.3, 1 << 16, 1 << 18),
+               "device": S._launch_device(prep, 0, gw.n, torch.float32, gw.memo),
+               "wcc": W._launch_device(sym, W.wcc_prep(sym, "cuda")),
+               "slab": M._launch_slab(g, plan, None, 10),
+               "sort": C._launch_sort(g, csr, 10, 0)}
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for name, (out, ctl, loop, reads) in got.items():
+        assert loop is not None and reads == 0, name
+        it = int(ctl[S.DCTL_IT if name == "delta" else F.FCTL_IT])
+        assert torch.equal(out, want[name][0]) and it == want[name][1], name
